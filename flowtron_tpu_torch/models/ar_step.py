@@ -1,0 +1,190 @@
+"""Autoregressive affine flow steps, inference direction (port of
+``ar_step_infer`` / ``ar_back_step_infer`` in
+flowtron_tpu/models/ar_step.py).
+
+Inference inverts a flow frame by frame: ``out_t = (z_t - b_t) *
+exp(-log_s_t)``, where (log_s, b) come from the previous frame through the
+attention LSTM, text attention, decoder LSTMs, tanh dense stack and the
+zero-init coupling head (reference:flowtron.py:775-828).
+
+Routing: on CUDA tensors every flow runs through kernel K1
+(``ops/decoder.py``); ``fused="early"`` switches its early exit on. A flow
+outside K1's subset (attention prior, per-stream temperature) raises on
+CUDA. On CPU tensors ``fused=False`` runs the plain per-frame loop below
+(the JAX scan body, flowtron_tpu/models/ar_step.py:262-314) and a truthy
+``fused`` runs K1's plain version, or the loop for a flow outside the
+subset, as the JAX package falls back to its scan.
+"""
+
+import torch
+from torch import nn
+
+from flowtron_tpu_torch.models.attention import (
+    Attention, attention_precompute, attention_step,
+)
+from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm
+from flowtron_tpu_torch.ops.decoder import pack_flow_weights, fused_flow_infer
+from flowtron_tpu_torch.ops.lstm import LSTM, lstm_cell
+from flowtron_tpu_torch.utils.masks import flip_time
+
+
+class ARStep(nn.Module):
+    """State names follow the reference's AR_Step (``conv``, ``lstm``,
+    ``attention_lstm``, ``attention_layer``, ``dense_layer``,
+    ``gate_layer``)."""
+
+    def __init__(self, n_mel_channels=80, n_speaker_dim=128,
+                 n_text_channels=512, n_hidden=1024, n_attn_channels=640,
+                 n_lstm_layers=2, add_gate=False, generator=None):
+        super().__init__()
+        # zero-init coupling head: every flow starts as the identity
+        # (reference:flowtron.py:651-653); a 1x1 conv, weight (2M, H, 1)
+        self.conv = nn.Module()
+        self.conv.weight = nn.Parameter(
+            torch.zeros(2 * n_mel_channels, n_hidden, 1))
+        self.conv.bias = nn.Parameter(torch.zeros(2 * n_mel_channels))
+        self.lstm = LSTM(n_hidden + n_attn_channels, n_hidden,
+                         num_layers=n_lstm_layers, generator=generator)
+        self.attention_lstm = LSTM(n_mel_channels, n_hidden, num_layers=1,
+                                   generator=generator)
+        self.attention_layer = Attention(n_hidden, n_speaker_dim,
+                                         n_text_channels, n_attn_channels,
+                                         generator=generator)
+        self.dense_layer = DenseLayer(n_hidden, (n_hidden, n_hidden),
+                                      generator=generator)
+        if add_gate:
+            self.gate_layer = LinearNorm(n_hidden + n_attn_channels, 1,
+                                         bias=True, w_init_gain="sigmoid",
+                                         generator=generator)
+        self._packed = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed = None        # moved or cast: pack anew
+        return super()._apply(fn, *args, **kwargs)
+
+    def packed_weights(self):
+        """K1's packed weights, cached on the module and rebuilt when any
+        parameter is replaced or modified in place."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_flow_weights(self))
+        return self._packed[1]
+
+
+class ARBackStep(nn.Module):
+    """The reference's AR_Back_Step: an ARStep run over time-reversed
+    input (state names ``ar_step.*``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.ar_step = ARStep(*args, **kwargs)
+
+
+def _n_valid_from_gates(gates, gate_threshold, n_valid):
+    """First frame whose gate fires ends the utterance, inclusive
+    (flowtron_tpu/models/ar_step.py:335-346)."""
+    N, B = gates.shape
+    hit = gates > gate_threshold
+    first = hit.to(torch.int64).argmax(dim=0)
+    nv = torch.where(hit.any(dim=0), first + 1, N)
+    return nv if n_valid is None else torch.minimum(n_valid.to(nv.dtype), nv)
+
+
+def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature):
+    """The plain per-frame loop: the JAX scan body written out."""
+    N, B, n_mel = residual.shape
+    k_proj, vals = attention_precompute(flow.attention_layer, text, text)
+    att_w_ih, att_w_hh, att_b_ih, att_b_hh = \
+        flow.attention_lstm.layer_weights(0)
+    layers = [flow.lstm.layer_weights(k) for k in range(flow.lstm.num_layers)]
+    H = att_w_hh.shape[1]
+    h_att = c_att = residual.new_zeros(B, H)
+    hs = [residual.new_zeros(B, H) for _ in layers]
+    cs = [residual.new_zeros(B, H) for _ in layers]
+    prev = residual.new_zeros(B, n_mel)
+    mels, attns, gates = [], [], []
+    for t in range(N):
+        h_att, c_att = lstm_cell(prev @ att_w_ih.t() + att_b_ih + att_b_hh,
+                                 h_att, c_att, att_w_hh)
+        prior_t = None if attn_prior is None else attn_prior[:, t]
+        context, attn_w = attention_step(
+            flow.attention_layer, h_att, k_proj, vals, key_mask=key_mask,
+            prior_t=prior_t, temperature=temperature)
+        x = torch.cat([h_att, context], dim=-1)
+        gate = torch.sigmoid(flow.gate_layer(x))[:, 0] \
+            if hasattr(flow, "gate_layer") else residual.new_zeros(B)
+        for k, (w_ih, w_hh, b_ih, b_hh) in enumerate(layers):
+            hs[k], cs[k] = lstm_cell(x @ w_ih.t() + b_ih + b_hh, hs[k], cs[k],
+                                     w_hh)
+            x = hs[k]
+        out2 = torch.nn.functional.linear(
+            flow.dense_layer(x), flow.conv.weight[:, :, 0], flow.conv.bias)
+        prev = (residual[t] - out2[:, n_mel:]) * torch.exp(-out2[:, :n_mel])
+        mels.append(prev)
+        attns.append(attn_w)
+        gates.append(gate)
+    return torch.stack(mels), torch.stack(attns, dim=1), torch.stack(gates)
+
+
+def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
+                  temperature=1.0, gate_threshold=0.5, n_valid=None,
+                  fused=False):
+    """Invert one flow over sampled latents.
+
+    Args:
+      flow: an ``ARStep``.
+      residual: (N, B, n_mel) latents (or the previous flow's output).
+      text: (Tk, B, text+speaker) encoder outputs.
+      key_mask: (B, Tk) bool or None. attn_prior: (B, N, Tk) or None.
+      temperature: scalar, or (B, 1) per stream (plain loop only).
+      n_valid: (B,) frames valid in ``residual``; None means all N.
+      fused: on CPU, truthy runs K1's plain version instead of the loop;
+        ``"early"`` turns on early exit (see ops/decoder.py).
+
+    Returns (mel (N, B, n_mel), attn (B, N, Tk), n_valid (B,)).
+    """
+    N, B, _ = residual.shape
+    scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
+    in_subset = attn_prior is None and scalar_temp
+    if residual.device.type == "cuda" and not in_subset:
+        raise NotImplementedError(
+            "this flow is outside the CUDA decoder kernel's subset "
+            "(attention prior or per-stream temperature); see ROADMAP.md "
+            "Queue 1, 'K1 subset: prior and per-stream temperature'")
+    if residual.device.type == "cuda" or (fused and in_subset):
+        k_proj, vals = attention_precompute(flow.attention_layer, text, text)
+        km = torch.ones(B, text.shape[0], device=residual.device) \
+            if key_mask is None else key_mask.to(torch.float32)
+        mel, attn, gates = fused_flow_infer(
+            flow.packed_weights(), residual.contiguous(), k_proj, vals,
+            km.contiguous(), float(temperature),
+            early_exit=(fused == "early"), gate_threshold=gate_threshold,
+            n_valid_in=n_valid)
+        attn = attn.transpose(0, 1)
+    else:
+        mel, attn, gates = _scan_infer(flow, residual, text, key_mask,
+                                       attn_prior, temperature)
+    if hasattr(flow, "gate_layer"):
+        n_valid = _n_valid_from_gates(gates, gate_threshold, n_valid)
+    elif n_valid is None:
+        n_valid = torch.full((B,), N, dtype=torch.int64,
+                             device=residual.device)
+    return mel, attn, n_valid
+
+
+def ar_back_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
+                       temperature=1.0, gate_threshold=0.5, n_valid=None,
+                       fused=False):
+    """Backward flow: flip within n_valid, invert, flip back
+    (reference:flowtron.py:629-642). ``flow`` is an ``ARBackStep``."""
+    N, B, _ = residual.shape
+    if n_valid is None:
+        n_valid = torch.full((B,), N, dtype=torch.int64,
+                             device=residual.device)
+    residual_f = flip_time(residual, n_valid)
+    prior_f = None if attn_prior is None else \
+        flip_time(attn_prior.transpose(0, 1), n_valid).transpose(0, 1)
+    mel, attn_w, n_valid_out = ar_step_infer(
+        flow.ar_step, residual_f, text, key_mask, prior_f, temperature,
+        gate_threshold, n_valid=n_valid, fused=fused)
+    return flip_time(mel, n_valid_out), attn_w, n_valid_out

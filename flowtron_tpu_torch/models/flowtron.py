@@ -1,0 +1,121 @@
+"""Flowtron top-level model, inference direction (port of
+``flowtron_init``, ``_encode_text`` and ``flowtron_infer`` in
+flowtron_tpu/models/flowtron.py).
+
+n_flows alternating forward (even index) and backward (odd index) AR
+steps, the gate only on the last flow; inference runs the flows in
+reverse (reference:flowtron.py:831-961).
+"""
+
+import torch
+from torch import nn
+
+from flowtron_tpu_torch.models.ar_step import (
+    ARStep, ARBackStep, ar_step_infer, ar_back_step_infer,
+)
+from flowtron_tpu_torch.models.encoder import (
+    Encoder, encoder_forward, encoder_infer,
+)
+from flowtron_tpu_torch.models.layers import Embedding
+from flowtron_tpu_torch.utils.masks import sequence_mask
+
+
+class Flowtron(nn.Module):
+    """Parameter names follow the reference's state_dict (as
+    ``flowtron_tpu.train.checkpoints.export_torch_state_dict`` writes it),
+    so a reference-format checkpoint loads with ``strict=True``."""
+
+    def __init__(self, n_speakers=1, n_speaker_dim=128, n_text=185,
+                 n_text_dim=512, n_flows=2, n_mel_channels=80,
+                 n_hidden=1024, n_attn_channels=640, n_lstm_layers=2,
+                 use_gate_layer=True, mel_encoder_n_hidden=512,
+                 n_components=0, fixed_gaussian=True, mean_scale=0.0,
+                 dummy_speaker_embedding=False, use_cumm_attention=False,
+                 generator=None):
+        super().__init__()
+        self.config = {"n_flows": n_flows, "n_mel_channels": n_mel_channels,
+                       "n_components": n_components,
+                       "dummy_speaker_embedding": dummy_speaker_embedding,
+                       "use_gate_layer": use_gate_layer}
+        if n_components > 1:
+            raise NotImplementedError(
+                "the Gaussian-mixture head and mel encoder are not ported "
+                "yet; see ROADMAP.md Queue 1, 'GM head + MelEncoder'")
+        if use_cumm_attention:
+            raise NotImplementedError(
+                "cumulative attention is not ported yet; see ROADMAP.md "
+                "Queue 1, 'Attention: cumulative-attention layer'")
+        self.speaker_embedding = Embedding(n_speakers, n_speaker_dim,
+                                           generator)
+        self.embedding = Embedding(n_text, n_text_dim, generator)
+        self.encoder = Encoder(encoder_embedding_dim=n_text_dim,
+                               generator=generator)
+        self.flows = nn.ModuleList()
+        for i in range(n_flows):
+            step = ARStep if i % 2 == 0 else ARBackStep
+            self.flows.append(step(
+                n_mel_channels, n_speaker_dim, n_text_dim, n_hidden,
+                n_attn_channels, n_lstm_layers,
+                add_gate=(i == n_flows - 1) and use_gate_layer,
+                generator=generator))
+
+
+def flowtron_init(seed=0, device="cpu", **model_config):
+    """Build a seeded ``Flowtron`` and its static config dict.
+
+    Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
+    and then moved to ``device``, so a seed gives the same weights on
+    every device. The coupling heads start at zero, as in the reference.
+    """
+    generator = torch.Generator().manual_seed(seed)
+    model = Flowtron(generator=generator, **model_config).to(device)
+    model.eval()
+    return model, model.config
+
+
+def _encode_text(model, config, speaker_ids, text, in_lens_mask=None):
+    """Embed + encode + speaker concat. Returns (Tk, B, text + speaker)."""
+    if config["dummy_speaker_embedding"]:
+        speaker_ids = speaker_ids * 0
+    speaker_vecs = model.speaker_embedding(speaker_ids)        # (B, S)
+    text_emb = model.embedding(text).transpose(1, 2)           # (B, C, Tk)
+    if in_lens_mask is not None:
+        enc = encoder_forward(model.encoder, text_emb, in_lens_mask)
+    else:
+        enc = encoder_infer(model.encoder, text_emb)
+    Tk = enc.shape[0]
+    spk = speaker_vecs[None].expand(Tk, -1, -1)
+    return torch.cat([enc, spk], dim=2)
+
+
+@torch.no_grad()
+def flowtron_infer(model, config, residual, speaker_ids, text,
+                   temperature=1.0, gate_threshold=0.5, attn_prior=None,
+                   in_lens=None, fused=False):
+    """Invert the flows over sampled latents.
+
+    Args:
+      residual: (B, n_mel, N) sampled z (sigma applied by the caller).
+      speaker_ids: (B,) ints; text: (B, Tk) ints.
+      in_lens: (B,) text lengths for padded batches, or None (all valid).
+      fused: see ``ar_step_infer``; on CUDA every flow runs kernel K1 and
+        ``"early"`` turns its early exit on.
+
+    Returns (mel (B, n_mel, N), attn list of (B, N, Tk), n_valid (B,)).
+    """
+    Tk = text.shape[1]
+    key_mask = None if in_lens is None else sequence_mask(in_lens, Tk)
+    encoder_outputs = _encode_text(model, config, speaker_ids, text,
+                                   key_mask)
+    z = residual.permute(2, 0, 1).contiguous()                 # (N, B, M)
+    n_valid = None
+    n_flows = config["n_flows"]
+    out_attns = []
+    for rev_i, flow in enumerate(reversed(model.flows)):
+        i = n_flows - 1 - rev_i
+        infer = ar_step_infer if i % 2 == 0 else ar_back_step_infer
+        z, attn_w, n_valid = infer(
+            flow, z, encoder_outputs, key_mask, attn_prior, temperature,
+            gate_threshold, n_valid=n_valid, fused=fused)
+        out_attns.append(attn_w)
+    return z.permute(1, 2, 0), out_attns, n_valid

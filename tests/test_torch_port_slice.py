@@ -1,0 +1,251 @@
+"""The port's inference slice end to end against the JAX package (text ids
+-> flowtron_infer -> waveglow_infer_z at toy widths), its CLI, and the
+process-level guarantees: the port never imports jax, chip_smoke.py
+imports nothing of the JAX package, and it fails without a GPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+from flowtron_tpu.models import flowtron_init as jax_flowtron_init  # noqa: E402
+from flowtron_tpu.models import flowtron_infer as jax_flowtron_infer  # noqa: E402
+from flowtron_tpu.vocoder import waveglow_init as jax_waveglow_init  # noqa: E402
+from flowtron_tpu.vocoder.waveglow import (  # noqa: E402
+    waveglow_infer_z as jax_waveglow_infer_z,
+)
+
+from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
+    flowtron_init, flowtron_infer,
+)
+from flowtron_tpu_torch.utils.convert import (  # noqa: E402
+    flowtron_state_dict_from_jax, waveglow_from_jax,
+)
+from flowtron_tpu_torch.vocoder.waveglow import (  # noqa: E402
+    waveglow_init, waveglow_infer_z,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+DIMS = dict(n_speakers=2, n_speaker_dim=4, n_text=185, n_text_dim=12,
+            n_mel_channels=8, n_hidden=16, n_attn_channels=8,
+            n_lstm_layers=2, mel_encoder_n_hidden=8)
+TINY_WG = dict(n_mel_channels=8, n_flows=4, n_group=8, n_early_every=2,
+               n_early_size=2, n_layers=2, n_channels=16, kernel_size=3)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def models():
+    rng = np.random.default_rng(0)
+    params, cfg = jax_flowtron_init(jax.random.PRNGKey(0), n_flows=2,
+                                    use_gate_layer=True, **DIMS)
+    for f in params["flows"]:
+        f["conv"]["w"] = jnp.asarray(0.05 * rng.standard_normal(
+            f["conv"]["w"].shape).astype(np.float32))
+    wg_params, wg_cfg = jax_waveglow_init(jax.random.PRNGKey(1), **TINY_WG)
+    for wn in wg_params["wn"]:
+        wn["end"]["w"] = jnp.asarray(0.05 * rng.standard_normal(
+            wn["end"]["w"].shape).astype(np.float32))
+    model, tcfg = flowtron_init(0, n_flows=2, use_gate_layer=True, **DIMS)
+    model.load_state_dict(flowtron_state_dict_from_jax(
+        jax.tree.map(np.asarray, params)), strict=True)
+    wg, twg_cfg = waveglow_init(**TINY_WG)
+    wg.load_state_dict(waveglow_from_jax(jax.tree.map(np.asarray, wg_params),
+                                         wg_cfg), strict=True)
+    return (params, cfg, wg_params, wg_cfg), (model, tcfg, wg, twg_cfg)
+
+
+def _inputs():
+    rng = np.random.default_rng(3)
+    B, N = 2, 20
+    residual = (rng.standard_normal((B, 8, N)) * 0.5).astype(np.float32)
+    text = rng.integers(1, 185, (B, 7))
+    return residual, np.asarray([0, 1]), text, np.asarray([7, 5])
+
+
+@pytest.mark.parametrize("fused", [False, "early"])
+@pytest.mark.parametrize("thresh", [1e6, 0.45])
+def test_slice_mel_matches_jax(models, fused, thresh):
+    (params, cfg, _, _), (model, tcfg, _, _) = models
+    residual, sids, text, in_lens = _inputs()
+    mel_j, _, nv_j = jax_flowtron_infer(
+        params, cfg, jnp.asarray(residual), jnp.asarray(sids),
+        jnp.asarray(text), gate_threshold=thresh,
+        in_lens=jnp.asarray(in_lens), fused=fused)
+    mel, _, nv = flowtron_infer(
+        model, tcfg, _t(residual), _t(sids), _t(text), gate_threshold=thresh,
+        in_lens=_t(in_lens), fused=fused)
+    nv_j = np.asarray(nv_j)
+    np.testing.assert_array_equal(nv.numpy(), nv_j)
+    for b in range(len(nv_j)):    # with early exit, later frames differ
+        n = int(nv_j[b])
+        np.testing.assert_allclose(mel.numpy()[b, :, :n],
+                                   np.asarray(mel_j)[b, :, :n], atol=1e-4)
+
+
+def test_slice_audio_matches_jax(models):
+    """text ids -> mel -> audio in each package from the same weights and
+    latents: mel 1e-4, n_valid identical, audio 1e-4."""
+    (params, cfg, wg_params, wg_cfg), (model, tcfg, wg, twg_cfg) = models
+    residual, sids, text, in_lens = _inputs()
+    B, N = residual.shape[0], residual.shape[2]
+    rng = np.random.default_rng(4)
+    Tg = N * 256 // 8
+    z_main = rng.standard_normal((B, 6, Tg)).astype(np.float32)
+    z_early = [rng.standard_normal((B, 2, Tg)).astype(np.float32)
+               if f == 2 else None for f in range(4)]
+    mel_j, _, nv_j = jax_flowtron_infer(
+        params, cfg, jnp.asarray(residual), jnp.asarray(sids),
+        jnp.asarray(text), gate_threshold=1e6, in_lens=jnp.asarray(in_lens))
+    audio_j = jax_waveglow_infer_z(
+        wg_params, wg_cfg, mel_j, jnp.asarray(z_main),
+        [None if z is None else jnp.asarray(z) for z in z_early], impl="tc")
+    mel, _, nv = flowtron_infer(
+        model, tcfg, _t(residual), _t(sids), _t(text), gate_threshold=1e6,
+        in_lens=_t(in_lens))
+    audio = waveglow_infer_z(wg, twg_cfg, mel, _t(z_main),
+                             [None if z is None else _t(z) for z in z_early])
+    np.testing.assert_array_equal(nv.numpy(), np.asarray(nv_j))
+    np.testing.assert_allclose(mel.numpy(), np.asarray(mel_j), atol=1e-4)
+    np.testing.assert_allclose(audio.numpy(), np.asarray(audio_j), atol=1e-4)
+
+
+def _run(code_or_args, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable] + code_or_args, cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_port_never_imports_jax():
+    """Import every module of the port (and run a tiny synthesis) in a
+    fresh interpreter: jax must stay out of sys.modules. A subprocess,
+    because this test process already imported jax."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import flowtron_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import torch\n"
+        "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
+        "flowtron_infer\n"
+        "m, c = flowtron_init(0, n_speaker_dim=4, n_text_dim=12, "
+        "n_mel_channels=8, n_hidden=16, n_attn_channels=8)\n"
+        "flowtron_infer(m, c, torch.zeros(1, 8, 3), torch.zeros(1).long(), "
+        "torch.ones(1, 4).long())\n"
+        "bad = [k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.')]\n"
+        "print('JAX_MODULES', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "JAX_MODULES []" in r.stdout
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    """No CPU fallback: where CUDA is absent, chip_smoke.py exits
+    non-zero with a clear message, in the repo and alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; chip_smoke.py would run for real")
+    r = _run([str(ROOT / "chip_smoke.py")])
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    assert "cuda" in r.stderr.lower()
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    r = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py's own imports name neither jax nor flowtron_tpu (the
+    port reaches only the shared pure-Python text package, through its
+    frontend)."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    top = {n.split(".")[0] for n in names}
+    assert "flowtron_tpu_torch" in top
+    assert not top & {"jax", "jaxlib", "flax", "optax", "flowtron_tpu"}
+
+
+@pytest.mark.parametrize("fault", ["missing", "failed"])
+def test_kernel_build_failure_names_the_command(tmp_path, monkeypatch,
+                                                fault):
+    """No nvcc, or an nvcc that fails: load_library raises and the message
+    names the build command with its sm_90a target."""
+    from flowtron_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fault == "missing":
+        monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+        monkeypatch.setattr(_build, "NVCC_DEFAULT",
+                            str(tmp_path / "no-nvcc"))
+        expect = "nvcc not found"
+    else:
+        monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+        expect = "building wavenet.cu failed"
+    with pytest.raises(RuntimeError, match=expect) as err:
+        _build.load_library("wavenet")
+    assert "arch=compute_90a,code=sm_90a" in str(err.value)
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_cli_writes_wav(tmp_path):
+    """flowtron-torch-infer end to end on the CPU: reference-format .pt
+    checkpoints in, a wav out."""
+    import wave
+    from flowtron_tpu_torch.cli import inference_main
+
+    dims = dict(DIMS, n_mel_channels=80)    # the published vocoder's input
+    model, _ = flowtron_init(0, **dims)
+    torch.save({"state_dict": model.state_dict()}, tmp_path / "ft.pt")
+    wg, _ = waveglow_init(seed=1)
+    torch.save(wg.state_dict(), tmp_path / "wg.pt")
+    overrides = [f"model_config.{k}={v}" for k, v in dims.items()]
+    argv = ["-c", str(ROOT / "config.json"), "-p", *overrides,
+            "-f", str(tmp_path / "ft.pt"), "-w", str(tmp_path / "wg.pt"),
+            "-t", "Hello world.", "-n", "6", "-o", str(tmp_path / "out")]
+    cwd = os.getcwd()
+    os.chdir(ROOT)      # config.json's filelist and cmudict paths
+    try:
+        inference_main(argv + ["--fused"])
+    finally:
+        os.chdir(cwd)
+    wavs = list((tmp_path / "out").glob("*.wav"))
+    assert len(wavs) == 1
+    with wave.open(str(wavs[0])) as w:
+        assert w.getframerate() == 22050
+        assert w.getnframes() % 256 == 0 and w.getnframes() > 0
+
+
+@pytest.mark.parametrize("flag", [["--quantize", "w8"], ["--int8"],
+                                  ["--stream"]])
+def test_cli_unported_modes_refuse(flag, capsys):
+    from flowtron_tpu_torch.cli import inference_main
+    with pytest.raises(SystemExit):
+        inference_main(["-c", "config.json", "-f", "x.pt", "-t", "hi"] + flag)
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_no_vocoder_names_roadmap_item():
+    from types import SimpleNamespace
+    from flowtron_tpu_torch.infer.sampling import run_inference
+    with pytest.raises(NotImplementedError, match="Griffin-Lim"):
+        run_inference({}, SimpleNamespace(waveglow_path=""))
