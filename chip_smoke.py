@@ -3,15 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``flowtron_tpu_torch/csrc/`` (into
-``build/torch_kernels/``), holds each against its plain PyTorch version at
-the main path's shapes, then drives the inference path (text -> mel ->
-audio) through ``flowtron_tpu_torch.infer.sampling`` at the full width of
-the repo's ``config.json`` model and ``configs/config_waveglow.json``
-vocoder, on seeded random weights. Each phase prints one JSON line; the
-line before the last lists the kernels, the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero and prints no result. There is no CPU fallback: without
-CUDA it exits non-zero at once.
+``build/torch_kernels/``, one ``nvcc`` per source, all started together),
+holds each against its plain PyTorch version at its path's shapes, then
+drives the port's two paths at the full width of the repo's
+``config.json`` model, on seeded random weights:
+
+- inference (text -> mel -> audio) through
+  ``flowtron_tpu_torch.infer.sampling`` with the
+  ``configs/config_waveglow.json`` vocoder (kernels K1, K2);
+- training through ``flowtron_tpu_torch.cli.train_main`` on a synthetic
+  coded-tone corpus written to a temporary directory: one epoch of 10
+  steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
+  forward and backward); the fp32 run's checkpoint is then loaded for
+  inference and put through the invertibility oracle.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after. Each phase prints one JSON line; the line before the
+last lists the kernels, the last line is ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero and
+prints no result. There is no CPU fallback: without CUDA it exits
+non-zero at once.
 
 Imports nothing of JAX (checked at the end). The only module from beside
 the port that runs is the pure-Python text package ``flowtron_tpu.text``,
@@ -20,10 +31,13 @@ which the port's ``data/frontend.py`` shares to turn text into ids.
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -34,7 +48,11 @@ SIGMA = 0.5         # the latents' scale in infer/sampling.py:synthesize
 REQ_SEED = 100      # latents seed of the first request
 K1_TOL = 1e-3       # mel / attn / gate max-abs, kernel vs plain, fp32
 K2_TOL = 1e-4       # max-abs relative to the output scale, fp32
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # of the output scale
 SLICE_TOL = 1e-3    # card slice vs CPU plain slice, fp32
+N_UTTS, N_VAL = 66, 6   # corpus: 60 training utterances = 10 steps at B=6
+LOSS_TOL, GNORM_TOL = 1e-4, 1e-3   # card step vs CPU plain step, relative
+INV_TOL = 1e-4      # invertibility oracle on the card, fp32
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
     "Printing, in the only sense with which we are at present concerned.",
@@ -111,15 +129,23 @@ def pad_ids(ids):
     return text, lens
 
 
-def perturb_heads(model, wg, seed):
-    """The coupling heads start at zero, which would make mel == z and
-    audio independent of the WN stack; 0.05 * normal makes both matter."""
-    g = torch.Generator().manual_seed(seed)
+def perturb_flow_heads(model, g):
+    """The flows' coupling heads start at zero, which would make mel == z
+    and leave every layer before them without a gradient; 0.05 * normal
+    (drawn from ``g``) makes them matter."""
     with torch.no_grad():
         for flow in model.flows:
             step = getattr(flow, "ar_step", flow)
             step.conv.weight.copy_(0.05 * torch.randn(
                 step.conv.weight.shape, generator=g))
+
+
+def perturb_heads(model, wg, seed):
+    """As ``perturb_flow_heads``, then WaveGlow's zero-init ``end`` convs,
+    so audio depends on the WN stack."""
+    g = torch.Generator().manual_seed(seed)
+    perturb_flow_heads(model, g)
+    with torch.no_grad():
         for wn in wg.WN:
             wn.end.weight.copy_(0.05 * torch.randn(wn.end.weight.shape,
                                                    generator=g))
@@ -378,6 +404,241 @@ def phase_cpu_agreement(model, cfg, wg, wg_cfg, dev):
          max_abs_err_mel=mel_err, max_rel_err_audio=audio_err)
 
 
+def reset_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_launches(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def train_args(corpus, out_dir, fp16_run):
+    """cli.train_main's argv: config.json with only the filelists, the
+    output directory, one epoch, the checkpoint period, TensorBoard off
+    and the precision policy overridden."""
+    train_fl, val_fl = corpus
+    return ["-c", "config.json", "-p",
+            f"data_config.training_files={train_fl}",
+            f"data_config.validation_files={val_fl}",
+            f"train_config.output_directory={out_dir}",
+            "train_config.epochs=1", "train_config.iters_per_checkpoint=9",
+            "train_config.with_tensorboard=False",
+            f"train_config.fp16_run={fp16_run}"]
+
+
+def phase_k3(shape, D, dev):
+    """K3 forward and backward against their plain versions at the padded
+    (B, T, Tk) of the first batch the training path drew (from its log)
+    and the flagship D, in fp32 and bf16, and
+    at one unaligned shape; two backward runs must be bitwise equal.
+    Returns the kernel table's fields of the fp32 flagship case."""
+    from flowtron_tpu_torch.ops.attention import (
+        attention_scores_backward_reference, attention_scores_bwd,
+        attention_scores_fwd, attention_scores_reference)
+
+    B, T, Tk = shape
+    g = torch.Generator().manual_seed(13)
+    table = {}
+    for (b, tq, tk), tag in (((B, T, Tk), "train_batch"),
+                             ((3, 19, 7), "unaligned")):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = (0.5 * torch.randn(b, tq, D, generator=g)).to(dev, dtype)
+            k = (0.5 * torch.randn(b, tk, D, generator=g)).to(dev, dtype)
+            v = (0.1 * torch.randn(D, generator=g)).to(dev, dtype)
+            ds = torch.randn(b, tq, tk, generator=g).to(dev, dtype)
+            temp = 1.0
+            with torch.no_grad():
+                f_ms, fp_ms, f_runs, out_k, out_p = paired_ms(
+                    lambda: attention_scores_fwd(q, k, v, temp),
+                    lambda: attention_scores_reference(q, k, v, temp),
+                    reps=20, plain_reps=5)
+                b_ms, bp_ms, b_runs, grads_k, grads_p = paired_ms(
+                    lambda: attention_scores_bwd(q, k, v, ds, temp),
+                    lambda: attention_scores_backward_reference(
+                        q, k, v, ds, temp), reps=20, plain_reps=5)
+                # the kernel accumulates in fp32: hold it against the plain
+                # math on the same inputs, accumulated in fp32
+                ref = attention_scores_reference(q.float(), k.float(),
+                                                 v.float(), temp)
+                again = attention_scores_bwd(q, k, v, ds, temp)
+            scale = float(ref.abs().max())
+            fwd_err = float((out_k.float() - ref).abs().max())
+            fwd_err_plain = float((out_k.float() - out_p.float()).abs().max())
+            bwd_abs = [float((a.float() - r.float()).abs().max())
+                       for a, r in zip(grads_k, grads_p)]
+            bwd_rel = [e / float(r.float().abs().max())
+                       for e, r in zip(bwd_abs, grads_p)]
+            bitwise = all(torch.equal(a, c) for a, c in zip(grads_k, again))
+            name = f"K3 {tag} {str(dtype)[6:]} B={b} Tq={tq} Tk={tk}"
+            tol = K3_TOL[dtype]
+            check(math.isfinite(fwd_err) and fwd_err <= tol * scale,
+                  f"{name} forward err {fwd_err} (scale {scale})")
+            check(all(math.isfinite(e) and e <= tol for e in bwd_rel),
+                  f"{name} backward rel errs {bwd_rel}")
+            check(bitwise, f"{name} backward runs differ")
+            emit("k3", shape=tag, dtype=str(dtype)[6:], B=b, Tq=tq, Tk=tk,
+                 D=D, fwd_max_abs_err=fwd_err, fwd_scale=scale,
+                 fwd_max_abs_err_vs_plain_same_dtype=fwd_err_plain,
+                 bwd_max_abs_err_dq_dk_dv=bwd_abs,
+                 bwd_max_rel_err_dq_dk_dv=bwd_rel, bwd_bitwise_repeat=bitwise,
+                 fwd_kernel_ms=f_ms, fwd_plain_ms=fp_ms,
+                 bwd_kernel_ms=b_ms, bwd_plain_ms=bp_ms,
+                 fwd_runs_plain_kernel_kernel_plain_ms=f_runs,
+                 bwd_runs_plain_kernel_kernel_plain_ms=b_runs)
+            if tag == "train_batch" and dtype == torch.float32:
+                table = {"fwd": (fwd_err, f_ms, fp_ms),
+                         "bwd": (max(bwd_abs), b_ms, bp_ms)}
+    return table
+
+
+def phase_train(corpus, tmp, kernels, dev):
+    """The training path: cli.train_main from config.json, once with its
+    bf16 policy (fp16_run true) and once in fp32, 10 flagship-width steps
+    each. Returns the fp32 run's output directory, K3's launches and the
+    padded (B, T, Tk) of the first batch, from the training log."""
+    from flowtron_tpu_torch.cli import train_main
+
+    launches = {}
+    for fp16_run in (True, False):
+        out_dir = os.path.join(tmp, "bf16" if fp16_run else "fp32")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        train_main(train_args(corpus, out_dir, fp16_run))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[fp16_run] = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        steps = [r for r in log if "loss" in r]
+        vals = [r for r in log if "validation" in r]
+        losses = [r["loss"] for r in steps]
+        tag = "bf16" if fp16_run else "fp32"
+        check(len(steps) >= 10, f"train {tag}: {len(steps)} steps")
+        check(all(math.isfinite(x) for x in losses),
+              f"train {tag}: loss not finite {losses}")
+        check(losses[-1] < losses[0],
+              f"train {tag}: last loss {losses[-1]} not below the first "
+              f"{losses[0]}")
+        check(launches[fp16_run]["attention_scores_fwd"] > 0
+              and launches[fp16_run]["attention_scores_bwd"] > 0,
+              f"train {tag}: K3 not launched {launches[fp16_run]}")
+        check(launches[fp16_run]["fused_flow_infer"] == 0
+              and launches[fp16_run]["wn_layer"] == 0,
+              f"train {tag}: inference kernels launched")
+        check(os.path.exists(os.path.join(out_dir, "model_9.pt")),
+              f"train {tag}: no checkpoint model_9.pt")
+        timed = steps[1:]                     # step 0 includes warm-up
+        frames = sum(r["frames"] for r in timed)
+        seconds = sum(r["step_s"] for r in timed)
+        emit("train", policy=tag, steps=len(steps),
+             loss=losses, nll=[r["nll"] for r in steps],
+             gate=[r["gate"] for r in steps],
+             grad_norm=[r["grad_norm"] for r in steps],
+             padded_shapes=[r["padded_shape"] for r in steps],
+             step_ms=[1e3 * r["step_s"] for r in steps],
+             ms_per_step_median=1e3 * statistics.median(
+                 r["step_s"] for r in timed),
+             mel_frames_per_s=frames / seconds,
+             peak_memory_allocated_bytes=peak,
+             validation=[{"iteration": r["iteration"], **r["validation"]}
+                         for r in vals],
+             wall_s=wall, launches=launches[fp16_run])
+    return os.path.join(tmp, "fp32"), launches[False], \
+        tuple(steps[0]["padded_shape"])
+
+
+def phase_train_vs_cpu(config, dev):
+    """One flagship-width step (B=2, T=32, fp32, CTC on, dropout off) on
+    the card against the plain path on the CPU: loss and gradient norm."""
+    from flowtron_tpu_torch.data.prior import beta_binomial_prior
+    from flowtron_tpu_torch.models.flowtron import (
+        flowtron_forward, flowtron_init)
+    from flowtron_tpu_torch.train.loss import flowtron_loss
+
+    model, cfg = flowtron_init(77, **config["model_config"])
+    perturb_flow_heads(model, torch.Generator().manual_seed(3))
+    B, T, Tk = 2, 32, 12
+    g = torch.Generator().manual_seed(21)
+    out_lens, in_lens = torch.tensor([32, 27]), torch.tensor([12, 9])
+    mel = torch.randn(B, 80, T, generator=g) - 5.0
+    text = torch.randint(1, 185, (B, Tk), generator=g)
+    prior = torch.zeros(B, T, Tk)
+    gate = torch.zeros(B, T)
+    for b in range(B):
+        mel[b, :, out_lens[b]:] = 0
+        text[b, in_lens[b]:] = 0
+        prior[b, :out_lens[b], :in_lens[b]] = torch.from_numpy(
+            beta_binomial_prior(int(in_lens[b]), int(out_lens[b])))
+        gate[b, out_lens[b] - 1:] = 1
+    sids = torch.zeros(B, dtype=torch.long)
+    tc = config["train_config"]
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model.to(d)
+        model.zero_grad(set_to_none=True)
+        out = flowtron_forward(model, cfg, mel.to(d), sids.to(d),
+                               text.to(d), in_lens.to(d), out_lens.to(d),
+                               attn_prior=prior.to(d))
+        nll, gl, ctc = flowtron_loss(
+            out, gate.to(d), in_lens.to(d), out_lens.to(d),
+            sigma=tc["sigma"], use_ctc_loss=True,
+            blank_logprob=float(tc["blank_logprob"]))
+        total = nll + gl + ctc
+        total.backward()
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in model.parameters()
+             if p.grad is not None]))
+        res[where] = [float(x.detach()) for x in (total, nll, gl, ctc, gnorm)]
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    gn_rel = abs(res["card"][4] - res["cpu"][4]) / res["cpu"][4]
+    check(loss_rel <= LOSS_TOL and gn_rel <= GNORM_TOL,
+          f"train step card vs cpu: loss rel {loss_rel}, grad norm rel "
+          f"{gn_rel}")
+    emit("train_vs_cpu", B=B, T=T, Tk=Tk,
+         card_loss_nll_gate_ctc_gradnorm=res["card"],
+         cpu_loss_nll_gate_ctc_gradnorm=res["cpu"],
+         loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel)
+
+
+def phase_train_to_infer(config, ckpt, ids, sid, dev):
+    """The fp32 run's last checkpoint, loaded for inference with
+    strict=True: one request through K1, then the invertibility oracle on
+    the card (K1 inverse, K3 forward), on the checkpoint as trained and
+    again with its coupling heads perturbed. Ten steps leave the heads
+    near zero, where mel is close to z whatever K1 and K3 compute; the
+    perturbed heads make both kernels' outputs count in the oracle."""
+    from flowtron_tpu_torch.infer.sampling import (
+        load_model_for_inference, synthesize)
+    from flowtron_tpu_torch.models.flowtron import flowtron_test_invertibility
+
+    model, cfg = load_model_for_inference(config, ckpt, dev)
+    mel, _, n = synthesize(model, cfg, ids[1], sid, n_frames=N_FRAMES,
+                           sigma=SIGMA, seed=REQ_SEED)
+    check(n > 0 and bool(torch.isfinite(mel).all()),
+          f"request from the trained checkpoint: n_valid {n}")
+    g = torch.Generator().manual_seed(31)
+    residual = (SIGMA * torch.randn(2, 80, 64, generator=g)).to(dev)
+    text = torch.as_tensor(ids[0][None]).repeat(2, 1).to(dev)
+    errs, heads = [], []
+    for perturbed in (False, True):
+        if perturbed:
+            perturb_flow_heads(model, torch.Generator().manual_seed(32))
+        heads.append(max(float(f.conv.weight.detach().abs().max())
+                          for f in (model.flows[0], model.flows[1].ar_step)))
+        errs.append(float(flowtron_test_invertibility(
+            model, cfg, residual, torch.full((2,), sid, device=dev), text)))
+        check(errs[-1] <= INV_TOL,
+              f"invertibility {errs[-1]} (heads perturbed: {perturbed})")
+    emit("train_to_infer", checkpoint=os.path.basename(ckpt),
+         invertibility_mean_abs_trained_perturbed=errs,
+         coupling_head_max_abs_trained_perturbed=heads,
+         request_n_valid=n, request_text_len=len(ids[1]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -387,12 +648,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from flowtron_tpu_torch.data.frontend import TextFrontend
+    from flowtron_tpu_torch.data.synth import make_aligned_corpus
     from flowtron_tpu_torch.models.flowtron import flowtron_init
     from flowtron_tpu_torch.ops import _build
+    from flowtron_tpu_torch.ops.attention import (
+        attention_scores_bwd, attention_scores_fwd)
     from flowtron_tpu_torch.ops.decoder import fused_flow_infer
     from flowtron_tpu_torch.ops.wavenet import wn_layer
     from flowtron_tpu_torch.vocoder.waveglow import waveglow_init
 
+    kernels = {"fused_flow_infer": fused_flow_infer, "wn_layer": wn_layer,
+               "attention_scores_fwd": attention_scores_fwd,
+               "attention_scores_bwd": attention_scores_bwd}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -402,14 +669,13 @@ def main():
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
 
-    build = {}
-    for name in ("decoder", "wavenet"):
-        t0 = time.perf_counter()
-        _build.load_library(name)
-        build[name] = {"seconds": time.perf_counter() - t0,
-                       "nvcc_seconds": _build.build_seconds[name],
-                       "flags": " ".join(_build.NVCC_FLAGS)}
-    emit("build", **build)
+    names = ("decoder", "wavenet", "attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(_build.load_library, names))
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds={n: _build.build_seconds[n] for n in names},
+         flags=" ".join(_build.NVCC_FLAGS))
 
     with open("config.json") as f:
         config = json.load(f)
@@ -426,26 +692,54 @@ def main():
     k1_err, k1_times, stop = phase_k1(model, cfg, ids, sid, dev)
     k2_err, k2_times = phase_k2(wg, dev)
 
-    fused_flow_infer.launches = 0
-    wn_layer.launches = 0
+    reset_launches(kernels)                  # the inference path
     phase_slice(model, cfg, wg, wg_cfg, ids, sid, stop, dev)
-    launches = {"k1": fused_flow_infer.launches, "k2": wn_layer.launches}
-    check(launches["k1"] > 0 and launches["k2"] > 0,
-          f"main path skipped a kernel: {launches}")
+    infer_launches = read_launches(kernels)
+    check(infer_launches["fused_flow_infer"] > 0
+          and infer_launches["wn_layer"] > 0,
+          f"inference path skipped a kernel: {infer_launches}")
     phase_cpu_agreement(model, cfg, wg, wg_cfg, dev)
+    del model, wg
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        corpus = make_aligned_corpus(os.path.join(tmp, "corpus"),
+                                     n_utterances=N_UTTS, seed=0,
+                                     val_count=N_VAL)
+        emit("corpus", utterances=N_UTTS, validation=N_VAL,
+             seconds=time.perf_counter() - t0)
+        out_dir, train_launches, shape = phase_train(corpus, tmp, kernels,
+                                                     dev)
+        k3 = phase_k3(shape, config["model_config"]["n_attn_channels"], dev)
+        phase_train_vs_cpu(config, dev)
+        phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
+                             ids, sid, dev)
     check("jax" not in sys.modules, "jax was imported")
 
     print(json.dumps({"kernels": [
         {"name": "fused_flow_infer", "route": "cuda",
          "source": "flowtron_tpu_torch/csrc/decoder.cu",
          "replaces": "flowtron_tpu/ops/decoder_pallas.py:229",
-         "launches": launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_times[0], "plain_ms": k1_times[1]},
+         "launches": infer_launches["fused_flow_infer"],
+         "max_abs_err": k1_err, "ms": k1_times[0], "plain_ms": k1_times[1]},
         {"name": "wn_layer", "route": "cuda",
          "source": "flowtron_tpu_torch/csrc/wavenet.cu",
          "replaces": "flowtron_tpu/ops/wavenet_pallas.py:57",
-         "launches": launches["k2"], "max_abs_err": k2_err,
+         "launches": infer_launches["wn_layer"], "max_abs_err": k2_err,
          "ms": k2_times[0], "plain_ms": k2_times[1]},
+        {"name": "attention_scores_fwd", "route": "cuda",
+         "source": "flowtron_tpu_torch/csrc/attention.cu",
+         "replaces": "flowtron_tpu/ops/attention_pallas.py:46",
+         "launches": train_launches["attention_scores_fwd"],
+         "max_abs_err": k3["fwd"][0], "ms": k3["fwd"][1],
+         "plain_ms": k3["fwd"][2]},
+        {"name": "attention_scores_bwd", "route": "cuda",
+         "source": "flowtron_tpu_torch/csrc/attention.cu",
+         "replaces": "flowtron_tpu/ops/attention_pallas.py:92",
+         "launches": train_launches["attention_scores_bwd"],
+         "max_abs_err": k3["bwd"][0], "ms": k3["bwd"][1],
+         "plain_ms": k3["bwd"][2]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,28 @@
-"""Command-line inference (port of ``inference_main`` in
-flowtron_tpu/cli.py): ``-c config.json`` plus ``-p a.b=c`` overrides, the
-same flags as the JAX CLI. Runs on the first CUDA device when there is
-one, else on the CPU.
+"""Command-line training and inference (port of ``train_main`` and
+``inference_main`` in flowtron_tpu/cli.py): ``-c config.json`` plus
+``-p a.b=c`` overrides, the same flags as the JAX CLI. Runs on the first
+CUDA device when there is one, else on the CPU.
 
+    flowtron-torch-train -c config.json -p train_config.epochs=1 ...
     flowtron-torch-infer -c config.json -f model.pt -w waveglow.pt -t "text"
 """
 
 import argparse
 
 from flowtron_tpu.config import load_config
+
+
+def train_main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Flowtron training (PyTorch/CUDA port)")
+    parser.add_argument("-c", "--config", type=str, required=True,
+                        help="JSON file for configuration")
+    parser.add_argument("-p", "--params", nargs="+", default=[],
+                        help="dotted-path overrides: a.b.c=value")
+    args = parser.parse_args(argv)
+    config = load_config(args.config, args.params)
+    from flowtron_tpu_torch.train.loop import train
+    train(config)
 
 
 def inference_main(argv=None):

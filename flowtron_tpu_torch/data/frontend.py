@@ -1,6 +1,6 @@
-"""Inference text frontend: text -> symbol ids, speaker id -> dense index.
+"""Text frontend: text -> symbol ids, speaker id -> dense index.
 
-Carries what inference needs from ``flowtron_tpu.data.dataset.Data``
+Carries the text half of ``flowtron_tpu.data.dataset.Data``
 (``get_text`` and ``get_speaker_id``, flowtron_tpu/data/dataset.py:209-223)
 and shares the pure-Python text package ``flowtron_tpu.text`` instead of
 copying it (that package never imports jax). The random stream is the
@@ -27,7 +27,9 @@ def _load_filelist(path, split="|"):
 
 
 class TextFrontend:
-    """``Data``'s text and speaker handling, without audio."""
+    """``Data``'s text and speaker handling, without audio (the port's
+    ``data/dataset.py:Data`` adds the audio). ``audiopaths_and_text``
+    holds the filelist in the order the seeded shuffle left it."""
 
     def __init__(self, filelist_path, p_arpabet=0.5, cmudict_path="",
                  heteronyms_path="", text_cleaners=None, speaker_ids=None,
@@ -37,6 +39,7 @@ class TextFrontend:
             ids = np.sort(np.unique([e[2] for e in entries]))
             speaker_ids = {int(ids[i]): i for i in range(len(ids))}
         self.speaker_ids = speaker_ids
+        self.audiopaths_and_text = entries
         self.text_cleaners = text_cleaners or ["flowtron_cleaners"]
         self.p_arpabet = p_arpabet
         self.cmudict = (CMUDict(cmudict_path, keep_ambiguous=keep_ambiguous)

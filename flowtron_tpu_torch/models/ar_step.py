@@ -1,11 +1,13 @@
-"""Autoregressive affine flow steps, inference direction (port of
-``ar_step_infer`` / ``ar_back_step_infer`` in
+"""Autoregressive affine flow steps (port of ``ar_step_forward``,
+``ar_back_step_forward``, ``ar_step_infer`` and ``ar_back_step_infer`` in
 flowtron_tpu/models/ar_step.py).
 
+Training is teacher-forced over the whole sequence: ``mel' = exp(log_s) *
+mel + b``, where (log_s, b) come from the shifted mel through the attention
+LSTM, text attention (scores through kernel K3), decoder LSTMs, tanh dense
+stack and the zero-init coupling head (reference:flowtron.py:645-773).
 Inference inverts a flow frame by frame: ``out_t = (z_t - b_t) *
-exp(-log_s_t)``, where (log_s, b) come from the previous frame through the
-attention LSTM, text attention, decoder LSTMs, tanh dense stack and the
-zero-init coupling head (reference:flowtron.py:775-828).
+exp(-log_s_t)`` (reference:flowtron.py:775-828).
 
 Routing: on CUDA tensors every flow runs through kernel K1
 (``ops/decoder.py``); ``fused="early"`` switches its early exit on. A flow
@@ -20,12 +22,12 @@ import torch
 from torch import nn
 
 from flowtron_tpu_torch.models.attention import (
-    Attention, attention_precompute, attention_step,
+    Attention, attention_forward, attention_precompute, attention_step,
 )
-from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm
+from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm, linear
 from flowtron_tpu_torch.ops.decoder import pack_flow_weights, fused_flow_infer
-from flowtron_tpu_torch.ops.lstm import LSTM, lstm_cell
-from flowtron_tpu_torch.utils.masks import flip_time
+from flowtron_tpu_torch.ops.lstm import LSTM, lstm_cell, lstm_forward
+from flowtron_tpu_torch.utils.masks import flip_time, flip_time_batch_major
 
 
 class ARStep(nn.Module):
@@ -78,6 +80,51 @@ class ARBackStep(nn.Module):
     def __init__(self, *args, **kwargs):
         super().__init__()
         self.ar_step = ARStep(*args, **kwargs)
+
+
+def ar_step_forward(flow, mel, text, key_mask, out_mask, attn_prior=None):
+    """Teacher-forced forward flow.
+
+    Args:
+      flow: an ``ARStep``.
+      mel: (T, B, n_mel) time-major mel (this flow's input).
+      text: (Tk, B, text + speaker) encoder outputs.
+      key_mask: (B, Tk) bool. out_mask: (T, B) bool, valid mel frames.
+      attn_prior: (B, T, Tk) or None.
+
+    Returns (mel_out (T, B, n_mel), log_s (T, B, n_mel), gates (T, B, 1)
+    or None, attn (B, T, Tk), attn_logprob (B, T, Tk) fp32).
+    """
+    n_mel = mel.shape[2]
+    mel0 = torch.cat([mel.new_zeros((1,) + mel.shape[1:]), mel[:-1]], dim=0)
+    attention_hidden, _ = lstm_forward(flow.attention_lstm, mel0, out_mask)
+    context, attn, attn_logprob = attention_forward(
+        flow.attention_layer, attention_hidden, text, text,
+        key_mask=key_mask, attn_prior=attn_prior)
+    decoder_input = torch.cat([attention_hidden, context.permute(2, 0, 1)],
+                              dim=-1)
+    gates = flow.gate_layer(decoder_input) if hasattr(flow, "gate_layer") \
+        else None
+    lstm_hidden, _ = lstm_forward(flow.lstm, decoder_input, out_mask)
+    decoder_output = linear(flow.dense_layer(lstm_hidden),
+                            flow.conv.weight[:, :, 0], flow.conv.bias)
+    log_s = decoder_output[:, :, :n_mel]
+    b = decoder_output[:, :, n_mel:]
+    return torch.exp(log_s) * mel + b, log_s, gates, attn, attn_logprob
+
+
+def ar_back_step_forward(flow, mel, text, key_mask, out_mask, out_lens,
+                         attn_prior=None):
+    """Backward flow: ``ar_step_forward`` on mel (and prior) flipped within
+    ``out_lens``; mel comes back un-flipped, log_s / gates / attn stay in
+    flipped order (reference:flowtron.py:605-627). ``flow`` is an
+    ``ARBackStep``."""
+    mel_f = flip_time(mel, out_lens)
+    prior_f = None if attn_prior is None else \
+        flip_time_batch_major(attn_prior, out_lens)
+    mel_out, log_s, gates, attn, attn_logprob = ar_step_forward(
+        flow.ar_step, mel_f, text, key_mask, out_mask, prior_f)
+    return flip_time(mel_out, out_lens), log_s, gates, attn, attn_logprob
 
 
 def _n_valid_from_gates(gates, gate_threshold, n_valid):
@@ -183,7 +230,7 @@ def ar_back_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
                              device=residual.device)
     residual_f = flip_time(residual, n_valid)
     prior_f = None if attn_prior is None else \
-        flip_time(attn_prior.transpose(0, 1), n_valid).transpose(0, 1)
+        flip_time_batch_major(attn_prior, n_valid)
     mel, attn_w, n_valid_out = ar_step_infer(
         flow.ar_step, residual_f, text, key_mask, prior_f, temperature,
         gate_threshold, n_valid=n_valid, fused=fused)

@@ -1,15 +1,19 @@
-"""Additive (tanh) attention for the AR inference loop (port of
-``attention_precompute`` / ``attention_step`` in
+"""Additive (tanh) attention (port of ``attention_scores``,
+``attention_forward``, ``attention_precompute`` and ``attention_step`` in
 flowtron_tpu/models/attention.py).
 
 score = v . tanh(q + k) / temperature, softmax over text positions,
 optional beta-binomial prior posterior (reference:flowtron.py:528-592).
+The teacher-forced scores go through kernel K3 (``ops/attention.py``).
 """
 
 import torch
 from torch import nn
 
 from flowtron_tpu_torch.models.layers import LinearNorm
+from flowtron_tpu_torch.ops.attention import (
+    attention_scores as _k3_attention_scores,
+)
 
 MASK_VALUE = -1e30
 
@@ -24,6 +28,59 @@ class Attention(nn.Module):
         self.key = LinearNorm(kd, n_att_channels, **g)
         self.value = LinearNorm(kd, n_att_channels, **g)
         self.v = LinearNorm(n_att_channels, 1, **g)
+
+
+def attention_scores(attn, queries_proj, keys_proj, temperature=1.0):
+    """(B, Tq, D), (B, Tk, D) -> (B, Tq, Tk) additive scores through K3
+    (its kernels on CUDA, its plain versions on the CPU), in the promoted
+    dtype of the queries and keys, as JAX's ``q + k``."""
+    dt = torch.promote_types(queries_proj.dtype, keys_proj.dtype)
+    v_w = attn.v.linear_layer.weight[0]                        # (D,)
+    return _k3_attention_scores(queries_proj.to(dt), keys_proj.to(dt),
+                                v_w.to(dt), temperature)
+
+
+def attention_forward(attn, queries, keys, values, key_mask=None,
+                      attn_prior=None, temperature=1.0, attn_map=None):
+    """Full attention over a sequence of queries (teacher-forced).
+
+    Args:
+      queries: (Tq, B, n_query_dim) attention-LSTM outputs (time-major).
+      keys / values: (Tk, B, text + speaker dim) encoder outputs.
+      key_mask: (B, Tk) bool, True at valid text positions.
+      attn_prior: (B, Tq, Tk) beta-binomial prior or None.
+      attn_map: an external attention map; not ported yet (raises).
+
+    Returns context (B, D_att, Tq), attn (B, Tq, Tk) and attn_logprob
+    (B, Tq, Tk) in fp32, taken before the key mask, for the CTC loss.
+    With a prior, the posterior and its softmax are fp32, as in the JAX
+    package, so under the bf16 policy the context comes out fp32 and
+    promotes the decoder after it.
+    """
+    if attn_map is not None:
+        raise NotImplementedError(
+            "an external attention map (style transfer) is not ported yet; "
+            "see ROADMAP.md Queue 1, slice C item 20")
+    vals = attn.value(values).transpose(0, 1)                  # (B, Tk, D)
+    q = attn.query(queries).transpose(0, 1)
+    k = attn.key(keys).transpose(0, 1)
+    scores = attention_scores(attn, q, k, temperature)
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask[:, None, :], MASK_VALUE)
+    w = torch.softmax(scores, dim=2)
+    if attn_prior is not None:
+        log_post = torch.log(w.float() + 1e-20) \
+            + torch.log(attn_prior.float() + 1e-20)
+        attn_logprob = log_post
+        if key_mask is not None:
+            log_post = log_post.masked_fill(~key_mask[:, None, :],
+                                            MASK_VALUE)
+        w = torch.softmax(log_post, dim=2)
+    else:
+        attn_logprob = torch.log(w.float() + 1e-8)
+    dt = torch.promote_types(w.dtype, vals.dtype)
+    context = torch.bmm(w.to(dt), vals.to(dt))                 # (B, Tq, D)
+    return context.transpose(1, 2), w, attn_logprob
 
 
 def attention_precompute(attn, keys, values):

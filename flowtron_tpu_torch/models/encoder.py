@@ -1,8 +1,11 @@
-"""Text encoder (port of flowtron_tpu/models/encoder.py, inference only).
+"""Text encoder (port of flowtron_tpu/models/encoder.py).
 
-3 x (conv k=5 + instance norm + relu), padding zeroed before each conv on
-the masked path, then a single-layer BiLSTM (reference:flowtron.py:467-525).
-Dropout is a training feature and is not part of this inference port.
+3 x (conv k=5 + instance norm + relu + dropout 0.5 when training),
+padding zeroed before each conv on the masked path, then a single-layer
+BiLSTM (reference:flowtron.py:467-525). Dropout keeps each value with
+probability 0.5 and scales it by 1 / 0.5, drawing from an explicit
+``torch.Generator``; its draws cannot match ``jax.random``'s, so the
+tests compare the packages with dropout off.
 """
 
 import torch
@@ -32,7 +35,7 @@ class Encoder(nn.Module):
                          generator=generator)
 
 
-def _conv_stack(encoder, x, mask_b1t):
+def _conv_stack(encoder, x, mask_b1t, train=False, generator=None):
     for conv, norm in encoder.convolutions:
         if mask_b1t is not None:
             x = torch.where(mask_b1t, x, 0.0)
@@ -42,14 +45,20 @@ def _conv_stack(encoder, x, mask_b1t):
                                      bias=norm.bias)
         else:
             y = instance_norm(y, weight=norm.weight, bias=norm.bias)
-        x = torch.relu(y)
+        y = torch.relu(y)
+        if train and generator is not None:
+            keep = torch.rand(y.shape, generator=generator,
+                              device=y.device) < 0.5
+            y = torch.where(keep, y / 0.5, 0.0)
+        x = y
     return x
 
 
-def encoder_forward(encoder, x, in_lens_mask):
+def encoder_forward(encoder, x, in_lens_mask, train=False, generator=None):
     """x (B, C, T) text embeddings, in_lens_mask (B, T) bool ->
-    (T, B, C) time-major outputs, zero at padding."""
-    x = _conv_stack(encoder, x, in_lens_mask[:, None, :])
+    (T, B, C) time-major outputs, zero at padding. Dropout runs when
+    ``train`` and a ``generator`` (on x's device) are given."""
+    x = _conv_stack(encoder, x, in_lens_mask[:, None, :], train, generator)
     return bilstm_forward(encoder.lstm, x.permute(2, 0, 1), in_lens_mask.t())
 
 

@@ -1,17 +1,19 @@
-"""Flowtron top-level model, inference direction (port of
-``flowtron_init``, ``_encode_text`` and ``flowtron_infer`` in
-flowtron_tpu/models/flowtron.py).
+"""Flowtron top-level model (port of ``flowtron_init``, ``_encode_text``,
+``flowtron_forward``, ``flowtron_infer`` and
+``flowtron_test_invertibility`` in flowtron_tpu/models/flowtron.py).
 
 n_flows alternating forward (even index) and backward (odd index) AR
-steps, the gate only on the last flow; inference runs the flows in
-reverse (reference:flowtron.py:831-961).
+steps, the gate only on the last flow; training pushes mel through the
+flows in order, inference runs them in reverse
+(reference:flowtron.py:831-961).
 """
 
 import torch
 from torch import nn
 
 from flowtron_tpu_torch.models.ar_step import (
-    ARStep, ARBackStep, ar_step_infer, ar_back_step_infer,
+    ARStep, ARBackStep, ar_step_forward, ar_back_step_forward,
+    ar_step_infer, ar_back_step_infer,
 )
 from flowtron_tpu_torch.models.encoder import (
     Encoder, encoder_forward, encoder_infer,
@@ -59,6 +61,11 @@ class Flowtron(nn.Module):
                 add_gate=(i == n_flows - 1) and use_gate_layer,
                 generator=generator))
 
+    def forward(self, *args, **kwargs):
+        """``flowtron_forward``'s body on this module's (possibly swapped,
+        see ``torch.func.functional_call``) parameters."""
+        return _forward(self, *args, **kwargs)
+
 
 def flowtron_init(seed=0, device="cpu", **model_config):
     """Build a seeded ``Flowtron`` and its static config dict.
@@ -73,19 +80,84 @@ def flowtron_init(seed=0, device="cpu", **model_config):
     return model, model.config
 
 
-def _encode_text(model, config, speaker_ids, text, in_lens_mask=None):
+def _encode_text(model, config, speaker_ids, text, in_lens_mask=None,
+                 train=False, generator=None):
     """Embed + encode + speaker concat. Returns (Tk, B, text + speaker)."""
     if config["dummy_speaker_embedding"]:
         speaker_ids = speaker_ids * 0
     speaker_vecs = model.speaker_embedding(speaker_ids)        # (B, S)
     text_emb = model.embedding(text).transpose(1, 2)           # (B, C, Tk)
     if in_lens_mask is not None:
-        enc = encoder_forward(model.encoder, text_emb, in_lens_mask)
+        enc = encoder_forward(model.encoder, text_emb, in_lens_mask, train,
+                              generator)
     else:
         enc = encoder_infer(model.encoder, text_emb)
     Tk = enc.shape[0]
     spk = speaker_vecs[None].expand(Tk, -1, -1)
     return torch.cat([enc, spk], dim=2)
+
+
+def flowtron_forward(model, config, mel, speaker_ids, text, in_lens,
+                     out_lens, attn_prior=None, train=False, generator=None,
+                     compute_dtype=None):
+    """Training-direction pass: mel -> z.
+
+    Args:
+      mel: (B, n_mel, T); speaker_ids: (B,); text: (B, Tk) int ids.
+      in_lens / out_lens: (B,) true lengths. attn_prior: (B, T, Tk) or None.
+      train / generator: encoder dropout, drawn from ``generator`` (on the
+        model's device) when ``train``.
+      compute_dtype: e.g. torch.bfloat16, the ``fp16_run`` policy of the
+        JAX package: the forward runs on cast copies of the fp32 master
+        parameters (``torch.func.functional_call``, so gradients reach the
+        fp32 parameters), with mel and prior cast too. As in the JAX
+        package, the attention posterior stays fp32, so the context it
+        gives promotes everything after it (decoder LSTMs, dense stack,
+        head, z and the next flow) to fp32 on bf16-rounded weights; the
+        losses are fp32.
+
+    Returns (z (T, B, n_mel), log_s list, gate (T, B, 1), attn list,
+    attn_logprob list, mean, log_var, prob): the JAX tuple, with the
+    Gaussian-mixture entries None (that head is not ported).
+    """
+    if compute_dtype is not None:
+        mel = mel.to(compute_dtype)
+        if attn_prior is not None:
+            attn_prior = attn_prior.to(compute_dtype)
+    args = (config, mel, speaker_ids, text, in_lens, out_lens, attn_prior,
+            train, generator)
+    if compute_dtype is None:
+        return _forward(model, *args)
+    cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
+            for name, p in model.named_parameters()}
+    return torch.func.functional_call(model, cast, args)
+
+
+def _forward(model, config, mel, speaker_ids, text, in_lens, out_lens,
+             attn_prior, train, generator):
+    T, Tk = mel.shape[2], text.shape[1]
+    key_mask = sequence_mask(in_lens, Tk)                      # (B, Tk)
+    out_mask = sequence_mask(out_lens, T).t()                  # (T, B)
+    encoder_outputs = _encode_text(model, config, speaker_ids, text,
+                                   key_mask, train, generator)
+    z = mel.permute(2, 0, 1)                                   # (T, B, M)
+    log_s_list, attn_list, attn_logprob_list = [], [], []
+    gate_pred = None
+    for i, flow in enumerate(model.flows):
+        if i % 2 == 0:
+            z, log_s, gate, attn, attn_logprob = ar_step_forward(
+                flow, z, encoder_outputs, key_mask, out_mask, attn_prior)
+        else:
+            z, log_s, gate, attn, attn_logprob = ar_back_step_forward(
+                flow, z, encoder_outputs, key_mask, out_mask, out_lens,
+                attn_prior)
+        if gate is not None:
+            gate_pred = gate
+        log_s_list.append(log_s)
+        attn_list.append(attn)
+        attn_logprob_list.append(attn_logprob)
+    return (z, log_s_list, gate_pred, attn_list, attn_logprob_list,
+            None, None, None)
 
 
 @torch.no_grad()
@@ -119,3 +191,22 @@ def flowtron_infer(model, config, residual, speaker_ids, text,
             gate_threshold, n_valid=n_valid, fused=fused)
         out_attns.append(attn_w)
     return z.permute(1, 2, 0), out_attns, n_valid
+
+
+@torch.no_grad()
+def flowtron_test_invertibility(model, config, residual, speaker_ids, text,
+                                temperature=1.0):
+    """infer -> forward round trip, mean |z_recon - z|: the reference's own
+    oracle (reference:flowtron.py:932-954, its unpacking bug fixed). On
+    CUDA the inverse runs K1 and the forward K3. fp32 matmuls on the card
+    need TF32 off (``torch.backends.cuda.matmul`` and ``.cudnn``) for the
+    ~1e-6 the oracle expects; the caller sets that."""
+    B, _, N = residual.shape
+    mel, _, _ = flowtron_infer(model, config, residual, speaker_ids, text,
+                               temperature=temperature, gate_threshold=1e6)
+    in_lens = torch.full((B,), text.shape[1], dtype=torch.long,
+                         device=text.device)
+    out_lens = torch.full((B,), N, dtype=torch.long, device=text.device)
+    z_recon = flowtron_forward(model, config, mel, speaker_ids, text,
+                               in_lens, out_lens)[0]
+    return (z_recon - residual.permute(2, 0, 1)).abs().mean()

@@ -35,6 +35,15 @@ def xavier_uniform(shape, gain=1.0, generator=None):
 # plain functions
 # ---------------------------------------------------------------------------
 
+def linear(x, weight, bias=None):
+    """``F.linear`` with the JAX package's dtype promotion: an fp32 input
+    meets bf16 weights in fp32, as ``jnp.dot`` does (the bf16 policy's
+    decoder after the fp32 attention posterior)."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dt), weight.to(dt),
+                    None if bias is None else bias.to(dt))
+
+
 def conv1d_same(x, weight, bias=None, dilation=1):
     """'Same'-padded 1-D conv, x (B, C_in, T), weight (C_out, C_in, k odd)."""
     pad = dilation * (weight.shape[-1] - 1) // 2
@@ -78,7 +87,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 class LinearNorm(nn.Module):

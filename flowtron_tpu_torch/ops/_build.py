@@ -70,15 +70,17 @@ def load_library(name):
     return lib
 
 
-def check_tensor(name, t, shape, device, contiguous=True):
-    """Raise unless ``t`` is a float32 tensor of ``shape`` on ``device``,
-    16-byte aligned and (unless ``contiguous=False``) contiguous."""
+def check_tensor(name, t, shape, device, contiguous=True,
+                 dtype=torch.float32, align=16):
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``device``,
+    ``align``-byte aligned and (unless ``contiguous=False``) contiguous."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if (contiguous and not t.is_contiguous()) or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if (contiguous and not t.is_contiguous()) or t.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         "aligned")

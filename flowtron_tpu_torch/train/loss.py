@@ -1,0 +1,77 @@
+"""Flowtron training losses: masked NLL, gate BCE, CTC alignment loss
+(port of flowtron_tpu/train/loss.py; reference:flowtron.py:155-275).
+
+- NLL = sum(z^2 * mask) / (2 sigma^2) - sum_i sum(log_s_i * mask),
+  normalised by n_valid_frames * n_mel.
+- Gate: BCE with logits, masked, normalised by n_valid_frames.
+- CTC over the attention log-posterior with a prepended blank column,
+  target sequence 1..key_len, per-sample loss divided by key_len, averaged
+  over the batch and the flows; backward-flow log-posteriors are un-flipped
+  first. optax's ``ctc_loss`` normalises its logits itself and
+  ``F.ctc_loss`` does not, so the port takes ``log_softmax`` first.
+
+Every loss is computed in fp32 whatever the compute dtype.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from flowtron_tpu_torch.utils.masks import (
+    flip_time_batch_major, sequence_mask,
+)
+
+
+def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0):
+    """CTC alignment loss for one flow. attn_logprob (B, T_mel, T_text)
+    pre-softmax log-posterior. Returns the batch mean of per-sample CTC
+    NLL / key_len."""
+    B, T, Tk = attn_logprob.shape
+    logits = F.pad(attn_logprob.float(), (1, 0), value=blank_logprob)
+    # classes past key_len + 1 take no part (the reference slices them off)
+    class_ids = torch.arange(Tk + 1, device=logits.device)
+    logits = logits.masked_fill(
+        class_ids[None, None, :] > in_lens[:, None, None], -1e9)
+    log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
+    targets = torch.arange(1, Tk + 1, device=logits.device).expand(B, Tk)
+    per_seq = F.ctc_loss(log_probs, targets, out_lens, in_lens, blank=0,
+                         reduction="none", zero_infinity=True)
+    # as the JAX package's optax path: an impossible alignment scores 0
+    per_seq = torch.where(per_seq < 1e5, per_seq, 0.0)
+    return (per_seq / in_lens.to(per_seq.dtype)).mean()
+
+
+def flowtron_loss(model_output, gate_target, in_lens, out_lens, sigma=1.0,
+                  gm_loss=False, gate_loss=True, use_ctc_loss=False,
+                  blank_logprob=-1.0):
+    """(nll, gate, ctc) from ``flowtron_forward``'s output.
+    gate_target: (B, T), 1.0 from the last real frame onward."""
+    if gm_loss:
+        raise NotImplementedError(
+            "the Gaussian-mixture NLL is not ported yet; see ROADMAP.md "
+            "Queue 1, 'GM head + MelEncoder'")
+    z, log_s_list, gate_pred, _, attn_logprob_list = model_output[:5]
+    z = z.float()
+    T, B, n_mel = z.shape
+    mask = sequence_mask(out_lens, T).t()[..., None].to(z.dtype)  # (T,B,1)
+    n_elements = mask.sum()
+    log_s_total = sum((log_s.float() * mask).sum() for log_s in log_s_list)
+    zm = z * mask
+    loss_nll = ((zm * zm).sum() / (2.0 * sigma * sigma) - log_s_total) \
+        / (n_elements * n_mel)
+
+    loss_gate = z.new_zeros(())
+    if gate_loss and gate_pred is not None:
+        gp = (gate_pred.float() * mask)[..., 0].t()               # (B, T)
+        bce = F.binary_cross_entropy_with_logits(
+            gp, gate_target.float(), reduction="none")
+        loss_gate = (bce * mask[..., 0].t()).sum() / n_elements
+
+    loss_ctc = z.new_zeros(())
+    if use_ctc_loss:
+        for i, attn_logprob in enumerate(attn_logprob_list):
+            if i % 2 != 0:
+                attn_logprob = flip_time_batch_major(attn_logprob, out_lens)
+            loss_ctc = loss_ctc + attention_ctc_loss(
+                attn_logprob, in_lens, out_lens, blank_logprob)
+        loss_ctc = loss_ctc / float(len(attn_logprob_list))
+    return loss_nll, loss_gate, loss_ctc

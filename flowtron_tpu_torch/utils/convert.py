@@ -1,13 +1,17 @@
-"""Weight bridge: the JAX package's parameter pytrees (as numpy arrays) ->
-the port's state_dicts.
+"""Weight bridge between the JAX package's parameter pytrees (as numpy
+arrays) and the port's state_dicts, both ways.
 
 ``flowtron_state_dict_from_jax`` writes the reference names and layouts
 that ``flowtron_tpu.train.checkpoints.export_torch_state_dict`` writes
 (linear and LSTM weights transposed to torch's (out, in), 1x1 convs as
 (out, in, 1)), so ``Flowtron.load_state_dict(..., strict=True)`` takes
-it. ``waveglow_from_jax`` writes the published WaveGlow checkpoint names
-(``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``). Pure numpy in,
-torch tensors out: nothing here imports jax.
+it; ``flowtron_jax_from_state_dict`` is its inverse (the semantics of
+``import_torch_state_dict``), filling a numpy pytree of the JAX layout.
+``radam_state_from_jax`` maps a JAX ``RAdamState`` (numpy leaves) onto
+the port's parameter names, so the two optimizers' moments can be
+compared. ``waveglow_from_jax`` writes the published WaveGlow checkpoint
+names (``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``). Nothing
+here imports jax.
 """
 
 import numpy as np
@@ -18,36 +22,43 @@ def _t(a):
     return torch.tensor(np.asarray(a, np.float32))
 
 
-def _lstm(out, prefix, lstm):
+# per kind: JAX array -> torch layout, and back
+_LAYOUT = {
+    "same": (lambda a: a, lambda a: a),
+    "transpose": (lambda a: a.T, lambda a: a.T),
+    "conv1x1": (lambda a: a.T[:, :, None], lambda a: a[:, :, 0].T),
+}
+
+
+def _lstm_entries(prefix, lstm):
     for k, layer in enumerate(lstm["layers"]):
         dirs = [("", layer["fwd"]), ("_reverse", layer["bwd"])] \
             if "fwd" in layer else [("", layer)]
         for suffix, p in dirs:
-            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh")):
-                out[f"{prefix}.{theirs}_l{k}{suffix}"] = _t(
-                    np.asarray(p[ours]).T)
-            out[f"{prefix}.bias_ih_l{k}{suffix}"] = _t(p["b_ih"])
-            out[f"{prefix}.bias_hh_l{k}{suffix}"] = _t(p["b_hh"])
+            yield f"{prefix}.weight_ih_l{k}{suffix}", p, "w_ih", "transpose"
+            yield f"{prefix}.weight_hh_l{k}{suffix}", p, "w_hh", "transpose"
+            yield f"{prefix}.bias_ih_l{k}{suffix}", p, "b_ih", "same"
+            yield f"{prefix}.bias_hh_l{k}{suffix}", p, "b_hh", "same"
 
 
-def _linear(out, name, p):
-    out[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+def _linear_entries(name, p):
+    yield f"{name}.weight", p, "w", "transpose"
     if "b" in p:
-        out[f"{name}.bias"] = _t(p["b"])
+        yield f"{name}.bias", p, "b", "same"
 
 
-def flowtron_state_dict_from_jax(np_params):
-    """JAX ``flowtron_init`` params (numpy leaves) -> reference state_dict."""
-    p = np_params
-    out = {"speaker_embedding.weight": _t(p["speaker_embedding"]["table"]),
-           "embedding.weight": _t(p["embedding"]["table"])}
+def _flowtron_entries(p):
+    """Yield (state_dict name, JAX sub-dict, key in it, layout kind) for
+    every parameter of a JAX ``flowtron_init`` pytree."""
+    yield "speaker_embedding.weight", p["speaker_embedding"], "table", "same"
+    yield "embedding.weight", p["embedding"], "table", "same"
     for i, conv in enumerate(p["encoder"]["convolutions"]):
         pre = f"encoder.convolutions.{i}"
-        out[f"{pre}.0.conv.weight"] = _t(conv["conv"]["w"])
-        out[f"{pre}.0.conv.bias"] = _t(conv["conv"]["b"])
-        out[f"{pre}.1.weight"] = _t(conv["norm"]["weight"])
-        out[f"{pre}.1.bias"] = _t(conv["norm"]["bias"])
-    _lstm(out, "encoder.lstm", p["encoder"]["lstm"])
+        yield f"{pre}.0.conv.weight", conv["conv"], "w", "same"
+        yield f"{pre}.0.conv.bias", conv["conv"], "b", "same"
+        yield f"{pre}.1.weight", conv["norm"], "weight", "same"
+        yield f"{pre}.1.bias", conv["norm"], "bias", "same"
+    yield from _lstm_entries("encoder.lstm", p["encoder"]["lstm"])
     if "mel_encoder" in p or "gaussian_mixture" in p:
         raise NotImplementedError(
             "the Gaussian-mixture head and mel encoder are not ported yet; "
@@ -58,19 +69,69 @@ def flowtron_state_dict_from_jax(np_params):
                 "cumulative attention is not ported yet; see ROADMAP.md "
                 "Queue 1, 'Attention: cumulative-attention layer'")
         pre = f"flows.{i}" if i % 2 == 0 else f"flows.{i}.ar_step"
-        out[f"{pre}.conv.weight"] = _t(
-            np.asarray(flow["conv"]["w"]).T[:, :, None])
-        out[f"{pre}.conv.bias"] = _t(flow["conv"]["b"])
-        _lstm(out, f"{pre}.lstm", flow["lstm"])
-        _lstm(out, f"{pre}.attention_lstm", flow["attention_lstm"])
+        yield f"{pre}.conv.weight", flow["conv"], "w", "conv1x1"
+        yield f"{pre}.conv.bias", flow["conv"], "b", "same"
+        yield from _lstm_entries(f"{pre}.lstm", flow["lstm"])
+        yield from _lstm_entries(f"{pre}.attention_lstm",
+                                 flow["attention_lstm"])
         for name in ("query", "key", "value", "v"):
-            _linear(out, f"{pre}.attention_layer.{name}.linear_layer",
-                    flow["attention_layer"][name])
+            yield from _linear_entries(
+                f"{pre}.attention_layer.{name}.linear_layer",
+                flow["attention_layer"][name])
         for k, layer in enumerate(flow["dense_layer"]["layers"]):
-            _linear(out, f"{pre}.dense_layer.layers.{k}.linear_layer", layer)
+            yield from _linear_entries(
+                f"{pre}.dense_layer.layers.{k}.linear_layer", layer)
         if "gate_layer" in flow:
-            _linear(out, f"{pre}.gate_layer.linear_layer",
-                    flow["gate_layer"])
+            yield from _linear_entries(f"{pre}.gate_layer.linear_layer",
+                                       flow["gate_layer"])
+
+
+def flowtron_state_dict_from_jax(np_params):
+    """JAX ``flowtron_init`` params (numpy leaves) -> reference state_dict."""
+    return {name: _t(_LAYOUT[kind][0](np.asarray(sub[key])))
+            for name, sub, key, kind in _flowtron_entries(np_params)}
+
+
+def flowtron_jax_from_state_dict(state_dict, like):
+    """Reference state_dict -> a numpy pytree of the JAX layout, with the
+    structure of ``like`` (a JAX ``flowtron_init`` pytree or a numpy copy
+    of one, which is not modified). Every parameter must be present."""
+    out = _copy_tree(like)
+    for name, sub, key, kind in _flowtron_entries(out):
+        value = state_dict[name].detach().cpu().float().numpy()
+        sub[key] = np.ascontiguousarray(_LAYOUT[kind][1](value))
+    return out
+
+
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_tree(v) for v in tree)
+    return np.asarray(tree)
+
+
+def radam_state_from_jax(np_state):
+    """A JAX ``RAdamState`` (count, exp_avg, exp_avg_sq with numpy leaves,
+    the moments shaped like the params) -> ``{"step": int, "exp_avg":
+    {name: tensor}, "exp_avg_sq": {name: tensor}}`` in the port's names
+    and layouts."""
+    return {"step": int(np.asarray(np_state.count)),
+            "exp_avg": flowtron_state_dict_from_jax(np_state.exp_avg),
+            "exp_avg_sq": flowtron_state_dict_from_jax(np_state.exp_avg_sq)}
+
+
+def radam_state_by_name(model, optimizer):
+    """The port's optimizer state in the shape ``radam_state_from_jax``
+    gives, for the parameters that have state."""
+    out = {"step": None, "exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p)
+        if not state:
+            continue
+        out["step"] = int(state["step"])
+        out["exp_avg"][name] = state["exp_avg"].detach().cpu()
+        out["exp_avg_sq"][name] = state["exp_avg_sq"].detach().cpu()
     return out
 
 

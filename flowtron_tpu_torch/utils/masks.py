@@ -28,3 +28,10 @@ def flip_time(x_tbf, lengths):
     idx = flip_within_length_indices(lengths, T).t()      # (T, B)
     idx = idx.reshape(idx.shape + (1,) * (x_tbf.ndim - 2)).expand_as(x_tbf)
     return torch.gather(x_tbf, 0, idx)
+
+
+def flip_time_batch_major(x_btf, lengths):
+    """Flip (B, T, ...) along T within per-sample lengths: the prior flip
+    of the back step and the CTC loss's un-flip (``_flip_prior`` and
+    flowtron_tpu/train/loss.py:111-116)."""
+    return flip_time(x_btf.transpose(0, 1), lengths).transpose(0, 1)

@@ -128,21 +128,39 @@ def _run(code_or_args, cwd=ROOT):
 
 
 def test_port_never_imports_jax():
-    """Import every module of the port (and run a tiny synthesis) in a
-    fresh interpreter: jax must stay out of sys.modules. A subprocess,
-    because this test process already imported jax."""
+    """Import every module of the port, the training slice's by name too,
+    and run a tiny synthesis and a tiny training step (forward, losses,
+    backward through K3's plain versions, RAdam) in a fresh interpreter:
+    jax must stay out of sys.modules. A subprocess, because this test
+    process already imported jax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import flowtron_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for name in ('train.loop', 'data.dataset', 'ops.attention', "
+        "'cli'):\n"
+        "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
         "flowtron_infer\n"
+        "from flowtron_tpu_torch.train.loop import make_train_step\n"
+        "from flowtron_tpu_torch.train.radam import RAdam\n"
         "m, c = flowtron_init(0, n_speaker_dim=4, n_text_dim=12, "
         "n_mel_channels=8, n_hidden=16, n_attn_channels=8)\n"
         "flowtron_infer(m, c, torch.zeros(1, 8, 3), torch.zeros(1).long(), "
         "torch.ones(1, 4).long())\n"
+        "opt = RAdam(m.parameters())\n"
+        "step = make_train_step(m, c, opt, list(m.parameters()), "
+        "{'sigma': 1.0, 'use_ctc_loss': True, 'grad_clip_val': 1.0})\n"
+        "batch = {'mel': torch.randn(2, 8, 5), 'speaker_ids': "
+        "torch.zeros(2).long(), 'text': torch.ones(2, 4).long(), "
+        "'in_lens': torch.tensor([4, 3]), 'out_lens': torch.tensor([5, 4]),"
+        " 'gate_target': torch.zeros(2, 5), 'attn_prior': "
+        "torch.full((2, 5, 4), 0.25)}\n"
+        "out = step(batch, torch.Generator().manual_seed(0), "
+        "torch.tensor(0.01), torch.tensor(1.0))\n"
+        "assert all(torch.isfinite(v) for v in out.values()), out\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.')]\n"
         "print('JAX_MODULES', bad)\n"
