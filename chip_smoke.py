@@ -5,12 +5,17 @@
 Builds the port's CUDA kernels from ``flowtron_tpu_torch/csrc/`` (into
 ``build/torch_kernels/``, one ``nvcc`` per source, all started together),
 holds each against its plain PyTorch version at its path's shapes, then
-drives the port's two paths at the full width of the repo's
+drives the port's three paths at the full width of the repo's
 ``config.json`` model, on seeded random weights:
 
 - inference (text -> mel -> audio) through
   ``flowtron_tpu_torch.infer.sampling`` with the
   ``configs/config_waveglow.json`` vocoder (kernels K1, K2);
+- batch serving: the HTTP server of ``flowtron_tpu_torch.serve``, built
+  in-process by ``serve/cli.py:build_server`` from the model saved to
+  ``.pt`` files, first unquantized (K1, K2), then with ``--quantize
+  w8a8`` (K4, K2), each answering concurrent ``POST /synthesize``
+  requests; then the quantized modes (w8, w8a8, w4) card against CPU;
 - training through ``flowtron_tpu_torch.cli.train_main`` on a synthetic
   coded-tone corpus written to a temporary directory: one epoch of 10
   steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
@@ -19,16 +24,18 @@ drives the port's two paths at the full width of the repo's
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Each phase prints one JSON line; the line before the
-last lists the kernels, the last line is ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the script exits non-zero and
-prints no result. There is no CPU fallback: without CUDA it exits
-non-zero at once.
+last lists the kernels (time, plain time, launches, the least time the
+card could take for the same work, and a PyTorch library call's time
+where one computes the same function), the last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the script exits
+non-zero and prints no result. There is no CPU fallback: without CUDA it
+exits non-zero at once.
 
-Imports nothing of JAX (checked at the end). The only module from beside
-the port that runs is the pure-Python text package ``flowtron_tpu.text``,
-which the port's ``data/frontend.py`` shares to turn text into ids.
+Imports nothing of JAX or of the JAX package ``flowtron_tpu`` (checked
+at the end): the port carries its own text frontend and config.
 """
 
+import io
 import json
 import math
 import os
@@ -36,7 +43,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -53,6 +63,23 @@ SLICE_TOL = 1e-3    # card slice vs CPU plain slice, fp32
 N_UTTS, N_VAL = 66, 6   # corpus: 60 training utterances = 10 steps at B=6
 LOSS_TOL, GNORM_TOL = 1e-4, 1e-3   # card step vs CPU plain step, relative
 INV_TOL = 1e-4      # invertibility oracle on the card, fp32
+K4_W8_TOL = 1e-5    # weight-only K4 vs plain, of the output scale (W8A8:
+                    # bitwise, its int32 sums are exact)
+QUANT_TOL = {"w8": 1e-3, "w4": 1e-3, "w8a8": 1e-2}   # card vs CPU mel
+# mel MAE over the fp32 mel's mean magnitude: JAX's bars
+# (tests/test_quantize.py:56,102), but for w4, whose 0.03 was set at
+# n_hidden 64 and which the JAX package itself misses at this width on
+# these weights (0.03393, tests/test_torch_port_quant_flagship.py)
+QUALITY_BAR = {"w8": 0.005, "w4": 0.04, "w8a8": 0.03}
+# the card's published peaks (H100 SXM, dense): HBM bytes/s and op/s
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"fp32": 67e12, "int8": 1979e12}
+# (K, N) of kernel K4's calls on the flagship decoder's path: the nine
+# per-frame dots of one flow, then the key/value precompute (once a flow)
+K4_FRAME_KN = [(80, 4096), (1024, 4096), (1664, 4096), (1024, 4096),
+               (1024, 4096), (1024, 4096), (1024, 640), (1024, 1024),
+               (1024, 1024)]
+K4_KN = sorted(set(K4_FRAME_KN)) + [(640, 640)]
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
     "Printing, in the only sense with which we are at present concerned.",
@@ -99,6 +126,45 @@ def paired_ms(kernel_fn, plain_fn, reps=1, plain_reps=1, rounds=3):
         runs += [p1, k1, k2, p2]
     return (statistics.median(runs[1::4] + runs[2::4]),
             statistics.median(runs[0::4] + runs[3::4]), runs, out_k, out_p)
+
+
+def graph_times(fns, side, reps=20, rounds=3):
+    """Device time per call of each fn in ``fns``: ``reps`` calls captured
+    in one CUDA graph each and replayed in turns (the first fn, the
+    second, ... then the reverse), ``rounds`` times; host dispatch does
+    not count. Returns each fn's median ms per call and its last output.
+    For kernels that finish faster than Python can launch them. ``side``
+    is the stream for the warm-up calls: one for the whole run, because
+    cuBLAS keeps a workspace for every stream it has seen."""
+    graphs, outs = [], []
+    for fn in fns:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                out = fn()
+        graphs.append(g)
+        outs.append(out)
+    runs = [[] for _ in fns]
+    for _ in range(rounds):
+        order = list(range(len(fns)))
+        for i in order + order[::-1]:
+            ms, _ = cuda_ms(graphs[i].replay)
+            runs[i].append(ms / reps)
+    return [statistics.median(r) for r in runs], outs
+
+
+def bound(n_bytes, n_ops, kind="fp32"):
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM's rate and the operations over the peak rate of their type.
+    Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def n_valid_of(gates, thresh):
@@ -218,6 +284,20 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
     return fields, max(errs + errs_e), out_k[2], expect
 
 
+def k1_bound(weights, N, B, Tk, D, M=80):
+    """K1's floor for one flow over N frames: the packed weights, latents,
+    keys, values and key mask read once, mel, attention and gates written
+    once, fp32; per frame and stream 2 operations per weight element and
+    6 per (text position, attention channel) of the attention."""
+    tensors = [t for v in weights.values()
+               for t in ([v] if torch.is_tensor(v) else
+                         [x for pair in v for x in pair])]
+    n_w = sum(t.numel() for t in tensors)
+    n_bytes = 4 * (n_w + 2 * N * B * M + 2 * B * Tk * D + B * Tk
+                   + N * B * Tk + N * B)
+    return bound(n_bytes, N * B * (2 * n_w + 6 * Tk * D))
+
+
 def phase_k1(model, cfg, ids, sid, dev):
     """K1 on the card: the gated last flow (run first on the main path) at
     Tk=128, then both flows at the main path's own shapes: the first
@@ -253,7 +333,9 @@ def phase_k1(model, cfg, ids, sid, dev):
             max_err = max(max_err, err)
             emit("k1", shape=shape, **fields)
             if shape == "request" and flow is gated:
-                times = (fields["kernel_ms"], fields["plain_ms"])
+                times = (fields["kernel_ms"], fields["plain_ms"]) + k1_bound(
+                    flow.packed_weights(), N_FRAMES, 1, text.shape[1],
+                    flow.attention_layer.query.linear_layer.weight.shape[0])
                 stop = gate_stop(gates[:, 0])
     return max_err, times, stop
 
@@ -287,9 +369,12 @@ def phase_k2(wg, dev):
         if out_k[0] is not None and Tp > T:
             check(bool((out_k[0][:, T:] == 0).all()), "K2 pad rows not zero")
         max_err = max([max_err] + abs_errs)
-        if Tp == T and layer == 3:
-            times = (k_ms, p_ms)
         flops = 2 * Tp * (3 * C * 2 * C + C * w_rs.shape[1])
+        if Tp == T and layer == 3:
+            # x, cond, weights and biases read once; x' and skip written
+            n_bytes = 4 * (Tp * C + Tp * 2 * C + 3 * C * 2 * C + 2 * C
+                           + C * w_rs.shape[1] + w_rs.shape[1] + 2 * Tp * C)
+            times = (k_ms, p_ms) + bound(n_bytes, flops)
         emit("k2", layer=layer, last=out_k[0] is None, C=C, B=1, T=T, Tp=Tp,
              max_abs_err=max(abs_errs), max_rel_err=max(errs),
              kernel_ms=k_ms, plain_ms=p_ms,
@@ -404,13 +489,249 @@ def phase_cpu_agreement(model, cfg, wg, wg_cfg, dev):
          max_abs_err_mel=mel_err, max_rel_err_audio=audio_err)
 
 
+def k4_case(M, K, N, a8, g, side, dev):
+    """K4 against its plain version on the card at (M, K, N), with the
+    fp32 cuBLAS product on the pre-dequantized weight as the library
+    yardstick, all three timed as device time in CUDA graphs (one call
+    takes microseconds, less than Python needs to launch it); the eager
+    call's time, host dispatch included, beside them. Returns the fields
+    to print."""
+    from flowtron_tpu_torch.infer.quantize import _quantize_matrix
+    from flowtron_tpu_torch.ops.qmm import (
+        quantized_matmul, quantized_matmul_reference)
+
+    leaf = _quantize_matrix(0.05 * torch.randn(N, K, generator=g), a8=a8)
+    x = torch.randn(M, K, generator=g).to(dev)
+    q, s = leaf.q.to(dev), leaf.s.to(dev)
+    w = q.float() * s[:, None]
+    (k_ms, p_ms, lib_ms), (out_k, out_p, _) = graph_times([
+        lambda: quantized_matmul(x, q, s, a8=a8),
+        lambda: quantized_matmul_reference(x, q, s, a8=a8),
+        lambda: torch.nn.functional.linear(x, w)], side)
+    # the same call launched from Python, as the per-frame loop does
+    eager_ms, _ = cuda_ms(lambda: quantized_matmul(x, q, s, a8=a8), reps=20)
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    tag = f"K4 {'w8a8' if a8 else 'w8'} M={M} K={K} N={N}"
+    check(math.isfinite(err), f"{tag} not finite")
+    if a8:
+        check(torch.equal(out_k, out_p), f"{tag} not bitwise: err {err}")
+    else:
+        check(err <= K4_W8_TOL * scale, f"{tag} err {err} scale {scale}")
+    n_bytes = 4 * M * K + N * K + 4 * N + 4 * M * N
+    bound_ms, bound_by = bound(n_bytes, 2 * M * K * N,
+                               "int8" if a8 else "fp32")
+    return dict(body="w8a8" if a8 else "w8", M=M, K=K, N=N,
+                max_abs_err=err, scale=scale, kernel_ms=k_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                eager_call_ms=eager_ms)
+
+
+def phase_k4(dev):
+    """K4's two bodies against their plain versions at every (K, N) of the
+    flagship path, M in {1, 8, 64}, and one unaligned shape. Returns, per
+    body, the max error and one flow-frame's nine calls at M = 8 summed:
+    (kernel ms, plain ms, bound ms, bound_by, library ms)."""
+    g = torch.Generator().manual_seed(14)
+    side = torch.cuda.Stream()
+    table = {}
+    for a8 in (True, False):
+        cases, max_err = {}, 0.0
+        for (K, N) in K4_KN:
+            for M in (1, 8, 64):
+                cases[M, K, N] = k4_case(M, K, N, a8, g, side, dev)
+        cases[3, 100, 200] = k4_case(3, 100, 200, a8, g, side, dev)
+        for f in cases.values():
+            max_err = max(max_err, f["max_abs_err"])
+            emit("k4", **f)
+        frame = [cases[8, K, N] for K, N in K4_FRAME_KN]
+        sums = {k: sum(f[k] for f in frame)
+                for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                          "eager_call_ms")}
+        by = "bytes" if all(f["bound_by"] == "bytes" for f in frame) \
+            else "operations"
+        emit("k4_flow_frame", body="w8a8" if a8 else "w8", M=8,
+             calls=len(frame), **sums, bound_by=by)
+        table["w8a8" if a8 else "w8"] = (
+            max_err, sums["kernel_ms"], sums["plain_ms"], sums["bound_ms"],
+            by, sums["library_ms"])
+    return table
+
+
+def post_wav(url, body):
+    """POST /synthesize; returns (status, wall seconds, sample rate,
+    samples, peak |sample|)."""
+    req = urllib.request.Request(url + "/synthesize",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status, data = r.status, r.read()
+    wall = time.perf_counter() - t0
+    with wave.open(io.BytesIO(data)) as w:
+        rate, n = w.getframerate(), w.getnframes()
+        pcm = torch.frombuffer(bytearray(w.readframes(n)), dtype=torch.int16)
+    return status, wall, rate, n, int(pcm.abs().max()) if n else 0
+
+
+def wave_of(url, bodies):
+    """Send every body at once, each from its own thread; returns the
+    results in order and the wall time of the whole wave."""
+    out = [None] * len(bodies)
+    errors = []
+
+    def run(i):
+        try:
+            out[i] = post_wav(url, bodies[i])
+        except Exception as e:          # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not errors and all(o is not None for o in out),
+          f"requests failed: {errors}")
+    return out, time.perf_counter() - t0
+
+
+def get_json(url, path):
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def check_answers(tag, bodies, results, n_frames):
+    for body, (status, _, rate, n, peak) in zip(bodies, results):
+        cap = min(body.get("n_frames", n_frames), n_frames)
+        check(status == 200 and rate == SR, f"{tag}: status {status} rate "
+              f"{rate}")
+        check(n % HOP == 0 and 0 < n <= cap * HOP,
+              f"{tag}: {n} samples for a cap of {cap} frames")
+        check(peak > 0, f"{tag}: silent answer")
+
+
+def phase_serve(ft_path, wg_path, kernels, quantize):
+    """The batch-serving path: the port's HTTP server built in-process by
+    serve/cli.py:build_server (--warmup), then 8 concurrent requests (the four
+    texts x 2 seeds) with one capped at 120 frames alongside, then a wave
+    of 4 with mixed temperatures. Returns the launches of the main wave
+    and of the mixed wave."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    argv = ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port",
+            "0", "--warmup"] + (["--quantize", quantize] if quantize else [])
+    tag = f"serve {quantize or 'fp32'}"
+    t0 = time.perf_counter()
+    server, engines = build_server(argv, host="127.0.0.1")
+    start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        get_json(url, "/healthz")   # the first request's one-time imports
+        bodies = [{"text": t, "seed": REQ_SEED + k}
+                  for k in range(2) for t in TEXTS]
+        bodies.append({"text": TEXTS[3], "seed": REQ_SEED + 9,
+                       "n_frames": 120})
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        results, wall = wave_of(url, bodies)
+        torch.cuda.synchronize()
+        main_launches = read_launches(kernels)
+        check_answers(tag, bodies, results, N_FRAMES)
+        metrics = get_json(url, "/metrics")
+        check(metrics["batches"] < metrics["requests"],
+              f"{tag}: no micro-batching {metrics}")
+        mixed = [{"text": TEXTS[i], "seed": REQ_SEED + 20 + i,
+                  "temperature": 0.7 + 0.2 * i} for i in range(4)]
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        mixed_results, mixed_wall = wave_of(url, mixed)
+        torch.cuda.synchronize()
+        mixed_launches = read_launches(kernels)
+        check_answers(tag + " mixed", mixed, mixed_results, N_FRAMES)
+        metrics = get_json(url, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        for eng in engines.values():
+            eng.shutdown()
+        torch.cuda.empty_cache()
+    audio_s = [n / SR for _, _, _, n, _ in results]
+    emit("serve", quantize=quantize or None, build_and_warmup_s=start_s,
+         requests=len(bodies), wall_s=wall, requests_per_s=len(bodies) / wall,
+         latency_s=[r[1] for r in results],
+         rtf=[r[1] / a for r, a in zip(results, audio_s)],
+         audio_s=audio_s, mixed_wall_s=mixed_wall,
+         mixed_latency_s=[r[1] for r in mixed_results],
+         batches=metrics["batches"], served=metrics["requests"],
+         batch_ms_p50=metrics.get("batch_ms_p50"),
+         batch_ms_p90=metrics.get("batch_ms_p90"),
+         launches=main_launches, mixed_launches=mixed_launches)
+    return main_launches, mixed_launches
+
+
+def quant_inputs(N=24, B=2):
+    """phase_quant_vs_cpu's latents, speaker ids, text and text lengths
+    (tests/test_torch_port_quant_flagship.py runs the JAX package on the
+    same)."""
+    g = torch.Generator().manual_seed(6)
+    residual = 0.5 * torch.randn(B, 80, N, generator=g)
+    text = torch.randint(1, 185, (B, 20), generator=g)
+    return residual, torch.zeros(B, dtype=torch.long), text, \
+        torch.tensor([20, 13])
+
+
+def phase_quant_vs_cpu(model, cfg, dev):
+    """The three quantized modes at flagship width on a short input: the
+    card (K4 for w8a8, the per-frame loop for all) against the CPU plain
+    path, and each mode's mel against the unquantized one."""
+    from flowtron_tpu_torch.infer.quantize import quantize_flows_for_inference
+    from flowtron_tpu_torch.models.flowtron import flowtron_infer
+
+    residual, sids, text, in_lens = quant_inputs()
+    B, _, N = residual.shape
+    cpu = torch.device("cpu")
+
+    def run(m, d):
+        return flowtron_infer(m.to(d), cfg, residual.to(d), sids.to(d),
+                              text.to(d), gate_threshold=1e6,
+                              in_lens=in_lens.to(d))[0].cpu()
+
+    mel_fp = run(model, cpu)
+    model.to(dev)
+    scale = float(mel_fp.abs().mean())
+    out = {}
+    for mode in ("w8", "w8a8", "w4"):
+        q = quantize_flows_for_inference(model, mode=mode)
+        mel_card = run(q, dev)
+        mel_cpu = run(q, cpu)
+        del q
+        err = float((mel_card - mel_cpu).abs().max())
+        quality = float((mel_cpu - mel_fp).abs().mean()) / scale
+        check(err <= QUANT_TOL[mode], f"{mode} card vs cpu mel err {err}")
+        check(quality < QUALITY_BAR[mode], f"{mode} quality {quality}")
+        out[mode] = {"max_abs_err_card_vs_cpu": err,
+                     "mae_over_fp32_scale": quality}
+    torch.cuda.empty_cache()
+    emit("quant_vs_cpu", N=N, B=B, fp32_scale=scale, **out)
+
+
 def reset_launches(kernels):
-    for fn in kernels.values():
-        fn.launches = 0
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
 
 
 def read_launches(kernels):
-    return {name: fn.launches for name, fn in kernels.items()}
+    """Each counter, K4's split by body: quantized_matmul counts both
+    bodies' launches, quantized_matmul_w8a8 the W8A8 body's."""
+    out = {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
+    out["quantized_matmul_w8"] = out.pop("quantized_matmul") \
+        - out["quantized_matmul_w8a8"]
+    return out
 
 
 def train_args(corpus, out_dir, fp16_run):
@@ -487,8 +808,17 @@ def phase_k3(shape, D, dev):
                  fwd_runs_plain_kernel_kernel_plain_ms=f_runs,
                  bwd_runs_plain_kernel_kernel_plain_ms=b_runs)
             if tag == "train_batch" and dtype == torch.float32:
-                table = {"fwd": (fwd_err, f_ms, fp_ms),
-                         "bwd": (max(bwd_abs), b_ms, bp_ms)}
+                # q, k, v (and ds) read once, scores (or dq, dk, dv)
+                # written once; 4 operations per (b, t, k, d) forward
+                # (add, tanh, multiply, add), 10 backward (recompute add
+                # and tanh, 1 - t^2, two products, three accumulations)
+                qkv = b * tq * D + b * tk * D + D
+                elems = b * tq * tk * D
+                table = {
+                    "fwd": (fwd_err, f_ms, fp_ms)
+                    + bound(4 * (qkv + b * tq * tk), 4 * elems),
+                    "bwd": (max(bwd_abs), b_ms, bp_ms)
+                    + bound(4 * (2 * qkv + b * tq * tk), 10 * elems)}
     return table
 
 
@@ -504,6 +834,7 @@ def phase_train(corpus, tmp, kernels, dev):
         out_dir = os.path.join(tmp, "bf16" if fp16_run else "fp32")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)    # by earlier phases
         reset_launches(kernels)
         t0 = time.perf_counter()
         train_main(train_args(corpus, out_dir, fp16_run))
@@ -527,7 +858,9 @@ def phase_train(corpus, tmp, kernels, dev):
               and launches[fp16_run]["attention_scores_bwd"] > 0,
               f"train {tag}: K3 not launched {launches[fp16_run]}")
         check(launches[fp16_run]["fused_flow_infer"] == 0
-              and launches[fp16_run]["wn_layer"] == 0,
+              and launches[fp16_run]["wn_layer"] == 0
+              and launches[fp16_run]["quantized_matmul_w8a8"] == 0
+              and launches[fp16_run]["quantized_matmul_w8"] == 0,
               f"train {tag}: inference kernels launched")
         check(os.path.exists(os.path.join(out_dir, "model_9.pt")),
               f"train {tag}: no checkpoint model_9.pt")
@@ -544,6 +877,7 @@ def phase_train(corpus, tmp, kernels, dev):
                  r["step_s"] for r in timed),
              mel_frames_per_s=frames / seconds,
              peak_memory_allocated_bytes=peak,
+             allocated_before_run_bytes=held,
              validation=[{"iteration": r["iteration"], **r["validation"]}
                          for r in vals],
              wall_s=wall, launches=launches[fp16_run])
@@ -654,12 +988,18 @@ def main():
     from flowtron_tpu_torch.ops.attention import (
         attention_scores_bwd, attention_scores_fwd)
     from flowtron_tpu_torch.ops.decoder import fused_flow_infer
+    from flowtron_tpu_torch.ops.qmm import quantized_matmul
     from flowtron_tpu_torch.ops.wavenet import wn_layer
     from flowtron_tpu_torch.vocoder.waveglow import waveglow_init
 
-    kernels = {"fused_flow_infer": fused_flow_infer, "wn_layer": wn_layer,
-               "attention_scores_fwd": attention_scores_fwd,
-               "attention_scores_bwd": attention_scores_bwd}
+    # name -> (wrapper, counter attribute); read_launches splits K4's total
+    # into its two bodies
+    kernels = {"fused_flow_infer": (fused_flow_infer, "launches"),
+               "wn_layer": (wn_layer, "launches"),
+               "attention_scores_fwd": (attention_scores_fwd, "launches"),
+               "attention_scores_bwd": (attention_scores_bwd, "launches"),
+               "quantized_matmul": (quantized_matmul, "launches"),
+               "quantized_matmul_w8a8": (quantized_matmul, "launches_w8a8")}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -669,7 +1009,7 @@ def main():
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
 
-    names = ("decoder", "wavenet", "attention")
+    names = ("decoder", "wavenet", "attention", "qmm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.load_library, names))
@@ -691,16 +1031,39 @@ def main():
 
     k1_err, k1_times, stop = phase_k1(model, cfg, ids, sid, dev)
     k2_err, k2_times = phase_k2(wg, dev)
+    k4 = phase_k4(dev)
 
     reset_launches(kernels)                  # the inference path
     phase_slice(model, cfg, wg, wg_cfg, ids, sid, stop, dev)
     infer_launches = read_launches(kernels)
     check(infer_launches["fused_flow_infer"] > 0
-          and infer_launches["wn_layer"] > 0,
-          f"inference path skipped a kernel: {infer_launches}")
+          and infer_launches["wn_layer"] > 0
+          and infer_launches["quantized_matmul_w8a8"] == 0,
+          f"inference path: {infer_launches}")
     phase_cpu_agreement(model, cfg, wg, wg_cfg, dev)
-    del model, wg
-    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the model as phase_slice left it: heads perturbed, the gate
+        # biased off, so served requests run to their n_frames caps
+        ft_path, wg_path = (os.path.join(tmp, n) for n in ("ft.pt", "wg.pt"))
+        torch.save(model.state_dict(), ft_path)
+        torch.save(wg.state_dict(), wg_path)
+        phase_quant_vs_cpu(model, cfg, dev)
+        del model, wg
+        torch.cuda.empty_cache()
+        serve, mixed = phase_serve(ft_path, wg_path, kernels, "")
+        check(serve["fused_flow_infer"] > 0 and serve["wn_layer"] > 0
+              and serve["quantized_matmul_w8a8"] == 0
+              and serve["quantized_matmul_w8"] == 0,
+              f"fp32 serving path: {serve}")
+        check(mixed["fused_flow_infer"] == 0 and mixed["wn_layer"] > 0,
+              f"mixed-temperature wave went through K1: {mixed}")
+        q_serve, _ = phase_serve(ft_path, wg_path, kernels, "w8a8")
+        check(q_serve["quantized_matmul_w8a8"] > 0
+              and q_serve["wn_layer"] > 0
+              and q_serve["fused_flow_infer"] == 0
+              and q_serve["quantized_matmul_w8"] == 0,
+              f"w8a8 serving path: {q_serve}")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -715,31 +1078,47 @@ def main():
         phase_train_vs_cpu(config, dev)
         phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
                              ids, sid, dev)
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = [m for m in sys.modules if m in ("jax", "flowtron_tpu")
+              or m.startswith(("jax.", "flowtron_tpu."))]
+    check(not loaded, f"the JAX package or jax was imported: {loaded}")
 
+    def row(name, source, replaces, launches, err, times, library_ms=None):
+        ms, plain_ms, bound_ms, bound_by = times[:4]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    # K1: one gated flow of the first request (B=1, 400 frames); K2: one
+    # WN layer at T=12800; K3: the first training batch, fp32; K4: one
+    # flow-frame's nine calls at B=8, summed (the library call is the
+    # fp32 cuBLAS product on the pre-dequantized weight). K4's launches
+    # are the w8a8 server's main wave: JAX routes only a8 leaves to the
+    # kernel, so the weight-only body launches 0 times on any path.
     print(json.dumps({"kernels": [
-        {"name": "fused_flow_infer", "route": "cuda",
-         "source": "flowtron_tpu_torch/csrc/decoder.cu",
-         "replaces": "flowtron_tpu/ops/decoder_pallas.py:229",
-         "launches": infer_launches["fused_flow_infer"],
-         "max_abs_err": k1_err, "ms": k1_times[0], "plain_ms": k1_times[1]},
-        {"name": "wn_layer", "route": "cuda",
-         "source": "flowtron_tpu_torch/csrc/wavenet.cu",
-         "replaces": "flowtron_tpu/ops/wavenet_pallas.py:57",
-         "launches": infer_launches["wn_layer"], "max_abs_err": k2_err,
-         "ms": k2_times[0], "plain_ms": k2_times[1]},
-        {"name": "attention_scores_fwd", "route": "cuda",
-         "source": "flowtron_tpu_torch/csrc/attention.cu",
-         "replaces": "flowtron_tpu/ops/attention_pallas.py:46",
-         "launches": train_launches["attention_scores_fwd"],
-         "max_abs_err": k3["fwd"][0], "ms": k3["fwd"][1],
-         "plain_ms": k3["fwd"][2]},
-        {"name": "attention_scores_bwd", "route": "cuda",
-         "source": "flowtron_tpu_torch/csrc/attention.cu",
-         "replaces": "flowtron_tpu/ops/attention_pallas.py:92",
-         "launches": train_launches["attention_scores_bwd"],
-         "max_abs_err": k3["bwd"][0], "ms": k3["bwd"][1],
-         "plain_ms": k3["bwd"][2]},
+        row("fused_flow_infer", "flowtron_tpu_torch/csrc/decoder.cu",
+            "flowtron_tpu/ops/decoder_pallas.py:229",
+            infer_launches["fused_flow_infer"], k1_err, k1_times),
+        row("wn_layer", "flowtron_tpu_torch/csrc/wavenet.cu",
+            "flowtron_tpu/ops/wavenet_pallas.py:57",
+            infer_launches["wn_layer"], k2_err, k2_times),
+        row("attention_scores_fwd", "flowtron_tpu_torch/csrc/attention.cu",
+            "flowtron_tpu/ops/attention_pallas.py:46",
+            train_launches["attention_scores_fwd"], k3["fwd"][0],
+            k3["fwd"][1:]),
+        row("attention_scores_bwd", "flowtron_tpu_torch/csrc/attention.cu",
+            "flowtron_tpu/ops/attention_pallas.py:92",
+            train_launches["attention_scores_bwd"], k3["bwd"][0],
+            k3["bwd"][1:]),
+        row("quantized_matmul_w8a8", "flowtron_tpu_torch/csrc/qmm.cu",
+            "flowtron_tpu/ops/qmm_pallas.py:37",
+            q_serve["quantized_matmul_w8a8"], k4["w8a8"][0],
+            k4["w8a8"][1:5], k4["w8a8"][5]),
+        row("quantized_matmul_w8", "flowtron_tpu_torch/csrc/qmm.cu",
+            "flowtron_tpu/ops/qmm_pallas.py:31",
+            q_serve["quantized_matmul_w8"], k4["w8"][0], k4["w8"][1:5],
+            k4["w8"][5]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

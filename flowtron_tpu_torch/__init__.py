@@ -6,19 +6,25 @@ part is found at the same path as its reference. The JAX package stays the
 reference: every ported part loads the same weights and is tested against
 its JAX counterpart on the CPU.
 
-The inference path (text ids -> mel -> audio) runs on an NVIDIA H100
-through two hand-written CUDA kernels, built with ``nvcc`` at first use
+Inference, batch serving (``serve/``, with the quantized modes of
+``infer/quantize.py``) and training run on an NVIDIA H100 through four
+hand-written CUDA kernels, built with ``nvcc`` at first use
 (``ops/_build.py``):
 
 - ``ops/decoder.py`` + ``csrc/decoder.cu``: one flow's whole inverse AR
   scan (replaces ``flowtron_tpu/ops/decoder_pallas.py``).
 - ``ops/wavenet.py`` + ``csrc/wavenet.cu``: one WaveGlow WN layer
   (replaces ``flowtron_tpu/ops/wavenet_pallas.py``).
+- ``ops/attention.py`` + ``csrc/attention.cu``: the attention scores,
+  forward and backward (replaces ``flowtron_tpu/ops/attention_pallas.py``).
+- ``ops/qmm.py`` + ``csrc/qmm.cu``: the int8 matmul of the quantized
+  modes (replaces ``flowtron_tpu/ops/qmm_pallas.py``).
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
-The package imports ``torch`` and never ``jax``; the host text frontend
-(``flowtron_tpu.text``) and ``flowtron_tpu.config`` are shared, because
-neither imports jax.
+The package imports ``torch`` and nothing of ``jax`` or ``flowtron_tpu``:
+it carries its own copies of the text frontend (``text/``) and the config
+loader (``config.py``). Its entry points run on ``cuda:0`` unless
+``FLOWTRON_PLATFORM=cpu`` or ``device="cpu"`` asks for the CPU.
 """
 
 __version__ = "0.1.0"

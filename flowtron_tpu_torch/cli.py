@@ -1,7 +1,8 @@
 """Command-line training and inference (port of ``train_main`` and
 ``inference_main`` in flowtron_tpu/cli.py): ``-c config.json`` plus
-``-p a.b=c`` overrides, the same flags as the JAX CLI. Runs on the first
-CUDA device when there is one, else on the CPU.
+``-p a.b=c`` overrides, the same flags as the JAX CLI. Runs on ``cuda:0``;
+``FLOWTRON_PLATFORM=cpu`` runs on the CPU instead, and without CUDA and
+without that variable the commands raise (``utils/device.py``).
 
     flowtron-torch-train -c config.json -p train_config.epochs=1 ...
     flowtron-torch-infer -c config.json -f model.pt -w waveglow.pt -t "text"
@@ -9,7 +10,7 @@ CUDA device when there is one, else on the CPU.
 
 import argparse
 
-from flowtron_tpu.config import load_config
+from flowtron_tpu_torch.config import load_config
 
 
 def train_main(argv=None):
@@ -46,9 +47,13 @@ def inference_main(argv=None):
     parser.add_argument("-d", "--denoise", type=float, default=0.0,
                         help="denoiser strength (not yet ported; must be 0)")
     parser.add_argument("--int8", action="store_true",
-                        help="not yet ported")
+                        help="int8 weight-only flows (alias for --quantize "
+                             "w8)")
     parser.add_argument("--quantize", choices=("w8", "w8a8", "w4"),
-                        default="", help="not yet ported")
+                        default="",
+                        help="flow-weight quantization: w8 = int8 weights, "
+                             "w8a8 = int8 weights and activations (kernel "
+                             "K4), w4 = packed int4 weights")
     parser.add_argument("--fused", action="store_true",
                         help="stop computing once every stream's gate has "
                              "fired (the decoder kernel's early exit); on "
@@ -56,11 +61,9 @@ def inference_main(argv=None):
     parser.add_argument("--stream", action="store_true",
                         help="not yet ported")
     args = parser.parse_args(argv)
-    for flag, on in (("--quantize", args.quantize), ("--int8", args.int8),
-                     ("--stream", args.stream)):
-        if on:
-            parser.error(f"{flag} is not yet ported to the PyTorch package "
-                         "(see ROADMAP.md)")
+    if args.stream:
+        parser.error("--stream is not yet ported to the PyTorch package "
+                     "(see ROADMAP.md Queue 1, slice C item 17)")
 
     config = load_config(args.config, args.params)
     from flowtron_tpu_torch.infer.sampling import run_inference

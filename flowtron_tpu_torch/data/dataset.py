@@ -3,7 +3,7 @@
 reference:data.py:59-188).
 
 Host-side numpy end to end: the wav is read with scipy, the log-mel comes
-from the port's numpy ``MelSpectrogram``, the text from the shared text
+from the port's numpy ``MelSpectrogram``, the text from the port's text
 package through ``data/frontend.py:TextFrontend`` (same filelist shuffle
 and ARPAbet draws from one ``random.Random(seed)``), the prior from
 ``data/prior.py``. The prior disk cache is on only at ``p_arpabet ==

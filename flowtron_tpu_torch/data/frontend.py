@@ -2,11 +2,11 @@
 
 Carries the text half of ``flowtron_tpu.data.dataset.Data``
 (``get_text`` and ``get_speaker_id``, flowtron_tpu/data/dataset.py:209-223)
-and shares the pure-Python text package ``flowtron_tpu.text`` instead of
-copying it (that package never imports jax). The random stream is the
-same ``random.Random(seed)``, including the filelist shuffle that comes
-before any ARPAbet draw, so both packages give the same ids for the same
-data config.
+over the port's own copy of the text package (``flowtron_tpu_torch.text``,
+a copy of ``flowtron_tpu/text/`` with only its imports changed). The random
+stream is the same ``random.Random(seed)``, including the filelist shuffle
+that comes before any ARPAbet draw, so both packages give the same ids for
+the same data config.
 """
 
 import random
@@ -14,11 +14,11 @@ import re
 
 import numpy as np
 
-from flowtron_tpu.text import (
+from flowtron_tpu_torch.text import (
     _clean_text, get_arpabet, set_heteronyms_path, text_to_sequence,
 )
-from flowtron_tpu.text import cleaners as _cleaners
-from flowtron_tpu.text.cmudict import CMUDict
+from flowtron_tpu_torch.text import cleaners as _cleaners
+from flowtron_tpu_torch.text.cmudict import CMUDict
 
 
 def _load_filelist(path, split="|"):

@@ -2,9 +2,12 @@
 ``synthesize`` and ``run_inference`` in flowtron_tpu/infer/sampling.py).
 
 Loads a reference-format ``.pt`` state_dict, turns text into ids through
-the shared frontend, samples z ~ N(0, sigma^2) from a seeded
+the port's frontend, samples z ~ N(0, sigma^2) from a seeded
 ``torch.Generator``, inverts the flows and vocodes with WaveGlow. On a
-CUDA device the flows run kernel K1 and the vocoder's WN layers kernel K2.
+CUDA device the flows run kernel K1 (a quantized flow runs the per-frame
+loop, with kernel K4 for ``w8a8``) and the vocoder's WN layers kernel K2.
+``run_inference`` runs on ``cuda:0`` unless asked for the CPU
+(``utils/device.py``).
 """
 
 import os
@@ -14,7 +17,9 @@ import numpy as np
 import torch
 
 from flowtron_tpu_torch.data.frontend import TextFrontend
+from flowtron_tpu_torch.infer.quantize import quantize_flows_for_inference
 from flowtron_tpu_torch.models.flowtron import flowtron_init, flowtron_infer
+from flowtron_tpu_torch.utils.device import resolve_device
 from flowtron_tpu_torch.vocoder.waveglow import load_waveglow, waveglow_infer
 
 
@@ -74,7 +79,9 @@ def write_wav(path, audio, sampling_rate):
 
 
 def run_inference(config, args, device=None):
-    """CLI entry (reference:inference.py:93-132 contract, with ``-w``)."""
+    """CLI entry (reference:inference.py:93-132 contract, with ``-w``).
+    ``args.quantize`` ("w8", "w8a8", "w4") or ``args.int8`` (w8) quantize
+    the flows first, as flowtron_tpu/infer/sampling.py:128-132 does."""
     if not args.waveglow_path:
         raise NotImplementedError(
             "Griffin-Lim is not ported yet (see ROADMAP.md Queue 1, "
@@ -82,11 +89,15 @@ def run_inference(config, args, device=None):
     if getattr(args, "denoise", 0.0) > 0:
         raise NotImplementedError(
             "the denoiser is not ported yet (see ROADMAP.md Queue 1, "
-            "'Vocoder: Denoiser')")
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+            "slice C item 21)")
+    device = resolve_device(device)
     data_config = config["data_config"]
     model, static_cfg = load_model_for_inference(config, args.flowtron_path,
                                                  device)
+    qmode = getattr(args, "quantize", "") or (
+        "w8" if getattr(args, "int8", False) else "")
+    if qmode:
+        model = quantize_flows_for_inference(model, mode=qmode)
     wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
     frontend = TextFrontend.from_config(data_config)
     text_ids = frontend.get_text(args.text)

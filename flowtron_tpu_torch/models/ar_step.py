@@ -9,13 +9,16 @@ stack and the zero-init coupling head (reference:flowtron.py:645-773).
 Inference inverts a flow frame by frame: ``out_t = (z_t - b_t) *
 exp(-log_s_t)`` (reference:flowtron.py:775-828).
 
-Routing: on CUDA tensors every flow runs through kernel K1
-(``ops/decoder.py``); ``fused="early"`` switches its early exit on. A flow
-outside K1's subset (attention prior, per-stream temperature) raises on
-CUDA. On CPU tensors ``fused=False`` runs the plain per-frame loop below
-(the JAX scan body, flowtron_tpu/models/ar_step.py:262-314) and a truthy
-``fused`` runs K1's plain version, or the loop for a flow outside the
-subset, as the JAX package falls back to its scan.
+Routing, as the JAX package's (flowtron_tpu/models/ar_step.py:219-227
+with ops/decoder_pallas.py:358-371), through one predicate,
+``in_k1_subset``: a flow with a scalar temperature, no attention prior and
+no quantized weight runs kernel K1 (``ops/decoder.py``) on CUDA tensors,
+``fused="early"`` switching its early exit on; on CPU tensors a truthy
+``fused`` runs K1's plain version and ``fused=False`` the loop below. Any
+other flow runs the per-frame loop ``_scan_infer`` on either device: it is
+the counterpart of JAX's ``lax.scan`` (its body,
+flowtron_tpu/models/ar_step.py:262-314), with every dot through
+``utils/weights.py:qdot`` (so kernel K4 on an ``a8`` quantized flow).
 """
 
 import torch
@@ -28,6 +31,7 @@ from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm, linear
 from flowtron_tpu_torch.ops.decoder import pack_flow_weights, fused_flow_infer
 from flowtron_tpu_torch.ops.lstm import LSTM, lstm_cell, lstm_forward
 from flowtron_tpu_torch.utils.masks import flip_time, flip_time_batch_major
+from flowtron_tpu_torch.utils.weights import is_quantized, qdot
 
 
 class ARStep(nn.Module):
@@ -137,21 +141,31 @@ def _n_valid_from_gates(gates, gate_threshold, n_valid):
     return nv if n_valid is None else torch.minimum(n_valid.to(nv.dtype), nv)
 
 
+def in_k1_subset(flow, attn_prior, temperature):
+    """Whether kernel K1 can run this flow: a scalar temperature, no
+    attention prior and no quantized weight. (External and cumulative
+    attention, the rest of the JAX condition, are not ported and raise
+    before this point.)"""
+    scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
+    return scalar_temp and attn_prior is None and not is_quantized(flow)
+
+
 def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature):
-    """The plain per-frame loop: the JAX scan body written out."""
+    """The per-frame loop: the JAX scan body written out, every dot
+    through ``qdot``."""
     N, B, n_mel = residual.shape
     k_proj, vals = attention_precompute(flow.attention_layer, text, text)
     att_w_ih, att_w_hh, att_b_ih, att_b_hh = \
         flow.attention_lstm.layer_weights(0)
     layers = [flow.lstm.layer_weights(k) for k in range(flow.lstm.num_layers)]
-    H = att_w_hh.shape[1]
+    H = att_w_hh.shape[1]             # (4H, H), float or quantized
     h_att = c_att = residual.new_zeros(B, H)
     hs = [residual.new_zeros(B, H) for _ in layers]
     cs = [residual.new_zeros(B, H) for _ in layers]
     prev = residual.new_zeros(B, n_mel)
     mels, attns, gates = [], [], []
     for t in range(N):
-        h_att, c_att = lstm_cell(prev @ att_w_ih.t() + att_b_ih + att_b_hh,
+        h_att, c_att = lstm_cell(qdot(prev, att_w_ih) + att_b_ih + att_b_hh,
                                  h_att, c_att, att_w_hh)
         prior_t = None if attn_prior is None else attn_prior[:, t]
         context, attn_w = attention_step(
@@ -161,8 +175,8 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature):
         gate = torch.sigmoid(flow.gate_layer(x))[:, 0] \
             if hasattr(flow, "gate_layer") else residual.new_zeros(B)
         for k, (w_ih, w_hh, b_ih, b_hh) in enumerate(layers):
-            hs[k], cs[k] = lstm_cell(x @ w_ih.t() + b_ih + b_hh, hs[k], cs[k],
-                                     w_hh)
+            hs[k], cs[k] = lstm_cell(qdot(x, w_ih) + b_ih + b_hh, hs[k],
+                                     cs[k], w_hh)
             x = hs[k]
         out2 = torch.nn.functional.linear(
             flow.dense_layer(x), flow.conv.weight[:, :, 0], flow.conv.bias)
@@ -183,22 +197,17 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
       residual: (N, B, n_mel) latents (or the previous flow's output).
       text: (Tk, B, text+speaker) encoder outputs.
       key_mask: (B, Tk) bool or None. attn_prior: (B, N, Tk) or None.
-      temperature: scalar, or (B, 1) per stream (plain loop only).
+      temperature: scalar, or (B, 1) per stream (runs the loop).
       n_valid: (B,) frames valid in ``residual``; None means all N.
-      fused: on CPU, truthy runs K1's plain version instead of the loop;
-        ``"early"`` turns on early exit (see ops/decoder.py).
+      fused: on CPU, truthy runs K1's plain version instead of the loop
+        for a flow in K1's subset; ``"early"`` turns on early exit (see
+        ops/decoder.py).
 
     Returns (mel (N, B, n_mel), attn (B, N, Tk), n_valid (B,)).
     """
     N, B, _ = residual.shape
-    scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
-    in_subset = attn_prior is None and scalar_temp
-    if residual.device.type == "cuda" and not in_subset:
-        raise NotImplementedError(
-            "this flow is outside the CUDA decoder kernel's subset "
-            "(attention prior or per-stream temperature); see ROADMAP.md "
-            "Queue 1, 'K1 subset: prior and per-stream temperature'")
-    if residual.device.type == "cuda" or (fused and in_subset):
+    if in_k1_subset(flow, attn_prior, temperature) and (
+            residual.device.type == "cuda" or fused):
         k_proj, vals = attention_precompute(flow.attention_layer, text, text)
         km = torch.ones(B, text.shape[0], device=residual.device) \
             if key_mask is None else key_mask.to(torch.float32)

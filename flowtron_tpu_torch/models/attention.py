@@ -60,7 +60,7 @@ def attention_forward(attn, queries, keys, values, key_mask=None,
     if attn_map is not None:
         raise NotImplementedError(
             "an external attention map (style transfer) is not ported yet; "
-            "see ROADMAP.md Queue 1, slice C item 20")
+            "see ROADMAP.md Queue 1, slice C item 26")
     vals = attn.value(values).transpose(0, 1)                  # (B, Tk, D)
     q = attn.query(queries).transpose(0, 1)
     k = attn.key(keys).transpose(0, 1)

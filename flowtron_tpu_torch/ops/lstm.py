@@ -29,6 +29,8 @@ from torch.nn.utils.rnn import (
     PackedSequence, pack_padded_sequence, pad_packed_sequence,
 )
 
+from flowtron_tpu_torch.utils.weights import qdot
+
 
 class LSTM(nn.Module):
     """Parameter holder named and laid out like ``torch.nn.LSTM``.
@@ -65,8 +67,9 @@ class LSTM(nn.Module):
 
 
 def lstm_cell(x_proj_t, h, c, w_hh):
-    """One LSTM step given ``x_proj_t`` = x_t @ w_ih.T + b, (B, 4H)."""
-    gates = x_proj_t + h @ w_hh.t()
+    """One LSTM step given ``x_proj_t`` = x_t @ w_ih.T + b, (B, 4H);
+    ``w_hh`` may be quantized (``utils/weights.py:qdot``)."""
+    gates = x_proj_t + qdot(h, w_hh)
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

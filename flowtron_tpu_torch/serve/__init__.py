@@ -1,0 +1,40 @@
+"""Serving runtime: an HTTP TTS endpoint with dynamic request batching
+(port of the batch path of flowtron_tpu/serve).
+
+A micro-batching queue coalesces concurrent requests into one synthesis
+chain on the card: latents -> flows (kernel K1, or the per-frame loop for
+a quantized flow or a batch of mixed temperatures, with kernel K4 under
+``--quantize w8a8``) -> gate masking -> WaveGlow (kernel K2) ->
+peak-normalised int16. A dispatcher thread launches each batch and a
+completion thread copies it to the host.
+
+POST /synthesize  {"text": "...", "speaker_id": 0, "sigma": 0.5,
+                   "n_frames": 400, "temperature": 1.0, "seed": 1234,
+                   "split": false, "model": "default"}
+  -> audio/wav bytes. Text longer than the largest bucket is rejected
+  with 413 unless "split": true, which sentence-splits it and
+  synthesizes the segments as one micro-batch. A full queue answers 429;
+  a body over 1 MB 413.
+GET /healthz      -> {"status": "ok", "queue_depth": N}
+GET /metrics      -> request/batch/error/rejection counters, audio
+                  seconds, recent batch-latency percentiles
+GET /models       -> loaded voices (``--model`` adds more)
+GET /             -> the endpoint index
+
+Not ported yet, each answering 501 with its ROADMAP.md item: /stream,
+/stream-ws, /profile, POST /models, DELETE /models/<name>.
+
+Run: python -m flowtron_tpu_torch.serve -c config.json -f model.pt
+     -w waveglow.pt [--port 8080 --max-batch 8 --batch-timeout-ms 20
+     --max-queue 64 --quantize w8|w8a8|w4 --warmup]
+"""
+
+from flowtron_tpu_torch.serve.common import (EngineOverloaded, TextTooLong,
+                                             UnknownModel, split_measured)
+from flowtron_tpu_torch.serve.engine import SynthesisEngine
+from flowtron_tpu_torch.serve.http import make_handler
+from flowtron_tpu_torch.serve.cli import build_server, main
+
+__all__ = ["EngineOverloaded", "TextTooLong", "UnknownModel",
+           "split_measured", "SynthesisEngine", "make_handler",
+           "build_server", "main"]

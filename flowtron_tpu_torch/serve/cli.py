@@ -1,0 +1,138 @@
+"""Server CLI: argument parsing, engine construction (with extra
+``--model`` voices), warmup and graceful shutdown (port of
+flowtron_tpu/serve/cli.py). ``build_server`` does everything but serve,
+so a caller can run the server in-process.
+
+    python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
+        -w waveglow.pt [--quantize w8a8] [--max-batch 8] [--warmup] \\
+        [--model NAME=CONFIG:CKPT[:VOCODER] ...]
+
+Runs on cuda:0; ``FLOWTRON_PLATFORM=cpu`` runs it on the CPU. The JAX
+server's flags that are not ported exit with an error naming their
+ROADMAP.md item.
+"""
+
+import argparse
+import signal
+import threading
+from http.server import ThreadingHTTPServer
+
+from flowtron_tpu_torch.config import load_config
+from flowtron_tpu_torch.serve.engine import SynthesisEngine
+from flowtron_tpu_torch.serve.http import make_handler
+
+# flag -> its ROADMAP.md item (Queue 1)
+UNPORTED_FLAGS = {
+    "stream_workers": ("--stream-workers", "slice C item 17 (streaming)"),
+    "stream_mux": ("--stream-mux", "slice C item 18 (multistream mux)"),
+    "mux_joins_per_tick": ("--mux-joins-per-tick",
+                           "slice C item 18 (multistream mux)"),
+    "mesh": ("--mesh", "slice C item 23 (replicas and mesh serving)"),
+    "replicas": ("--replicas", "slice C item 23 (replicas and mesh "
+                 "serving)"),
+    "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
+    "denoise": ("-d/--denoise", "slice C item 21 (denoiser)"),
+    "vocode_buckets": ("--vocode-buckets",
+                       "slice C item 22 (staged vocoding)"),
+    "compile_cache": ("--compile-cache", "slice C item 25"),
+    "profiler_port": ("--profiler-port", "slice C item 25 (/profile)"),
+}
+
+
+def _parser():
+    parser = argparse.ArgumentParser(
+        description="Flowtron TTS server (PyTorch/CUDA port)")
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("-p", "--params", nargs="+", default=[])
+    parser.add_argument("-f", "--flowtron_path", required=True,
+                        help="reference-format .pt state_dict")
+    parser.add_argument("-w", "--waveglow_path", default="",
+                        help="WaveGlow .pt state_dict (required: "
+                             "Griffin-Lim is not ported yet)")
+    parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--max-batch", type=int, default=8)
+    parser.add_argument("--batch-timeout-ms", type=float, default=20.0)
+    parser.add_argument("--n-frames", type=int, default=400)
+    parser.add_argument("--max-queue", type=int, default=64,
+                        help="pending-request bound; overload returns 429")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 weight-only flows (alias: --quantize w8)")
+    parser.add_argument("--quantize", choices=("w8", "w8a8", "w4"),
+                        default="", help="flow-weight quantization mode; "
+                                         "w8a8 runs kernel K4")
+    parser.add_argument("--fused", action="store_true",
+                        help="early exit in the decoder kernel K1 once "
+                             "every stream of a batch has finished")
+    parser.add_argument("--warmup", action="store_true",
+                        help="run one dummy batch per (batch, text) bucket "
+                             "before accepting traffic")
+    parser.add_argument("--model", action="append", default=[],
+                        metavar="NAME=CONFIG:CKPT[:VOCODER]",
+                        help="an extra named model next to the primary one "
+                             "('default'); requests pick one with a "
+                             "\"model\" field")
+    for dest, (flag, _) in UNPORTED_FLAGS.items():
+        names = ["-d", "--denoise"] if dest == "denoise" else [flag]
+        kind = {"action": "store_true"} if dest == "bf16" else {"default": None}
+        parser.add_argument(*names, dest=dest, help="not ported yet", **kind)
+    return parser
+
+
+def build_server(argv=None, host="0.0.0.0"):
+    """Parse the flags, build every engine (warming them up with
+    ``--warmup``) and the HTTP server, without serving. Returns (server,
+    engines)."""
+    parser = _parser()
+    args = parser.parse_args(argv)
+    for dest, (flag, item) in UNPORTED_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            parser.error(f"{flag} is not ported to the PyTorch package yet; "
+                         f"see ROADMAP.md Queue 1, {item}")
+    if not args.waveglow_path:
+        parser.error("-w is required: Griffin-Lim is not ported yet; see "
+                     "ROADMAP.md Queue 1, deferred item 1")
+
+    def build(config_path, ckpt, vocoder):
+        return SynthesisEngine(
+            load_config(config_path, args.params), ckpt, vocoder,
+            max_batch=args.max_batch,
+            batch_timeout_ms=args.batch_timeout_ms, n_frames=args.n_frames,
+            int8=args.int8, quantize=args.quantize, fused=args.fused,
+            max_queue=args.max_queue)
+
+    engines = {"default": build(args.config, args.flowtron_path,
+                                args.waveglow_path)}
+    for spec in args.model:
+        name, _, rest = spec.partition("=")
+        parts = rest.split(":")
+        if not name or len(parts) < 2:
+            parser.error(f"--model expects NAME=CONFIG:CKPT[:VOCODER], "
+                         f"got {spec!r}")
+        engines[name] = build(parts[0], parts[1],
+                              parts[2] if len(parts) > 2 else "")
+    if args.warmup:
+        for name, eng in engines.items():
+            print(f"warming up {name}...", flush=True)
+            print(f"  {eng.warmup()}", flush=True)
+    server = ThreadingHTTPServer((host, args.port), make_handler(engines))
+    return server, engines
+
+
+def main(argv=None):
+    server, engines = build_server(argv)
+
+    def _graceful(signum, frame):
+        # serve_forever() blocks this thread; shutdown() must be called
+        # from another one or it deadlocks
+        print(f"signal {signum}: draining...", flush=True)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    print(f"serving on :{server.server_address[1]} (models="
+          f"{list(engines)})", flush=True)
+    server.serve_forever()
+    server.server_close()
+    for eng in engines.values():
+        eng.shutdown()
+    print("shutdown complete")

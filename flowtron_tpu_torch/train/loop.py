@@ -15,7 +15,8 @@ The CTC weight and the prior strength reach the step as tensors, so a
 change of either changes no code path. Each step's numbers go to
 ``{output_directory}/train_log.jsonl`` and to stdout.
 
-Runs on ``cuda:0`` when there is a GPU, else on the CPU. Features of the
+Runs on ``cuda:0``, or on the CPU when asked (``utils/device.py``:
+``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``). Features of the
 JAX loop that are not ported raise ``NotImplementedError`` naming their
 ROADMAP.md item: TensorBoard, tone-CER validation, grain, the profiler,
 non-pickle checkpoint formats, ``remat`` and a mesh of more than one
@@ -41,6 +42,7 @@ from flowtron_tpu_torch.train.loss import flowtron_loss
 from flowtron_tpu_torch.train.radam import (
     build_optimizer, clip_by_global_norm, trainable_parameters,
 )
+from flowtron_tpu_torch.utils.device import resolve_device
 
 _TENSOR_KEYS = ("mel", "speaker_ids", "text", "in_lens", "out_lens",
                 "gate_target", "attn_prior")
@@ -197,8 +199,7 @@ def train(config, device=None):
     train_config = config["train_config"]
     data_config = dict(config["data_config"])
     _refuse_unported(train_config, config.get("dist_config", {}))
-    device = torch.device(device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
 
     seed = int(train_config.get("seed", 1234))
     model, static_cfg = flowtron_init(seed, device=device,

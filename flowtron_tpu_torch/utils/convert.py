@@ -10,12 +10,19 @@ it; ``flowtron_jax_from_state_dict`` is its inverse (the semantics of
 ``radam_state_from_jax`` maps a JAX ``RAdamState`` (numpy leaves) onto
 the port's parameter names, so the two optimizers' moments can be
 compared. ``waveglow_from_jax`` writes the published WaveGlow checkpoint
-names (``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``). Nothing
-here imports jax.
+names (``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``).
+``quantized_model_from_jax`` carries a pytree that the JAX package's
+``quantize_flows_for_inference`` made (int8 ``q``/``s`` leaves with or
+without the ``a8`` marker, int4 ``q4``/``s``) into a copy of a port model.
+Nothing here imports jax.
 """
+
+import copy
 
 import numpy as np
 import torch
+
+from flowtron_tpu_torch.utils.weights import QuantizedWeight, set_weight
 
 
 def _t(a):
@@ -90,6 +97,39 @@ def flowtron_state_dict_from_jax(np_params):
     """JAX ``flowtron_init`` params (numpy leaves) -> reference state_dict."""
     return {name: _t(_LAYOUT[kind][0](np.asarray(sub[key])))
             for name, sub, key, kind in _flowtron_entries(np_params)}
+
+
+def _quantized_leaf(leaf, device):
+    """A JAX quantized leaf (numpy (in, out) arrays) -> a
+    ``QuantizedWeight`` in torch's (out, in) layout."""
+    def t(a):
+        return torch.from_numpy(np.array(np.asarray(a).T)).to(device)
+    if "q" in leaf:
+        return QuantizedWeight(t(leaf["s"]), q=t(leaf["q"]),
+                               a8="a8" in leaf)
+    return QuantizedWeight(t(leaf["s"]), q4=t(leaf["q4"]))
+
+
+def quantized_model_from_jax(model, np_params):
+    """A copy of ``model`` holding the weights of a JAX params pytree
+    (numpy leaves) whose flows ``quantize_flows_for_inference`` quantized:
+    each quantized leaf becomes a ``QuantizedWeight``, every other
+    parameter is loaded as ``flowtron_state_dict_from_jax`` writes it."""
+    out = copy.deepcopy(model)
+    device = next(out.parameters()).device
+    state, quantized = {}, []
+    for name, sub, key, kind in _flowtron_entries(np_params):
+        if isinstance(sub[key], dict):
+            set_weight(out, name, _quantized_leaf(sub[key], device))
+            quantized.append(name)
+        else:
+            state[name] = _t(_LAYOUT[kind][0](np.asarray(sub[key])))
+    missing, unexpected = out.load_state_dict(state, strict=False)
+    loose = [k for k in missing if k.rpartition(".")[0] not in quantized]
+    if loose or unexpected:
+        raise KeyError(f"state mismatch: missing {loose}, unexpected "
+                       f"{unexpected}")
+    return out
 
 
 def flowtron_jax_from_state_dict(state_dict, like):

@@ -1,0 +1,118 @@
+"""Quantized weight leaves and the dot that takes them (port of
+flowtron_tpu/utils/weights.py).
+
+A ``QuantizedWeight`` stands where a float weight would, in torch's
+(out, in) layout (the JAX leaves are (in, out); ``infer/quantize.py`` and
+``utils/convert.py`` transpose at the boundary):
+
+- int8: ``q`` (out, in) int8 and ``s`` (out,) fp32 per-output-channel
+  scales; ``a8`` marks the leaf for int8 activations (kernel K4's W8A8
+  body).
+- int4: ``q4`` (out, in/2) int8, two nibbles a byte: column c holds input
+  c in its low nibble and input c + in/2 in its high nibble; ``s`` (out,
+  n_groups) fp32 scales of the input groups.
+
+``resolve_weight`` and ``qdot`` follow the JAX functions exactly, route
+included: an ``a8`` leaf whose dot has at most 512 rows goes to K4
+(``ops/qmm.py``: the kernel on CUDA tensors, its plain version on CPU
+tensors); every other dot dequantizes with bf16 scales and multiplies
+with fp32 accumulation.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flowtron_tpu_torch.ops.qmm import quantized_matmul
+
+QMM_MAX_ROWS = 512      # flowtron_tpu/utils/weights.py:_qmm_eligible
+
+
+class QuantizedWeight(nn.Module):
+    """A quantized weight leaf; ``q``/``q4`` and ``s`` are buffers, so the
+    leaf moves with its model (``.to(device)``)."""
+
+    def __init__(self, s, q=None, q4=None, a8=False):
+        super().__init__()
+        if (q is None) == (q4 is None):
+            raise ValueError("give exactly one of q (int8) and q4 (int4)")
+        if q is not None:
+            self.register_buffer("q", q)
+        else:
+            self.register_buffer("q4", q4)
+        self.register_buffer("s", s)
+        self.a8 = bool(a8)
+
+    @property
+    def int4(self):
+        return "q4" in self._buffers
+
+    @property
+    def shape(self):
+        """The (out, in) shape of the float weight this leaf stands for."""
+        if self.int4:
+            return (self.q4.shape[0], 2 * self.q4.shape[1])
+        return tuple(self.q.shape)
+
+
+def resolve_weight(w, dtype=None):
+    """The (out, in) float weight of a leaf, cast to ``dtype`` (default
+    bf16), with the numbers the JAX package's ``resolve_weight``
+    (flowtron_tpu/utils/weights.py:18-35) gives inside its compiled
+    inference programs. The JAX code multiplies the integers by their
+    scales rounded to bf16, in bf16. Compiled by XLA, the int8 product
+    stays fp32 (XLA's default excess precision drops the bf16 rounding
+    before the cast to fp32); the int4 product, reshaped between the
+    multiply and the cast, is rounded to bf16. Int4 is a sign-extending
+    nibble unpack, low half of the inputs then high half, times the group
+    scales. A tensor comes back as it is."""
+    if not isinstance(w, QuantizedWeight):
+        return w
+    s = w.s.to(torch.bfloat16).float()
+    if w.int4:
+        qi = w.q4.to(torch.int32)
+        lo = ((qi & 0xF) ^ 8) - 8                    # sign-extended nibbles
+        hi = qi >> 4
+        full = torch.cat([lo, hi], dim=1).float()     # (out, in)
+        n_out, n_groups = s.shape
+        out = (full.reshape(n_out, n_groups, -1) * s[:, :, None]) \
+            .reshape(n_out, -1).to(torch.bfloat16)
+    else:
+        out = w.q.float() * s[:, None]
+    return out.to(dtype or torch.bfloat16)
+
+
+def qdot(x, w, out_dtype=None):
+    """``x @ w.T`` for a float or quantized (out, in) weight ``w``.
+
+    A float weight is a plain matmul, as before quantization existed. A
+    quantized one goes to K4 when it carries ``a8`` and the dot has at
+    most 512 rows (all leading dims of x multiplied); otherwise it is
+    ``resolve_weight`` and a matmul with fp32 accumulation. The result is
+    ``out_dtype`` (default x's dtype)."""
+    if not isinstance(w, QuantizedWeight):
+        out = x @ w.t()
+        return out if out_dtype is None else out.to(out_dtype)
+    out_dtype = out_dtype or x.dtype
+    lead, k = x.shape[:-1], x.shape[-1]
+    if w.a8 and x.numel() // max(k, 1) <= QMM_MAX_ROWS:
+        out = quantized_matmul(x.reshape(-1, k).contiguous(), w.q, w.s,
+                               out_dtype=out_dtype, a8=True)
+        return out.reshape(*lead, out.shape[-1])
+    wd = resolve_weight(w, x.dtype)
+    return F.linear(x.float(), wd.float()).to(out_dtype)
+
+
+def is_quantized(module):
+    """Whether any weight of ``module`` is a ``QuantizedWeight``."""
+    return any(isinstance(m, QuantizedWeight) for m in module.modules())
+
+
+def set_weight(model, name, leaf):
+    """Put ``leaf`` (a ``QuantizedWeight``) where the parameter ``name``
+    (a dotted state_dict name) was."""
+    parent_name, _, attr = name.rpartition(".")
+    parent = model.get_submodule(parent_name)
+    if attr in parent._parameters:
+        del parent._parameters[attr]
+    setattr(parent, attr, leaf)

@@ -234,6 +234,16 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
                                          gate_threshold=0.45)
         for a, r in zip(ours, ref):
             torch.testing.assert_close(a, r, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ar_step_infer(flow, args[1], _t(text).to(cuda_device),
-                      attn_prior=torch.ones(3, 20, 5, device=cuda_device))
+    # a prior is outside K1's subset: the flow runs the per-frame loop on
+    # the card, as JAX falls back to its scan, and K1 is not launched
+    prior = torch.full((3, 20, 5), 0.2)
+    launches = fused_flow_infer.launches
+    with torch.no_grad():
+        mel_card, _, nv_card = ar_step_infer(
+            flow, args[1], _t(text).to(cuda_device),
+            attn_prior=prior.to(cuda_device))
+        assert fused_flow_infer.launches == launches
+        mel_cpu, _, nv_cpu = ar_step_infer(flow.cpu(), args[1].cpu(),
+                                           _t(text), attn_prior=prior)
+    torch.testing.assert_close(mel_card.cpu(), mel_cpu, atol=1e-4, rtol=0)
+    assert torch.equal(nv_card.cpu(), nv_cpu)

@@ -1,0 +1,401 @@
+"""Quantized inference in the port against the JAX package: kernel K4's
+plain version (ops/qmm.py) against the Pallas kernel in interpret mode,
+the quantizers and ``resolve_weight`` bit for bit, the carrier of JAX's
+quantized pytrees, ``qdot``'s routing, and whole quantized models
+(``flowtron_infer`` in w8, w8a8 and w4) with the quality bars of
+tests/test_quantize.py. Toy widths where every quantized output dim is a
+multiple of 128, because the Pallas kernel raises otherwise.
+
+The JAX side runs compiled (``jax.jit``), as its serving engine runs it:
+compiled, the int8 dequantization keeps its product in fp32 where the JAX
+code writes a bf16 one (XLA's excess precision), and the port follows the
+compiled numbers (utils/weights.py:resolve_weight)."""
+
+import functools
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+import flowtron_tpu.ops.qmm_pallas as jax_qmm  # noqa: E402
+import flowtron_tpu.utils.weights as jax_weights  # noqa: E402
+from flowtron_tpu.infer.quantize import (  # noqa: E402
+    _quantize_matrix as jax_quantize_matrix,
+    _quantize_matrix_int4 as jax_quantize_matrix_int4,
+    quantize_flows_for_inference as jax_quantize_flows,
+    weight_shape as jax_weight_shape,
+)
+from flowtron_tpu.models import flowtron_init as jax_flowtron_init  # noqa: E402
+from flowtron_tpu.models import flowtron_infer as jax_flowtron_infer  # noqa: E402
+
+from flowtron_tpu_torch.infer.quantize import (  # noqa: E402
+    _quantize_matrix, _quantize_matrix_int4, quantize_flows_for_inference,
+    weight_shape,
+)
+from flowtron_tpu_torch.models import ar_step as port_ar_step  # noqa: E402
+from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
+    flowtron_init, flowtron_infer,
+)
+from flowtron_tpu_torch.ops.qmm import (  # noqa: E402
+    quantized_matmul, quantized_matmul_reference,
+)
+from flowtron_tpu_torch.utils import weights as port_weights  # noqa: E402
+from flowtron_tpu_torch.utils.convert import (  # noqa: E402
+    flowtron_state_dict_from_jax, quantized_model_from_jax,
+)
+from flowtron_tpu_torch.utils.weights import (  # noqa: E402
+    QuantizedWeight, qdot, resolve_weight,
+)
+
+# the flagship decoder's (K, N) list and one unaligned shape
+PATH_KN = [(80, 4096), (1024, 4096), (1664, 4096), (1024, 640), (640, 640),
+           (1024, 1024)]
+DIMS = dict(n_speakers=2, n_speaker_dim=8, n_text=185, n_text_dim=32,
+            n_mel_channels=12, n_hidden=128, n_attn_channels=128,
+            n_lstm_layers=2, mel_encoder_n_hidden=16)
+MIN_ELEMS = 1024
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _case(M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    return x, jax_quantize_matrix(w)
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
+@pytest.mark.parametrize("M,K,N", [(8, k, n) for k, n in PATH_KN]
+                         + [(3, 100, 256)])
+def test_k4_plain_matches_pallas_interpret(M, K, N, a8):
+    """Weight-only within 1e-5 of the output scale; W8A8 within 1e-6 (its
+    int32 sums are exact, so the two agree to the bit here)."""
+    x, qd = _case(M, K, N)
+    ref = np.asarray(jax_qmm.quantized_matmul(
+        jnp.asarray(x), qd["q"], qd["s"], interpret=True, a8=a8))
+    ours = quantized_matmul(_t(x), _t(np.asarray(qd["q"]).T.copy()),
+                            _t(qd["s"]), a8=a8).numpy()
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(ours - ref).max())
+    assert ours.shape == (M, N) and ours.dtype == np.float32
+    assert err <= (1e-6 if a8 else 1e-5) * scale, (err, scale)
+    if a8:
+        np.testing.assert_array_equal(ours, ref)
+
+
+def test_k4_w8a8_sum_past_2_pow_24_rounds_once():
+    """|acc| above 2**24 (127 * 127 * 1664 ~ 2.7e7 at most): the plain
+    version forms it exactly and rounds to fp32 once, like the int32 ->
+    fp32 cast; a float32 matmul would round along the way."""
+    K, N = 1664, 4
+    x = torch.full((1, K), 3.0)
+    q = torch.full((N, K), 127, dtype=torch.int8)
+    q[1] = -127
+    s = torch.ones(N)
+    out = quantized_matmul_reference(x, q, s, a8=True)
+    exact = 127 * 127 * K
+    assert exact > 2 ** 24
+    sx = torch.tensor(3.0) / 127.0
+    want = torch.tensor(float(exact), dtype=torch.float32) * sx
+    assert out[0, 0] == want and out[0, 1] == -want
+
+
+def test_k4_zero_row_scale_is_one():
+    x = torch.zeros(2, 16)
+    x[1, 3] = 2.0
+    q = torch.ones(4, 16, dtype=torch.int8)
+    out = quantized_matmul_reference(x, q, torch.ones(4), a8=True)
+    assert torch.equal(out[0], torch.zeros(4))
+    torch.testing.assert_close(out[1], torch.full((4,), 2.0))
+
+
+_jax_resolve = jax.jit(lambda w: jax_weights.resolve_weight(w, jnp.float32))
+
+
+class TestQuantizers:
+    @pytest.fixture(params=[(256, 512), (80, 512), (1664, 256)],
+                    ids=lambda s: f"in{s[0]}_out{s[1]}")
+    def weight(self, request):
+        n_in, n_out = request.param
+        rng = np.random.default_rng(n_in)
+        w = rng.standard_normal((n_out, n_in)).astype(np.float32) * 0.05
+        w[3] = 0.0                       # a zero output channel: scale 1
+        return w
+
+    @pytest.mark.parametrize("a8", [False, True])
+    def test_int8_bitwise(self, weight, a8):
+        ref = jax_quantize_matrix(weight.T, a8=a8)
+        ours = _quantize_matrix(torch.from_numpy(weight), a8=a8)
+        np.testing.assert_array_equal(ours.q.numpy(), np.asarray(ref["q"]).T)
+        np.testing.assert_array_equal(ours.s.numpy(), np.asarray(ref["s"]))
+        assert ours.a8 == ("a8" in ref)
+        assert weight_shape(ours) == tuple(jax_weight_shape(ref))[::-1]
+        np.testing.assert_array_equal(
+            resolve_weight(ours, torch.float32).numpy(),
+            np.asarray(_jax_resolve(ref)).T)
+
+    def test_int4_bitwise(self, weight):
+        ref = jax_quantize_matrix_int4(weight.T)
+        ours = _quantize_matrix_int4(torch.from_numpy(weight))
+        np.testing.assert_array_equal(ours.q4.numpy(),
+                                      np.asarray(ref["q4"]).T)
+        np.testing.assert_array_equal(ours.s.numpy(), np.asarray(ref["s"]).T)
+        assert weight_shape(ours) == tuple(jax_weight_shape(ref))[::-1]
+        np.testing.assert_array_equal(
+            resolve_weight(ours, torch.float32).numpy(),
+            np.asarray(_jax_resolve(ref)).T)
+        # the default dtype is bf16, as in the JAX package
+        np.testing.assert_array_equal(
+            resolve_weight(ours).float().numpy(),
+            np.asarray(jax_weights.resolve_weight(ref)).astype(np.float32).T)
+
+
+def _models():
+    params, cfg = jax_flowtron_init(jax.random.PRNGKey(0), n_flows=2,
+                                    use_gate_layer=True, **DIMS)
+    rng = np.random.default_rng(1)
+    for f in params["flows"]:
+        f["conv"]["w"] = jnp.asarray(0.05 * rng.standard_normal(
+            f["conv"]["w"].shape).astype(np.float32))
+    model, tcfg = flowtron_init(0, n_flows=2, use_gate_layer=True, **DIMS)
+    model.load_state_dict(flowtron_state_dict_from_jax(
+        jax.tree.map(np.asarray, params)), strict=True)
+    return params, cfg, model, tcfg
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+def _leaves(model):
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, QuantizedWeight)}
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8", "w4"])
+def test_carried_jax_pytree_equals_port_quantization(models, mode):
+    params, _, model, _ = models
+    jq = jax.tree.map(np.asarray, jax_quantize_flows(
+        params, min_elems=MIN_ELEMS, mode=mode))
+    carried = quantized_model_from_jax(model, jq)
+    ours = quantize_flows_for_inference(model, min_elems=MIN_ELEMS,
+                                        mode=mode)
+    a, b = _leaves(carried), _leaves(ours)
+    # each flow: 2 + 4 LSTM matrices, query, key, value, 2 dense layers
+    assert sorted(a) == sorted(b) and len(a) == 2 * 11
+    for name in a:
+        assert a[name].a8 == b[name].a8 == (mode == "w8a8"), name
+        for buf in ("q4", "s") if mode == "w4" else ("q", "s"):
+            assert torch.equal(getattr(a[name], buf), getattr(b[name], buf))
+    # every float parameter of the carried copy is the model's
+    floats = dict(model.named_parameters())
+    for name, p in carried.named_parameters():
+        assert torch.equal(p, floats[name]), name
+
+
+def test_quantize_returns_a_copy(models):
+    _, _, model, _ = models
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    q = quantize_flows_for_inference(model, min_elems=MIN_ELEMS, mode="w4")
+    assert not _leaves(model)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    # the encoder, the gate and the coupling head stay float
+    assert not any(n.startswith(("encoder", "embedding")) for n in _leaves(q))
+    assert isinstance(q.flows[1].ar_step.gate_layer.linear_layer.weight,
+                      torch.nn.Parameter)
+    with pytest.raises(ValueError, match="mode"):
+        quantize_flows_for_inference(model, mode="w2")
+
+
+def _forced_jax_k4(monkeypatch):
+    """Send the JAX package's a8 dots to its K4 in interpret mode on the
+    CPU: _qmm_eligible asks for a TPU, so the test drops that condition."""
+    def eligible(x, w, max_rows=512):
+        return isinstance(w, dict) and "q" in w and "a8" in w and \
+            int(np.prod(x.shape[:-1])) <= max_rows
+    monkeypatch.setattr(jax_weights, "_qmm_eligible", eligible)
+    monkeypatch.setattr(jax_qmm, "quantized_matmul", functools.partial(
+        jax_qmm.quantized_matmul, interpret=True))
+
+
+def _inputs():
+    rng = np.random.default_rng(3)
+    B, N = 2, 16
+    residual = (rng.standard_normal((B, 12, N)) * 0.5).astype(np.float32)
+    return (residual, np.asarray([0, 1]), rng.integers(1, 185, (B, 9)),
+            np.asarray([9, 6]))
+
+
+def _infer_both(models, mode, thresh, monkeypatch):
+    params, cfg, model, tcfg = models
+    residual, sids, text, in_lens = _inputs()
+    if mode == "w8a8":
+        _forced_jax_k4(monkeypatch)
+    jparams = params if mode == "fp32" else jax_quantize_flows(
+        params, min_elems=MIN_ELEMS, mode=mode)
+    tmodel = model if mode == "fp32" else quantize_flows_for_inference(
+        model, min_elems=MIN_ELEMS, mode=mode)
+    mel_j, _, nv_j = jax.jit(lambda p, r, s, t, n: jax_flowtron_infer(
+        p, cfg, r, s, t, gate_threshold=thresh, in_lens=n))(
+        jparams, jnp.asarray(residual), jnp.asarray(sids),
+        jnp.asarray(text), jnp.asarray(in_lens))
+    mel, _, nv = flowtron_infer(
+        tmodel, tcfg, _t(residual), _t(sids), _t(text),
+        gate_threshold=thresh, in_lens=_t(in_lens))
+    return mel.numpy(), nv.numpy(), np.asarray(mel_j), np.asarray(nv_j)
+
+
+@pytest.mark.parametrize("thresh", [1e6, 0.5])
+@pytest.mark.parametrize("mode,tol", [("w8", 1e-4), ("w4", 1e-4),
+                                      ("w8a8", 1e-3)])
+def test_quantized_model_matches_jax(models, mode, tol, thresh,
+                                     monkeypatch):
+    """w8 and w4 within 1e-4; w8a8, JAX's K4 forced, within 1e-3 (a
+    per-row activation rounding can flip one int8 step); n_valid equal."""
+    mel, nv, mel_j, nv_j = _infer_both(models, mode, thresh, monkeypatch)
+    np.testing.assert_array_equal(nv, nv_j)
+    for b in range(len(nv_j)):
+        n = int(nv_j[b])
+        np.testing.assert_allclose(mel[b, :, :n], mel_j[b, :, :n], atol=tol)
+
+
+@pytest.mark.parametrize("mode,bar", [("w8", 0.005), ("w4", 0.03),
+                                      ("w8a8", 0.03)])
+def test_quantized_quality_against_fp32(models, mode, bar):
+    """JAX's own bars (tests/test_quantize.py:56,102): mel MAE over the
+    fp32 mel's mean magnitude, on the same latents."""
+    _, _, model, tcfg = models
+    residual, sids, text, in_lens = _inputs()
+    q = quantize_flows_for_inference(model, min_elems=MIN_ELEMS, mode=mode)
+    args = (_t(residual), _t(sids), _t(text))
+    mel_fp = flowtron_infer(model, tcfg, *args, gate_threshold=1e6,
+                            in_lens=_t(in_lens))[0]
+    mel_q = flowtron_infer(q, tcfg, *args, gate_threshold=1e6,
+                           in_lens=_t(in_lens))[0]
+    mae = float((mel_q - mel_fp).abs().mean())
+    scale = float(mel_fp.abs().mean())
+    assert mae / scale < bar, (mae, scale)
+
+
+class TestRouting:
+    @pytest.fixture
+    def spy(self, monkeypatch):
+        """Count K1 calls in ar_step_infer and K4 calls in qdot."""
+        calls = {"k1": 0, "k4": 0}
+        k1, k4 = port_ar_step.fused_flow_infer, port_weights.quantized_matmul
+
+        def k1_spy(*a, **k):
+            calls["k1"] += 1
+            return k1(*a, **k)
+
+        def k4_spy(*a, **k):
+            calls["k4"] += 1
+            return k4(*a, **k)
+        monkeypatch.setattr(port_ar_step, "fused_flow_infer", k1_spy)
+        monkeypatch.setattr(port_weights, "quantized_matmul", k4_spy)
+        return calls
+
+    @pytest.mark.parametrize("case", ["plain", "prior", "temperature",
+                                      "w8", "w8a8", "w4"])
+    def test_flow_routing_on_cpu(self, models, spy, case):
+        """fused="early" asks for K1; only a flow in its subset gets it,
+        any other runs the per-frame loop (with K4 for w8a8 leaves)."""
+        _, _, model, _ = models
+        flow = model.flows[0]
+        if case in ("w8", "w8a8", "w4"):
+            flow = quantize_flows_for_inference(
+                model, min_elems=MIN_ELEMS, mode=case).flows[0]
+        rng = np.random.default_rng(5)
+        N, B, Tk = 4, 2, 5
+        residual = _t(rng.standard_normal((N, B, 12)).astype(np.float32))
+        text = _t(rng.standard_normal((Tk, B, 40)).astype(np.float32))
+        prior = _t(np.full((B, N, Tk), 0.2, np.float32)) \
+            if case == "prior" else None
+        temp = _t(np.asarray([[0.8], [1.2]], np.float32)) \
+            if case == "temperature" else 1.0
+        assert port_ar_step.in_k1_subset(flow, prior, temp) == \
+            (case == "plain")
+        with torch.no_grad():
+            mel, _, _ = port_ar_step.ar_step_infer(
+                flow, residual, text, attn_prior=prior, temperature=temp,
+                gate_threshold=1e6, fused="early")
+        assert mel.shape == (N, B, 12) and bool(torch.isfinite(mel).all())
+        assert spy["k1"] == (1 if case == "plain" else 0)
+        # w8a8: per frame the 9 decoder dots, plus key and value once
+        assert spy["k4"] == (9 * N + 2 if case == "w8a8" else 0)
+
+    @pytest.mark.parametrize("rows,to_k4", [(512, True), (513, False),
+                                            (2 * 300, False)])
+    def test_a8_leaf_over_512_rows_resolves(self, spy, rows, to_k4):
+        rng = np.random.default_rng(6)
+        w = torch.from_numpy(rng.standard_normal((128, 64))
+                             .astype(np.float32))
+        leaf = _quantize_matrix(w, a8=True)
+        x = torch.from_numpy(rng.standard_normal((rows, 64))
+                             .astype(np.float32))
+        if rows == 600:
+            x = x.reshape(2, 300, 64)   # all leading dims count
+        out = qdot(x, leaf)
+        assert spy["k4"] == int(to_k4)
+        assert out.shape == x.shape[:-1] + (128,)
+        if not to_k4:
+            want = x @ resolve_weight(leaf, torch.float32).t()
+            torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+
+    def test_w8_leaf_never_goes_to_k4(self, spy):
+        leaf = _quantize_matrix(torch.ones(128, 64))
+        qdot(torch.ones(3, 64), leaf)
+        assert spy["k4"] == 0
+
+    def test_float_weight_dot_unchanged(self):
+        """A float weight keeps the plain matmul's numbers bit for bit."""
+        rng = np.random.default_rng(7)
+        x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal((32, 64))
+                             .astype(np.float32))
+        assert torch.equal(qdot(x, w), x @ w.t())
+
+
+def test_wrapper_has_no_silent_fallback():
+    """Only CPU tensors take the plain version; another device raises."""
+    x = torch.ones(2, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        quantized_matmul(x, torch.ones(4, 16, dtype=torch.int8,
+                                       device="meta"),
+                         torch.ones(4, device="meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; on the card run "
+                    "python -m pytest tests/test_torch_port_*.py -m cuda")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
+def test_k4_kernel_matches_plain_on_card(cuda_device, a8):
+    counts = quantized_matmul.launches
+    for M, K, N in [(1, 80, 4096), (8, 1664, 4096), (64, 640, 640),
+                    (3, 100, 200)]:
+        x, qd = _case(M, K, N)
+        args = (_t(x), _t(np.asarray(qd["q"]).T.copy()), _t(qd["s"]))
+        ref = quantized_matmul_reference(*[a.to(cuda_device) for a in args],
+                                         a8=a8)
+        out = quantized_matmul(*[a.to(cuda_device) for a in args], a8=a8)
+        torch.cuda.synchronize()
+        if a8:
+            assert torch.equal(out, ref), (M, K, N)
+        else:
+            scale = float(ref.abs().max())
+            assert float((out - ref).abs().max()) <= 1e-5 * scale
+    assert quantized_matmul.launches == counts + 4

@@ -127,12 +127,14 @@ def _run(code_or_args, cwd=ROOT):
                           capture_output=True, text=True, timeout=240)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Import every module of the port, the training slice's by name too,
-    and run a tiny synthesis and a tiny training step (forward, losses,
-    backward through K3's plain versions, RAdam) in a fresh interpreter:
-    jax must stay out of sys.modules. A subprocess, because this test
-    process already imported jax."""
+    and run a tiny synthesis, a tiny training step (forward, losses,
+    backward through K3's plain versions, RAdam) and one request through
+    a w8a8 serving engine (K4's plain version) in a fresh interpreter:
+    neither jax nor the JAX package (``flowtron_tpu`` or
+    ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
+    test process already imported both."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import flowtron_tpu_torch as p\n"
@@ -161,8 +163,27 @@ def test_port_never_imports_jax():
         "out = step(batch, torch.Generator().manual_seed(0), "
         "torch.tensor(0.01), torch.tensor(1.0))\n"
         "assert all(torch.isfinite(v) for v in out.values()), out\n"
-        "bad = [k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.')]\n"
+        "from flowtron_tpu_torch.config import load_config\n"
+        "from flowtron_tpu_torch.serve import SynthesisEngine\n"
+        "from flowtron_tpu_torch.vocoder.waveglow import waveglow_init\n"
+        f"root = {str(tmp_path)!r}\n"
+        "open(root + '/fl.txt', 'w').write('u.wav|hello|0\\n')\n"
+        "dims = dict(n_speaker_dim=4, n_text_dim=12, n_mel_channels=80, "
+        "n_hidden=128, n_attn_channels=8)\n"
+        "torch.save(flowtron_init(0, **dims)[0].state_dict(), "
+        "root + '/ft.pt')\n"
+        "torch.save(waveglow_init(1)[0].state_dict(), root + '/wg.pt')\n"
+        "cfg = load_config(overrides=['data_config.training_files=' + root "
+        "+ '/fl.txt', 'data_config.cmudict_path=', "
+        "'data_config.heteronyms_path='] + [f'model_config.{k}={v}' for "
+        "k, v in dims.items()])\n"
+        "eng = SynthesisEngine(cfg, root + '/ft.pt', root + '/wg.pt', "
+        "n_frames=3, quantize='w8a8', device='cpu')\n"
+        "wav, sr = eng.submit('Hello there.')\n"
+        "eng.shutdown()\n"
+        "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'flowtron_tpu') or "
+        "k.startswith(('jax.', 'flowtron_tpu.'))]\n"
         "print('JAX_MODULES', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -187,9 +208,7 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py's own imports name neither jax nor flowtron_tpu (the
-    port reaches only the shared pure-Python text package, through its
-    frontend)."""
+    """chip_smoke.py's own imports name neither jax nor flowtron_tpu."""
     import ast
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = set()
@@ -225,13 +244,12 @@ def test_kernel_build_failure_names_the_command(tmp_path, monkeypatch,
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-def test_cli_writes_wav(tmp_path):
-    """flowtron-torch-infer end to end on the CPU: reference-format .pt
-    checkpoints in, a wav out."""
+def _cli_wav(tmp_path, dims, flags):
+    """flowtron-torch-infer with ``flags`` on the CPU from reference-format
+    .pt checkpoints; returns the one wav's (rate, frames)."""
     import wave
     from flowtron_tpu_torch.cli import inference_main
 
-    dims = dict(DIMS, n_mel_channels=80)    # the published vocoder's input
     model, _ = flowtron_init(0, **dims)
     torch.save({"state_dict": model.state_dict()}, tmp_path / "ft.pt")
     wg, _ = waveglow_init(seed=1)
@@ -243,23 +261,56 @@ def test_cli_writes_wav(tmp_path):
     cwd = os.getcwd()
     os.chdir(ROOT)      # config.json's filelist and cmudict paths
     try:
-        inference_main(argv + ["--fused"])
+        inference_main(argv + flags)
     finally:
         os.chdir(cwd)
     wavs = list((tmp_path / "out").glob("*.wav"))
     assert len(wavs) == 1
     with wave.open(str(wavs[0])) as w:
-        assert w.getframerate() == 22050
-        assert w.getnframes() % 256 == 0 and w.getnframes() > 0
+        return w.getframerate(), w.getnframes()
 
 
-@pytest.mark.parametrize("flag", [["--quantize", "w8"], ["--int8"],
-                                  ["--stream"]])
+def test_cli_writes_wav(tmp_path, monkeypatch):
+    """flowtron-torch-infer end to end on the CPU (FLOWTRON_PLATFORM=cpu):
+    reference-format .pt checkpoints in, a wav out."""
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    dims = dict(DIMS, n_mel_channels=80)    # the published vocoder's input
+    rate, frames = _cli_wav(tmp_path, dims, ["--fused"])
+    assert rate == 22050 and frames % 256 == 0 and frames > 0
+
+
+@pytest.mark.parametrize("flag", [["--quantize", "w8"], ["--quantize", "w8a8"],
+                                  ["--quantize", "w4"], ["--int8"]])
+def test_cli_quantized_modes_write_wav(tmp_path, monkeypatch, flag):
+    """--quantize and its alias --int8 quantize the flows before synthesis
+    (n_hidden 128, so the LSTM matrices reach the 65536-element floor)."""
+    from flowtron_tpu_torch.infer import sampling
+    from flowtron_tpu_torch.utils.weights import QuantizedWeight
+
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    seen = []
+
+    def spy(model, **kw):
+        out = sampling_quantize(model, **kw)
+        seen.append((kw["mode"], sum(isinstance(m, QuantizedWeight)
+                                     for m in out.modules())))
+        return out
+    sampling_quantize = sampling.quantize_flows_for_inference
+    monkeypatch.setattr(sampling, "quantize_flows_for_inference", spy)
+    dims = dict(DIMS, n_mel_channels=80, n_hidden=128)
+    rate, frames = _cli_wav(tmp_path, dims, flag)
+    assert rate == 22050 and frames % 256 == 0 and frames > 0
+    mode = flag[1] if len(flag) > 1 else "w8"
+    assert len(seen) == 1 and seen[0][0] == mode and seen[0][1] > 0
+
+
+@pytest.mark.parametrize("flag", [["--stream"]])
 def test_cli_unported_modes_refuse(flag, capsys):
     from flowtron_tpu_torch.cli import inference_main
     with pytest.raises(SystemExit):
         inference_main(["-c", "config.json", "-f", "x.pt", "-t", "hi"] + flag)
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md" in err
 
 
 def test_no_vocoder_names_roadmap_item():

@@ -51,7 +51,9 @@ def run(tmp_path_factory):
     cwd = os.getcwd()
     os.chdir(ROOT)          # config.json's cmudict and heteronyms paths
     try:
-        train_main(["-c", "config.json", "-p", *overrides])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("FLOWTRON_PLATFORM", "cpu")
+            train_main(["-c", "config.json", "-p", *overrides])
         config = load_config("config.json", overrides)
     finally:
         os.chdir(cwd)
@@ -95,7 +97,8 @@ def test_jax_warmstart_takes_the_checkpoint(run):
         np.testing.assert_array_equal(np.asarray(exported[k]), v.numpy())
 
 
-def test_resume_carries_on_from_the_checkpoint(run, tmp_path):
+def test_resume_carries_on_from_the_checkpoint(run, tmp_path, monkeypatch):
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
     _, out_dir, _, (train_fl, val_fl) = run
     new_out = str(tmp_path / "resumed")
     cwd = os.getcwd()
