@@ -20,7 +20,13 @@ drives the port's three paths at the full width of the repo's
   coded-tone corpus written to a temporary directory: one epoch of 10
   steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
   forward and backward); the fp32 run's checkpoint is then loaded for
-  inference and put through the invertibility oracle.
+  inference and put through the invertibility oracle;
+- the TPU probes of ``scripts/exp_*.py`` (P1-P5) through their ports in
+  ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
+  the resident-weight scans (``resident.cu``) and K1 stripped for cost
+  attribution (``fused_cost.cu``), each kernel first held against its
+  plain version over the first 16 steps, then each module's ``main``
+  driven at the script's default batch (and B=8 for P4 and P5).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Each phase prints one JSON line; the line before the
@@ -73,13 +79,38 @@ QUANT_TOL = {"w8": 1e-3, "w4": 1e-3, "w8a8": 1e-2}   # card vs CPU mel
 QUALITY_BAR = {"w8": 0.005, "w4": 0.04, "w8a8": 0.03}
 # the card's published peaks (H100 SXM, dense): HBM bytes/s and op/s
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"fp32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # (K, N) of kernel K4's calls on the flagship decoder's path: the nine
 # per-frame dots of one flow, then the key/value precompute (once a flow)
 K4_FRAME_KN = [(80, 4096), (1024, 4096), (1664, 4096), (1024, 4096),
                (1024, 4096), (1024, 4096), (1024, 640), (1024, 1024),
                (1024, 1024)]
 K4_KN = sorted(set(K4_FRAME_KN)) + [(640, 640)]
+# the probes of scripts/exp_*.py: kernel vs plain over the first 16 steps
+# of each recurrence; bf16 outputs within 1e-2 of their scale (a bf16
+# rounding may move by one step, ~0.4-0.8%, when the fp32 sums run in
+# another order), fp32 states and mels within 1e-3 (their recurrences
+# round each dot input to bf16, so such a step can pass into later steps)
+PROBE_STEPS = 16
+PROBE_BF16_TOL, PROBE_FP32_TOL = 1e-2, 1e-3
+PROBE_KERNELS = ("w4_matmul", "resident_scan", "fused_cost")
+P_W4_BODIES = ("k1", "k2", "k3", "k4", "k5", "concat", "2dot")
+# kernel table rows of the probes: name -> (counter, Pallas body file:line)
+PROBE_ROWS = [
+    ("w4_matmul_k1", "w4", "scripts/exp_w4_kernel_bisect.py:54"),
+    ("w4_matmul_k2", "w4", "scripts/exp_w4_kernel_bisect.py:62"),
+    ("w4_matmul_k3", "w4", "scripts/exp_w4_kernel_bisect.py:72"),
+    ("w4_matmul_k4", "w4", "scripts/exp_w4_kernel_bisect.py:85"),
+    ("w4_matmul_k5", "w4", "scripts/exp_w4_kernel_bisect.py:96"),
+    ("w4_matmul_concat", "w4", "scripts/exp_int4_variants.py:132"),
+    ("w4_matmul_2dot", "w4", "scripts/exp_int4_variants.py:145"),
+    ("resident_scan_p3", "resident", "scripts/exp_resident_weight.py:55"),
+    ("resident_scan_bf16", "resident", "scripts/exp_fused_int8.py:71"),
+    ("resident_scan_w8a8", "resident", "scripts/exp_fused_int8.py:127"),
+    ("fused_cost_dots", "fused_cost", "scripts/exp_fused_cost.py:82"),
+    ("fused_cost_lstm", "fused_cost", "scripts/exp_fused_cost.py:104"),
+    ("fused_cost_attn", "fused_cost", "scripts/exp_fused_cost.py:133"),
+]
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
     "Printing, in the only sense with which we are at present concerned.",
@@ -973,6 +1004,282 @@ def phase_train_to_infer(config, ckpt, ids, sid, dev):
          request_n_valid=n, request_text_len=len(ids[1]))
 
 
+def probe_check(tag, out, ref, tol):
+    """max |out - ref| within ``tol`` of ref's largest magnitude; returns
+    the absolute error."""
+    out, ref = out.float(), ref.float()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(math.isfinite(err) and err <= tol * scale,
+          f"{tag}: err {err} against {tol} x scale {scale}")
+    return err
+
+
+def probe_bound(n_bytes, n_ops, kind, steps):
+    """``bound`` for a whole call of ``steps`` steps, per step."""
+    ms, by = bound(n_bytes, n_ops, kind)
+    return ms / steps, by
+
+
+def probes_w4(side, dev):
+    """P1's five bodies once each at the script's shape (B=64, 1664 x
+    4096), kernel, plain and cuBLAS on the pre-dequantized bf16 weight
+    timed in CUDA graphs; P2's two bodies as one scan step (the dot and
+    the bf16 carry update) against the plain step and the script's XLA
+    baseline for the same quantization. bf16 outputs within PROBE_BF16_TOL
+    of their scale over 16 steps. Returns the kernel table's fields."""
+    from flowtron_tpu_torch.ops.w4 import (
+        BODIES, dequantize, w4_matmul, w4_matmul_reference)
+    from flowtron_tpu_torch.scripts import _probe
+    from flowtron_tpu_torch.scripts import exp_int4_variants as p2
+    from flowtron_tpu_torch.scripts import exp_w4_kernel_bisect as p1
+
+    rows = {}
+    x, q, s = p1.to_device(p1.make_inputs(), dev)
+    B, IN = x.shape
+    OUT = q.shape[1]
+    for body in ("k1", "k2", "k3", "k4", "k5"):
+        # the library call: cuBLAS on the dequantized bf16 weight
+        w_deq = dequantize(q, s, body).to(torch.bfloat16)
+        n_rows = w_deq.shape[0]
+        xin = x[:, :n_rows].contiguous()
+        (k_ms, p_ms, lib_ms), (out_k, out_p, _) = graph_times([
+            lambda: w4_matmul(x, q, s, body),
+            lambda: w4_matmul_reference(x, q, s, body),
+            lambda: xin @ w_deq], side)
+        err = probe_check(f"P1 {body}", out_k, out_p, PROBE_BF16_TOL)
+        n_bytes = 2 * B * n_rows + q.numel() + 2 * B * OUT + (
+            4 * s.numel() if BODIES[body][0] else 0)
+        rows[body] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                          bound=probe_bound(n_bytes, 2 * B * n_rows * OUT,
+                                            "bf16", 1))
+        emit("probe_w4", body=body, B=B, IN=IN, OUT=OUT, max_abs_err=err,
+             kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+             bound_ms=rows[body]["bound"][0],
+             sum=float(out_k.float().sum()))
+    inputs = p2.make_inputs()
+    for body, key in (("concat", "pallas_concat"), ("2dot", "pallas_2dot")):
+        x, q, s = inputs[key]
+        x = _probe.tensor(x, dev, torch.bfloat16)
+        q, s = _probe.tensor(q, dev), _probe.tensor(s, dev)
+        check_k = _probe.scan(p2.scan_step(p2.pallas(body), q, s), x,
+                              PROBE_STEPS)()
+        check_p = _probe.scan(p2.scan_step(
+            lambda a, b, c: w4_matmul_reference(a, b, c, body), q, s), x,
+            PROBE_STEPS)()
+        err = probe_check(f"P2 {body} scan", check_k, check_p, PROBE_BF16_TOL)
+        times = []
+        for dot in (p2.pallas(body),
+                    lambda a, b, c: w4_matmul_reference(a, b, c, body),
+                    p2.dot_w4_rows):
+            times.append(_probe.time_per_step(
+                _probe.scan(p2.scan_step(dot, q, s), x, p2.STEPS),
+                p2.STEPS)[0] / 1e3)
+        # the whole scan: x in and the carry out once, the weights read
+        # once; per step the product
+        n_bytes = 2 * B * IN + IN // 2 * OUT + 4 * s.numel() + 2 * B * IN
+        rows[body] = dict(err=err, ms=times[0], plain_ms=times[1],
+                          library_ms=times[2],
+                          bound=probe_bound(n_bytes,
+                                            2 * B * IN * OUT * p2.STEPS,
+                                            "bf16", p2.STEPS))
+        emit("probe_w4_scan", body=body, B=B, steps=p2.STEPS,
+             check_steps=PROBE_STEPS, max_abs_err=err,
+             kernel_ms_per_step=times[0], plain_ms_per_step=times[1],
+             library_ms_per_step=times[2], bound_ms_per_step=rows[body][
+                 "bound"][0])
+    return rows
+
+
+def probes_scans(dev):
+    """P3, P4 and P5 against their plain versions on the card over 16
+    steps at the scripts' shapes (and B=8 for P4, P5); then each timed
+    over the script's STEPS or N: the kernel, the plain version (eager,
+    as the other kernels' plain versions) and, for P3 and P4, the streamed
+    cuBLAS step in a CUDA graph. Also the resident bytes, the L2 bytes an
+    access-policy window may pin, and the time of a chain of four tiny
+    dots (each step is then mostly its four grid barriers). Returns the
+    kernel table's fields."""
+    from flowtron_tpu_torch.ops.fused_cost import (
+        VARIANTS, fused_cost, fused_cost_reference, pack_weights)
+    from flowtron_tpu_torch.ops.resident import (
+        max_persisting_l2_bytes, pack_resident_weights, resident_scan,
+        resident_scan_reference)
+    from flowtron_tpu_torch.scripts import _probe
+    from flowtron_tpu_torch.scripts import exp_fused_cost as p5
+    from flowtron_tpu_torch.scripts import exp_fused_int8 as p4
+    from flowtron_tpu_torch.scripts import exp_resident_weight as p3
+
+    rows = {}
+
+    def per_step(fn, steps, reps=3):
+        return _probe.time_per_step(fn, steps, reps)[0] / 1e3
+
+    # P3: the bf16 state (a bf16 rounding may move by one step when the
+    # fp32 sums run in another order) and the last product (whose input
+    # is that state) within PROBE_BF16_TOL of their scale
+    w, x = p3.make_inputs()
+    w = _probe.tensor(w, dev, torch.bfloat16)
+    x = _probe.tensor(x, dev, torch.bfloat16)
+    out = resident_scan("p3", x, [w], steps=PROBE_STEPS)
+    ref = resident_scan_reference("p3", x, [w], steps=PROBE_STEPS)
+    err = max(probe_check("P3 state", out[0], ref[0], PROBE_BF16_TOL),
+              probe_check("P3 product", out[1], ref[1], PROBE_BF16_TOL))
+    packed = pack_resident_weights("p3", [w])
+    B, S = x.shape
+    N = w.shape[1]
+    steps = p3.STEPS
+    k_ms = per_step(lambda: resident_scan("p3", x, [w], steps=steps,
+                                          packed=packed), steps)
+    res_bytes = resident_scan.last_resident[0]
+    p_ms = per_step(lambda: resident_scan_reference("p3", x, [w], steps=steps),
+                    steps, reps=1)
+    lib_ms = per_step(_probe.scan(p3.xla_step(w), x, steps), steps)
+    n_bytes = 2 * S * N + 2 * B * S + 2 * B * S + 4 * B * N
+    rows["p3"] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                      bound=probe_bound(n_bytes, 2 * B * S * N * steps,
+                                        "bf16", steps))
+    emit("probe_p3", B=B, S=S, N=N, steps=steps, check_steps=PROBE_STEPS,
+         max_abs_err=err, kernel_us_per_step=1e3 * k_ms,
+         plain_us_per_step=1e3 * p_ms,
+         cublas_streamed_us_per_step=1e3 * lib_ms,
+         bound_us_per_step=1e3 * rows["p3"]["bound"][0],
+         resident_bytes=res_bytes,
+         max_persisting_l2_bytes=max_persisting_l2_bytes())
+
+    # P4: the fp32 state within PROBE_FP32_TOL of its scale
+    for body in ("bf16", "w8a8"):
+        for B in (1, 8):
+            args = p4.to_device(body, p4.make_inputs(body, B), dev)
+            out = resident_scan(body, *args, steps=PROBE_STEPS)
+            ref = resident_scan_reference(body, *args, steps=PROBE_STEPS)
+            err = max(probe_check(f"P4 {body} B={B} state", out[0], ref[0],
+                                  PROBE_FP32_TOL),
+                      probe_check(f"P4 {body} B={B} gates", out[1], ref[1],
+                                  PROBE_FP32_TOL))
+            packed = pack_resident_weights(body, args[1], args[2])
+            steps = p4.STEPS
+            k_ms = per_step(lambda: resident_scan(body, *args, steps=steps,
+                                                  packed=packed), steps)
+            res_bytes, resident = resident_scan.last_resident
+            lib_ms = per_step(_probe.scan(p4.library_step(args[1], args[2]),
+                                          args[0].float(), steps), steps)
+            fields = dict(body=body, B=B, steps=steps,
+                          check_steps=PROBE_STEPS, max_abs_err=err,
+                          kernel_us_per_step=1e3 * k_ms,
+                          cublas_streamed_us_per_step=1e3 * lib_ms,
+                          resident_bytes=res_bytes, resident_dots=resident)
+            if B == 1:
+                p_ms = per_step(lambda: resident_scan_reference(
+                    body, *args, steps=steps), steps, reps=1)
+                # weights (and scales) and x0 read once, the state and the
+                # last gates written once
+                x0, ws = args[0], args[1]
+                n_w = sum(t.numel() for t in ws)
+                n_bytes = (ws[0].element_size() * n_w
+                           + x0.element_size() * x0.numel()
+                           + 4 * x0.numel() + 4 * B * ws[-1].shape[1] // 4
+                           + (4 * sum(t.numel() for t in args[2])
+                              if body == "w8a8" else 0))
+                rows[body] = dict(
+                    err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                    bound=probe_bound(n_bytes, 2 * B * n_w * steps,
+                                      "int8" if body == "w8a8" else "bf16",
+                                      steps))
+                fields.update(plain_us_per_step=1e3 * p_ms,
+                              bound_us_per_step=1e3 * rows[body]["bound"][0])
+            emit("probe_p4", **fields)
+    # four tiny dependent dots a step: mostly the four grid barriers
+    tiny = [(256, 1024)] * 4
+    args = p4.to_device("bf16", p4.make_inputs("bf16", 1, tiny), dev)
+    tiny_ms = per_step(lambda: resident_scan("bf16", *args, steps=p4.STEPS),
+                       p4.STEPS)
+    emit("probe_p4_barriers", shapes=tiny, B=1, steps=p4.STEPS,
+         us_per_step=1e3 * tiny_ms, us_per_dot=1e3 * tiny_ms / len(tiny))
+
+    # P5: the fp32 mel within PROBE_FP32_TOL of its scale
+    for variant in VARIANTS:
+        for B in (1, 8):
+            ws, z, kv = p5.to_device(p5.make_inputs(variant, B, PROBE_STEPS),
+                                     dev)
+            err = probe_check(f"P5 {variant} B={B}",
+                              fused_cost(variant, z, kv, ws),
+                              fused_cost_reference(variant, z, kv, ws),
+                              PROBE_FP32_TOL)
+            ws, z, kv = p5.to_device(p5.make_inputs(variant, B), dev)
+            packed = pack_weights(variant, ws)
+            N = z.shape[0]
+            k_ms = per_step(lambda: fused_cost(variant, z, kv, ws, packed), N)
+            fields = dict(variant=variant, B=B, N=N, check_steps=PROBE_STEPS,
+                          max_abs_err=err, kernel_us_per_step=1e3 * k_ms)
+            if B == 1:
+                p_ms = per_step(lambda: fused_cost_reference(variant, z, kv,
+                                                             ws), N, reps=1)
+                # weights, z and kv read once, mel written once; per step
+                # 2 operations a weight element and stream, and for the
+                # attention 6 per (text position, channel) as K1's bound
+                # counts them, at the fp32 rate (SIMT tanh and sums)
+                n_w = sum(t.numel() for t in ws)
+                M = z.shape[2]
+                n_bytes = 2 * n_w + 4 * 2 * z.numel() + 2 * kv.numel()
+                attn = variant == "attn"
+                n_ops = 2 * B * n_w + (6 * B * kv.shape[1] * kv.shape[2]
+                                       if attn else 0)
+                rows[variant] = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                     library_ms=None,
+                                     bound=probe_bound(
+                                         n_bytes, n_ops * N,
+                                         "fp32" if attn else "bf16", N))
+                fields.update(
+                    M=M, plain_us_per_step=1e3 * p_ms,
+                    bound_us_per_step=1e3 * rows[variant]["bound"][0])
+            emit("probe_p5", **fields)
+    return rows
+
+
+def phase_probes(kernels, dev):
+    """The probes of scripts/exp_*.py on the card: each kernel against its
+    plain version (probes_w4, probes_scans), then the probes' own entry
+    points, each module's ``main`` at the script's default B and, for P4
+    and P5, at the serving engine's B=8, with every launch count set to 0
+    just before and read just after. Returns the table's fields and the
+    entry points' launches."""
+    from flowtron_tpu_torch.scripts import (
+        exp_fused_cost, exp_fused_int8, exp_int4_variants,
+        exp_resident_weight, exp_w4_kernel_bisect)
+
+    side = torch.cuda.Stream()
+    rows = probes_w4(side, dev)
+    rows.update(probes_scans(dev))
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    results = {
+        "exp_w4_kernel_bisect": exp_w4_kernel_bisect.main([]),
+        "exp_int4_variants": exp_int4_variants.main([]),
+        "exp_resident_weight": exp_resident_weight.main([]),
+        "exp_fused_int8": exp_fused_int8.main(["1"]),
+        "exp_fused_int8 B=8": exp_fused_int8.main(["8"]),
+        "exp_fused_cost": exp_fused_cost.main(["1"]),
+        "exp_fused_cost B=8": exp_fused_cost.main(["8"]),
+    }
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    probe_names = [n for n in kernels if n.startswith(PROBE_KERNELS)]
+    check(all(launches[n] > 0 for n in probe_names),
+          f"probe entry points: {launches}")
+    check(all(launches[n] == 0 for n in launches
+              if not n.startswith(PROBE_KERNELS)),
+          f"probe entry points launched other kernels: {launches}")
+    # each scan's us a step (exp_w4_kernel_bisect's single calls give sums)
+    us = {name: {k: v[0] for k, v in res.items()
+                 if name != "exp_w4_kernel_bisect" or k.endswith("scan")}
+          for name, res in results.items()}
+    emit("probes", wall_s=wall, us_per_step=us, launches=launches)
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -988,7 +1295,10 @@ def main():
     from flowtron_tpu_torch.ops.attention import (
         attention_scores_bwd, attention_scores_fwd)
     from flowtron_tpu_torch.ops.decoder import fused_flow_infer
+    from flowtron_tpu_torch.ops.fused_cost import fused_cost
     from flowtron_tpu_torch.ops.qmm import quantized_matmul
+    from flowtron_tpu_torch.ops.resident import resident_scan
+    from flowtron_tpu_torch.ops.w4 import w4_matmul
     from flowtron_tpu_torch.ops.wavenet import wn_layer
     from flowtron_tpu_torch.vocoder.waveglow import waveglow_init
 
@@ -1000,6 +1310,13 @@ def main():
                "attention_scores_bwd": (attention_scores_bwd, "launches"),
                "quantized_matmul": (quantized_matmul, "launches"),
                "quantized_matmul_w8a8": (quantized_matmul, "launches_w8a8")}
+    # the probes' kernels, one counter per Pallas body
+    for body in P_W4_BODIES:
+        kernels[f"w4_matmul_{body}"] = (w4_matmul, f"launches_{body}")
+    for body in ("p3", "bf16", "w8a8"):
+        kernels[f"resident_scan_{body}"] = (resident_scan, f"launches_{body}")
+    for variant in ("dots", "lstm", "attn"):
+        kernels[f"fused_cost_{variant}"] = (fused_cost, f"launches_{variant}")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1009,7 +1326,8 @@ def main():
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
 
-    names = ("decoder", "wavenet", "attention", "qmm")
+    names = ("decoder", "wavenet", "attention", "qmm", "w4", "resident",
+             "fused_cost")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.load_library, names))
@@ -1078,6 +1396,7 @@ def main():
         phase_train_vs_cpu(config, dev)
         phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
                              ids, sid, dev)
+    probes, probe_launches = phase_probes(kernels, dev)
     loaded = [m for m in sys.modules if m in ("jax", "flowtron_tpu")
               or m.startswith(("jax.", "flowtron_tpu."))]
     check(not loaded, f"the JAX package or jax was imported: {loaded}")
@@ -1119,6 +1438,17 @@ def main():
             "flowtron_tpu/ops/qmm_pallas.py:31",
             q_serve["quantized_matmul_w8"], k4["w8"][0], k4["w8"][1:5],
             k4["w8"][5]),
+    ] + [
+        # the probes: P1 one call at B=64; P2 one step of its 2000-step
+        # scan at B=64; P3 a step at B=64, P4 and P5 a step at B=1 (B=8 in
+        # the probe lines); launches: the probes' entry points
+        dict(row(name, f"flowtron_tpu_torch/csrc/{src}.cu", replaces,
+                 probe_launches[name], probes[key]["err"],
+                 (probes[key]["ms"], probes[key]["plain_ms"])
+                 + probes[key]["bound"], probes[key]["library_ms"]),
+             per="call" if key.startswith("k") else "step")
+        for name, src, replaces in PROBE_ROWS
+        for key in [name.rsplit("_", 1)[1]]
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,12 @@ hand-written CUDA kernels, built with ``nvcc`` at first use
 - ``ops/qmm.py`` + ``csrc/qmm.cu``: the int8 matmul of the quantized
   modes (replaces ``flowtron_tpu/ops/qmm_pallas.py``).
 
+The TPU probes of ``scripts/exp_*.py`` have ports in ``scripts/`` (same
+file names) with kernels of their own: ``ops/w4.py`` + ``csrc/w4.cu``
+(int4 dequant matmuls), ``ops/resident.py`` + ``csrc/resident.cu``
+(scans with weights kept on chip) and ``ops/fused_cost.py`` +
+``csrc/fused_cost.cu`` (K1 stripped for cost attribution).
+
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 The package imports ``torch`` and nothing of ``jax`` or ``flowtron_tpu``:
 it carries its own copies of the text frontend (``text/``) and the config
