@@ -192,9 +192,12 @@ def graph_times(fns, side, reps=20, rounds=3):
 def bound(n_bytes, n_ops, kind="fp32"):
     """The least time (ms) the card could take: the larger of the bytes
     over HBM's rate and the operations over the peak rate of their type.
-    Returns (ms, "bytes" or "operations")."""
+    ``n_ops`` may be a dict {type: operations} for work of mixed types,
+    each part over its own peak, the times added. Returns (ms, "bytes"
+    or "operations")."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+    ops = n_ops if isinstance(n_ops, dict) else {kind: n_ops}
+    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1026,8 +1029,10 @@ def probes_w4(side, dev):
     4096), kernel, plain and cuBLAS on the pre-dequantized bf16 weight
     timed in CUDA graphs; P2's two bodies as one scan step (the dot and
     the bf16 carry update) against the plain step and the script's XLA
-    baseline for the same quantization. bf16 outputs within PROBE_BF16_TOL
-    of their scale over 16 steps. Returns the kernel table's fields."""
+    baseline for the same quantization (``dot_w4_rows`` takes its group
+    from s's rows: 128 for concat, 64 for 2dot). bf16 outputs within
+    PROBE_BF16_TOL of their scale over 16 steps. Returns the kernel
+    table's fields."""
     from flowtron_tpu_torch.ops.w4 import (
         BODIES, dequantize, w4_matmul, w4_matmul_reference)
     from flowtron_tpu_torch.scripts import _probe
@@ -1216,20 +1221,20 @@ def probes_scans(dev):
                 p_ms = per_step(lambda: fused_cost_reference(variant, z, kv,
                                                              ws), N, reps=1)
                 # weights, z and kv read once, mel written once; per step
-                # 2 operations a weight element and stream, and for the
-                # attention 6 per (text position, channel) as K1's bound
-                # counts them, at the fp32 rate (SIMT tanh and sums)
+                # 2 operations a weight element and stream at the bf16
+                # rate (bf16 products, fp32 sums), and for the attention
+                # 6 per (text position, channel) as K1's bound counts
+                # them, at the fp32 rate (tanh, softmax and context sums)
                 n_w = sum(t.numel() for t in ws)
                 M = z.shape[2]
                 n_bytes = 2 * n_w + 4 * 2 * z.numel() + 2 * kv.numel()
-                attn = variant == "attn"
-                n_ops = 2 * B * n_w + (6 * B * kv.shape[1] * kv.shape[2]
-                                       if attn else 0)
+                n_ops = {"bf16": 2 * B * n_w * N}
+                if variant == "attn":
+                    n_ops["fp32"] = 6 * B * kv.shape[1] * kv.shape[2] * N
                 rows[variant] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                      library_ms=None,
-                                     bound=probe_bound(
-                                         n_bytes, n_ops * N,
-                                         "fp32" if attn else "bf16", N))
+                                     bound=probe_bound(n_bytes, n_ops,
+                                                       "bf16", N))
                 fields.update(
                     M=M, plain_us_per_step=1e3 * p_ms,
                     bound_us_per_step=1e3 * rows[variant]["bound"][0])
@@ -1242,8 +1247,12 @@ def phase_probes(kernels, dev):
     plain version (probes_w4, probes_scans), then the probes' own entry
     points, each module's ``main`` at the script's default B and, for P4
     and P5, at the serving engine's B=8, with every launch count set to 0
-    just before and read just after. Returns the table's fields and the
-    entry points' launches."""
+    just before and read just after. The kernels' scans run eagerly there
+    (only the library baselines replay CUDA graphs), so each count is the
+    launches the run made: one a step for P1's and P2's scans, one a scan
+    for P3 and P4, one a recurrence for P5 (a host call launching its
+    kernels step by step, as K1 does a flow). Returns the table's fields
+    and the entry points' launches."""
     from flowtron_tpu_torch.scripts import (
         exp_fused_cost, exp_fused_int8, exp_int4_variants,
         exp_resident_weight, exp_w4_kernel_bisect)
@@ -1441,7 +1450,8 @@ def main():
     ] + [
         # the probes: P1 one call at B=64; P2 one step of its 2000-step
         # scan at B=64; P3 a step at B=64, P4 and P5 a step at B=1 (B=8 in
-        # the probe lines); launches: the probes' entry points
+        # the probe lines); launches: the probes' entry points (a launch
+        # of P3-P5 runs a whole scan or recurrence)
         dict(row(name, f"flowtron_tpu_torch/csrc/{src}.cu", replaces,
                  probe_launches[name], probes[key]["err"],
                  (probes[key]["ms"], probes[key]["plain_ms"])

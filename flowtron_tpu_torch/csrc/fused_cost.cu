@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quad_dot.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -60,32 +62,8 @@ enum Mode { kTanhCell = 0, kLstmCell = 1, kHalfCell = 2, kHead = 3,
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline int pad8(int n) { return (n + 7) & ~7; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void bf16x8(const uint4 v, float (&f)[8]) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
 }
 
 // One input segment of a dot: n fp32 values per batch row at src (row
@@ -104,42 +82,6 @@ __device__ void stage(__nv_bfloat16* xs, int Kp, int off, Seg s, int g0,
                         ? s.src[(size_t)(g0 + b) * s.ld + k] : 0.f;
     xs[(size_t)b * Kp + off + k] = __float2bfloat16_rn(v);
   }
-}
-
-// One warp: acc[c][b] = dot(W[c, :Kp], xs[b, :Kp]), every lane ends with
-// every sum.
-__device__ __forceinline__ void quad_dot(const __nv_bfloat16* W, int Kp,
-                                         const __nv_bfloat16* xs, int nb,
-                                         float (&acc)[4][kMaxB]) {
-  const int lane = threadIdx.x & 31;
-  const int K8 = Kp >> 3;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[c][b] = 0.f;
-  for (int i = lane; i < K8; i += 32) {
-    float w[4][8];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bf16x8(__ldg(reinterpret_cast<const uint4*>(W + (size_t)c * Kp) + i),
-             w[c]);
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
-      if (b < nb) {
-        float x[8];
-        bf16x8(reinterpret_cast<const uint4*>(xs + (size_t)b * Kp)[i], x);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[c][b] = fmaf(w[c][j], x[j], acc[c][b]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
-      if (b < nb) acc[c][b] = warp_sum(acc[c][b]);
 }
 
 // acc[c][b] for a lane-dependent (c, b), without dynamic register indexing.
@@ -176,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) dot_kernel(
   const int q = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (q >= N / 4) return;
   float acc[4][kMaxB];
-  quad_dot(W + (size_t)q * 4 * Kp, Kp, xs, nb, acc);
+  quad_dot_bf16<true>(W + (size_t)q * 4 * Kp, Kp, xs, nb, acc);
   const bool natural = mode == kHead || mode == kQuery;
   const int c = lane >> 3, b = lane & 7;
   if (b < nb) {

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quad_dot.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -88,40 +90,15 @@ struct Params {
   float* y_last;                  // P3: (B, N) fp32 product of the last step
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ int warp_sum_i(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
 }
 
 // 0.999 * a + 0.001 * b with each product and the sum rounded, as the
 // Pallas bodies write it (no contraction into an FMA).
 __device__ __forceinline__ float blend(float a, float b) {
   return __fadd_rn(__fmul_rn(0.999f, a), __fmul_rn(0.001f, b));
-}
-
-// Eight bf16 of a 16-byte vector as floats.
-__device__ __forceinline__ void bf16x8(const uint4 v, float (&f)[8]) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
 }
 
 __device__ __forceinline__ int dp4a16(const int4 a, const int4 b, int acc) {
@@ -131,44 +108,8 @@ __device__ __forceinline__ int dp4a16(const int4 a, const int4 b, int acc) {
   return __dp4a(a.w, b.w, acc);
 }
 
-// One warp: acc[c][b] = dot(W[c, :K], xs[b, :K]) for the 4 rows c of a
-// quad and the nb staged rows b; bf16 rows, K a multiple of 8. Every lane
-// ends with every sum.
-__device__ __forceinline__ void quad_dot_bf16(const __nv_bfloat16* W, int K,
-                                              const __nv_bfloat16* xs, int nb,
-                                              float (&acc)[4][kMaxB]) {
-  const int lane = threadIdx.x & 31;
-  const int K8 = K >> 3;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[c][b] = 0.f;
-  for (int i = lane; i < K8; i += 32) {
-    float w[4][8];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bf16x8(reinterpret_cast<const uint4*>(W + (size_t)c * K)[i], w[c]);
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
-      if (b < nb) {
-        float x[8];
-        bf16x8(reinterpret_cast<const uint4*>(xs + (size_t)b * K)[i], x);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[c][b] = fmaf(w[c][j], x[j], acc[c][b]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
-      if (b < nb) acc[c][b] = warp_sum(acc[c][b]);
-}
-
-// The same for int8 rows and int8 staged rows, exact int32 sums; K a
-// multiple of 16.
+// quad_dot_bf16 (quad_dot.cuh) for int8 rows and int8 staged rows, exact
+// int32 sums; K a multiple of 16.
 __device__ __forceinline__ void quad_dot_i8(const int8_t* W, int K,
                                             const int8_t* xs, int nb,
                                             int (&acc)[4][kMaxB]) {
@@ -410,9 +351,9 @@ __global__ void __launch_bounds__(kThreads, 1) resident_kernel(Params p) {
                                p.scale[i][4 * q + c]);
           } else {
             float acc[4][kMaxB];
-            quad_dot_bf16(reinterpret_cast<const __nv_bfloat16*>(Wq), K,
-                          reinterpret_cast<const __nv_bfloat16*>(stage), nb,
-                          acc);
+            quad_dot_bf16<false>(reinterpret_cast<const __nv_bfloat16*>(Wq), K,
+                                 reinterpret_cast<const __nv_bfloat16*>(stage),
+                                 nb, acc);
 #pragma unroll
             for (int c = 0; c < 4; ++c) y[c] = pick(acc, c, lane & 7);
           }

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library, then
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds. Libraries go to ``build/torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edit
-rebuilds and an unchanged source is reused.
+checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged
+source is reused.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines with no ``nvcc``.
@@ -48,7 +49,9 @@ def load_library(name):
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers too, so an edit of one rebuilds its includers
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}-{digest}.so"
     if lib_path.exists():

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from flowtron_tpu_torch.ops import _build
+from flowtron_tpu_torch.ops._layout import interleave_gates
 
 MASK_VALUE = -1e9
 
@@ -43,9 +44,8 @@ def _pack_lstm(w_ih, w_hh, b_ih, b_hh):
     H = w_hh.shape[1]
     w = torch.cat([_pad_cols(w_ih, _pad4(w_ih.shape[1])),
                    _pad_cols(w_hh, _pad4(H))], dim=1)
-    w = w.reshape(4, H, -1).transpose(0, 1).reshape(4 * H, -1)
-    b = (b_ih + b_hh).reshape(4, H).t().reshape(-1)
-    return w.contiguous(), b.contiguous()
+    return (interleave_gates(w).contiguous(),
+            interleave_gates(b_ih + b_hh).contiguous())
 
 
 @torch.no_grad()

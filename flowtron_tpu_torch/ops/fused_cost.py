@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from flowtron_tpu_torch.ops import _build
+from flowtron_tpu_torch.ops._layout import interleave_gates
 
 VARIANTS = ("dots", "lstm", "attn")
 
@@ -93,8 +94,7 @@ def _pad8(w):
 
 def _interleave(w):
     """(K, N) -> (N, P(K)) rows with row 4u + c = column c * N/4 + u."""
-    K, N = w.shape
-    return _pad8(w.t().reshape(4, N // 4, K).transpose(0, 1).reshape(N, K))
+    return _pad8(interleave_gates(w.t()))
 
 
 def _columns(w):

@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from flowtron_tpu_torch.ops import _build
+from flowtron_tpu_torch.ops._layout import interleave_gates
 
 BODIES = ("p3", "bf16", "w8a8")
 INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
@@ -112,14 +113,11 @@ def pack_resident_weights(body, ws, scales=None):
     the same order. Returns (weights, scales or None), new storage."""
     out_w, out_s = [], None if scales is None else []
     for i, w in enumerate(ws):
-        K, N = w.shape
-        wt = w.t()
-        if body != "p3":
-            wt = wt.reshape(4, N // 4, K).transpose(0, 1).reshape(N, K)
+        wt = w.t() if body == "p3" else interleave_gates(w.t())
         out_w.append(wt.contiguous())
         if scales is not None:
             s = scales[i].reshape(-1).float()
-            out_s.append(s.reshape(4, N // 4).t().reshape(N).contiguous())
+            out_s.append(interleave_gates(s).contiguous())
     return out_w, out_s
 
 

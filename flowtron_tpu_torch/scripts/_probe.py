@@ -11,6 +11,9 @@ import torch
 # bf16 array: 0.999 becomes 1.0 and 0.001 becomes 0.00099945068359375.
 BF16_0999 = float(torch.tensor(0.999).to(torch.bfloat16))
 BF16_0001 = float(torch.tensor(0.001).to(torch.bfloat16))
+# steps captured in one CUDA graph (gcd(steps, GRAPH_CHUNK) when it does not
+# divide the scan)
+GRAPH_CHUNK = 100
 
 _side = {}
 
@@ -37,20 +40,22 @@ def side_stream(device):
     return _side[device]
 
 
-def scan(step, x0, steps, chunk=100):
+def scan(step, x0, steps, graph=True):
     """A callable that runs ``carry = step(carry)`` ``steps`` times from
-    ``x0`` and returns the final carry. On the card the loop body is
-    captured ``chunk`` steps at a time (``gcd(steps, chunk)`` when
-    ``chunk`` does not divide ``steps``) in one CUDA graph and replayed, so
-    host dispatch does not count; on the CPU it is a plain loop."""
-    if x0.device.type != "cuda":
+    ``x0`` and returns the final carry. With ``graph`` on the card, the
+    loop body is captured GRAPH_CHUNK steps at a time in one CUDA graph
+    and replayed, so host dispatch does not count: for steps that finish
+    faster than Python launches them (the library baselines). Otherwise
+    it is a plain loop, so a kernel wrapper called by ``step`` counts
+    every launch it makes."""
+    if not graph or x0.device.type != "cuda":
         def run():
             carry = x0
             for _ in range(steps):
                 carry = step(carry)
             return carry
         return run
-    chunk = math.gcd(steps, chunk)
+    chunk = math.gcd(steps, GRAPH_CHUNK)
     static = x0.clone()
     side = side_stream(x0.device)
     side.wait_stream(torch.cuda.current_stream())
@@ -58,8 +63,8 @@ def scan(step, x0, steps, chunk=100):
         step(static.clone())
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured):
         carry = static
         for _ in range(chunk):
             carry = step(carry)
@@ -68,7 +73,7 @@ def scan(step, x0, steps, chunk=100):
     def run():
         static.copy_(x0)
         for _ in range(steps // chunk):
-            graph.replay()
+            captured.replay()
         return static
     return run
 

@@ -2,7 +2,10 @@
 dequant-matmul bodies k1-k5 (ops/w4.py, csrc/w4.cu), each run once and
 summed, then k3 and k5 timed in a STEPS-long scan
 ``carry = 0.999 * carry + 0.001 * y[:, :IN]`` (bf16), a loop of kernel
-launches captured in CUDA graphs.
+launches. The loop runs eagerly, not from a CUDA graph, so the kernel's
+launch counter counts every launch; the Python step takes about as long
+as the kernel, so the printed time holds some host time (chip_smoke.py
+also times the kernel's scan from CUDA graphs).
 
     python -m flowtron_tpu_torch.scripts.exp_w4_kernel_bisect [B] [STEPS]
 
@@ -69,7 +72,7 @@ def main(argv=None, device=None, B=B, IN=IN, OUT=OUT, NG=NG):
         print(f"{name}: OK {total:.3f}", flush=True)
     for name, body in SCANS:
         us, carry = _probe.time_per_step(
-            _probe.scan(scan_step(body, q, s), x, steps), steps)
+            _probe.scan(scan_step(body, q, s), x, steps, graph=False), steps)
         results[f"{body} scan"] = (us, carry)
         print(f"{name} scan: {us:7.2f} us/step", flush=True)
     return results

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 torch = pytest.importorskip("torch")
 
+from flowtron_tpu_torch.ops._layout import interleave_gates  # noqa: E402
 from flowtron_tpu_torch.ops.fused_cost import (  # noqa: E402
     VARIANTS, fused_cost, fused_cost_reference, pack_weights, weight_shapes)
 from flowtron_tpu_torch.ops.resident import (  # noqa: E402
@@ -288,6 +289,32 @@ def test_fused_cost_packing_layout():
     assert torch.equal(wc[5, :H], ws[4][:, 5].bfloat16())
     (qa, _, _) = pack_weights("attn", [torch.randn(M, D)])
     assert qa.shape == (D, 8)
+
+
+@pytest.mark.parametrize("shape", [(8,), (8, 3), (16, 5)])
+def test_interleave_gates_puts_a_units_gates_in_one_quad(shape):
+    """The one gate layout of K1's and the probes' packers: row 4u + c is
+    the gate-major row c * n + u, for weights and for 1-D biases and
+    scales alike."""
+    t = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+    out = interleave_gates(t)
+    n = shape[0] // 4
+    assert out.shape == t.shape
+    for u in range(n):
+        for c in range(4):
+            assert torch.equal(out[4 * u + c], t[c * n + u])
+
+
+def test_bound_adds_mixed_types_at_their_own_peaks():
+    """chip_smoke.py's bound for work of two types (P5's attention: bf16
+    products, fp32 tanh and softmax): each part over its own peak."""
+    import chip_smoke
+    peaks = chip_smoke.PEAK_OPS_S
+    ms, by = chip_smoke.bound(0, {"bf16": peaks["bf16"] * 1e-3,
+                                  "fp32": peaks["fp32"] * 1e-3})
+    assert by == "operations" and ms == pytest.approx(2.0)
+    assert chip_smoke.bound(0, peaks["bf16"] * 1e-3, "bf16")[0] == \
+        pytest.approx(1.0)
 
 
 @pytest.mark.parametrize("module", [

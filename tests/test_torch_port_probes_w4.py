@@ -26,7 +26,7 @@ from tests.probe_scripts import (  # noqa: E402
 IN, OUT, B, TN, STEPS = 256, 1024, 8, 512, 3
 NG = IN // 128
 P1_BODIES = ["k1", "k2", "k3", "k4", "k5"]
-P2_KEYS = [key for _, key, _ in port_p2.VARIANTS]
+P2_KEYS = [key for _, key, _, _ in port_p2.VARIANTS]
 
 
 def _t(a, dtype=None):
@@ -155,7 +155,7 @@ def test_p2_dot_matches_jax(p2, key):
     """One dot of each variant: the four XLA baselines (plain PyTorch in
     the port) and the two Pallas bodies (ops/w4.py)."""
     name, args, ref, _ = p2[key]
-    dot = dict((k, d) for _, k, d in port_p2.VARIANTS)[key]
+    dot = dict((k, d) for _, k, d, _ in port_p2.VARIANTS)[key]
     x, q, s = port_p2.make_inputs(B, IN, OUT)[key]
     out = dot(_t(x, torch.bfloat16), _t(q), _t(s))
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape, name
@@ -165,7 +165,7 @@ def test_p2_dot_matches_jax(p2, key):
 @pytest.mark.parametrize("key", P2_KEYS)
 def test_p2_scan_matches_jax(p2, key):
     name, _, _, ref = p2[key]
-    dot = dict((k, d) for _, k, d in port_p2.VARIANTS)[key]
+    dot = dict((k, d) for _, k, d, _ in port_p2.VARIANTS)[key]
     x, q, s = port_p2.make_inputs(B, IN, OUT)[key]
     carry = _probe.scan(port_p2.scan_step(dot, _t(q), _t(s)),
                         _t(x, torch.bfloat16), STEPS)()
@@ -226,3 +226,17 @@ def test_w4_kernel_matches_plain_on_card(cuda_device, body):
         assert float((out - ref).abs().max()) <= 1e-2 * float(
             ref.abs().max())
     assert w4_matmul.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_p2_main_counts_every_kernel_launch_on_card(cuda_device, capsys):
+    """The kernels' scans run eagerly in the entry point, so each body's
+    counter gains one a step of every run: the warm-up and the three
+    timed runs of ``time_per_step``."""
+    steps = 3
+    before = {b: getattr(w4_matmul, f"launches_{b}")
+              for b in ("concat", "2dot")}
+    port_p2.main([str(B), str(steps)], device=cuda_device, IN=IN, OUT=OUT)
+    torch.cuda.synchronize()
+    for b, n in before.items():
+        assert getattr(w4_matmul, f"launches_{b}") == n + 4 * steps
