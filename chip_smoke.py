@@ -25,8 +25,9 @@ drives the port's three paths at the full width of the repo's
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
   attribution (``fused_cost.cu``), each kernel first held against its
-  plain version over the first 16 steps, then each module's ``main``
-  driven at the script's default batch (and B=8 for P4 and P5).
+  plain version over the first 16 steps (the int4 matmuls and P3 also
+  against a second run of themselves, bit for bit), then each module's
+  ``main`` driven at the script's default batch (and B=8 for P4 and P5).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Each phase prints one JSON line; the line before the
@@ -1053,12 +1054,16 @@ def probes_w4(side, dev):
             lambda: w4_matmul_reference(x, q, s, body),
             lambda: xin @ w_deq], side)
         err = probe_check(f"P1 {body}", out_k, out_p, PROBE_BF16_TOL)
+        # the split rows meet in a fixed order: a second call, bit for bit
+        check(torch.equal(out_k, w4_matmul(x, q, s, body)),
+              f"P1 {body}: two calls differ")
         n_bytes = 2 * B * n_rows + q.numel() + 2 * B * OUT + (
             4 * s.numel() if BODIES[body][0] else 0)
         rows[body] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                           bound=probe_bound(n_bytes, 2 * B * n_rows * OUT,
                                             "bf16", 1))
         emit("probe_w4", body=body, B=B, IN=IN, OUT=OUT, max_abs_err=err,
+             split=w4_matmul.last_split,
              kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
              bound_ms=rows[body]["bound"][0],
              sum=float(out_k.float().sum()))
@@ -1130,6 +1135,9 @@ def probes_scans(dev):
     ref = resident_scan_reference("p3", x, [w], steps=PROBE_STEPS)
     err = max(probe_check("P3 state", out[0], ref[0], PROBE_BF16_TOL),
               probe_check("P3 product", out[1], ref[1], PROBE_BF16_TOL))
+    again = resident_scan("p3", x, [w], steps=PROBE_STEPS)
+    check(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
+          "P3: two scans differ")
     packed = pack_resident_weights("p3", [w])
     B, S = x.shape
     N = w.shape[1]

@@ -25,9 +25,12 @@
 // What bounds it on an H100: for P4 at B = 1 to 8, the bytes of the
 // weights, read every step (38.8 MB of bf16 or 19.4 MB of int8 a step,
 // ~12 or ~6 us at 3.35 TB/s from HBM), and the latency of the n
-// dependent dots; for P3 at B = 64, the 0.87 GFLOP of every step.
+// dependent dots; for P3 at B = 64, the 0.87 GFLOP of every step (~0.9 us
+// at the bf16 tensor-core peak), and what the design adds: every SM reads
+// the whole bf16 state from L2 every step (213 KB, ~28 MB a step over
+// 132 SMs) and waits at a grid barrier (2-3.5 us, PERF.md).
 //
-// What the design does about it (a simple first version):
+// What the design does about it:
 // - one persistent cooperative launch for the whole scan: one block per
 //   SM, each owning a contiguous range of row quads (32 output columns at
 //   these shapes), so a block's share of every dot is fixed for all
@@ -41,10 +44,22 @@
 //   every block needs the whole previous output; state and the gate
 //   outputs are double-buffered in global memory, so no block writes what
 //   another may still read;
-// - P3 (B = 64) runs on the tensor cores: mma.sync m16n8k16 bf16 tiles,
-//   fp32 sums, each warp one 8-column n-tile and one 16-row m-tile of 32
-//   staged batch rows, smem rows padded by 16 bytes against bank
-//   conflicts;
+// - P3 (B = 64, its own kernel p3_kernel) runs on the tensor cores and
+//   pipelines its staging behind them: the state comes in chunks of all
+//   (up to 64) batch rows x kP3Chunk columns through a ring of kP3Stages
+//   cp.async groups, so the mma.sync m16n8k16 bf16 tiles of chunk i run
+//   while chunks i + 1 .. i + 3 land; each block walks the chunks from its
+//   own starting chunk, so the SMs do not all ask L2 for the same lines at
+//   once; each warp keeps 2 m-tiles x 2 n-tiles of independent fp32
+//   accumulators over half of every chunk's k (A and B fragments by
+//   ldmatrix, all of a chunk's loaded before its products), and the two
+//   halves meet in shared memory in a fixed order; each thread's copy
+//   offsets are fixed a pass, so a chunk's copies cost a few instructions
+//   (address arithmetic would otherwise take more issue slots than the
+//   products); smem rows are padded by 16 bytes against bank
+//   conflicts; a batch above 64 rows takes further passes; what holds it
+//   back (PERF.md) is the grid barrier (~2 us a step) and every SM's pull
+//   of the whole state from L2;
 // - the chains (B = 1 to 8) stay SIMT: each warp owns one row quad (one unit's four gates) and reads
 //   its rows and the staged input in 16-byte vectors, lanes on
 //   neighbouring addresses; a shuffle reduction then gives every lane the
@@ -61,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "quad_dot.cuh"
 
 namespace cg = cooperative_groups;
@@ -72,8 +88,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 8;         // batch rows per pass (one warp each for W8A8)
 constexpr int kMaxDots = 4;
 constexpr int kLoads = 8;         // staging loads in flight per thread
-constexpr int kMmaRows = 32;      // P3: batch rows staged per pass
 constexpr int kPad = 8;           // P3: bf16 of padding per smem row
+constexpr int kP3Rows = 64;       // P3: batch rows a pass (four m16 tiles)
+constexpr int kP3Chunk = 128;     // P3: state columns a ring stage
+constexpr int kP3Stages = 4;      // P3: ring stages
+constexpr int kP3Cols = 32;       // P3: output columns a block at most
+constexpr int kP3XS = kP3Chunk + kPad;   // P3: staged row stride (bf16)
+constexpr int kP3RS = kP3Cols + 4;       // P3: partial-sum row stride (fp32)
+constexpr int kP3Step = kThreads / (kP3Chunk / 8);   // P3: rows a copy round
 constexpr float kInv127 = 1.0f / 127.0f;
 
 enum Body { kP3 = 0, kChainBf16 = 1, kChainW8A8 = 2 };
@@ -85,6 +107,7 @@ struct Params {
   const float* scale[kMaxDots];   // (N,) packed, W8A8 only
   size_t smem_off[kMaxDots];      // offset of the resident slice, or -1
   size_t stage_off;               // offset of the staged input rows
+  size_t red_off;                 // P3: offset of the k-halves' sums
   void* state[2];                 // P3: bf16 (B, S); chains: fp32 (B, S)
   float* g[2];                    // chains: (B, N / 4) gate outputs
   float* y_last;                  // P3: (B, N) fp32 product of the last step
@@ -159,82 +182,163 @@ __device__ __forceinline__ float chain_input(const Params& p, int i, int cur,
   return p.g[(i - 1) & 1][(size_t)b * H4 + k % H4];
 }
 
-// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One P3 step for this block's columns [4 q0, 4 q1) on the tensor cores:
-// y = state @ w, then the state update of columns < S and, at the last
-// step, y itself. The weight rows (resident) and the staged state rows
-// are kept with a row stride of K + kPad bf16, so the fragment loads of
-// the 8 rows a warp reads fall in different banks. Warp w owns n-tile
-// (8 columns) w % 4 and m-tile (16 batch rows) w / 4 of each pass of
-// kMmaRows rows.
-__device__ void p3_step(const Params& p, unsigned char* smem, int cur,
-                        int nxt, int t, int q0, int q1) {
+// P3 on the tensor cores: one block a SM, its columns [4 q0, 4 q1) (at
+// most kP3Cols) of w resident, and per step y = state @ w, then the state
+// update of columns < S and, at the last step, y itself. The state comes
+// through the ring in chunks of (up to) kP3Rows batch rows x kP3Chunk
+// columns, from chunk blockIdx.x % n_chunks on. Warp w owns m-tiles
+// 2 (w & 1) and + 1, n-tiles 2 ((w >> 1) & 1) and + 1, and the k-steps of
+// half w >> 2 of every chunk; the weight rows and the staged rows have a
+// row stride of K + kPad and kP3XS bf16, so the 8 rows of an ldmatrix
+// matrix fall in different banks.
+__global__ void __launch_bounds__(kThreads, 1) p3_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int K = p.K[0], Ks = K + kPad;
-  const __nv_bfloat16* wsl =
-      reinterpret_cast<const __nv_bfloat16*>(smem + p.smem_off[0]);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + p.stage_off);
-  const __nv_bfloat16* s_old = static_cast<const __nv_bfloat16*>(p.state[cur]);
-  __nv_bfloat16* s_new = static_cast<__nv_bfloat16*>(p.state[nxt]);
-  const int ncols = 4 * (q1 - q0), mt = warp >> 2;
-  const int per_row = K / 8;
-  for (int b0 = 0; b0 < p.B; b0 += kMmaRows) {
-    const int nb = min(kMmaRows, p.B - b0);
-    // stage state rows b0 .. b0 + nb with cp.async, every 16-byte copy in
-    // flight at once
-    const int n16 = nb * per_row;
-    for (int j = threadIdx.x; j < n16; j += kThreads) {
-      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
-          xs + (size_t)(j / per_row) * Ks + (size_t)(j % per_row) * 8));
-      const __nv_bfloat16* src = s_old + (size_t)(b0 + j / per_row) * p.S +
-                                 (size_t)(j % per_row) * 8;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                   "l"(src));
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    if (mt * 16 < nb) {
-      for (int nt = warp & 3; nt * 8 < ncols; nt += 4) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* a_lo = xs + (size_t)(mt * 16 + gid) * Ks + 2 * tig;
-        const __nv_bfloat16* a_hi = a_lo + (size_t)8 * Ks;
-        const __nv_bfloat16* bw = wsl + (size_t)(nt * 8 + gid) * Ks + 2 * tig;
-#pragma unroll 4
-        for (int k0 = 0; k0 < K; k0 += 16)
-          mma_bf16(c, ld32(a_lo + k0), ld32(a_hi + k0), ld32(a_lo + k0 + 8),
-                   ld32(a_hi + k0 + 8), ld32(bw + k0), ld32(bw + k0 + 8));
-        // c[e]: batch row gid (+8 for e >= 2), column 2 tig (+1 if e odd)
+  const int mw = warp & 1, nw = (warp >> 1) & 1, kw = warp >> 2;
+  const int Q = p.N >> 2;
+  const int q0 = (int)((long long)blockIdx.x * Q / p.grid);
+  const int q1 = (int)((long long)(blockIdx.x + 1) * Q / p.grid);
+  const int K = p.K[0], Ks = K + kPad, ncols = 4 * (q1 - q0);
+  const int n_chunks = K / kP3Chunk, first = blockIdx.x % n_chunks;
+  const int lr = threadIdx.x / (kP3Chunk / 8), lc = threadIdx.x % (kP3Chunk / 8);
+  __nv_bfloat16* wsl = reinterpret_cast<__nv_bfloat16*>(smem + p.smem_off[0]);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + p.stage_off);
+  float* red = reinterpret_cast<float*>(smem + p.red_off);
+
+  // this block's rows of w, once
+  {
+    const int per_row = K / 8;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.w[0]) + (size_t)q0 * 4 * K);
+    for (int j = threadIdx.x; j < ncols * per_row; j += kThreads)
+      reinterpret_cast<uint4*>(wsl + (size_t)(j / per_row) * Ks)[j % per_row] =
+          src[j];
+  }
+  __syncthreads();
+
+  for (int t = 0; t < p.steps; ++t) {
+    const __nv_bfloat16* s_old =
+        static_cast<const __nv_bfloat16*>(p.state[t & 1]);
+    __nv_bfloat16* s_new = static_cast<__nv_bfloat16*>(p.state[(t & 1) ^ 1]);
+    for (int b0 = 0; b0 < p.B; b0 += kP3Rows) {
+      const int nb = min(kP3Rows, p.B - b0);
+      // stage chunk i into its ring slot (rows >= nb are left as they are:
+      // a product row depends only on its own state row); this thread
+      // copies 16 bytes of rows lr + kP3Step u, its offsets fixed a pass
+      const __nv_bfloat16* src = s_old + (size_t)(b0 + lr) * p.S + 8 * lc;
+      __nv_bfloat16* dst = ring + lr * kP3XS + 8 * lc;
+      auto load = [&](int i) {
+        if (i < n_chunks) {
+          const int kc = first + i < n_chunks ? first + i : first + i - n_chunks;
+          const __nv_bfloat16* s = src + kc * kP3Chunk;
+          __nv_bfloat16* d = dst + (i % kP3Stages) * (kP3Rows * kP3XS);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = mt * 16 + gid + (e >> 1) * 8;
-          const int col = nt * 8 + 2 * tig + (e & 1);
-          if (r >= nb || col >= ncols) continue;
-          const size_t row = (size_t)(b0 + r);
-          const int n = 4 * q0 + col;
-          if (n < p.S)
-            s_new[row * p.S + n] = __float2bfloat16_rn(
-                blend(__bfloat162float(s_old[row * p.S + n]), c[e]));
-          if (t == p.steps - 1) p.y_last[row * p.N + n] = c[e];
+          for (int u = 0; u < kP3Rows / kP3Step; ++u)
+            if (lr + kP3Step * u < nb)
+              cp_async16(d + kP3Step * u * kP3XS,
+                         s + (size_t)kP3Step * u * p.S);
         }
+        cp_async_commit();
+      };
+      for (int i = 0; i < kP3Stages - 1; ++i) load(i);
+      float acc[2][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+      for (int i = 0; i < n_chunks; ++i) {
+        cp_async_wait<kP3Stages - 2>();
+        __syncthreads();   // chunk i landed for all; chunk i - 1 is done
+        load(i + kP3Stages - 1);
+        if (mw * 32 >= nb) continue;
+        const __nv_bfloat16* xs =
+            ring + (size_t)(i % kP3Stages) * kP3Rows * kP3XS;
+        const __nv_bfloat16* wk =
+            wsl + (first + i < n_chunks ? first + i : first + i - n_chunks) *
+                      kP3Chunk;
+        // every fragment of this warp's k-steps first, so that the loads
+        // overlap, then the products
+        constexpr int kSteps = kP3Chunk / 32;
+        uint32_t af[kSteps][2][4], bf[kSteps][4];
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          const int k0 = 16 * (kw * kSteps + s);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            ldmatrix_x4<false>(af[s][mi], xs + (mw * 32 + mi * 16 + (lane & 15)) * kP3XS
+                                              + k0 + 8 * (lane >> 4));
+          ldmatrix_x4<false>(bf[s], wk + (size_t)(nw * 16 + (lane & 7) + 8 * (lane >> 4)) * Ks
+                                        + k0 + 8 * ((lane >> 3) & 1));
+        }
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            if (mw * 32 + mi * 16 >= nb) continue;
+#pragma unroll
+            for (int ni = 0; ni < 2; ++ni)
+              mma_bf16(acc[mi][ni], af[s][mi], bf[s][2 * ni], bf[s][2 * ni + 1]);
+          }
+      }
+      cp_async_wait<0>();
+      // the second k-half's sums to the first; acc[mi][ni][e] is batch row
+      // 32 mw + 16 mi + gid (+ 8 for e >= 2), column 16 nw + 8 ni + 2 tig
+      // (+ 1 for odd e)
+      if (kw == 1) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(
+                  red + (mw * 32 + mi * 16 + gid + 8 * h) * kP3RS + nw * 16 +
+                  ni * 8 + 2 * tig) =
+                  make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+      __syncthreads();
+      if (kw == 0) {
+        // every old state value first, so that their loads overlap (a
+        // store to s_new may alias them for the compiler)
+        float old[2][2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = mw * 32 + mi * 16 + gid + (e >> 1) * 8;
+              const int n = 4 * q0 + nw * 16 + ni * 8 + 2 * tig + (e & 1);
+              old[mi][ni][e] =
+                  r < nb && n < 4 * q1 && n < p.S
+                      ? __bfloat162float(s_old[(size_t)(b0 + r) * p.S + n])
+                      : 0.f;
+            }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = mw * 32 + mi * 16 + gid + (e >> 1) * 8;
+              const int col = nw * 16 + ni * 8 + 2 * tig + (e & 1);
+              if (r >= nb || col >= ncols) continue;
+              const float y = __fadd_rn(acc[mi][ni][e], red[r * kP3RS + col]);
+              const size_t row = (size_t)(b0 + r);
+              const int n = 4 * q0 + col;
+              if (n < p.S)
+                s_new[row * p.S + n] =
+                    __float2bfloat16_rn(blend(old[mi][ni][e], y));
+              if (t == p.steps - 1) p.y_last[row * p.N + n] = y;
+            }
       }
     }
-    __syncthreads();   // the staged rows are free again
+    grid.sync();           // every block needs the whole new state
   }
 }
 
@@ -248,21 +352,6 @@ __global__ void __launch_bounds__(kThreads, 1) resident_kernel(Params p) {
   const size_t esize = p.body == kChainW8A8 ? 1 : 2;
 
   // this block's rows of every resident weight, once
-  if (p.body == kP3) {
-    const int per_row = p.K[0] / 8, Ks = p.K[0] + kPad;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(p.w[0]) + (size_t)q0 * 4 * p.K[0]);
-    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem + p.smem_off[0]);
-    for (int j = threadIdx.x; j < (q1 - q0) * 4 * per_row; j += kThreads)
-      reinterpret_cast<uint4*>(dst + (size_t)(j / per_row) * Ks)[j % per_row] =
-          src[j];
-    __syncthreads();
-    for (int t = 0; t < p.steps; ++t) {
-      p3_step(p, smem, t & 1, (t & 1) ^ 1, t, q0, q1);
-      grid.sync();         // every block needs the whole new state
-    }
-    return;
-  }
   for (int i = 0; i < p.n_dots; ++i) {
     if (p.smem_off[i] == (size_t)-1) continue;
     const size_t bytes = (size_t)(q1 - q0) * 4 * p.K[i] * esize;
@@ -438,7 +527,6 @@ int resident_scan(int body, int B, int steps, int n_dots, int N, int S,
     p.scale[i] = body == kChainW8A8 ? scale[i] : nullptr;
     kmax = K[i] > kmax ? K[i] : kmax;
   }
-  if (body == kP3 && (K[0] != S || K[0] % 16)) return cudaErrorInvalidValue;
   p.state[0] = state0;
   p.state[1] = state1;
   p.g[0] = g0;
@@ -453,43 +541,51 @@ int resident_scan(int body, int B, int steps, int n_dots, int N, int S,
     return err;
   const int qmax = (N / 4 + p.grid - 1) / p.grid;
   p.kmax = kmax;
-  // staged input rows: P3 kMmaRows padded bf16 rows; chains bf16 (bf16
-  // body) or int8 and fp32 (W8A8)
-  const size_t stage =
-      body == kP3 ? (size_t)kMmaRows * (kmax + kPad) * 2
-                  : (size_t)kMaxB * kmax * (body == kChainW8A8 ? 1 + 4 : esize);
-  const size_t budget = (size_t)optin - 1024;   // static sx[], red[], slack
-  size_t used = stage;
+  size_t used = 0;
   *resident_bytes = 0;
-  p.stage_off = 0;
-  for (int i = 0; i < n_dots; ++i) {
-    // P3's rows are padded and whole n-tiles of 8
-    const size_t slice =
-        body == kP3 ? (size_t)((qmax * 4 + 7) / 8 * 8) * (K[i] + kPad) * 2
-                    : (size_t)qmax * 4 * K[i] * esize;
-    if (used + slice <= budget) {
-      p.smem_off[i] = used;
-      used += slice;
-      *resident_bytes += (long long)N * K[i] * esize;
-      resident[i] = 1;
-    } else {
-      p.smem_off[i] = (size_t)-1;
-      resident[i] = 0;
+  const void* kernel = (const void*)resident_kernel;
+  if (body == kP3) {
+    // the resident slice (kP3Cols padded rows), the ring, the k-halves'
+    // sums; ops/resident.py:p3_check checks the same and names what fails
+    if (K[0] != S || K[0] % kP3Chunk || N < S || qmax * 4 > kP3Cols)
+      return cudaErrorInvalidValue;
+    p.smem_off[0] = 0;
+    p.stage_off = (size_t)kP3Cols * (K[0] + kPad) * 2;
+    p.red_off = p.stage_off + (size_t)kP3Stages * kP3Rows * kP3XS * 2;
+    used = p.red_off + (size_t)kP3Rows * kP3RS * 4;
+    if (used > (size_t)optin) return cudaErrorInvalidValue;
+    *resident_bytes = (long long)N * K[0] * 2;
+    resident[0] = 1;
+    kernel = (const void*)p3_kernel;
+  } else {
+    // staged input rows: bf16 (bf16 body) or int8 and fp32 (W8A8)
+    const size_t budget = (size_t)optin - 1024;   // static sx[], red[], slack
+    used = (size_t)kMaxB * kmax * (body == kChainW8A8 ? 1 + 4 : esize);
+    p.stage_off = 0;
+    for (int i = 0; i < n_dots; ++i) {
+      const size_t slice = (size_t)qmax * 4 * K[i] * esize;
+      if (used + slice <= budget) {
+        p.smem_off[i] = used;
+        used += slice;
+        *resident_bytes += (long long)N * K[i] * esize;
+        resident[i] = 1;
+      } else {
+        p.smem_off[i] = (size_t)-1;
+        resident[i] = 0;
+      }
     }
   }
-  if (body == kP3 && !resident[0]) return cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute((const void*)resident_kernel,
+  if ((err = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)used)))
     return err;
   int per_sm = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, resident_kernel, kThreads, used)))
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           kThreads, used)))
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)resident_kernel, p.grid,
-                                    kThreads, args, used,
+  err = cudaLaunchCooperativeKernel(kernel, p.grid, kThreads, args, used,
                                     static_cast<cudaStream_t>(stream_handle));
   if (err) return err;
   return cudaGetLastError();

@@ -42,6 +42,42 @@ from flowtron_tpu_torch.ops._layout import interleave_gates
 BODIES = ("p3", "bf16", "w8a8")
 INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
 EPS = torch.tensor(1e-12, dtype=torch.float32).item()
+# csrc/resident.cu's P3 tiling: batch rows a pass, state columns a ring
+# stage, ring stages, output columns a block at most, bf16 of row padding
+P3_ROWS, P3_CHUNK, P3_STAGES, P3_COLS, P3_PAD = 64, 128, 4, 32, 8
+SMEM_OPTIN = 232448     # shared memory a block may opt in to on sm_90
+
+
+def p3_check(B, S, N, K, sms=None):
+    """Raise ValueError, naming the constraint, unless csrc/resident.cu's
+    P3 kernel takes these shapes: K == S (the weight's rows are the
+    state), K a multiple of the ring's chunk, N a multiple of 4 and at
+    least S, and the resident slice, ring and partial sums within the
+    shared memory a block may use; with ``sms`` (the card's SM count) also
+    at most 32 output columns a block."""
+    if B < 1:
+        raise ValueError(f"B ({B}) must be at least 1")
+    if K != S:
+        raise ValueError(f"p3: the weight's rows ({K}) must equal the state "
+                         f"width ({S})")
+    if K < P3_CHUNK or K % P3_CHUNK:
+        raise ValueError(f"p3: the state width ({K}) must be a positive "
+                         f"multiple of {P3_CHUNK}, the ring's chunk")
+    if N % 4 or N < S:
+        raise ValueError(f"p3: N ({N}) must be a multiple of 4 and at least "
+                         f"the state width ({S})")
+    smem = (P3_COLS * (K + P3_PAD) * 2
+            + P3_STAGES * P3_ROWS * (P3_CHUNK + P3_PAD) * 2
+            + P3_ROWS * (P3_COLS + 4) * 4)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"p3: {smem} bytes of shared memory a block (K = "
+                         f"{K}) exceed the {SMEM_OPTIN} a block may use")
+    if sms is not None:
+        grid = min(sms, N // 4)
+        cols = 4 * -(-(N // 4) // grid)
+        if cols > P3_COLS:
+            raise ValueError(f"p3: {cols} output columns a block (N = {N} "
+                             f"over {grid} blocks) exceed {P3_COLS}")
 
 
 def _bf16(t):
@@ -149,14 +185,20 @@ def resident_scan(body, x, ws, scales=None, steps=1, packed=None):
     is ``resident_scan_reference``; on CUDA tensors it launches
     csrc/resident.cu once, with ``packed`` (``pack_resident_weights``)
     when given, or raises. The bytes of weights kept in shared memory and
-    which dots were kept go to ``resident_scan.last_resident``."""
-    if x.device.type == "cpu":
-        return resident_scan_reference(body, x, ws, scales, steps)
-    if x.device.type != "cuda":
+    which dots were kept go to ``resident_scan.last_resident``. Shapes the
+    P3 kernel does not take raise ValueError on either device
+    (``p3_check``)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
     if body not in BODIES:
         raise ValueError(f"body {body!r} not in {BODIES}")
     dev = x.device
+    if body == "p3":
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev.type == "cuda" else None)
+        p3_check(x.shape[0], x.shape[1], ws[0].shape[1], ws[0].shape[0], sms)
+    if dev.type == "cpu":
+        return resident_scan_reference(body, x, ws, scales, steps)
     pw, ps = packed if packed is not None else pack_resident_weights(
         body, ws, scales)
     n = len(pw)

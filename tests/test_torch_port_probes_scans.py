@@ -24,7 +24,7 @@ from flowtron_tpu_torch.ops._layout import interleave_gates  # noqa: E402
 from flowtron_tpu_torch.ops.fused_cost import (  # noqa: E402
     VARIANTS, fused_cost, fused_cost_reference, pack_weights, weight_shapes)
 from flowtron_tpu_torch.ops.resident import (  # noqa: E402
-    pack_resident_weights, quantize_rows, resident_scan,
+    p3_check, pack_resident_weights, quantize_rows, resident_scan,
     resident_scan_reference)
 from flowtron_tpu_torch.scripts import (  # noqa: E402
     _probe, exp_fused_cost as port_p5, exp_fused_int8 as port_p4,
@@ -350,17 +350,25 @@ def cuda_device():
     return torch.device("cuda")
 
 
+_P3_EDGES = [("p3", b, 1664 if b == 64 else 256, 4096 if b == 64 else 1024,
+               steps) for b in (1, 40, 64, 96) for steps in (1, 2, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("body,B,IN,OUT", [
-    ("p3", 64, 1664, 4096), ("p3", 40, 256, 1024), ("bf16", 8, 0, 0),
-    ("w8a8", 8, 0, 0)], ids=["p3", "p3_ragged", "bf16", "w8a8"])
-def test_resident_kernel_matches_plain_on_card(cuda_device, body, B, IN, OUT):
-    """csrc/resident.cu against its plain version on the card over 16
-    steps at the scripts' shapes (and P3 with a batch that leaves its
-    second 32-row pass part empty), chip_smoke.py's bars: the bf16 state
-    and the last product within 1e-2 of their scale (fp32 sums in another
-    order can move a bf16 rounding, which the later steps carry), the
-    fp32 states within 1e-3."""
+@pytest.mark.parametrize("body,B,IN,OUT,steps", [
+    ("p3", 64, 1664, 4096, 16), ("p3", 40, 256, 1024, 16),
+    ("bf16", 8, 0, 0, 16), ("w8a8", 8, 0, 0, 16)] + _P3_EDGES,
+    ids=["p3", "p3_ragged", "bf16", "w8a8"]
+    + [f"p3_B{b}_{i}x{o}_steps{s}" for _, b, i, o, s in _P3_EDGES])
+def test_resident_kernel_matches_plain_on_card(cuda_device, body, B, IN, OUT,
+                                               steps):
+    """csrc/resident.cu against its plain version on the card at the
+    scripts' shapes, and P3 at batches that leave its 64-row pass ragged
+    (1, 40) or need a second one (96), over 1, 2 and 16 steps (the final
+    state in either buffer), chip_smoke.py's bars: the bf16 state and the
+    last product within 1e-2 of their scale (fp32 sums in another order
+    can move a bf16 rounding, which the later steps carry), the fp32
+    states within 1e-3; and two scans equal bit for bit."""
     before = resident_scan.launches
     if body == "p3":
         w, x = port_p3.make_inputs(B, IN, OUT)
@@ -369,13 +377,53 @@ def test_resident_kernel_matches_plain_on_card(cuda_device, body, B, IN, OUT):
     else:
         args = port_p4.to_device(body, port_p4.make_inputs(body, B),
                                  cuda_device)
-    state, last = resident_scan(body, *args, steps=16)
-    ref, ref_last = resident_scan_reference(body, *args, steps=16)
+    state, last = resident_scan(body, *args, steps=steps)
+    state2, last2 = resident_scan(body, *args, steps=steps)
+    ref, ref_last = resident_scan_reference(body, *args, steps=steps)
     torch.cuda.synchronize()
     _close(state.float().cpu().numpy(), ref.float().cpu().numpy(),
            1e-2 if body == "p3" else 1e-3)
     _close(last.cpu().numpy(), ref_last.cpu().numpy(), 1e-2)
-    assert resident_scan.launches == before + 1
+    assert torch.equal(state, state2) and torch.equal(last, last2)
+    assert resident_scan.launches == before + 2
+
+
+@pytest.mark.parametrize("B,S,N", [(64, 1664, 4096), (8, 128, 256),
+                                   (40, 256, 1024), (1, 256, 1024),
+                                   (96, 256, 1024)])
+def test_p3_check_takes_the_scripts_and_tests_shapes(B, S, N):
+    p3_check(B, S, N, S, sms=132)
+    p3_check(B, S, N, S)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0, 256, 1024, 256), r"B \(0\)"),
+    ((8, 256, 1024, 128), r"rows \(128\) must equal the state width"),
+    ((8, 192, 1024, 192), r"state width \(192\) must be a positive multiple"),
+    ((8, 256, 1022, 256), r"N \(1022\)"),
+    ((8, 512, 256, 512), r"N \(256\)"),
+    ((8, 2432, 4096, 2432), "shared memory"),
+], ids=["batch", "rows", "chunk", "quads", "narrow", "smem"])
+def test_p3_check_names_each_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        p3_check(*args)
+
+
+def test_p3_check_limits_the_columns_a_block_owns():
+    """At most 32 output columns a block: N = 4096 fits 132 SMs (32 a
+    block), 8192 does not (64 a block), nor 4096 on a 64-SM card."""
+    p3_check(64, 1664, 4096, 1664, sms=132)
+    p3_check(64, 1664, 4096, 1664, sms=128)
+    with pytest.raises(ValueError, match="64 output columns a block"):
+        p3_check(64, 1664, 8192, 1664, sms=132)
+    with pytest.raises(ValueError, match="exceed 32"):
+        p3_check(64, 1664, 4096, 1664, sms=64)
+
+
+def test_p3_scan_checks_shapes_on_the_cpu_too():
+    x = torch.ones(2, 192, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        resident_scan("p3", x, [torch.ones(192, 256, dtype=torch.bfloat16)])
 
 
 @pytest.mark.cuda

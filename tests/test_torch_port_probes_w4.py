@@ -17,7 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 torch = pytest.importorskip("torch")
 
 from flowtron_tpu_torch.ops.w4 import (  # noqa: E402
-    BODIES, w4_matmul, w4_matmul_reference)
+    BODIES, w4_matmul, w4_matmul_reference, w4_plan)
 from flowtron_tpu_torch.scripts import (  # noqa: E402
     _probe, exp_int4_variants as port_p2, exp_w4_kernel_bisect as port_p1)
 from tests.probe_scripts import (  # noqa: E402
@@ -199,6 +199,71 @@ def test_w4_wrapper_has_no_silent_fallback():
         w4_matmul(x, q, torch.ones(2, 64, device="meta"), "k3")
 
 
+def _ng(body, IN, G=128):
+    return IN // (64 if body == "2dot" else G)
+
+
+@pytest.mark.parametrize("body", sorted(BODIES))
+@pytest.mark.parametrize("shape", [(64, 1664, 4096), (B, IN, OUT),
+                                   (1, 1664, 4096), (80, 256, 1024)],
+                         ids=["scripts", "toy", "b1", "b80"])
+def test_w4_plan_takes_the_scripts_and_tests_shapes(body, shape):
+    """The scripts' shape, the CPU tests' toy shape and the card tests'
+    edge batches pass the plan; on the H100's 132 SMs the rows split as
+    far as one wave of blocks allows."""
+    b, i, o = shape
+    assert w4_plan(b, i, o, _ng(body, i), body, sms=132) == min(
+        8, i // 128, 132 // (o // 64))
+    assert w4_plan(b, i, o, _ng(body, i), body) is None
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0, 256, 1024, 2, "k3"), r"B \(0\)"),
+    ((8, 192, 1024, 2, "k2"), r"IN \(192\)"),
+    ((8, 256, 1000, 2, "k2"), r"OUT \(1000\)"),
+    ((8, 256, 32, 2, "k2"), r"OUT \(32\)"),
+    ((8, 256, 1024, 0, "k4"), r"NG \(0\)"),
+    ((8, 8192, 1024, 65, "k4"), r"NG \(65\)"),
+    ((8, 256, 1024, 3, "k3"), r"group IN / NG \(256 / 3\)"),
+    ((8, 384, 1024, 4, "k5"), r"group IN / NG \(384 / 4\)"),
+    ((8, 256, 1024, 2, "k9"), "body 'k9'"),
+], ids=["batch", "in", "out", "out_small", "ng_zero", "ng_large",
+        "group_uneven", "group_short", "body"])
+def test_w4_plan_names_each_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        w4_plan(*args)
+
+
+def test_w4_plan_split_fills_one_wave_within_its_limits():
+    assert w4_plan(64, 1664, 4096, 13, "k3", sms=132) == 2
+    # a card that runs 66 clusters of 2 of these blocks at once fits the
+    # 64 column tiles of the scripts' shape in one wave; on one that runs
+    # 63 they would take two, so the rows are not split
+    held = {2: 66, 3: 39, 4: 30, 5: 24, 6: 21, 7: 18, 8: 15}
+    assert w4_plan(64, 1664, 4096, 13, "k3", sms=132,
+                   clusters=held.get) == 2
+    assert w4_plan(64, 1664, 4096, 13, "k3", sms=132,
+                   clusters=lambda k: 63) == 1
+    assert w4_plan(8, 256, 1024, 2, "k3", sms=132,
+                   clusters=held.get) == 2
+    assert w4_plan(8, 256, 1024, 2, "k3", sms=132) == 2
+    assert w4_plan(8, 8192, 1024, 64, "k3", sms=132) == 8
+    assert w4_plan(8, 1664, 32768, 13, "k3", sms=132) == 1
+    assert w4_plan(8, 1664, 4096, 13, "k1", sms=16) == 1
+
+
+def test_w4_matmul_checks_shapes_on_the_cpu_too():
+    """A shape the kernel does not take raises ValueError naming the
+    constraint on the CPU as on the card, before any plain version runs."""
+    x = torch.ones(4, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"OUT \(96\)"):
+        w4_matmul(x, torch.ones(128, 96, dtype=torch.int8),
+                  torch.ones(2, 96), "k3")
+    with pytest.raises(ValueError, match="group IN / NG"):
+        w4_matmul(x, torch.ones(128, 128, dtype=torch.int8),
+                  torch.ones(3, 128), "k5")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -208,24 +273,28 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 17, 64, 80])
 @pytest.mark.parametrize("body", sorted(BODIES))
-def test_w4_kernel_matches_plain_on_card(cuda_device, body):
+def test_w4_kernel_matches_plain_on_card(cuda_device, body, batch):
     """csrc/w4.cu against its plain version at the probes' shape and at
-    the toy shape: within 1e-2 of the output scale, chip_smoke.py's bar
-    (the fp32 sums run in another order, split over four blocks, and
-    where they cancel a bf16 rounding can move by more than one step of
-    the small result)."""
+    the toy shape, at batches that fill one 64-row pass, leave it ragged
+    (1, 8, 17) or need a second one (80): within 1e-2 of the output
+    scale, chip_smoke.py's bar (the fp32 sums run in another order, split
+    over a cluster of blocks, and where they cancel a bf16 rounding can
+    move by more than one step of the small result), and two calls equal
+    bit for bit (the split sums meet in a fixed order)."""
     before = w4_matmul.launches
-    for b, i, o, ng in ((64, 1664, 4096, 13 if body != "2dot" else 26),
-                        (B, IN, OUT, NG if body != "2dot" else 2 * NG)):
-        x, q, s = port_p1.to_device(port_p1.make_inputs(b, i, o, ng),
-                                    cuda_device)
-        out = w4_matmul(x, q, s, body).float()
+    for i, o in ((1664, 4096), (IN, OUT)):
+        x, q, s = port_p1.to_device(
+            port_p1.make_inputs(batch, i, o, _ng(body, i)), cuda_device)
+        out = w4_matmul(x, q, s, body)
+        again = w4_matmul(x, q, s, body)
         ref = w4_matmul_reference(x, q, s, body).float()
         torch.cuda.synchronize()
-        assert float((out - ref).abs().max()) <= 1e-2 * float(
+        assert float((out.float() - ref).abs().max()) <= 1e-2 * float(
             ref.abs().max())
-    assert w4_matmul.launches == before + 2
+        assert torch.equal(out, again)
+    assert w4_matmul.launches == before + 4
 
 
 @pytest.mark.cuda
