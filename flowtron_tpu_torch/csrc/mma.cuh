@@ -1,6 +1,7 @@
-// Tensor-core and async-copy helpers shared by csrc/w4.cu and
-// csrc/resident.cu: the bf16 mma.sync tile, ldmatrix fragment loads and
-// cp.async 16-byte copies into shared memory.
+// Tensor-core and async-copy helpers shared by csrc/w4.cu,
+// csrc/resident.cu and csrc/qmm.cu: the bf16, int8 and tf32 mma.sync
+// tiles, ldmatrix fragment loads and cp.async 16-byte copies into shared
+// memory.
 
 #pragma once
 
@@ -16,6 +17,45 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32, row-major) * b (32 x 8, column-major), int8 in, exact
+// int32 sums. Fragments: a[0] row lane / 4, columns 4 (lane % 4) .. + 3;
+// a[1] the same columns of row lane / 4 + 8; a[2], a[3] those rows at
+// columns + 16; b0 rows 4 (lane % 4) .. + 3 of column lane / 4, b1 those
+// rows + 16; c[0], c[1] row lane / 4, columns 2 (lane % 4) and + 1, c[2],
+// c[3] those columns of row lane / 4 + 8.
+__device__ __forceinline__ void mma_s8_m16n8k32(int (&c)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, column-major), tf32 in (fp32 bit
+// patterns whose low 13 bits the tensor cores ignore), fp32 out.
+// Fragments: a[0] (row lane / 4, column lane % 4), a[1] row + 8, a[2] and
+// a[3] those rows at column + 4; b0 (row lane % 4, column lane / 4), b1
+// row + 4; c as mma_s8_m16n8k32's.
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&c)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero; the low 13 bits of the result are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -44,6 +84,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
+}
+
+// The first src_bytes (0 or 16) of src, zeros for the rest.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

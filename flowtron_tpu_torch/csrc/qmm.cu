@@ -1,4 +1,5 @@
-// K4: the quantized matmul of the serving modes, fp32 activations.
+// K4: the quantized matmul of the serving modes, fp32 activations, on the
+// tensor cores.
 //
 // Replaces flowtron_tpu/ops/qmm_pallas.py:quantized_matmul (pallas_call at
 // :94) and both of its bodies:
@@ -19,38 +20,64 @@
 // What bounds it on an H100: bytes. On the decoder's per-frame path M is
 // the batch (<= 8) and each call streams one int8 weight matrix once:
 // 6.8 MB at (K, N) = (1664, 4096) against 2 * 8 * 1664 * 4096 = 0.11 G
-// operations, about 16 operations a byte, far below the ~590 int8
-// operations a byte at which the tensor cores would be the limit. One
-// flow-frame's nine calls read 26.7 MB: about 8 us at 3.35 TB/s (the
-// published peak, not measured here). The key/value precompute (M = B *
-// Tk <= 512, (640, 640)) is small either way.
+// operations. One flow-frame's nine calls read 26.7 MB: about 8 us at
+// 3.35 TB/s (the published peak). The first version ran one warp per
+// output column on SIMT units: two 16-byte loads a lane at K = 1024, a
+// shuffle reduction per row, and, weight-only, fp32 FMAs whose cost at
+// M = 8 (6.4 us at 67 TFLOP/s) matched the bytes' own.
 //
-// What the design does about it (a simple first version):
-// - one warp owns one output column n for a tile of 8 rows, so each
-//   weight byte is read from device memory once per row tile (once in
-//   all at M <= 8), in 16-byte loads that neighbouring lanes issue on
-//   neighbouring addresses;
-// - W8A8: a first kernel quantizes each row of x into a zero-padded int8
-//   scratch (one block a row: max-reduce, then rintf(x / sx): a true
-//   division and jnp.round's round-half-to-even); the product kernel
-//   then runs __dp4a over 4 consecutive k with int32 accumulators and a
-//   shuffle reduction, so acc is exact and the epilogue's two rounded
-//   multiplies give the plain version's bits;
-// - weight-only: the int8 -> fp32 convert happens in registers, fp32
-//   FMAs, the scale applied once at the end;
-// - no padding of the operands: bounds checks replace the Pallas
-//   _pad_to, and a K that is not a multiple of 16 takes a byte path.
-// Tensor cores (int8 wgmma), TMA and keeping the weights in L2 across
-// frames are later work.
+// The design:
+// - the product is computed transposed, out^T (N x M) = q (N x K) x^T,
+//   so the small M is the mma's n = 8 and q, K-contiguous, is the
+//   row-major A operand; a warp owns 16 output columns (m = 16) and up to
+//   8 tiles of 8 rows of x, and its A fragments serve every row tile;
+// - q goes from device memory straight into the A fragments: for each
+//   64-byte stretch of k, lane t of a quad loads the 16 bytes at 16 t of
+//   its rows g = lane / 4 and g + 8, up to kGroup stretches in flight a
+//   lane; the mma's k order is a permutation of those bytes, and the B
+//   fragments (x) take the same permutation, so every product still
+//   pairs q[n, k] with x[m, k] and no staging of q is needed;
+// - x (or xq) is staged once a block in shared memory with cp.async
+//   while the weight loads are in flight, zero past K and M (a zero adds
+//   exactly 0); fp32 rows are swizzled and int8 rows padded so that each
+//   quarter-warp's 16-byte fragment loads hit 8 distinct bank groups;
+// - W8A8: mma.sync m16n8k32 s8 -> s32, exact sums in any order, so the
+//   epilogue's two rounded multiplies give the plain version's bits; a
+//   first launch quantizes each row of x into a zero-padded int8 scratch
+//   (one block a row: max-reduce, then rintf(x / sx), a true division and
+//   jnp.round's round-half-to-even);
+// - weight-only: mma.sync m16n8k8 tf32 -> fp32. q is exact in tf32 (its
+//   bytes become floats by the 2^23-exponent trick and one subtract);
+//   x is split into hi = tf32(x) and lo = tf32(x - hi), two mmas into one
+//   accumulator, about 2^-21 relative error a product; s is applied once
+//   at the end, as _qmm_kernel applies it;
+// - the host (ops/qmm.py:qmm_plan) chooses the column tiles and the split
+//   of K over a block's warps; partial sums meet in shared memory in
+//   split order: one product launch a call, no atomics, bitwise
+//   repeatable;
+// - ragged shapes: loads past K, N and M read zeros; q rows that are not
+//   16-byte aligned (K % 16 != 0) are loaded byte by byte.
+// What is left: the quantize pass fused into the product (W8A8 is two
+// launches), wgmma fed by TMA, and the int8 weights held in L2 across
+// frames; N = 640 and 1024 give 40 and 64 column tiles, fewer blocks than
+// SMs, which only a split of K across blocks (a cluster) would fill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;                 // output columns per block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 8;                  // rows of x per block
+constexpr int kTileN = 16;        // output columns a warp (the mma's m)
+constexpr int kTileM = 8;         // rows of x a tile (the mma's n)
+constexpr int kStretch = 64;      // k a quad of lanes loads at once
+constexpr int kGroup = 4;         // stretches a lane keeps in flight
+constexpr int kMaxWarps = 16;     // 8 with 4 or 8 row tiles a warp
+constexpr int kMaxSmem = 227 * 1024;
+constexpr int kQuantThreads = 256;
 constexpr float kInv127 = 1.0f / 127.0f;  // XLA's folded 1/127
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -61,24 +88,24 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // One block per row: sx = max|x| * fp32(1/127) (1 where 0), xq =
 // clip(rint(x / sx)) into a row of Kp >= K bytes, zero past K.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
                      int8_t* __restrict__ xq, float* __restrict__ sx) {
-  __shared__ float part[kWarps];
+  __shared__ float part[kQuantThreads / 32];
   const int m = blockIdx.x;
   const float* row = x + (size_t)m * K;
   float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += kThreads)
+  for (int k = threadIdx.x; k < K; k += kQuantThreads)
     amax = fmaxf(amax, fabsf(row[k]));
   amax = warp_max(amax);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
   __syncthreads();
   amax = part[0];
-  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, part[w]);
+  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, part[w]);
   float scale = __fmul_rn(amax, kInv127);
   if (scale == 0.f) scale = 1.f;
   int8_t* out = xq + (size_t)m * Kp;
-  for (int k = threadIdx.x; k < Kp; k += kThreads) {
+  for (int k = threadIdx.x; k < Kp; k += kQuantThreads) {
     float v = 0.f;
     if (k < K) {
       v = rintf(__fdiv_rn(row[k], scale));
@@ -89,124 +116,258 @@ quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
   if (threadIdx.x == 0) sx[m] = scale;
 }
 
-// Four bytes of q from k on, zero past K, packed for __dp4a.
-__device__ __forceinline__ int pack4(const int8_t* p, int k, int K) {
-  uint32_t w = 0;
-  for (int i = 0; i < 4; ++i)
-    if (k + i < K) w |= (uint32_t)(uint8_t)p[k + i] << (8 * i);
-  return (int)w;
+__host__ __device__ __forceinline__ int padded_k(int K) {
+  return (K + kStretch - 1) / kStretch * kStretch;
 }
 
-__device__ __forceinline__ int dp4a16(int4 a, int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
+// Bytes between staged int8 rows: Kp, or Kp + 64 where Kp is a multiple
+// of 128, so rows g and g + 1 lie in opposite halves of the 128-byte bank
+// window.
+__host__ __device__ __forceinline__ int xq_stride(int Kp) {
+  return Kp % 128 == 64 ? Kp : Kp + 64;
 }
 
-// W8A8 product: xq (M, Kp) int8 rows, sx (M,), q (N, K), s (N,).
-__global__ void __launch_bounds__(kThreads)
-qmm_w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                const int8_t* __restrict__ q, const float* __restrict__ s,
-                float* __restrict__ out, int M, int K, int Kp, int N) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int m0 = blockIdx.y * kRows;
-  if (n >= N) return;                     // whole warps only
-  const int rows = min(kRows, M - m0);
-  const int8_t* qrow = q + (size_t)n * K;
-  const int8_t* xrow = xq + (size_t)m0 * Kp;
-  int acc[kRows];
+// Where chunk c (4 floats) of staged fp32 row r lies: within each 16-chunk
+// stretch, chunk 4 t + j moves to 4 t + (j ^ ((t ^ r) & 3)), so the four
+// lanes of a quad (t = 0..3, one 64-byte piece each) and the two rows of a
+// quarter-warp read 8 distinct bank groups.
+__device__ __forceinline__ int x_chunk(int r, int c) {
+  return (c & ~3) | ((c ^ ((c >> 2) ^ r)) & 3);
+}
+
+// 16 bytes of a q row from k on, zeros past K (or for a row past N).
+template <bool kVec>
+__device__ __forceinline__ int4 load_q16(const int8_t* row, bool valid, int k,
+                                         int K) {
+  int4 v = make_int4(0, 0, 0, 0);
+  if (!valid || k >= K) return v;
+  if (kVec) return __ldg(reinterpret_cast<const int4*>(row + k));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0;
-  if ((K & 15) == 0) {                    // 16-byte rows: Kp == K
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(qrow + k));
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows)
-          acc[r] = dp4a16(
-              __ldg(reinterpret_cast<const int4*>(xrow + (size_t)r * Kp + k)),
-              w, acc[r]);
+  for (int i = 0; i < 16; ++i)
+    if (k + i < K)
+      w[i >> 2] |= (uint32_t)(uint8_t)__ldg(row + k + i) << (8 * (i & 3));
+  v.x = (int)w[0], v.y = (int)w[1], v.z = (int)w[2], v.w = (int)w[3];
+  return v;
+}
+
+// Rows m0 .. m0 + rows - 1 of x (fp32, swizzled) or xq (int8, padded
+// rows) into shared memory, zero past K and M; ends with a block barrier.
+template <bool kA8>
+__device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
+                        const int8_t* __restrict__ xq, int M, int K, int Kp,
+                        int m0, int rows) {
+  if (kA8) {
+    const int per_row = Kp / 16, stride = xq_stride(Kp);
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = i - r * per_row, m = m0 + r;
+      const bool ok = m < M;
+      cp_async16_zfill(smem + (size_t)r * stride + 16 * c,
+                       ok ? xq + (size_t)m * Kp + 16 * c : xq, ok ? 16 : 0);
     }
-  } else {                                // byte path; xq is zero past K
-    for (int k = lane * 4; k < K; k += 32 * 4) {
-      const int w = pack4(qrow, k, K);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows)
-          acc[r] = __dp4a(
-              __ldg(reinterpret_cast<const int*>(xrow + (size_t)r * Kp + k)),
-              w, acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    for (int off = 16; off > 0; off >>= 1)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-  if (lane == 0) {
-    const float sn = s[n];
-    for (int r = 0; r < rows; ++r)
-      out[(size_t)(m0 + r) * N + n] =
-          __fmul_rn(__fmul_rn(__int2float_rn(acc[r]), sx[m0 + r]), sn);
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, int w, float acc) {
-  acc = fmaf(a.x, (float)(int8_t)(w & 0xff), acc);
-  acc = fmaf(a.y, (float)(int8_t)((w >> 8) & 0xff), acc);
-  acc = fmaf(a.z, (float)(int8_t)((w >> 16) & 0xff), acc);
-  return fmaf(a.w, (float)(int8_t)((w >> 24) & 0xff), acc);
-}
-
-// Weight-only product: x (M, K) fp32, q (N, K), s (N,).
-__global__ void __launch_bounds__(kThreads)
-qmm_w8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ s, float* __restrict__ out, int M,
-              int K, int N) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int m0 = blockIdx.y * kRows;
-  if (n >= N) return;
-  const int rows = min(kRows, M - m0);
-  const int8_t* qrow = q + (size_t)n * K;
-  const float* xrow = x + (size_t)m0 * K;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  if ((K & 15) == 0) {
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(qrow + k));
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float4* xr =
-              reinterpret_cast<const float4*>(xrow + (size_t)r * K + k);
-          float a = acc[r];
-          a = dot4(__ldg(xr + 0), w.x, a);
-          a = dot4(__ldg(xr + 1), w.y, a);
-          a = dot4(__ldg(xr + 2), w.z, a);
-          acc[r] = dot4(__ldg(xr + 3), w.w, a);
-        }
-      }
+  } else if ((K & 3) == 0) {              // 16-byte pieces of x rows
+    const int per_row = Kp / 4;
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = i - r * per_row, m = m0 + r;
+      const bool ok = m < M && 4 * c < K;
+      cp_async16_zfill(smem + 16 * ((size_t)r * per_row + x_chunk(r, c)),
+                       ok ? x + (size_t)m * K + 4 * c : x, ok ? 16 : 0);
     }
   } else {
-    for (int k = lane; k < K; k += 32) {
-      const float w = (float)qrow[k];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows) acc[r] = fmaf(__ldg(xrow + (size_t)r * K + k), w, acc[r]);
+    float* xs = reinterpret_cast<float*>(smem);
+    for (int i = threadIdx.x; i < rows * Kp; i += blockDim.x) {
+      const int r = i / Kp, k = i - r * Kp, m = m0 + r;
+      const float v = m < M && k < K ? x[(size_t)m * K + k] : 0.f;
+      xs[4 * ((size_t)r * (Kp / 4) + x_chunk(r, k >> 2)) + (k & 3)] = v;
     }
   }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Byte i of u (a biased byte, b + 128) as the fp32 value b, exactly:
+// 0x4B0000uu is 2^23 + uu.
+__device__ __forceinline__ uint32_t byte_to_tf32(uint32_t u, int i) {
+  return __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i)),
+                8388736.f));                 // 2^23 + 128
+}
+
+__device__ __forceinline__ int word(int4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One 64-byte stretch s of k into the accumulators of every row tile: ra
+// and rb hold this lane's 16 bytes of q rows g and g + 8.
+template <bool kA8, int MT, typename Acc>
+__device__ __forceinline__ void stretch_mma(Acc (&acc)[MT][4], int4 ra,
+                                            int4 rb, const unsigned char* smem,
+                                            int s, int Kp, int g, int t) {
+  if constexpr (kA8) {
+    // mma 0 takes bytes 0..7 of the lane's 16 (k 4t..4t+3 and 16+4t..),
+    // mma 1 bytes 8..15; b: the same bytes of xq row g.
+    const uint32_t a0[4] = {(uint32_t)ra.x, (uint32_t)rb.x, (uint32_t)ra.y,
+                            (uint32_t)rb.y};
+    const uint32_t a1[4] = {(uint32_t)ra.z, (uint32_t)rb.z, (uint32_t)ra.w,
+                            (uint32_t)rb.w};
+    const int stride = xq_stride(Kp);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    for (int off = 16; off > 0; off >>= 1)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-  if (lane == 0) {
-    const float sn = s[n];
-    for (int r = 0; r < rows; ++r)
-      out[(size_t)(m0 + r) * N + n] = __fmul_rn(acc[r], sn);
+    for (int i = 0; i < MT; ++i) {
+      const int4 b = *reinterpret_cast<const int4*>(
+          smem + (size_t)(i * kTileM + g) * stride + s * kStretch + 16 * t);
+      mma_s8_m16n8k32(acc[i], a0, (uint32_t)b.x, (uint32_t)b.y);
+      mma_s8_m16n8k32(acc[i], a1, (uint32_t)b.z, (uint32_t)b.w);
+    }
+  } else {
+    // Word j of the lane's 16 bytes feeds two k8 mmas: bytes 0, 1 (its k
+    // t and t + 4) and bytes 2, 3; b: the same floats of x row g, split.
+    const float4* xs = reinterpret_cast<const float4*>(smem);
+    const int per_row = Kp / 4, swz = (t ^ g) & 3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t ua = (uint32_t)word(ra, j) ^ 0x80808080u;
+      const uint32_t ub = (uint32_t)word(rb, j) ^ 0x80808080u;
+      const uint32_t a0[4] = {byte_to_tf32(ua, 0), byte_to_tf32(ub, 0),
+                              byte_to_tf32(ua, 1), byte_to_tf32(ub, 1)};
+      const uint32_t a1[4] = {byte_to_tf32(ua, 2), byte_to_tf32(ub, 2),
+                              byte_to_tf32(ua, 3), byte_to_tf32(ub, 3)};
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float4 v = xs[(size_t)(i * kTileM + g) * per_row + s * 16 +
+                            4 * t + (j ^ swz)];
+        const uint32_t hx = tf32_rna(v.x), hy = tf32_rna(v.y);
+        const uint32_t hz = tf32_rna(v.z), hw = tf32_rna(v.w);
+        const uint32_t lx = tf32_rna(__fsub_rn(v.x, __uint_as_float(hx)));
+        const uint32_t ly = tf32_rna(__fsub_rn(v.y, __uint_as_float(hy)));
+        const uint32_t lz = tf32_rna(__fsub_rn(v.z, __uint_as_float(hz)));
+        const uint32_t lw = tf32_rna(__fsub_rn(v.w, __uint_as_float(hw)));
+        mma_tf32_m16n8k8(acc[i], a0, hx, hy);
+        mma_tf32_m16n8k8(acc[i], a0, lx, ly);
+        mma_tf32_m16n8k8(acc[i], a1, hz, hw);
+        mma_tf32_m16n8k8(acc[i], a1, lz, lw);
+      }
+    }
   }
+}
+
+// Grid (column blocks, row blocks); block ct * ks warps. Warp w owns
+// column tile w % ct of its block and part w / ct of the block's K
+// stretches (part p: stretches p S / ks .. (p + 1) S / ks - 1), and MT
+// row tiles. kVec: q rows are 16-byte aligned (K % 16 == 0).
+template <bool kA8, int MT, bool kVec>
+__global__ void __launch_bounds__(MT >= 4 ? 256 : 512)
+qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
+           const float* __restrict__ sx, const int8_t* __restrict__ q,
+           const float* __restrict__ s, float* __restrict__ out, int M,
+           int K, int N, int ct, int ks) {
+  using Acc = std::conditional_t<kA8, int, float>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wct = warp % ct, wks = warp / ct;
+  const int n0 = (blockIdx.x * ct + wct) * kTileN;
+  const int m0 = blockIdx.y * kTileM * MT;
+  const int Kp = padded_k(K), S = Kp / kStretch;
+  const int s_beg = wks * S / ks, s_end = (wks + 1) * S / ks;
+  const bool va = n0 + g < N, vb = n0 + g + 8 < N;
+  const int8_t* qa = q + (size_t)(va ? n0 + g : 0) * K;
+  const int8_t* qb = q + (size_t)(vb ? n0 + g + 8 : 0) * K;
+
+  // the first group of weight loads, in flight while x is staged
+  int4 ra[kGroup], rb[kGroup];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    const int k = (s_beg + u) * kStretch + 16 * t;
+    const bool in = s_beg + u < s_end;
+    ra[u] = load_q16<kVec>(qa, va && in, k, K);
+    rb[u] = load_q16<kVec>(qb, vb && in, k, K);
+  }
+  stage_x<kA8>(smem, x, xq, M, K, Kp, m0, MT * kTileM);
+
+  Acc acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
+  for (int s0 = s_beg; s0 < s_end; s0 += kGroup) {
+    if (s0 != s_beg) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int k = (s0 + u) * kStretch + 16 * t;
+        const bool in = s0 + u < s_end;
+        ra[u] = load_q16<kVec>(qa, va && in, k, K);
+        rb[u] = load_q16<kVec>(qb, vb && in, k, K);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u)
+      if (s0 + u < s_end)
+        stretch_mma<kA8, MT>(acc, ra[u], rb[u], smem, s0 + u, Kp, g, t);
+  }
+
+  // the K parts' sums meet in shared memory, added in part order
+  if (ks > 1) {
+    __syncthreads();                      // every warp is done with x
+    Acc* part = reinterpret_cast<Acc*>(smem);
+    if (wks > 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[((((wks - 1) * ct + wct) * MT + i) * 4 + c) * 32 + lane] =
+              acc[i][c];
+    }
+    __syncthreads();
+    if (wks > 0) return;
+    for (int p = 1; p < ks; ++p)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[i][c] +=
+              part[((((p - 1) * ct + wct) * MT + i) * 4 + c) * 32 + lane];
+  }
+
+  // acc[i][c]: column n0 + g (+ 8 for c >= 2), row m0 + 8 i + 2 t (+ 1
+  // for odd c)
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = n0 + g + (c >= 2 ? 8 : 0);
+    if (n >= N) continue;
+    const float sn = s[n];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = m0 + i * kTileM + 2 * t + (c & 1);
+      if (m >= M) continue;
+      float v;
+      if constexpr (kA8)
+        v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][c]), sx[m]), sn);
+      else
+        v = __fmul_rn(acc[i][c], sn);
+      out[(size_t)m * N + n] = v;
+    }
+  }
+}
+
+using Kernel = void (*)(const float*, const int8_t*, const float*,
+                        const int8_t*, const float*, float*, int, int, int,
+                        int, int);
+
+template <bool kA8, bool kVec>
+Kernel pick_mt(int mt) {
+  switch (mt) {
+    case 1: return qmm_kernel<kA8, 1, kVec>;
+    case 2: return qmm_kernel<kA8, 2, kVec>;
+    case 4: return qmm_kernel<kA8, 4, kVec>;
+    case 8: return qmm_kernel<kA8, 8, kVec>;
+    default: return nullptr;
+  }
+}
+
+Kernel pick(bool a8, bool vec, int mt) {
+  if (a8) return vec ? pick_mt<true, true>(mt) : pick_mt<true, false>(mt);
+  return vec ? pick_mt<false, true>(mt) : pick_mt<false, false>(mt);
 }
 
 }  // namespace
@@ -218,30 +379,48 @@ const char* qmm_error_string(int err) {
 }
 
 // Bytes of int8 scratch one row of x takes in the W8A8 body (K rounded
-// up to 16).
-int qmm_padded_k(int K) { return (K + 15) / 16 * 16; }
+// up to a whole 64-byte stretch).
+int qmm_padded_k(int K) { return padded_k(K); }
+
+// Shared memory (bytes) a block of the plan (ct, ks, mt) takes: the
+// larger of the staged rows of x and the K parts' partial sums.
+int qmm_smem_bytes(int K, int a8, int ct, int ks, int mt) {
+  const int Kp = padded_k(K), rows = mt * kTileM;
+  const int stage = a8 ? rows * xq_stride(Kp) : rows * Kp * 4;
+  const int part = (ks - 1) * ct * mt * 4 * 32 * 4;
+  return stage > part ? stage : part;
+}
 
 // x (M, K) fp32, q (N, K) int8, s (N,) fp32, out (M, N) fp32, all
 // contiguous and 16-byte aligned. a8 != 0 runs the W8A8 body and needs
 // xq (M, qmm_padded_k(K)) int8 and sx (M,) fp32 of scratch; otherwise
-// both may be null.
+// both may be null. (ct, ks, mt): the plan of ops/qmm.py:qmm_plan,
+// column tiles a block, warps along K a column tile, row tiles a warp.
 int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,
-            int8_t* xq, float* sx, int M, int K, int N, int a8,
-            void* stream_handle) {
-  if (M <= 0 || K <= 0 || N <= 0 || (a8 && (!xq || !sx)))
+            int8_t* xq, float* sx, int M, int K, int N, int a8, int ct,
+            int ks, int mt, void* stream_handle) {
+  if (M <= 0 || K <= 0 || N <= 0 || (a8 && (!xq || !sx)) || ct < 1 ||
+      ks < 1 || ct * ks > (mt >= 4 ? kMaxWarps / 2 : kMaxWarps))
     return cudaErrorInvalidValue;
+  const Kernel kernel = pick(a8 != 0, K % 16 == 0, mt);
+  const int smem = qmm_smem_bytes(K, a8, ct, ks, mt);
+  if (!kernel || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const dim3 grid((N + kWarps - 1) / kWarps, (M + kRows - 1) / kRows);
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+    return err;
   if (a8) {
-    const int Kp = qmm_padded_k(K);
-    quantize_rows_kernel<<<M, kThreads, 0, stream>>>(x, K, Kp, xq, sx);
-    cudaError_t err = cudaGetLastError();
-    if (err) return err;
-    qmm_w8a8_kernel<<<grid, kThreads, 0, stream>>>(xq, sx, q, s, out, M, K,
-                                                   Kp, N);
-  } else {
-    qmm_w8_kernel<<<grid, kThreads, 0, stream>>>(x, q, s, out, M, K, N);
+    quantize_rows_kernel<<<M, kQuantThreads, 0, stream>>>(
+        x, K, padded_k(K), xq, sx);
+    if ((err = cudaGetLastError())) return err;
   }
+  const int tiles = (N + kTileN - 1) / kTileN;
+  const dim3 grid((tiles + ct - 1) / ct,
+                  (M + mt * kTileM - 1) / (mt * kTileM));
+  kernel<<<grid, 32 * ct * ks, smem, stream>>>(x, xq, sx, q, s, out, M, K, N,
+                                               ct, ks);
   return cudaGetLastError();
 }
 

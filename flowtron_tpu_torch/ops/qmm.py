@@ -19,19 +19,91 @@ runs, so its W8A8 output is the JAX kernel's to the bit. ``x / sx`` is
 a true division in both (sx is not a constant).
 
 On CUDA tensors ``quantized_matmul`` launches csrc/qmm.cu (its note says
-what bounds it and how the design answers), fp32 only; on CPU tensors it
-runs ``quantized_matmul_reference``. N need not be a multiple of 128:
-that rule of the Pallas kernel is a TPU tiling constraint, and routing
-(``utils/weights.py:qdot``) follows the JAX package's, never the shape.
+what bounds it and how the design answers), fp32 only, tiled as
+``qmm_plan`` says; on CPU tensors it runs ``quantized_matmul_reference``.
+N need not be a multiple of 128: that rule of the Pallas kernel is a TPU
+tiling constraint, and routing (``utils/weights.py:qdot``) follows the
+JAX package's, never the shape.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 
 from flowtron_tpu_torch.ops import _build
 
 INV_127 = 1.0 / 127.0   # rounded to fp32 where it meets an fp32 tensor
+
+# csrc/qmm.cu's tiling: output columns a warp (the mma's m), rows of x a
+# tile (its n), k a stretch (a quad of lanes' four 16-byte loads),
+# stretches a lane keeps in flight, warps a block (half of it with 4 or 8
+# row tiles a warp, for their registers), row tiles a warp at most, the
+# SMs of an H100 SXM, and the shared memory a block's staged x may take
+TILE_N, TILE_M, STRETCH, GROUP = 16, 8, 64, 4
+MAX_WARPS, MAX_ROW_TILES, H100_SMS = 16, 8, 132
+STAGE_BYTES = 200 * 1024
+
+QmmPlan = namedtuple("QmmPlan", "ct ks mt grid threads smem")
+QmmPlan.__doc__ = """csrc/qmm.cu's launch: ``ct`` column tiles of 16 a
+block, ``ks`` warps splitting K a column tile (warp w takes tile w % ct
+and part w // ct: stretches p * S // ks up to (p + 1) * S // ks of the
+S = ceil(K / 64)), ``mt`` row tiles of 8 a warp; ``grid`` (column
+blocks, row blocks), ``threads`` a block, ``smem`` bytes a block."""
+
+
+def qmm_padded_k(K):
+    """K rounded up to a whole stretch: the int8 scratch row of W8A8."""
+    return -(-K // STRETCH) * STRETCH
+
+
+def qmm_smem_bytes(K, a8, ct, ks, mt):
+    """Shared memory of a block (csrc/qmm.cu:qmm_smem_bytes): the larger
+    of its staged rows of x (fp32, or int8 rows padded to an odd multiple
+    of 64 bytes) and its K parts' partial sums."""
+    Kp, rows = qmm_padded_k(K), mt * TILE_M
+    stage = rows * (Kp + (0 if Kp % 128 == 64 else 64) if a8 else 4 * Kp)
+    return max(stage, (ks - 1) * ct * mt * 4 * 32 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_plan(M, K, N, sms=None, a8=False):
+    """Tile (M, K) x (N, K)^T for csrc/qmm.cu on a card of ``sms`` SMs
+    (None: an H100's 132). Row tiles a warp: as many as M needs, up to 8,
+    a power of two, halved while the staged x passes STAGE_BYTES. K parts:
+    the fewest, a power of two, that leave each warp at most one group of
+    loads in flight. Column tiles a block: the most whose blocks still
+    give 7 in 8 SMs one. Where even one column tile a block leaves SMs
+    idle, K is split further, down to a stretch a warp. Returns a
+    QmmPlan; raises ValueError for shapes the kernel does not take."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"M, K, N ({M}, {K}, {N}) must be positive")
+    sms = sms or H100_SMS
+    S, tiles = qmm_padded_k(K) // STRETCH, -(-N // TILE_N)
+    mt = 1
+    while mt < min(MAX_ROW_TILES, -(-M // TILE_M)):
+        mt *= 2
+    while mt > 1 and qmm_smem_bytes(K, a8, 1, 1, mt) > STAGE_BYTES:
+        mt //= 2
+    if qmm_smem_bytes(K, a8, 1, 1, mt) > STAGE_BYTES:
+        raise ValueError(f"K ({K}) too large: 8 staged rows of x take more "
+                         f"than {STAGE_BYTES} bytes of shared memory")
+    warps = MAX_WARPS // 2 if mt >= 4 else MAX_WARPS
+    rows = -(-M // (mt * TILE_M))
+    ks = 1
+    while ks < warps and -(-S // ks) > GROUP:
+        ks *= 2
+    ks = min(ks, S)
+    ct = 1
+    while (2 * ct * ks <= warps
+           and -(-tiles // (2 * ct)) * rows * 8 >= 7 * sms):
+        ct *= 2
+    if ct == 1:
+        while 2 * ks <= min(warps, S) and tiles * rows < sms:
+            ks *= 2
+    return QmmPlan(ct, ks, mt, (-(-tiles // ct), rows), 32 * ct * ks,
+                   qmm_smem_bytes(K, a8, ct, ks, mt))
 
 
 def quantized_matmul_reference(x, q, s, out_dtype=None, a8=False):
@@ -54,14 +126,22 @@ def _lib():
     lib = _build.load_library("qmm")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.qmm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.qmm_f32.restype = i
-        lib.qmm_padded_k.argtypes = [i]
-        lib.qmm_padded_k.restype = i
         lib.qmm_error_string.argtypes = [i]
         lib.qmm_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+_sms = {}
+
+
+def _sm_count(dev):
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sms[dev.index]
 
 
 def quantized_matmul(x, q, s, out_dtype=None, a8=False):
@@ -83,16 +163,17 @@ def quantized_matmul(x, q, s, out_dtype=None, a8=False):
     _build.check_tensor("q", q, (N, K), dev, dtype=torch.int8)
     _build.check_tensor("s", s, (N,), dev)
     lib = _lib()
+    plan = qmm_plan(M, K, N, _sm_count(dev), bool(a8))
     out = torch.empty(M, N, device=dev)
     xq = sx = None
     if a8:
-        xq = torch.empty(M, lib.qmm_padded_k(K), dtype=torch.int8,
-                         device=dev)
+        xq = torch.empty(M, qmm_padded_k(K), dtype=torch.int8, device=dev)
         sx = torch.empty(M, device=dev)
     err = lib.qmm_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                       out.data_ptr(), None if xq is None else xq.data_ptr(),
                       None if sx is None else sx.data_ptr(), M, K, N,
-                      int(bool(a8)), torch.cuda.current_stream(dev).cuda_stream)
+                      int(bool(a8)), plan.ct, plan.ks, plan.mt,
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("qmm_f32 failed: "
                            + lib.qmm_error_string(err).decode())

@@ -40,6 +40,7 @@ from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
     flowtron_init, flowtron_infer,
 )
 from flowtron_tpu_torch.ops.qmm import (  # noqa: E402
+    MAX_WARPS, STRETCH, TILE_M, TILE_N, qmm_padded_k, qmm_plan,
     quantized_matmul, quantized_matmul_reference,
 )
 from flowtron_tpu_torch.utils import weights as port_weights  # noqa: E402
@@ -57,6 +58,10 @@ DIMS = dict(n_speakers=2, n_speaker_dim=8, n_text=185, n_text_dim=32,
             n_mel_channels=12, n_hidden=128, n_attn_channels=128,
             n_lstm_layers=2, mel_encoder_n_hidden=16)
 MIN_ELEMS = 1024
+# K4's plan and card cases: the frame's (K, N), the key/value precompute,
+# one unaligned shape; rows from a single stream to the precompute's B * Tk
+PLAN_KN = sorted(set(PATH_KN)) + [(100, 200)]
+PLAN_M = [1, 3, 8, 9, 64, 512]
 
 
 def _t(a):
@@ -113,6 +118,115 @@ def test_k4_zero_row_scale_is_one():
     out = quantized_matmul_reference(x, q, torch.ones(4), a8=True)
     assert torch.equal(out[0], torch.zeros(4))
     torch.testing.assert_close(out[1], torch.full((4,), 2.0))
+
+
+def _plan_warps(plan, K):
+    """Each warp's (column tile, row block, first stretch, end stretch) as
+    csrc/qmm.cu:qmm_kernel derives them from the plan."""
+    S = qmm_padded_k(K) // STRETCH
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            for w in range(plan.ct * plan.ks):
+                p = w // plan.ct
+                yield (bx * plan.ct + w % plan.ct, by, p * S // plan.ks,
+                       (p + 1) * S // plan.ks)
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
+@pytest.mark.parametrize("M", PLAN_M)
+@pytest.mark.parametrize("K,N", PLAN_KN)
+def test_k4_plan_covers_each_column_row_and_k_once(M, K, N, a8):
+    plan = qmm_plan(M, K, N, 132, a8)
+    assert plan.threads == 32 * plan.ct * plan.ks
+    assert plan.ct * plan.ks <= (MAX_WARPS // 2 if plan.mt >= 4
+                                 else MAX_WARPS)
+    assert plan.mt in (1, 2, 4, 8) and plan.smem <= 227 * 1024
+    rows = plan.mt * TILE_M
+    col_count, row_count = np.zeros(N, int), np.zeros(M, int)
+    k_count = {}
+    for tile, by, s0, s1 in _plan_warps(plan, K):
+        assert s0 < s1                      # no warp without work
+        cols = slice(tile * TILE_N, min((tile + 1) * TILE_N, N))
+        kc = k_count.setdefault((tile, by), np.zeros(K, int))
+        kc[s0 * STRETCH:min(s1 * STRETCH, K)] += 1
+        if s0 == 0:                         # once per (tile, row block)
+            if by == 0:
+                col_count[cols] += 1
+            if tile == 0:
+                row_count[by * rows:min((by + 1) * rows, M)] += 1
+    assert (col_count == 1).all() and (row_count == 1).all()
+    assert all((kc == 1).all() for (tile, _), kc in k_count.items()
+               if tile * TILE_N < N)
+
+
+def test_k4_plan_fills_the_card_on_the_frame():
+    """At M = 8 the 4096-wide dots give 128 blocks (one an SM of 132), the
+    narrow ones split K down to a stretch a warp."""
+    for K in (1024, 1664):
+        plan = qmm_plan(8, K, 4096, 132)
+        assert plan.grid == (128, 1) and plan.ct == 2
+        assert -(-(qmm_padded_k(K) // STRETCH) // plan.ks) <= 4
+    for N in (640, 1024):
+        plan = qmm_plan(8, 1024, N, 132, True)
+        assert plan.grid == (N // 16, 1) and plan.ks == 16
+    with pytest.raises(ValueError, match="positive"):
+        qmm_plan(0, 16, 16)
+
+
+def _tf32_rna(a):
+    """fp32 -> tf32 as cvt.rna.tf32.f32: 10 mantissa bits, to nearest,
+    ties away from zero (sign-magnitude bits, so adding half an ulp to the
+    magnitude rounds half away)."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _emulate_k4_w8(x, q, s, plan):
+    """The weight-only kernel's arithmetic: q exact in tf32, x split into
+    tf32 hi and lo, each k8 mma's 8 exact products added to the fp32
+    accumulator with one rounding (hi first, then lo), in the kernel's k
+    order (stretch, word j of a lane's 16 bytes, its bytes 0-1 then 2-3;
+    the mma's k = lane % 4 at byte 16 t + 4 j of the stretch), the K
+    parts' sums added in part order, then times s."""
+    M, K = x.shape
+    Kp = qmm_padded_k(K)
+    S = Kp // STRETCH
+    xp = np.zeros((M, Kp), np.float32)
+    xp[:, :K] = x
+    qp = np.zeros((q.shape[0], Kp), np.float64)
+    qp[:, :K] = q
+    hi = _tf32_rna(xp)
+    lo = _tf32_rna(xp - hi)
+    total = None
+    for p in range(plan.ks):
+        acc = np.zeros((M, q.shape[0]), np.float32)
+        for st in range(p * S // plan.ks, (p + 1) * S // plan.ks):
+            for j in range(4):
+                for half in (0, 1):
+                    idx = [st * STRETCH + 16 * t + 4 * j + 2 * half + e
+                           for e in (0, 1) for t in range(4)]
+                    for part in (hi, lo):
+                        acc = (acc + part[:, idx].astype(np.float64)
+                               @ qp[:, idx].T).astype(np.float32)
+        total = acc if total is None else total + acc
+    return total * s
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 1664, 4096), (512, 640, 640)])
+def test_k4_w8_tensor_core_numerics_within_tolerance(M, K, N):
+    """The two-pass tf32 design lands within K4's 1e-5 of the output scale
+    of the plain fp32 version, before any card runs it."""
+    x, qd = _case(M, K, N)
+    q = np.asarray(qd["q"]).T.copy()
+    s = np.asarray(qd["s"])
+    ref = quantized_matmul_reference(_t(x), _t(q), _t(s)).numpy()
+    ours = _emulate_k4_w8(x, q, s, qmm_plan(M, K, N, 132))
+    scale = float(np.abs(ref).max())
+    assert float(np.abs(ours - ref).max()) <= 1e-5 * scale
+    # x alone splits into hi + lo with ~2^-22 relative error
+    hi = _tf32_rna(x)
+    assert np.all(np.abs(x - hi - _tf32_rna(x - hi))
+                  <= 2.0 ** -21 * np.abs(x))
 
 
 _jax_resolve = jax.jit(lambda w: jax_weights.resolve_weight(w, jnp.float32))
@@ -384,18 +498,25 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
 def test_k4_kernel_matches_plain_on_card(cuda_device, a8):
-    counts = quantized_matmul.launches
-    for M, K, N in [(1, 80, 4096), (8, 1664, 4096), (64, 640, 640),
-                    (3, 100, 200)]:
-        x, qd = _case(M, K, N)
-        args = (_t(x), _t(np.asarray(qd["q"]).T.copy()), _t(qd["s"]))
-        ref = quantized_matmul_reference(*[a.to(cuda_device) for a in args],
-                                         a8=a8)
-        out = quantized_matmul(*[a.to(cuda_device) for a in args], a8=a8)
-        torch.cuda.synchronize()
-        if a8:
-            assert torch.equal(out, ref), (M, K, N)
-        else:
-            scale = float(ref.abs().max())
-            assert float((out - ref).abs().max()) <= 1e-5 * scale
-    assert quantized_matmul.launches == counts + 4
+    """Every plan shape: W8A8 bitwise, weight-only within 1e-5 of the
+    output scale, two calls bitwise equal, one launch counted a call."""
+    for K, N in PLAN_KN:
+        x, qd = _case(max(PLAN_M), K, N)
+        q = _t(np.asarray(qd["q"]).T.copy()).to(cuda_device)
+        s = _t(qd["s"]).to(cuda_device)
+        for M in PLAN_M:
+            xm = _t(x[:M]).to(cuda_device)
+            ref = quantized_matmul_reference(xm, q, s, a8=a8)
+            outs = []
+            for _ in range(2):
+                counts = quantized_matmul.launches
+                outs.append(quantized_matmul(xm, q, s, a8=a8))
+                assert quantized_matmul.launches == counts + 1
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1]), (M, K, N)
+            if a8:
+                assert torch.equal(outs[0], ref), (M, K, N)
+            else:
+                err = float((outs[0] - ref).abs().max())
+                scale = float(ref.abs().max())
+                assert err <= 1e-5 * scale, (M, K, N, err, scale)
