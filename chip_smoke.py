@@ -80,7 +80,8 @@ QUANT_TOL = {"w8": 1e-3, "w4": 1e-3, "w8a8": 1e-2}   # card vs CPU mel
 QUALITY_BAR = {"w8": 0.005, "w4": 0.04, "w8a8": 0.03}
 # the card's published peaks (H100 SXM, dense): HBM bytes/s and op/s
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12,
+              "tf32": 495e12}
 # (K, N) of kernel K4's calls on the flagship decoder's path: the nine
 # per-frame dots of one flow, then the key/value precompute (once a flow)
 K4_FRAME_KN = [(80, 4096), (1024, 4096), (1664, 4096), (1024, 4096),
@@ -544,18 +545,22 @@ def k4_case(M, K, N, a8, g, side, dev):
         lambda: quantized_matmul_reference(x, q, s, a8=a8),
         lambda: torch.nn.functional.linear(x, w)], side)
     # the same call launched from Python, as the per-frame loop does
-    eager_ms, _ = cuda_ms(lambda: quantized_matmul(x, q, s, a8=a8), reps=20)
+    eager_ms, out_e = cuda_ms(lambda: quantized_matmul(x, q, s, a8=a8),
+                              reps=20)
     err = float((out_k - out_p).abs().max())
     scale = float(out_p.abs().max())
     tag = f"K4 {'w8a8' if a8 else 'w8'} M={M} K={K} N={N}"
     check(math.isfinite(err), f"{tag} not finite")
+    check(torch.equal(out_e, out_k), f"{tag} not bitwise repeatable")
     if a8:
         check(torch.equal(out_k, out_p), f"{tag} not bitwise: err {err}")
     else:
         check(err <= K4_W8_TOL * scale, f"{tag} err {err} scale {scale}")
     n_bytes = 4 * M * K + N * K + 4 * N + 4 * M * N
-    bound_ms, bound_by = bound(n_bytes, 2 * M * K * N,
-                               "int8" if a8 else "fp32")
+    # W8A8's products on the int8 tensor cores; weight-only runs each
+    # product twice on the tf32 ones (x split into hi and lo)
+    ops = {"int8": 2 * M * K * N} if a8 else {"tf32": 2 * 2 * M * K * N}
+    bound_ms, bound_by = bound(n_bytes, ops)
     return dict(body="w8a8" if a8 else "w8", M=M, K=K, N=N,
                 max_abs_err=err, scale=scale, kernel_ms=k_ms, plain_ms=p_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,

@@ -51,11 +51,11 @@ __device__ __forceinline__ void mma_tf32_m16n8k8(float (&c)[4],
 }
 
 // x rounded to tf32 (10 mantissa bits), to nearest with ties away from
-// zero; the low 13 bits of the result are 0.
+// zero, as cvt.rna.tf32.f32 rounds a finite x, in two integer operations
+// (the cvt takes about five on sm_90): half a tf32 ulp added to the
+// magnitude bits, the low 13 bits cleared.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

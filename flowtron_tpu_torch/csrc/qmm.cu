@@ -17,14 +17,16 @@
 // fp32 reciprocal; this kernel does the same, so its W8A8 output is the
 // JAX kernel's to the bit (ops/qmm.py says more).
 //
-// What bounds it on an H100: bytes. On the decoder's per-frame path M is
-// the batch (<= 8) and each call streams one int8 weight matrix once:
-// 6.8 MB at (K, N) = (1664, 4096) against 2 * 8 * 1664 * 4096 = 0.11 G
-// operations. One flow-frame's nine calls read 26.7 MB: about 8 us at
-// 3.35 TB/s (the published peak). The first version ran one warp per
-// output column on SIMT units: two 16-byte loads a lane at K = 1024, a
-// shuffle reduction per row, and, weight-only, fp32 FMAs whose cost at
-// M = 8 (6.4 us at 67 TFLOP/s) matched the bytes' own.
+// What bounds it on an H100: bytes, and below them each call's fixed
+// latency. On the decoder's per-frame path M is the batch (<= 8) and each
+// call streams one int8 weight matrix once: 6.8 MB at (K, N) = (1664,
+// 4096) against 2 * 8 * 1664 * 4096 = 0.11 G operations. One flow-frame's
+// nine calls read 26.7 MB: about 8 us at 3.35 TB/s (the published peak),
+// against a launch and a round trip to memory of a few microseconds a
+// call. The first version ran one warp per output column on SIMT units:
+// two 16-byte loads a lane at K = 1024, a shuffle reduction per row, and,
+// weight-only, fp32 FMAs whose cost at M = 8 (6.4 us at 67 TFLOP/s)
+// matched the bytes' own.
 //
 // The design:
 // - the product is computed transposed, out^T (N x M) = q (N x K) x^T,
@@ -37,30 +39,38 @@
 //   lane; the mma's k order is a permutation of those bytes, and the B
 //   fragments (x) take the same permutation, so every product still
 //   pairs q[n, k] with x[m, k] and no staging of q is needed;
-// - x (or xq) is staged once a block in shared memory with cp.async
-//   while the weight loads are in flight, zero past K and M (a zero adds
-//   exactly 0); fp32 rows are swizzled and int8 rows padded so that each
-//   quarter-warp's 16-byte fragment loads hit 8 distinct bank groups;
+// - x is staged once a block in shared memory while the weight loads are
+//   in flight, zero past K and M (a zero adds exactly 0), with the
+//   epilogue's scales; fp32 rows are swizzled and int8 rows padded so
+//   that each quarter-warp's 16-byte fragment loads hit 8 distinct bank
+//   groups;
 // - W8A8: mma.sync m16n8k32 s8 -> s32, exact sums in any order, so the
-//   epilogue's two rounded multiplies give the plain version's bits; a
-//   first launch quantizes each row of x into a zero-padded int8 scratch
-//   (one block a row: max-reduce, then rintf(x / sx), a true division and
-//   jnp.round's round-half-to-even);
+//   epilogue's two rounded multiplies give the plain version's bits. A
+//   first launch quantizes x into a zero-padded int8 scratch (a row over
+//   several blocks, each taking the whole row's max: then rintf(x / sx),
+//   a true division, jnp.round's round-half-to-even). The product is its
+//   programmatic dependent: it starts while the quantize launch runs,
+//   loads its weights, and waits (griddepcontrol.wait) only before it
+//   reads xq and sx;
 // - weight-only: mma.sync m16n8k8 tf32 -> fp32. q is exact in tf32 (its
-//   bytes become floats by the 2^23-exponent trick and one subtract);
-//   x is split into hi = tf32(x) and lo = tf32(x - hi), two mmas into one
-//   accumulator, about 2^-21 relative error a product; s is applied once
-//   at the end, as _qmm_kernel applies it;
+//   bytes become floats by the 2^23-exponent trick and one subtract); x
+//   is staged as its tf32 pieces hi = tf32(x) and lo = tf32(x - hi), two
+//   mmas into one accumulator, about 2^-22 relative error a product; with
+//   one or two row tiles a warp, words of k go to 4 or 2 accumulator sets
+//   (shorter chains of dependent mmas), added in order at the end; s is
+//   applied once at the end, as _qmm_kernel applies it;
 // - the host (ops/qmm.py:qmm_plan) chooses the column tiles and the split
-//   of K over a block's warps; partial sums meet in shared memory in
-//   split order: one product launch a call, no atomics, bitwise
-//   repeatable;
+//   of K over a block's warps; partial sums meet in shared memory, each
+//   output's added in split order by one thread: one product launch a
+//   call, no atomics, bitwise repeatable;
 // - ragged shapes: loads past K, N and M read zeros; q rows that are not
 //   16-byte aligned (K % 16 != 0) are loaded byte by byte.
-// What is left: the quantize pass fused into the product (W8A8 is two
-// launches), wgmma fed by TMA, and the int8 weights held in L2 across
-// frames; N = 640 and 1024 give 40 and 64 column tiles, fewer blocks than
-// SMs, which only a split of K across blocks (a cluster) would fill.
+// What is left (PERF.md): the quantize pass fused into the product
+// (W8A8 is two launches, ~2 us of quantize on the critical path), wgmma
+// fed by TMA, the int8 weights held in L2 across frames, and weight-only's
+// int8 -> tf32 converts (two instructions a byte); N = 640 and 1024 give
+// 40 and 64 column tiles, fewer blocks than SMs, which only a split of K
+// across blocks (a cluster) would fill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +86,12 @@ constexpr int kTileM = 8;         // rows of x a tile (the mma's n)
 constexpr int kStretch = 64;      // k a quad of lanes loads at once
 constexpr int kGroup = 4;         // stretches a lane keeps in flight
 constexpr int kMaxWarps = 16;     // 8 with 4 or 8 row tiles a warp
-constexpr int kMaxSmem = 227 * 1024;
-constexpr int kQuantThreads = 256;
+constexpr int kMaxCols = kMaxWarps * kTileN;   // a block's columns
+constexpr int kMaxRows = 8 * kTileM;            // a block's rows of x
+// dynamic shared memory a block may take beside the staged scales
+constexpr int kMaxSmem = 227 * 1024 - 4 * (kMaxCols + kMaxRows);
+constexpr int kQuantThreads = 128;
+constexpr int kQuantSlice = 4 * kQuantThreads;  // xq bytes a quantize block
 constexpr float kInv127 = 1.0f / 127.0f;  // XLA's folded 1/127
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -86,17 +100,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One block per row: sx = max|x| * fp32(1/127) (1 where 0), xq =
-// clip(rint(x / sx)) into a row of Kp >= K bytes, zero past K.
+// Block (p, m) quantizes bytes p * kQuantSlice .. + kQuantSlice - 1 of
+// row m: every block of a row takes sx = max|x| * fp32(1/127) (1 where 0)
+// over the whole row, then writes xq = clip(rint(x / sx)) for its slice,
+// four bytes a thread, zero past K. Spreading a row over blocks keeps the
+// true divisions few a thread at small M.
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
                      int8_t* __restrict__ xq, float* __restrict__ sx) {
   __shared__ float part[kQuantThreads / 32];
-  const int m = blockIdx.x;
+  // the product launch may start now: it loads its weights, then waits
+  // for this grid to finish before it reads xq and sx
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int m = blockIdx.y;
   const float* row = x + (size_t)m * K;
+  const bool vec = (K & 3) == 0;
   float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads)
-    amax = fmaxf(amax, fabsf(row[k]));
+  if (vec) {
+#pragma unroll 4
+    for (int k = 4 * threadIdx.x; k < K; k += 4 * kQuantThreads) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + k));
+      amax = fmaxf(fmaxf(amax, fabsf(v.x)), fmaxf(fabsf(v.y), fabsf(v.z)));
+      amax = fmaxf(amax, fabsf(v.w));
+    }
+  } else {
+    for (int k = threadIdx.x; k < K; k += kQuantThreads)
+      amax = fmaxf(amax, fabsf(row[k]));
+  }
   amax = warp_max(amax);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
   __syncthreads();
@@ -104,16 +134,30 @@ quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
   for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, part[w]);
   float scale = __fmul_rn(amax, kInv127);
   if (scale == 0.f) scale = 1.f;
-  int8_t* out = xq + (size_t)m * Kp;
-  for (int k = threadIdx.x; k < Kp; k += kQuantThreads) {
-    float v = 0.f;
-    if (k < K) {
-      v = rintf(__fdiv_rn(row[k], scale));
-      v = fminf(fmaxf(v, -127.f), 127.f);
+  const int k = blockIdx.x * kQuantSlice + 4 * threadIdx.x;
+  if (k < Kp) {                           // Kp % 4 == 0
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (vec && k < K) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(row + k));
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k + i < K) v[i] = row[k + i];
     }
-    out[k] = static_cast<int8_t>(v);
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float r = 0.f;
+      if (k + i < K) {
+        r = rintf(__fdiv_rn(v[i], scale));
+        r = fminf(fmaxf(r, -127.f), 127.f);
+      }
+      w |= (uint32_t)(uint8_t)(int8_t)r << (8 * i);
+    }
+    *reinterpret_cast<uint32_t*>(xq + (size_t)m * Kp + k) = w;
   }
-  if (threadIdx.x == 0) sx[m] = scale;
+  if (blockIdx.x == 0 && threadIdx.x == 0) sx[m] = scale;
 }
 
 __host__ __device__ __forceinline__ int padded_k(int K) {
@@ -151,12 +195,21 @@ __device__ __forceinline__ int4 load_q16(const int8_t* row, bool valid, int k,
   return v;
 }
 
-// Rows m0 .. m0 + rows - 1 of x (fp32, swizzled) or xq (int8, padded
-// rows) into shared memory, zero past K and M; ends with a block barrier.
+// x's tf32 pieces: hi = tf32(v), lo = tf32(v - hi), as fp32 bit patterns.
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_rna(v));
+  lo = __uint_as_float(tf32_rna(__fsub_rn(v, hi)));
+}
+
+// Rows m0 .. m0 + rows - 1 of xq (int8, padded rows) or of x (its tf32 hi
+// and lo pieces, two swizzled planes of rows x Kp floats) into shared
+// memory, zero past K and M; the caller's block barrier ends it. x is
+// read with kStage 16-byte loads in flight a thread, then split.
 template <bool kA8>
 __device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
                         const int8_t* __restrict__ xq, int M, int K, int Kp,
                         int m0, int rows) {
+  constexpr int kStage = 8;
   if (kA8) {
     const int per_row = Kp / 16, stride = xq_stride(Kp);
     for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
@@ -165,25 +218,46 @@ __device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
       cp_async16_zfill(smem + (size_t)r * stride + 16 * c,
                        ok ? xq + (size_t)m * Kp + 16 * c : xq, ok ? 16 : 0);
     }
+    cp_async_commit();
+    cp_async_wait<0>();
   } else if ((K & 3) == 0) {              // 16-byte pieces of x rows
-    const int per_row = Kp / 4;
-    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
-      const int r = i / per_row, c = i - r * per_row, m = m0 + r;
-      const bool ok = m < M && 4 * c < K;
-      cp_async16_zfill(smem + 16 * ((size_t)r * per_row + x_chunk(r, c)),
-                       ok ? x + (size_t)m * K + 4 * c : x, ok ? 16 : 0);
+    const int per_row = Kp / 4, total = rows * per_row;
+    float4* hi = reinterpret_cast<float4*>(smem);
+    float4* lo = hi + total;
+    for (int base = threadIdx.x; base < total; base += kStage * blockDim.x) {
+      float4 v[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * blockDim.x, r = i / per_row;
+        const int c = i - r * per_row, m = m0 + r;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total && m < M && 4 * c < K)
+          v[u] = __ldg(reinterpret_cast<const float4*>(x + (size_t)m * K +
+                                                       4 * c));
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * blockDim.x, r = i / per_row;
+        if (i >= total) break;
+        const int d = r * per_row + x_chunk(r, i - r * per_row);
+        float4 h, l;
+        split_tf32(v[u].x, h.x, l.x);
+        split_tf32(v[u].y, h.y, l.y);
+        split_tf32(v[u].z, h.z, l.z);
+        split_tf32(v[u].w, h.w, l.w);
+        hi[d] = h;
+        lo[d] = l;
+      }
     }
   } else {
-    float* xs = reinterpret_cast<float*>(smem);
+    float* hi = reinterpret_cast<float*>(smem);
+    float* lo = hi + rows * Kp;
     for (int i = threadIdx.x; i < rows * Kp; i += blockDim.x) {
       const int r = i / Kp, k = i - r * Kp, m = m0 + r;
-      const float v = m < M && k < K ? x[(size_t)m * K + k] : 0.f;
-      xs[4 * ((size_t)r * (Kp / 4) + x_chunk(r, k >> 2)) + (k & 3)] = v;
+      const int d = 4 * (r * (Kp / 4) + x_chunk(r, k >> 2)) + (k & 3);
+      split_tf32(m < M && k < K ? x[(size_t)m * K + k] : 0.f, hi[d], lo[d]);
     }
   }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // Byte i of u (a biased byte, b + 128) as the fp32 value b, exactly:
@@ -198,10 +272,18 @@ __device__ __forceinline__ int word(int4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// Accumulator sets a warp keeps: the weight-only body runs 16 dependent
+// mmas a stretch, so with few row tiles word j of a lane's 16 bytes goes
+// to set j % sets, and the sets are added in order at the end.
+template <bool kA8, int MT>
+__host__ __device__ constexpr int acc_sets() {
+  return kA8 ? 1 : MT == 1 ? 4 : MT == 2 ? 2 : 1;
+}
+
 // One 64-byte stretch s of k into the accumulators of every row tile: ra
 // and rb hold this lane's 16 bytes of q rows g and g + 8.
-template <bool kA8, int MT, typename Acc>
-__device__ __forceinline__ void stretch_mma(Acc (&acc)[MT][4], int4 ra,
+template <bool kA8, int MT, int kSets, typename Acc>
+__device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
                                             int4 rb, const unsigned char* smem,
                                             int s, int Kp, int g, int t) {
   if constexpr (kA8) {
@@ -216,14 +298,16 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[MT][4], int4 ra,
     for (int i = 0; i < MT; ++i) {
       const int4 b = *reinterpret_cast<const int4*>(
           smem + (size_t)(i * kTileM + g) * stride + s * kStretch + 16 * t);
-      mma_s8_m16n8k32(acc[i], a0, (uint32_t)b.x, (uint32_t)b.y);
-      mma_s8_m16n8k32(acc[i], a1, (uint32_t)b.z, (uint32_t)b.w);
+      mma_s8_m16n8k32(acc[0][i], a0, (uint32_t)b.x, (uint32_t)b.y);
+      mma_s8_m16n8k32(acc[0][i], a1, (uint32_t)b.z, (uint32_t)b.w);
     }
   } else {
     // Word j of the lane's 16 bytes feeds two k8 mmas: bytes 0, 1 (its k
-    // t and t + 4) and bytes 2, 3; b: the same floats of x row g, split.
-    const float4* xs = reinterpret_cast<const float4*>(smem);
+    // t and t + 4) and bytes 2, 3; b: the same floats of x row g, as
+    // their staged tf32 hi and lo pieces.
     const int per_row = Kp / 4, swz = (t ^ g) & 3;
+    const float4* xh = reinterpret_cast<const float4*>(smem);
+    const float4* xl = xh + MT * kTileM * per_row;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint32_t ua = (uint32_t)word(ra, j) ^ 0x80808080u;
@@ -234,18 +318,13 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[MT][4], int4 ra,
                               byte_to_tf32(ua, 3), byte_to_tf32(ub, 3)};
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float4 v = xs[(size_t)(i * kTileM + g) * per_row + s * 16 +
-                            4 * t + (j ^ swz)];
-        const uint32_t hx = tf32_rna(v.x), hy = tf32_rna(v.y);
-        const uint32_t hz = tf32_rna(v.z), hw = tf32_rna(v.w);
-        const uint32_t lx = tf32_rna(__fsub_rn(v.x, __uint_as_float(hx)));
-        const uint32_t ly = tf32_rna(__fsub_rn(v.y, __uint_as_float(hy)));
-        const uint32_t lz = tf32_rna(__fsub_rn(v.z, __uint_as_float(hz)));
-        const uint32_t lw = tf32_rna(__fsub_rn(v.w, __uint_as_float(hw)));
-        mma_tf32_m16n8k8(acc[i], a0, hx, hy);
-        mma_tf32_m16n8k8(acc[i], a0, lx, ly);
-        mma_tf32_m16n8k8(acc[i], a1, hz, hw);
-        mma_tf32_m16n8k8(acc[i], a1, lz, lw);
+        const int idx = (i * kTileM + g) * per_row + s * 16 + 4 * t + (j ^ swz);
+        const float4 h = xh[idx], l = xl[idx];
+        float (&c)[4] = acc[j % kSets][i];
+        mma_tf32_m16n8k8(c, a0, __float_as_uint(h.x), __float_as_uint(h.y));
+        mma_tf32_m16n8k8(c, a0, __float_as_uint(l.x), __float_as_uint(l.y));
+        mma_tf32_m16n8k8(c, a1, __float_as_uint(h.z), __float_as_uint(h.w));
+        mma_tf32_m16n8k8(c, a1, __float_as_uint(l.z), __float_as_uint(l.w));
       }
     }
   }
@@ -274,6 +353,15 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
   const int8_t* qa = q + (size_t)(va ? n0 + g : 0) * K;
   const int8_t* qb = q + (size_t)(vb ? n0 + g + 8 : 0) * K;
 
+  // the epilogue's scales (s of the block's columns, W8A8's sx of its
+  // rows) go to shared memory with the staged x, so no global load waits
+  // at the end; at most one s and two sx a thread
+  __shared__ float s_sh[kMaxCols], sx_sh[kMaxRows];
+  const int cols = ct * kTileN, rows = MT * kTileM;
+  const int c0 = blockIdx.x * cols;
+  const float s_v = threadIdx.x < cols && c0 + (int)threadIdx.x < N
+                        ? s[c0 + threadIdx.x] : 0.f;
+
   // the first group of weight loads, in flight while x is staged
   int4 ra[kGroup], rb[kGroup];
 #pragma unroll
@@ -283,13 +371,33 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
     ra[u] = load_q16<kVec>(qa, va && in, k, K);
     rb[u] = load_q16<kVec>(qb, vb && in, k, K);
   }
-  stage_x<kA8>(smem, x, xq, M, K, Kp, m0, MT * kTileM);
+  // W8A8 starts while the quantize launch runs (a programmatic
+  // dependent launch); xq and sx are read only after this wait
+  float sx_v[2] = {0.f, 0.f};
+  if constexpr (kA8) {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = threadIdx.x + h * blockDim.x;
+      if (r < rows && m0 + r < M) sx_v[h] = sx[m0 + r];
+    }
+  }
+  stage_x<kA8>(smem, x, xq, M, K, Kp, m0, rows);
+  if (threadIdx.x < cols) s_sh[threadIdx.x] = s_v;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (threadIdx.x + h * blockDim.x < rows)
+      sx_sh[threadIdx.x + h * blockDim.x] = sx_v[h];
+  __syncthreads();
 
-  Acc acc[MT][4];
+  constexpr int kSets = acc_sets<kA8, MT>();
+  Acc sets[kSets][MT][4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int h = 0; h < kSets; ++h)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sets[h][i][c] = 0;
   for (int s0 = s_beg; s0 < s_end; s0 += kGroup) {
     if (s0 != s_beg) {
 #pragma unroll
@@ -303,50 +411,53 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
 #pragma unroll
     for (int u = 0; u < kGroup; ++u)
       if (s0 + u < s_end)
-        stretch_mma<kA8, MT>(acc, ra[u], rb[u], smem, s0 + u, Kp, g, t);
+        stretch_mma<kA8, MT>(sets, ra[u], rb[u], smem, s0 + u, Kp, g, t);
   }
+  Acc (&acc)[MT][4] = sets[0];
+#pragma unroll
+  for (int h = 1; h < kSets; ++h)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] += sets[h][i][c];
 
-  // the K parts' sums meet in shared memory, added in part order
-  if (ks > 1) {
-    __syncthreads();                      // every warp is done with x
-    Acc* part = reinterpret_cast<Acc*>(smem);
-    if (wks > 0) {
+  // acc[i][c] of warp column tile wc and lane ln: column (wc * 16 + ln /
+  // 4, + 8 for c >= 2) of the block's, row (8 i + 2 (ln % 4), + 1 for
+  // odd c) of its rows
+  auto store = [&](int wc, int i, int c, int ln, Acc v) {
+    const int cn = wc * kTileN + (ln >> 2) + (c >= 2 ? 8 : 0);
+    const int rm = i * kTileM + 2 * (ln & 3) + (c & 1);
+    if (c0 + cn >= N || m0 + rm >= M) return;
+    float y;
+    if constexpr (kA8)
+      y = __fmul_rn(__fmul_rn(__int2float_rn(v), sx_sh[rm]), s_sh[cn]);
+    else
+      y = __fmul_rn(v, s_sh[cn]);
+    out[(size_t)(m0 + rm) * N + c0 + cn] = y;
+  };
+  if (ks == 1) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          part[((((wks - 1) * ct + wct) * MT + i) * 4 + c) * 32 + lane] =
-              acc[i][c];
-    }
-    __syncthreads();
-    if (wks > 0) return;
-    for (int p = 1; p < ks; ++p)
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[i][c] +=
-              part[((((p - 1) * ct + wct) * MT + i) * 4 + c) * 32 + lane];
+      for (int c = 0; c < 4; ++c) store(wct, i, c, lane, acc[i][c]);
+    return;
   }
-
-  // acc[i][c]: column n0 + g (+ 8 for c >= 2), row m0 + 8 i + 2 t (+ 1
-  // for odd c)
+  // the K parts' sums meet in shared memory; each thread adds one output's
+  // parts in part order
+  __syncthreads();                        // every warp is done with x
+  Acc* part = reinterpret_cast<Acc*>(smem);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int n = n0 + g + (c >= 2 ? 8 : 0);
-    if (n >= N) continue;
-    const float sn = s[n];
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int m = m0 + i * kTileM + 2 * t + (c & 1);
-      if (m >= M) continue;
-      float v;
-      if constexpr (kA8)
-        v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][c]), sx[m]), sn);
-      else
-        v = __fmul_rn(acc[i][c], sn);
-      out[(size_t)m * N + n] = v;
-    }
+    for (int c = 0; c < 4; ++c)
+      part[(((wks * ct + wct) * MT + i) * 4 + c) * 32 + lane] = acc[i][c];
+  __syncthreads();
+  const int per_part = ct * MT * 4 * 32;
+  for (int e = threadIdx.x; e < per_part; e += blockDim.x) {
+    Acc v = part[e];
+    for (int p = 1; p < ks; ++p) v += part[p * per_part + e];
+    const int ln = e & 31, c = (e >> 5) & 3, i = (e >> 7) % MT;
+    store(e / (MT * 128), i, c, ln, v);
   }
 }
 
@@ -386,8 +497,8 @@ int qmm_padded_k(int K) { return padded_k(K); }
 // larger of the staged rows of x and the K parts' partial sums.
 int qmm_smem_bytes(int K, int a8, int ct, int ks, int mt) {
   const int Kp = padded_k(K), rows = mt * kTileM;
-  const int stage = a8 ? rows * xq_stride(Kp) : rows * Kp * 4;
-  const int part = (ks - 1) * ct * mt * 4 * 32 * 4;
+  const int stage = a8 ? rows * xq_stride(Kp) : 2 * rows * Kp * 4;
+  const int part = ks > 1 ? ks * ct * mt * 4 * 32 * 4 : 0;
   return stage > part ? stage : part;
 }
 
@@ -412,16 +523,26 @@ int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return err;
   if (a8) {
-    quantize_rows_kernel<<<M, kQuantThreads, 0, stream>>>(
+    const dim3 qgrid((padded_k(K) + kQuantSlice - 1) / kQuantSlice, M);
+    quantize_rows_kernel<<<qgrid, kQuantThreads, 0, stream>>>(
         x, K, padded_k(K), xq, sx);
     if ((err = cudaGetLastError())) return err;
   }
   const int tiles = (N + kTileN - 1) / kTileN;
   const dim3 grid((tiles + ct - 1) / ct,
                   (M + mt * kTileM - 1) / (mt * kTileM));
-  kernel<<<grid, 32 * ct * ks, smem, stream>>>(x, xq, sx, q, s, out, M, K, N,
-                                               ct, ks);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * ct * ks);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a8 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, x, (const int8_t*)xq,
+                            (const float*)sx, q, s, out, M, K, N, ct, ks);
 }
 
 }  // extern "C"

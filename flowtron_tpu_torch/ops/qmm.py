@@ -43,7 +43,10 @@ INV_127 = 1.0 / 127.0   # rounded to fp32 where it meets an fp32 tensor
 # SMs of an H100 SXM, and the shared memory a block's staged x may take
 TILE_N, TILE_M, STRETCH, GROUP = 16, 8, 64, 4
 MAX_WARPS, MAX_ROW_TILES, H100_SMS = 16, 8, 132
-STAGE_BYTES = 200 * 1024
+STAGE_BYTES = 224 * 1024
+# the dynamic shared memory a block may take beside its staged scales
+# (csrc/qmm.cu:kMaxSmem)
+SMEM_LIMIT = 227 * 1024 - 4 * (MAX_WARPS * TILE_N + MAX_ROW_TILES * TILE_M)
 
 QmmPlan = namedtuple("QmmPlan", "ct ks mt grid threads smem")
 QmmPlan.__doc__ = """csrc/qmm.cu's launch: ``ct`` column tiles of 16 a
@@ -60,11 +63,12 @@ def qmm_padded_k(K):
 
 def qmm_smem_bytes(K, a8, ct, ks, mt):
     """Shared memory of a block (csrc/qmm.cu:qmm_smem_bytes): the larger
-    of its staged rows of x (fp32, or int8 rows padded to an odd multiple
-    of 64 bytes) and its K parts' partial sums."""
+    of its staged rows of x (the tf32 hi and lo pieces of fp32 x, or int8
+    rows padded to an odd multiple of 64 bytes) and its K parts' partial
+    sums."""
     Kp, rows = qmm_padded_k(K), mt * TILE_M
-    stage = rows * (Kp + (0 if Kp % 128 == 64 else 64) if a8 else 4 * Kp)
-    return max(stage, (ks - 1) * ct * mt * 4 * 32 * 4)
+    stage = rows * (Kp + (0 if Kp % 128 == 64 else 64) if a8 else 8 * Kp)
+    return max(stage, ks * ct * mt * 4 * 32 * 4 if ks > 1 else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,9 +78,10 @@ def qmm_plan(M, K, N, sms=None, a8=False):
     a power of two, halved while the staged x passes STAGE_BYTES. K parts:
     the fewest, a power of two, that leave each warp at most one group of
     loads in flight. Column tiles a block: the most whose blocks still
-    give 7 in 8 SMs one. Where even one column tile a block leaves SMs
-    idle, K is split further, down to a stretch a warp. Returns a
-    QmmPlan; raises ValueError for shapes the kernel does not take."""
+    give 7 in 8 SMs one, and at least enough for 4 warps a block. Where
+    even one column tile a block leaves SMs idle, K is split further,
+    down to two stretches a warp. Returns a QmmPlan; raises ValueError
+    for shapes the kernel does not take."""
     if min(M, K, N) < 1:
         raise ValueError(f"M, K, N ({M}, {K}, {N}) must be positive")
     sms = sms or H100_SMS
@@ -96,11 +101,11 @@ def qmm_plan(M, K, N, sms=None, a8=False):
         ks *= 2
     ks = min(ks, S)
     ct = 1
-    while (2 * ct * ks <= warps
-           and -(-tiles // (2 * ct)) * rows * 8 >= 7 * sms):
+    while 2 * ct * ks <= warps and 2 * ct <= tiles and (
+            -(-tiles // (2 * ct)) * rows * 8 >= 7 * sms or ct * ks < 4):
         ct *= 2
     if ct == 1:
-        while 2 * ks <= min(warps, S) and tiles * rows < sms:
+        while 2 * ks <= min(warps, S // 2) and tiles * rows < sms:
             ks *= 2
     return QmmPlan(ct, ks, mt, (-(-tiles // ct), rows), 32 * ct * ks,
                    qmm_smem_bytes(K, a8, ct, ks, mt))

@@ -40,7 +40,7 @@ from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
     flowtron_init, flowtron_infer,
 )
 from flowtron_tpu_torch.ops.qmm import (  # noqa: E402
-    MAX_WARPS, STRETCH, TILE_M, TILE_N, qmm_padded_k, qmm_plan,
+    MAX_WARPS, SMEM_LIMIT, STRETCH, TILE_M, TILE_N, qmm_padded_k, qmm_plan,
     quantized_matmul, quantized_matmul_reference,
 )
 from flowtron_tpu_torch.utils import weights as port_weights  # noqa: E402
@@ -140,7 +140,7 @@ def test_k4_plan_covers_each_column_row_and_k_once(M, K, N, a8):
     assert plan.threads == 32 * plan.ct * plan.ks
     assert plan.ct * plan.ks <= (MAX_WARPS // 2 if plan.mt >= 4
                                  else MAX_WARPS)
-    assert plan.mt in (1, 2, 4, 8) and plan.smem <= 227 * 1024
+    assert plan.mt in (1, 2, 4, 8) and plan.smem <= SMEM_LIMIT
     rows = plan.mt * TILE_M
     col_count, row_count = np.zeros(N, int), np.zeros(M, int)
     k_count = {}
@@ -161,14 +161,14 @@ def test_k4_plan_covers_each_column_row_and_k_once(M, K, N, a8):
 
 def test_k4_plan_fills_the_card_on_the_frame():
     """At M = 8 the 4096-wide dots give 128 blocks (one an SM of 132), the
-    narrow ones split K down to a stretch a warp."""
+    narrow ones split K down to two stretches a warp."""
     for K in (1024, 1664):
         plan = qmm_plan(8, K, 4096, 132)
         assert plan.grid == (128, 1) and plan.ct == 2
         assert -(-(qmm_padded_k(K) // STRETCH) // plan.ks) <= 4
     for N in (640, 1024):
         plan = qmm_plan(8, 1024, N, 132, True)
-        assert plan.grid == (N // 16, 1) and plan.ks == 16
+        assert plan.grid == (N // 16, 1) and plan.ks == 8
     with pytest.raises(ValueError, match="positive"):
         qmm_plan(0, 16, 16)
 
@@ -183,14 +183,17 @@ def _tf32_rna(a):
 
 def _emulate_k4_w8(x, q, s, plan):
     """The weight-only kernel's arithmetic: q exact in tf32, x split into
-    tf32 hi and lo, each k8 mma's 8 exact products added to the fp32
+    tf32 hi and lo, each k8 mma's 8 exact products added to an fp32
     accumulator with one rounding (hi first, then lo), in the kernel's k
     order (stretch, word j of a lane's 16 bytes, its bytes 0-1 then 2-3;
-    the mma's k = lane % 4 at byte 16 t + 4 j of the stretch), the K
-    parts' sums added in part order, then times s."""
+    the mma's k = lane % 4 at byte 16 t + 4 j of the stretch); word j
+    into accumulator set j % sets (4 sets with one row tile a warp, 2
+    with two), the sets added in order, then the K parts' sums in part
+    order, then times s."""
     M, K = x.shape
     Kp = qmm_padded_k(K)
     S = Kp // STRETCH
+    n_sets = {1: 4, 2: 2}.get(plan.mt, 1)
     xp = np.zeros((M, Kp), np.float32)
     xp[:, :K] = x
     qp = np.zeros((q.shape[0], Kp), np.float64)
@@ -199,15 +202,19 @@ def _emulate_k4_w8(x, q, s, plan):
     lo = _tf32_rna(xp - hi)
     total = None
     for p in range(plan.ks):
-        acc = np.zeros((M, q.shape[0]), np.float32)
+        sets = [np.zeros((M, q.shape[0]), np.float32) for _ in range(n_sets)]
         for st in range(p * S // plan.ks, (p + 1) * S // plan.ks):
             for j in range(4):
                 for half in (0, 1):
                     idx = [st * STRETCH + 16 * t + 4 * j + 2 * half + e
                            for e in (0, 1) for t in range(4)]
                     for part in (hi, lo):
-                        acc = (acc + part[:, idx].astype(np.float64)
-                               @ qp[:, idx].T).astype(np.float32)
+                        sets[j % n_sets] = (
+                            sets[j % n_sets] + part[:, idx].astype(np.float64)
+                            @ qp[:, idx].T).astype(np.float32)
+        acc = sets[0]
+        for other in sets[1:]:
+            acc = acc + other
         total = acc if total is None else total + acc
     return total * s
 
