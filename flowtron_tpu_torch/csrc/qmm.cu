@@ -481,18 +481,6 @@ Kernel pick(bool a8, bool vec, int mt) {
   return vec ? pick_mt<false, true>(mt) : pick_mt<false, false>(mt);
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* qmm_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Bytes of int8 scratch one row of x takes in the W8A8 body (K rounded
-// up to a whole 64-byte stretch).
-int qmm_padded_k(int K) { return padded_k(K); }
-
 // Shared memory (bytes) a block of the plan (ct, ks, mt) takes: the
 // larger of the staged rows of x and the K parts' partial sums.
 int qmm_smem_bytes(int K, int a8, int ct, int ks, int mt) {
@@ -502,9 +490,17 @@ int qmm_smem_bytes(int K, int a8, int ct, int ks, int mt) {
   return stage > part ? stage : part;
 }
 
+}  // namespace
+
+extern "C" {
+
+const char* qmm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
 // x (M, K) fp32, q (N, K) int8, s (N,) fp32, out (M, N) fp32, all
 // contiguous and 16-byte aligned. a8 != 0 runs the W8A8 body and needs
-// xq (M, qmm_padded_k(K)) int8 and sx (M,) fp32 of scratch; otherwise
+// xq (M, K rounded up to 64) int8 and sx (M,) fp32 of scratch; otherwise
 // both may be null. (ct, ks, mt): the plan of ops/qmm.py:qmm_plan,
 // column tiles a block, warps along K a column tile, row tiles a warp.
 int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,

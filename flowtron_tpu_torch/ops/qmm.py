@@ -71,7 +71,7 @@ def qmm_smem_bytes(K, a8, ct, ks, mt):
     return max(stage, ks * ct * mt * 4 * 32 * 4 if ks > 1 else 0)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=256)
 def qmm_plan(M, K, N, sms=None, a8=False):
     """Tile (M, K) x (N, K)^T for csrc/qmm.cu on a card of ``sms`` SMs
     (None: an H100's 132). Row tiles a warp: as many as M needs, up to 8,
