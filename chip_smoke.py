@@ -281,6 +281,8 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
     errs = [float((a - b).abs().max()) for a, b in zip(out_k, out_p)]
     nv_k, nv_p = n_valid_of(out_k[2], 0.5), n_valid_of(out_p[2], 0.5)
     tag = f"K1 {'gated' if gated else 'ungated'} B={B} Tk={Tk}"
+    check(all(torch.equal(a, b) for a, b in zip(out_k, fused_flow_infer(
+        *args))), f"{tag}: two calls differ")
     check(all(math.isfinite(e) for e in errs), f"{tag} not finite")
     check(max(errs) <= K1_TOL, f"{tag} mel/attn/gate err {errs}")
     check(torch.equal(nv_k, nv_p), f"{tag} n_valid {nv_k} {nv_p}")
@@ -297,6 +299,8 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
     e_args = args + (True, thresh, n_valid_in)
     ke_ms, out_ke = cuda_ms(lambda: fused_flow_infer(*e_args), reps=3)
     out_pe = fused_flow_infer_reference(*e_args)
+    check(all(torch.equal(a, b) for a, b in zip(out_ke, fused_flow_infer(
+        *e_args))), f"{tag} early: two calls differ")
     errs_e = [float((a - b).abs().max()) for a, b in zip(out_ke, out_pe)]
     if gated:
         nv_ke = n_valid_of(out_ke[2], thresh)
@@ -309,6 +313,11 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
           and bool((out_ke[1][stop:] == 0).all())
           and bool((out_ke[2][stop:] == 1).all()),
           f"{tag} early: skipped frames not mel=0, attn=0, gate=1")
+    from flowtron_tpu_torch.ops.decoder import k1_launch_info, k1_stage_split
+    w = args[0]
+    n_w = sum(t.numel() for v in w.values()
+              for t in ([v] if torch.is_tensor(v) else
+                        [x for pair in v for x in pair]))
     fields = dict(gated=gated, B=B, N=N_FRAMES, Tk=Tk,
                   key_mask=in_lens is not None, max_abs_err_mel=errs[0],
                   max_abs_err_attn=errs[1], max_abs_err_gate=errs[2],
@@ -316,7 +325,11 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
                   runs_plain_kernel_kernel_plain_ms=runs,
                   kernel_us_per_frame=1e3 * k_ms / N_FRAMES,
                   early_threshold=thresh, early_n_valid=expect.tolist(),
-                  early_kernel_ms=ke_ms, early_max_abs_err=max(errs_e))
+                  early_kernel_ms=ke_ms, early_max_abs_err=max(errs_e),
+                  # the packed weights streamed once a frame from HBM
+                  streamed_floor_us_per_frame=4 * n_w / HBM_BYTES_S * 1e6,
+                  stage_us_per_frame=k1_stage_split(*args),
+                  **k1_launch_info(w, B, Tk, dev))
     return fields, max(errs + errs_e), out_k[2], expect
 
 
@@ -335,10 +348,11 @@ def k1_bound(weights, N, B, Tk, D, M=80):
 
 
 def phase_k1(model, cfg, ids, sid, dev):
-    """K1 on the card: the gated last flow (run first on the main path) at
-    Tk=128, then both flows at the main path's own shapes: the first
-    request's text at B=1 with the latents that request draws, and the
-    four texts padded with their key mask at B=4. The ungated flow gets
+    """K1 on the card: the grid barrier's cost, the gated last flow (run
+    first on the main path) at Tk=128 and B=1, 4 and 12, then both flows
+    at the main path's own shapes: the first request's text at B=1 with
+    the latents that request draws, and the four texts padded with their
+    key mask at B=4. The ungated flow gets
     the gated flow's early n_valid, as on the main path. Returns the max
     error, the gated flow's B=1 request-shape times, and the threshold
     and n_valid at which the first request's gate stops it."""
@@ -349,16 +363,30 @@ def phase_k1(model, cfg, ids, sid, dev):
     # synthesize's latents, flipped as the backward (gated) flow sees them
     z_req = SIGMA * torch.randn(1, 80, N_FRAMES, generator=torch.Generator()
                                 .manual_seed(REQ_SEED))
+    rand12 = torch.randint(1, 185, (12, TK), generator=g)
     cases = [
         ("random_text", rand_text[:1], None,
          0.5 * torch.randn(N_FRAMES, 1, 80, generator=g)),
         ("random_text", rand_text, torch.tensor([TK, 100, 77, 50]),
          0.5 * torch.randn(N_FRAMES, 4, 80, generator=g)),
+        # two groups of 8 batch rows
+        ("random_text", rand12, torch.randint(TK // 4, TK + 1, (12,),
+                                              generator=g),
+         0.5 * torch.randn(N_FRAMES, 12, 80, generator=g)),
         ("request", batch_text[:1, :len(ids[0])], None,
          z_req.permute(2, 0, 1).flip(0)),
         ("batch", batch_text, batch_lens,
          0.5 * torch.randn(N_FRAMES, 4, 80, generator=g)),
     ]
+    from flowtron_tpu_torch.ops.decoder import barrier_bench
+    # one grid barrier of K1 (and of cooperative_groups, its yardstick):
+    # 5000 in one launch after a warm-up launch
+    barrier = {}
+    for mode, name in ((0, "barrier_us"), (1, "barrier_cg_us")):
+        barrier_bench(mode, 100, dev)
+        ms, _ = cuda_ms(lambda: barrier_bench(mode, 5000, dev))
+        barrier[name] = 1e3 * ms / 5000
+    emit("k1_barrier", **barrier)
     max_err, times, stop = 0.0, None, None
     for shape, text, in_lens, res in cases:
         flows = [gated] if shape == "random_text" else [gated, ungated]
@@ -367,7 +395,7 @@ def phase_k1(model, cfg, ids, sid, dev):
             fields, err, gates, nv_in = k1_case(
                 model, cfg, flow, sid, text, in_lens, res, nv_in, dev)
             max_err = max(max_err, err)
-            emit("k1", shape=shape, **fields)
+            emit("k1", shape=shape, **fields, **barrier)
             if shape == "request" and flow is gated:
                 times = (fields["kernel_ms"], fields["plain_ms"]) + k1_bound(
                     flow.packed_weights(), N_FRAMES, 1, text.shape[1],

@@ -1,4 +1,5 @@
-// K1: one flow's whole inverse autoregressive scan, fp32.
+// K1: one flow's whole inverse autoregressive scan, fp32, in one
+// persistent cooperative launch.
 //
 // Replaces flowtron_tpu/ops/decoder_pallas.py:fused_flow_infer (the Pallas
 // kernel _make_kernel, called at :334), with the semantics of :136-223:
@@ -8,56 +9,126 @@
 // [h_att, ctx] (last flow only), n decoder LSTM cells, the tanh dense
 // stack, the coupling head and out = (z - b) * exp(-log_s).
 //
-// What bounds it on an H100: weight bytes. One flagship flow holds about
-// 26.8 M fp32 parameters (107 MB), more than the 50 MB L2 and far more
-// than the 227 KB of shared memory of one SM, so unlike the TPU kernel
-// (which keeps the whole flow resident in VMEM) every frame streams all
-// weights from HBM: at 3.35 TB/s that is a floor of about 32 us per
-// flow-frame (an estimate, not a measurement). Batch rows reuse each
-// weight row once it is loaded, so B=1..8 costs about the same bytes.
+// What bounds it on an H100: weight bytes, and the chain of dependent
+// stages a frame. One flagship flow holds about 26.8 M fp32 parameters
+// (107 MB), more than the 50 MB L2, so every frame streams them from HBM:
+// about 32 us a flow-frame at 3.35 TB/s. A frame is a chain of 4 +
+// n_layers + n_dense stages (8 at flagship width), each needing the whole
+// output of the one before: each pays a grid barrier (~1 us), a round
+// trip to stage its inputs and one for its epilogue.
 //
-// What the design does about it (a simple first version):
-// - One host call per flow. The C entry below loops over frames on the
-//   host and launches a fixed sequence of 4 + n_layers + n_dense short
-//   kernels per frame on the caller's stream (8 at flagship width), so
-//   Python is out of the frame loop.
-// - Weights are packed once at load time (ops/decoder.py) so that each
-//   warp reads whole contiguous rows with 16-byte loads: a row of the
-//   (out, in) layout is one dot product. LSTM rows are interleaved
-//   (row 4u+g is gate g of unit u) so one warp owns one hidden unit,
-//   computes its four gate rows for every batch row, and applies the
-//   cell itself: the matvec and the cell are one kernel.
-// - The inputs [x ; h] of a block are staged in shared memory, each
-//   segment zero-padded to a multiple of 4 floats; weights are padded to
-//   match, so the dot loop needs no tail.
-// - h is double-buffered across frames (blocks of one launch read h_prev
-//   while others write h_new); c is updated in place, each element by
-//   the one thread that owns it.
-// - Up to 8 batch rows share one pass over the weights; more rows run as
-//   further groups in gridDim.y.
-// - Early exit: a device int done_at (initially "never") is set to t by
-//   the head kernel once every stream's done flag is set (gate fired, or
-//   t + 1 >= n_valid_in). Every kernel of frame t' > done_at returns at
-//   once; the attention kernel writes attn = 0 and gate = 1 and the head
-//   kernel writes mel = 0 for those frames, so no output is left
-//   unwritten (decoder_pallas.py:216-223 does the same per chunk; here
-//   the granularity is one frame).
+// The design:
+// - One cooperative launch a flow, one 256-thread block a SM; the frame
+//   loop runs inside the kernel. Between stages a grid barrier: each block
+//   adds one to a counter in global memory (release), one thread spins on
+//   an acquire load, then __syncthreads (chip_smoke.py times it against
+//   cooperative_groups' grid sync, ~10% slower).
+// - Each stage is a list of jobs, matrices whose row quads (four rows,
+//   one LSTM unit's four gates) are split evenly over all blocks, so each
+//   block streams 1 / grid of every stage's bytes (ops/decoder.py:k1_plan).
+//   A warp takes a quad (ks warps split its k when a block has fewer
+//   quads than warps, and sum in a fixed order in shared memory), reads
+//   its rows with 16-byte loads and applies the epilogue (LSTM cell, bias,
+//   tanh, coupling) itself; the epilogue's operands are loaded with the
+//   stage's inputs, so their round trip overlaps it.
+// - The recurrent halves W_hh . h(t - 1) of the three LSTMs (3 x 16.8 MB,
+//   half of a frame) depend only on state already known, so they leave
+//   the dependent chain: the attention LSTM's runs in the attention stage
+//   (after h_att(t) is known, for frame t + 1), decoder layer 0's in the
+//   query stage, the other layers' in the attention-LSTM stage, and their
+//   sums wait in scratch until the cell. The stages then stream about att
+//   18.1 MB, query 19.4, attention 17, LSTM 0 27.3, LSTM 1 16.8, dense
+//   4.2 + 4.2, head 0.65. The packed LSTM halves are separate matrices,
+//   so a block's rows of a job are one contiguous range.
+// - Weights never depend on the frame: once a block has read its rows of
+//   stage s, thread 0 starts one bulk (TMA) copy a job of its rows of
+//   stage s + 1 into shared memory (all that fits, ~210 KB at B = 1), on
+//   an mbarrier, right after arriving at the barrier; the transfer
+//   overlaps the barrier and the next stage's staging. Rows that do not
+//   fit (part of LSTM 0 at B = 8) are read from HBM.
+// - Attention is spread over the blocks in slots (row b, key range j,
+//   channel slice c): each slot computes its keys' scores, a local max
+//   and exp sum, and its channels of the unnormalised partial context.
+//   The next stage, which stages [h_att ; ctx] for decoder layer 0
+//   anyway, combines the partials in a fixed order into ctx, the
+//   normalised attention row and (block 0) the gate, with no barrier of
+//   their own. Partials a row: 16 at B = 1, fewer for more rows, since
+//   every block reads them all.
+// - Up to 8 batch rows share one pass over the weights; more rows loop
+//   over groups of 8 inside each stage.
+// - No floating-point atomics: every sum has one owner and a fixed order,
+//   so two calls give bitwise-equal outputs.
+// - Early exit: block 0 sets a stream's done flag in the stage that
+//   computes the gate (gate fired, or t + 1 >= n_valid_in). At the start
+//   of each frame every block reads the flags; once all are set, the
+//   blocks write mel = 0, attn = 0, gate = 1 for the remaining frames and
+//   return together (decoder_pallas.py:216-223 does the same per chunk;
+//   here the granularity is one frame).
+// - Code size matters: a frame runs every stage's code once, so the
+//   instruction cache is cold for each; the helpers that run once a stage
+//   are not inlined and one loop serves every stage's quads.
 //
-// wgmma/TMA and a persistent kernel with grid-wide barriers are left to
-// later work; this version is plain SIMT fp32.
+// No weight stays resident in shared memory across frames (the buffer is
+// the prefetch's), and the math is plain SIMT fp32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 8;          // batch rows per pass over the weights
-constexpr int kAttnThreads = 1024;  // the attention kernel is one block per row
+constexpr int kMaxLayers = 4;     // decoder LSTM layers
+constexpr int kMaxDense = 4;      // dense layers
+constexpr int kMaxJobs = kMaxLayers;   // the attention-LSTM stage's jobs
+constexpr int kMaxStages = 4 + kMaxLayers + kMaxDense;
+constexpr int kMaxParts = 16;     // attention partials (ops/decoder.py)
 constexpr float kMaskValue = -1e9f;
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// what a job's epilogue does with its row quads
+enum Kind { kAttIH, kRec, kQuery, kIH, kDense, kHead };
+
+struct Job {
+  const float* w;      // (rows, Kp), rows padded to a multiple of 4 floats
+  const float* bias;
+  int Kp, rows, kind, layer;   // layer: LSTM (-1 = attention), dense
+};
+
+struct Stage {
+  int n_jobs, attention;
+  Job job[kMaxJobs];
+};
+
+struct Params {
+  Stage st[kMaxStages];
+  int n_stages;
+  const int* bounds;   // (n_stages, kMaxJobs, grid + 1) quad boundaries
+  const float *z, *kp, *vals, *mask, *v_w, *gate_w, *gate_b;
+  const int* nvin;
+  float *mel, *attn, *gates;
+  float *h_att, *c_att, *q, *scores, *pm, *ps, *pc;
+  float* h[kMaxLayers];
+  float* c[kMaxLayers];
+  float* rec[kMaxLayers + 1];   // (B, 4H): [0] attention LSTM, [1 + l]
+  float* y[2];                  // dense outputs, ping-pong
+  int* done;
+  unsigned* bar;
+  long long* clock;   // or null: block 0's globaltimer after each stage
+  int N, B, M, H, D, Tk, n_layers, n_dense, parts, grid, early_exit;
+  int slices;           // channel slices of each attention partial
+  int rows;             // batch rows a pass: min(B, kMaxB)
+  int Dp, kslot, xs_floats;
+  int wbuf_off, wcap;   // the prefetch buffer: offset, capacity (floats)
+  float temperature, threshold;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -74,77 +145,110 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// Sum (or max) over the block; every thread gets the result.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+// The grid barrier, in two halves so that a block can start work that
+// no other block waits for in between: every block adds one to *bar
+// (release) once all its threads are done, then one thread spins until
+// the counter reaches target = barriers passed x grid (acquire). The
+// counter only grows, so it needs no reset between barriers.
+__device__ __forceinline__ void barrier_arrive(unsigned* bar) {
   __syncthreads();
-  float r = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) r += red[i];
-  __syncthreads();
-  return r;
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+                 :: "l"(bar), "r"(1u) : "memory");
 }
 
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+__device__ __forceinline__ void barrier_wait(unsigned* bar, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(bar) : "memory");
+    } while (v < target);
+  }
   __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) r = fmaxf(r, red[i]);
-  __syncthreads();
-  return r;
 }
 
-// dst[b * Kp + off + k] = src[b * ld + k] for k < n, 0 for n <= k < npad.
-// src == nullptr stages zeros (the t = 0 "previous frame").
-__device__ void stage(float* dst, int Kp, int off, const float* src, int ld,
-                      int n, int npad, int nb) {
-  for (int i = threadIdx.x; i < nb * npad; i += blockDim.x) {
-    const int b = i / npad, k = i - b * npad;
-    dst[b * Kp + off + k] =
-        (src != nullptr && k < n) ? src[(size_t)b * ld + k] : 0.f;
+// dst[b * Kp + off + k] = src[b * ld + k] for k < n, 0 for n <= k < npad;
+// src == nullptr stages zeros. Activations are written by other blocks of
+// this launch, so they are read through L2 (__ldcg), kLoads a thread in
+// flight.
+constexpr int kLoads = 8;
+__device__ void stage_rows(float* dst, int Kp, int off, const float* src,
+                           int ld, int n, int npad, int nb) {
+  const int total = nb * npad;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kLoads * blockDim.x) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int b = i / npad, k = i - b * npad;
+      v[u] = (i < total && src != nullptr && k < n)
+                 ? __ldcg(src + (size_t)b * ld + k) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int b = i / npad, k = i - b * npad;
+      if (i < total) dst[b * Kp + off + k] = v[u];
+    }
   }
 }
 
-// One warp: acc[r][b] = dot(W[row0 + r, :Kp], xs[b, :Kp]) for r < R, b < nb.
-template <int R>
-__device__ __forceinline__ void warp_dot(const float* __restrict__ W,
-                                         int row0, int Kp, const float* xs,
-                                         int nb, float (&acc)[R][kMaxB]) {
+// One warp: acc[r][b] = sum over float4 columns [i0, i1) of
+// W[r * Kp + .] . xs[b * Kp + .], for r < 4, b < nb; every lane gets the
+// sums. W is in shared memory (the prefetch buffer) or in HBM. Rows
+// r >= nrows (a ragged last quad) read row nrows - 1, and the caller
+// drops their sums. Two float4 of each row in flight a lane.
+__device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
+                                         int i0, int i1, const float* xs,
+                                         int nb, float (&acc)[4][kMaxB]) {
   const int lane = threadIdx.x & 31;
   const int K4 = Kp >> 2;
+  const float4* W4 = reinterpret_cast<const float4*>(W);
   const float4* x4 = reinterpret_cast<const float4*>(xs);
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int b = 0; b < kMaxB; ++b) acc[r][b] = 0.f;
-#pragma unroll 2
-  for (int i = lane; i < K4; i += 32) {
-    float4 w[R];
+  for (int i = i0 + lane; i < i1; i += 64) {
+    const bool two = i + 32 < i1;
+    const int i2 = two ? i + 32 : i;
+    float4 w0[4], w1[4];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      w[r] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(row0 + r) * Kp)
-                   + i);
+    for (int r = 0; r < 4; ++r) {
+      const float4* row = W4 + (size_t)min(r, nrows - 1) * K4;
+      w0[r] = row[i];
+      w1[r] = two ? row[i2] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 #pragma unroll
     for (int b = 0; b < kMaxB; ++b) {
       if (b < nb) {
-        const float4 xv = x4[b * K4 + i];
+        const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          acc[r][b] = fmaf(w[r].w, xv.w, fmaf(w[r].z, xv.z,
-                      fmaf(w[r].y, xv.y, fmaf(w[r].x, xv.x, acc[r][b]))));
+        for (int r = 0; r < 4; ++r) {
+          float a = acc[r][b];
+          a = fmaf(w0[r].x, x0.x, a);
+          a = fmaf(w0[r].y, x0.y, a);
+          a = fmaf(w0[r].z, x0.z, a);
+          a = fmaf(w0[r].w, x0.w, a);
+          a = fmaf(w1[r].x, x1.x, a);
+          a = fmaf(w1[r].y, x1.y, a);
+          a = fmaf(w1[r].z, x1.z, a);
+          a = fmaf(w1[r].w, x1.w, a);
+          acc[r][b] = a;
+        }
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[r][b] = warp_sum(acc[r][b]);
+    for (int b = 0; b < kMaxB; ++b)
+      if (b < nb) acc[r][b] = warp_sum(acc[r][b]);
 }
 
-// Value acc[r][lane] without dynamic register indexing.
-template <int R>
-__device__ __forceinline__ float pick(const float (&acc)[R][kMaxB], int r,
+// acc[r][lane] without dynamic register indexing.
+__device__ __forceinline__ float pick(const float (&acc)[4][kMaxB], int r,
                                       int lane) {
   float v = 0.f;
 #pragma unroll
@@ -153,191 +257,569 @@ __device__ __forceinline__ float pick(const float (&acc)[R][kMaxB], int r,
   return v;
 }
 
-// LSTM cell with its input matvec. W: (4H, Kxp + Hp), row 4u + g holds
-// gate g (i, f, g, o) of unit u over [x (padded to Kxp) ; h (padded to
-// Hp)]; bias (4H) the same interleave, b_ih + b_hh pre-summed.
-// One warp per unit; grid (cdiv(H, kWarps), batch groups).
-__global__ void lstm_kernel(const float* __restrict__ W,
-                            const float* __restrict__ bias,
-                            const float* x, int ldx, int Kx, int Kxp,
-                            const float* h_prev, int ldh, int H, int Hp,
-                            float* h_out, int ldo, float* c, int B, int t,
-                            const int* done_at) {
-  if (*done_at < t) return;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int g0 = blockIdx.y * kMaxB;
-  const int nb = min(kMaxB, B - g0);
-  const int Kp = Kxp + Hp;
-  stage(xs, Kp, 0, x == nullptr ? nullptr : x + (size_t)g0 * ldx, ldx, Kx,
-        Kxp, nb);
-  stage(xs, Kp, Kxp, h_prev + (size_t)g0 * ldh, ldh, H, Hp, nb);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int u = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (u >= H) return;
-  float acc[4][kMaxB];
-  warp_dot<4>(W, 4 * u, Kp, xs, nb, acc);
-  if (lane < nb) {
-    const int b = g0 + lane;
-    const float gi = pick(acc, 0, lane) + bias[4 * u + 0];
-    const float gf = pick(acc, 1, lane) + bias[4 * u + 1];
-    const float gg = pick(acc, 2, lane) + bias[4 * u + 2];
-    const float go = pick(acc, 3, lane) + bias[4 * u + 3];
-    const float c_new = sigmoid(gf) * c[(size_t)b * H + u]
-                        + sigmoid(gi) * tanhf(gg);
-    c[(size_t)b * H + u] = c_new;
-    h_out[(size_t)b * ldo + u] = sigmoid(go) * tanhf(c_new);
+struct In {
+  const float* src;   // (B, ld) rows; nullptr stages zeros
+  int ld, n;
+};
+
+// What a job's rows are dotted with at frame t (decoder layer 0 also
+// takes the context behind h_att, which combine adds).
+__device__ In job_input(const Params& p, const Job& j, int t) {
+  switch (j.kind) {
+    case kAttIH:
+      return {t ? p.mel + (size_t)(t - 1) * p.B * p.M : nullptr, p.M, p.M};
+    case kRec:
+      return {j.layer < 0 ? p.h_att : p.h[j.layer], p.H, p.H};
+    case kQuery:
+      return {p.h_att, p.H, p.H};
+    case kIH:
+      return {j.layer ? p.h[j.layer - 1] : p.h_att, p.H, p.H};
+    case kDense:
+      return {j.layer ? p.y[(j.layer - 1) & 1] : p.h[p.n_layers - 1], p.H,
+              p.H};
+    default:   // kHead
+      return {p.n_dense ? p.y[(p.n_dense - 1) & 1] : p.h[p.n_layers - 1],
+              p.H, p.H};
   }
 }
 
-// out[b, n] = act(dot(W[n], x[b]) + bias[n]); act 0 = identity, 1 = tanh.
-// One warp per output row; grid (cdiv(N, kWarps), batch groups).
-__global__ void matvec_kernel(const float* __restrict__ W,
-                              const float* __restrict__ bias, const float* x,
-                              int ldx, int K, int Kp, float* out, int ldo,
-                              int N, int B, int act, int t,
-                              const int* done_at) {
-  if (*done_at < t) return;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int g0 = blockIdx.y * kMaxB;
-  const int nb = min(kMaxB, B - g0);
-  stage(xs, Kp, 0, x + (size_t)g0 * ldx, ldx, K, Kp, nb);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  float acc[1][kMaxB];
-  warp_dot<1>(W, n, Kp, xs, nb, acc);
-  if (lane < nb) {
-    float v = pick(acc, 0, lane) + (bias != nullptr ? bias[n] : 0.f);
-    if (act == 1) v = tanhf(v);
-    out[(size_t)(g0 + lane) * ldo + n] = v;
+// The operands of a quad's epilogue besides its sums, loaded before its
+// dot so that their round trip overlaps it.
+struct Ops {
+  float bias[4], rec[4], c, z[2];
+};
+
+__device__ void epi_load(const Params& p, const Job& j, int u, int row,
+                         int t, Ops& o) {
+  const int H = p.H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o.bias[i] = j.bias != nullptr && 4 * u + i < j.rows
+                    ? __ldg(j.bias + 4 * u + i) : 0.f;
+  if (j.kind == kAttIH || j.kind == kIH) {
+    const bool att = j.kind == kAttIH;
+    const float* rec =
+        p.rec[att ? 0 : 1 + j.layer] + (size_t)row * 4 * H + 4 * u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o.rec[i] = __ldcg(rec + i);
+    o.c = __ldcg((att ? p.c_att : p.c[j.layer]) + (size_t)row * H + u);
+  } else if (j.kind == kHead) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      o.z[k] = 2 * u + k < p.M
+                   ? p.z[((size_t)t * p.B + row) * p.M + 2 * u + k] : 0.f;
   }
 }
 
-// Attention for one frame, one block per batch row b. dec_in (B, ld_dec)
-// holds h_att in [:H] on entry; the context is written to [H:H+D]. Then
-// the gate on [h_att, ctx] and this stream's done flag.
-__global__ void attention_kernel(
-    const float* q, const float* __restrict__ kp,
-    const float* __restrict__ vals, const float* __restrict__ key_mask,
-    const float* __restrict__ v_w, float* dec_in, int ld_dec, int H,
-    const float* __restrict__ gate_w, const float* __restrict__ gate_b,
-    float* attn_out, float* gate_out, int* done, const int* done_at,
-    const int* n_valid_in, int D, int Tk, int t, float temperature,
-    float gate_threshold, int early_exit) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (*done_at < t) {  // every stream finished earlier: skipped frame
-    for (int k = tid; k < Tk; k += blockDim.x)
-      attn_out[(size_t)b * Tk + k] = 0.f;
-    if (tid == 0) gate_out[b] = 1.f;
-    return;
+// Quad u of job j for batch row `row`: y[r] = its rows' sums.
+__device__ void epi_apply(const Params& p, const Job& j, int u, int row,
+                          const float (&y)[4], const Ops& o, int t) {
+  const int H = p.H;
+  switch (j.kind) {
+    case kAttIH:
+    case kIH: {   // the LSTM cell of unit u, gates (i, f, g, o)
+      const bool att = j.kind == kAttIH;
+      float g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) g[i] = (y[i] + o.rec[i]) + o.bias[i];
+      const size_t k = (size_t)row * H + u;
+      const float c_new = sigmoid(g[1]) * o.c + sigmoid(g[0]) * tanhf(g[2]);
+      (att ? p.c_att : p.c[j.layer])[k] = c_new;
+      (att ? p.h_att : p.h[j.layer])[k] = sigmoid(g[3]) * tanhf(c_new);
+      break;
+    }
+    case kRec:
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p.rec[j.layer + 1][(size_t)row * 4 * H + 4 * u + i] = y[i];
+      break;
+    case kQuery:
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * u + i < j.rows)
+          p.q[(size_t)row * p.D + 4 * u + i] = y[i] + o.bias[i];
+      break;
+    case kDense:
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * u + i < j.rows)
+          p.y[j.layer & 1][(size_t)row * H + 4 * u + i] =
+              tanhf(y[i] + o.bias[i]);
+      break;
+    default:   // kHead: rows (2m, 2m + 1) = (log_s_m, b_m)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int m = 2 * u + k;
+        if (m >= p.M) break;
+        const float log_s = y[2 * k] + o.bias[2 * k];
+        const float bb = y[2 * k + 1] + o.bias[2 * k + 1];
+        p.mel[((size_t)t * p.B + row) * p.M + m] = (o.z[k] - bb) * expf(-log_s);
+      }
   }
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // D
-  float* ctx = qs + D;                           // D
-  float* sc = ctx + D;                           // Tk
-  __shared__ float red[32];
-  for (int d = tid; d < D; d += blockDim.x) qs[d] = q[(size_t)b * D + d];
-  __syncthreads();
+}
 
-  for (int k = warp; k < Tk; k += (int)(blockDim.x >> 5)) {
-    const float* krow = kp + ((size_t)b * Tk + k) * D;
+// Shared memory beside the prefetch buffer (floats, in this order; the
+// host sizes it in k1_fixed_floats).
+struct Smem {
+  float *xs, *qs, *sc, *cw, *ms, *vw, *gw, *wb;
+};
+
+__device__ Smem smem_map(const Params& p, float* sm) {
+  Smem m;
+  m.xs = sm;
+  m.qs = m.xs + p.xs_floats;
+  m.sc = m.qs + p.Dp;
+  m.cw = m.sc + p.kslot;
+  m.ms = m.cw + 2 * kMaxB * kMaxParts;
+  m.vw = m.ms + 2 * kMaxB;
+  m.gw = m.vw + p.Dp;
+  m.wb = sm + p.wbuf_off;
+  return m;
+}
+
+// This block's attention slots, round robin over the B x parts x slices
+// of them: slot (b, j, c) takes keys [j Tk / parts, (j + 1) Tk / parts)
+// of row b, all their scores, and channels [c D / slices, (c + 1) D /
+// slices) of the unnormalised partial context. The c = 0 slot writes the
+// scores, their max and the sum of their exps.
+__device__ __noinline__ void attention(const Params& p, const Smem& m) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = p.D, Tk = p.Tk, B = p.B;
+  const int per_row = p.parts * p.slices;
+  float* sc = m.sc;
+  for (int sl = blockIdx.x; sl < B * per_row; sl += p.grid) {
+    const int b = sl / per_row, j = (sl / p.slices) % p.parts;
+    const int c = sl % p.slices;
+    const int k0 = j * Tk / p.parts, nk = (j + 1) * Tk / p.parts - k0;
+    stage_rows(m.qs, D, 0, p.q + (size_t)b * D, D, D, D, 1);
+    __syncthreads();
+    for (int kk = warp; kk < nk; kk += kWarps) {
+      const size_t bk = (size_t)b * Tk + k0 + kk;
+      const float* krow = p.kp + bk * D;
+      float s = 0.f;
+#pragma unroll 20
+      for (int d = lane; d < D; d += 32)
+        s += m.vw[d] * tanhf(m.qs[d] + __ldg(krow + d));
+      s = warp_sum(s);
+      if (lane == 0) {
+        s = s / p.temperature;
+        s = __ldg(p.mask + bk) > 0.5f ? s : kMaskValue;
+        sc[kk] = s;
+        if (c == 0) p.scores[bk] = s;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float mx = -INFINITY;
+      for (int k = lane; k < nk; k += 32) mx = fmaxf(mx, sc[k]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int k = lane; k < nk; k += 32) {
+        const float e = expf(sc[k] - mx);
+        sc[k] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0 && c == 0) {
+        p.pm[(size_t)j * B + b] = mx;
+        p.ps[(size_t)j * B + b] = sum;
+      }
+    }
+    __syncthreads();
+    const int d1 = (c + 1) * D / p.slices;
+    for (int d = c * D / p.slices + threadIdx.x; d < d1; d += blockDim.x) {
+      const float* v = p.vals + ((size_t)b * Tk + k0) * D + d;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < nk; ++k) acc += sc[k] * __ldg(v + (size_t)k * D);
+      p.pc[((size_t)j * B + b) * D + d] = acc;
+    }
+    __syncthreads();   // qs and sc are free again
+  }
+}
+
+// Decoder layer 0's stage, before its quads: the partials' max and exp
+// sums combined (ms) into the weights cw = exp(m_j - max) / sum, this
+// block's share of the attention row, the context behind the staged
+// h_att (when this block needs the input) and (block 0) the gate and the
+// done flags. Each step's loads go out together.
+constexpr int kCtx = 4;   // context elements a thread a round trip
+__device__ __noinline__ void combine(const Params& p, int t, int g0, int nb, float* xs,
+                        int Kp, bool need_input, const Smem& m) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int H = p.H, D = p.D, Tk = p.Tk, B = p.B, P = p.parts;
+  float* cw = m.cw;            // (nb, kMaxParts): max, then weights
+  float* cs = cw + kMaxB * kMaxParts;   // (nb, kMaxParts): scaled sums
+  float* ms = m.ms;            // (nb, 2): max, sum
+  const bool owner = threadIdx.x < nb * P;   // partial (b, j) of the group
+  const int ob = threadIdx.x / P, oj = threadIdx.x % P;
+  // one round trip: this thread's scores of the attention row and, for
+  // the owners, their partial's max and exp sum
+  constexpr int kScores = 4;
+  float sv[kScores];
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = p.grid * blockDim.x;
+#pragma unroll
+  for (int i = 0; i < kScores; ++i) {
+    const int e = first + i * stride;
+    sv[i] = e < nb * Tk
+                ? __ldcg(p.scores + (size_t)(g0 + e / Tk) * Tk + e % Tk) : 0.f;
+  }
+  float mj = 0.f, sj = 0.f;
+  if (owner) {
+    mj = __ldcg(p.pm + (size_t)oj * B + g0 + ob);
+    sj = __ldcg(p.ps + (size_t)oj * B + g0 + ob);
+    cw[ob * kMaxParts + oj] = mj;
+  }
+  __syncthreads();
+  if (threadIdx.x < nb) {
+    float mx = -INFINITY;
+    for (int j = 0; j < P; ++j) mx = fmaxf(mx, cw[threadIdx.x * kMaxParts + j]);
+    ms[2 * threadIdx.x] = mx;
+  }
+  __syncthreads();
+  const float wgt = owner ? expf(mj - ms[2 * ob]) : 0.f;
+  if (owner) cs[ob * kMaxParts + oj] = sj * wgt;
+  __syncthreads();
+  if (threadIdx.x < nb) {
     float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += v_w[d] * tanhf(qs[d] + krow[d]);
-    s = warp_sum(s);
+    for (int j = 0; j < P; ++j) s += cs[threadIdx.x * kMaxParts + j];
+    ms[2 * threadIdx.x + 1] = s;
+  }
+  __syncthreads();
+  if (owner) cw[ob * kMaxParts + oj] = wgt / ms[2 * ob + 1];
+#pragma unroll
+  for (int i = 0; i < kScores; ++i) {
+    const int e = first + i * stride;
+    if (e < nb * Tk) {
+      const int b = e / Tk;
+      p.attn[((size_t)t * B + g0 + b) * Tk + e % Tk] =
+          expf(sv[i] - ms[2 * b]) / ms[2 * b + 1];
+    }
+  }
+  for (int e = first + kScores * stride; e < nb * Tk; e += stride) {
+    const int b = e / Tk;
+    p.attn[((size_t)t * B + g0 + b) * Tk + e % Tk] =
+        expf(__ldcg(p.scores + (size_t)(g0 + b) * Tk + e % Tk) - ms[2 * b])
+        / ms[2 * b + 1];
+  }
+  __syncthreads();   // cw is final
+  if (need_input) {
+    const int w = Kp - H;
+    for (int e0 = threadIdx.x; e0 < nb * w; e0 += kCtx * blockDim.x) {
+      float c[kCtx][kMaxParts];
+#pragma unroll
+      for (int i = 0; i < kCtx; ++i) {
+        const int e = e0 + i * blockDim.x, b = e / w, d = e - b * w;
+#pragma unroll
+        for (int j = 0; j < kMaxParts; ++j)
+          c[i][j] = j < P && e < nb * w && d < D
+                        ? __ldcg(p.pc + ((size_t)j * B + g0 + b) * D + d)
+                        : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kCtx; ++i) {
+        const int e = e0 + i * blockDim.x, b = e / w, d = e - b * w;
+        if (e >= nb * w) break;
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxParts; ++j)
+          if (j < P) v += cw[b * kMaxParts + j] * c[i][j];
+        xs[b * Kp + H + d] = v;
+      }
+    }
+  }
+  if (blockIdx.x != 0) return;
+  __syncthreads();   // the context is staged
+  for (int b = warp; b < nb; b += kWarps) {
+    float gate = 0.f;
+    if (p.gate_w != nullptr) {
+      float g = 0.f;
+      for (int k = lane; k < H + D; k += 32) g += m.gw[k] * xs[b * Kp + k];
+      gate = sigmoid(warp_sum(g) + p.gate_b[0]);
+    }
     if (lane == 0) {
-      s = s / temperature;
-      sc[k] = key_mask[(size_t)b * Tk + k] > 0.5f ? s : kMaskValue;
+      p.gates[(size_t)t * B + g0 + b] = gate;
+      if (p.early_exit &&
+          (gate > p.threshold || t + 1 >= p.nvin[g0 + b]))
+        p.done[g0 + b] = 1;
     }
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int k = tid; k < Tk; k += blockDim.x) m = fmaxf(m, sc[k]);
-  m = block_max(m, red);
-  float sum = 0.f;
-  for (int k = tid; k < Tk; k += blockDim.x) {
-    const float e = expf(sc[k] - m);
-    sc[k] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);  // its barriers order the sc writes above
-  for (int k = tid; k < Tk; k += blockDim.x) {
-    const float a = sc[k] / sum;
-    sc[k] = a;
-    attn_out[(size_t)b * Tk + k] = a;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += blockDim.x) {
-    const float* vcol = vals + (size_t)b * Tk * D + d;
-    float cval = 0.f;
-    for (int k = 0; k < Tk; ++k) cval += sc[k] * vcol[(size_t)k * D];
-    ctx[d] = cval;
-    dec_in[(size_t)b * ld_dec + H + d] = cval;
-  }
-  __syncthreads();
-
-  float gate = 0.f;
-  if (gate_w != nullptr) {
-    float g = 0.f;
-    for (int j = tid; j < H; j += blockDim.x)
-      g += dec_in[(size_t)b * ld_dec + j] * gate_w[j];
-    for (int d = tid; d < D; d += blockDim.x) g += ctx[d] * gate_w[H + d];
-    g = block_sum(g, red);
-    gate = sigmoid(g + gate_b[0]);
-  }
-  if (tid == 0) {
-    gate_out[b] = gate;
-    if (early_exit && (gate > gate_threshold || t + 1 >= n_valid_in[b]))
-      done[b] = 1;
   }
 }
 
-// Coupling head + inverse affine. W: (2M, Kp), rows (2m, 2m + 1) =
-// (log_s_m, b_m); bias interleaved the same way. One warp per mel
-// channel. Block (0, 0) also publishes done_at = t once every stream is
-// done (it runs after this frame's attention kernel wrote the flags).
-__global__ void head_kernel(const float* __restrict__ W,
-                            const float* __restrict__ bias, const float* x,
-                            int ldx, int K, int Kp, const float* z,
-                            float* mel, int B, int M, int t, int* done_at,
-                            const int* done, int early_exit) {
-  const int lane = threadIdx.x & 31;
-  const int g0 = blockIdx.y * kMaxB;
-  const int nb = min(kMaxB, B - g0);
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (*done_at < t) {
-    if (m < M && lane < nb) mel[(size_t)(g0 + lane) * M + m] = 0.f;
-    return;
+// This block's quads of a stage: a range of each job (k1_plan), numbered
+// on locally; the first pre[j] of job j are prefetched into the buffer at
+// base[j], 4 Kp floats a quad, greedily in job order. Computed once a
+// launch into shared memory.
+struct Quads {
+  int lo[kMaxJobs], cnt[kMaxJobs + 1], pre[kMaxJobs], base[kMaxJobs];
+};
+
+__device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
+  const Stage& s = p.st[si];
+  const int* bnd = p.bounds + si * kMaxJobs * (p.grid + 1);
+  q.cnt[0] = 0;
+  int used = 0;
+  for (int j = 0; j < s.n_jobs; ++j) {
+    const int* bj = bnd + j * (p.grid + 1);
+    q.lo[j] = bj[blockIdx.x];
+    const int n = bj[blockIdx.x + 1] - q.lo[j], per = 4 * s.job[j].Kp;
+    q.cnt[j + 1] = q.cnt[j] + n;
+    q.pre[j] = max(0, min(n, (p.wcap - used) / per));
+    q.base[j] = used;
+    used += q.pre[j] * per;
   }
+}
+
+// The prefetch buffer's mbarrier: one arrival (with the bytes to expect)
+// and the bulk copies' completions end each phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Start copying this block's prefetched rows of a stage into the buffer:
+// one bulk (TMA) copy a job (its rows are one contiguous range), issued by
+// thread 0, completing on *bar. The weights never depend on the frame, so this runs before the
+// barrier that the stage waits for, and no thread waits on the copies
+// until the stage reads them.
+__device__ __noinline__ void prefetch(const Stage& s, const Quads& q, float* wb,
+                         uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  unsigned bytes = 0;
+  for (int j = 0; j < s.n_jobs; ++j)
+    bytes += 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), s.job[j].rows)
+                         - 4 * q.lo[j]) * s.job[j].Kp;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  for (int j = 0; j < s.n_jobs; ++j) {
+    const Job& jb = s.job[j];
+    const unsigned n = 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), jb.rows)
+                                   - 4 * q.lo[j]) * jb.Kp;
+    if (n)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          :: "r"(smem_addr(wb + q.base[j])),
+             "l"(jb.w + (size_t)4 * q.lo[j] * jb.Kp), "r"(n),
+             "r"(smem_addr(bar))
+          : "memory");
+  }
+}
+
+__device__ __forceinline__ long long gtime() {
+  long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+__device__ void run_stage(const Params& p, int si, const Quads& q, int t,
+                          const Smem& m, float (*red)[4][kMaxB],
+                          uint64_t* bar, unsigned& phase) {
+  const Stage& s = p.st[si];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int xoff[kMaxJobs];
+  for (int j = 0, xo = 0; j < s.n_jobs; ++j) {
+    xoff[j] = xo;
+    xo += p.rows * s.job[j].Kp;
+  }
+  const int nq = q.cnt[s.n_jobs];
+  const bool ih0 = s.job[0].kind == kIH && s.job[0].layer == 0;
+  const int ks = (nq >= kWarps || nq == 0) ? 1 : kWarps / nq;
+  if (s.attention) attention(p, m);
+
+  // ks warps take each quad, splitting its k (ks > 1 when the block has
+  // fewer quads than warps), kWarps / ks quads a round; the first of the
+  // ks sums the parts in order and applies the epilogue
+  const int per_round = kWarps / ks, qi = warp / ks, part = warp - qi * ks;
+  for (int g0 = 0; g0 < p.B; g0 += kMaxB) {
+    const int nb = min(kMaxB, p.B - g0);
+    // the epilogue operands of this warp's first quad, in flight with
+    // the staged inputs
+    Ops o;
+    if (qi < nq && part == 0 && lane < nb) {
+      int j = 0;
+      while (qi >= q.cnt[j + 1]) ++j;
+      epi_load(p, s.job[j], q.lo[j] + qi - q.cnt[j], g0 + lane, t, o);
+    }
+    bool staged0 = false;
+    for (int j = 0; j < s.n_jobs; ++j) {
+      const Job& jb = s.job[j];
+      if (q.cnt[j + 1] == q.cnt[j] && !(ih0 && j == 0 && blockIdx.x == 0))
+        continue;
+      if (j == 0) staged0 = true;
+      const In in = job_input(p, jb, t);
+      stage_rows(m.xs + xoff[j], jb.Kp, 0,
+                 in.src ? in.src + (size_t)g0 * in.ld : nullptr, in.ld,
+                 in.n, ih0 && j == 0 ? p.H : jb.Kp, nb);
+    }
+    if (ih0) combine(p, t, g0, nb, m.xs, s.job[0].Kp, staged0, m);
+    if (g0 == 0) {        // this stage's prefetched rows
+      mbar_wait(bar, phase & 1);
+      ++phase;
+    }
+    __syncthreads();
+
+    for (int r0 = 0; r0 < nq; r0 += per_round) {
+      const int qq = r0 + qi;
+      const bool active = qq < nq;
+      int j = 0, u = 0;
+      if (active) {
+        while (qq >= q.cnt[j + 1]) ++j;
+        const Job& jb = s.job[j];
+        const int l = qq - q.cnt[j], K4 = jb.Kp >> 2;
+        u = q.lo[j] + l;
+        if (r0 > 0 && part == 0 && lane < nb) epi_load(p, jb, u, g0 + lane, t, o);
+        float acc[4][kMaxB];
+        quad_dot(l < q.pre[j] ? m.wb + q.base[j] + l * 4 * jb.Kp
+                              : jb.w + (size_t)4 * u * jb.Kp,
+                 min(4, jb.rows - 4 * u), jb.Kp, part * K4 / ks,
+                 (part + 1) * K4 / ks, m.xs + xoff[j], nb, acc);
+        if (ks > 1 && lane < nb)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) red[warp][r][lane] = pick(acc, r, lane);
+        if (ks == 1 && lane < nb) {
+          float y[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
+          epi_apply(p, jb, u, g0 + lane, y, o, t);
+        }
+      }
+      if (ks > 1) {
+        __syncthreads();
+        if (active && part == 0 && lane < nb) {
+          float y[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            y[r] = red[warp][r][lane];
+            for (int pp = 1; pp < ks; ++pp) y[r] += red[warp + pp][r][lane];
+          }
+          epi_apply(p, s.job[j], u, g0 + lane, y, o, t);
+        }
+      }
+    }
+    __syncthreads();   // the staged rows and red are free again
+  }
+}
+
+// Every stream finished before frame t: mel = 0, attn = 0, gate = 1 for
+// frames t .. N - 1, split over the grid.
+__device__ __noinline__ void zero_tail(const Params& p, int t) {
+  const size_t stride = (size_t)p.grid * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t rows = (size_t)(p.N - t) * p.B;
+  for (size_t i = first; i < rows * p.M; i += stride)
+    p.mel[(size_t)t * p.B * p.M + i] = 0.f;
+  for (size_t i = first; i < rows * p.Tk; i += stride)
+    p.attn[(size_t)t * p.B * p.Tk + i] = 0.f;
+  for (size_t i = first; i < rows; i += stride)
+    p.gates[(size_t)t * p.B + i] = 1.f;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    k1_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  stage(xs, Kp, 0, x + (size_t)g0 * ldx, ldx, K, Kp, nb);
+  __shared__ float red[kWarps][4][kMaxB];
+  __shared__ uint64_t bar;
+  __shared__ Quads sq[kMaxStages];
+  const Smem m = smem_map(p, reinterpret_cast<float*>(smem4));
+  if (threadIdx.x < p.n_stages) block_quads(p, threadIdx.x, sq[threadIdx.x]);
+  if (threadIdx.x == 0) mbar_init(&bar);
+  for (int d = threadIdx.x; d < p.D; d += blockDim.x) m.vw[d] = p.v_w[d];
+  if (blockIdx.x == 0 && p.gate_w != nullptr)
+    for (int k = threadIdx.x; k < p.H + p.D; k += blockDim.x)
+      m.gw[k] = p.gate_w[k];
   __syncthreads();
-  if (m < M) {
-    float acc[2][kMaxB];
-    warp_dot<2>(W, 2 * m, Kp, xs, nb, acc);
-    if (lane < nb) {
-      const size_t i = (size_t)(g0 + lane) * M + m;
-      const float log_s = pick(acc, 0, lane) + bias[2 * m];
-      const float bb = pick(acc, 1, lane) + bias[2 * m + 1];
-      mel[i] = (z[i] - bb) * expf(-log_s);
+  unsigned passed = 0, phase = 0;
+  prefetch(p.st[0], sq[0], m.wb, &bar);
+  for (int t = 0; t < p.N; ++t) {
+    if (p.early_exit && t > 0) {
+      int all = 1;
+      for (int b = 0; b < p.B; ++b) all &= __ldcg(p.done + b);
+      if (all) {
+        mbar_wait(&bar, phase & 1);   // the copies in flight land first
+        zero_tail(p, t);
+        return;
+      }
     }
-  }
-  if (early_exit && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
-    int all = 1;
-    for (int b = 0; b < B; ++b) all &= done[b];
-    if (all) *done_at = t;
+    for (int s = 0; s < p.n_stages; ++s) {
+      run_stage(p, s, sq[s], t, m, red, &bar, phase);
+      barrier_arrive(p.bar);
+      // the next stage's first rows, while this block waits for the others
+      const int next = s + 1 < p.n_stages ? s + 1 : 0;
+      if (s + 1 < p.n_stages || t + 1 < p.N)
+        prefetch(p.st[next], sq[next], m.wb, &bar);
+      barrier_wait(p.bar, ++passed * (unsigned)p.grid);
+      if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+        p.clock[(size_t)t * p.n_stages + s] = gtime();
+    }
   }
 }
 
-cudaError_t allow_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// `iters` grid barriers: mode 0 the kernel's own, 1 cooperative_groups'.
+__global__ void __launch_bounds__(kThreads, 1)
+    barrier_bench_kernel(unsigned* bar, int iters, int mode) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 1; i <= iters; ++i) {
+    if (mode == 0) {
+      barrier_arrive(bar);
+      barrier_wait(bar, (unsigned)i * gridDim.x);
+    }
+    else
+      grid.sync();
+  }
+}
+
+// Shared memory floats beside the prefetch buffer: the widest stage's
+// staged inputs (attention LSTM + recurrent halves of layers 1.., query +
+// layer 0's, decoder layer 0), the attention slot's query row and
+// scores, the combine's weights, scaled sums, max and sums, v_w and
+// gate_w (Smem, smem_map).
+int k1_fixed_floats(int B, int M, int H, int D, int Tk, int n_layers,
+                    int parts) {
+  const int Hp = pad4(H), Mp = pad4(M), Lp = pad4(H + D);
+  int w = Mp + (n_layers - 1) * Hp;
+  w = w > 2 * Hp ? w : 2 * Hp;
+  w = w > Lp ? w : Lp;
+  return (B < kMaxB ? B : kMaxB) * w + pad4(D) +
+         pad4((Tk + parts - 1) / parts) +
+         2 * kMaxB * kMaxParts + 2 * kMaxB + pad4(D) + pad4(H + D);
+}
+
+// A block's dynamic shared memory: all that the card lets one block have
+// beside the static red, bar and sq (the rest is the prefetch buffer).
+int k1_smem_bytes() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev))
+    return -1;
+  const int fixed = (int)(sizeof(float) * kWarps * 4 * kMaxB + 16
+                         + sizeof(Quads) * kMaxStages);   // red, bar, sq
+  return (optin - fixed) & ~15;
+}
+
+int coresident_blocks(int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (smem < 0 || cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
+      cudaFuncSetAttribute((const void*)k1_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, (const void*)k1_kernel, kThreads, smem))
+    return -1;
+  return per_sm * sms;
 }
 
 }  // namespace
@@ -348,119 +830,199 @@ const char* decoder_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Blocks of K1 that can be resident at once on this card (the most its
+// cooperative launch may take), or -1.
+int decoder_coresident_blocks(void) {
+  return coresident_blocks(k1_smem_bytes());
+}
+
+// Bytes of weights a block prefetches into shared memory for a stage at
+// most (the buffer), or a negative number when the widths leave none.
+long long decoder_prefetch_bytes(int B, int M, int H, int D, int Tk,
+                                 int n_layers, int parts) {
+  const int smem = k1_smem_bytes();
+  if (smem < 0) return -1;
+  return 4LL * ((smem / 4 - k1_fixed_floats(B, M, H, D, Tk, n_layers, parts))
+                & ~3);
+}
+
 // Floats of workspace fused_flow_infer_f32 needs (the caller allocates
 // it; the entry zeroes it), and ints of integer workspace.
-long long decoder_workspace_floats(int B, int H, int D, int n_layers) {
-  const long long L = H + D;
-  return (long long)B * (2 * L + 3 * (long long)n_layers * H + 3 * H + D);
+long long decoder_workspace_floats(int B, int H, int D, int Tk,
+                                   int n_layers, int parts) {
+  return (long long)B * (2LL * H + D + Tk + 2LL * n_layers * H
+                         + 4LL * (n_layers + 1) * H + 2LL * H
+                         + (long long)parts * (2 + D));
 }
 
 int decoder_workspace_ints(int B) { return B + 1; }
 
-// One flow's inverse scan over N frames. Shapes (all fp32, contiguous):
+// `iters` grid barriers of `mode` (0 = K1's own, 1 = cooperative_groups')
+// over n_blocks blocks; counter: one zeroed unsigned.
+int decoder_barrier_bench(int mode, int iters, int n_blocks,
+                          unsigned* counter, void* stream_handle) {
+  void* args[] = {&counter, &iters, &mode};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)barrier_bench_kernel, n_blocks, kThreads, args, 0,
+      static_cast<cudaStream_t>(stream_handle));
+  return err ? err : cudaGetLastError();
+}
+
+// One flow's inverse scan over N frames, one cooperative launch. Shapes
+// (all fp32, contiguous):
 //   z (N, B, M); kp, vals (B, Tk, D); key_mask (B, Tk); n_valid_in (B,)
 //   int32; outputs mel (N, B, M), attn (N, B, Tk), gates (N, B).
 // Packed weights (ops/decoder.py:pack_flow_weights), with P(n) = n
 // rounded up to a multiple of 4:
-//   att_w (4H, P(M) + P(H)), att_b (4H)          interleaved LSTM rows
+//   att_wi (4H, P(M)), att_wh (4H, P(H)), att_b (4H)   interleaved LSTM rows
 //   q_w (D, P(H)), q_b (D), v_w (D)
-//   lstm_w[l] (4H, P(K_l) + P(H)), lstm_b[l] (4H), K_0 = H + D, K_l = H
+//   lstm_wi[l] (4H, P(K_l)), lstm_wh[l] (4H, P(H)), lstm_b[l] (4H),
+//     K_0 = H + D, K_l = H
 //   dense_w[i] (H, P(H)), dense_b[i] (H)
 //   head_w (2M, P(H)), head_b (2M)              interleaved (log_s, b)
 //   gate_w (H + D), gate_b (1), or both null when the flow has no gate.
-// lstm_w, lstm_b, dense_w, dense_b are host arrays of device pointers.
+// lstm_wi, lstm_wh, lstm_b, dense_w, dense_b are host arrays of device
+// pointers.
+// bounds: (4 + n_layers + n_dense, 4, n_blocks + 1) int32 on the device,
+// each job's quad boundaries from ops/decoder.py:k1_plan (k1_bounds_array),
+// whose stage and job order this entry repeats; parts: the attention partials
+// (ops/decoder.py:k1_attn_parts). clock: null, or (N, n_stages) int64
+// that receives the ns time at which block 0 passes each stage's barrier.
 int fused_flow_infer_f32(
     const float* z, const float* kp, const float* vals,
-    const float* key_mask, const int* n_valid_in, const float* att_w,
+    const float* key_mask, const int* n_valid_in, const float* att_wi,
+    const float* att_wh,
     const float* att_b, const float* q_w, const float* q_b,
-    const float* v_w, const float* const* lstm_w,
+    const float* v_w, const float* const* lstm_wi,
+    const float* const* lstm_wh,
     const float* const* lstm_b, int n_layers, const float* const* dense_w,
     const float* const* dense_b, int n_dense, const float* head_w,
     const float* head_b, const float* gate_w, const float* gate_b,
-    float* mel, float* attn, float* gates, float* work, int* iwork, int N,
-    int B, int M, int H, int D, int Tk, float temperature,
-    float gate_threshold, int early_exit, void* stream_handle) {
+    float* mel, float* attn, float* gates, float* work, int* iwork,
+    const int* bounds, int n_blocks, int parts, int slices,
+    long long* clock, int N,
+    int B, int M, int H,
+    int D, int Tk, float temperature, float gate_threshold, int early_exit,
+    void* stream_handle) {
+  if (n_layers < 1 || n_layers > kMaxLayers || n_dense < 0 ||
+      n_dense > kMaxDense || parts < 1 || parts > kMaxParts || parts > Tk ||
+      slices < 1 || slices > D || n_blocks < 1 || N < 1 || B < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int L = H + D;
-  const int Hp = pad4(H), Mp = pad4(M), Lp = pad4(L);
-  const int nbmax = B < kMaxB ? B : kMaxB;
-  const int groups = cdiv(B, kMaxB);
+  const int Hp = pad4(H), Mp = pad4(M), Lp = pad4(H + D);
+  Params p = {};
+  auto job = [](const float* w, const float* bias, int Kp, int rows,
+                int kind, int layer) {
+    Job j = {w, bias, Kp, rows, kind, layer};
+    return j;
+  };
+  auto kxp = [&](int l) { return l ? Hp : Lp; };
+  int s = 0;
+  // the attention LSTM's input half; decoder layers 1..'s recurrent halves
+  p.st[s].job[p.st[s].n_jobs++] =
+      job(att_wi, att_b, Mp, 4 * H, kAttIH, -1);
+  for (int l = 1; l < n_layers; ++l)
+    p.st[s].job[p.st[s].n_jobs++] =
+        job(lstm_wh[l], nullptr, Hp, 4 * H, kRec, l);
+  ++s;
+  // the query; decoder layer 0's recurrent half
+  p.st[s].job[p.st[s].n_jobs++] = job(q_w, q_b, Hp, D, kQuery, 0);
+  p.st[s].job[p.st[s].n_jobs++] =
+      job(lstm_wh[0], nullptr, Hp, 4 * H, kRec, 0);
+  ++s;
+  // attention partials; the attention LSTM's recurrent half
+  p.st[s].attention = 1;
+  p.st[s].job[p.st[s].n_jobs++] =
+      job(att_wh, nullptr, Hp, 4 * H, kRec, -1);
+  ++s;
+  for (int l = 0; l < n_layers; ++l, ++s)   // the decoder cells
+    p.st[s].job[p.st[s].n_jobs++] =
+        job(lstm_wi[l], lstm_b[l], kxp(l), 4 * H, kIH, l);
+  for (int i = 0; i < n_dense; ++i, ++s)
+    p.st[s].job[p.st[s].n_jobs++] =
+        job(dense_w[i], dense_b[i], Hp, H, kDense, i);
+  p.st[s].job[p.st[s].n_jobs++] = job(head_w, head_b, Hp, 2 * M, kHead, 0);
+  p.n_stages = s + 1;
+  int xs = 0;
+  for (int i = 0; i < p.n_stages; ++i) {
+    int w = 0;
+    for (int j = 0; j < p.st[i].n_jobs; ++j)
+      w += (B < kMaxB ? B : kMaxB) * p.st[i].job[j].Kp;
+    xs = w > xs ? w : xs;
+  }
 
-  float* dec = work;                                   // 2 x (B, L)
-  float* hl = dec + 2 * (size_t)B * L;                 // 2 x n_layers x (B, H)
-  float* c_att = hl + 2 * (size_t)n_layers * B * H;    // (B, H)
-  float* cl = c_att + (size_t)B * H;                   // n_layers x (B, H)
-  float* qbuf = cl + (size_t)n_layers * B * H;         // (B, D)
-  float* tmp = qbuf + (size_t)B * D;                   // 2 x (B, H)
-  int* done = iwork;
-  int* done_at = iwork + B;
+  p.bounds = bounds;
+  p.z = z;
+  p.kp = kp;
+  p.vals = vals;
+  p.mask = key_mask;
+  p.v_w = v_w;
+  p.gate_w = gate_w;
+  p.gate_b = gate_b;
+  p.nvin = n_valid_in;
+  p.mel = mel;
+  p.attn = attn;
+  p.gates = gates;
+  float* f = work;
+  auto take = [&f](size_t n) { float* r = f; f += n; return r; };
+  p.h_att = take((size_t)B * H);
+  p.c_att = take((size_t)B * H);
+  p.q = take((size_t)B * D);
+  p.scores = take((size_t)B * Tk);
+  for (int l = 0; l < n_layers; ++l) {
+    p.h[l] = take((size_t)B * H);
+    p.c[l] = take((size_t)B * H);
+  }
+  for (int l = 0; l <= n_layers; ++l) p.rec[l] = take((size_t)B * 4 * H);
+  p.y[0] = take((size_t)B * H);
+  p.y[1] = take((size_t)B * H);
+  p.pm = take((size_t)parts * B);
+  p.ps = take((size_t)parts * B);
+  p.pc = take((size_t)parts * B * D);
+  p.done = iwork;
+  p.bar = reinterpret_cast<unsigned*>(iwork + B);
+  p.clock = clock;
+  p.N = N;
+  p.B = B;
+  p.M = M;
+  p.H = H;
+  p.D = D;
+  p.Tk = Tk;
+  p.n_layers = n_layers;
+  p.n_dense = n_dense;
+  p.parts = parts;
+  p.slices = slices;
+  p.rows = B < kMaxB ? B : kMaxB;
+  p.grid = n_blocks;
+  p.early_exit = early_exit;
+  p.Dp = pad4(D);
+  p.kslot = pad4((Tk + parts - 1) / parts);
+  p.xs_floats = xs;
+  p.temperature = temperature;
+  p.threshold = gate_threshold;
 
+  const int smem = k1_smem_bytes();
+  const int fixed = k1_fixed_floats(B, M, H, D, Tk, n_layers, parts);
+  if (smem < 0 || xs + 2 * p.Dp + p.kslot + kMaxB * (2 * kMaxParts + 2)
+                      + pad4(H + D) != fixed)
+    return cudaErrorInvalidValue;
+  p.wbuf_off = fixed;
+  p.wcap = (smem / 4 - fixed) & ~3;
+  if (p.wcap < 0) return cudaErrorInvalidValue;
+  const int most = coresident_blocks(smem);
+  if (most < 0) return cudaErrorInvalidValue;
+  if (n_blocks > most) return cudaErrorCooperativeLaunchTooLarge;
   cudaError_t err;
   if ((err = cudaMemsetAsync(work, 0,
                              sizeof(float) * decoder_workspace_floats(
-                                 B, H, D, n_layers), stream)))
+                                 B, H, D, Tk, n_layers, parts), stream)))
     return err;
-  if ((err = cudaMemsetAsync(done, 0, sizeof(int) * B, stream))) return err;
-  // 0x7f7f7f7f: larger than any frame index, i.e. "never"
-  if ((err = cudaMemsetAsync(done_at, 0x7f, sizeof(int), stream))) return err;
-
-  const size_t lstm_smem = sizeof(float) * nbmax * (size_t)(Lp + Hp);
-  const size_t att_smem = sizeof(float) * (2 * (size_t)D + Tk);
-  if ((err = allow_smem((const void*)lstm_kernel, lstm_smem))) return err;
-  if ((err = allow_smem((const void*)attention_kernel, att_smem))) return err;
-  if ((err = allow_smem((const void*)matvec_kernel,
-                        sizeof(float) * nbmax * (size_t)Hp)))
+  if ((err = cudaMemsetAsync(iwork, 0, sizeof(int) * (B + 1), stream)))
     return err;
-  if ((err = allow_smem((const void*)head_kernel,
-                        sizeof(float) * nbmax * (size_t)Hp)))
-    return err;
-
-  const dim3 unit_grid(cdiv(H, kWarps), groups);
-  for (int t = 0; t < N; ++t) {
-    const int p = t & 1, pp = p ^ 1;
-    float* dec_p = dec + (size_t)p * B * L;
-    float* dec_pp = dec + (size_t)pp * B * L;
-    const float* prev = t ? mel + (size_t)(t - 1) * B * M : nullptr;
-
-    lstm_kernel<<<unit_grid, kThreads, sizeof(float) * nbmax * (Mp + Hp),
-                  stream>>>(att_w, att_b, prev, M, M, Mp, dec_pp, L, H, Hp,
-                            dec_p, L, c_att, B, t, done_at);
-    matvec_kernel<<<dim3(cdiv(D, kWarps), groups), kThreads,
-                    sizeof(float) * nbmax * Hp, stream>>>(
-        q_w, q_b, dec_p, L, H, Hp, qbuf, D, D, B, 0, t, done_at);
-    attention_kernel<<<B, kAttnThreads, att_smem, stream>>>(
-        qbuf, kp, vals, key_mask, v_w, dec_p, L, H, gate_w, gate_b,
-        attn + (size_t)t * B * Tk, gates + (size_t)t * B, done, done_at,
-        n_valid_in, D, Tk, t, temperature, gate_threshold, early_exit);
-
-    const float* x = dec_p;
-    int ldx = L, Kx = L;
-    for (int l = 0; l < n_layers; ++l) {
-      float* h_new = hl + ((size_t)p * n_layers + l) * B * H;
-      const float* h_old = hl + ((size_t)pp * n_layers + l) * B * H;
-      const int Kxp = pad4(Kx);
-      lstm_kernel<<<unit_grid, kThreads,
-                    sizeof(float) * nbmax * (Kxp + Hp), stream>>>(
-          lstm_w[l], lstm_b[l], x, ldx, Kx, Kxp, h_old, H, H, Hp, h_new, H,
-          cl + (size_t)l * B * H, B, t, done_at);
-      x = h_new;
-      ldx = H;
-      Kx = H;
-    }
-    for (int i = 0; i < n_dense; ++i) {
-      float* y = tmp + (size_t)(i & 1) * B * H;
-      matvec_kernel<<<dim3(cdiv(H, kWarps), groups), kThreads,
-                      sizeof(float) * nbmax * Hp, stream>>>(
-          dense_w[i], dense_b[i], x, ldx, H, Hp, y, H, H, B, 1, t, done_at);
-      x = y;
-    }
-    head_kernel<<<dim3(cdiv(M, kWarps), groups), kThreads,
-                  sizeof(float) * nbmax * Hp, stream>>>(
-        head_w, head_b, x, H, H, Hp, z + (size_t)t * B * M,
-        mel + (size_t)t * B * M, B, M, t, done_at, done, early_exit);
-    if ((err = cudaGetLastError())) return err;
-  }
-  return cudaSuccess;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)k1_kernel, n_blocks,
+                                    kThreads, args, smem, stream);
+  return err ? err : cudaGetLastError();
 }
 
 }  // extern "C"

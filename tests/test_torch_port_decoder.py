@@ -1,7 +1,9 @@
 """Kernel K1 (flowtron_tpu_torch/ops/decoder.py): its plain version
 against the JAX Pallas kernel (interpret mode) and the JAX scan path, the
-port's routing in ar_step_infer, and early-exit semantics. Toy widths as
-in tests/test_pallas.py; zero-init coupling heads are perturbed."""
+port's routing in ar_step_infer, early-exit semantics, the kernel's split
+of each frame over blocks (``k1_plan``), and a CPU emulation of the
+kernel's order of sums against JAX. Toy widths as in tests/test_pallas.py;
+zero-init coupling heads are perturbed."""
 
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import jax
 import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
+F = torch.nn.functional
 
 from flowtron_tpu.models import flowtron_init as jax_flowtron_init  # noqa: E402
 from flowtron_tpu.models import flowtron_infer as jax_flowtron_infer  # noqa: E402
@@ -27,7 +30,8 @@ from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
     flowtron_init, flowtron_infer,
 )
 from flowtron_tpu_torch.ops.decoder import (  # noqa: E402
-    fused_flow_infer, fused_flow_infer_reference,
+    MAX_LAYERS, fused_flow_infer, fused_flow_infer_reference,
+    k1_attn_parts, k1_bounds_array, k1_plan,
 )
 from flowtron_tpu_torch.utils.convert import (  # noqa: E402
     flowtron_state_dict_from_jax,
@@ -209,6 +213,158 @@ class TestEarlyExit:
         assert bool((gates_e[stop + 1:] == 1).all())
 
 
+FLAGSHIP_K1 = dict(B=1, M=80, H=1024, D=640, n_layers=2, n_dense=2)
+SMALL_K1 = dict(B=3, M=8, H=16, D=8, n_layers=2, n_dense=2)
+
+
+class TestPlan:
+    @pytest.mark.parametrize("n_blocks", [132, 114, 7, 1])
+    @pytest.mark.parametrize("dims", [FLAGSHIP_K1, SMALL_K1],
+                             ids=["flagship", "small"])
+    def test_every_row_once_and_balanced(self, dims, n_blocks):
+        plan = k1_plan(n_blocks=n_blocks, **dims)
+        H, D, M = dims["H"], dims["D"], dims["M"]
+        L, nd = dims["n_layers"], dims["n_dense"]
+        assert [st.name for st in plan.stages] == (
+            ["att", "query", "attn"] + [f"lstm_{l}" for l in range(L)]
+            + [f"dense_{i}" for i in range(nd)] + ["head"])
+        rows = {name: r for st in plan.stages for name, r, _ in st.jobs}
+        assert rows["att_ih"] == rows["rec_att"] == 4 * H
+        assert rows["q"] == D and rows["head"] == 2 * M
+        assert sorted(n for n in rows if n.startswith("rec_")) == sorted(
+            ["rec_att"] + [f"rec_{l}" for l in range(L)])
+        for st in plan.stages:
+            stage_bytes = [0] * n_blocks
+            for (name, r, width), b in zip(st.jobs, st.bounds):
+                quads = -(-r // 4)
+                assert len(b) == n_blocks + 1
+                assert b[0] == 0 and b[-1] == quads, (st.name, name)
+                counts = [b[i + 1] - b[i] for i in range(n_blocks)]
+                # contiguous, each quad once; at most one over the mean
+                assert min(counts) >= 0 and sum(counts) == quads
+                assert max(counts) <= quads / n_blocks + 1, (st.name, name)
+                for i, c in enumerate(counts):
+                    stage_bytes[i] += 16 * width * c
+            # every block streams about 1 / n_blocks of the stage's bytes:
+            # at most one quad of each job over the mean
+            worst = sum(16 * width for _, _, width in st.jobs)
+            assert max(stage_bytes) <= sum(stage_bytes) / n_blocks + worst
+        flat = k1_bounds_array(plan)
+        assert len(flat) == len(plan.stages) * MAX_LAYERS * (n_blocks + 1)
+
+    @pytest.mark.parametrize("B,Tk,n_blocks,parts", [
+        (1, 43, 132, 16), (4, 128, 132, 8), (12, 128, 132, 4),
+        (1, 5, 132, 5), (2, 128, 3, 3)])
+    def test_attention_parts(self, B, Tk, n_blocks, parts):
+        assert k1_attn_parts(B, Tk, n_blocks) == parts
+
+
+def k1_emulated(weights, residual, k_proj, vals, key_mask, temperature,
+                n_blocks, early_exit=False, gate_threshold=1e6,
+                n_valid_in=None):
+    """csrc/decoder.cu's order of sums in plain PyTorch: each LSTM's
+    recurrent half W_hh . h(t - 1) summed apart and added to the input
+    half before the bias; attention in k1_attn_parts partials of
+    contiguous key ranges (scores, local max, exp sum, unnormalised
+    context), combined with the weights exp(m_j - max) / sum."""
+    w = weights
+    N, B, M = residual.shape
+    H = w["att_wh"].shape[0] // 4
+    D = w["q_w"].shape[0]
+    Tk = k_proj.shape[1]
+    Mp, Hp, Lp = (-(-n // 4) * 4 for n in (M, H, H + D))
+    parts = k1_attn_parts(B, Tk, n_blocks)
+    if n_valid_in is None:
+        n_valid_in = torch.full((B,), N, dtype=torch.int32)
+
+    def cell(wi, wh, bias, x, h, c):
+        ih = F.pad(x, (0, wi.shape[1] - x.shape[1])) @ wi.t()
+        rec = F.pad(h, (0, wh.shape[1] - H)) @ wh.t()
+        g = ((ih + rec) + bias).view(B, H, 4)
+        c = torch.sigmoid(g[..., 1]) * c \
+            + torch.sigmoid(g[..., 0]) * torch.tanh(g[..., 2])
+        return torch.sigmoid(g[..., 3]) * torch.tanh(c), c
+
+    mel = residual.new_zeros(N, B, M)
+    attn = residual.new_zeros(N, B, Tk)
+    gates = residual.new_ones(N, B)
+    zeros = residual.new_zeros(B, H)
+    h_att = c_att = zeros
+    hs, cs = [zeros] * len(w["lstm"]), [zeros] * len(w["lstm"])
+    prev = residual.new_zeros(B, M)
+    done = torch.zeros(B, dtype=torch.bool)
+    for t in range(N):
+        h_att, c_att = cell(w["att_wi"], w["att_wh"], w["att_b"], prev,
+                            h_att, c_att)
+        q = h_att @ w["q_w"][:, :H].t() + w["q_b"]
+        s = (torch.tanh(q[:, None, :] + k_proj) * w["v_w"]).sum(-1)
+        s = torch.where(key_mask > 0.5, s / temperature, -1e9)
+        ms, es, cs_part = [], [], []
+        for j in range(parts):
+            k0, k1 = j * Tk // parts, (j + 1) * Tk // parts
+            m = s[:, k0:k1].max(dim=1).values
+            e = torch.exp(s[:, k0:k1] - m[:, None])
+            ms.append(m)
+            es.append(e.sum(dim=1))
+            cs_part.append(torch.einsum("bk,bkd->bd", e, vals[:, k0:k1]))
+        mx = torch.stack(ms).max(dim=0).values
+        ssum = sum(e * torch.exp(m - mx) for m, e in zip(ms, es))
+        ctx = sum((torch.exp(m - mx) / ssum)[:, None] * c
+                  for m, c in zip(ms, cs_part))
+        a = torch.exp(s - mx[:, None]) / ssum[:, None]
+        x = torch.cat([h_att, ctx], dim=-1)
+        gate = torch.sigmoid(x @ w["gate_w"] + w["gate_b"]) \
+            if "gate_w" in w else residual.new_zeros(B)
+        for k, (wi, wh, lb) in enumerate(w["lstm"]):
+            hs[k], cs[k] = cell(wi, wh, lb, x, hs[k], cs[k])
+            x = hs[k]
+        for dw, db in w["dense"]:
+            x = torch.tanh(x @ dw[:, :H].t() + db)
+        out2 = (x @ w["head_w"][:, :H].t() + w["head_b"]).view(B, M, 2)
+        prev = (residual[t] - out2[..., 1]) * torch.exp(-out2[..., 0])
+        mel[t], attn[t], gates[t] = prev, a, gate
+        if early_exit:
+            done |= (gate > gate_threshold) | (t + 1 >= n_valid_in)
+            if bool(done.all()):
+                break
+    return mel, attn, gates
+
+
+class TestKernelOrderOfSums:
+    @pytest.mark.parametrize("n_blocks", [3, 132])
+    @pytest.mark.parametrize("early", [False, True])
+    def test_emulation_matches_jax(self, case, early, n_blocks):
+        p, flow, residual, text, key_mask = case
+        kp, vals = jax_attention_precompute(p["attention_layer"],
+                                            jnp.asarray(text),
+                                            jnp.asarray(text))
+        km = key_mask.astype(np.float32)
+        nvin = np.asarray([20, 9, 20], np.int32)
+        kw = dict(early_exit=early, gate_threshold=0.45,
+                  n_valid_in=jnp.asarray(nvin))
+        mel_j, attn_j, gates_j = jax_fused(
+            jax_pack(p, dtype=jnp.float32), jnp.asarray(residual), kp, vals,
+            jnp.asarray(km), 1.3, interpret=True, **kw)
+        ours = k1_emulated(
+            flow.packed_weights(), _t(residual), _t(kp), _t(vals), _t(km),
+            1.3, n_blocks, early_exit=early, gate_threshold=0.45,
+            n_valid_in=_t(nvin))
+        # JAX decides early exit per 16-frame chunk, the kernel per frame:
+        # they agree up to the frame at which every stream is done
+        g = np.asarray(gates_j)
+        done = (g > 0.45) | (np.arange(20)[:, None] + 1 >= nvin[None])
+        stop = int(np.argmax(np.cumsum(done, 0).astype(bool).all(1))) \
+            if early else 19
+        assert (not early) or stop < 19
+        for a, r in zip(ours, (mel_j, attn_j, gates_j)):
+            np.testing.assert_allclose(a.numpy()[:stop + 1],
+                                       np.asarray(r)[:stop + 1], atol=1e-5)
+        if early:
+            assert (ours[0][stop + 1:] == 0).all()
+            assert (ours[1][stop + 1:] == 0).all()
+            assert (ours[2][stop + 1:] == 1).all()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -228,12 +384,28 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
                                         _t(text).to(cuda_device))
     args = (flow.packed_weights(), _t(residual).to(cuda_device), kp, vals,
             _t(key_mask.astype(np.float32)).to(cuda_device), 1.0)
-    for early in (False, True):
-        ours = fused_flow_infer(*args, early_exit=early, gate_threshold=0.45)
-        ref = fused_flow_infer_reference(*args, early_exit=early,
-                                         gate_threshold=0.45)
-        for a, r in zip(ours, ref):
-            torch.testing.assert_close(a, r, atol=1e-5, rtol=0)
+    # B=12: two groups of batch rows; one row's n_valid_in ends it early
+    rng = np.random.default_rng(12)
+    text12 = _t(rng.standard_normal((5, 12, 16)).astype(np.float32))
+    with torch.no_grad():
+        kp12, vals12 = attention_precompute(flow.attention_layer,
+                                            text12.to(cuda_device),
+                                            text12.to(cuda_device))
+    args12 = (args[0], _t((rng.standard_normal((20, 12, 8)) * 0.5)
+                          .astype(np.float32)).to(cuda_device), kp12, vals12,
+              _t((np.arange(5)[None] < rng.integers(1, 6, (12, 1)))
+                 .astype(np.float32)).to(cuda_device), 1.0)
+    nv12 = torch.full((12,), 20, dtype=torch.int32, device=cuda_device)
+    nv12[7] = 6
+    for a_, nv in ((args, None), (args12, nv12)):
+        for early in (False, True):
+            kw = dict(early_exit=early, gate_threshold=0.45, n_valid_in=nv)
+            ours = fused_flow_infer(*a_, **kw)
+            again = fused_flow_infer(*a_, **kw)
+            ref = fused_flow_infer_reference(*a_, **kw)
+            for a, b, r in zip(ours, again, ref):
+                torch.testing.assert_close(a, r, atol=1e-5, rtol=0)
+                assert torch.equal(a, b)
     # a prior is outside K1's subset: the flow runs the per-frame loop on
     # the card, as JAX falls back to its scan, and K1 is not launched
     prior = torch.full((3, 20, 5), 0.2)
