@@ -199,9 +199,10 @@ __device__ void stage_rows(float* dst, int Kp, int off, const float* src,
 // sums. W is in shared memory (the prefetch buffer) or in HBM. Rows
 // r >= nrows (a ragged last quad) read row nrows - 1, and the caller
 // drops their sums. Two float4 of each row in flight a lane.
+template <int NB>
 __device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
                                          int i0, int i1, const float* xs,
-                                         int nb, float (&acc)[4][kMaxB]) {
+                                         int nb, float (&acc)[4][NB]) {
   const int lane = threadIdx.x & 31;
   const int K4 = Kp >> 2;
   const float4* W4 = reinterpret_cast<const float4*>(W);
@@ -209,7 +210,7 @@ __device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[r][b] = 0.f;
+    for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
   for (int i = i0 + lane; i < i1; i += 64) {
     const bool two = i + 32 < i1;
     const int i2 = two ? i + 32 : i;
@@ -221,7 +222,7 @@ __device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
       w1[r] = two ? row[i2] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
+    for (int b = 0; b < NB; ++b) {
       if (b < nb) {
         const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
 #pragma unroll
@@ -243,18 +244,45 @@ __device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
+    for (int b = 0; b < NB; ++b)
       if (b < nb) acc[r][b] = warp_sum(acc[r][b]);
 }
 
 // acc[r][lane] without dynamic register indexing.
-__device__ __forceinline__ float pick(const float (&acc)[4][kMaxB], int r,
+template <int NB>
+__device__ __forceinline__ float pick(const float (&acc)[4][NB], int r,
                                       int lane) {
   float v = 0.f;
 #pragma unroll
-  for (int b = 0; b < kMaxB; ++b)
+  for (int b = 0; b < NB; ++b)
     if (b == lane) v = acc[r][b];
   return v;
+}
+
+// The quad's sums for lanes < nb: y[r] of batch row lane. One batch row
+// (B = 1, the single caller's case) and up to four have their own smaller
+// bodies: a frame runs every stage's code once, so the instruction cache
+// is cold each time and code size costs time.
+__device__ __forceinline__ void quad_sums(const float* W, int nrows, int Kp,
+                                          int i0, int i1, const float* xs,
+                                          int nb, float (&y)[4]) {
+  const int lane = threadIdx.x & 31;
+  if (nb == 1) {
+    float acc[4][1];
+    quad_dot<1>(W, nrows, Kp, i0, i1, xs, nb, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) y[r] = acc[r][0];
+  } else if (nb <= 4) {
+    float acc[4][4];
+    quad_dot<4>(W, nrows, Kp, i0, i1, xs, nb, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
+  } else {
+    float acc[4][kMaxB];
+    quad_dot<kMaxB>(W, nrows, Kp, i0, i1, xs, nb, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
+  }
 }
 
 struct In {
@@ -680,20 +708,15 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
         const int l = qq - q.cnt[j], K4 = jb.Kp >> 2;
         u = q.lo[j] + l;
         if (r0 > 0 && part == 0 && lane < nb) epi_load(p, jb, u, g0 + lane, t, o);
-        float acc[4][kMaxB];
-        quad_dot(l < q.pre[j] ? m.wb + q.base[j] + l * 4 * jb.Kp
-                              : jb.w + (size_t)4 * u * jb.Kp,
-                 min(4, jb.rows - 4 * u), jb.Kp, part * K4 / ks,
-                 (part + 1) * K4 / ks, m.xs + xoff[j], nb, acc);
+        float y[4];
+        quad_sums(l < q.pre[j] ? m.wb + q.base[j] + l * 4 * jb.Kp
+                               : jb.w + (size_t)4 * u * jb.Kp,
+                  min(4, jb.rows - 4 * u), jb.Kp, part * K4 / ks,
+                  (part + 1) * K4 / ks, m.xs + xoff[j], nb, y);
         if (ks > 1 && lane < nb)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) red[warp][r][lane] = pick(acc, r, lane);
-        if (ks == 1 && lane < nb) {
-          float y[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
-          epi_apply(p, jb, u, g0 + lane, y, o, t);
-        }
+          for (int r = 0; r < 4; ++r) red[warp][r][lane] = y[r];
+        if (ks == 1 && lane < nb) epi_apply(p, jb, u, g0 + lane, y, o, t);
       }
       if (ks > 1) {
         __syncthreads();
