@@ -702,13 +702,13 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
       const int qq = r0 + qi;
       const bool active = qq < nq;
       int j = 0, u = 0;
+      float y[4];
       if (active) {
         while (qq >= q.cnt[j + 1]) ++j;
         const Job& jb = s.job[j];
         const int l = qq - q.cnt[j], K4 = jb.Kp >> 2;
         u = q.lo[j] + l;
         if (r0 > 0 && part == 0 && lane < nb) epi_load(p, jb, u, g0 + lane, t, o);
-        float y[4];
         quad_sums(l < q.pre[j] ? m.wb + q.base[j] + l * 4 * jb.Kp
                                : jb.w + (size_t)4 * u * jb.Kp,
                   min(4, jb.rows - 4 * u), jb.Kp, part * K4 / ks,
@@ -716,20 +716,18 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
         if (ks > 1 && lane < nb)
 #pragma unroll
           for (int r = 0; r < 4; ++r) red[warp][r][lane] = y[r];
-        if (ks == 1 && lane < nb) epi_apply(p, jb, u, g0 + lane, y, o, t);
       }
       if (ks > 1) {
         __syncthreads();
-        if (active && part == 0 && lane < nb) {
-          float y[4];
+        if (active && part == 0 && lane < nb)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             y[r] = red[warp][r][lane];
             for (int pp = 1; pp < ks; ++pp) y[r] += red[warp + pp][r][lane];
           }
-          epi_apply(p, s.job[j], u, g0 + lane, y, o, t);
-        }
       }
+      if (active && part == 0 && lane < nb)
+        epi_apply(p, s.job[j], u, g0 + lane, y, o, t);
     }
     __syncthreads();   // the staged rows and red are free again
   }
