@@ -261,7 +261,8 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
     from flowtron_tpu_torch.models.attention import attention_precompute
     from flowtron_tpu_torch.models.flowtron import _encode_text
     from flowtron_tpu_torch.ops.decoder import (
-        fused_flow_infer, fused_flow_infer_reference)
+        fused_flow_infer, fused_flow_infer_reference, k1_launch_info,
+        k1_stage_split)
 
     B, Tk = text.shape
     mask = None if in_lens is None else \
@@ -313,7 +314,6 @@ def k1_case(model, cfg, flow, sid, text, in_lens, res, n_valid_in, dev):
           and bool((out_ke[1][stop:] == 0).all())
           and bool((out_ke[2][stop:] == 1).all()),
           f"{tag} early: skipped frames not mel=0, attn=0, gate=1")
-    from flowtron_tpu_torch.ops.decoder import k1_launch_info, k1_stage_split
     w = args[0]
     n_w = sum(t.numel() for v in w.values()
               for t in ([v] if torch.is_tensor(v) else
@@ -352,8 +352,8 @@ def phase_k1(model, cfg, ids, sid, dev):
     first on the main path) at Tk=128 and B=1, 4 and 12, then both flows
     at the main path's own shapes: the first request's text at B=1 with
     the latents that request draws, and the four texts padded with their
-    key mask at B=4. The ungated flow gets
-    the gated flow's early n_valid, as on the main path. Returns the max
+    key mask at B=4. The ungated flow gets the gated flow's early n_valid,
+    as on the main path. Returns the max
     error, the gated flow's B=1 request-shape times, and the threshold
     and n_valid at which the first request's gate stops it."""
     gated, ungated = model.flows[-1].ar_step, model.flows[0]
@@ -379,6 +379,7 @@ def phase_k1(model, cfg, ids, sid, dev):
          0.5 * torch.randn(N_FRAMES, 4, 80, generator=g)),
     ]
     from flowtron_tpu_torch.ops.decoder import barrier_bench
+
     # one grid barrier of K1 (and of cooperative_groups, its yardstick):
     # 5000 in one launch after a warm-up launch
     barrier = {}

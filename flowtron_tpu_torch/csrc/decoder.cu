@@ -645,6 +645,7 @@ __device__ __noinline__ void prefetch(const Stage& s, const Quads& q, float* wb,
   }
 }
 
+// The card's nanosecond clock (k1_stage_split's stage times).
 __device__ __forceinline__ long long gtime() {
   long long ns;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));

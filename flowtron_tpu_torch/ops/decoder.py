@@ -317,7 +317,7 @@ def k1_stage_split(weights, residual, k_proj, vals, key_mask, temperature):
     names), frames 1 .. N - 1, as block 0 sees them. A measurement: the
     launch is not counted in ``fused_flow_infer.launches``."""
     N, B, M = residual.shape
-    M_w, H, D = _dims(weights)
+    _, H, D = _dims(weights)
     n_stages = 4 + len(weights["lstm"]) + len(weights["dense"])
     clock = torch.zeros(N * n_stages, dtype=torch.int64,
                         device=residual.device)
