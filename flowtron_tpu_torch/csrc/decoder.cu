@@ -470,10 +470,10 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
 // sums combined (ms) into the weights cw = exp(m_j - max) / sum, this
 // block's share of the attention row, the context behind the staged
 // h_att (when this block needs the input) and (block 0) the gate and the
-// done flags. Each step's loads go out together.
-constexpr int kCtx = 4;   // context elements a thread a round trip
-__device__ __noinline__ void combine(const Params& p, int t, int g0, int nb, float* xs,
-                        int Kp, bool need_input, const Smem& m) {
+// done flags.
+__device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
+                                     float* xs, int Kp, bool need_input,
+                                     const Smem& m) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int H = p.H, D = p.D, Tk = p.Tk, B = p.B, P = p.parts;
   float* cw = m.cw;            // (nb, kMaxParts): max, then weights
@@ -481,18 +481,12 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb, flo
   float* ms = m.ms;            // (nb, 2): max, sum
   const bool owner = threadIdx.x < nb * P;   // partial (b, j) of the group
   const int ob = threadIdx.x / P, oj = threadIdx.x % P;
-  // one round trip: this thread's scores of the attention row and, for
-  // the owners, their partial's max and exp sum
-  constexpr int kScores = 4;
-  float sv[kScores];
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  // one round trip: this thread's first score of the attention row and,
+  // for the owners, their partial's max and exp sum
+  const int e0 = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = p.grid * blockDim.x;
-#pragma unroll
-  for (int i = 0; i < kScores; ++i) {
-    const int e = first + i * stride;
-    sv[i] = e < nb * Tk
-                ? __ldcg(p.scores + (size_t)(g0 + e / Tk) * Tk + e % Tk) : 0.f;
-  }
+  const float s0 =
+      e0 < nb * Tk ? __ldcg(p.scores + (size_t)g0 * Tk + e0) : 0.f;
   float mj = 0.f, sj = 0.f;
   if (owner) {
     mj = __ldcg(p.pm + (size_t)oj * B + g0 + ob);
@@ -516,45 +510,27 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb, flo
   }
   __syncthreads();
   if (owner) cw[ob * kMaxParts + oj] = wgt / ms[2 * ob + 1];
-#pragma unroll
-  for (int i = 0; i < kScores; ++i) {
-    const int e = first + i * stride;
-    if (e < nb * Tk) {
-      const int b = e / Tk;
-      p.attn[((size_t)t * B + g0 + b) * Tk + e % Tk] =
-          expf(sv[i] - ms[2 * b]) / ms[2 * b + 1];
-    }
-  }
-  for (int e = first + kScores * stride; e < nb * Tk; e += stride) {
+  for (int e = e0; e < nb * Tk; e += stride) {
     const int b = e / Tk;
-    p.attn[((size_t)t * B + g0 + b) * Tk + e % Tk] =
-        expf(__ldcg(p.scores + (size_t)(g0 + b) * Tk + e % Tk) - ms[2 * b])
-        / ms[2 * b + 1];
+    const float s = e == e0 ? s0 : __ldcg(p.scores + (size_t)g0 * Tk + e);
+    p.attn[((size_t)t * B + g0) * Tk + e] =
+        expf(s - ms[2 * b]) / ms[2 * b + 1];
   }
   __syncthreads();   // cw is final
   if (need_input) {
     const int w = Kp - H;
-    for (int e0 = threadIdx.x; e0 < nb * w; e0 += kCtx * blockDim.x) {
-      float c[kCtx][kMaxParts];
+    for (int e = threadIdx.x; e < nb * w; e += blockDim.x) {
+      const int b = e / w, d = e - b * w;
+      float c[kMaxParts];   // every partial's channel d at once
 #pragma unroll
-      for (int i = 0; i < kCtx; ++i) {
-        const int e = e0 + i * blockDim.x, b = e / w, d = e - b * w;
+      for (int j = 0; j < kMaxParts; ++j)
+        c[j] = j < P && d < D
+                   ? __ldcg(p.pc + ((size_t)j * B + g0 + b) * D + d) : 0.f;
+      float v = 0.f;
 #pragma unroll
-        for (int j = 0; j < kMaxParts; ++j)
-          c[i][j] = j < P && e < nb * w && d < D
-                        ? __ldcg(p.pc + ((size_t)j * B + g0 + b) * D + d)
-                        : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kCtx; ++i) {
-        const int e = e0 + i * blockDim.x, b = e / w, d = e - b * w;
-        if (e >= nb * w) break;
-        float v = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxParts; ++j)
-          if (j < P) v += cw[b * kMaxParts + j] * c[i][j];
-        xs[b * Kp + H + d] = v;
-      }
+      for (int j = 0; j < kMaxParts; ++j)
+        if (j < P) v += cw[b * kMaxParts + j] * c[j];
+      xs[b * Kp + H + d] = v;
     }
   }
   if (blockIdx.x != 0) return;
