@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``flowtron_tpu_torch/csrc/`` (into
 ``build/torch_kernels/``, one ``nvcc`` per source, all started together),
-holds each against its plain PyTorch version at its path's shapes, then
+holds each against its plain PyTorch version at its path's shapes (and
+splits one vocoder pass's device time by part, ``waveglow_split``), then
 drives the port's three paths at the full width of the repo's
 ``config.json`` model, on seeded random weights:
 
@@ -406,46 +407,168 @@ def phase_k1(model, cfg, ids, sid, dev):
 
 
 def phase_k2(wg, dev):
-    from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference
+    """K2 against its plain version at the vocoder's shapes: layers 0, 3
+    and 7 (d = 1, 8, 128; 7 the last) at B=1, T=12800 (400 mel frames),
+    layer 3 with 96 pad rows, and layer 3 at B=8 (the server's largest
+    batch); each within K2_TOL, pad rows zero, two calls bitwise equal.
+    Then every block size built for C=256 at B=1 and B=8. Returns the max
+    error and (ms, plain ms, bound, bound_by) of layer 3 at B=1."""
+    from flowtron_tpu_torch.ops.wavenet import (
+        WN_BUILDS, wn_layer, wn_layer_reference, wn_plan)
 
     wn = wg.WN[0]
-    C = wn.n_channels
+    C, L = wn.n_channels, wn.n_layers
     T = N_FRAMES * HOP // 8                   # 12800 grouped samples
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(12)
-    max_err, times = 0.0, None
-    for layer, Tp in ((3, T), (7, T), (3, T + 96)):
+
+    def layer_args(layer, B, Tp):
         w_cat, b, w_rs, b_rs = wn.packed_layers()[layer]
-        x = torch.randn(1, Tp, C, generator=g)
+        x = torch.randn(B, Tp, C, generator=g)
         x[:, T:] = 0
-        x = x.to(dev)
-        cond_all = torch.randn(1, Tp, 2 * C * wn.n_layers, generator=g).to(dev)
+        cond_all = torch.randn(B, Tp, 2 * C * L, generator=g).to(dev)
         cond = cond_all[..., 2 * C * layer:2 * C * (layer + 1)]
-        args = (x, 2 ** layer, cond, w_cat, b, w_rs, b_rs, T)
+        return (x.to(dev), 2 ** layer, cond, w_cat, b, w_rs, b_rs, T)
+
+    def work(B, Tp, n_rs):
+        """fp32 FLOPs; bytes: x, cond, weights and biases read once, x'
+        (not on the last layer) and skip written once"""
+        flops = 2 * B * Tp * (3 * C * 2 * C + C * n_rs)
+        n_bytes = 4 * (B * Tp * C + B * Tp * 2 * C + 3 * C * 2 * C + 2 * C
+                       + C * n_rs + n_rs + (2 if n_rs > C else 1) * B * Tp * C)
+        return flops, n_bytes
+
+    max_err, times = 0.0, None
+    for layer, B, Tp in ((0, 1, T), (3, 1, T), (7, 1, T), (3, 1, T + 96),
+                         (3, 8, T)):
+        args = layer_args(layer, B, Tp)
+        n_rs = args[5].shape[1]
+        reps = 20 if B == 1 else 5
         with torch.no_grad():
             k_ms, p_ms, runs, out_k, out_p = paired_ms(
                 lambda: wn_layer(*args), lambda: wn_layer_reference(*args),
-                reps=20, plain_reps=20)
+                reps=reps, plain_reps=reps)
+            again = wn_layer(*args)
         abs_errs, errs = [], []
         for a, r in zip(out_k, out_p):
             if r is not None:
                 abs_errs.append(float((a - r).abs().max()))
                 errs.append(abs_errs[-1] / max(1.0, float(r.abs().max())))
-        check(all(e <= K2_TOL for e in errs), f"K2 layer {layer} err {errs}")
+        check(all(e <= K2_TOL for e in errs),
+              f"K2 layer {layer} B={B} Tp={Tp} err {errs}")
+        bitwise = all(a is None or torch.equal(a, b)
+                      for a, b in zip(out_k, again))
+        check(bitwise, f"K2 layer {layer} B={B}: two calls differ")
         if out_k[0] is not None and Tp > T:
             check(bool((out_k[0][:, T:] == 0).all()), "K2 pad rows not zero")
         max_err = max([max_err] + abs_errs)
-        flops = 2 * Tp * (3 * C * 2 * C + C * w_rs.shape[1])
-        if Tp == T and layer == 3:
-            # x, cond, weights and biases read once; x' and skip written
-            n_bytes = 4 * (Tp * C + Tp * 2 * C + 3 * C * 2 * C + 2 * C
-                           + C * w_rs.shape[1] + w_rs.shape[1] + 2 * Tp * C)
-            times = (k_ms, p_ms) + bound(n_bytes, flops)
-        emit("k2", layer=layer, last=out_k[0] is None, C=C, B=1, T=T, Tp=Tp,
+        flops, n_bytes = work(B, Tp, n_rs)
+        # the kernel does the fp32 products as three bf16 passes
+        bound_ms, bound_by = bound(n_bytes, {"bf16": 3 * flops})
+        if (layer, B, Tp) == (3, 1, T):
+            times = (k_ms, p_ms, bound_ms, bound_by)
+        emit("k2", layer=layer, d=2 ** layer, last=out_k[0] is None, C=C,
+             B=B, T=T, Tp=Tp, plan=wn_plan(B, Tp, C, sms)._asdict(),
              max_abs_err=max(abs_errs), max_rel_err=max(errs),
-             kernel_ms=k_ms, plain_ms=p_ms,
+             bitwise=bitwise, kernel_ms=k_ms, plain_ms=p_ms,
+             bound_ms=bound_ms, bound_by=bound_by,
              runs_plain_kernel_kernel_plain_ms=runs,
-             kernel_tflops=flops / k_ms / 1e9, plain_tflops=flops / p_ms / 1e9)
+             kernel_tflops_fp32=flops / k_ms / 1e9,
+             kernel_tflops_bf16=3 * flops / k_ms / 1e9,
+             plain_tflops=flops / p_ms / 1e9)
+
+    # block sizes: each build's rows a block, layer 3, in turns
+    for B in (1, 8):
+        args = layer_args(3, B, T)
+        builds = sorted(WN_BUILDS[C])
+        with torch.no_grad():
+            ref = wn_layer(*args)
+            fns = [lambda bm=bm: wn_layer(*args, bm=bm) for bm in builds]
+            for f in fns:
+                f()
+            ms = {bm: [] for bm in builds}
+            for _ in range(3):
+                for bm, f in list(zip(builds, fns)) + list(
+                        zip(builds, fns))[::-1]:
+                    ms[bm].append(cuda_ms(f, 20 if B == 1 else 5)[0])
+            for bm, f in zip(builds, fns):
+                check(all(torch.equal(a, b) for a, b in zip(f(), ref)),
+                      f"K2 bm={bm} differs from the planned bm")
+        emit("k2_bm", B=B, T=T, C=C, planned=wn_plan(B, T, C, sms).bm,
+             ms={bm: statistics.median(v) for bm, v in ms.items()},
+             plans={bm: wn_plan(B, T, C, sms, bm)._asdict()
+                    for bm in builds})
     return max_err, times
+
+
+def phase_waveglow_split(wg, wg_cfg, dev):
+    """Device time of one B=1 waveglow_infer_z at N_FRAMES, by CUDA events
+    around each of its parts: K2's 96 layers, the 12 cond_layer products,
+    the upsample, and the rest (start/end convs, couplings, inverse 1x1s
+    and any gaps)."""
+    from flowtron_tpu_torch.vocoder import waveglow as wgm
+
+    g = torch.Generator().manual_seed(21)
+    Tg = N_FRAMES * HOP // wg_cfg["n_group"]
+    mel = torch.randn(1, wg_cfg["n_mel_channels"], N_FRAMES,
+                      generator=g).to(dev)
+    z_main = (0.8 * torch.randn(1, wgm.waveglow_n_remaining(wg_cfg), Tg,
+                                generator=g)).to(dev)
+    z_early = [(0.8 * torch.randn(1, wg_cfg["n_early_size"], Tg,
+                                  generator=g)).to(dev)
+               if f % wg_cfg["n_early_every"] == 0 and f > 0 else None
+               for f in range(wg_cfg["n_flows"])]
+    cond_layers = {id(wn.cond_layer) for wn in wg.WN}
+    spans = {"k2": [], "cond_layer": [], "upsample": []}
+    originals = {n: getattr(wgm, n)
+                 for n in ("wn_layer", "_mm1x1", "_upsample_mel")}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[part].append((s, e))
+            return out
+        return run
+
+    wn_timed = timed("k2", originals["wn_layer"])
+    mm_timed = timed("cond_layer", originals["_mm1x1"])
+    wgm.wn_layer = wn_timed
+    wgm._upsample_mel = timed("upsample", originals["_upsample_mel"])
+    wgm._mm1x1 = lambda x, conv: (mm_timed if id(conv) in cond_layers
+                                  else originals["_mm1x1"])(x, conv)
+    try:
+        for run in range(2):                  # a warm-up, then the timed run
+            for v in spans.values():
+                v.clear()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            audio = wgm.waveglow_infer_z(wg, wg_cfg, mel, z_main, z_early)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for n, fn in originals.items():
+            setattr(wgm, n, fn)
+    check(tuple(audio.shape) == (1, N_FRAMES * HOP)
+          and bool(torch.isfinite(audio).all()), "waveglow_split audio")
+    total = start.elapsed_time(end)
+    parts = {k: sum(s.elapsed_time(e) for s, e in v)
+             for k, v in spans.items()}
+    check(len(spans["k2"]) == wg_cfg["n_flows"] * wg.WN[0].n_layers
+          and len(spans["cond_layer"]) == wg_cfg["n_flows"],
+          f"waveglow_split counted {[len(v) for v in spans.values()]}")
+    emit("waveglow_split", B=1, frames=N_FRAMES, total_ms=total, wall_s=wall,
+         k2_ms=parts["k2"], k2_calls=len(spans["k2"]),
+         cond_layer_ms=parts["cond_layer"],
+         cond_layer_calls=len(spans["cond_layer"]),
+         upsample_ms=parts["upsample"],
+         rest_ms=total - sum(parts.values()))
 
 
 def phase_slice(model, cfg, wg, wg_cfg, ids, sid, stop, dev):
@@ -1400,6 +1523,7 @@ def main():
 
     k1_err, k1_times, stop = phase_k1(model, cfg, ids, sid, dev)
     k2_err, k2_times = phase_k2(wg, dev)
+    phase_waveglow_split(wg, wg_cfg, dev)
     k4 = phase_k4(dev)
 
     reset_launches(kernels)                  # the inference path
@@ -1461,7 +1585,8 @@ def main():
                 "library_ms": library_ms}
 
     # K1: one gated flow of the first request (B=1, 400 frames); K2: one
-    # WN layer at T=12800; K3: the first training batch, fp32; K4: one
+    # WN layer (layer 3) at B=1, T=12800, its bound the three bf16 passes
+    # of its products; K3: the first training batch, fp32; K4: one
     # flow-frame's nine calls at B=8, summed (the library call is the
     # fp32 cuBLAS product on the pre-dequantized weight). K4's launches
     # are the w8a8 server's main wave: JAX routes only a8 leaves to the

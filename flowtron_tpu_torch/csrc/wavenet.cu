@@ -1,4 +1,4 @@
-// K2: one WaveGlow WN layer, fp32.
+// K2: one WaveGlow WN layer, fp32 in and out, products on the tensor cores.
 //
 // Replaces flowtron_tpu/ops/wavenet_pallas.py:wn_layer_fused (the Pallas
 // kernel _wn_layer_kernel, called at :93):
@@ -12,191 +12,507 @@
 // Rows are the flattened (B, Tp) time steps of x (B, Tp, C); cond is a
 // (B, Tp, 2C) slice with row stride ldc.
 //
-// What bounds it on an H100: arithmetic. At C = 256 a row costs
-// 2 * (768 * 512 + 256 * 512) = 1.05 MFLOP against 3 KB of row traffic,
-// so it sits far above the bytes/FLOP line; one flagship layer at B=1,
-// N=400 mel frames (12800 rows) is about 13.4 GFLOP. In fp32 without
-// tensor cores the ceiling is the 67 TFLOP/s SIMT rate (published peak,
-// not measured here).
+// What bounds it on an H100: tensor-core operations. At C = 256 a row
+// costs 2 * (768 * 512 + 256 * 512) = 1.05 MFLOP of fp32 math against 3 KB
+// of row traffic. The products keep fp32 accuracy as three bf16 passes:
+// each operand a is split into hi = bf16(a) and lo = bf16(a - hi), and
+// hi*hi + hi*lo + lo*hi is summed in fp32 (lo*lo, ~2^-16 of the product,
+// is dropped; the CPU emulation in tests/test_torch_port_wavenet.py holds
+// this within 1e-5 of the output scale). So a flagship layer at B=1, 12800
+// rows, is 40.3 G bf16 operations, 0.041 ms at the 989 TFLOP/s peak,
+// against 67.6 MB of traffic, 0.020 ms at 3.35 TB/s. One pass of tf32 or
+// of bf16 misses the 1e-4 bar (2.7e-4 and 2.2e-3); three tf32 passes would
+// run at half the bf16 rate.
 //
-// What the design does about it (a simple first version): a tiled SIMT
-// GEMM. A block owns BM = 8 * 1024 / C rows and all 2C columns, so the
-// gate epilogue has both halves of a channel in one thread; each thread
-// keeps an 8-row x (4 + 4)-column tile of accumulators in registers.
-// - The time shift happens inside the kernel: the A tile is gathered from
-//   rows t - d, t, t + d of the same stream with zero fill outside
-//   [0, T). The Pallas version reads three shifted copies of x from HBM.
-// - z never leaves the SM: the gate epilogue writes it to shared memory
-//   (over the A tile) and the res/skip product reads it from there.
-// - K is walked in chunks of 16 through shared memory; no
-//   double-buffering, no tensor cores (wgmma/TMA belong to later work).
+// The design (mma.sync m16n8k16, one block a SM):
+// - A block owns BM = 16 MT rows and all 2C columns of acts, walked in NH
+//   passes of 2C / NH columns (NH = 2 lets BM reach 112 or 128 rows, whose
+//   accumulators would not fit the registers in one pass). Its 8 WM warps
+//   are (wm, wn): rows wm * BM / WM on, an eighth of the pass's columns.
+//   The weights are packed by the host (ops/wavenet.py:wn_split_weights),
+//   split into bf16 hi/lo once a layer, with W_cat's columns paired so
+//   that n-tile 2j is the tanh half and 2j + 1 the sigmoid half of the
+//   same 8 channels: the gate runs on a thread's own accumulators.
+// - K is walked in chunks of 16 (one mma k-step) through a ring of S
+//   stages filled by cp.async: the chunk's weights (16 rows, hi and lo,
+//   contiguous in the packed layout, L2-resident since every block reads
+//   them) and, in the first product, the fp32 x rows of the chunk's tap
+//   (rows t - d, t, t + d of the same stream; cp.async zero-fills rows
+//   outside [0, T), so the shift stays inside the kernel). Each thread
+//   splits the x pieces it copied itself into a double-buffered bf16 hi/lo
+//   A tile one chunk ahead of the mma's, so a chunk costs one block
+//   barrier and the next chunks' copies are in flight during its mma's.
+// - z leaves the gate split into bf16 hi/lo in shared memory and is the
+//   A operand of the res/skip product: it never leaves the SM. With NH = 1
+//   it overlays the x ring, idle by then; the weights of the res/skip
+//   product stream through the same ring, its first chunks already in
+//   flight during the first product's last ones.
+// - The epilogues load an m-tile's cond (gate) or x (residual) values
+//   together, and those rows are prefetched into L2 during the chunks
+//   before; tanh and sigmoid are branch-free (ex2.approx, ~1e-6).
+// - Shared-memory tiles are XOR-swizzled by 16-byte piece, so ldmatrix
+//   and the stores of z meet no bank conflicts.
 // - Pad rows (t >= T) of x' are re-zeroed on the store, so a bias never
-//   leaks into valid rows through the next layer's shift.
+//   leaks into valid rows through the next layer's shift. Every sum has
+//   one owner and a fixed order (no atomics): two calls are bitwise equal.
+// What holds it (PERF.md, PR 9): on an H100 a flagship layer at B=1 runs
+// at about a quarter of the bf16 peak. Taking the mma's, the copies or the
+// gate out one at a time each saves only 15-25% of the time: a chunk's
+// barrier, ldmatrix traffic and the epilogues add up in series, and 16
+// warps a block instead of 8 did not hide them. wgmma (B and z straight
+// from shared memory, no ldmatrix) fed by TMA is the next step.
+// BM, NH and the warps come from ops/wavenet.py:wn_plan and WN_BUILDS;
+// each (C, BM) is instantiated below.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 16;            // K chunk
-constexpr int kTileFloats = 8192;  // BM * C: the z tile, 32 KB
+constexpr int kKC = 16;         // k rows a chunk: one m16n8k16 step
+constexpr int kMaxSmem = 232448;
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
+// fp32 pair -> bf16x2 (x0 in the low half), round to nearest even
+__device__ __forceinline__ uint32_t bf16x2(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
 }
 
-__device__ __forceinline__ void fma4(float (&acc)[8], int o, float a,
-                                     float4 b) {
-  acc[o + 0] = fmaf(a, b.x, acc[o + 0]);
-  acc[o + 1] = fmaf(a, b.y, acc[o + 1]);
-  acc[o + 2] = fmaf(a, b.z, acc[o + 2]);
-  acc[o + 3] = fmaf(a, b.w, acc[o + 3]);
+// hi = bf16(x), lo = bf16(x - hi), two values at a time
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = bf16x2(x0, x1);
+  lo = bf16x2(x0 - __uint_as_float(hi << 16),
+              x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-template <bool LAST>
-__global__ void __launch_bounds__(kThreads)
+// tanh and sigmoid without branches, from ex2.approx: within ~1e-6 of
+// the correctly rounded values for the inputs a layer meets, so the gate's
+// loads can be issued together ahead of its arithmetic
+__device__ __forceinline__ float tanh_(float a) {
+  const float e = __expf(-2.f * fabsf(a));
+  return copysignf(__fdividef(1.f - e, 1.f + e), a);
+}
+
+__device__ __forceinline__ float sigmoid_(float a) {
+  return __frcp_rn(1.f + __expf(-a));
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// shared memory of a block: S weight stages, and the x stages and A
+// tiles beside z (NH = 1: z overlays them, idle by then)
+constexpr int smem_bytes(int nh, int s, int slot, int xslot, int abuf,
+                         int zbuf) {
+  return s * slot + (nh == 1 ? (2 * zbuf > s * xslot + 4 * abuf
+                                    ? 2 * zbuf : s * xslot + 4 * abuf)
+                             : 2 * zbuf + s * xslot + 4 * abuf);
+}
+
+template <int MT, int NT, int NH, int WM, bool LAST>
+struct Cfg {
+  static constexpr int BM = 16 * MT;
+  static constexpr int THREADS = 256 * WM;   // 8 WM warps
+  static constexpr int MTW = MT / WM;        // m-tiles a warp
+  static constexpr int C = 32 * NT * NH;
+  static constexpr int W1 = 2 * C / NH;   // packed acts columns a pass
+  static constexpr int NP2 = LAST ? (NH > 1 ? NH / 2 : 1) : NH;
+  static constexpr int W2 = (LAST ? C : 2 * C) / NP2;   // rs columns a pass
+  static constexpr int NT2 = W2 / 64;     // n-tiles a warp in the rs product
+  static constexpr int NC1 = 3 * C / kKC, NC2 = C / kKC;
+  static constexpr int P1_CHUNKS = NH * NC1;
+  static constexpr int CHUNKS = P1_CHUNKS + NP2 * NC2;
+  static constexpr int SLOT = kKC * W1 * 4;   // a weight stage, hi + lo
+  static constexpr int XSLOT = BM * kKC * 4;  // an x stage, fp32
+  static constexpr int ABUF = BM * kKC * 2;   // an A tile, one of hi / lo
+  static constexpr int ZBUF = BM * C * 2;     // z, one of hi / lo
+  static constexpr int S =
+      smem_bytes(NH, 4, SLOT, XSLOT, ABUF, ZBUF) <= kMaxSmem ? 4 : 3;
+  static constexpr int SMEM = smem_bytes(NH, S, SLOT, XSLOT, ABUF, ZBUF);
+  static constexpr int XOFF = S * SLOT + (NH == 1 ? 0 : 2 * ZBUF);
+  static_assert(W2 <= W1 && NT2 <= NT && NT2 >= 1, "rs tiling");
+  static_assert((W1 & (W1 - 1)) == 0 && (W2 & (W2 - 1)) == 0, "pow2");
+  static_assert(SMEM <= kMaxSmem, "shared memory");
+  static_assert(MT % WM == 0, "rows a warp");
+};
+
+template <int MT, int NT, int NH, int WM, bool LAST>
+__global__ void __launch_bounds__(256 * WM, 1)
 wn_layer_kernel(const float* __restrict__ x, int d,
                 const float* __restrict__ cond, int ldc,
-                const float* __restrict__ w_cat,
+                const uint16_t* __restrict__ w1,
                 const float* __restrict__ b,
-                const float* __restrict__ w_rs,
+                const uint16_t* __restrict__ w2,
                 const float* __restrict__ b_rs, float* __restrict__ x_out,
-                float* __restrict__ skip, int M, int T, int Tp, int C) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int ngroups = C / 4;
-  const int BM = kTileFloats / C;
-  const int ldA = BM + 4;
-  float* As = sm;                  // [kBK][ldA] during the first product
-  float* Zs = sm;                  // [BM][C] after it
-  float* Bs = sm + kTileFloats;    // [kBK][2C]
-  const int tid = threadIdx.x;
-  const int rg = tid / ngroups, j = tid - rg * ngroups;
+                float* __restrict__ skip, int M, int T, int Tp) {
+  using K = Cfg<MT, NT, NH, WM, LAST>;
+  constexpr int C = K::C, BM = K::BM, S = K::S, MTW = K::MTW;
+  constexpr int kThreads = K::THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* zhi = smem + S * K::SLOT;
+  unsigned char* zlo = zhi + K::ZBUF;
+  unsigned char* xring = smem + K::XOFF;
+  unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo]
+
+  // warp (wm, wn): m-tiles wm * MTW on, an eighth of a pass's columns
+  const int tid = threadIdx.x, lane = tid & 31, wn = (tid >> 5) & 7,
+            wm = tid >> 8;
   const int row0 = blockIdx.x * BM;
-  const int N2 = 2 * C;
 
-  float acc[8][8];
+  // the x pieces this thread copies and splits: 16 bytes (4 channels) of
+  // a row; the row's stream offset and time step are fixed for the call
+  constexpr int XP = (BM * 4 + kThreads - 1) / kThreads;
+  int x_base[XP], x_t[XP];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
-
-  // acts = x_shifted (BM x 3C) @ W_cat (3C x 2C)
-  for (int k0 = 0; k0 < 3 * C; k0 += kBK) {
-    const int tap = k0 / C;
-    const int shift = (tap - 1) * d;
-    const int ch0 = k0 - tap * C;
-    for (int i = tid; i < kBK * BM; i += kThreads) {
-      const int r = i / kBK, kk = i - r * kBK;
-      const int g = row0 + r;
-      float v = 0.f;
-      if (g < M) {
-        const int s = g / Tp;
-        const int ts = g - s * Tp + shift;
-        if (ts >= 0 && ts < T) v = x[((size_t)s * Tp + ts) * C + ch0 + kk];
-      }
-      As[kk * ldA + r] = v;
-    }
-    const float4* wsrc = reinterpret_cast<const float4*>(w_cat + (size_t)k0 * N2);
-    for (int i = tid; i < kBK * N2 / 4; i += kThreads)
-      reinterpret_cast<float4*>(Bs)[i] = __ldg(wsrc + i);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + kk * ldA + rg * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + kk * ldA + rg * 8 + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * N2 + 4 * j);
-      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * N2 + C + 4 * j);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        fma4(acc[i], 0, a[i], b0);
-        fma4(acc[i], 4, a[i], b1);
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < XP; ++i) {
+    const int q = tid + i * kThreads;
+    const int g = row0 + (q >> 2);
+    const int s = g / Tp;
+    x_base[i] = s * Tp;
+    x_t[i] = (q < BM * 4 && g < M) ? g - s * Tp : -(1 << 30);
   }
 
-  // gate epilogue: z = tanh(acts[:C] + b + cond) * sigmoid(acts[C:] + ...)
-  {
-    const float4 bt = *reinterpret_cast<const float4*>(b + 4 * j);
-    const float4 bs = *reinterpret_cast<const float4*>(b + C + 4 * j);
-    const float bt_[4] = {bt.x, bt.y, bt.z, bt.w};
-    const float bs_[4] = {bs.x, bs.y, bs.z, bs.w};
+  // chunk gc: weights into ring slot gc % S, and (first product) x
+  auto issue = [&](int gc) {
+    if (gc < K::CHUNKS) {
+      unsigned char* slot = ring + (gc % S) * K::SLOT;
+      const uint16_t* src;
+      int w;
+      if (gc < K::P1_CHUNKS) {
+        const int h = gc / K::NC1, kc = gc - h * K::NC1;
+        src = w1 + ((size_t)h * 3 * C + kc * kKC) * 2 * K::W1;
+        w = K::W1;
+        const int tap = kc * kKC / C, ch0 = kc * kKC - tap * C;
+        const int shift = (tap - 1) * d;
+        unsigned char* xs = xring + (gc % S) * K::XSLOT;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rg * 8 + i;
-      const int g = row0 + r;
-      float ct[4] = {0.f, 0.f, 0.f, 0.f}, cs[4] = {0.f, 0.f, 0.f, 0.f};
-      if (g < M) {
-        const float4 c0 = *reinterpret_cast<const float4*>(
-            cond + (size_t)g * ldc + 4 * j);
-        const float4 c1 = *reinterpret_cast<const float4*>(
-            cond + (size_t)g * ldc + C + 4 * j);
-        ct[0] = c0.x; ct[1] = c0.y; ct[2] = c0.z; ct[3] = c0.w;
-        cs[0] = c1.x; cs[1] = c1.y; cs[2] = c1.z; cs[3] = c1.w;
+        for (int i = 0; i < XP; ++i) {
+          const int q = tid + i * kThreads;
+          if (q < BM * 4) {
+            const int t = x_t[i] + shift;
+            const bool ok = t >= 0 && t < T;
+            const float* p = ok ? x + ((size_t)(x_base[i] + t) * C + ch0
+                                       + 4 * (q & 3))
+                                : x;
+            cp_async16_zfill(xs + q * 16, p, ok ? 16 : 0);
+          }
+        }
+      } else {
+        const int g2 = gc - K::P1_CHUNKS;
+        const int h = g2 / K::NC2, kc = g2 - h * K::NC2;
+        src = w2 + ((size_t)h * C + kc * kKC) * 2 * K::W2;
+        w = K::W2;
       }
-      float4 zv;
-      float* zp = reinterpret_cast<float*>(&zv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        zp[q] = tanhf(acc[i][q] + bt_[q] + ct[q])
-                * sigmoid(acc[i][4 + q] + bs_[q] + cs[q]);
-      *reinterpret_cast<float4*>(Zs + r * C + 4 * j) = zv;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  // rs = z (BM x C) @ W_rs (C x Nrs)
-  const int Nrs = LAST ? C : N2;
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    const float4* wsrc = reinterpret_cast<const float4*>(w_rs + (size_t)k0 * Nrs);
-    for (int i = tid; i < kBK * Nrs / 4; i += kThreads)
-      reinterpret_cast<float4*>(Bs)[i] = __ldg(wsrc + i);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * Nrs + 4 * j);
-      float4 b1 = b0;
-      if (!LAST)
-        b1 = *reinterpret_cast<const float4*>(Bs + kk * Nrs + C + 4 * j);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = Zs[(rg * 8 + i) * C + k0 + kk];
-        fma4(acc[i], 0, a, b0);
-        if (!LAST) fma4(acc[i], 4, a, b1);
+      // 16 rows of [hi w | lo w] bf16, w / 4 pieces of 16 bytes a row (a
+      // power of two); piece p of row k lands at p ^ (k & 7)
+      const int lg = 31 - __clz(w / 4);
+      for (int q = tid; q < kKC * w / 4; q += kThreads) {
+        const int k = q >> lg, p = q & (w / 4 - 1);
+        cp_async16(slot + k * w * 4 + ((p ^ (k & 7)) << 4), src + q * 8);
       }
     }
-    __syncthreads();
-  }
+    cp_async_commit();
+  };
 
-  // residual / skip epilogue
-  const float4 br0 = *reinterpret_cast<const float4*>(b_rs + 4 * j);
-  float4 br1 = br0;
-  if (!LAST) br1 = *reinterpret_cast<const float4*>(b_rs + C + 4 * j);
+  // split the x pieces of chunk gc into A tile gc & 1 (rows of 32 bytes,
+  // piece p of row r at p ^ ((r >> 2) & 1))
+  auto convert = [&](int gc) {
+    const unsigned char* xs = xring + (gc % S) * K::XSLOT;
+    unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
+    unsigned char* al = ah + K::ABUF;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int g = row0 + rg * 8 + i;
-    if (g >= M) continue;
-    const size_t o = (size_t)g * C + 4 * j;
-    const float4 rs0 = make_float4(acc[i][0] + br0.x, acc[i][1] + br0.y,
-                                   acc[i][2] + br0.z, acc[i][3] + br0.w);
-    if (LAST) {
-      *reinterpret_cast<float4*>(skip + o) = rs0;
+    for (int i = 0; i < XP; ++i) {
+      const int q = tid + i * kThreads;
+      if (q < BM * 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + q * 16);
+        uint2 hi, lo;
+        split2(v.x, v.y, hi.x, lo.x);
+        split2(v.z, v.w, hi.y, lo.y);
+        const int r = q >> 2, part = q & 3;
+        const int off = r * 32 + ((((part >> 1) ^ (r >> 2)) & 1) << 4)
+                        + ((part & 1) << 3);
+        *reinterpret_cast<uint2*>(ah + off) = hi;
+        *reinterpret_cast<uint2*>(al + off) = lo;
+      }
+    }
+  };
+
+  float acc[MTW][NT][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  };
+  zero();
+
+  // acc[i][j] += A(m-tile i) * B(n-tile j), three bf16 passes; B: n-tile j
+  // of this warp in a weight stage of rows [hi w | lo w]; A rows from
+  // a_at(i): this lane's ldmatrix addresses of the hi and lo tiles. mma's
+  // issue in program order (asm volatile), so the m-tiles go in groups of
+  // MG and each pass runs over the whole group before the next pass: an
+  // accumulator comes back after MG * nt independent mma's, not at once.
+  auto mma_chunk = [&](const unsigned char* slot, int w, int nt,
+                       auto a_at) {
+    constexpr int MG = MTW < 4 / WM ? MTW : 4 / WM;
+    uint32_t bf[NT][4];
+    const int k = lane & 15;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const int p = wn * nt + j + (lane >> 4) * (w >> 3);
+        ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
+      }
+    }
+#pragma unroll
+    for (int i0 = 0; i0 < MTW; i0 += MG) {
+      uint32_t a[MG][2][4];
+#pragma unroll
+      for (int ii = 0; ii < MG; ++ii) {
+        if (i0 + ii < MTW) {
+          const unsigned char *ph, *pl;
+          a_at(wm * MTW + i0 + ii, ph, pl);
+          ldmatrix_x4<false>(a[ii][0], ph);
+          ldmatrix_x4<false>(a[ii][1], pl);
+        }
+      }
+      // hi * hi, hi * lo, lo * hi
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+        for (int ii = 0; ii < MG; ++ii) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            if (i0 + ii < MTW && j < nt) {
+              const int bo = pass == 1 ? 2 : 0;
+              mma_bf16(acc[i0 + ii][j], a[ii][pass == 2 ? 1 : 0],
+                       bf[j][bo], bf[j][bo + 1]);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  // gate of pass h: z for channels 8 q .. 8 q + 7 of each n-tile pair,
+  // into z hi / lo (rows of C bf16, piece p of row r at p ^ (r & 7)). An
+  // m-tile's cond values are loaded together before its arithmetic (rows
+  // past M read row M - 1: their z is never stored).
+  auto gate = [&](int h) {
+    int ch[NT / 2];
+    float2 bt[NT / 2], bs[NT / 2];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      ch[j] = 8 * (h * (C / NH / 8) + wn * (NT / 2) + j) + 2 * (lane & 3);
+      bt[j] = *reinterpret_cast<const float2*>(b + ch[j]);
+      bs[j] = *reinterpret_cast<const float2*>(b + C + ch[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      float2 ct[2][NT / 2], cs[2][NT / 2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int g = min(row0 + 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr,
+                          M - 1);
+        const float* crow = cond + (size_t)g * ldc;
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          ct[hr][j] = *reinterpret_cast<const float2*>(crow + ch[j]);
+          cs[hr][j] = *reinterpret_cast<const float2*>(crow + C + ch[j]);
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr;
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          const float z0 =
+              tanh_(acc[i][2 * j][2 * hr] + bt[j].x + ct[hr][j].x)
+              * sigmoid_(acc[i][2 * j + 1][2 * hr] + bs[j].x + cs[hr][j].x);
+          const float z1 =
+              tanh_(acc[i][2 * j][2 * hr + 1] + bt[j].y + ct[hr][j].y)
+              * sigmoid_(acc[i][2 * j + 1][2 * hr + 1] + bs[j].y
+                         + cs[hr][j].y);
+          uint32_t hi, lo;
+          split2(z0, z1, hi, lo);
+          const int p = ch[j] >> 3;
+          const int off = r * C * 2 + ((((p ^ r) & 7) | (p & ~7)) << 4)
+                          + ((ch[j] & 7) << 1);
+          *reinterpret_cast<uint32_t*>(zhi + off) = hi;
+          *reinterpret_cast<uint32_t*>(zlo + off) = lo;
+        }
+      }
+    }
+  };
+
+  // res/skip epilogue of rs pass h; an m-tile's x values are loaded
+  // together before its stores
+  auto store = [&](int h) {
+    int col[K::NT2];
+    float2 br[K::NT2];
+#pragma unroll
+    for (int j = 0; j < K::NT2; ++j) {
+      col[j] = h * K::W2 + (wn * K::NT2 + j) * 8 + 2 * (lane & 3);
+      br[j] = *reinterpret_cast<const float2*>(b_rs + col[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      int g[2];
+      float2 xv[2][K::NT2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        g[hr] = row0 + 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr;
+        const float* xrow = x + (size_t)min(g[hr], M - 1) * C;
+#pragma unroll
+        for (int j = 0; j < K::NT2; ++j)
+          if (!LAST && col[j] < C)
+            xv[hr][j] = *reinterpret_cast<const float2*>(xrow + col[j]);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (g[hr] >= M) continue;
+        const bool valid = g[hr] % Tp < T;
+#pragma unroll
+        for (int j = 0; j < K::NT2; ++j) {
+          const float2 v = make_float2(acc[i][j][2 * hr] + br[j].x,
+                                       acc[i][j][2 * hr + 1] + br[j].y);
+          const size_t o = (size_t)g[hr] * C + col[j];
+          if (LAST) {
+            *reinterpret_cast<float2*>(skip + o) = v;
+          } else if (col[j] < C) {
+            *reinterpret_cast<float2*>(x_out + o) =
+                valid ? make_float2(xv[hr][j].x + v.x, xv[hr][j].y + v.y)
+                      : make_float2(0.f, 0.f);
+          } else {
+            *reinterpret_cast<float2*>(skip + o - C) = v;
+          }
+        }
+      }
+    }
+  };
+
+  // the epilogues' rows into L2 ahead of them: during a first-product
+  // pass's first chunks its cond lines (BM rows x two halves of C / NH
+  // floats), during the res/skip product's first chunks the x rows
+  auto prefetch = [&](int gc) {
+    if (gc < K::P1_CHUNKS) {
+      const int h = gc / K::NC1, kc = gc - h * K::NC1;
+      constexpr int LPH = C / NH / 32;    // 128-byte lines a half-row
+      const int L = kc * kThreads + tid;
+      const int r = L / (2 * LPH);
+      if (r < BM && row0 + r < M)
+        prefetch_l2(cond + (size_t)(row0 + r) * ldc + (L / LPH & 1) * C
+                    + h * (C / NH) + (L % LPH) * 32);
+    } else if (!LAST) {
+      const int L = (gc - K::P1_CHUNKS) * kThreads + tid;
+      const int r = L / (C / 32);
+      if (r < BM && row0 + r < M)
+        prefetch_l2(x + (size_t)(row0 + r) * C + (L % (C / 32)) * 32);
+    }
+  };
+
+  // the A operands' lane addresses: lane l reads row 16 i + (l & 15),
+  // k half l >> 4 of the chunk
+  const int ar = lane & 15, ak = lane >> 4;
+
+#pragma unroll 1
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  cp_async_wait<S - 2>();
+  convert(0);
+
+#pragma unroll 1
+  for (int gc = 0; gc < K::CHUNKS; ++gc) {
+    cp_async_wait<S - 3>();   // this thread's copies of chunks <= gc + 1
+    __syncthreads();          // everyone's chunk gc; slot gc - 1 is free
+    issue(gc + S - 1);
+    prefetch(gc);
+    const unsigned char* slot = ring + (gc % S) * K::SLOT;
+    if (gc < K::P1_CHUNKS) {
+      if (gc + 1 < K::P1_CHUNKS) convert(gc + 1);
+      const unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
+      mma_chunk(slot, K::W1, NT, [&](int i, const unsigned char*& ph,
+                                     const unsigned char*& pl) {
+        const int r = 16 * i + ar;
+        const int off = r * 32 + (((ak ^ (r >> 2)) & 1) << 4);
+        ph = ah + off;
+        pl = ah + K::ABUF + off;
+      });
+      if (gc % K::NC1 == K::NC1 - 1) {
+        if (NH == 1) __syncthreads();   // z overlays the A tiles
+        gate(gc / K::NC1);
+        zero();
+      }
     } else {
-      const bool valid = (g % Tp) < T;
-      const float4 xv = *reinterpret_cast<const float4*>(x + o);
-      *reinterpret_cast<float4*>(x_out + o) =
-          valid ? make_float4(xv.x + rs0.x, xv.y + rs0.y, xv.z + rs0.z,
-                              xv.w + rs0.w)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(skip + o) =
-          make_float4(acc[i][4] + br1.x, acc[i][5] + br1.y,
-                      acc[i][6] + br1.z, acc[i][7] + br1.w);
+      const int g2 = gc - K::P1_CHUNKS;
+      const int h = g2 / K::NC2, kc = g2 - h * K::NC2;
+      mma_chunk(slot, K::W2, K::NT2, [&](int i, const unsigned char*& ph,
+                                         const unsigned char*& pl) {
+        const int r = 16 * i + ar;
+        const int p = 2 * kc + ak;
+        const int off = r * C * 2 + ((((p ^ r) & 7) | (p & ~7)) << 4);
+        ph = zhi + off;
+        pl = zlo + off;
+      });
+      if (kc == K::NC2 - 1) {
+        store(h);
+        zero();
+      }
     }
   }
+  cp_async_wait<0>();
+}
+
+struct Args {
+  const float *x, *cond, *b, *b_rs;
+  const uint16_t *w1, *w2;
+  float *x_out, *skip;
+  int d, ldc, M, T, Tp;
+};
+
+template <int MT, int NT, int NH, int WM, bool LAST>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using K = Cfg<MT, NT, NH, WM, LAST>;
+  auto* k = wn_layer_kernel<MT, NT, NH, WM, LAST>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  if (err) return err;
+  const int grid = (a.M + K::BM - 1) / K::BM;
+  k<<<grid, K::THREADS, K::SMEM, stream>>>(a.x, a.d, a.cond, a.ldc, a.w1,
+                                           a.b, a.w2, a.b_rs, a.x_out,
+                                           a.skip, a.M, a.T, a.Tp);
+  return cudaGetLastError();
+}
+
+// The (C, bm) pairs built, with their passes NH, ring stages, shared
+// memory and threads; launches the layer when args is given.
+cudaError_t dispatch(int C, int bm, bool last, int* cfg, const Args* args,
+                     cudaStream_t stream) {
+#define WN_CASE(C_, BM_, NT_, NH_, WM_)                                    \
+  if (C == C_ && bm == BM_) {                                              \
+    using K = Cfg<BM_ / 16, NT_, NH_, WM_, false>;                         \
+    cfg[0] = NH_;                                                          \
+    cfg[1] = K::S;                                                         \
+    cfg[2] = K::SMEM;                                                      \
+    cfg[3] = K::THREADS;                                                   \
+    if (!args) return cudaSuccess;                                         \
+    return last ? launch<BM_ / 16, NT_, NH_, WM_, true>(*args, stream)     \
+                : launch<BM_ / 16, NT_, NH_, WM_, false>(*args, stream);   \
+  }
+  WN_CASE(64, 64, 2, 1, 2)
+  WN_CASE(128, 64, 4, 1, 2)
+  WN_CASE(256, 64, 8, 1, 2)
+  WN_CASE(256, 112, 4, 2, 1)
+  WN_CASE(256, 128, 4, 2, 1)
+#undef WN_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -207,39 +523,28 @@ const char* wavenet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (B, Tp, C); cond rows of 2C floats with row stride ldc; w_cat
-// (3C, 2C) with taps [w[:,:,0].T; w[:,:,1].T; w[:,:,2].T]; b (2C);
-// w_rs (C, 2C), or (C, C) when last; b_rs likewise. Outputs x_out
-// (B, Tp, C) (unused when last) and skip (B, Tp, C). All fp32, 16-byte
-// aligned; C a multiple of 64 that divides 1024.
+// The build's (C, bm) pairs: 0 with cfg = {column passes, ring stages,
+// shared memory bytes, threads} of the launch, or an error for a pair not
+// built.
+int wn_layer_config(int C, int bm, int* cfg) {
+  return dispatch(C, bm, false, cfg, nullptr, nullptr);
+}
+
+// x (B, Tp, C); cond rows of 2C floats with row stride ldc; w1 and w2 the
+// bf16 hi/lo packs of ops/wavenet.py:wn_split_weights for this bm's NH;
+// b (2C); b_rs (2C), or (C) when last. Outputs x_out (B, Tp, C) (unused
+// when last) and skip (B, Tp, C). fp32 tensors 16-byte aligned.
 int wn_layer_f32(const float* x, int d, const float* cond, int ldc,
-                 const float* w_cat, const float* b, const float* w_rs,
+                 const void* w1, const float* b, const void* w2,
                  const float* b_rs, float* x_out, float* skip, int B, int Tp,
-                 int T, int C, int last, void* stream_handle) {
-  if (C % 64 != 0 || 1024 % C != 0 || ldc % 4 != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int M = B * Tp;
-  const int BM = kTileFloats / C;
-  const size_t smem = sizeof(float) * (kTileFloats + (size_t)kBK * 2 * C);
-  const int grid = (M + BM - 1) / BM;
-  cudaError_t err;
-  if (last) {
-    if ((err = cudaFuncSetAttribute(
-             wn_layer_kernel<true>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return err;
-    wn_layer_kernel<true><<<grid, kThreads, smem, stream>>>(
-        x, d, cond, ldc, w_cat, b, w_rs, b_rs, x_out, skip, M, T, Tp, C);
-  } else {
-    if ((err = cudaFuncSetAttribute(
-             wn_layer_kernel<false>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return err;
-    wn_layer_kernel<false><<<grid, kThreads, smem, stream>>>(
-        x, d, cond, ldc, w_cat, b, w_rs, b_rs, x_out, skip, M, T, Tp, C);
-  }
-  return cudaGetLastError();
+                 int T, int C, int bm, int last, void* stream_handle) {
+  if (ldc % 4 != 0 || T < 1 || T > Tp) return cudaErrorInvalidValue;
+  const Args args{x, cond, b, b_rs, static_cast<const uint16_t*>(w1),
+                  static_cast<const uint16_t*>(w2), x_out, skip, d, ldc,
+                  B * Tp, T, Tp};
+  int cfg[4];
+  return dispatch(C, bm, last != 0, cfg, &args,
+                  static_cast<cudaStream_t>(stream_handle));
 }
 
 }  // extern "C"

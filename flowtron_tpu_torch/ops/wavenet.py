@@ -11,16 +11,106 @@ Unlike the Pallas kernel, which takes three pre-shifted copies of x, this
 takes x once and the dilation ``d``: the kernel does the shift itself.
 
 On CUDA tensors ``wn_layer`` launches csrc/wavenet.cu (its note says what
-bounds it and how the design answers); on CPU tensors it runs
+bounds it and how the design answers), tiled as ``wn_plan`` says, with the
+weights split into bf16 hi/lo by ``wn_split_weights`` (once a layer:
+cached until a weight changes); on CPU tensors it runs
 ``wn_layer_reference``.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from flowtron_tpu_torch.ops import _build
+
+# csrc/wavenet.cu's builds: {C: {rows a block: (column passes, warps)}},
+# its k rows a chunk, the SMs of an H100 SXM and a block's shared memory
+WN_BUILDS = {64: {64: (1, 16)}, 128: {64: (1, 16)},
+             256: {64: (1, 16), 112: (2, 8), 128: (2, 8)}}
+KC, H100_SMS, SMEM_LIMIT = 16, 132, 232448
+
+WnPlan = namedtuple("WnPlan", "bm nh stages smem threads grid")
+WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block, the
+acts columns walked in ``nh`` passes, a ring of ``stages`` chunks,
+``smem`` bytes and ``threads`` a block, ``grid`` blocks."""
+
+
+def wn_smem_bytes(C, bm, nh, stages):
+    """csrc/wavenet.cu:smem_bytes: the weight ring, and the x ring and the
+    two A tiles beside z (one pass: z overlays them)."""
+    slot, xslot, abuf, zbuf = KC * (2 * C // nh) * 4, bm * KC * 4, \
+        bm * KC * 2, bm * C * 2
+    x_bytes = stages * xslot + 4 * abuf
+    return stages * slot + (max(2 * zbuf, x_bytes) if nh == 1
+                            else 2 * zbuf + x_bytes)
+
+
+def wn_plan(B, Tp, C, sms=None, bm=None):
+    """Tile B * Tp rows of width C for csrc/wavenet.cu on a card of ``sms``
+    SMs (None: an H100's 132), one block a SM. ``bm`` (rows a block) is
+    one of the builds for C; by default the one whose busiest SM takes the
+    fewest rows (ceil(blocks / sms) * bm), the larger on a tie. Returns a
+    WnPlan; raises ValueError for a shape the kernel does not take."""
+    if C not in WN_BUILDS:
+        raise ValueError(f"the kernel takes C in {sorted(WN_BUILDS)}, "
+                         f"got {C}")
+    if B < 1 or Tp < 1:
+        raise ValueError(f"B and Tp ({B}, {Tp}) must be positive")
+    sms = sms or H100_SMS
+    M = B * Tp
+    builds = WN_BUILDS[C]
+    if bm is None:
+        bm = min(builds, key=lambda r: (-(-(-(-M // r)) // sms) * r, -r))
+    elif bm not in builds:
+        raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
+    nh, warps = builds[bm]
+    stages = 4 if wn_smem_bytes(C, bm, nh, 4) <= SMEM_LIMIT else 3
+    return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages),
+                  32 * warps, -(-M // bm))
+
+
+def _split_bf16(w):
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+def wn_split_weights(w_cat, w_rs, nh):
+    """The kernel's bf16 hi/lo packs of a layer's weights for ``nh``
+    column passes: w1 (nh, 3C, 2, 2C / nh) from w_cat with its columns
+    paired per 8 channels ([tanh 8 | sigmoid 8], so packed column
+    16 q + 8 s + e is column s * C + 8 q + e), pass h the packed columns
+    h * 2C / nh on; w2 (np2, C, 2, n_rs / np2) from w_rs, np2 = nh, or
+    max(1, nh // 2) on the last layer. [..., 0, :] is hi = bf16(w),
+    [..., 1, :] lo = bf16(w - hi)."""
+    C = w_cat.shape[1] // 2
+    n_rs = w_rs.shape[1]
+    np2 = max(1, nh // 2) if n_rs == C else nh
+    perm = torch.arange(2 * C, device=w_cat.device).view(2, C // 8, 8) \
+        .transpose(0, 1).reshape(-1)
+    w1 = w_cat[:, perm].view(3 * C, nh, 2 * C // nh).transpose(0, 1)
+    w2 = w_rs.view(C, np2, n_rs // np2).transpose(0, 1)
+    return tuple(torch.stack(_split_bf16(w), dim=2).contiguous()
+                 for w in (w1, w2))
+
+
+# w_cat -> {nh: (w_rs, versions, w1, w2)}: a layer's packs, made once and
+# made again when a weight changes (its _version moves)
+_SPLITS = WeakIdKeyDictionary()
+
+
+def _packed(w_cat, w_rs, nh):
+    versions = (w_cat._version, w_rs._version)
+    per_nh = _SPLITS.setdefault(w_cat, {})
+    hit = per_nh.get(nh)
+    if hit is None or hit[0] is not w_rs or hit[1] != versions:
+        with torch.no_grad():
+            hit = (w_rs, versions) + wn_split_weights(w_cat, w_rs, nh)
+        per_nh[nh] = hit
+    return hit[2], hit[3]
 
 
 def wn_layer_reference(x, d, cond, w_cat, b, w_rs, b_rs, T):
@@ -44,15 +134,27 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wn_layer_f32.argtypes = [p, i, p, i, p, p, p, p, p, p,
-                                     i, i, i, i, i, p]
+                                     i, i, i, i, i, i, p]
         lib.wn_layer_f32.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.wn_layer_config.argtypes = [i, i, ip]
+        lib.wn_layer_config.restype = i
         lib.wavenet_error_string.argtypes = [i]
         lib.wavenet_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T):
+@functools.lru_cache(maxsize=None)
+def _built_config(C, bm):
+    """(nh, stages, smem, threads) of the library's build for (C, bm)."""
+    cfg = (ctypes.c_int * 4)()
+    if _lib().wn_layer_config(C, bm, cfg):
+        raise RuntimeError(f"csrc/wavenet.cu has no build for C={C}, bm={bm}")
+    return tuple(cfg)
+
+
+def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
     """One WN layer.
 
     Args:
@@ -62,6 +164,7 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T):
       w_cat: (3C, 2C) conv taps [w[:,:,0].T; w[:,:,1].T; w[:,:,2].T];
         b: (2C,). w_rs: (C, 2C), or (C, C) on the last layer; b_rs to match.
       T: valid time steps.
+      bm: rows a kernel block (``wn_plan`` picks by default).
 
     Returns (x_new (B, Tp, C) or None on the last layer, skip (B, Tp, C)).
     """
@@ -73,9 +176,8 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T):
     B, Tp, C = x.shape
     n_rs = w_rs.shape[1]
     last = n_rs == C
-    if C % 64 or 1024 % C:
-        raise ValueError(f"the kernel takes C a multiple of 64 dividing "
-                         f"1024, got {C}")
+    plan = wn_plan(B, Tp, C, torch.cuda.get_device_properties(
+        dev).multi_processor_count, bm)
     if not 0 < T <= Tp:
         raise ValueError(f"T={T} outside (0, {Tp}]")
     _build.check_tensor("x", x, (B, Tp, C), dev)
@@ -93,13 +195,17 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T):
     _build.check_tensor("b_rs", b_rs, (n_rs,), dev)
 
     lib = _lib()
+    if _built_config(C, plan.bm) != plan[1:5]:
+        raise RuntimeError(f"wn_plan {plan} disagrees with csrc/wavenet.cu's "
+                           f"build {_built_config(C, plan.bm)}")
+    w1, w2 = _packed(w_cat, w_rs, plan.nh)
     x_new = None if last else torch.empty_like(x)
     skip = torch.empty(B, Tp, C, device=dev)
     err = lib.wn_layer_f32(
-        x.data_ptr(), int(d), cond.data_ptr(), ldc, w_cat.data_ptr(),
-        b.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
+        x.data_ptr(), int(d), cond.data_ptr(), ldc, w1.data_ptr(),
+        b.data_ptr(), w2.data_ptr(), b_rs.data_ptr(),
         None if last else x_new.data_ptr(), skip.data_ptr(), B, Tp, int(T),
-        C, int(last), torch.cuda.current_stream(dev).cuda_stream)
+        C, plan.bm, int(last), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("wn_layer_f32 failed: "
                            + lib.wavenet_error_string(err).decode())

@@ -1,7 +1,9 @@
 """Kernel K2 (flowtron_tpu_torch/ops/wavenet.py) and the port's WaveGlow
 against the JAX package: the WN layer's plain version against the Pallas
-kernel in interpret mode, and the whole inverse pass with the same numpy
-latents. The zero-init end convs are perturbed."""
+kernel in interpret mode, an emulation of the CUDA kernel's split-bf16
+arithmetic against the same at flagship width, the kernel's plan and
+weight packs, and the whole inverse pass with the same numpy latents. The
+zero-init end convs are perturbed."""
 
 import numpy as np
 import pytest
@@ -17,7 +19,10 @@ from flowtron_tpu.vocoder.waveglow import (  # noqa: E402
     waveglow_infer_z as jax_waveglow_infer_z,
 )
 
-from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference  # noqa: E402
+from flowtron_tpu_torch.ops.wavenet import (  # noqa: E402
+    SMEM_LIMIT, WN_BUILDS, wn_layer, wn_layer_reference, wn_plan,
+    wn_split_weights,
+)
 from flowtron_tpu_torch.utils.convert import waveglow_from_jax  # noqa: E402
 from flowtron_tpu_torch.vocoder.waveglow import (  # noqa: E402
     _upsample_mel, load_waveglow, waveglow_init, waveglow_infer_z,
@@ -98,6 +103,162 @@ class TestWNLayer:
         torch.testing.assert_close(a[1][:, :T], b[1][:, :T])
 
 
+def _layer_inputs(rng, B, C, T, Tp, last):
+    """A WN layer's numpy inputs at init-like scales: x zero on pad rows."""
+    x = rng.standard_normal((B, Tp, C)).astype(np.float32)
+    x[:, T:] = 0
+    cond = rng.standard_normal((B, Tp, 2 * C)).astype(np.float32)
+    w_cat = (rng.standard_normal((3 * C, 2 * C))
+             / np.sqrt(3 * C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(2 * C)).astype(np.float32)
+    n_rs = C if last else 2 * C
+    w_rs = (rng.standard_normal((C, n_rs)) / np.sqrt(C)).astype(np.float32)
+    b_rs = (0.1 * rng.standard_normal(n_rs)).astype(np.float32)
+    return x, cond, w_cat, b, w_rs, b_rs
+
+
+def _split(a):
+    """fp32 -> (hi, lo) = (bf16(a), bf16(a - hi)), round to nearest even
+    as cvt.rn.bf16x2.f32, both returned as fp32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    hi = t.bfloat16().float()
+    return hi.numpy(), (t - hi).bfloat16().float().numpy()
+
+
+def _three_pass(a, w_hi, w_lo):
+    """a @ w as csrc/wavenet.cu sums it: a split into hi/lo, hi*hi +
+    hi*lo + lo*hi, each bf16 product exact in fp32, fp32 sums."""
+    a_hi, a_lo = _split(a)
+    return a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi
+
+
+def _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh):
+    """The kernel's arithmetic on the host, through the packs it reads
+    (``wn_split_weights``): acts in nh passes of paired columns, the gate
+    in fp32, z split again before the res/skip product."""
+    B, Tp, C = x.shape
+    M = B * Tp
+    w1, w2 = (w.float().numpy() for w in wn_split_weights(
+        torch.from_numpy(w_cat), torch.from_numpy(w_rs), nh))
+    t = np.arange(Tp)
+    taps = []
+    for shift in (-d, 0, d):
+        src = t + shift
+        ok = (src >= 0) & (src < T)
+        tap = np.zeros_like(x)
+        tap[:, ok] = x[:, src[ok]]
+        taps.append(tap)
+    a = np.concatenate(taps, axis=-1).reshape(M, 3 * C)
+    packed = np.concatenate([_three_pass(a, w1[h, :, 0], w1[h, :, 1])
+                             for h in range(nh)], axis=1)
+    # packed column 16 q + 8 s + e is acts column s * C + 8 q + e
+    acts = packed.reshape(M, C // 8, 2, 8).transpose(0, 2, 1, 3) \
+        .reshape(M, 2 * C) + b + cond.reshape(M, 2 * C)
+    z = np.tanh(acts[:, :C]) / (1 + np.exp(-acts[:, C:]))
+    rs = np.concatenate([_three_pass(z, w2[h, :, 0], w2[h, :, 1])
+                         for h in range(w2.shape[0])], axis=1) + b_rs
+    rs = rs.reshape(B, Tp, -1)
+    if w_rs.shape[1] == C:
+        return None, rs
+    valid = (t < T)[None, :, None]
+    return np.where(valid, x + rs[..., :C], 0), rs[..., C:]
+
+
+class TestKernelArithmetic:
+    """csrc/wavenet.cu's split-bf16 products, emulated on the CPU: the
+    kernel cannot run here, but the arithmetic it does can."""
+
+    @pytest.mark.parametrize("last", [False, True])
+    @pytest.mark.parametrize("d", [1, 128])
+    def test_emulation_matches_pallas_interpret(self, d, last):
+        """At flagship width (C = 256) three bf16 passes stay within K2's
+        1e-4 of the output scale of JAX's kernel, for both column-pass
+        layouts the kernel is built with."""
+        rng = np.random.default_rng(7 + d)
+        B, C, T, Tp, tile = 2, 256, 300, 384, 128
+        x, cond, w_cat, b, w_rs, b_rs = _layer_inputs(rng, B, C, T, Tp, last)
+        xj, M = jnp.asarray(x), B * Tp
+        ref = wn_layer_fused(
+            _shift_t(xj, d).reshape(M, C), xj.reshape(M, C),
+            _shift_t(xj, -d).reshape(M, C), jnp.asarray(cond).reshape(M, -1),
+            jnp.asarray(w_cat), jnp.asarray(b), jnp.asarray(w_rs),
+            jnp.asarray(b_rs), T=T, Tp=Tp, last=last, tile=tile,
+            interpret=True)
+        for nh in sorted({nh for nh, _ in WN_BUILDS[C].values()}):
+            ours = _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh)
+            for o, r in zip(ours, ref):
+                if o is None:
+                    continue
+                r = np.asarray(r).reshape(o.shape)
+                assert np.abs(o - r).max() <= 1e-4 * max(1.0, np.abs(r).max())
+            if last:
+                assert ours[0] is None
+            else:
+                assert np.all(ours[0][:, T:] == 0)
+
+    def test_split_reconstructs_to_2e_16(self):
+        """hi + lo gives each operand back to 2^-16 of its magnitude (hi
+        carries 8 bits, lo the next 8), so the dropped lo*lo term is below
+        2^-16 of a product."""
+        a = np.random.default_rng(3).standard_normal(100_000).astype(
+            np.float32) * np.float32(10.0) ** np.random.default_rng(4) \
+            .integers(-6, 6, 100_000).astype(np.float32)
+        hi, lo = _split(a)
+        assert np.all(np.abs(a.astype(np.float64) - hi - lo)
+                      <= 2.0 ** -16 * np.abs(a))
+        assert np.all(np.abs(lo) <= 2.0 ** -8 * np.abs(a))
+
+    @pytest.mark.parametrize("nh", [1, 2])
+    @pytest.mark.parametrize("last", [False, True])
+    def test_packs_read_back_at_the_kernel_index(self, nh, last):
+        """The packs hold w's hi/lo where csrc/wavenet.cu reads them: w1's
+        pass h, row k, packed column p (channel block q = p // 16, half
+        s = p // 8 % 2) is w_cat[k, s * C + 8 q + p % 8]; w2's pass h,
+        column c is w_rs[k, h * W2 + c]."""
+        C = 64
+        rng = np.random.default_rng(5)
+        w_cat = torch.from_numpy(rng.standard_normal((3 * C, 2 * C))
+                                 .astype(np.float32))
+        n_rs = C if last else 2 * C
+        w_rs = torch.from_numpy(rng.standard_normal((C, n_rs))
+                                .astype(np.float32))
+        w1, w2 = wn_split_weights(w_cat, w_rs, nh)
+        np2 = max(1, nh // 2) if last else nh
+        W1, W2 = 2 * C // nh, n_rs // np2
+        assert w1.shape == (nh, 3 * C, 2, W1) and w1.dtype == torch.bfloat16
+        assert w2.shape == (np2, C, 2, W2) and w2.is_contiguous()
+        p = torch.arange(2 * C)
+        cols = (p // 8 % 2) * C + 8 * (p // 16) + p % 8
+        for w, pack, width, col_of in ((w_cat, w1, W1, cols),
+                                       (w_rs, w2, W2, torch.arange(n_rs))):
+            for h in range(pack.shape[0]):
+                sel = w[:, col_of[h * width:(h + 1) * width]]
+                hi, lo = pack[h, :, 0].float(), pack[h, :, 1].float()
+                assert torch.equal(hi, sel.bfloat16().float())
+                assert torch.equal(lo, (sel - hi).bfloat16().float())
+
+    def test_plan(self):
+        """Every build fits a block's shared memory, the grid covers every
+        row once, the default at B=1 and B=8 is the 112-row build, and a
+        width or block size without a build is refused by name."""
+        for C, builds in WN_BUILDS.items():
+            for bm, (nh, warps) in builds.items():
+                for B, Tp in ((1, 12800), (8, 12800), (2, 384), (1, 1)):
+                    plan = wn_plan(B, Tp, C, bm=bm)
+                    assert plan.smem <= SMEM_LIMIT and plan.stages >= 3
+                    assert (plan.nh, plan.threads) == (nh, 32 * warps)
+                    assert plan.grid * bm >= B * Tp > (plan.grid - 1) * bm
+        assert wn_plan(1, 12800, 256).bm == 112
+        assert wn_plan(8, 12800, 256).bm == 112
+        assert wn_plan(1, 12800, 256).grid == 115
+        with pytest.raises(ValueError, match="C in"):
+            wn_plan(1, 128, 96)
+        with pytest.raises(ValueError, match="not built"):
+            wn_plan(1, 128, 64, bm=112)
+        with pytest.raises(ValueError, match="positive"):
+            wn_plan(0, 128, 256)
+
+
 class TestWaveGlow:
     def test_upsample_matches_jax(self, wg):
         params, _, model, _ = wg
@@ -155,12 +316,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("last", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, last):
+@pytest.mark.parametrize("C,B,d,last", [(64, 2, 4, False), (64, 2, 4, True),
+                                        (256, 8, 8, False),
+                                        (256, 2, 128, True)])
+def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last):
     """K2 against its plain version, with pad rows and a strided cond
-    slice (C = 64, the smallest width the kernel takes)."""
+    slice: C = 64 (the smallest width built), the flagship C = 256 at the
+    server's largest batch, and its last layer (d = 128); pad rows zero,
+    two calls bitwise equal."""
     g = torch.Generator().manual_seed(0)
-    B, C, T, Tp, d = 2, 64, 300, 384, 4
+    T, Tp = 300, 384
     x = torch.randn(B, Tp, C, generator=g)
     x[:, T:] = 0
     cond_all = torch.randn(B, Tp, 6 * C, generator=g)
@@ -174,11 +339,13 @@ def test_kernel_matches_plain_on_card(cuda_device, last):
     dev_args = [x.to(cuda_device), d, cond_dev,
                 *[w.to(cuda_device) for w in weights], T]
     ours = wn_layer(*dev_args)
-    for a, r in zip(ours, ref):
+    again = wn_layer(*dev_args)
+    for a, r, a2 in zip(ours, ref, again):
         if r is None:
-            assert a is None
+            assert a is None and a2 is None
         else:
             torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=0)
+            assert torch.equal(a, a2)
     if not last:
         assert bool((ours[0][:, T:] == 0).all())
     with pytest.raises(TypeError, match="float32"):
