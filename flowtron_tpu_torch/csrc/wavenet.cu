@@ -48,19 +48,19 @@
 //   product stream through the same ring, its first chunks already in
 //   flight during the first product's last ones.
 // - The epilogues load an m-tile's cond (gate) or x (residual) values
-//   together, and those rows are prefetched into L2 during the chunks
-//   before; tanh and sigmoid are branch-free (ex2.approx, ~1e-6).
+//   together before its arithmetic; tanh and sigmoid are branch-free
+//   (ex2.approx, ~1e-6).
 // - Shared-memory tiles are XOR-swizzled by 16-byte piece, so ldmatrix
 //   and the stores of z meet no bank conflicts.
 // - Pad rows (t >= T) of x' are re-zeroed on the store, so a bias never
 //   leaks into valid rows through the next layer's shift. Every sum has
 //   one owner and a fixed order (no atomics): two calls are bitwise equal.
 // What holds it (PERF.md, PR 9): on an H100 a flagship layer at B=1 runs
-// at about a quarter of the bf16 peak. Taking the mma's, the copies or the
-// gate out one at a time each saves only 15-25% of the time: a chunk's
-// barrier, ldmatrix traffic and the epilogues add up in series, and 16
-// warps a block instead of 8 did not hide them. wgmma (B and z straight
-// from shared memory, no ldmatrix) fed by TMA is the next step.
+// at about a fifth of the bf16 peak. Neither the tensor cores nor L2 set
+// that: a chunk's copies, barrier, ldmatrix traffic and the epilogues add
+// up in series; 16 warps a block instead of 8, a deeper ring and wgmma
+// in place of mma.sync did not hide them. A producer warp feeding a
+// decoupled ring is the next step.
 // BM, NH and the warps come from ops/wavenet.py:wn_plan and WN_BUILDS;
 // each (C, BM) is instantiated below.
 
@@ -101,9 +101,6 @@ __device__ __forceinline__ float sigmoid_(float a) {
   return __frcp_rn(1.f + __expf(-a));
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
 
 // shared memory of a block: S weight stages, and the x stages and A
 // tiles beside z (NH = 1: z overlays them, idle by then)
@@ -399,26 +396,6 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     }
   };
 
-  // the epilogues' rows into L2 ahead of them: during a first-product
-  // pass's first chunks its cond lines (BM rows x two halves of C / NH
-  // floats), during the res/skip product's first chunks the x rows
-  auto prefetch = [&](int gc) {
-    if (gc < K::P1_CHUNKS) {
-      const int h = gc / K::NC1, kc = gc - h * K::NC1;
-      constexpr int LPH = C / NH / 32;    // 128-byte lines a half-row
-      const int L = kc * kThreads + tid;
-      const int r = L / (2 * LPH);
-      if (r < BM && row0 + r < M)
-        prefetch_l2(cond + (size_t)(row0 + r) * ldc + (L / LPH & 1) * C
-                    + h * (C / NH) + (L % LPH) * 32);
-    } else if (!LAST) {
-      const int L = (gc - K::P1_CHUNKS) * kThreads + tid;
-      const int r = L / (C / 32);
-      if (r < BM && row0 + r < M)
-        prefetch_l2(x + (size_t)(row0 + r) * C + (L % (C / 32)) * 32);
-    }
-  };
-
   // the A operands' lane addresses: lane l reads row 16 i + (l & 15),
   // k half l >> 4 of the chunk
   const int ar = lane & 15, ak = lane >> 4;
@@ -433,7 +410,6 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     cp_async_wait<S - 3>();   // this thread's copies of chunks <= gc + 1
     __syncthreads();          // everyone's chunk gc; slot gc - 1 is free
     issue(gc + S - 1);
-    prefetch(gc);
     const unsigned char* slot = ring + (gc % S) * K::SLOT;
     if (gc < K::P1_CHUNKS) {
       if (gc + 1 < K::P1_CHUNKS) convert(gc + 1);
