@@ -26,9 +26,9 @@
 //
 // The design (mma.sync m16n8k16, one block a SM):
 // - A block owns BM = 16 MT rows and all 2C columns of acts, walked in NH
-//   passes of 2C / NH columns (NH = 2 lets BM reach 112 or 128 rows, whose
-//   accumulators would not fit the registers in one pass). Its 8 WM warps
-//   are (wm, wn): rows wm * BM / WM on, an eighth of the pass's columns.
+//   passes of 2C / NH columns (NH = 2 lets BM reach 112 rows, whose
+//   accumulators would not fit the registers in one pass). Each of its 8
+//   warps takes every row and an eighth of the pass's columns.
 //   The weights are packed by the host (ops/wavenet.py:wn_split_weights),
 //   split into bf16 hi/lo once a layer, with W_cat's columns paired so
 //   that n-tile 2j is the tanh half and 2j + 1 the sigmoid half of the
@@ -61,8 +61,8 @@
 // up in series; 16 warps a block instead of 8, a deeper ring and wgmma
 // in place of mma.sync did not hide them. A producer warp feeding a
 // decoupled ring is the next step.
-// BM, NH and the warps come from ops/wavenet.py:wn_plan and WN_BUILDS;
-// each (C, BM) is instantiated below.
+// BM and NH come from ops/wavenet.py:wn_plan and WN_BUILDS; each (C, BM)
+// is instantiated below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,11 +111,11 @@ constexpr int smem_bytes(int nh, int s, int slot, int xslot, int abuf,
                              : 2 * zbuf + s * xslot + 4 * abuf);
 }
 
-template <int MT, int NT, int NH, int WM, bool LAST>
+constexpr int kThreads = 256;   // 8 warps
+
+template <int MT, int NT, int NH, bool LAST>
 struct Cfg {
   static constexpr int BM = 16 * MT;
-  static constexpr int THREADS = 256 * WM;   // 8 WM warps
-  static constexpr int MTW = MT / WM;        // m-tiles a warp
   static constexpr int C = 32 * NT * NH;
   static constexpr int W1 = 2 * C / NH;   // packed acts columns a pass
   static constexpr int NP2 = LAST ? (NH > 1 ? NH / 2 : 1) : NH;
@@ -135,11 +135,10 @@ struct Cfg {
   static_assert(W2 <= W1 && NT2 <= NT && NT2 >= 1, "rs tiling");
   static_assert((W1 & (W1 - 1)) == 0 && (W2 & (W2 - 1)) == 0, "pow2");
   static_assert(SMEM <= kMaxSmem, "shared memory");
-  static_assert(MT % WM == 0, "rows a warp");
 };
 
-template <int MT, int NT, int NH, int WM, bool LAST>
-__global__ void __launch_bounds__(256 * WM, 1)
+template <int MT, int NT, int NH, bool LAST>
+__global__ void __launch_bounds__(kThreads, 1)
 wn_layer_kernel(const float* __restrict__ x, int d,
                 const float* __restrict__ cond, int ldc,
                 const uint16_t* __restrict__ w1,
@@ -147,9 +146,8 @@ wn_layer_kernel(const float* __restrict__ x, int d,
                 const uint16_t* __restrict__ w2,
                 const float* __restrict__ b_rs, float* __restrict__ x_out,
                 float* __restrict__ skip, int M, int T, int Tp) {
-  using K = Cfg<MT, NT, NH, WM, LAST>;
-  constexpr int C = K::C, BM = K::BM, S = K::S, MTW = K::MTW;
-  constexpr int kThreads = K::THREADS;
+  using K = Cfg<MT, NT, NH, LAST>;
+  constexpr int C = K::C, BM = K::BM, S = K::S;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* zhi = smem + S * K::SLOT;
@@ -157,9 +155,7 @@ wn_layer_kernel(const float* __restrict__ x, int d,
   unsigned char* xring = smem + K::XOFF;
   unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo]
 
-  // warp (wm, wn): m-tiles wm * MTW on, an eighth of a pass's columns
-  const int tid = threadIdx.x, lane = tid & 31, wn = (tid >> 5) & 7,
-            wm = tid >> 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * BM;
 
   // the x pieces this thread copies and splits: 16 bytes (4 channels) of
@@ -240,10 +236,10 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     }
   };
 
-  float acc[MTW][NT][4];
+  float acc[MT][NT][4];
   auto zero = [&]() {
 #pragma unroll
-    for (int i = 0; i < MTW; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -253,47 +249,31 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 
   // acc[i][j] += A(m-tile i) * B(n-tile j), three bf16 passes; B: n-tile j
   // of this warp in a weight stage of rows [hi w | lo w]; A rows from
-  // a_at(i): this lane's ldmatrix addresses of the hi and lo tiles. mma's
-  // issue in program order (asm volatile), so the m-tiles go in groups of
-  // MG and each pass runs over the whole group before the next pass: an
-  // accumulator comes back after MG * nt independent mma's, not at once.
+  // a_at(i): this lane's ldmatrix addresses of the hi and lo tiles
   auto mma_chunk = [&](const unsigned char* slot, int w, int nt,
                        auto a_at) {
-    constexpr int MG = MTW < 4 / WM ? MTW : 4 / WM;
     uint32_t bf[NT][4];
     const int k = lane & 15;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
-        const int p = wn * nt + j + (lane >> 4) * (w >> 3);
+        const int p = warp * nt + j + (lane >> 4) * (w >> 3);
         ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
       }
     }
 #pragma unroll
-    for (int i0 = 0; i0 < MTW; i0 += MG) {
-      uint32_t a[MG][2][4];
+    for (int i = 0; i < MT; ++i) {
+      uint32_t ah[4], al[4];
+      const unsigned char *ph, *pl;
+      a_at(i, ph, pl);
+      ldmatrix_x4<false>(ah, ph);
+      ldmatrix_x4<false>(al, pl);
 #pragma unroll
-      for (int ii = 0; ii < MG; ++ii) {
-        if (i0 + ii < MTW) {
-          const unsigned char *ph, *pl;
-          a_at(wm * MTW + i0 + ii, ph, pl);
-          ldmatrix_x4<false>(a[ii][0], ph);
-          ldmatrix_x4<false>(a[ii][1], pl);
-        }
-      }
-      // hi * hi, hi * lo, lo * hi
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass) {
-#pragma unroll
-        for (int ii = 0; ii < MG; ++ii) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            if (i0 + ii < MTW && j < nt) {
-              const int bo = pass == 1 ? 2 : 0;
-              mma_bf16(acc[i0 + ii][j], a[ii][pass == 2 ? 1 : 0],
-                       bf[j][bo], bf[j][bo + 1]);
-            }
-          }
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          mma_bf16(acc[i][j], ah, bf[j][0], bf[j][1]);   // hi * hi
+          mma_bf16(acc[i][j], ah, bf[j][2], bf[j][3]);   // hi * lo
+          mma_bf16(acc[i][j], al, bf[j][0], bf[j][1]);   // lo * hi
         }
       }
     }
@@ -308,17 +288,16 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     float2 bt[NT / 2], bs[NT / 2];
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
-      ch[j] = 8 * (h * (C / NH / 8) + wn * (NT / 2) + j) + 2 * (lane & 3);
+      ch[j] = 8 * (h * (C / NH / 8) + warp * (NT / 2) + j) + 2 * (lane & 3);
       bt[j] = *reinterpret_cast<const float2*>(b + ch[j]);
       bs[j] = *reinterpret_cast<const float2*>(b + C + ch[j]);
     }
 #pragma unroll
-    for (int i = 0; i < MTW; ++i) {
+    for (int i = 0; i < MT; ++i) {
       float2 ct[2][NT / 2], cs[2][NT / 2];
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int g = min(row0 + 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr,
-                          M - 1);
+        const int g = min(row0 + 16 * i + (lane >> 2) + 8 * hr, M - 1);
         const float* crow = cond + (size_t)g * ldc;
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
@@ -328,7 +307,7 @@ wn_layer_kernel(const float* __restrict__ x, int d,
       }
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int r = 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr;
+        const int r = 16 * i + (lane >> 2) + 8 * hr;
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
           const float z0 =
@@ -357,16 +336,16 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     float2 br[K::NT2];
 #pragma unroll
     for (int j = 0; j < K::NT2; ++j) {
-      col[j] = h * K::W2 + (wn * K::NT2 + j) * 8 + 2 * (lane & 3);
+      col[j] = h * K::W2 + (warp * K::NT2 + j) * 8 + 2 * (lane & 3);
       br[j] = *reinterpret_cast<const float2*>(b_rs + col[j]);
     }
 #pragma unroll
-    for (int i = 0; i < MTW; ++i) {
+    for (int i = 0; i < MT; ++i) {
       int g[2];
       float2 xv[2][K::NT2];
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        g[hr] = row0 + 16 * (wm * MTW + i) + (lane >> 2) + 8 * hr;
+        g[hr] = row0 + 16 * i + (lane >> 2) + 8 * hr;
         const float* xrow = x + (size_t)min(g[hr], M - 1) * C;
 #pragma unroll
         for (int j = 0; j < K::NT2; ++j)
@@ -453,40 +432,38 @@ struct Args {
   int d, ldc, M, T, Tp;
 };
 
-template <int MT, int NT, int NH, int WM, bool LAST>
+template <int MT, int NT, int NH, bool LAST>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using K = Cfg<MT, NT, NH, WM, LAST>;
-  auto* k = wn_layer_kernel<MT, NT, NH, WM, LAST>;
+  using K = Cfg<MT, NT, NH, LAST>;
+  auto* k = wn_layer_kernel<MT, NT, NH, LAST>;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err) return err;
   const int grid = (a.M + K::BM - 1) / K::BM;
-  k<<<grid, K::THREADS, K::SMEM, stream>>>(a.x, a.d, a.cond, a.ldc, a.w1,
-                                           a.b, a.w2, a.b_rs, a.x_out,
-                                           a.skip, a.M, a.T, a.Tp);
+  k<<<grid, kThreads, K::SMEM, stream>>>(a.x, a.d, a.cond, a.ldc, a.w1, a.b,
+                                         a.w2, a.b_rs, a.x_out, a.skip, a.M,
+                                         a.T, a.Tp);
   return cudaGetLastError();
 }
 
-// The (C, bm) pairs built, with their passes NH, ring stages, shared
-// memory and threads; launches the layer when args is given.
+// The (C, bm) pairs built, with their passes NH, ring stages and shared
+// memory; launches the layer when args is given.
 cudaError_t dispatch(int C, int bm, bool last, int* cfg, const Args* args,
                      cudaStream_t stream) {
-#define WN_CASE(C_, BM_, NT_, NH_, WM_)                                    \
+#define WN_CASE(C_, BM_, NT_, NH_)                                         \
   if (C == C_ && bm == BM_) {                                              \
-    using K = Cfg<BM_ / 16, NT_, NH_, WM_, false>;                         \
+    using K = Cfg<BM_ / 16, NT_, NH_, false>;                              \
     cfg[0] = NH_;                                                          \
     cfg[1] = K::S;                                                         \
     cfg[2] = K::SMEM;                                                      \
-    cfg[3] = K::THREADS;                                                   \
     if (!args) return cudaSuccess;                                         \
-    return last ? launch<BM_ / 16, NT_, NH_, WM_, true>(*args, stream)     \
-                : launch<BM_ / 16, NT_, NH_, WM_, false>(*args, stream);   \
+    return last ? launch<BM_ / 16, NT_, NH_, true>(*args, stream)          \
+                : launch<BM_ / 16, NT_, NH_, false>(*args, stream);        \
   }
-  WN_CASE(64, 64, 2, 1, 2)
-  WN_CASE(128, 64, 4, 1, 2)
-  WN_CASE(256, 64, 8, 1, 2)
-  WN_CASE(256, 112, 4, 2, 1)
-  WN_CASE(256, 128, 4, 2, 1)
+  WN_CASE(64, 64, 2, 1)
+  WN_CASE(128, 64, 4, 1)
+  WN_CASE(256, 64, 8, 1)
+  WN_CASE(256, 112, 4, 2)
 #undef WN_CASE
   return cudaErrorInvalidValue;
 }
@@ -500,8 +477,7 @@ const char* wavenet_error_string(int err) {
 }
 
 // The build's (C, bm) pairs: 0 with cfg = {column passes, ring stages,
-// shared memory bytes, threads} of the launch, or an error for a pair not
-// built.
+// shared memory bytes} of the launch, or an error for a pair not built.
 int wn_layer_config(int C, int bm, int* cfg) {
   return dispatch(C, bm, false, cfg, nullptr, nullptr);
 }
@@ -518,7 +494,7 @@ int wn_layer_f32(const float* x, int d, const float* cond, int ldc,
   const Args args{x, cond, b, b_rs, static_cast<const uint16_t*>(w1),
                   static_cast<const uint16_t*>(w2), x_out, skip, d, ldc,
                   B * Tp, T, Tp};
-  int cfg[4];
+  int cfg[3];
   return dispatch(C, bm, last != 0, cfg, &args,
                   static_cast<cudaStream_t>(stream_handle));
 }

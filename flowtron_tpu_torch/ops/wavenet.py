@@ -27,16 +27,15 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from flowtron_tpu_torch.ops import _build
 
-# csrc/wavenet.cu's builds: {C: {rows a block: (column passes, warps)}},
-# its k rows a chunk, the SMs of an H100 SXM and a block's shared memory
-WN_BUILDS = {64: {64: (1, 16)}, 128: {64: (1, 16)},
-             256: {64: (1, 16), 112: (2, 8), 128: (2, 8)}}
+# csrc/wavenet.cu's builds: {C: {rows a block: column passes}}, its k rows
+# a chunk, the SMs of an H100 SXM and a block's shared memory
+WN_BUILDS = {64: {64: 1}, 128: {64: 1}, 256: {64: 1, 112: 2}}
 KC, H100_SMS, SMEM_LIMIT = 16, 132, 232448
 
-WnPlan = namedtuple("WnPlan", "bm nh stages smem threads grid")
-WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block, the
-acts columns walked in ``nh`` passes, a ring of ``stages`` chunks,
-``smem`` bytes and ``threads`` a block, ``grid`` blocks."""
+WnPlan = namedtuple("WnPlan", "bm nh stages smem grid")
+WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block of 256
+threads, the acts columns walked in ``nh`` passes, a ring of ``stages``
+chunks, ``smem`` bytes a block, ``grid`` blocks."""
 
 
 def wn_smem_bytes(C, bm, nh, stages):
@@ -67,10 +66,10 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
         bm = min(builds, key=lambda r: (-(-(-(-M // r)) // sms) * r, -r))
     elif bm not in builds:
         raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
-    nh, warps = builds[bm]
+    nh = builds[bm]
     stages = 4 if wn_smem_bytes(C, bm, nh, 4) <= SMEM_LIMIT else 3
     return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages),
-                  32 * warps, -(-M // bm))
+                  -(-M // bm))
 
 
 def _split_bf16(w):
@@ -147,8 +146,8 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _built_config(C, bm):
-    """(nh, stages, smem, threads) of the library's build for (C, bm)."""
-    cfg = (ctypes.c_int * 4)()
+    """(nh, stages, smem) of the library's build for (C, bm)."""
+    cfg = (ctypes.c_int * 3)()
     if _lib().wn_layer_config(C, bm, cfg):
         raise RuntimeError(f"csrc/wavenet.cu has no build for C={C}, bm={bm}")
     return tuple(cfg)
@@ -195,7 +194,7 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
     _build.check_tensor("b_rs", b_rs, (n_rs,), dev)
 
     lib = _lib()
-    if _built_config(C, plan.bm) != plan[1:5]:
+    if _built_config(C, plan.bm) != plan[1:4]:
         raise RuntimeError(f"wn_plan {plan} disagrees with csrc/wavenet.cu's "
                            f"build {_built_config(C, plan.bm)}")
     w1, w2 = _packed(w_cat, w_rs, plan.nh)
