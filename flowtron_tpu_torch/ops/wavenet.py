@@ -31,6 +31,9 @@ from flowtron_tpu_torch.ops import _build
 # a chunk, the SMs of an H100 SXM and a block's shared memory
 WN_BUILDS = {64: {64: 1}, 128: {64: 1}, 256: {64: 1, 112: 2}}
 KC, H100_SMS, SMEM_LIMIT = 16, 132, 232448
+# a row's time in a block of two column passes over one pass (it stages x
+# twice), measured on an H100 at C = 256 (64 against 112 rows a block)
+TWO_PASS_ROW_COST = 1.09
 
 WnPlan = namedtuple("WnPlan", "bm nh stages smem grid")
 WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block of 256
@@ -52,8 +55,11 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
     """Tile B * Tp rows of width C for csrc/wavenet.cu on a card of ``sms``
     SMs (None: an H100's 132), one block a SM. ``bm`` (rows a block) is
     one of the builds for C; by default the one whose busiest SM takes the
-    fewest rows (ceil(blocks / sms) * bm), the larger on a tie. Returns a
-    WnPlan; raises ValueError for a shape the kernel does not take."""
+    least time, ceil(blocks / sms) * bm rows at TWO_PASS_ROW_COST where
+    the build walks the columns in two passes, the larger on a tie: at
+    C = 256, 112 rows at B=1 (one wave of 115 blocks) and 64 at B=8.
+    Returns a WnPlan; raises ValueError for a shape the kernel does not
+    take."""
     if C not in WN_BUILDS:
         raise ValueError(f"the kernel takes C in {sorted(WN_BUILDS)}, "
                          f"got {C}")
@@ -63,7 +69,9 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
     M = B * Tp
     builds = WN_BUILDS[C]
     if bm is None:
-        bm = min(builds, key=lambda r: (-(-(-(-M // r)) // sms) * r, -r))
+        bm = min(builds, key=lambda r: (
+            -(-(-(-M // r)) // sms) * r
+            * (TWO_PASS_ROW_COST if builds[r] == 2 else 1), -r))
     elif bm not in builds:
         raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
     nh = builds[bm]

@@ -239,8 +239,9 @@ class TestKernelArithmetic:
 
     def test_plan(self):
         """Every build fits a block's shared memory, the grid covers every
-        row once, the default at B=1 and B=8 is the 112-row build, and a
-        width or block size without a build is refused by name."""
+        row once, the default is the 112-row build at B=1 (one wave) and
+        the 64-row one at B=8 and for short inputs, and a width or block
+        size without a build is refused by name."""
         for C, builds in WN_BUILDS.items():
             for bm, nh in builds.items():
                 for B, Tp in ((1, 12800), (8, 12800), (2, 384), (1, 1)):
@@ -249,8 +250,9 @@ class TestKernelArithmetic:
                     assert plan.nh == nh
                     assert plan.grid * bm >= B * Tp > (plan.grid - 1) * bm
         assert wn_plan(1, 12800, 256).bm == 112
-        assert wn_plan(8, 12800, 256).bm == 112
         assert wn_plan(1, 12800, 256).grid == 115
+        assert wn_plan(8, 12800, 256).bm == 64
+        assert wn_plan(1, 3840, 256).bm == 64
         with pytest.raises(ValueError, match="C in"):
             wn_plan(1, 128, 96)
         with pytest.raises(ValueError, match="not built"):
