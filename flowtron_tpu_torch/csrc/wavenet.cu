@@ -55,7 +55,7 @@
 // - Pad rows (t >= T) of x' are re-zeroed on the store, so a bias never
 //   leaks into valid rows through the next layer's shift. Every sum has
 //   one owner and a fixed order (no atomics): two calls are bitwise equal.
-// What holds it (PERF.md, PR 9): on an H100 a flagship layer at B=1 runs
+// What holds it (PERF.md §6, K2): on an H100 a flagship layer at B=1 runs
 // at about a fifth of the bf16 peak. Neither the tensor cores nor L2 set
 // that: a chunk's copies, barrier, ldmatrix traffic and the epilogues add
 // up in series; 16 warps a block instead of 8, a deeper ring and wgmma
