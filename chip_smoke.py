@@ -83,6 +83,16 @@ QUALITY_BAR = {"w8": 0.005, "w4": 0.04, "w8a8": 0.03}
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12,
               "tf32": 495e12}
+# special-function results (tanh, exp, reciprocal: MUFU ops) a second:
+# derived, not a published peak; 132 SMs x 16 a clock (CUDA's throughput
+# table for compute capability 9.0) x 1.98 GHz, the card's top SM clock
+SFU_OPS_S = 132 * 16 * 1.98e9
+# fp32 FMA-pipe instructions (FFMA, FADD, FMUL) a second: 132 SMs x 128
+# lanes x 1.98 GHz, half PEAK_OPS_S["fp32"], which counts an FFMA as two
+FMA_INSTR_S = 132 * 128 * 1.98e9
+# FMA-pipe instructions of a reciprocal without the special-function
+# pipe: three Newton steps of two FFMAs (csrc/attention.cu:rcp_newton)
+NEWTON_RCP_FMA = 6
 # (K, N) of kernel K4's calls on the flagship decoder's path: the nine
 # per-frame dots of one flow, then the key/value precompute (once a flow)
 K4_FRAME_KN = [(80, 4096), (1024, 4096), (1664, 4096), (1024, 4096),
@@ -162,11 +172,20 @@ def paired_ms(kernel_fn, plain_fn, reps=1, plain_reps=1, rounds=3):
             statistics.median(runs[0::4] + runs[3::4]), runs, out_k, out_p)
 
 
+def warm_eager_ms(fn, reps=20, rounds=3):
+    """Median over ``rounds`` of the ms per call of ``reps`` eager calls of
+    fn(), after one warm-up call: device time with the host's launch time
+    in it, as a training step pays it."""
+    fn()
+    return statistics.median(cuda_ms(fn, reps)[0] for _ in range(rounds))
+
+
 def graph_times(fns, side, reps=20, rounds=3):
     """Device time per call of each fn in ``fns``: ``reps`` calls captured
     in one CUDA graph each and replayed in turns (the first fn, the
     second, ... then the reverse), ``rounds`` times; host dispatch does
-    not count. Returns each fn's median ms per call and its last output.
+    not count. Returns each fn's median ms per call, its last output and its
+    runs' ms per call in order.
     For kernels that finish faster than Python can launch them. ``side``
     is the stream for the warm-up calls: one for the whole run, because
     cuBLAS keeps a workspace for every stream it has seen."""
@@ -189,7 +208,7 @@ def graph_times(fns, side, reps=20, rounds=3):
         for i in order + order[::-1]:
             ms, _ = cuda_ms(graphs[i].replay)
             runs[i].append(ms / reps)
-    return [statistics.median(r) for r in runs], outs
+    return [statistics.median(r) for r in runs], outs, runs
 
 
 def bound(n_bytes, n_ops, kind="fp32"):
@@ -201,6 +220,23 @@ def bound(n_bytes, n_ops, kind="fp32"):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     ops = n_ops if isinstance(n_ops, dict) else {kind: n_ops}
     t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_bound(n_bytes, fma_instr, recips):
+    """K3's least time (ms): the larger of the bytes over HBM's rate and
+    the pipes' time. ``fma_instr`` FMA-pipe instructions must run; each of
+    ``recips`` reciprocals runs either as one special-function op or as
+    NEWTON_RCP_FMA FMA-pipe instructions, and the pipes run at once, so
+    the least time shares the reciprocals out so that both finish
+    together. Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    # share f on the FMA pipe: (1 - f) R / S = (I + 6 f R) / F
+    ratio = FMA_INSTR_S / SFU_OPS_S
+    f = (recips * ratio - fma_instr) / (recips * (ratio + NEWTON_RCP_FMA))
+    f = min(1.0, max(0.0, f))
+    t_ops = max((1 - f) * recips / SFU_OPS_S,
+                (fma_instr + NEWTON_RCP_FMA * f * recips) / FMA_INSTR_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -692,7 +728,7 @@ def k4_case(M, K, N, a8, g, side, dev):
     x = torch.randn(M, K, generator=g).to(dev)
     q, s = leaf.q.to(dev), leaf.s.to(dev)
     w = q.float() * s[:, None]
-    (k_ms, p_ms, lib_ms), (out_k, out_p, _) = graph_times([
+    (k_ms, p_ms, lib_ms), (out_k, out_p, _), _ = graph_times([
         lambda: quantized_matmul(x, q, s, a8=a8),
         lambda: quantized_matmul_reference(x, q, s, a8=a8),
         lambda: torch.nn.functional.linear(x, w)], side)
@@ -940,77 +976,124 @@ def train_args(corpus, out_dir, fp16_run):
             f"train_config.fp16_run={fp16_run}"]
 
 
+def k3_inputs(b, tq, tk, D, dtype, guarded, g, dev):
+    """Q, K, v and ds of one K3 case; ``guarded`` puts a share of Q and K
+    values beyond the fast form's |x| <= 20 (every 7th query row over the
+    first 100 columns, every 5th key row over columns 50-199, drawn at
+    scale 30)."""
+    q = 0.5 * torch.randn(b, tq, D, generator=g)
+    k = 0.5 * torch.randn(b, tk, D, generator=g)
+    if guarded:
+        q[:, ::7, :100] = 30 * torch.randn(q[:, ::7, :100].shape, generator=g)
+        k[:, ::5, 50:200] = 30 * torch.randn(k[:, ::5, 50:200].shape,
+                                             generator=g)
+    v = 0.1 * torch.randn(D, generator=g)
+    ds = torch.randn(b, tq, tk, generator=g)
+    return tuple(x.to(dev, dtype) for x in (q, k, v, ds))
+
+
+def k3_guarded_share(q, k):
+    """The share of the forward's (16 query, 64 key rows, 32-deep chunk)
+    tiles that hold a value beyond |x| <= 20 (or a NaN), as the kernel
+    stages them."""
+    def big(x, rows):
+        b, t, d = x.shape
+        pad = torch.nn.functional.pad(~(x.float().abs() <= 20),
+                                      (0, -d % 32, 0, -t % rows))
+        return pad.reshape(b, -1, rows, pad.shape[2] // 32, 32).any(4).any(2)
+    return float((big(q, 16)[:, :, None] | big(k, 64)[:, None]).float()
+                 .mean())
+
+
 def phase_k3(shape, D, dev):
     """K3 forward and backward against their plain versions at the padded
     (B, T, Tk) of the first batch the training path drew (from its log)
-    and the flagship D, in fp32 and bf16, and
-    at one unaligned shape; two backward runs must be bitwise equal.
-    Returns the kernel table's fields of the fp32 flagship case."""
+    and the flagship D, in fp32 and bf16: as drawn, and with a share of Q
+    and K values beyond |x| <= 20 (the kernel's guarded chunks); near
+    LJSpeech's longest utterance (~10 s, ~190 symbols: B=6, Tq=864,
+    Tk=192) in fp32; and at one unaligned shape. Each case: the forward
+    within K3_TOL of the output scale, each gradient within K3_TOL of its
+    largest value, two backward runs bitwise equal. Times are device
+    times in CUDA graphs (a call takes tens of microseconds, less than
+    Python needs to launch it), the eager call's beside them. Returns
+    the kernel table's fields of the fp32 training batch."""
     from flowtron_tpu_torch.ops.attention import (
         attention_scores_backward_reference, attention_scores_bwd,
         attention_scores_fwd, attention_scores_reference)
 
     B, T, Tk = shape
     g = torch.Generator().manual_seed(13)
+    side = torch.cuda.Stream()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((B, T, Tk), "train_batch", dt, False) for dt in (f32, bf16)]
+    cases += [((B, T, Tk), "guarded", dt, True) for dt in (f32, bf16)]
+    cases += [((6, 864, 192), "ljspeech_longest", f32, False)]
+    cases += [((3, 19, 7), "unaligned", dt, False) for dt in (f32, bf16)]
     table = {}
-    for (b, tq, tk), tag in (((B, T, Tk), "train_batch"),
-                             ((3, 19, 7), "unaligned")):
-        for dtype in (torch.float32, torch.bfloat16):
-            q = (0.5 * torch.randn(b, tq, D, generator=g)).to(dev, dtype)
-            k = (0.5 * torch.randn(b, tk, D, generator=g)).to(dev, dtype)
-            v = (0.1 * torch.randn(D, generator=g)).to(dev, dtype)
-            ds = torch.randn(b, tq, tk, generator=g).to(dev, dtype)
-            temp = 1.0
-            with torch.no_grad():
-                f_ms, fp_ms, f_runs, out_k, out_p = paired_ms(
-                    lambda: attention_scores_fwd(q, k, v, temp),
-                    lambda: attention_scores_reference(q, k, v, temp),
-                    reps=20, plain_reps=5)
-                b_ms, bp_ms, b_runs, grads_k, grads_p = paired_ms(
-                    lambda: attention_scores_bwd(q, k, v, ds, temp),
-                    lambda: attention_scores_backward_reference(
-                        q, k, v, ds, temp), reps=20, plain_reps=5)
-                # the kernel accumulates in fp32: hold it against the plain
-                # math on the same inputs, accumulated in fp32
-                ref = attention_scores_reference(q.float(), k.float(),
-                                                 v.float(), temp)
-                again = attention_scores_bwd(q, k, v, ds, temp)
-            scale = float(ref.abs().max())
-            fwd_err = float((out_k.float() - ref).abs().max())
-            fwd_err_plain = float((out_k.float() - out_p.float()).abs().max())
-            bwd_abs = [float((a.float() - r.float()).abs().max())
-                       for a, r in zip(grads_k, grads_p)]
-            bwd_rel = [e / float(r.float().abs().max())
-                       for e, r in zip(bwd_abs, grads_p)]
-            bitwise = all(torch.equal(a, c) for a, c in zip(grads_k, again))
-            name = f"K3 {tag} {str(dtype)[6:]} B={b} Tq={tq} Tk={tk}"
-            tol = K3_TOL[dtype]
-            check(math.isfinite(fwd_err) and fwd_err <= tol * scale,
-                  f"{name} forward err {fwd_err} (scale {scale})")
-            check(all(math.isfinite(e) and e <= tol for e in bwd_rel),
-                  f"{name} backward rel errs {bwd_rel}")
-            check(bitwise, f"{name} backward runs differ")
-            emit("k3", shape=tag, dtype=str(dtype)[6:], B=b, Tq=tq, Tk=tk,
-                 D=D, fwd_max_abs_err=fwd_err, fwd_scale=scale,
-                 fwd_max_abs_err_vs_plain_same_dtype=fwd_err_plain,
-                 bwd_max_abs_err_dq_dk_dv=bwd_abs,
-                 bwd_max_rel_err_dq_dk_dv=bwd_rel, bwd_bitwise_repeat=bitwise,
-                 fwd_kernel_ms=f_ms, fwd_plain_ms=fp_ms,
-                 bwd_kernel_ms=b_ms, bwd_plain_ms=bp_ms,
-                 fwd_runs_plain_kernel_kernel_plain_ms=f_runs,
-                 bwd_runs_plain_kernel_kernel_plain_ms=b_runs)
-            if tag == "train_batch" and dtype == torch.float32:
-                # q, k, v (and ds) read once, scores (or dq, dk, dv)
-                # written once; 4 operations per (b, t, k, d) forward
-                # (add, tanh, multiply, add), 10 backward (recompute add
-                # and tanh, 1 - t^2, two products, three accumulations)
-                qkv = b * tq * D + b * tk * D + D
-                elems = b * tq * tk * D
-                table = {
-                    "fwd": (fwd_err, f_ms, fp_ms)
-                    + bound(4 * (qkv + b * tq * tk), 4 * elems),
-                    "bwd": (max(bwd_abs), b_ms, bp_ms)
-                    + bound(4 * (2 * qkv + b * tq * tk), 10 * elems)}
+    temp = 1.0
+    for (b, tq, tk), tag, dtype, guarded in cases:
+        q, k, v, ds = k3_inputs(b, tq, tk, D, dtype, guarded, g, dev)
+        with torch.no_grad():
+            (f_ms, fp_ms), (out_k, out_p), f_runs = graph_times([
+                lambda: attention_scores_fwd(q, k, v, temp),
+                lambda: attention_scores_reference(q, k, v, temp)], side,
+                reps=10)
+            (b_ms, bp_ms), (grads_k, grads_p), b_runs = graph_times([
+                lambda: attention_scores_bwd(q, k, v, ds, temp),
+                lambda: attention_scores_backward_reference(
+                    q, k, v, ds, temp)], side, reps=10)
+            # eager calls, after one warm-up call that takes the
+            # allocator's first blocks off the clock
+            f_eager = warm_eager_ms(
+                lambda: attention_scores_fwd(q, k, v, temp))
+            b_eager = warm_eager_ms(
+                lambda: attention_scores_bwd(q, k, v, ds, temp))
+            again = attention_scores_bwd(q, k, v, ds, temp)
+            # the kernel accumulates in fp32: hold it against the plain
+            # math on the same inputs, accumulated in fp32
+            ref = attention_scores_reference(q.float(), k.float(),
+                                             v.float(), temp)
+        scale = float(ref.abs().max())
+        fwd_err = float((out_k.float() - ref).abs().max())
+        fwd_err_plain = float((out_k.float() - out_p.float()).abs().max())
+        bwd_abs = [float((a.float() - r.float()).abs().max())
+                   for a, r in zip(grads_k, grads_p)]
+        bwd_rel = [e / float(r.float().abs().max())
+                   for e, r in zip(bwd_abs, grads_p)]
+        bitwise = all(torch.equal(a, c) for a, c in zip(grads_k, again))
+        name = f"K3 {tag} {str(dtype)[6:]} B={b} Tq={tq} Tk={tk}"
+        tol = K3_TOL[dtype]
+        check(math.isfinite(fwd_err) and fwd_err <= tol * scale,
+              f"{name} forward err {fwd_err} (scale {scale})")
+        check(all(math.isfinite(e) and e <= tol for e in bwd_rel),
+              f"{name} backward rel errs {bwd_rel}")
+        check(bitwise, f"{name} backward runs differ")
+        # q, k, v (and ds) read once, scores (or dq, dk, dv) written once;
+        # per (b, q, t, d) one reciprocal (the tanh), forward and backward,
+        # and FMA-pipe instructions: 2 forward (1 + E_a E_b, acc + v r),
+        # 6 backward (1 + E_a E_b, g r, g r - g r r, the dQ, dK and
+        # sum g r adds)
+        n = q.element_size()
+        qkv = b * tq * D + b * tk * D + D
+        elems = b * tq * tk * D
+        f_bound = k3_bound(n * (qkv + b * tq * tk), 2 * elems, elems)
+        b_bound = k3_bound(n * (2 * qkv + b * tq * tk), 6 * elems, elems)
+        emit("k3", shape=tag, dtype=str(dtype)[6:], B=b, Tq=tq, Tk=tk,
+             D=D, fwd_guarded_tile_share=k3_guarded_share(q, k),
+             fwd_max_abs_err=fwd_err, fwd_scale=scale,
+             fwd_max_abs_err_vs_plain_same_dtype=fwd_err_plain,
+             bwd_max_abs_err_dq_dk_dv=bwd_abs,
+             bwd_max_rel_err_dq_dk_dv=bwd_rel, bwd_bitwise_repeat=bitwise,
+             fwd_kernel_ms=f_ms, fwd_plain_ms=fp_ms,
+             bwd_kernel_ms=b_ms, bwd_plain_ms=bp_ms,
+             fwd_runs_kernel_plain_ms=f_runs, bwd_runs_kernel_plain_ms=b_runs,
+             fwd_bound_ms=f_bound[0], bwd_bound_ms=b_bound[0],
+             fwd_eager_call_ms=f_eager, bwd_eager_call_ms=b_eager)
+        if tag == "train_batch" and dtype == f32:
+            table = {"fwd": (fwd_err, f_ms, fp_ms) + f_bound,
+                     "bwd": (max(bwd_abs), b_ms, bp_ms) + b_bound}
+        del q, k, v, ds, out_k, out_p, grads_k, grads_p, again, ref
+        torch.cuda.empty_cache()
     return table
 
 
@@ -1206,7 +1289,7 @@ def probes_w4(side, dev):
         w_deq = dequantize(q, s, body).to(torch.bfloat16)
         n_rows = w_deq.shape[0]
         xin = x[:, :n_rows].contiguous()
-        (k_ms, p_ms, lib_ms), (out_k, out_p, _) = graph_times([
+        (k_ms, p_ms, lib_ms), (out_k, out_p, _), _ = graph_times([
             lambda: w4_matmul(x, q, s, body),
             lambda: w4_matmul_reference(x, q, s, body),
             lambda: xin @ w_deq], side)

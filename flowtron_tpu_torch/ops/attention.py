@@ -7,10 +7,12 @@ custom VJP ``attention_scores`` and its backward ``_scores_bwd``).
 without a (B, Tq, Tk, D) tensor in device memory. ``attention_scores`` is
 a ``torch.autograd.Function``: its forward is ``attention_scores_fwd`` and
 its backward ``attention_scores_bwd``. On CUDA tensors each launches its
-kernel in csrc/attention.cu (its note says what bounds it and how the
-design answers), fp32 or bf16 in with fp32 accumulation, or raises; on CPU
-tensors each runs its plain PyTorch version, ``attention_scores_reference``
-(the ``attention_scores_xla`` math) and
+kernel in csrc/attention.cu, fp32 or bf16 in with fp32 accumulation, or
+raises. Its note says what bounds it and how the design answers: one
+reciprocal an element, through tanh(a + b) = 1 - 2 / (1 + exp(2a)
+exp(2b)), accurate tanhf where a staged |x| > 20, and one fused backward
+pass. On CPU tensors each runs its plain PyTorch version,
+``attention_scores_reference`` (the ``attention_scores_xla`` math) and
 ``attention_scores_backward_reference`` (the Tq-chunked ``_scores_bwd``
 math). ``temperature`` is a plain float and gets no gradient, as
 ``nondiff_argnums=(3,)`` in the JAX package.
@@ -65,7 +67,7 @@ def _lib():
         lib.attention_scores_fwd.restype = i
         lib.attention_scores_bwd.argtypes = [p] * 8 + [i] * 4 + [f, i, p]
         lib.attention_scores_bwd.restype = i
-        lib.attention_bwd_workspace_floats.argtypes = [i, i, i]
+        lib.attention_bwd_workspace_floats.argtypes = [i, i, i, i]
         lib.attention_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
@@ -120,8 +122,8 @@ def attention_scores_fwd(q, k, v_w, temperature=1.0):
 def attention_scores_bwd(q, k, v_w, ds, temperature=1.0):
     """(dq, dk, dv) for the scores' gradient ``ds``, each in its input's
     dtype. CPU tensors run ``attention_scores_backward_reference``; CUDA
-    tensors launch the backward kernels (deterministic: no float atomics)
-    or raise."""
+    tensors launch the fused backward kernel (deterministic: no float
+    atomics) or raise."""
     if q.device.type == "cpu":
         return attention_scores_backward_reference(q, k, v_w, ds,
                                                    temperature)
@@ -131,7 +133,8 @@ def attention_scores_bwd(q, k, v_w, ds, temperature=1.0):
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v_w)
-    work = torch.empty(lib.attention_bwd_workspace_floats(B, Tq, D),
+    # the launch zeroes the few words of it that must start at 0
+    work = torch.empty(lib.attention_bwd_workspace_floats(B, Tq, Tk, D),
                        device=q.device, dtype=torch.float32)
     err = lib.attention_scores_bwd(
         q.data_ptr(), k.data_ptr(), v_w.data_ptr(), ds.data_ptr(),
