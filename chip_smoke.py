@@ -26,8 +26,8 @@ drives the port's three paths at the full width of the repo's
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
   attribution (``fused_cost.cu``), each kernel first held against its
-  plain version over the first 16 steps (the int4 matmuls and P3 also
-  against a second run of themselves, bit for bit), then each module's
+  plain version over the first 16 steps (and against a second run of
+  itself, bit for bit), then each module's
   ``main`` driven at the script's default batch (and B=8 for P4 and P5).
 
 Each path runs with every kernel's launch count set to 0 just before it
@@ -392,7 +392,8 @@ def phase_k1(model, cfg, ids, sid, dev):
     key mask at B=4. The ungated flow gets the gated flow's early n_valid,
     as on the main path. Returns the max
     error, the gated flow's B=1 request-shape times, and the threshold
-    and n_valid at which the first request's gate stops it."""
+    and n_valid at which the first request's gate stops it, and the gated
+    flow's B=1 frames split by stage (for ``p5_split``)."""
     gated, ungated = model.flows[-1].ar_step, model.flows[0]
     g = torch.Generator().manual_seed(11)
     rand_text = torch.randint(1, 185, (4, TK), generator=g)
@@ -425,7 +426,7 @@ def phase_k1(model, cfg, ids, sid, dev):
         ms, _ = cuda_ms(lambda: barrier_bench(mode, 5000, dev))
         barrier[name] = 1e3 * ms / 5000
     emit("k1_barrier", **barrier)
-    max_err, times, stop = 0.0, None, None
+    max_err, times, stop, frames = 0.0, None, None, {}
     for shape, text, in_lens, res in cases:
         flows = [gated] if shape == "random_text" else [gated, ungated]
         nv_in = None
@@ -434,12 +435,17 @@ def phase_k1(model, cfg, ids, sid, dev):
                 model, cfg, flow, sid, text, in_lens, res, nv_in, dev)
             max_err = max(max_err, err)
             emit("k1", shape=shape, **fields, **barrier)
+            if fields["B"] == 1 and flow is gated:
+                frames[f"{shape} Tk={fields['Tk']}"] = dict(
+                    stage_us_per_frame=fields["stage_us_per_frame"],
+                    weight_bytes=fields["streamed_floor_us_per_frame"]
+                    * HBM_BYTES_S / 1e6)
             if shape == "request" and flow is gated:
                 times = (fields["kernel_ms"], fields["plain_ms"]) + k1_bound(
                     flow.packed_weights(), N_FRAMES, 1, text.shape[1],
                     flow.attention_layer.query.linear_layer.weight.shape[0])
                 stop = gate_stop(gates[:, 0])
-    return max_err, times, stop
+    return max_err, times, stop, frames
 
 
 def phase_k2(wg, dev):
@@ -1341,20 +1347,26 @@ def probes_w4(side, dev):
     return rows
 
 
-def probes_scans(dev):
+def probes_scans(k1_frames, dev):
     """P3, P4 and P5 against their plain versions on the card over 16
-    steps at the scripts' shapes (and B=8 for P4, P5); then each timed
-    over the script's STEPS or N: the kernel, the plain version (eager,
-    as the other kernels' plain versions) and, for P3 and P4, the streamed
+    steps at the scripts' shapes (and B=8 for P4, P5), and against a
+    second run of themselves, bit for bit; then each timed over the
+    script's STEPS or N: the kernel, the plain version (eager, as the
+    other kernels' plain versions) and, for P3 and P4, the streamed
     cuBLAS step in a CUDA graph. Also the resident bytes, the L2 bytes an
-    access-policy window may pin, and the time of a chain of four tiny
-    dots (each step is then mostly its four grid barriers). Returns the
-    kernel table's fields."""
+    access-policy window may pin, P4's two ways to bring the dots that do
+    not fit (a bulk-copy buffer, an L2 window) beside its default, each
+    chain's and each P5 variant's time by stage
+    (the kernels' clocks), the time of a chain of four tiny dots (each
+    step is then mostly its four grid barriers), and K1's frames split by
+    P5 (``p5_split``). Returns the kernel table's fields."""
+    from flowtron_tpu_torch.ops.decoder import barrier_bench
     from flowtron_tpu_torch.ops.fused_cost import (
-        VARIANTS, fused_cost, fused_cost_reference, pack_weights)
+        VARIANTS, fused_cost, fused_cost_reference, fused_cost_stage_split,
+        pack_weights)
     from flowtron_tpu_torch.ops.resident import (
-        max_persisting_l2_bytes, pack_resident_weights, resident_scan,
-        resident_scan_reference)
+        chain_plan, max_persisting_l2_bytes, pack_resident_weights,
+        resident_scan, resident_scan_reference)
     from flowtron_tpu_torch.scripts import _probe
     from flowtron_tpu_torch.scripts import exp_fused_cost as p5
     from flowtron_tpu_torch.scripts import exp_fused_int8 as p4
@@ -1410,6 +1422,10 @@ def probes_scans(dev):
                                   PROBE_FP32_TOL),
                       probe_check(f"P4 {body} B={B} gates", out[1], ref[1],
                                   PROBE_FP32_TOL))
+            again = resident_scan(body, *args, steps=PROBE_STEPS)
+            check(torch.equal(out[0], again[0])
+                  and torch.equal(out[1], again[1]),
+                  f"P4 {body} B={B}: two scans differ")
             packed = pack_resident_weights(body, args[1], args[2])
             steps = p4.STEPS
             k_ms = per_step(lambda: resident_scan(body, *args, steps=steps,
@@ -1417,11 +1433,38 @@ def probes_scans(dev):
             res_bytes, resident = resident_scan.last_resident
             lib_ms = per_step(_probe.scan(p4.library_step(args[1], args[2]),
                                           args[0].float(), steps), steps)
+            n_dots = len(args[1])
+            clock = torch.zeros(steps * n_dots, dtype=torch.int64, device=dev)
+            resident_scan(body, *args, steps=steps, packed=packed,
+                          clock=clock)
+            dot_us = (clock.double().diff()[n_dots - 1:]
+                      .view(steps - 1, n_dots).mean(dim=0) / 1e3).tolist()
+            plan = chain_plan(body, B, tuple(w.shape[0] for w in args[1]),
+                              args[1][0].shape[1], args[0].shape[1],
+                              torch.cuda.get_device_properties(dev)
+                              .multi_processor_count, prefetch=True)
             fields = dict(body=body, B=B, steps=steps,
                           check_steps=PROBE_STEPS, max_abs_err=err,
                           kernel_us_per_step=1e3 * k_ms,
                           cublas_streamed_us_per_step=1e3 * lib_ms,
-                          resident_bytes=res_bytes, resident_dots=resident)
+                          resident_bytes=res_bytes, resident_dots=resident,
+                          dot_us_per_step=dot_us)
+            if not all(resident):
+                # the two ways to bring the dots that do not stay, against
+                # the default (read from L2 in the dot): a bulk copy of a
+                # prefix of each row behind the barrier, or an L2
+                # access-policy window; each gives the default's bits
+                for opt in ("prefetch", "l2_window"):
+                    alt = resident_scan(body, *args, steps=PROBE_STEPS,
+                                        **{opt: True})
+                    check(torch.equal(alt[0], out[0])
+                          and torch.equal(alt[1], out[1]),
+                          f"P4 {body} B={B}: the {opt} scan differs")
+                    fields[f"{opt}_us_per_step"] = 1e3 * per_step(
+                        lambda: resident_scan(body, *args, steps=steps,
+                                              packed=packed, **{opt: True}),
+                        steps)
+                fields["prefetch_bytes_per_row"] = plan.pre
             if B == 1:
                 p_ms = per_step(lambda: resident_scan_reference(
                     body, *args, steps=steps), steps, reps=1)
@@ -1442,29 +1485,44 @@ def probes_scans(dev):
                 fields.update(plain_us_per_step=1e3 * p_ms,
                               bound_us_per_step=1e3 * rows[body]["bound"][0])
             emit("probe_p4", **fields)
-    # four tiny dependent dots a step: mostly the four grid barriers
+    # four tiny dependent dots a step: mostly the four grid barriers (the
+    # counter barrier of csrc/grid_sync.cuh, timed alone beside them)
     tiny = [(256, 1024)] * 4
     args = p4.to_device("bf16", p4.make_inputs("bf16", 1, tiny), dev)
     tiny_ms = per_step(lambda: resident_scan("bf16", *args, steps=p4.STEPS),
                        p4.STEPS)
+    barrier_bench(0, 100, dev)
+    bar_ms, _ = cuda_ms(lambda: barrier_bench(0, 5000, dev))
+    barrier_us = 1e3 * bar_ms / 5000
     emit("probe_p4_barriers", shapes=tiny, B=1, steps=p4.STEPS,
-         us_per_step=1e3 * tiny_ms, us_per_dot=1e3 * tiny_ms / len(tiny))
+         us_per_step=1e3 * tiny_ms, us_per_dot=1e3 * tiny_ms / len(tiny),
+         barrier_us=barrier_us)
+    # a dependent chain's latency floor: its barriers a step, at the
+    # measured barrier (a floor beside the bound, not a bound)
+    for body in ("bf16", "w8a8"):
+        rows[body]["floor_us"] = len(p4.SHAPES) * barrier_us
 
-    # P5: the fp32 mel within PROBE_FP32_TOL of its scale
+    # P5: the fp32 mel within PROBE_FP32_TOL of its scale, and bitwise
+    # over two calls
+    p5_us = {}
     for variant in VARIANTS:
         for B in (1, 8):
             ws, z, kv = p5.to_device(p5.make_inputs(variant, B, PROBE_STEPS),
                                      dev)
-            err = probe_check(f"P5 {variant} B={B}",
-                              fused_cost(variant, z, kv, ws),
+            out = fused_cost(variant, z, kv, ws)
+            err = probe_check(f"P5 {variant} B={B}", out,
                               fused_cost_reference(variant, z, kv, ws),
                               PROBE_FP32_TOL)
+            check(torch.equal(out, fused_cost(variant, z, kv, ws)),
+                  f"P5 {variant} B={B}: two calls differ")
             ws, z, kv = p5.to_device(p5.make_inputs(variant, B), dev)
             packed = pack_weights(variant, ws)
             N = z.shape[0]
             k_ms = per_step(lambda: fused_cost(variant, z, kv, ws, packed), N)
+            stage_us, _ = fused_cost_stage_split(variant, z, kv, ws, packed)
             fields = dict(variant=variant, B=B, N=N, check_steps=PROBE_STEPS,
-                          max_abs_err=err, kernel_us_per_step=1e3 * k_ms)
+                          max_abs_err=err, kernel_us_per_step=1e3 * k_ms,
+                          stage_us_per_step=stage_us)
             if B == 1:
                 p_ms = per_step(lambda: fused_cost_reference(variant, z, kv,
                                                              ws), N, reps=1)
@@ -1482,15 +1540,47 @@ def probes_scans(dev):
                 rows[variant] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                      library_ms=None,
                                      bound=probe_bound(n_bytes, n_ops,
-                                                       "bf16", N))
+                                                       "bf16", N),
+                                     floor_us=len(stage_us) * barrier_us)
+                p5_us[variant] = (1e3 * k_ms, 2 * n_w, stage_us)
                 fields.update(
                     M=M, plain_us_per_step=1e3 * p_ms,
                     bound_us_per_step=1e3 * rows[variant]["bound"][0])
             emit("probe_p5", **fields)
+    for shape, frame in k1_frames.items():
+        emit("p5_split", k1_frame=shape, **p5_split(frame, p5_us))
     return rows
 
 
-def phase_probes(kernels, dev):
+def p5_split(frame, p5_us):
+    """K1's B=1 flow-frame (its ``stage_us_per_frame``, summed) divided
+    as PR 4 divided the old one, by P5's B=1 times a step: streaming =
+    K1's fp32 weight bytes at the rate P5's dots variant streams its bf16
+    weights (an estimate: P5's 25.8 MB stay in L2, K1's 107 MB come from
+    HBM); LSTM = P5 lstm - P5 dots (the cells' nonlinearities); attention
+    = P5 attn (query, scores, softmax and context); unattributed = the
+    rest. Shares of the frame; a negative rest means the estimates
+    overshoot. Beside it, what P5's stage clock says of a stage's fixed
+    cost: the dots variant's fastest stage (its weights brought in behind
+    the barrier, so mostly its barrier and round trips), times K1's
+    stages a frame."""
+    frame_us = sum(frame["stage_us_per_frame"].values())
+    dots_us, dots_bytes, dots_stages = p5_us["dots"]
+    parts = {"streaming": frame["weight_bytes"] * dots_us / dots_bytes,
+             "lstm": p5_us["lstm"][0] - dots_us,
+             "attention": p5_us["attn"][0]}
+    parts["unattributed"] = frame_us - sum(parts.values())
+    fixed = min(dots_stages.values())
+    n_stages = len(frame["stage_us_per_frame"])
+    return dict(frame_us=frame_us,
+                k1_stage_us_per_frame=frame["stage_us_per_frame"],
+                dots_tb_per_s=dots_bytes / dots_us / 1e6,
+                us=parts, share={k: v / frame_us for k, v in parts.items()},
+                p5_fixed_us_per_stage=fixed,
+                k1_stages_at_p5_fixed_cost_share=n_stages * fixed / frame_us)
+
+
+def phase_probes(kernels, k1_frames, dev):
     """The probes of scripts/exp_*.py on the card: each kernel against its
     plain version (probes_w4, probes_scans), then the probes' own entry
     points, each module's ``main`` at the script's default B and, for P4
@@ -1498,8 +1588,8 @@ def phase_probes(kernels, dev):
     just before and read just after. The kernels' scans run eagerly there
     (only the library baselines replay CUDA graphs), so each count is the
     launches the run made: one a step for P1's and P2's scans, one a scan
-    for P3 and P4, one a recurrence for P5 (a host call launching its
-    kernels step by step, as K1 does a flow). Returns the table's fields
+    for P3 and P4, one a recurrence for P5 (one cooperative launch, as
+    K1's a flow). Returns the table's fields
     and the entry points' launches."""
     from flowtron_tpu_torch.scripts import (
         exp_fused_cost, exp_fused_int8, exp_int4_variants,
@@ -1507,7 +1597,7 @@ def phase_probes(kernels, dev):
 
     side = torch.cuda.Stream()
     rows = probes_w4(side, dev)
-    rows.update(probes_scans(dev))
+    rows.update(probes_scans(k1_frames, dev))
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
@@ -1604,7 +1694,7 @@ def main():
     perturb_heads(model, wg, seed=2)
     model.to(dev), wg.to(dev)
 
-    k1_err, k1_times, stop = phase_k1(model, cfg, ids, sid, dev)
+    k1_err, k1_times, stop, k1_frames = phase_k1(model, cfg, ids, sid, dev)
     k2_err, k2_times = phase_k2(wg, dev)
     phase_waveglow_split(wg, wg_cfg, dev)
     k4 = phase_k4(dev)
@@ -1654,7 +1744,7 @@ def main():
         phase_train_vs_cpu(config, dev)
         phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
                              ids, sid, dev)
-    probes, probe_launches = phase_probes(kernels, dev)
+    probes, probe_launches = phase_probes(kernels, k1_frames, dev)
     loaded = [m for m in sys.modules if m in ("jax", "flowtron_tpu")
               or m.startswith(("jax.", "flowtron_tpu."))]
     check(not loaded, f"the JAX package or jax was imported: {loaded}")
@@ -1706,7 +1796,11 @@ def main():
                  probe_launches[name], probes[key]["err"],
                  (probes[key]["ms"], probes[key]["plain_ms"])
                  + probes[key]["bound"], probes[key]["library_ms"]),
-             per="call" if key.startswith("k") else "step")
+             per="call" if key.startswith("k") else "step",
+             # a dependent chain's latency floor (its barriers a step at the
+             # measured barrier), beside the bound, not a bound
+             **({"latency_floor_ms": probes[key]["floor_us"] / 1e3}
+                if "floor_us" in probes[key] else {}))
         for name, src, replaces in PROBE_ROWS
         for key in [name.rsplit("_", 1)[1]]
     ]}), flush=True)

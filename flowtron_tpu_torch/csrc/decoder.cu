@@ -21,8 +21,8 @@
 // - One cooperative launch a flow, one 256-thread block a SM; the frame
 //   loop runs inside the kernel. Between stages a grid barrier: each block
 //   adds one to a counter in global memory (release), one thread spins on
-//   an acquire load, then __syncthreads (chip_smoke.py times it against
-//   cooperative_groups' grid sync, ~10% slower).
+//   an acquire load, then __syncthreads (csrc/grid_sync.cuh; chip_smoke.py
+//   times it against cooperative_groups' grid sync, ~10% slower).
 // - Each stage is a list of jobs, matrices whose row quads (four rows,
 //   one LSTM unit's four gates) are split evenly over all blocks, so each
 //   block streams 1 / grid of every stage's bytes (ops/decoder.py:k1_plan).
@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -143,29 +144,6 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// The grid barrier, in two halves so that a block can start work that
-// no other block waits for in between: every block adds one to *bar
-// (release) once all its threads are done, then one thread spins until
-// the counter reaches target = barriers passed x grid (acquire). The
-// counter only grows, so it needs no reset between barriers.
-__device__ __forceinline__ void barrier_arrive(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-                 :: "l"(bar), "r"(1u) : "memory");
-}
-
-__device__ __forceinline__ void barrier_wait(unsigned* bar, unsigned target) {
-  if (threadIdx.x == 0) {
-    unsigned v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(v) : "l"(bar) : "memory");
-    } while (v < target);
-  }
-  __syncthreads();
 }
 
 // dst[b * Kp + off + k] = src[b * ld + k] for k < n, 0 for n <= k < npad;
@@ -575,23 +553,6 @@ __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
   }
 }
 
-// The prefetch buffer's mbarrier: one arrival (with the bytes to expect)
-// and the bulk copies' completions end each phase.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               "fence.mbarrier_init.release.cluster;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
 // Start copying this block's prefetched rows of a stage into the buffer:
 // one bulk (TMA) copy a job (its rows are one contiguous range), issued by
 // thread 0, completing on *bar. The weights never depend on the frame, so this runs before the
@@ -619,13 +580,6 @@ __device__ __noinline__ void prefetch(const Stage& s, const Quads& q, float* wb,
              "r"(smem_addr(bar))
           : "memory");
   }
-}
-
-// The card's nanosecond clock (k1_stage_split's stage times).
-__device__ __forceinline__ long long gtime() {
-  long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return ns;
 }
 
 __device__ void run_stage(const Params& p, int si, const Quads& q, int t,

@@ -1,7 +1,7 @@
 // Tensor-core and async-copy helpers shared by csrc/w4.cu,
-// csrc/resident.cu and csrc/qmm.cu: the bf16, int8 and tf32 mma.sync
-// tiles, ldmatrix fragment loads and cp.async 16-byte copies into shared
-// memory.
+// csrc/resident.cu and csrc/qmm.cu (and smem_addr by csrc/grid_sync.cuh):
+// the bf16, int8 and tf32 mma.sync tiles, ldmatrix fragment loads and
+// cp.async 16-byte copies into shared memory.
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Device helpers shared by csrc/resident.cu and csrc/fused_cost.cu: warp
-// reductions, bf16 unpacking, and the bf16 dot of one warp over a quad of
-// weight rows (one unit's four gate rows in the gate-interleaved layout
-// of ops/_layout.py, or four consecutive output columns).
+// Device helpers of csrc/fused_cost.cu (and, for the warp reductions and
+// the sigmoid, csrc/resident.cu): warp reductions, bf16 unpacking, and
+// the bf16 dot of one warp over a quad of weight rows (one unit's four
+// gate rows in the gate-interleaved layout of ops/_layout.py, or four
+// consecutive output columns).
 
 #pragma once
 

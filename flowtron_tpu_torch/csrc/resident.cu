@@ -18,64 +18,104 @@
 //      fused multiply-add), q = rint(h / sx) (no clip), exact int32 sums
 //      with int8 w_i, y = (f32(acc) * sx) * s_i.
 //
-// Weights come packed (ops/resident.py): (N, K_i) rows, k contiguous, 16
-// bytes a row at least; for P4 row 4u + c holds column c * N/4 + u, so
-// the four gate columns of one hidden unit u are one quad of rows.
+// Weights come packed (ops/resident.py): (N, K_i) rows, k contiguous; for
+// P4 row 4u + c holds column c * N/4 + u, so the four gate columns of one
+// hidden unit u are one quad of rows, and a chain's dots lie one after
+// the other in one buffer.
 //
-// What bounds it on an H100: for P4 at B = 1 to 8, the bytes of the
-// weights, read every step (38.8 MB of bf16 or 19.4 MB of int8 a step,
-// ~12 or ~6 us at 3.35 TB/s from HBM), and the latency of the n
-// dependent dots; for P3 at B = 64, the 0.87 GFLOP of every step (~0.9 us
-// at the bf16 tensor-core peak), and what the design adds: every SM reads
-// the whole bf16 state from L2 every step (213 KB, ~28 MB a step over
-// 132 SMs) and waits at a grid barrier (2-3.5 us, PERF.md).
+// What bounds it on an H100: for P4 at B = 1 to 8, the latency of the n
+// dependent dots (each a grid barrier, a round trip to stage its input
+// and one for its epilogue), then the bytes of the weights that do not
+// stay in shared memory (38.8 MB of bf16 a step against ~30 MB of shared
+// memory on 132 SMs: 16.8 MB from L2 every step); for P3 at B = 64, the
+// 0.87 GFLOP of every step (~0.9 us at the bf16 tensor-core peak), and
+// what the design adds: every SM reads the whole bf16 state from L2
+// every step (213 KB, ~28 MB a step over 132 SMs) and waits at a grid
+// barrier (2-3.5 us, PERF.md).
 //
-// What the design does about it:
-// - one persistent cooperative launch for the whole scan: one block per
-//   SM, each owning a contiguous range of row quads (32 output columns at
-//   these shapes), so a block's share of every dot is fixed for all
-//   steps;
-// - each block copies its rows of every weight that fits into shared
-//   memory once, before the first step, and reads them there for every
-//   step; a weight that does not fit (P4 bf16: 38.8 MB against ~30 MB of
-//   shared memory on 132 SMs) is read from global memory (L2) every step;
-//   the host decides dot by dot, in order, and reports the resident bytes;
-// - a grid barrier (cooperative_groups grid sync) after every dot, since
-//   every block needs the whole previous output; state and the gate
-//   outputs are double-buffered in global memory, so no block writes what
-//   another may still read;
-// - P3 (B = 64, its own kernel p3_kernel) runs on the tensor cores and
-//   pipelines its staging behind them: the state comes in chunks of all
-//   (up to 64) batch rows x kP3Chunk columns through a ring of kP3Stages
-//   cp.async groups, so the mma.sync m16n8k16 bf16 tiles of chunk i run
-//   while chunks i + 1 .. i + 3 land; each block walks the chunks from its
-//   own starting chunk, so the SMs do not all ask L2 for the same lines at
-//   once; each warp keeps 2 m-tiles x 2 n-tiles of independent fp32
-//   accumulators over half of every chunk's k (A and B fragments by
-//   ldmatrix, all of a chunk's loaded before its products), and the two
-//   halves meet in shared memory in a fixed order; each thread's copy
-//   offsets are fixed a pass, so a chunk's copies cost a few instructions
-//   (address arithmetic would otherwise take more issue slots than the
-//   products); smem rows are padded by 16 bytes against bank
-//   conflicts; a batch above 64 rows takes further passes; what holds it
-//   back (PERF.md) is the grid barrier (~2 us a step) and every SM's pull
-//   of the whole state from L2;
-// - the chains (B = 1 to 8) stay SIMT: each warp owns one row quad (one unit's four gates) and reads
-//   its rows and the staged input in 16-byte vectors, lanes on
-//   neighbouring addresses; a shuffle reduction then gives every lane the
-//   sums, and the warp applies the epilogue itself;
-// - up to 8 batch rows share one pass over the rows; each block stages
-//   the input rows it needs with 8 loads in flight a thread, and W8A8
-//   quantizes them itself (a block-wide max a row), so no extra grid
-//   barrier is needed.
-// wgmma, TMA, tensor cores for the chains and pinning the streamed rows in
-// L2 are later work.
+// P3 (B = 64, its own kernel p3_kernel): one persistent cooperative
+// launch, one block per SM owning a contiguous range of row quads, its
+// rows of w copied into shared memory once; on the tensor cores, its
+// staging pipelined behind them: the state comes in chunks of all (up to
+// 64) batch rows x kP3Chunk columns through a ring of kP3Stages cp.async
+// groups, so the mma.sync m16n8k16 bf16 tiles of chunk i run while chunks
+// i + 1 .. i + 3 land; each block walks the chunks from its own starting
+// chunk, so the SMs do not all ask L2 for the same lines at once; each
+// warp keeps 2 m-tiles x 2 n-tiles of independent fp32 accumulators over
+// half of every chunk's k (A and B fragments by ldmatrix, all of a
+// chunk's loaded before its products), and the two halves meet in shared
+// memory in a fixed order; each thread's copy offsets are fixed a pass,
+// so a chunk's copies cost a few instructions (address arithmetic would
+// otherwise take more issue slots than the products); smem rows are
+// padded by 16 bytes against bank conflicts; a batch above 64 rows takes
+// further passes; a cooperative_groups grid sync closes each step.
+//
+// P4 (the chains, chain_kernel), laid out by ops/resident.py:chain_plan:
+// - one persistent cooperative launch for the whole scan, one 256-thread
+//   block per SM owning a contiguous range of row quads of every dot (31
+//   or 32 rows at N = 4096 on 132 SMs);
+// - the blocks meet at the counter barrier of csrc/grid_sync.cuh after
+//   each dot (every block needs the dot's whole output; the counter is a
+//   word the wrapper zeroes, its target one grid higher a barrier);
+//   between arrive and wait a block does only work that no other block
+//   reads (with the prefetch option below, the bulk copy of its rows of
+//   the next dot that is not resident); the last dot's blend writes the
+//   state that every block stages for the next step's first dot, so it
+//   comes before the arrive; state and the gate outputs are
+//   double-buffered in global memory, so no block writes what another may
+//   still read;
+// - the dots run on the tensor cores, the product transposed as K4's
+//   (csrc/qmm.cu): y^T = W (16 rows, four units' gate quads, the mma's m)
+//   x h^T (the staged batch rows, n = 8; B = 1 leaves seven columns
+//   zero), mma_bf16 m16n8k16 for bf16 and mma_s8_m16n8k32 for W8A8 (exact
+//   int32 sums). For each 64-byte stretch of k a lane loads 16 bytes of
+//   its weight rows g = lane / 4 and g + 8 and of staged row g at 16
+//   (lane % 4): the mma's k order is a permutation of those bytes, the
+//   same for A and B, so each product still pairs w[n, k] with h[b, k],
+//   with no repacking and no ldmatrix; two mmas a stretch. Rows in shared
+//   memory lie an odd multiple of 64 bytes apart (chain_plan's
+//   row_stride), so a quarter-warp's loads fill the 32 banks once;
+// - warp w takes m-tile w % m_tiles and every (8 / m_tiles)-th stretch
+//   into four independent accumulator chains (stretch j into chain j % 4);
+//   each mma sums its tile from zero and rounded fp32 adds take it into
+//   the chain (a tensor core accumulating a whole dot truncates at every
+//   tile, and a chain of dots passes every bf16 rounding on: the gates
+//   then left chip_smoke's bar); the k-parts' sums meet in shared memory
+//   and one thread a (unit, batch row) adds them in a fixed order and
+//   applies the epilogue (gates, scales, blend): no atomics, bitwise
+//   repeatable;
+// - each block copies its rows of every dot that fits into shared memory
+//   once (in order: at N = 4096, dots 0 and 1 of bf16, all four of int8);
+//   a bf16 dot that does not fit (16.8 MB: 28% of the bytes) is read from
+//   L2 in the dot, rows of a ragged tile and batch rows past B reading a
+//   valid row again (their sums are dropped), so the loop has no
+//   predicates. Two ways to bring those rows closer are launch options,
+//   both measured slower on the H100 (PERF.md): a bulk copy of a prefix
+//   of each row into the rest of the shared memory behind the barrier
+//   (its 32 copies a dot hold up a warp), and an L2 access-policy window
+//   (the rows stay in L2 across steps without one);
+// - the launch's parameters are copied into shared memory: a kernel
+//   parameter indexed by the dot is read through its address, a round
+//   trip each time;
+// - staging: each block reads the input rows from L2 (16-byte loads, up to
+//   8 in flight a thread) and stores them as bf16, or, for W8A8, as fp32,
+//   then one warp a row takes max|h| and sx, then the block quantizes.
+//   Partial maxima written by each block beside the previous dot's
+//   outputs (the next dot reducing 132 partials instead of K values) were
+//   measured no faster and were taken out, as was a block-wide reduction
+//   of each thread's maxima with the values kept in registers (slower);
+// - the last dot's old state values are loaded before its products, so
+//   that the blend does not wait for them.
+// What holds it (PERF.md): every dot pays a barrier (~1 us), an L2 round
+// trip to stage its input and the epilogue's stores before the release:
+// ~4 us a dot whatever its size.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
 #include "mma.cuh"
 #include "quad_dot.cuh"
 
@@ -85,9 +125,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxB = 8;         // batch rows per pass (one warp each for W8A8)
+constexpr int kMaxB = 8;          // chains: batch rows a pass (the mma's n)
 constexpr int kMaxDots = 4;
-constexpr int kLoads = 8;         // staging loads in flight per thread
+constexpr int kStretch = 64;      // chains: bytes of k a lane quad loads
+constexpr int kUnroll = 4;        // chains: stretches a warp loads ahead
+constexpr int kLoads = 8;         // chains: staging loads in flight a thread
+constexpr int kOld = 4;           // chains: old state values a thread loads
+                                  // before the last dot's products
+constexpr int kStatic = 1024;     // chains: kept for static shared memory
 constexpr int kPad = 8;           // P3: bf16 of padding per smem row
 constexpr int kP3Rows = 64;       // P3: batch rows a pass (four m16 tiles)
 constexpr int kP3Chunk = 128;     // P3: state columns a ring stage
@@ -100,86 +145,40 @@ constexpr float kInv127 = 1.0f / 127.0f;
 
 enum Body { kP3 = 0, kChainBf16 = 1, kChainW8A8 = 2 };
 
+// P3's launch (one-element arrays, so that p3_kernel reads p.K[0],
+// p.w[0] and p.smem_off[0] as it did when the chains shared this struct)
 struct Params {
-  int body, B, steps, n_dots, N, S, grid, kmax;
-  int K[kMaxDots];
-  const void* w[kMaxDots];        // packed (N, K_i), bf16 or int8
-  const float* scale[kMaxDots];   // (N,) packed, W8A8 only
-  size_t smem_off[kMaxDots];      // offset of the resident slice, or -1
-  size_t stage_off;               // offset of the staged input rows
-  size_t red_off;                 // P3: offset of the k-halves' sums
-  void* state[2];                 // P3: bf16 (B, S); chains: fp32 (B, S)
-  float* g[2];                    // chains: (B, N / 4) gate outputs
-  float* y_last;                  // P3: (B, N) fp32 product of the last step
+  int B, steps, N, S, grid;
+  int K[1];
+  const void* w[1];               // packed (N, K) bf16
+  size_t smem_off[1];             // offset of the resident slice
+  size_t stage_off;               // offset of the state ring
+  size_t red_off;                 // offset of the k-halves' sums
+  void* state[2];                 // bf16 (B, S)
+  float* y_last;                  // (B, N) fp32 product of the last step
 };
 
-__device__ __forceinline__ int warp_sum_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// A chain's launch; offsets in bytes of dynamic shared memory
+// (ops/resident.py:chain_plan)
+struct Chain {
+  int i8, B, steps, n_dots, N, S, grid, m_tiles;
+  int mt_bits, nkp;               // log2(m_tiles), k-parts: 8 / m_tiles
+  int K[kMaxDots];
+  int res_off[kMaxDots];          // the block's resident rows, or -1
+  int pre[kMaxDots];              // bytes a row of a streamed dot in the buffer
+  int stage_off, xf_off, red_off, scale_off, buf_off;
+  const unsigned char* w[kMaxDots];   // packed (N, K_i), bf16 or int8
+  const float* scale[kMaxDots];   // (N,) packed, W8A8 only
+  float* state[2];                // fp32 (B, S)
+  float* g[2];                    // (B, N / 4) gate outputs
+  unsigned* bar;                  // the grid barrier's counter
+  long long* clock;               // or null: block 0's time at each barrier
+};
 
 // 0.999 * a + 0.001 * b with each product and the sum rounded, as the
 // Pallas bodies write it (no contraction into an FMA).
 __device__ __forceinline__ float blend(float a, float b) {
   return __fadd_rn(__fmul_rn(0.999f, a), __fmul_rn(0.001f, b));
-}
-
-__device__ __forceinline__ int dp4a16(const int4 a, const int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
-}
-
-// quad_dot_bf16 (quad_dot.cuh) for int8 rows and int8 staged rows, exact
-// int32 sums; K a multiple of 16.
-__device__ __forceinline__ void quad_dot_i8(const int8_t* W, int K,
-                                            const int8_t* xs, int nb,
-                                            int (&acc)[4][kMaxB]) {
-  const int lane = threadIdx.x & 31;
-  const int K16 = K >> 4;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[c][b] = 0;
-  for (int i = lane; i < K16; i += 32) {
-    int4 w[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      w[c] = reinterpret_cast<const int4*>(W + (size_t)c * K)[i];
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
-      if (b < nb) {
-        const int4 x = reinterpret_cast<const int4*>(xs + (size_t)b * K)[i];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c][b] = dp4a16(w[c], x, acc[c][b]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
-      if (b < nb) acc[c][b] = warp_sum_i(acc[c][b]);
-}
-
-// acc[c][lane] without dynamic register indexing.
-template <typename T>
-__device__ __forceinline__ T pick(const T (&acc)[4][kMaxB], int c, int lane) {
-  T v = 0;
-#pragma unroll
-  for (int b = 0; b < kMaxB; ++b)
-    if (b == lane) v = acc[c][b];
-  return v;
-}
-
-// Input element k of dot i for batch row b: the state for dot 0, else
-// h = tile(g)[:, :S], i.e. g[k % (N / 4)].
-__device__ __forceinline__ float chain_input(const Params& p, int i, int cur,
-                                             int b, int k) {
-  if (i == 0) return static_cast<const float*>(p.state[cur])[(size_t)b * p.S + k];
-  const int H4 = p.N >> 2;
-  return p.g[(i - 1) & 1][(size_t)b * H4 + k % H4];
 }
 
 // P3 on the tensor cores: one block a SM, its columns [4 q0, 4 q1) (at
@@ -342,129 +341,374 @@ __global__ void __launch_bounds__(kThreads, 1) p3_kernel(Params p) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) resident_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Q = p.N >> 2;
-  const int q0 = (int)((long long)blockIdx.x * Q / p.grid);
-  const int q1 = (int)((long long)(blockIdx.x + 1) * Q / p.grid);
-  const size_t esize = p.body == kChainW8A8 ? 1 : 2;
+// Bytes between two rows of n bytes (a multiple of 64) in shared memory:
+// an odd multiple of 64 (ops/resident.py:row_stride).
+__device__ __forceinline__ int row_stride(int n) {
+  return (n & 127) ? n : n + 64;
+}
 
-  // this block's rows of every resident weight, once
-  for (int i = 0; i < p.n_dots; ++i) {
-    if (p.smem_off[i] == (size_t)-1) continue;
-    const size_t bytes = (size_t)(q1 - q0) * 4 * p.K[i] * esize;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        static_cast<const unsigned char*>(p.w[i]) +
-        (size_t)q0 * 4 * p.K[i] * esize);
-    uint4* dst = reinterpret_cast<uint4*>(smem + p.smem_off[i]);
-    for (size_t j = threadIdx.x; j < bytes / 16; j += kThreads) dst[j] = src[j];
-  }
-  __syncthreads();
+// c += the two mma tiles of one 64-byte stretch: a and b hold 16 bytes of
+// weight rows g and g + 8, x 16 bytes of staged row g (lane g, t), the
+// same bytes of k in the same order (see the note at the top). bf16: each
+// tile's 16 products are summed from zero by the tensor cores and added
+// to c by rounded fp32 adds (a tensor core adding into c would truncate
+// at every tile, and the chain's gates pass every dot's rounding on).
+__device__ __forceinline__ void mma_stretch(float (&c)[4], uint4 a, uint4 b,
+                                            uint4 x) {
+  const uint32_t f0[4] = {a.x, b.x, a.y, b.y}, f1[4] = {a.z, b.z, a.w, b.w};
+  float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(p0, f0, x.x, x.y);
+  mma_bf16(p1, f1, x.z, x.w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(__fadd_rn(c[e], p0[e]), p1[e]);
+}
 
-  unsigned char* stage = smem + p.stage_off;
-  // W8A8: the fp32 input rows behind the int8 ones
-  float* xf = reinterpret_cast<float*>(stage + (size_t)kMaxB * p.kmax);
-  __shared__ float sx[kMaxB];
-  __shared__ float red[kWarps][kMaxB];
-  for (int t = 0; t < p.steps; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    for (int i = 0; i < p.n_dots; ++i) {
-      const int K = p.K[i];
-      const size_t quad_bytes = (size_t)4 * K * esize;
-      const bool in_smem = p.smem_off[i] != (size_t)-1;
-      for (int b0 = 0; b0 < p.B; b0 += kMaxB) {
-        const int nb = min(kMaxB, p.B - b0);
-        // stage the input rows b0 .. b0 + nb, kLoads loads in flight a
-        // thread
-        {
-          // the chain's input rows, as bf16 (bf16 body) or fp32 (W8A8)
-          const int total = nb * K;
-          for (int j0 = threadIdx.x; j0 < total; j0 += kLoads * kThreads) {
-            float v[kLoads];
-#pragma unroll
-            for (int u = 0; u < kLoads; ++u) {
-              const int j = j0 + u * kThreads;
-              v[u] = j < total ? chain_input(p, i, cur, b0 + j / K, j % K) : 0.f;
-            }
-#pragma unroll
-            for (int u = 0; u < kLoads; ++u) {
-              const int j = j0 + u * kThreads;
-              if (j >= total) continue;
-              if (p.body == kChainBf16)
-                reinterpret_cast<__nv_bfloat16*>(stage)[j] =
-                    __float2bfloat16_rn(v[u]);
-              else
-                xf[j] = v[u];
-            }
-          }
-        }
-        if (p.body == kChainW8A8) {
-          // sx per row: a block-wide max, then one fused multiply-add
-          __syncthreads();
-          for (int b = 0; b < nb; ++b) {
-            float m = 0.f;
-            for (int k = threadIdx.x; k < K; k += kThreads)
-              m = fmaxf(m, fabsf(xf[(size_t)b * K + k]));
-            m = warp_max(m);
-            if (lane == 0) red[warp][b] = m;
-          }
-          __syncthreads();
-          if (threadIdx.x < nb) {
-            float m = red[0][threadIdx.x];
-            for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w][threadIdx.x]);
-            sx[threadIdx.x] = __fmaf_rn(m, kInv127, 1e-12f);
-          }
-          __syncthreads();
-          int8_t* dst = reinterpret_cast<int8_t*>(stage);
-          for (int j = threadIdx.x; j < nb * K; j += kThreads)
-            dst[j] = static_cast<int8_t>(rintf(__fdiv_rn(xf[j], sx[j / K])));
-        }
-        __syncthreads();
+__device__ __forceinline__ void mma_stretch(int (&c)[4], uint4 a, uint4 b,
+                                            uint4 x) {
+  const uint32_t f0[4] = {a.x, b.x, a.y, b.y}, f1[4] = {a.z, b.z, a.w, b.w};
+  mma_s8_m16n8k32(c, f0, x.x, x.y);
+  mma_s8_m16n8k32(c, f1, x.z, x.w);
+}
 
-        for (int q = q0 + warp; q < q1; q += kWarps) {
-          const unsigned char* Wq =
-              in_smem ? smem + p.smem_off[i] + (size_t)(q - q0) * quad_bytes
-                      : static_cast<const unsigned char*>(p.w[i]) +
-                            (size_t)q * quad_bytes;
-          float y[4];
-          if (p.body == kChainW8A8) {
-            int acc[4][kMaxB];
-            quad_dot_i8(reinterpret_cast<const int8_t*>(Wq), K,
-                        reinterpret_cast<const int8_t*>(stage), nb, acc);
+__device__ __forceinline__ uint32_t quantize4(float4 v, float s) {
+  const float f[4] = {v.x, v.y, v.z, v.w};
+  uint32_t q = 0;
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              y[c] = __fmul_rn(__fmul_rn(__int2float_rn(pick(acc, c, lane & 7)),
-                                         sx[lane & 7]),
-                               p.scale[i][4 * q + c]);
-          } else {
-            float acc[4][kMaxB];
-            quad_dot_bf16<false>(reinterpret_cast<const __nv_bfloat16*>(Wq), K,
-                                 reinterpret_cast<const __nv_bfloat16*>(stage),
-                                 nb, acc);
+  for (int e = 0; e < 4; ++e)
+    q |= (uint32_t)(uint8_t)static_cast<int8_t>(rintf(__fdiv_rn(f[e], s)))
+         << (8 * e);
+  return q;
+}
+
+// Stage dot i's input rows b0 .. b0 + nb - 1: h = the state (dot 0) or
+// the previous dot's gates, tiled to the state's width; written by other
+// blocks, so read through L2. A thread takes the 4-float vectors j = tid,
+// tid + 256, ... of the nb x K / 4 and tracks their (row, column) without
+// dividing, kLoads loads in flight, and stores them as bf16 or, for
+// W8A8, as fp32; then one warp a row takes sx[b] = fma(max|h_b|,
+// fp32(1/127), 1e-12) and the block quantizes. (Two ways to skip the fp32
+// pass were measured slower on the H100 and taken out: partial maxima
+// left by each block beside the previous dot's outputs, and each
+// thread's maxima reduced across the block with the vectors kept in
+// registers.)
+__device__ __noinline__ void chain_stage(const Chain& p, int i, int cur,
+                                         int b0, int nb, unsigned char* sm,
+                                         float* sx) {
+  const int K = p.K[i], K4 = K >> 2, Q = p.N >> 2;
+  const float* src = (i == 0 ? p.state[cur] : p.g[(i - 1) & 1]) +
+                     (size_t)b0 * (i == 0 ? p.S : Q);
+  const int ld = i == 0 ? p.S : Q, wrap = i == 0 ? K : Q;
+  const int xs = row_stride(p.i8 ? K : 2 * K), total = nb * K4;
+  unsigned char* st = sm + p.stage_off;
+  float* xf = reinterpret_cast<float*>(sm + p.xf_off);
+  int b = threadIdx.x / K4, f = threadIdx.x - b * K4;
+  for (int j0 = threadIdx.x; j0 < total; j0 += kLoads * kThreads) {
+    float4 v[kLoads];
+    int bs[kLoads], fs[kLoads];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) y[c] = pick(acc, c, lane & 7);
-          }
-          if (lane < nb) {
-            // lane b: unit q's gates for batch row b0 + b
-            const size_t row = (size_t)(b0 + lane);
-            const float g = sigmoidf(y[0]) * tanhf(y[1]) +
-                            sigmoidf(y[2]) * tanhf(y[3]);
-            p.g[i & 1][row * Q + q] = g;
-            if (i == p.n_dots - 1) {
-              const float* s_old = static_cast<const float*>(p.state[cur]);
-              float* s_new = static_cast<float*>(p.state[nxt]);
-              for (int j = q; j < p.S; j += Q)
-                s_new[row * p.S + j] = blend(s_old[row * p.S + j], g);
-            }
-          }
-        }
-        __syncthreads();   // the staged rows are free again
+    for (int u = 0; u < kLoads; ++u) {
+      bs[u] = b;
+      fs[u] = f;
+      if (j0 + u * kThreads < total) {
+        const int k = 4 * f < wrap ? 4 * f : 4 * f % wrap;
+        v[u] = __ldcg(
+            reinterpret_cast<const float4*>(src + (size_t)b * ld + k));
       }
-      grid.sync();         // every block needs this dot's whole output
+      for (f += kThreads; f >= K4; f -= K4) ++b;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (j0 + u * kThreads >= total) break;
+      if (p.i8) {
+        *reinterpret_cast<float4*>(xf + bs[u] * K + 4 * fs[u]) = v[u];
+      } else {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[u].x, v[u].y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[u].z, v[u].w);
+        *reinterpret_cast<uint2*>(st + bs[u] * xs + 8 * fs[u]) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      }
     }
   }
+  __syncthreads();
+  if (!p.i8) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < nb) {
+    float m = 0.f;
+    for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(xf[warp * K + k]));
+    m = warp_max(m);
+    if (lane == 0) sx[warp] = __fmaf_rn(m, kInv127, 1e-12f);
+  }
+  __syncthreads();
+  for (int r = 0; r < nb; ++r)
+    for (int k = 4 * threadIdx.x; k < K; k += 4 * kThreads)
+      *reinterpret_cast<uint32_t*>(st + r * xs + k) = quantize4(
+          *reinterpret_cast<const float4*>(xf + r * K + k), sx[r]);
+  __syncthreads();
+}
+
+// acc[u] <- acc[u + 1], acc[3] <- acc[0]: the accumulator chains move
+// one place, so that stretch j of a warp always lands in chain j % 4.
+template <typename Acc>
+__device__ __forceinline__ void rotate_chains(Acc (&acc)[kUnroll][4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Acc t = acc[0][e];
+#pragma unroll
+    for (int u = 0; u + 1 < kUnroll; ++u) acc[u][e] = acc[u + 1][e];
+    acc[kUnroll - 1][e] = t;
+  }
+}
+
+// The stretches s = s0, s0 + nkp, ... < s1 of a warp from weight rows at
+// wa, wb and staged row xs (each already offset to the lane's 16 bytes),
+// stretch j of the range into chain j % 4; returns the stretches done.
+// (Software-pipelining the rounds, the next round's loads in flight
+// during this round's mmas, was measured slower.)
+template <typename Acc>
+__device__ __forceinline__ int chain_range(Acc (&acc)[kUnroll][4],
+                                           const unsigned char* wa,
+                                           const unsigned char* wb,
+                                           const unsigned char* xs, int s0,
+                                           int s1, int nkp) {
+  const int step = kStretch * nkp;
+  int s = s0, off = kStretch * s0;
+  for (; s + (kUnroll - 1) * nkp < s1; s += kUnroll * nkp) {
+    uint4 a[kUnroll], b[kUnroll], x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u, off += step) {
+      a[u] = *reinterpret_cast<const uint4*>(wa + off);
+      b[u] = *reinterpret_cast<const uint4*>(wb + off);
+      x[u] = *reinterpret_cast<const uint4*>(xs + off);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) mma_stretch(acc[u], a[u], b[u], x[u]);
+  }
+#pragma unroll
+  for (int u = 0; u + 1 < kUnroll; ++u, s += nkp, off += step)
+    if (s < s1)
+      mma_stretch(acc[u], *reinterpret_cast<const uint4*>(wa + off),
+                  *reinterpret_cast<const uint4*>(wb + off),
+                  *reinterpret_cast<const uint4*>(xs + off));
+  return s1 > s0 ? (s1 - s0 + nkp - 1) / nkp : 0;
+}
+
+// This warp's part of dot i: m-tile w % m_tiles, every (8 / m_tiles)-th
+// stretch of k from stretch w / m_tiles on; its sums go to the k-part's
+// rows of the partial sums. Stretches below pre / 64 of a streamed dot
+// come from the buffer, the others from shared memory (resident) or
+// global memory; stretch j of the warp goes to accumulator chain j % 4
+// whatever its source, so the order of the sums does not depend on the
+// buffer. Rows past the block's (a ragged last m-tile) and batch rows
+// past nb read a valid row again: their sums are dropped.
+template <typename Acc>
+__device__ __forceinline__ void chain_products(const Chain& p, int i, int nb,
+                                               int q0, int nrows,
+                                               unsigned char* sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & (p.m_tiles - 1), nkp = p.nkp, kp = warp >> p.mt_bits;
+  const int kb = p.i8 ? p.K[i] : 2 * p.K[i], ns = kb / kStretch;
+  const int ra = 16 * mt + g, rb = ra + 8;
+  const int ca = min(ra, nrows - 1), cb = min(rb, nrows - 1);
+  const bool res = p.res_off[i] >= 0;
+  const int npre = res ? 0 : p.pre[i] / kStretch;
+  const unsigned char* xs =
+      sm + p.stage_off + min(g, nb - 1) * row_stride(kb) + 16 * t;
+  Acc acc[kUnroll][4] = {};
+  int done = 0;
+  if (npre) {
+    const int bs = row_stride(p.pre[i]);
+    const unsigned char* w = sm + p.buf_off + 16 * t;
+    done = chain_range(acc, w + ca * bs, w + cb * bs, xs, kp, npre, nkp);
+  }
+  for (int r = 0; r < (done & 3); ++r) rotate_chains(acc);
+  {
+    const int ws = res ? row_stride(kb) : kb;
+    const unsigned char* w =
+        (res ? sm + p.res_off[i] : p.w[i] + (size_t)4 * q0 * kb) + 16 * t;
+    chain_range(acc, w + ca * ws, w + cb * ws, xs, kp + nkp * done, ns, nkp);
+  }
+  for (int r = 0; r < (-done & 3); ++r) rotate_chains(acc);
+#pragma unroll
+  for (int u = 1; u < kUnroll; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][e] += acc[u][e];
+  // acc[0], acc[1]: row ra, batch rows 2t, 2t + 1; acc[2], acc[3]: row rb
+  Acc* red = reinterpret_cast<Acc*>(sm + p.red_off) +
+             (size_t)kp * 16 * p.m_tiles * kMaxB;
+  red[ra * kMaxB + 2 * t] = acc[0][0];
+  red[ra * kMaxB + 2 * t + 1] = acc[0][1];
+  red[rb * kMaxB + 2 * t] = acc[0][2];
+  red[rb * kMaxB + 2 * t + 1] = acc[0][3];
+}
+
+// One thread a (unit, batch row): the k-parts' sums in order, W8A8's
+// scales, the gates, and after the last dot the state's blend.
+__device__ __forceinline__ void chain_epilogue(const Chain& p, int i, int cur,
+                                               int b0, int nb, int q0, int nq,
+                                               const unsigned char* sm,
+                                               const float* sx,
+                                               const float (&so)[kOld]) {
+  const int ql = threadIdx.x >> 3, b = threadIdx.x & 7;
+  if (ql >= nq || b >= nb) return;
+  // k-part k's sum of row 4 ql + c, batch row b
+  const int tile = 16 * p.m_tiles, at = 4 * ql * kMaxB + b;
+  float y[4];
+  if (p.i8) {
+    const int* red = reinterpret_cast<const int*>(sm + p.red_off) + at;
+    int a[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k)
+      if (k < p.nkp)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a[c] += red[(k * tile + c) * kMaxB];
+    const float* sc = reinterpret_cast<const float*>(sm + p.scale_off) +
+                      i * tile + 4 * ql;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      y[c] = __fmul_rn(__fmul_rn(__int2float_rn(a[c]), sx[b]), sc[c]);
+  } else {
+    const float* red = reinterpret_cast<const float*>(sm + p.red_off) + at;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k)
+      if (k < p.nkp)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          y[c] = __fadd_rn(y[c], red[(k * tile + c) * kMaxB]);
+  }
+  const float gv = sigmoidf(y[0]) * tanhf(y[1]) + sigmoidf(y[2]) * tanhf(y[3]);
+  const int Q = p.N >> 2, u = q0 + ql;
+  const size_t row = (size_t)(b0 + b);
+  p.g[i & 1][row * Q + u] = gv;
+  if (i == p.n_dots - 1) {
+    const float* s_old = p.state[cur] + row * p.S;
+    float* s_new = p.state[cur ^ 1] + row * p.S;
+#pragma unroll
+    for (int r = 0; r < kOld; ++r)
+      if (u + r * Q < p.S) s_new[u + r * Q] = blend(so[r], gv);
+    for (int j = u + kOld * Q; j < p.S; j += Q)
+      s_new[j] = blend(s_old[j], gv);
+  }
+}
+
+// The old state values the last dot's epilogue blends, loaded before the
+// products so that their round trip overlaps them: thread (unit, batch
+// row) of chain_epilogue, columns u, u + N / 4, ... (the first kOld).
+__device__ __forceinline__ void chain_old_state(const Chain& p, int cur,
+                                                int b0, int nb, int q0,
+                                                int nq, float (&so)[kOld]) {
+  const int ql = threadIdx.x >> 3, b = threadIdx.x & 7, Q = p.N >> 2;
+  if (ql >= nq || b >= nb) return;
+  const float* s_old = p.state[cur] + (size_t)(b0 + b) * p.S;
+#pragma unroll
+  for (int r = 0; r < kOld; ++r)
+    if (q0 + ql + r * Q < p.S) so[r] = s_old[q0 + ql + r * Q];
+}
+
+__device__ __forceinline__ bool buffered(const Chain& p, int i) {
+  return p.res_off[i] < 0 && p.pre[i] > 0;
+}
+
+// Start the bulk copies of the first pre bytes of each of this block's
+// rows of dot i into the buffer: one copy a row, completing on *mbar,
+// issued by the last warp (a warp's lanes issue them one after another,
+// so thread 0, which waits at the grid barrier, stays out of it).
+__device__ __noinline__ void chain_prefetch(const Chain& p, int i, int q0,
+                                            int nrows, unsigned char* sm,
+                                            uint64_t* mbar) {
+  const int lane = threadIdx.x - (kThreads - 32);
+  if (lane < 0) return;
+  const int kb = p.i8 ? p.K[i] : 2 * p.K[i], pre = p.pre[i];
+  if (lane == 0) mbar_expect(mbar, (unsigned)(nrows * pre));
+  __syncwarp();
+  for (int r = lane; r < nrows; r += 32)
+    bulk_copy(sm + p.buf_off + r * row_stride(pre),
+              p.w[i] + (size_t)(4 * q0 + r) * kb, (unsigned)pre, mbar);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    chain_kernel(const __grid_constant__ Chain param) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  __shared__ uint64_t mbar;
+  __shared__ float sx[kMaxB];
+  // the launch's parameters in shared memory: the stages index them by
+  // the dot, and a kernel parameter read through its address costs a
+  // round trip of its own
+  __shared__ Chain p;
+  if (threadIdx.x == 0) p = param;
+  __syncthreads();
+  const int Q = p.N >> 2;
+  const int q0 = (int)((long long)blockIdx.x * Q / p.grid);
+  const int nq = (int)((long long)(blockIdx.x + 1) * Q / p.grid) - q0;
+  const int nrows = 4 * nq, tile = 16 * p.m_tiles;
+
+  // this block's rows of every resident dot and W8A8's scales, once
+  for (int i = 0; i < p.n_dots; ++i) {
+    if (p.res_off[i] < 0) continue;
+    const int kb = p.i8 ? p.K[i] : 2 * p.K[i], per = kb / 16;
+    const uint4* src =
+        reinterpret_cast<const uint4*>(p.w[i] + (size_t)4 * q0 * kb);
+    for (int j = threadIdx.x; j < nrows * per; j += kThreads)
+      *reinterpret_cast<uint4*>(sm + p.res_off[i] + (j / per) * row_stride(kb)
+                                + 16 * (j % per)) = __ldg(src + j);
+  }
+  if (p.i8)
+    for (int j = threadIdx.x; j < p.n_dots * nrows; j += kThreads)
+      reinterpret_cast<float*>(sm + p.scale_off)[(j / nrows) * tile +
+                                                 j % nrows] =
+          p.scale[j / nrows][4 * q0 + j % nrows];
+  if (threadIdx.x == 0) mbar_init(&mbar);
+  __syncthreads();
+
+  int first = 0;
+  while (first < p.n_dots && !buffered(p, first)) ++first;
+  if (first < p.n_dots) chain_prefetch(p, first, q0, nrows, sm, &mbar);
+  unsigned passed = 0, phase = 0;
+  for (int t = 0; t < p.steps; ++t) {
+    const int cur = t & 1;
+    for (int i = 0; i < p.n_dots; ++i) {
+      for (int b0 = 0; b0 < p.B; b0 += kMaxB) {
+        const int nb = min(kMaxB, p.B - b0);
+        chain_stage(p, i, cur, b0, nb, sm, sx);
+        float so[kOld];
+        if (i == p.n_dots - 1) chain_old_state(p, cur, b0, nb, q0, nq, so);
+        if (b0 == 0 && buffered(p, i)) {   // this dot's prefetched rows
+          mbar_wait(&mbar, phase & 1);
+          ++phase;
+        }
+        if (p.i8)
+          chain_products<int>(p, i, nb, q0, nrows, sm);
+        else
+          chain_products<float>(p, i, nb, q0, nrows, sm);
+        __syncthreads();
+        chain_epilogue(p, i, cur, b0, nb, q0, nq, sm, sx, so);
+        if (b0 + kMaxB < p.B) __syncthreads();   // staged rows, sums free
+      }
+      barrier_arrive(p.bar);
+      if (buffered(p, i)) {
+        // the buffer is free: the next buffered dot's rows, if it runs
+        int j = i, tt = t;
+        do {
+          if (++j == p.n_dots) j = 0, ++tt;
+        } while (!buffered(p, j));
+        if (tt < p.steps) chain_prefetch(p, j, q0, nrows, sm, &mbar);
+      }
+      barrier_wait(p.bar, ++passed * (unsigned)p.grid);
+      if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+        p.clock[(size_t)t * p.n_dots + i] = gtime();
+    }
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return -1;
+  return sms;
 }
 
 }  // namespace
@@ -477,10 +721,8 @@ const char* resident_error_string(int err) {
 
 // Blocks of the cooperative launch: one per SM, at most N / 4.
 int resident_grid(int N) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(
-          &sms, cudaDevAttrMultiProcessorCount, dev))
-    return -1;
+  const int sms = sm_count();
+  if (sms < 0) return -1;
   return sms < N / 4 ? sms : N / 4;
 }
 
@@ -493,46 +735,26 @@ long long resident_max_persisting_l2(void) {
   return v;
 }
 
-// The scan. body 0 = P3, 1 = P4 bf16, 2 = P4 W8A8. w[i] packed (N, K[i])
-// (bf16 for bodies 0, 1; int8 for 2), scale[i] (N,) fp32 packed for body
-// 2. state0/state1 (B, S): state0 holds the initial state (bf16 for body
-// 0, fp32 otherwise); the final state is in state[steps & 1]. g0, g1 (B,
-// N / 4) fp32 for bodies 1, 2; y_last (B, N) fp32 for body 0. Writes the
-// bytes of the weights kept in shared memory to *resident_bytes and
-// 1 / 0 per dot to resident[i].
-int resident_scan(int body, int B, int steps, int n_dots, int N, int S,
-                  const int* K, const void* const* w,
-                  const float* const* scale, void* state0, void* state1,
-                  float* g0, float* g1, float* y_last,
-                  long long* resident_bytes, int* resident,
-                  void* stream_handle) {
-  if (body < 0 || body > 2 || n_dots < 1 || n_dots > kMaxDots || B < 1 ||
-      steps < 1 || N % 4 || (body == kP3 && n_dots != 1))
-    return cudaErrorInvalidValue;
+// P3's scan: w[0] packed (N, K) bf16 (K == S); state0/state1 (B, S) bf16,
+// state0 the initial state; the final state is in state[steps & 1]; y_last
+// (B, N) fp32. ops/resident.py:p3_check checks the same shapes and names
+// what fails.
+int resident_scan(int B, int steps, int N, int S, int K,
+                  const void* const* w, void* state0, void* state1,
+                  float* y_last, void* stream_handle) {
+  if (B < 1 || steps < 1 || N % 4) return cudaErrorInvalidValue;
   Params p = {};
-  p.body = body;
   p.B = B;
   p.steps = steps;
-  p.n_dots = n_dots;
   p.N = N;
   p.S = S;
   p.grid = resident_grid(N);
   if (p.grid < 1) return cudaErrorInvalidValue;
-  const int esize = body == kChainW8A8 ? 1 : 2;
-  int kmax = 0;
-  for (int i = 0; i < n_dots; ++i) {
-    if ((K[i] * esize) % 16 || K[i] > S) return cudaErrorInvalidValue;
-    p.K[i] = K[i];
-    p.w[i] = w[i];
-    p.scale[i] = body == kChainW8A8 ? scale[i] : nullptr;
-    kmax = K[i] > kmax ? K[i] : kmax;
-  }
+  p.K[0] = K;
+  p.w[0] = w[0];
   p.state[0] = state0;
   p.state[1] = state1;
-  p.g[0] = g0;
-  p.g[1] = g1;
   p.y_last = y_last;
-
   int dev = 0, optin = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev))) return err;
@@ -540,41 +762,15 @@ int resident_scan(int body, int B, int steps, int n_dots, int N, int S,
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
     return err;
   const int qmax = (N / 4 + p.grid - 1) / p.grid;
-  p.kmax = kmax;
-  size_t used = 0;
-  *resident_bytes = 0;
-  const void* kernel = (const void*)resident_kernel;
-  if (body == kP3) {
-    // the resident slice (kP3Cols padded rows), the ring, the k-halves'
-    // sums; ops/resident.py:p3_check checks the same and names what fails
-    if (K[0] != S || K[0] % kP3Chunk || N < S || qmax * 4 > kP3Cols)
-      return cudaErrorInvalidValue;
-    p.smem_off[0] = 0;
-    p.stage_off = (size_t)kP3Cols * (K[0] + kPad) * 2;
-    p.red_off = p.stage_off + (size_t)kP3Stages * kP3Rows * kP3XS * 2;
-    used = p.red_off + (size_t)kP3Rows * kP3RS * 4;
-    if (used > (size_t)optin) return cudaErrorInvalidValue;
-    *resident_bytes = (long long)N * K[0] * 2;
-    resident[0] = 1;
-    kernel = (const void*)p3_kernel;
-  } else {
-    // staged input rows: bf16 (bf16 body) or int8 and fp32 (W8A8)
-    const size_t budget = (size_t)optin - 1024;   // static sx[], red[], slack
-    used = (size_t)kMaxB * kmax * (body == kChainW8A8 ? 1 + 4 : esize);
-    p.stage_off = 0;
-    for (int i = 0; i < n_dots; ++i) {
-      const size_t slice = (size_t)qmax * 4 * K[i] * esize;
-      if (used + slice <= budget) {
-        p.smem_off[i] = used;
-        used += slice;
-        *resident_bytes += (long long)N * K[i] * esize;
-        resident[i] = 1;
-      } else {
-        p.smem_off[i] = (size_t)-1;
-        resident[i] = 0;
-      }
-    }
-  }
+  // the resident slice (kP3Cols padded rows), the ring, the k-halves' sums
+  if (K != S || K % kP3Chunk || N < S || qmax * 4 > kP3Cols)
+    return cudaErrorInvalidValue;
+  p.smem_off[0] = 0;
+  p.stage_off = (size_t)kP3Cols * (K + kPad) * 2;
+  p.red_off = p.stage_off + (size_t)kP3Stages * kP3Rows * kP3XS * 2;
+  const size_t used = p.red_off + (size_t)kP3Rows * kP3RS * 4;
+  if (used > (size_t)optin) return cudaErrorInvalidValue;
+  const void* kernel = (const void*)p3_kernel;
   if ((err = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)used)))
@@ -589,6 +785,139 @@ int resident_scan(int body, int B, int steps, int n_dots, int N, int S,
                                     static_cast<cudaStream_t>(stream_handle));
   if (err) return err;
   return cudaGetLastError();
+}
+
+// P4's chain: body 1 = bf16, 2 = W8A8; the layout from
+// ops/resident.py:chain_plan: grid blocks, m_tiles, smem dynamic bytes,
+// layout = {stage_off, xf_off, red_off, scale_off, buf_off}, res_off[i]
+// and pre[i] per dot. w[i] packed (N, K[i]) bf16 or int8, scale[i] (N,)
+// fp32 packed (W8A8). state0/state1 (B, S) fp32, state0 the initial
+// state, the final one in state[steps & 1]; g0, g1 (B, N / 4) fp32, the
+// last dot's gates in g[(n_dots - 1) & 1]. bar: one zeroed word. clock:
+// null or (steps, n_dots) int64. l2_window: read the dots that are not
+// resident through an L2 access-policy window of this launch (the
+// persisting L2 limit raised for the call and put back after it; the
+// call then waits for the kernel); chain_plan then gives them no buffer.
+int resident_chain(int body, int B, int steps, int n_dots, int N, int S,
+                   int grid, int m_tiles, int smem, int l2_window,
+                   const int* K, const int* layout, const int* res_off,
+                   const int* pre, const void* const* w,
+                   const float* const* scale, float* state0, float* state1,
+                   float* g0, float* g1, long long* clock, unsigned* bar,
+                   void* stream_handle) {
+  const int Q = N / 4;
+  if ((body != kChainBf16 && body != kChainW8A8) || n_dots < 1 ||
+      n_dots > kMaxDots || B < 1 || steps < 1 || N % 16 || S % 4 ||
+      grid < 1 || grid > Q || m_tiles < 1 || m_tiles > kWarps ||
+      (m_tiles & (m_tiles - 1)) || 16 * m_tiles < 4 * ((Q + grid - 1) / grid))
+    return cudaErrorInvalidValue;
+  Chain p = {};
+  p.i8 = body == kChainW8A8;
+  p.B = B;
+  p.steps = steps;
+  p.n_dots = n_dots;
+  p.N = N;
+  p.S = S;
+  p.grid = grid;
+  p.m_tiles = m_tiles;
+  p.nkp = kWarps / m_tiles;
+  while ((1 << p.mt_bits) < m_tiles) ++p.mt_bits;
+  const int esize = p.i8 ? 1 : 2;
+  for (int i = 0; i < n_dots; ++i) {
+    if ((K[i] * esize) % kStretch || K[i] > S || pre[i] % kStretch)
+      return cudaErrorInvalidValue;
+    p.K[i] = K[i];
+    p.res_off[i] = res_off[i];
+    p.pre[i] = pre[i];
+    p.w[i] = static_cast<const unsigned char*>(w[i]);
+    p.scale[i] = p.i8 ? scale[i] : nullptr;
+  }
+  p.stage_off = layout[0];
+  p.xf_off = layout[1];
+  p.red_off = layout[2];
+  p.scale_off = layout[3];
+  p.buf_off = layout[4];
+  p.state[0] = state0;
+  p.state[1] = state1;
+  p.g[0] = g0;
+  p.g[1] = g1;
+  p.bar = bar;
+  p.clock = clock;
+
+  int dev = 0, optin = 0, sms = sm_count(), per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return err;
+  if (smem + kStatic > optin) return cudaErrorInvalidValue;
+  const void* kernel = (const void*)chain_kernel;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           kThreads, smem)))
+    return err;
+  if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
+
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  cudaLaunchAttribute attr[2] = {};
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  size_t old_limit = 0;
+  if (l2_window) {
+    // the window: from the first streamed dot's weights to the last one's
+    // end (one buffer, ops/resident.py:pack_resident_weights)
+    uintptr_t lo = UINTPTR_MAX, hi = 0;
+    for (int i = 0; i < n_dots; ++i) {
+      if (res_off[i] >= 0) continue;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(w[i]);
+      const uintptr_t e = a + (size_t)N * K[i] * esize;
+      lo = a < lo ? a : lo;
+      hi = e > hi ? e : hi;
+    }
+    if (hi <= lo) {
+      l2_window = 0;
+    } else {
+      int persist = 0, most = 0;
+      if ((err = cudaDeviceGetAttribute(
+               &persist, cudaDevAttrMaxPersistingL2CacheSize, dev)) ||
+          (err = cudaDeviceGetAttribute(
+               &most, cudaDevAttrMaxAccessPolicyWindowSize, dev)) ||
+          (err = cudaDeviceGetLimit(&old_limit,
+                                    cudaLimitPersistingL2CacheSize)))
+        return err;
+      const size_t bytes = hi - lo < (size_t)most ? hi - lo : (size_t)most;
+      const size_t pin = bytes < (size_t)persist ? bytes : (size_t)persist;
+      if ((err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, pin)))
+        return err;
+      attr[1].id = cudaLaunchAttributeAccessPolicyWindow;
+      attr[1].val.accessPolicyWindow.base_ptr = reinterpret_cast<void*>(lo);
+      attr[1].val.accessPolicyWindow.num_bytes = bytes;
+      attr[1].val.accessPolicyWindow.hitRatio = (float)pin / (float)bytes;
+      attr[1].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+      attr[1].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+      cfg.numAttrs = 2;
+    }
+  }
+  void* args[] = {&p};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (!err) err = cudaGetLastError();
+  if (l2_window) {
+    const cudaError_t e1 = cudaStreamSynchronize(stream);
+    const cudaError_t e2 = cudaCtxResetPersistingL2Cache();
+    const cudaError_t e3 =
+        cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, old_limit);
+    if (!err) err = e1 ? e1 : e2 ? e2 : e3;
+  }
+  return err;
 }
 
 }  // extern "C"

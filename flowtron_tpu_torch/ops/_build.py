@@ -87,3 +87,12 @@ def check_tensor(name, t, shape, device, contiguous=True,
     if (contiguous and not t.is_contiguous()) or t.data_ptr() % align:
         raise ValueError(f"{name} must be contiguous and {align}-byte "
                          "aligned")
+
+
+def check_barriers(n_barriers, grid):
+    """Raise unless a launch of ``grid`` blocks may pass ``n_barriers``
+    grid barriers on one 32-bit counter (csrc/grid_sync.cuh: each barrier
+    adds ``grid`` to the counter, which is never reset during a launch)."""
+    if n_barriers * grid >= 2 ** 32:
+        raise ValueError(f"{n_barriers} grid barriers of {grid} blocks "
+                         "overflow the barrier's 32-bit counter")

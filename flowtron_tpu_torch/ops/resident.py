@@ -29,10 +29,15 @@ Each call returns ``(state, last)``: the final state, and the last step's
 full product y (B, N) fp32 for "p3" or the last dot's gate output g
 (B, N/4) fp32 for the chains. On CUDA tensors ``resident_scan`` launches
 csrc/resident.cu (its note says what bounds it and how the design
-answers); on CPU tensors it runs ``resident_scan_reference``.
+answers): P3 as laid out by ``p3_check``, the chains as ``chain_plan``
+lays them out (which dots stay in shared memory, the prefetch buffer of
+the others, the grid barrier's count); on CPU tensors it runs
+``resident_scan_reference``.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 
@@ -46,6 +51,121 @@ EPS = torch.tensor(1e-12, dtype=torch.float32).item()
 # stage, ring stages, output columns a block at most, bf16 of row padding
 P3_ROWS, P3_CHUNK, P3_STAGES, P3_COLS, P3_PAD = 64, 128, 4, 32, 8
 SMEM_OPTIN = 232448     # shared memory a block may opt in to on sm_90
+H100_SMS = 132          # the SMs chain_plan assumes when it checks on the CPU
+# csrc/resident.cu's chain kernel: warps a block, batch rows a pass, dots
+# at most, bytes of k a lane's 16-byte fragment loads cover per quad of
+# lanes (a "stretch"), shared memory kept for the kernel's static arrays
+CHAIN_WARPS, CHAIN_ROWS, CHAIN_DOTS, STRETCH, CHAIN_STATIC = 8, 8, 4, 64, 1024
+
+ChainPlan = namedtuple("ChainPlan", [
+    "grid", "quads", "m_tiles", "rows", "stage_off", "xf_off", "red_off",
+    "scale_off", "res_off", "buf_off", "pre", "smem", "resident",
+    "resident_bytes"])
+ChainPlan.__doc__ = """How csrc/resident.cu lays out a chain (byte offsets
+into a block's dynamic shared memory). ``grid`` blocks, each owning at
+most ``quads`` row quads (N / 4 split evenly, ``resident_grid``'s
+rule) in ``m_tiles`` 16-row tiles of the mma; ``rows`` batch rows staged
+a pass; ``res_off[i]`` the offset of dot i's resident rows or -1;
+``pre[i]`` the bytes of each row of a dot that is not resident which the
+block copies into the buffer at ``buf_off`` behind the grid barrier
+before the dot (0: read from L2 in the dot); ``smem`` the dynamic bytes
+in all; ``resident_bytes`` the bytes of the resident dots' weights over
+the whole grid."""
+
+
+def row_stride(nbytes):
+    """Bytes between two rows of ``nbytes`` (a multiple of 64) in the
+    chain kernel's shared memory: an odd multiple of 64, so that the two
+    rows a quarter-warp's 16-byte fragment loads touch fall in different
+    halves of the 32 banks."""
+    return nbytes if nbytes % 128 else nbytes + 64
+
+
+def _align(n, a=128):
+    return -(-n // a) * a
+
+
+@functools.lru_cache(maxsize=64)
+def chain_plan(body, B, Ks, N, S, sms, prefetch=False):
+    """Lay out a chain of dots (K_i, N), ``Ks`` a tuple, on ``sms`` blocks
+    (one a SM), as csrc/resident.cu:resident_chain takes it. Raises
+    ValueError naming the constraint the kernel does not meet.
+
+    Each block owns a contiguous range of N / 4 row quads. In shared
+    memory, in order: the staged input rows (bf16 or int8, and W8A8's fp32
+    rows before they are quantized), the k-parts' partial sums, W8A8's
+    scales, then every dot that fits, in order, kept resident for the
+    whole scan; a dot that does not fit is read from global memory (L2)
+    every step in the dot itself. With ``prefetch`` the first ``pre`` bytes
+    of each of the block's rows of such a dot are copied into the rest of
+    the shared memory behind the grid barrier instead (measured slower on
+    the H100: PERF.md)."""
+    if body not in ("bf16", "w8a8"):
+        raise ValueError(f"chain_plan: body {body!r} is not a chain")
+    if B < 1 or sms < 1:
+        raise ValueError(f"chain_plan: B ({B}) and sms ({sms}) must be "
+                         "positive")
+    if not 1 <= len(Ks) <= CHAIN_DOTS:
+        raise ValueError(f"chain_plan: {len(Ks)} dots; the kernel takes 1 "
+                         f"to {CHAIN_DOTS}")
+    esize = 1 if body == "w8a8" else 2
+    for i, K in enumerate(Ks):
+        if K < 1 or K * esize % STRETCH:
+            raise ValueError(f"chain_plan: dot {i}'s K ({K}) must be a "
+                             f"positive multiple of {STRETCH // esize} "
+                             f"({STRETCH}-byte stretches of {body})")
+        if K > S:
+            raise ValueError(f"chain_plan: dot {i}'s K ({K}) exceeds the "
+                             f"state width ({S})")
+    if N % 16 or S % 4:
+        raise ValueError(f"chain_plan: N ({N}) must be a multiple of 16 "
+                         f"and S ({S}) of 4 (16-byte input loads)")
+    grid = min(sms, N // 4)
+    quads = -(-(N // 4) // grid)
+    m_tiles = 1
+    while 16 * m_tiles < 4 * quads:
+        m_tiles *= 2
+    if m_tiles > CHAIN_WARPS:
+        raise ValueError(f"chain_plan: {quads} row quads a block (N = {N} "
+                         f"over {grid} blocks) exceed "
+                         f"{4 * CHAIN_WARPS}, one 16-row tile a warp")
+    rows = min(B, CHAIN_ROWS)
+    kmax = max(Ks)
+    stage_off = 0
+    xf_off = _align(rows * row_stride(kmax * esize))
+    red_off = xf_off + (_align(rows * kmax * 4) if body == "w8a8" else 0)
+    scale_off = red_off + CHAIN_WARPS * 16 * CHAIN_ROWS * 4
+    used = scale_off + (_align(len(Ks) * 16 * m_tiles * 4)
+                        if body == "w8a8" else 0)
+    budget = SMEM_OPTIN - CHAIN_STATIC
+    if used > budget:
+        raise ValueError(f"chain_plan: {used} bytes of staged rows and "
+                         f"partial sums exceed the {budget} of shared "
+                         "memory a block may use")
+    res_off, resident = [], []
+    for K in Ks:
+        slice_bytes = _align(4 * quads * row_stride(K * esize))
+        fits = used + slice_bytes <= budget
+        res_off.append(used if fits else -1)
+        resident.append(int(fits))
+        used += slice_bytes if fits else 0
+    pre = [0] * len(Ks)
+    if prefetch and not all(resident):
+        per_row = (budget - used) // (4 * quads)
+        for i, K in enumerate(Ks):
+            if resident[i]:
+                continue
+            n = min(K * esize, per_row // STRETCH * STRETCH)
+            while n and row_stride(n) > per_row:
+                n -= STRETCH
+            pre[i] = n
+    buf_off = used
+    smem_used = used + max([4 * quads * row_stride(n) for n in pre if n],
+                           default=0)
+    resident_bytes = sum(N * K * esize for K, r in zip(Ks, resident) if r)
+    return ChainPlan(grid, quads, m_tiles, rows, stage_off, xf_off, red_off,
+                     scale_off, tuple(res_off), buf_off, tuple(pre),
+                     smem_used, tuple(resident), resident_bytes)
 
 
 def p3_check(B, S, N, K, sms=None):
@@ -146,14 +266,25 @@ def pack_resident_weights(body, ws, scales=None):
     """The kernel's layout: each (K_i, N) weight as (N, K_i) rows, k
     contiguous; for the chains row 4u + c holds column c * N/4 + u (the
     four gate columns of unit u side by side), and the (N,) scales follow
-    the same order. Returns (weights, scales or None), new storage."""
+    the same order. A chain's weights are views of one buffer, one after
+    the other, so that an L2 access-policy window can cover those that
+    stay in global memory. Returns (weights, scales or None), new
+    storage."""
     out_w, out_s = [], None if scales is None else []
-    for i, w in enumerate(ws):
-        wt = w.t() if body == "p3" else interleave_gates(w.t())
-        out_w.append(wt.contiguous())
-        if scales is not None:
-            s = scales[i].reshape(-1).float()
-            out_s.append(interleave_gates(s).contiguous())
+    rows = [w.t() if body == "p3" else interleave_gates(w.t()) for w in ws]
+    if body == "p3":
+        out_w = [r.contiguous() for r in rows]
+    else:
+        flat = torch.empty(sum(r.numel() for r in rows), dtype=rows[0].dtype,
+                           device=rows[0].device)
+        at = 0
+        for r in rows:
+            out_w.append(flat[at:at + r.numel()].view(r.shape))
+            out_w[-1].copy_(r)
+            at += r.numel()
+    for i in range(len(ws) if scales is not None else 0):
+        s = scales[i].reshape(-1).float()
+        out_s.append(interleave_gates(s).contiguous())
     return out_w, out_s
 
 
@@ -161,9 +292,10 @@ def _lib():
     lib = _build.load_library("resident")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.resident_scan.argtypes = [i, i, i, i, i, i, p, p, p, p, p, p, p,
-                                      p, p, p, p]
+        lib.resident_scan.argtypes = [i] * 5 + [p] * 5
         lib.resident_scan.restype = i
+        lib.resident_chain.argtypes = [i] * 10 + [p] * 13
+        lib.resident_chain.restype = i
         lib.resident_grid.argtypes = [i]
         lib.resident_grid.restype = i
         lib.resident_max_persisting_l2.argtypes = []
@@ -179,24 +311,39 @@ def max_persisting_l2_bytes():
     return int(_lib().resident_max_persisting_l2())
 
 
-def resident_scan(body, x, ws, scales=None, steps=1, packed=None):
+def resident_scan(body, x, ws, scales=None, steps=1, packed=None,
+                  prefetch=False, l2_window=False, clock=None):
     """The ``steps``-long scan of ``body`` from initial state ``x`` (see
     the module docstring); returns ``(state, last)``. On CPU tensors this
     is ``resident_scan_reference``; on CUDA tensors it launches
     csrc/resident.cu once, with ``packed`` (``pack_resident_weights``)
     when given, or raises. The bytes of weights kept in shared memory and
     which dots were kept go to ``resident_scan.last_resident``. Shapes the
-    P3 kernel does not take raise ValueError on either device
-    (``p3_check``)."""
+    kernels do not take raise ValueError on either device (``p3_check``,
+    ``chain_plan``).
+
+    Chains only, for measurements (PERF.md compares them): ``prefetch``
+    copies the first bytes of each row of the dots that are not resident
+    into shared memory behind the grid barrier (``chain_plan``);
+    ``l2_window`` reads those dots through an L2 access-policy window of
+    the launch (the persisting L2 limit raised for the call, then put back,
+    so the call waits for the kernel); ``clock`` (steps x dots int64 on the
+    card) receives the ns time at which block 0 passes each grid
+    barrier."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
     if body not in BODIES:
         raise ValueError(f"body {body!r} not in {BODIES}")
     dev = x.device
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else None)
     if body == "p3":
-        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-               if dev.type == "cuda" else None)
         p3_check(x.shape[0], x.shape[1], ws[0].shape[1], ws[0].shape[0], sms)
+    else:
+        plan = chain_plan(body, x.shape[0], tuple(w.shape[0] for w in ws),
+                          ws[0].shape[1], x.shape[1], sms or H100_SMS,
+                          prefetch=prefetch)
+        _build.check_barriers(steps * len(ws), plan.grid)
     if dev.type == "cpu":
         return resident_scan_reference(body, x, ws, scales, steps)
     pw, ps = packed if packed is not None else pack_resident_weights(
@@ -214,33 +361,46 @@ def resident_scan(body, x, ws, scales=None, steps=1, packed=None):
     else:
         state0 = x.float().contiguous().clone()
     states = (state0, torch.empty_like(state0))
-    g = [torch.empty(B, N // 4, device=dev) for _ in range(2)] \
-        if body != "p3" else [None, None]
-    y_last = torch.empty(B, N, device=dev) if body == "p3" else None
-    K = (ctypes.c_int * n)(*[w.shape[1] for w in pw])
     wp = (ctypes.c_void_p * n)(*[w.data_ptr() for w in pw])
-    sp = (ctypes.c_void_p * n)(*([s.data_ptr() for s in ps]
-                                 if body == "w8a8" else [None] * n))
-    res_bytes = ctypes.c_longlong(0)
-    resident = (ctypes.c_int * n)()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     lib = _lib()
-    err = lib.resident_scan(
-        BODIES.index(body), B, steps, n, N, S, K, wp, sp, ptr(states[0]),
-        ptr(states[1]), ptr(g[0]), ptr(g[1]), ptr(y_last),
-        ctypes.byref(res_bytes), resident,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if body == "p3":
+        y_last = torch.empty(B, N, device=dev)
+        err = lib.resident_scan(B, steps, N, S, pw[0].shape[1], wp,
+                                ptr(states[0]), ptr(states[1]), ptr(y_last),
+                                stream)
+        last = y_last
+        res = (N * pw[0].shape[1] * 2, [1])
+    else:
+        g = [torch.empty(B, N // 4, device=dev) for _ in range(2)]
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        ints = lambda v: (ctypes.c_int * CHAIN_DOTS)(*v)   # noqa: E731
+        sp = (ctypes.c_void_p * n)(*([s.data_ptr() for s in ps]
+                                     if body == "w8a8" else [None] * n))
+        if clock is not None:
+            _build.check_tensor("clock", clock, (steps * n,), dev,
+                                dtype=torch.int64)
+        layout = (ctypes.c_int * 5)(plan.stage_off, plan.xf_off, plan.red_off,
+                                    plan.scale_off, plan.buf_off)
+        err = lib.resident_chain(
+            BODIES.index(body), B, steps, n, N, S, plan.grid, plan.m_tiles,
+            plan.smem, int(bool(l2_window)),
+            ints([w.shape[1] for w in pw]), layout, ints(plan.res_off),
+            ints(plan.pre), wp, sp, ptr(states[0]), ptr(states[1]),
+            ptr(g[0]), ptr(g[1]), ptr(clock), bar.data_ptr(), stream)
+        last = g[(n - 1) & 1]
+        res = (plan.resident_bytes, list(plan.resident))
     if err:
         raise RuntimeError("resident_scan failed: "
                            + lib.resident_error_string(err).decode())
     resident_scan.launches += 1
     setattr(resident_scan, f"launches_{body}",
             getattr(resident_scan, f"launches_{body}") + 1)
-    resident_scan.last_resident = (res_bytes.value, list(resident))
-    last = y_last if body == "p3" else g[(n - 1) & 1]
+    resident_scan.last_resident = res
     return states[steps & 1], last
 
 

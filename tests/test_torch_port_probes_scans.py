@@ -260,7 +260,8 @@ def test_p5_main_prints_the_scripts_lines(p5, monkeypatch, capsys):
 
 def test_resident_packing_puts_a_units_gates_in_one_quad():
     """Packed row 4u + c of a chain weight is column c * N/4 + u; a P3
-    weight is only transposed; scales follow their columns."""
+    weight is only transposed; scales follow their columns; a chain's
+    dots are views of one buffer, back to back (the L2 window's range)."""
     w = torch.arange(3 * 8, dtype=torch.float32).reshape(3, 8)
     s = torch.arange(8, dtype=torch.float32)
     (pw,), (ps,) = pack_resident_weights("w8a8", [w], [s])
@@ -270,24 +271,97 @@ def test_resident_packing_puts_a_units_gates_in_one_quad():
             assert ps[4 * u + c] == s[2 * c + u]
     (p3w,), _ = pack_resident_weights("p3", [w])
     assert torch.equal(p3w, w.t())
+    pws, _ = pack_resident_weights("bf16", [w, 2 * w[:2], 3 * w])
+    assert [tuple(t.shape) for t in pws] == [(8, 3), (8, 2), (8, 3)]
+    base = pws[0].untyped_storage().data_ptr()
+    at = 0
+    for t, ref in zip(pws, [w, 2 * w[:2], 3 * w]):
+        assert t.untyped_storage().data_ptr() == base
+        assert t.data_ptr() == base + at * t.element_size()
+        assert torch.equal(t, interleave_gates(ref.t()))
+        at += t.numel()
+
+
+def _mma_fragments(W, X, s, i8):
+    """What csrc/resident.cu:chain_products hands one mma pair for stretch
+    s (64 bytes of k): lane (g, t) loads 16 bytes at 16 t of weight rows g
+    and g + 8 and of staged row g; returns, per mma, the logical A (16 x
+    kk) and B (kk x 8) tiles the PTX fragment layout gives those
+    registers (m16n8k16 bf16: kk = 16, two values a word; m16n8k32 s8:
+    kk = 32, four a word)."""
+    per = 4 if i8 else 2                        # values a 32-bit word
+    kk = 8 * per
+    tiles = []
+    for m in range(2):                          # words 2m, 2m + 1 of a load
+        A = np.zeros((16, kk), W.dtype)
+        Bt = np.zeros((kk, 8), X.dtype)
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            k0 = s * 64 // (1 if i8 else 2) + t * 4 * per
+            word = lambda row, w: row[k0 + w * per:k0 + (w + 1) * per]
+            # a0 / a1: rows g / g + 8 at logical k per*t ..; a2 / a3 the
+            # same rows at kk/2 + per*t; b0 / b1 column g at those k
+            for reg, (r, half) in enumerate([(g, 0), (g + 8, 0), (g, 1),
+                                             (g + 8, 1)]):
+                A[r, half * kk // 2 + per * t:][:per] = \
+                    word(W[r], 2 * m + half)
+            for half in range(2):
+                Bt[half * kk // 2 + per * t:][:per, g] = \
+                    word(X[g], 2 * m + half)
+        tiles.append((A, Bt))
+    return tiles
+
+
+@pytest.mark.parametrize("i8", [False, True], ids=["bf16", "s8"])
+def test_chain_mma_fragments_pair_each_weight_with_its_input(i8):
+    """The chain kernel loads 16 contiguous bytes of a weight row and of a
+    staged row a lane and gives them to the mma as they are: the mma's k
+    order is then a permutation of the stretch's, the same for A and B.
+    Unpacked by the PTX fragment layout, each mma's A tile holds the
+    packed weights' own values (every one exactly once over a stretch) and
+    the products over all stretches give back W @ x."""
+    rng = np.random.default_rng(0)
+    K = 256 if i8 else 128
+    if i8:
+        W = rng.integers(-127, 128, (16, K)).astype(np.int64)
+        X = rng.integers(-127, 128, (8, K)).astype(np.int64)
+    else:
+        W = rng.integers(-8, 8, (16, K)).astype(np.float64)
+        X = rng.integers(-8, 8, (8, K)).astype(np.float64)
+    acc = np.zeros((16, 8), W.dtype)
+    for s in range(K // (64 if i8 else 32)):
+        seen = []
+        for A, Bt in _mma_fragments(W, X, s, i8):
+            acc += A @ Bt
+            seen.append(A)
+        width = 64 if i8 else 32
+        stretch = W[:, s * width:(s + 1) * width]
+        got = np.concatenate(seen, 1)
+        for r in range(16):
+            assert sorted(got[r]) == sorted(stretch[r])
+    np.testing.assert_array_equal(acc, W @ X.T)
 
 
 def test_fused_cost_packing_layout():
-    """Cell weights interleave like the resident chains and concatenate
-    their inputs, each padded to 8 columns; head and query weights keep
-    column order."""
+    """One packed matrix a script weight, its rows padded to 8 columns:
+    cell weights interleave like the resident chains (row 4u + c is
+    column c * N/4 + u), head and query weights keep column order."""
     M, H, D = 6, 4, 12
     ws = [torch.randn(s) for s in weight_shapes("lstm", M, H, D)]
-    wa, wb, wc = pack_weights("lstm", ws)
-    assert wa.shape == (4 * H, 8 + 8) and wb.shape == (4 * H, 16)
-    assert wc.shape == (128, 8)
+    packed = pack_weights("lstm", ws)
+    assert [tuple(w.shape) for w in packed] == [(4 * H, 8)] + \
+        [(4 * H, 8)] * 3 + [(128, 8)]
     u, c = 3, 2
     col = c * H + u
-    assert torch.equal(wa[4 * u + c, :M], ws[0][:, col].bfloat16())
-    assert torch.equal(wa[4 * u + c, 8:8 + H], ws[1][:, col].bfloat16())
-    assert not wa[:, M:8].any() and not wa[:, 8 + H:].any()
-    assert torch.equal(wc[5, :H], ws[4][:, 5].bfloat16())
-    (qa, _, _) = pack_weights("attn", [torch.randn(M, D)])
+    for i in range(4):
+        assert torch.equal(packed[i][4 * u + c, :ws[i].shape[0]],
+                           ws[i][:, col].bfloat16())
+    assert not packed[0][:, M:].any() and not packed[1][:, H:].any()
+    assert torch.equal(packed[4][5, :H], ws[4][:, 5].bfloat16())
+    dots = pack_weights("dots", [torch.randn(s)
+                                 for s in weight_shapes("dots", M, H, D)])
+    assert len(dots) == 4 and dots[3].shape == (4 * H, 8)
+    (qa,) = pack_weights("attn", [torch.randn(M, D)])
     assert qa.shape == (D, 8)
 
 
@@ -357,13 +431,17 @@ _P3_EDGES = [("p3", b, 1664 if b == 64 else 256, 4096 if b == 64 else 1024,
 @pytest.mark.cuda
 @pytest.mark.parametrize("body,B,IN,OUT,steps", [
     ("p3", 64, 1664, 4096, 16), ("p3", 40, 256, 1024, 16),
-    ("bf16", 8, 0, 0, 16), ("w8a8", 8, 0, 0, 16)] + _P3_EDGES,
-    ids=["p3", "p3_ragged", "bf16", "w8a8"]
+    ("bf16", 8, 0, 0, 16), ("w8a8", 8, 0, 0, 16),
+    ("bf16", 1, 0, 0, 16), ("w8a8", 1, 0, 0, 16),
+    ("bf16", 12, 0, 0, 3), ("w8a8", 12, 0, 0, 3)] + _P3_EDGES,
+    ids=["p3", "p3_ragged", "bf16", "w8a8", "bf16_B1", "w8a8_B1",
+         "bf16_B12", "w8a8_B12"]
     + [f"p3_B{b}_{i}x{o}_steps{s}" for _, b, i, o, s in _P3_EDGES])
 def test_resident_kernel_matches_plain_on_card(cuda_device, body, B, IN, OUT,
                                                steps):
     """csrc/resident.cu against its plain version on the card at the
-    scripts' shapes, and P3 at batches that leave its 64-row pass ragged
+    scripts' shapes (the chains also at B=1 and at B=12, two passes of
+    batch rows), and P3 at batches that leave its 64-row pass ragged
     (1, 40) or need a second one (96), over 1, 2 and 16 steps (the final
     state in either buffer), chip_smoke.py's bars: the bf16 state and the
     last product within 1e-2 of their scale (fp32 sums in another order
@@ -427,15 +505,195 @@ def test_p3_scan_checks_shapes_on_the_cpu_too():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_fused_cost_kernel_matches_plain_on_card(cuda_device, variant):
+def test_fused_cost_kernel_matches_plain_on_card(cuda_device, variant, B):
     """csrc/fused_cost.cu against its plain version on the card, 16 steps
-    at the script's dims, B=8: the fp32 mel within 1e-3 of its scale."""
-    ws, z, kv = port_p5.to_device(port_p5.make_inputs(variant, 8, 16),
+    at the script's dims, B=1 and B=8: the fp32 mel within 1e-3 of its
+    scale; two calls equal bit for bit; one launch a call."""
+    ws, z, kv = port_p5.to_device(port_p5.make_inputs(variant, B, 16),
                                   cuda_device)
     before = fused_cost.launches
     mel = fused_cost(variant, z, kv, ws)
+    mel2 = fused_cost(variant, z, kv, ws)
     ref = fused_cost_reference(variant, z, kv, ws)
     torch.cuda.synchronize()
     _close(mel.cpu().numpy(), ref.cpu().numpy(), 1e-3)
-    assert fused_cost.launches == before + 1
+    assert torch.equal(mel, mel2)
+    assert fused_cost.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+def test_chain_options_match_the_default_on_card(cuda_device, B):
+    """The prefetch buffer, the L2 window and the stage clock give the
+    default launch's state and gates bit for bit (the order of the sums
+    does not depend on where a weight is read from); the clock rises
+    barrier by barrier."""
+    args = port_p4.to_device("bf16", port_p4.make_inputs("bf16", B),
+                             cuda_device)
+    state, last = resident_scan("bf16", *args, steps=4)
+    clock = torch.zeros(16, dtype=torch.int64, device=cuda_device)
+    for opts in (dict(prefetch=True), dict(l2_window=True),
+                 dict(clock=clock)):
+        state2, last2 = resident_scan("bf16", *args, steps=4, **opts)
+        torch.cuda.synchronize()
+        assert torch.equal(state, state2) and torch.equal(last, last2), opts
+    assert bool((clock.diff() > 0).all())
+
+
+P4_FULL = (1664, 1024, 1024, 1024)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_chain_plan_keeps_the_dots_that_fit_in_order(B):
+    """At the script's shape on 132 SMs: 32 rows (two 16-row tiles) a
+    block; bf16 keeps dots 0 and 1 in shared memory (22.0 MB over the
+    grid) and, with prefetch, copies a prefix of each row of dots 2 and 3
+    into the rest;
+    int8 keeps all four (19.4 MB). Offsets are 128-byte aligned, rows an
+    odd multiple of 64 bytes apart, and everything fits a block."""
+    from flowtron_tpu_torch.ops.resident import (
+        CHAIN_STATIC, SMEM_OPTIN, chain_plan, row_stride)
+    bf = chain_plan("bf16", B, P4_FULL, 4096, 1664, 132, prefetch=True)
+    assert (bf.grid, bf.quads, bf.m_tiles, bf.rows) == (132, 8, 2, B)
+    assert bf.resident == (1, 1, 0, 0)
+    assert bf.resident_bytes == 4096 * (1664 + 1024) * 2
+    assert bf.pre[:2] == (0, 0) and bf.pre[2] == bf.pre[3] > 0
+    assert bf.pre[2] % 64 == 0 and bf.pre[2] < 2048
+    assert bf.smem == bf.buf_off + 32 * row_stride(bf.pre[2])
+    i8 = chain_plan("w8a8", B, P4_FULL, 4096, 1664, 132)
+    assert i8.resident == (1, 1, 1, 1) and i8.pre == (0,) * 4
+    assert i8.resident_bytes == 4096 * sum(P4_FULL)
+    for plan in (bf, i8):
+        assert plan.smem <= SMEM_OPTIN - CHAIN_STATIC
+        offs = [plan.xf_off, plan.red_off, plan.scale_off, plan.buf_off] + \
+            [o for o in plan.res_off if o >= 0]
+        assert all(o % 128 == 0 for o in offs)
+    assert all(row_stride(n) % 128 == 64 for n in (64, 128, 2048, 3328))
+
+
+def test_chain_plan_without_prefetch_and_at_toy_size():
+    """Without prefetch (the default) the streamed dots get no buffer and
+    the same residency; the tests' toy chain (N = 512) has one quad a
+    block, one 16-row tile, and keeps everything."""
+    from flowtron_tpu_torch.ops.resident import chain_plan
+    plan = chain_plan("bf16", 1, P4_FULL, 4096, 1664, 132)
+    assert plan.pre == (0,) * 4 and plan.smem == plan.buf_off
+    assert plan.resident == (1, 1, 0, 0)
+    toy = chain_plan("bf16", P4_B, tuple(k for k, _ in P4_SHAPES), 512, 256,
+                     132)
+    assert (toy.grid, toy.quads, toy.m_tiles) == (128, 1, 1)
+    assert toy.resident == (1, 1, 1, 1)
+
+
+@pytest.mark.parametrize("args,match", [
+    (("p3", 1, (256,), 512, 256, 132), "not a chain"),
+    (("bf16", 0, (256,), 512, 256, 132), r"B \(0\)"),
+    (("bf16", 1, (256,) * 5, 512, 256, 132), "5 dots"),
+    (("bf16", 1, (48,), 512, 256, 132), r"K \(48\) must be a positive "
+                                         "multiple of 32"),
+    (("w8a8", 1, (96,), 512, 256, 132), r"multiple of 64"),
+    (("bf16", 1, (512,), 512, 256, 132), r"exceeds the state width"),
+    (("bf16", 1, (256,), 520, 256, 132), r"N \(520\) must be a multiple "
+                                         "of 16"),
+    (("bf16", 1, (256,), 8192, 256, 32), "64 row quads a block"),
+    (("bf16", 8, (16384,), 4096, 16384, 132), "staged rows"),
+], ids=["body", "batch", "dots", "bf16_k", "int8_k", "k_gt_s", "n16",
+        "quads", "smem"])
+def test_chain_plan_names_each_constraint(args, match):
+    from flowtron_tpu_torch.ops.resident import chain_plan
+    with pytest.raises(ValueError, match=match):
+        chain_plan(*args)
+
+
+def test_chain_scan_checks_its_plan_on_the_cpu_too():
+    x = torch.ones(1, 256)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        resident_scan("bf16", x, [torch.ones(48, 512, dtype=torch.bfloat16)])
+
+
+def test_barrier_counter_refuses_to_overflow():
+    """Each grid barrier adds one a block to one 32-bit counter: the
+    scripts' scans stay far below it, a scan of 2^32 / 132 barriers
+    does not, and the wrappers refuse it on either device."""
+    from flowtron_tpu_torch.ops import _build
+    _build.check_barriers(2000 * 4, 132)
+    _build.check_barriers(400 * 3, 132)
+    with pytest.raises(ValueError, match="overflow the barrier's 32-bit"):
+        _build.check_barriers(2 ** 32 // 132 + 1, 132)
+    x = torch.ones(1, 256)
+    with pytest.raises(ValueError, match="overflow"):
+        resident_scan("bf16", x, [torch.ones(256, 512, dtype=torch.bfloat16)],
+                      steps=2 ** 32 // 128)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n_blocks", [1, 7, 132])
+def test_p5_plan_owns_every_quad_once_in_order(variant, n_blocks):
+    """Each job's row quads split over the grid: contiguous ranges in
+    block order, every quad owned exactly once, at most one quad apart
+    between blocks; the stages are p5_plan's, in csrc/fused_cost.cu's
+    order."""
+    from flowtron_tpu_torch.ops.fused_cost import p5_bounds_array, p5_plan
+    M, H, D, Tk = 80, 1024, 640, 128
+    Nc = {"dots": 4 * H, "lstm": 128, "attn": D}[variant]
+    plan = p5_plan(variant, 1, M, H, D, Tk, Nc, n_blocks)
+    names = {"dots": [("cell", ["w0"]), ("cell2", ["w2", "w1"]),
+                      ("head", ["w3"])],
+             "lstm": [("cell", ["w0"]), ("cell2", ["w2", "w1"]),
+                      ("head", ["w4", "w3"])],
+             "attn": [("query", ["w0"]), ("attention", [])]}[variant]
+    assert [(st.name, [j[0] for j in st.jobs]) for st in plan.stages] == \
+        names
+    for st in plan.stages:
+        for (_, rows, _), bounds in zip(st.jobs, st.bounds):
+            assert len(bounds) == n_blocks + 1
+            assert bounds[0] == 0 and bounds[-1] == -(-rows // 4)
+            sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+            assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+            owner = [i for i, n in enumerate(sizes) for _ in range(n)]
+            assert owner == sorted(owner) and len(owner) == rows // 4
+    flat = p5_bounds_array(plan)
+    assert len(flat) == len(plan.stages) * 2 * (n_blocks + 1)
+
+
+@pytest.mark.parametrize("args,match", [
+    (("conv", 1, 80, 1024, 640, 128, 4096, 132), "variant 'conv'"),
+    (("dots", 0, 80, 1024, 640, 128, 4096, 132), "every size must be "
+                                                 "positive"),
+    (("lstm", 1, 80, 2, 640, 128, 128, 132), "H at least 4"),
+    (("dots", 1, 80, 1022, 640, 128, 4088, 132), r"H \(1022\), Nc"),
+    (("dots", 1, 78, 1024, 640, 128, 4096, 132), r"M \(78\) must be"),
+    (("lstm", 1, 80, 1024, 640, 128, 64, 132), r"Nc \(64\).*Nc at least M"),
+    (("attn", 1, 80, 0, 72, 128, 72, 132), r"M \(80\) <= D \(72\)"),
+    (("attn", 1, 20, 0, 640, 128, 640, 132), "multiples of 8"),
+    (("attn", 1, 264, 0, 640, 128, 640, 132), r"M \(264\) exceeds 256"),
+    (("attn", 64, 80, 0, 640, 1024, 640, 132), "staged inputs exceed"),
+], ids=["variant", "size", "h4", "quarters", "mel4", "nc", "d_lt_m",
+        "chunks", "wide_m", "smem"])
+def test_p5_plan_names_each_constraint(args, match):
+    from flowtron_tpu_torch.ops.fused_cost import p5_plan
+    with pytest.raises(ValueError, match=match):
+        p5_plan(*args)
+
+
+def test_p5_split_divides_k1s_frame_as_pr4_did():
+    """chip_smoke.py's p5_split: streaming is K1's weight bytes at the rate
+    P5's dots variant streams its own, LSTM the lstm variant's extra time,
+    attention the attn variant's time, and the four shares add to one."""
+    import chip_smoke
+    frame = dict(stage_us_per_frame={"att": 30.0, "query": 30.0,
+                                     "head": 40.0},
+                 weight_bytes=4e8)
+    p5_us = {"dots": (20.0, 1e8, {"cell": 5.0, "cell2": 9.0, "head": 6.0}),
+             "lstm": (23.0, 1e8, {}), "attn": (10.0, 1e5, {})}
+    out = chip_smoke.p5_split(frame, p5_us)
+    assert out["frame_us"] == 100.0
+    assert out["us"] == pytest.approx({"streaming": 80.0, "lstm": 3.0,
+                                       "attention": 10.0,
+                                       "unattributed": 7.0})
+    assert sum(out["share"].values()) == pytest.approx(1.0)
+    assert out["dots_tb_per_s"] == pytest.approx(5.0)
+    assert out["p5_fixed_us_per_stage"] == 5.0
+    assert out["k1_stages_at_p5_fixed_cost_share"] == pytest.approx(0.15)
