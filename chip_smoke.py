@@ -1354,19 +1354,17 @@ def probes_scans(k1_frames, dev):
     script's STEPS or N: the kernel, the plain version (eager, as the
     other kernels' plain versions) and, for P3 and P4, the streamed
     cuBLAS step in a CUDA graph. Also the resident bytes, the L2 bytes an
-    access-policy window may pin, P4's two ways to bring the dots that do
-    not fit (a bulk-copy buffer, an L2 window) beside its default, each
-    chain's and each P5 variant's time by stage
-    (the kernels' clocks), the time of a chain of four tiny dots (each
-    step is then mostly its four grid barriers), and K1's frames split by
-    P5 (``p5_split``). Returns the kernel table's fields."""
+    access-policy window may pin, each chain's and each P5 variant's time
+    by stage (the kernels' clocks), the time of a chain of four tiny dots
+    (each step is then mostly its four grid barriers), and K1's frames
+    split by P5 (``p5_split``). Returns the kernel table's fields."""
     from flowtron_tpu_torch.ops.decoder import barrier_bench
     from flowtron_tpu_torch.ops.fused_cost import (
         VARIANTS, fused_cost, fused_cost_reference, fused_cost_stage_split,
         pack_weights)
     from flowtron_tpu_torch.ops.resident import (
-        chain_plan, max_persisting_l2_bytes, pack_resident_weights,
-        resident_scan, resident_scan_reference)
+        max_persisting_l2_bytes, pack_resident_weights, resident_scan,
+        resident_scan_reference)
     from flowtron_tpu_torch.scripts import _probe
     from flowtron_tpu_torch.scripts import exp_fused_cost as p5
     from flowtron_tpu_torch.scripts import exp_fused_int8 as p4
@@ -1439,32 +1437,12 @@ def probes_scans(k1_frames, dev):
                           clock=clock)
             dot_us = (clock.double().diff()[n_dots - 1:]
                       .view(steps - 1, n_dots).mean(dim=0) / 1e3).tolist()
-            plan = chain_plan(body, B, tuple(w.shape[0] for w in args[1]),
-                              args[1][0].shape[1], args[0].shape[1],
-                              torch.cuda.get_device_properties(dev)
-                              .multi_processor_count, prefetch=True)
             fields = dict(body=body, B=B, steps=steps,
                           check_steps=PROBE_STEPS, max_abs_err=err,
                           kernel_us_per_step=1e3 * k_ms,
                           cublas_streamed_us_per_step=1e3 * lib_ms,
                           resident_bytes=res_bytes, resident_dots=resident,
                           dot_us_per_step=dot_us)
-            if not all(resident):
-                # the two ways to bring the dots that do not stay, against
-                # the default (read from L2 in the dot): a bulk copy of a
-                # prefix of each row behind the barrier, or an L2
-                # access-policy window; each gives the default's bits
-                for opt in ("prefetch", "l2_window"):
-                    alt = resident_scan(body, *args, steps=PROBE_STEPS,
-                                        **{opt: True})
-                    check(torch.equal(alt[0], out[0])
-                          and torch.equal(alt[1], out[1]),
-                          f"P4 {body} B={B}: the {opt} scan differs")
-                    fields[f"{opt}_us_per_step"] = 1e3 * per_step(
-                        lambda: resident_scan(body, *args, steps=steps,
-                                              packed=packed, **{opt: True}),
-                        steps)
-                fields["prefetch_bytes_per_row"] = plan.pre
             if B == 1:
                 p_ms = per_step(lambda: resident_scan_reference(
                     body, *args, steps=steps), steps, reps=1)

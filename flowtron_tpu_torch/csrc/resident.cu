@@ -57,13 +57,10 @@
 // - the blocks meet at the counter barrier of csrc/grid_sync.cuh after
 //   each dot (every block needs the dot's whole output; the counter is a
 //   word the wrapper zeroes, its target one grid higher a barrier);
-//   between arrive and wait a block does only work that no other block
-//   reads (with the prefetch option below, the bulk copy of its rows of
-//   the next dot that is not resident); the last dot's blend writes the
-//   state that every block stages for the next step's first dot, so it
-//   comes before the arrive; state and the gate outputs are
-//   double-buffered in global memory, so no block writes what another may
-//   still read;
+//   the last dot's blend writes the state that every block stages for
+//   the next step's first dot, so it comes before the arrive; state and
+//   the gate outputs are double-buffered in global memory, so no block
+//   writes what another may still read;
 // - the dots run on the tensor cores, the product transposed as K4's
 //   (csrc/qmm.cu): y^T = W (16 rows, four units' gate quads, the mma's m)
 //   x h^T (the staged batch rows, n = 8; B = 1 leaves seven columns
@@ -89,11 +86,11 @@
 //   a bf16 dot that does not fit (16.8 MB: 28% of the bytes) is read from
 //   L2 in the dot, rows of a ragged tile and batch rows past B reading a
 //   valid row again (their sums are dropped), so the loop has no
-//   predicates. Two ways to bring those rows closer are launch options,
-//   both measured slower on the H100 (PERF.md): a bulk copy of a prefix
-//   of each row into the rest of the shared memory behind the barrier
-//   (its 32 copies a dot hold up a warp), and an L2 access-policy window
-//   (the rows stay in L2 across steps without one);
+//   predicates. Two ways to bring those rows closer were measured on the
+//   H100 and taken out (PERF.md section 6): a bulk copy of a prefix of
+//   each row into the rest of the shared memory behind the barrier (its
+//   32 copies a dot hold up a warp: slower), and an L2 access-policy
+//   window (no faster: the rows stay in L2 across steps without one);
 // - the launch's parameters are copied into shared memory: a kernel
 //   parameter indexed by the dot is read through its address, a round
 //   trip each time;
@@ -165,8 +162,7 @@ struct Chain {
   int mt_bits, nkp;               // log2(m_tiles), k-parts: 8 / m_tiles
   int K[kMaxDots];
   int res_off[kMaxDots];          // the block's resident rows, or -1
-  int pre[kMaxDots];              // bytes a row of a streamed dot in the buffer
-  int stage_off, xf_off, red_off, scale_off, buf_off;
+  int stage_off, xf_off, red_off, scale_off;
   const unsigned char* w[kMaxDots];   // packed (N, K_i), bf16 or int8
   const float* scale[kMaxDots];   // (N,) packed, W8A8 only
   float* state[2];                // fp32 (B, S)
@@ -447,30 +443,17 @@ __device__ __noinline__ void chain_stage(const Chain& p, int i, int cur,
   __syncthreads();
 }
 
-// acc[u] <- acc[u + 1], acc[3] <- acc[0]: the accumulator chains move
-// one place, so that stretch j of a warp always lands in chain j % 4.
-template <typename Acc>
-__device__ __forceinline__ void rotate_chains(Acc (&acc)[kUnroll][4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const Acc t = acc[0][e];
-#pragma unroll
-    for (int u = 0; u + 1 < kUnroll; ++u) acc[u][e] = acc[u + 1][e];
-    acc[kUnroll - 1][e] = t;
-  }
-}
-
 // The stretches s = s0, s0 + nkp, ... < s1 of a warp from weight rows at
 // wa, wb and staged row xs (each already offset to the lane's 16 bytes),
-// stretch j of the range into chain j % 4; returns the stretches done.
-// (Software-pipelining the rounds, the next round's loads in flight
-// during this round's mmas, was measured slower.)
+// stretch j of the range into chain j % 4. (Software-pipelining the
+// rounds, the next round's loads in flight during this round's mmas, was
+// measured slower.)
 template <typename Acc>
-__device__ __forceinline__ int chain_range(Acc (&acc)[kUnroll][4],
-                                           const unsigned char* wa,
-                                           const unsigned char* wb,
-                                           const unsigned char* xs, int s0,
-                                           int s1, int nkp) {
+__device__ __forceinline__ void chain_range(Acc (&acc)[kUnroll][4],
+                                            const unsigned char* wa,
+                                            const unsigned char* wb,
+                                            const unsigned char* xs, int s0,
+                                            int s1, int nkp) {
   const int step = kStretch * nkp;
   int s = s0, off = kStretch * s0;
   for (; s + (kUnroll - 1) * nkp < s1; s += kUnroll * nkp) {
@@ -490,17 +473,13 @@ __device__ __forceinline__ int chain_range(Acc (&acc)[kUnroll][4],
       mma_stretch(acc[u], *reinterpret_cast<const uint4*>(wa + off),
                   *reinterpret_cast<const uint4*>(wb + off),
                   *reinterpret_cast<const uint4*>(xs + off));
-  return s1 > s0 ? (s1 - s0 + nkp - 1) / nkp : 0;
 }
 
 // This warp's part of dot i: m-tile w % m_tiles, every (8 / m_tiles)-th
-// stretch of k from stretch w / m_tiles on; its sums go to the k-part's
-// rows of the partial sums. Stretches below pre / 64 of a streamed dot
-// come from the buffer, the others from shared memory (resident) or
-// global memory; stretch j of the warp goes to accumulator chain j % 4
-// whatever its source, so the order of the sums does not depend on the
-// buffer. Rows past the block's (a ragged last m-tile) and batch rows
-// past nb read a valid row again: their sums are dropped.
+// stretch of k from stretch w / m_tiles on, from shared memory (resident)
+// or global memory; its sums go to the k-part's rows of the partial sums.
+// Rows past the block's (a ragged last m-tile) and batch rows past nb
+// read a valid row again: their sums are dropped.
 template <typename Acc>
 __device__ __forceinline__ void chain_products(const Chain& p, int i, int nb,
                                                int q0, int nrows,
@@ -512,24 +491,13 @@ __device__ __forceinline__ void chain_products(const Chain& p, int i, int nb,
   const int ra = 16 * mt + g, rb = ra + 8;
   const int ca = min(ra, nrows - 1), cb = min(rb, nrows - 1);
   const bool res = p.res_off[i] >= 0;
-  const int npre = res ? 0 : p.pre[i] / kStretch;
   const unsigned char* xs =
       sm + p.stage_off + min(g, nb - 1) * row_stride(kb) + 16 * t;
+  const int ws = res ? row_stride(kb) : kb;
+  const unsigned char* w =
+      (res ? sm + p.res_off[i] : p.w[i] + (size_t)4 * q0 * kb) + 16 * t;
   Acc acc[kUnroll][4] = {};
-  int done = 0;
-  if (npre) {
-    const int bs = row_stride(p.pre[i]);
-    const unsigned char* w = sm + p.buf_off + 16 * t;
-    done = chain_range(acc, w + ca * bs, w + cb * bs, xs, kp, npre, nkp);
-  }
-  for (int r = 0; r < (done & 3); ++r) rotate_chains(acc);
-  {
-    const int ws = res ? row_stride(kb) : kb;
-    const unsigned char* w =
-        (res ? sm + p.res_off[i] : p.w[i] + (size_t)4 * q0 * kb) + 16 * t;
-    chain_range(acc, w + ca * ws, w + cb * ws, xs, kp + nkp * done, ns, nkp);
-  }
-  for (int r = 0; r < (-done & 3); ++r) rotate_chains(acc);
+  chain_range(acc, w + ca * ws, w + cb * ws, xs, kp, ns, nkp);
 #pragma unroll
   for (int u = 1; u < kUnroll; ++u)
 #pragma unroll
@@ -608,31 +576,9 @@ __device__ __forceinline__ void chain_old_state(const Chain& p, int cur,
     if (q0 + ql + r * Q < p.S) so[r] = s_old[q0 + ql + r * Q];
 }
 
-__device__ __forceinline__ bool buffered(const Chain& p, int i) {
-  return p.res_off[i] < 0 && p.pre[i] > 0;
-}
-
-// Start the bulk copies of the first pre bytes of each of this block's
-// rows of dot i into the buffer: one copy a row, completing on *mbar,
-// issued by the last warp (a warp's lanes issue them one after another,
-// so thread 0, which waits at the grid barrier, stays out of it).
-__device__ __noinline__ void chain_prefetch(const Chain& p, int i, int q0,
-                                            int nrows, unsigned char* sm,
-                                            uint64_t* mbar) {
-  const int lane = threadIdx.x - (kThreads - 32);
-  if (lane < 0) return;
-  const int kb = p.i8 ? p.K[i] : 2 * p.K[i], pre = p.pre[i];
-  if (lane == 0) mbar_expect(mbar, (unsigned)(nrows * pre));
-  __syncwarp();
-  for (int r = lane; r < nrows; r += 32)
-    bulk_copy(sm + p.buf_off + r * row_stride(pre),
-              p.w[i] + (size_t)(4 * q0 + r) * kb, (unsigned)pre, mbar);
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     chain_kernel(const __grid_constant__ Chain param) {
   extern __shared__ __align__(128) unsigned char sm[];
-  __shared__ uint64_t mbar;
   __shared__ float sx[kMaxB];
   // the launch's parameters in shared memory: the stages index them by
   // the dot, and a kernel parameter read through its address costs a
@@ -660,13 +606,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       reinterpret_cast<float*>(sm + p.scale_off)[(j / nrows) * tile +
                                                  j % nrows] =
           p.scale[j / nrows][4 * q0 + j % nrows];
-  if (threadIdx.x == 0) mbar_init(&mbar);
   __syncthreads();
 
-  int first = 0;
-  while (first < p.n_dots && !buffered(p, first)) ++first;
-  if (first < p.n_dots) chain_prefetch(p, first, q0, nrows, sm, &mbar);
-  unsigned passed = 0, phase = 0;
+  unsigned passed = 0;
   for (int t = 0; t < p.steps; ++t) {
     const int cur = t & 1;
     for (int i = 0; i < p.n_dots; ++i) {
@@ -675,10 +617,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         chain_stage(p, i, cur, b0, nb, sm, sx);
         float so[kOld];
         if (i == p.n_dots - 1) chain_old_state(p, cur, b0, nb, q0, nq, so);
-        if (b0 == 0 && buffered(p, i)) {   // this dot's prefetched rows
-          mbar_wait(&mbar, phase & 1);
-          ++phase;
-        }
         if (p.i8)
           chain_products<int>(p, i, nb, q0, nrows, sm);
         else
@@ -688,14 +626,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (b0 + kMaxB < p.B) __syncthreads();   // staged rows, sums free
       }
       barrier_arrive(p.bar);
-      if (buffered(p, i)) {
-        // the buffer is free: the next buffered dot's rows, if it runs
-        int j = i, tt = t;
-        do {
-          if (++j == p.n_dots) j = 0, ++tt;
-        } while (!buffered(p, j));
-        if (tt < p.steps) chain_prefetch(p, j, q0, nrows, sm, &mbar);
-      }
       barrier_wait(p.bar, ++passed * (unsigned)p.grid);
       if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
         p.clock[(size_t)t * p.n_dots + i] = gtime();
@@ -789,19 +719,15 @@ int resident_scan(int B, int steps, int N, int S, int K,
 
 // P4's chain: body 1 = bf16, 2 = W8A8; the layout from
 // ops/resident.py:chain_plan: grid blocks, m_tiles, smem dynamic bytes,
-// layout = {stage_off, xf_off, red_off, scale_off, buf_off}, res_off[i]
-// and pre[i] per dot. w[i] packed (N, K[i]) bf16 or int8, scale[i] (N,)
-// fp32 packed (W8A8). state0/state1 (B, S) fp32, state0 the initial
-// state, the final one in state[steps & 1]; g0, g1 (B, N / 4) fp32, the
-// last dot's gates in g[(n_dots - 1) & 1]. bar: one zeroed word. clock:
-// null or (steps, n_dots) int64. l2_window: read the dots that are not
-// resident through an L2 access-policy window of this launch (the
-// persisting L2 limit raised for the call and put back after it; the
-// call then waits for the kernel); chain_plan then gives them no buffer.
+// layout = {stage_off, xf_off, red_off, scale_off}, res_off[i] per dot.
+// w[i] packed (N, K[i]) bf16 or int8, scale[i] (N,) fp32 packed (W8A8).
+// state0/state1 (B, S) fp32, state0 the initial state, the final one in
+// state[steps & 1]; g0, g1 (B, N / 4) fp32, the last dot's gates in
+// g[(n_dots - 1) & 1]. bar: one zeroed word. clock: null or (steps,
+// n_dots) int64.
 int resident_chain(int body, int B, int steps, int n_dots, int N, int S,
-                   int grid, int m_tiles, int smem, int l2_window,
-                   const int* K, const int* layout, const int* res_off,
-                   const int* pre, const void* const* w,
+                   int grid, int m_tiles, int smem, const int* K,
+                   const int* layout, const int* res_off, const void* const* w,
                    const float* const* scale, float* state0, float* state1,
                    float* g0, float* g1, long long* clock, unsigned* bar,
                    void* stream_handle) {
@@ -824,11 +750,9 @@ int resident_chain(int body, int B, int steps, int n_dots, int N, int S,
   while ((1 << p.mt_bits) < m_tiles) ++p.mt_bits;
   const int esize = p.i8 ? 1 : 2;
   for (int i = 0; i < n_dots; ++i) {
-    if ((K[i] * esize) % kStretch || K[i] > S || pre[i] % kStretch)
-      return cudaErrorInvalidValue;
+    if ((K[i] * esize) % kStretch || K[i] > S) return cudaErrorInvalidValue;
     p.K[i] = K[i];
     p.res_off[i] = res_off[i];
-    p.pre[i] = pre[i];
     p.w[i] = static_cast<const unsigned char*>(w[i]);
     p.scale[i] = p.i8 ? scale[i] : nullptr;
   }
@@ -836,7 +760,6 @@ int resident_chain(int body, int B, int steps, int n_dots, int N, int S,
   p.xf_off = layout[1];
   p.red_off = layout[2];
   p.scale_off = layout[3];
-  p.buf_off = layout[4];
   p.state[0] = state0;
   p.state[1] = state1;
   p.g[0] = g0;
@@ -860,64 +783,11 @@ int resident_chain(int body, int B, int steps, int n_dots, int N, int S,
     return err;
   if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
 
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  cudaLaunchAttribute attr[2] = {};
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  size_t old_limit = 0;
-  if (l2_window) {
-    // the window: from the first streamed dot's weights to the last one's
-    // end (one buffer, ops/resident.py:pack_resident_weights)
-    uintptr_t lo = UINTPTR_MAX, hi = 0;
-    for (int i = 0; i < n_dots; ++i) {
-      if (res_off[i] >= 0) continue;
-      const uintptr_t a = reinterpret_cast<uintptr_t>(w[i]);
-      const uintptr_t e = a + (size_t)N * K[i] * esize;
-      lo = a < lo ? a : lo;
-      hi = e > hi ? e : hi;
-    }
-    if (hi <= lo) {
-      l2_window = 0;
-    } else {
-      int persist = 0, most = 0;
-      if ((err = cudaDeviceGetAttribute(
-               &persist, cudaDevAttrMaxPersistingL2CacheSize, dev)) ||
-          (err = cudaDeviceGetAttribute(
-               &most, cudaDevAttrMaxAccessPolicyWindowSize, dev)) ||
-          (err = cudaDeviceGetLimit(&old_limit,
-                                    cudaLimitPersistingL2CacheSize)))
-        return err;
-      const size_t bytes = hi - lo < (size_t)most ? hi - lo : (size_t)most;
-      const size_t pin = bytes < (size_t)persist ? bytes : (size_t)persist;
-      if ((err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, pin)))
-        return err;
-      attr[1].id = cudaLaunchAttributeAccessPolicyWindow;
-      attr[1].val.accessPolicyWindow.base_ptr = reinterpret_cast<void*>(lo);
-      attr[1].val.accessPolicyWindow.num_bytes = bytes;
-      attr[1].val.accessPolicyWindow.hitRatio = (float)pin / (float)bytes;
-      attr[1].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
-      attr[1].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
-      cfg.numAttrs = 2;
-    }
-  }
   void* args[] = {&p};
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  if (!err) err = cudaGetLastError();
-  if (l2_window) {
-    const cudaError_t e1 = cudaStreamSynchronize(stream);
-    const cudaError_t e2 = cudaCtxResetPersistingL2Cache();
-    const cudaError_t e3 =
-        cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, old_limit);
-    if (!err) err = e1 ? e1 : e2 ? e2 : e3;
-  }
-  return err;
+  err = cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, smem,
+                                    static_cast<cudaStream_t>(stream_handle));
+  if (err) return err;
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -242,6 +242,20 @@ def _bounds_tensor(plan, dev):
     return _bounds[key]
 
 
+def _sizes(variant, z, kv, ws):
+    """(B, M, H, D, Tk, Nc) of a call, as ``p5_plan`` takes them; raises
+    ValueError unless ``ws`` have the script's shapes."""
+    _, B, M = z.shape
+    _, Tk, D = kv.shape
+    shapes = [tuple(w.shape) for w in ws]
+    H = shapes[1][0] if variant != "attn" else 0
+    Nc = shapes[-1][1] if variant != "attn" else D
+    if shapes != weight_shapes(variant, M, H or 1024, D):
+        raise ValueError(f"{variant} weights {shapes} are not the script's "
+                         f"{weight_shapes(variant, M, H or 1024, D)}")
+    return B, M, H, D, Tk, Nc
+
+
 def fused_cost(variant, z, kv, ws, packed=None, clock=None):
     """mel (N, B, M) fp32 of ``variant`` over latents z (N, B, M) fp32 and
     kv (B, Tk, D) bf16 with the (K, N) bf16 weights ``ws``. On CPU
@@ -257,20 +271,14 @@ def fused_cost(variant, z, kv, ws, packed=None, clock=None):
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     dev = z.device
-    N, B, M = z.shape
-    _, Tk, D = kv.shape
+    N = z.shape[0]
+    B, M, H, D, Tk, Nc = _sizes(variant, z, kv, ws)
     pw = packed if packed is not None else pack_weights(variant, ws)
     _build.check_tensor("z", z, (N, B, M), dev)
     _build.check_tensor("kv", kv, (B, Tk, D), dev, dtype=torch.bfloat16)
-    shapes = [tuple(w.shape) for w in ws]
-    H = shapes[1][0] if variant != "attn" else 0
-    Nc = shapes[-1][1] if variant != "attn" else D
-    if shapes != weight_shapes(variant, M, H or 1024, D):
-        raise ValueError(f"{variant} weights {shapes} are not the script's "
-                         f"{weight_shapes(variant, M, H or 1024, D)}")
-    for i, w in enumerate(pw):
+    for i, (w, src) in enumerate(zip(pw, ws)):
         _build.check_tensor(f"packed[{i}]", w,
-                            (shapes[i][1], _pad8(shapes[i][0])), dev,
+                            (src.shape[1], _pad8(src.shape[0])), dev,
                             dtype=torch.bfloat16)
     n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = p5_plan(variant, B, M, H, D, Tk, Nc, n_blocks)
@@ -312,14 +320,13 @@ def fused_cost_stage_split(variant, z, kv, ws, packed=None):
     names), steps 1 .. N - 1, as block 0 sees them, and the mel. A
     measurement: the launch is counted in ``fused_cost.launches``."""
     N = z.shape[0]
-    n_stages = 2 if variant == "attn" else 3
-    clock = torch.zeros(N * n_stages, dtype=torch.int64, device=z.device)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    stages = p5_plan(variant, *_sizes(variant, z, kv, ws), sms).stages
+    clock = torch.zeros(N * len(stages), dtype=torch.int64, device=z.device)
     mel = fused_cost(variant, z, kv, ws, packed, clock)
-    ns = clock.double().diff()[n_stages - 1:]
-    per = ns.view(N - 1, n_stages).mean(dim=0) / 1e3
-    names = ("query", "attention") if variant == "attn" else \
-        ("cell", "cell2", "head")
-    return {n: float(us) for n, us in zip(names, per.cpu())}, mel
+    ns = clock.double().diff()[len(stages) - 1:]
+    per = ns.view(N - 1, len(stages)).mean(dim=0) / 1e3
+    return {st.name: float(us) for st, us in zip(stages, per.cpu())}, mel
 
 
 # launches of any variant, and of each variant

@@ -30,9 +30,8 @@ full product y (B, N) fp32 for "p3" or the last dot's gate output g
 (B, N/4) fp32 for the chains. On CUDA tensors ``resident_scan`` launches
 csrc/resident.cu (its note says what bounds it and how the design
 answers): P3 as laid out by ``p3_check``, the chains as ``chain_plan``
-lays them out (which dots stay in shared memory, the prefetch buffer of
-the others, the grid barrier's count); on CPU tensors it runs
-``resident_scan_reference``.
+lays them out (which dots stay in shared memory, the grid barrier's
+count); on CPU tensors it runs ``resident_scan_reference``.
 """
 
 import ctypes
@@ -59,18 +58,15 @@ CHAIN_WARPS, CHAIN_ROWS, CHAIN_DOTS, STRETCH, CHAIN_STATIC = 8, 8, 4, 64, 1024
 
 ChainPlan = namedtuple("ChainPlan", [
     "grid", "quads", "m_tiles", "rows", "stage_off", "xf_off", "red_off",
-    "scale_off", "res_off", "buf_off", "pre", "smem", "resident",
-    "resident_bytes"])
+    "scale_off", "res_off", "smem", "resident", "resident_bytes"])
 ChainPlan.__doc__ = """How csrc/resident.cu lays out a chain (byte offsets
 into a block's dynamic shared memory). ``grid`` blocks, each owning at
 most ``quads`` row quads (N / 4 split evenly, ``resident_grid``'s
 rule) in ``m_tiles`` 16-row tiles of the mma; ``rows`` batch rows staged
-a pass; ``res_off[i]`` the offset of dot i's resident rows or -1;
-``pre[i]`` the bytes of each row of a dot that is not resident which the
-block copies into the buffer at ``buf_off`` behind the grid barrier
-before the dot (0: read from L2 in the dot); ``smem`` the dynamic bytes
-in all; ``resident_bytes`` the bytes of the resident dots' weights over
-the whole grid."""
+a pass; ``res_off[i]`` the offset of dot i's resident rows or -1 (read
+from L2 in the dot); ``smem`` the dynamic bytes in all;
+``resident_bytes`` the bytes of the resident dots' weights over the whole
+grid."""
 
 
 def row_stride(nbytes):
@@ -86,7 +82,7 @@ def _align(n, a=128):
 
 
 @functools.lru_cache(maxsize=64)
-def chain_plan(body, B, Ks, N, S, sms, prefetch=False):
+def chain_plan(body, B, Ks, N, S, sms):
     """Lay out a chain of dots (K_i, N), ``Ks`` a tuple, on ``sms`` blocks
     (one a SM), as csrc/resident.cu:resident_chain takes it. Raises
     ValueError naming the constraint the kernel does not meet.
@@ -96,10 +92,7 @@ def chain_plan(body, B, Ks, N, S, sms, prefetch=False):
     rows before they are quantized), the k-parts' partial sums, W8A8's
     scales, then every dot that fits, in order, kept resident for the
     whole scan; a dot that does not fit is read from global memory (L2)
-    every step in the dot itself. With ``prefetch`` the first ``pre`` bytes
-    of each of the block's rows of such a dot are copied into the rest of
-    the shared memory behind the grid barrier instead (measured slower on
-    the H100: PERF.md)."""
+    every step in the dot itself."""
     if body not in ("bf16", "w8a8"):
         raise ValueError(f"chain_plan: body {body!r} is not a chain")
     if B < 1 or sms < 1:
@@ -149,23 +142,10 @@ def chain_plan(body, B, Ks, N, S, sms, prefetch=False):
         res_off.append(used if fits else -1)
         resident.append(int(fits))
         used += slice_bytes if fits else 0
-    pre = [0] * len(Ks)
-    if prefetch and not all(resident):
-        per_row = (budget - used) // (4 * quads)
-        for i, K in enumerate(Ks):
-            if resident[i]:
-                continue
-            n = min(K * esize, per_row // STRETCH * STRETCH)
-            while n and row_stride(n) > per_row:
-                n -= STRETCH
-            pre[i] = n
-    buf_off = used
-    smem_used = used + max([4 * quads * row_stride(n) for n in pre if n],
-                           default=0)
     resident_bytes = sum(N * K * esize for K, r in zip(Ks, resident) if r)
     return ChainPlan(grid, quads, m_tiles, rows, stage_off, xf_off, red_off,
-                     scale_off, tuple(res_off), buf_off, tuple(pre),
-                     smem_used, tuple(resident), resident_bytes)
+                     scale_off, tuple(res_off), used, tuple(resident),
+                     resident_bytes)
 
 
 def p3_check(B, S, N, K, sms=None):
@@ -266,25 +246,14 @@ def pack_resident_weights(body, ws, scales=None):
     """The kernel's layout: each (K_i, N) weight as (N, K_i) rows, k
     contiguous; for the chains row 4u + c holds column c * N/4 + u (the
     four gate columns of unit u side by side), and the (N,) scales follow
-    the same order. A chain's weights are views of one buffer, one after
-    the other, so that an L2 access-policy window can cover those that
-    stay in global memory. Returns (weights, scales or None), new
-    storage."""
+    the same order. Returns (weights, scales or None), new storage."""
     out_w, out_s = [], None if scales is None else []
-    rows = [w.t() if body == "p3" else interleave_gates(w.t()) for w in ws]
-    if body == "p3":
-        out_w = [r.contiguous() for r in rows]
-    else:
-        flat = torch.empty(sum(r.numel() for r in rows), dtype=rows[0].dtype,
-                           device=rows[0].device)
-        at = 0
-        for r in rows:
-            out_w.append(flat[at:at + r.numel()].view(r.shape))
-            out_w[-1].copy_(r)
-            at += r.numel()
-    for i in range(len(ws) if scales is not None else 0):
-        s = scales[i].reshape(-1).float()
-        out_s.append(interleave_gates(s).contiguous())
+    for i, w in enumerate(ws):
+        wt = w.t() if body == "p3" else interleave_gates(w.t())
+        out_w.append(wt.contiguous())
+        if scales is not None:
+            s = scales[i].reshape(-1).float()
+            out_s.append(interleave_gates(s).contiguous())
     return out_w, out_s
 
 
@@ -294,7 +263,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.resident_scan.argtypes = [i] * 5 + [p] * 5
         lib.resident_scan.restype = i
-        lib.resident_chain.argtypes = [i] * 10 + [p] * 13
+        lib.resident_chain.argtypes = [i] * 9 + [p] * 12
         lib.resident_chain.restype = i
         lib.resident_grid.argtypes = [i]
         lib.resident_grid.restype = i
@@ -312,7 +281,7 @@ def max_persisting_l2_bytes():
 
 
 def resident_scan(body, x, ws, scales=None, steps=1, packed=None,
-                  prefetch=False, l2_window=False, clock=None):
+                  clock=None):
     """The ``steps``-long scan of ``body`` from initial state ``x`` (see
     the module docstring); returns ``(state, last)``. On CPU tensors this
     is ``resident_scan_reference``; on CUDA tensors it launches
@@ -322,12 +291,7 @@ def resident_scan(body, x, ws, scales=None, steps=1, packed=None,
     kernels do not take raise ValueError on either device (``p3_check``,
     ``chain_plan``).
 
-    Chains only, for measurements (PERF.md compares them): ``prefetch``
-    copies the first bytes of each row of the dots that are not resident
-    into shared memory behind the grid barrier (``chain_plan``);
-    ``l2_window`` reads those dots through an L2 access-policy window of
-    the launch (the persisting L2 limit raised for the call, then put back,
-    so the call waits for the kernel); ``clock`` (steps x dots int64 on the
+    Chains only, for measurements: ``clock`` (steps x dots int64 on the
     card) receives the ns time at which block 0 passes each grid
     barrier."""
     if x.device.type not in ("cpu", "cuda"):
@@ -341,8 +305,7 @@ def resident_scan(body, x, ws, scales=None, steps=1, packed=None,
         p3_check(x.shape[0], x.shape[1], ws[0].shape[1], ws[0].shape[0], sms)
     else:
         plan = chain_plan(body, x.shape[0], tuple(w.shape[0] for w in ws),
-                          ws[0].shape[1], x.shape[1], sms or H100_SMS,
-                          prefetch=prefetch)
+                          ws[0].shape[1], x.shape[1], sms or H100_SMS)
         _build.check_barriers(steps * len(ws), plan.grid)
     if dev.type == "cpu":
         return resident_scan_reference(body, x, ws, scales, steps)
@@ -384,13 +347,12 @@ def resident_scan(body, x, ws, scales=None, steps=1, packed=None,
         if clock is not None:
             _build.check_tensor("clock", clock, (steps * n,), dev,
                                 dtype=torch.int64)
-        layout = (ctypes.c_int * 5)(plan.stage_off, plan.xf_off, plan.red_off,
-                                    plan.scale_off, plan.buf_off)
+        layout = (ctypes.c_int * 4)(plan.stage_off, plan.xf_off, plan.red_off,
+                                    plan.scale_off)
         err = lib.resident_chain(
             BODIES.index(body), B, steps, n, N, S, plan.grid, plan.m_tiles,
-            plan.smem, int(bool(l2_window)),
-            ints([w.shape[1] for w in pw]), layout, ints(plan.res_off),
-            ints(plan.pre), wp, sp, ptr(states[0]), ptr(states[1]),
+            plan.smem, ints([w.shape[1] for w in pw]), layout,
+            ints(plan.res_off), wp, sp, ptr(states[0]), ptr(states[1]),
             ptr(g[0]), ptr(g[1]), ptr(clock), bar.data_ptr(), stream)
         last = g[(n - 1) & 1]
         res = (plan.resident_bytes, list(plan.resident))

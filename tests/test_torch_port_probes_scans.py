@@ -260,8 +260,8 @@ def test_p5_main_prints_the_scripts_lines(p5, monkeypatch, capsys):
 
 def test_resident_packing_puts_a_units_gates_in_one_quad():
     """Packed row 4u + c of a chain weight is column c * N/4 + u; a P3
-    weight is only transposed; scales follow their columns; a chain's
-    dots are views of one buffer, back to back (the L2 window's range)."""
+    weight is only transposed; scales follow their columns; each of a
+    chain's dots is its own contiguous (N, K_i) rows."""
     w = torch.arange(3 * 8, dtype=torch.float32).reshape(3, 8)
     s = torch.arange(8, dtype=torch.float32)
     (pw,), (ps,) = pack_resident_weights("w8a8", [w], [s])
@@ -273,13 +273,9 @@ def test_resident_packing_puts_a_units_gates_in_one_quad():
     assert torch.equal(p3w, w.t())
     pws, _ = pack_resident_weights("bf16", [w, 2 * w[:2], 3 * w])
     assert [tuple(t.shape) for t in pws] == [(8, 3), (8, 2), (8, 3)]
-    base = pws[0].untyped_storage().data_ptr()
-    at = 0
     for t, ref in zip(pws, [w, 2 * w[:2], 3 * w]):
-        assert t.untyped_storage().data_ptr() == base
-        assert t.data_ptr() == base + at * t.element_size()
+        assert t.is_contiguous()
         assert torch.equal(t, interleave_gates(ref.t()))
-        at += t.numel()
 
 
 def _mma_fragments(W, X, s, i8):
@@ -526,19 +522,16 @@ def test_fused_cost_kernel_matches_plain_on_card(cuda_device, variant, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 8])
 def test_chain_options_match_the_default_on_card(cuda_device, B):
-    """The prefetch buffer, the L2 window and the stage clock give the
-    default launch's state and gates bit for bit (the order of the sums
-    does not depend on where a weight is read from); the clock rises
-    barrier by barrier."""
+    """The one launch option, the dot clock, gives the default launch's
+    state and gates bit for bit, and the clock rises barrier by
+    barrier."""
     args = port_p4.to_device("bf16", port_p4.make_inputs("bf16", B),
                              cuda_device)
     state, last = resident_scan("bf16", *args, steps=4)
     clock = torch.zeros(16, dtype=torch.int64, device=cuda_device)
-    for opts in (dict(prefetch=True), dict(l2_window=True),
-                 dict(clock=clock)):
-        state2, last2 = resident_scan("bf16", *args, steps=4, **opts)
-        torch.cuda.synchronize()
-        assert torch.equal(state, state2) and torch.equal(last, last2), opts
+    state2, last2 = resident_scan("bf16", *args, steps=4, clock=clock)
+    torch.cuda.synchronize()
+    assert torch.equal(state, state2) and torch.equal(last, last2)
     assert bool((clock.diff() > 0).all())
 
 
@@ -549,37 +542,35 @@ P4_FULL = (1664, 1024, 1024, 1024)
 def test_chain_plan_keeps_the_dots_that_fit_in_order(B):
     """At the script's shape on 132 SMs: 32 rows (two 16-row tiles) a
     block; bf16 keeps dots 0 and 1 in shared memory (22.0 MB over the
-    grid) and, with prefetch, copies a prefix of each row of dots 2 and 3
-    into the rest;
-    int8 keeps all four (19.4 MB). Offsets are 128-byte aligned, rows an
-    odd multiple of 64 bytes apart, and everything fits a block."""
+    grid) and reads dots 2 and 3 from L2; int8 keeps all four (19.4 MB).
+    Offsets are 128-byte aligned, rows an odd multiple of 64 bytes apart,
+    the resident slices back to back, and everything fits a block."""
     from flowtron_tpu_torch.ops.resident import (
         CHAIN_STATIC, SMEM_OPTIN, chain_plan, row_stride)
-    bf = chain_plan("bf16", B, P4_FULL, 4096, 1664, 132, prefetch=True)
+    bf = chain_plan("bf16", B, P4_FULL, 4096, 1664, 132)
     assert (bf.grid, bf.quads, bf.m_tiles, bf.rows) == (132, 8, 2, B)
-    assert bf.resident == (1, 1, 0, 0)
+    assert bf.resident == (1, 1, 0, 0) and bf.res_off[2:] == (-1, -1)
     assert bf.resident_bytes == 4096 * (1664 + 1024) * 2
-    assert bf.pre[:2] == (0, 0) and bf.pre[2] == bf.pre[3] > 0
-    assert bf.pre[2] % 64 == 0 and bf.pre[2] < 2048
-    assert bf.smem == bf.buf_off + 32 * row_stride(bf.pre[2])
+    assert bf.smem == bf.res_off[1] + 32 * row_stride(2 * 1024)
     i8 = chain_plan("w8a8", B, P4_FULL, 4096, 1664, 132)
-    assert i8.resident == (1, 1, 1, 1) and i8.pre == (0,) * 4
+    assert i8.resident == (1, 1, 1, 1)
     assert i8.resident_bytes == 4096 * sum(P4_FULL)
+    assert i8.smem == i8.res_off[3] + 32 * row_stride(1024)
     for plan in (bf, i8):
         assert plan.smem <= SMEM_OPTIN - CHAIN_STATIC
-        offs = [plan.xf_off, plan.red_off, plan.scale_off, plan.buf_off] + \
+        offs = [plan.xf_off, plan.red_off, plan.scale_off] + \
             [o for o in plan.res_off if o >= 0]
         assert all(o % 128 == 0 for o in offs)
     assert all(row_stride(n) % 128 == 64 for n in (64, 128, 2048, 3328))
 
 
 def test_chain_plan_without_prefetch_and_at_toy_size():
-    """Without prefetch (the default) the streamed dots get no buffer and
-    the same residency; the tests' toy chain (N = 512) has one quad a
-    block, one 16-row tile, and keeps everything."""
-    from flowtron_tpu_torch.ops.resident import chain_plan
+    """The dots that do not stay get no shared memory of their own (the
+    plan ends at the last resident slice); the tests' toy chain (N = 512)
+    has one quad a block, one 16-row tile, and keeps everything."""
+    from flowtron_tpu_torch.ops.resident import chain_plan, row_stride
     plan = chain_plan("bf16", 1, P4_FULL, 4096, 1664, 132)
-    assert plan.pre == (0,) * 4 and plan.smem == plan.buf_off
+    assert plan.smem == plan.res_off[1] + 32 * row_stride(2 * 1024)
     assert plan.resident == (1, 1, 0, 0)
     toy = chain_plan("bf16", P4_B, tuple(k for k, _ in P4_SHAPES), 512, 256,
                      132)
