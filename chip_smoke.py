@@ -9,6 +9,12 @@ splits one vocoder pass's device time by part, ``waveglow_split``), then
 drives the port's three paths at the full width of the repo's
 ``config.json`` model, on seeded random weights:
 
+- the audio tail: the STFT, inverse STFT, Griffin-Lim and the denoiser
+  (its bias pass: K2) on the card against the CPU, and the host
+  ``StreamingDenoiser`` against the card's ``Denoiser``;
+- streaming: ``infer/streaming.py:stream_tts`` at B=1 (the prelude flow
+  through K1, flow 0 through the loop chunk by chunk, K2 for each vocoder
+  window), against the offline mel and one offline vocoder pass;
 - inference (text -> mel -> audio) through
   ``flowtron_tpu_torch.infer.sampling`` with the
   ``configs/config_waveglow.json`` vocoder (kernels K1, K2);
@@ -17,6 +23,9 @@ drives the port's three paths at the full width of the repo's
   ``.pt`` files, first unquantized (K1, K2), then with ``--quantize
   w8a8`` (K4, K2), each answering concurrent ``POST /synthesize``
   requests; then the quantized modes (w8, w8a8, w4) card against CPU;
+  then with ``--stream-workers 2 -d 0.1``, two ``POST /stream`` and a
+  ``GET /stream-ws`` beside a wave of ``POST /synthesize``; then without
+  a vocoder (Griffin-Lim on the host, no K2);
 - training through ``flowtron_tpu_torch.cli.train_main`` on a synthetic
   coded-tone corpus written to a temporary directory: one epoch of 10
   steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
@@ -55,8 +64,9 @@ import threading
 import time
 import urllib.request
 import wave
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 
+import numpy as np
 import torch
 
 N_FRAMES = 400      # the reference's inference operating point
@@ -68,6 +78,13 @@ K1_TOL = 1e-3       # mel / attn / gate max-abs, kernel vs plain, fp32
 K2_TOL = 1e-4       # max-abs relative to the output scale, fp32
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # of the output scale
 SLICE_TOL = 1e-3    # card slice vs CPU plain slice, fp32
+STFT_TOL = 1e-4     # STFT, ISTFT, Griffin-Lim, denoiser: card vs CPU, and
+                    # the host StreamingDenoiser vs the card's Denoiser, of
+                    # the output scale
+SEAM_TOL = 5e-3     # streamed audio vs one vocoder pass on the same latents,
+                    # of the scale: JAX's seam bar (tests/test_streaming.py)
+# stream_tts on the main path: the server's chunk and window settings
+STREAM = dict(max_frames=N_FRAMES, chunk_frames=40, context=24, lookahead=16)
 N_UTTS, N_VAL = 66, 6   # corpus: 60 training utterances = 10 steps at B=6
 LOSS_TOL, GNORM_TOL = 1e-4, 1e-3   # card step vs CPU plain step, relative
 INV_TOL = 1e-4      # invertibility oracle on the card, fp32
@@ -954,6 +971,401 @@ def phase_quant_vs_cpu(model, cfg, dev):
     emit("quant_vs_cpu", N=N, B=B, fp32_scale=scale, **out)
 
 
+def rel_err(a, ref):
+    """max |a - ref| over ref's largest magnitude, on the host in fp64."""
+    a = torch.as_tensor(a).detach().cpu().double()
+    ref = torch.as_tensor(ref).detach().cpu().double()
+    check(a.shape == ref.shape, f"shapes {tuple(a.shape)} {tuple(ref.shape)}")
+    return float((a - ref).abs().max()) / max(1e-12, float(ref.abs().max()))
+
+
+def phase_stft(wg, wg_cfg, kernels, dev):
+    """The audio tail on the card against the CPU on 400 frames of audio:
+    ``MelSpectrogram.magnitude``, ``InverseSTFT`` and ``griffin_lim`` from
+    the same initial phases; the ``Denoiser`` (its bias pass is a vocoder
+    pass: K2 on the card) and its output; then the host
+    ``StreamingDenoiser``'s chunks against the card's ``Denoiser``. Each
+    within STFT_TOL of its scale. Returns the launches of the card's
+    denoiser set-up and call."""
+    import copy
+
+    from flowtron_tpu_torch.audio.griffin_lim import InverseSTFT, griffin_lim
+    from flowtron_tpu_torch.audio.stft import MelSpectrogram
+    from flowtron_tpu_torch.vocoder.denoiser import (
+        Denoiser, StreamingDenoiser)
+
+    g = torch.Generator().manual_seed(31)
+    T = N_FRAMES * HOP
+    t = torch.arange(T) / SR
+    audio = (0.4 * torch.sin(2 * math.pi * 220 * t)
+             + 0.1 * torch.randn(1, T, generator=g)).clamp(-1, 1)
+    ms, istft = MelSpectrogram(), InverseSTFT()
+    spec = ms.stft(audio)
+    mag, phase = spec.abs(), spec.angle()
+    angles = (torch.rand(mag.shape, generator=g) * 2 - 1) * math.pi
+    cpu = torch.device("cpu")
+    out, ms_card = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        x, m, p, a = (v.to(d) for v in (audio, mag, phase, angles))
+        fns = {"magnitude": lambda: ms.magnitude(x),
+               "istft": lambda: istft(m, p),
+               "griffin_lim_8": lambda: griffin_lim(m, ms.stft, istft,
+                                                    n_iters=8, angles=a)}
+        for name, fn in fns.items():
+            if where == "card":
+                fn()
+                ms_card[name], out[name, where] = cuda_ms(fn, 5)
+            else:
+                out[name, where] = fn()
+    errs = {name: rel_err(out[name, "card"], out[name, "cpu"])
+            for name in ms_card}
+    check(all(e <= STFT_TOL for e in errs.values()), f"stft card vs cpu "
+          f"{errs}")
+
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    den = Denoiser(wg, wg_cfg)
+    den_ms, denoised = cuda_ms(lambda: den(audio.to(dev), strength=0.1))
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    den_cpu = Denoiser(copy.deepcopy(wg).cpu(), wg_cfg)
+    errs["bias_spec"] = rel_err(den.bias_spec, den_cpu.bias_spec)
+    errs["denoised"] = rel_err(denoised, den_cpu(audio, strength=0.1))
+    sd = StreamingDenoiser(den, strength=0.1)
+    step = STREAM["chunk_frames"] * HOP
+    chunks = [sd.feed(audio[0, i:i + step].numpy())
+              for i in range(0, T, step)] + [sd.flush()]
+    errs["streaming_denoiser"] = rel_err(torch.from_numpy(
+        np.concatenate(chunks))[None], denoised)
+    check(float(den.bias_spec.abs().max()) > 0, "the bias spectrum is zero")
+    check(all(e <= STFT_TOL for e in errs.values()),
+          f"denoiser: {errs}")
+    check(launches["wn_layer"] > 0 and launches["fused_flow_infer"] == 0,
+          f"denoiser launches {launches}")
+    emit("stft", frames=N_FRAMES, samples=T, rel_err=errs,
+         card_ms=ms_card, denoise_ms=den_ms, launches=launches)
+    return launches
+
+
+def stream_once(model, cfg, wg, wg_cfg, text, sids, thresh, kernels):
+    """One ``stream_tts`` (the first request's seed) with its launches
+    counted; returns (chunks, the mel chunks the vocoder took, the window
+    widths, ms to the first chunk, wall seconds, the seconds spent in the
+    vocoder's ``push`` (its windows, synchronised by the copy to the
+    host), launches)."""
+    from flowtron_tpu_torch.infer import streaming as S
+
+    seen, widths, push_s = [], [], []
+    push, window_spec = S.StreamingVocoder.push, S.window_spec
+
+    def push_spy(self, mel_chunk):
+        seen.append(mel_chunk.clone())
+        t0 = time.perf_counter()
+        out = push(self, mel_chunk)
+        push_s.append(time.perf_counter() - t0)
+        return out
+
+    def window_spy(*a, **k):
+        w0, w1 = window_spec(*a, **k)
+        widths.append(w1 - w0)
+        return w0, w1
+
+    S.StreamingVocoder.push, S.window_spec = push_spy, window_spy
+    chunks, t_first = [], None
+    try:
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        for a in S.stream_tts(model, cfg, wg, wg_cfg, REQ_SEED, sids, text,
+                              sigma=SIGMA, gate_threshold=thresh, **STREAM):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            chunks.append(a)
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        S.StreamingVocoder.push, S.window_spec = push, window_spec
+    return chunks, seen, widths, 1e3 * t_first, wall, sum(push_s), launches
+
+
+def phase_stream(model, cfg, wg, wg_cfg, ids, sid, stop, kernels, dev):
+    """The streaming path: ``stream_tts`` at B=1 on the first request's
+    text and, seeded alike, its latents; max 400 frames, chunks of 40,
+    context 24, lookahead 16. Twice: the gate as drawn at the threshold
+    phase_k1 found (it stops at the same frame), then at a threshold it
+    never reaches (all 400 frames, the gate still runs). Each stream's mel
+    against the offline ``flowtron_infer`` on the card (K1 on both flows;
+    the stream runs flow 0 through the loop) within K1_TOL, its audio
+    against one vocoder pass over that mel with the same positional
+    latents within SEAM_TOL; then K2 at the widest window's shape against
+    its plain version. Returns the full stream's launches."""
+    from flowtron_tpu_torch.infer import streaming as S
+    from flowtron_tpu_torch.models.flowtron import flowtron_infer
+    from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference
+    from flowtron_tpu_torch.vocoder.waveglow import waveglow_infer_z
+
+    text = torch.as_tensor(ids[0], device=dev)[None]
+    sids = torch.tensor([sid], device=dev)
+    for _ in S.stream_tts(model, cfg, wg, wg_cfg, REQ_SEED, sids, text,
+                          **dict(STREAM, max_frames=80)):
+        pass                                # warm-up: cuBLAS/cuDNN set-up
+    ng = wg_cfg["n_group"]
+    runs, all_widths = {}, set()
+    for case, thresh, n_expect in (("gate", *stop), ("full", 1e6, N_FRAMES)):
+        chunks, seen, widths, ttfa, wall, push_s, launches = stream_once(
+            model, cfg, wg, wg_cfg, text, sids, thresh, kernels)
+        audio = torch.from_numpy(np.concatenate(chunks, axis=1))
+        mel = torch.cat(seen, dim=2)
+        n = mel.shape[2]
+        check(n == n_expect, f"stream {case}: n_valid {n}, expected "
+              f"{n_expect}")
+        check(tuple(audio.shape) == (1, n * HOP)
+              and bool(torch.isfinite(audio).all()), f"stream {case} audio")
+        check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] > 0
+              and launches["quantized_matmul_w8"] == 0
+              and launches["quantized_matmul_w8a8"] == 0,
+              f"stream {case} launches {launches}")
+        g_mel, g_voc = S.stream_generators(REQ_SEED)
+        residual = SIGMA * torch.randn(1, 80, N_FRAMES, generator=g_mel)
+        mel_off, _, nv = flowtron_infer(model, cfg, residual.to(dev), sids,
+                                        text, gate_threshold=thresh)
+        mel_err = float((mel - mel_off[:, :, :n]).abs().max())
+        check(int(nv[0]) == n and mel_err <= K1_TOL,
+              f"stream {case} mel vs offline: n_valid {int(nv[0])}, err "
+              f"{mel_err}")
+        z_main, z_early = S.positional_z(
+            g_voc, wg_cfg, 1, N_FRAMES * HOP // ng, 0.8, dev)(0, n * HOP // ng)
+        seam = rel_err(audio, waveglow_infer_z(wg, wg_cfg, mel, z_main,
+                                               z_early))
+        check(seam <= SEAM_TOL, f"stream {case} audio vs one vocoder pass "
+              f"{seam}")
+        all_widths |= set(widths)
+        runs[case] = dict(gate_threshold=thresh, n_valid=n, ttfa_ms=ttfa,
+                          wall_s=wall, rtf=wall / (n * HOP / SR),
+                          # the vocoder's pushes; the rest is the mel
+                          # (encoder, prelude, flow 0's chunks) and the
+                          # flush's window
+                          push_s=push_s,
+                          chunks=len(chunks), mel_chunks=len(seen),
+                          window_frames=sorted(set(widths)),
+                          windows=len(widths),
+                          mel_max_abs_err_vs_offline=mel_err,
+                          audio_rel_err_vs_offline=seam, launches=launches)
+
+    # K2 at the widest window's shape (80 frames: 2560 rows), layer 3
+    W = max(all_widths)
+    Tp = W * HOP // ng
+    wn = wg.WN[0]
+    C = wn.n_channels
+    gk = torch.Generator().manual_seed(33)
+    w_cat, b, w_rs, b_rs = wn.packed_layers()[3]
+    args = (torch.randn(1, Tp, C, generator=gk).to(dev), 8,
+            torch.randn(1, Tp, 2 * C, generator=gk).to(dev), w_cat, b, w_rs,
+            b_rs, Tp)
+    with torch.no_grad():
+        k_ms, p_ms, k2_runs, out_k, out_p = paired_ms(
+            lambda: wn_layer(*args), lambda: wn_layer_reference(*args),
+            reps=20, plain_reps=20)
+    k2_err = max(rel_err(a, r) for a, r in zip(out_k, out_p))
+    check(k2_err <= K2_TOL, f"K2 at the window shape: {k2_err}")
+    emit("stream", B=1, text_len=len(ids[0]), **runs,
+         k2_window=dict(W=W, Tp=Tp, C=C, layer=3, kernel_ms=k_ms,
+                        plain_ms=p_ms, max_rel_err=k2_err,
+                        runs_plain_kernel_kernel_plain_ms=k2_runs))
+    return runs["full"]["launches"]
+
+
+def read_stream(url, body):
+    """POST /stream; returns (ms to the first PCM byte, the 44-byte
+    header, the PCM)."""
+    req = urllib.request.Request(url + "/stream",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.headers["Transfer-Encoding"] == "chunked",
+              "/stream is not chunked")
+        header = r.read(44)
+        first = r.read(2)
+        ttfa = time.perf_counter() - t0
+        pcm = first + r.read()
+    return 1e3 * ttfa, header, pcm
+
+
+def read_stream_ws(url, body):
+    """GET /stream-ws with ``body`` as the one text frame; returns (ms to
+    the first binary frame, the frames (opcode, payload) to the close)."""
+    import base64
+    import socket
+    import struct
+    host, port = url.replace("http://", "").split(":")
+    key = base64.b64encode(os.urandom(16)).decode()
+    with socket.create_connection((host, int(port)), timeout=600) as s:
+        t0 = time.perf_counter()
+        s.sendall((f"GET /stream-ws HTTP/1.1\r\nHost: {host}\r\n"
+                   "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                   f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13"
+                   "\r\n\r\n").encode())
+        f = s.makefile("rb")
+        check(b"101" in f.readline(), "/stream-ws did not upgrade")
+        while f.readline().strip():
+            pass
+        payload, mask = json.dumps(body).encode(), os.urandom(4)
+        s.sendall(bytes([0x81, 0x80 | len(payload)]) + mask + bytes(
+            c ^ mask[i % 4] for i, c in enumerate(payload)))
+        frames, ttfa = [], None
+        while not frames or frames[-1][0] != 8:
+            h = f.read(2)
+            n = h[1] & 0x7F
+            if n == 126:
+                n = struct.unpack(">H", f.read(2))[0]
+            elif n == 127:
+                n = struct.unpack(">Q", f.read(8))[0]
+            frames.append((h[0] & 0x0F, f.read(n)))
+            if frames[-1][0] == 2 and ttfa is None:
+                ttfa = 1e3 * (time.perf_counter() - t0)
+    return ttfa, frames
+
+
+def phase_serve_stream(ft_path, wg_path, kernels):
+    """Streams from the server: ``build_server`` with --stream-workers 2
+    and -d 0.1; two concurrent ``POST /stream`` (one with the engine's
+    strength, one with its own) beside a wave of four ``POST /synthesize``,
+    and a ``GET /stream-ws`` beside a second wave as soon as a streamer
+    pair is free (two workers). Each stream's PCM is its n_frames cap x 256
+    samples (the gate is biased off) with well-formed framing. Then one
+    stream alone, its launches counted. Returns them."""
+    import struct
+
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    server, engines = build_server(
+        ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port", "0",
+         "--stream-workers", "2", "-d", "0.1"], host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    streams = [{"text": TEXTS[0], "seed": 300, "n_frames": 200},
+               {"text": TEXTS[1], "seed": 301, "n_frames": 160,
+                "denoise": 0.3}]
+    ws_body = {"text": TEXTS[2], "seed": 302, "n_frames": 120}
+    wave_bodies = [{"text": t, "seed": REQ_SEED + 60 + i}
+                   for i, t in enumerate(TEXTS)]
+    try:
+        get_json(url, "/healthz")
+        with ThreadPoolExecutor(5) as pool:
+            # two streams beside a wave; the socket stream (and a second
+            # wave) as soon as one of them returns its streamer pair
+            t0 = time.perf_counter()
+            futs = [pool.submit(read_stream, url, b) for b in streams]
+            waves = [pool.submit(wave_of, url, wave_bodies)]
+            wait(futs, return_when=FIRST_COMPLETED)
+            ws = pool.submit(read_stream_ws, url, ws_body)
+            waves.append(pool.submit(wave_of, url, wave_bodies))
+            got = [f.result() for f in futs]
+            ws_ttfa, frames = ws.result()
+            waves = [w.result() for w in waves]
+            wall = time.perf_counter() - t0
+        for results, _ in waves:
+            check_answers("serve_stream wave", wave_bodies, results,
+                          N_FRAMES)
+        for body, (_, header, pcm) in zip(streams, got):
+            check(header[:4] == b"RIFF" and header[8:16] == b"WAVEfmt "
+                  and struct.unpack("<I", header[4:8])[0] == 0xFFFFFFFF
+                  and struct.unpack("<I", header[24:28])[0] == SR
+                  and header[36:40] == b"data", f"/stream header {header}")
+            check(len(pcm) == 2 * body["n_frames"] * HOP,
+                  f"/stream {len(pcm) // 2} samples for {body}")
+        check(frames[0][0] == 1 and json.loads(frames[0][1]) ==
+              {"sample_rate": SR, "format": "pcm16"}
+              and frames[-1] == (8, b"\x03\xe8"),
+              f"/stream-ws framing {frames[0]} {frames[-1]}")
+        ws_bytes = sum(len(p) for op, p in frames[1:-1] if op == 2)
+        check(ws_bytes == 2 * ws_body["n_frames"] * HOP,
+              f"/stream-ws {ws_bytes // 2} samples")
+        metrics = get_json(url, "/metrics")
+        check(metrics["stream_requests"] == 3 and metrics["errors"] == 0,
+              f"serve_stream metrics {metrics}")
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        alone_ms, _, alone = read_stream(url, streams[0])
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        check(len(alone) == 2 * streams[0]["n_frames"] * HOP
+              and launches["fused_flow_infer"] > 0
+              and launches["wn_layer"] > 0
+              and launches["quantized_matmul_w8"] == 0
+              and launches["quantized_matmul_w8a8"] == 0,
+              f"serve_stream alone: launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        for eng in engines.values():
+            eng.shutdown()
+        torch.cuda.empty_cache()
+    emit("serve_stream", stream_workers=2, denoise=0.1, wall_s=wall,
+         stream_ttfa_ms=[g[0] for g in got], ws_ttfa_ms=ws_ttfa,
+         stream_samples=[len(g[2]) // 2 for g in got],
+         ws_samples=ws_bytes // 2, wave_wall_s=[w for _, w in waves],
+         wave_latency_s=[[r[1] for r in results] for results, _ in waves],
+         alone_ttfa_ms=alone_ms,
+         alone_launches=launches)
+    return launches
+
+
+def phase_griffin_lim_serve(ft_path, kernels):
+    """The server without a vocoder: ``build_server`` without -w, four
+    concurrent requests capped at 120-400 frames. The flows run on the
+    card (K1), each request's mel is vocoded by Griffin-Lim (20
+    iterations) on the host in the completion thread, so K2 launches 0
+    times; n frames give (n - 1) x 256 samples. Returns the launches."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    server, engines = build_server(
+        ["-c", "config.json", "-f", ft_path, "--port", "0"],
+        host="127.0.0.1")
+    eng = engines["default"]
+    vocode, host_s = eng._vocode, []
+
+    def timed(mel):
+        t0 = time.perf_counter()
+        out = vocode(mel)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._vocode = timed
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    bodies = [{"text": TEXTS[i], "seed": REQ_SEED + 80 + i, "n_frames": nf}
+              for i, nf in enumerate((120, 200, 300, 400))]
+    try:
+        get_json(url, "/healthz")
+        check(not get_json(url, "/models")["models"][0]["can_stream"],
+              "a server without a vocoder says it can stream")
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        results, wall = wave_of(url, bodies)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        for body, (status, _, rate, n, peak) in zip(bodies, results):
+            check(status == 200 and rate == SR and peak > 0
+                  and n == (body["n_frames"] - 1) * HOP,
+                  f"griffin_lim_serve: {n} samples for {body}")
+        check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] == 0,
+              f"griffin_lim_serve launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        for e in engines.values():
+            e.shutdown()
+        torch.cuda.empty_cache()
+    emit("griffin_lim_serve", requests=len(bodies), wall_s=wall,
+         latency_s=[r[1] for r in results], samples=[r[3] for r in results],
+         host_vocode_s=host_s, launches=launches)
+    return launches
+
+
 def reset_launches(kernels):
     for fn, attr in kernels.values():
         setattr(fn, attr, 0)
@@ -1676,6 +2088,10 @@ def main():
     k2_err, k2_times = phase_k2(wg, dev)
     phase_waveglow_split(wg, wg_cfg, dev)
     k4 = phase_k4(dev)
+    # the audio tail and the streaming path, the gate as drawn
+    stft_launches = phase_stft(wg, wg_cfg, kernels, dev)
+    stream_launches = phase_stream(model, cfg, wg, wg_cfg, ids, sid, stop,
+                                   kernels, dev)
 
     reset_launches(kernels)                  # the inference path
     phase_slice(model, cfg, wg, wg_cfg, ids, sid, stop, dev)
@@ -1708,6 +2124,11 @@ def main():
               and q_serve["fused_flow_infer"] == 0
               and q_serve["quantized_matmul_w8"] == 0,
               f"w8a8 serving path: {q_serve}")
+        serve_stream = phase_serve_stream(ft_path, wg_path, kernels)
+        gl_serve = phase_griffin_lim_serve(ft_path, kernels)
+    emit("launches_by_path", inference=infer_launches, stream=stream_launches,
+         denoiser=stft_launches, serve=serve, serve_stream=serve_stream,
+         griffin_lim_serve=gl_serve, serve_w8a8=q_serve)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -6,10 +6,12 @@ part is found at the same path as its reference. The JAX package stays the
 reference: every ported part loads the same weights and is tested against
 its JAX counterpart on the CPU.
 
-Inference, batch serving (``serve/``, with the quantized modes of
-``infer/quantize.py``) and training run on an NVIDIA H100 through four
-hand-written CUDA kernels, built with ``nvcc`` at first use
-(``ops/_build.py``):
+Inference, batch and streaming serving (``serve/``, with the quantized
+modes of ``infer/quantize.py``, streaming from ``infer/streaming.py``),
+the audio tail (``audio/`` STFT and Griffin-Lim, ``vocoder/denoiser.py``)
+and training (with TensorBoard, ``train/logger.py``) run on an NVIDIA
+H100 through four hand-written CUDA kernels, built with ``nvcc`` at
+first use (``ops/_build.py``):
 
 - ``ops/decoder.py`` + ``csrc/decoder.cu``: one flow's whole inverse AR
   scan (replaces ``flowtron_tpu/ops/decoder_pallas.py``).

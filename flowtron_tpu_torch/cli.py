@@ -5,7 +5,8 @@
 without that variable the commands raise (``utils/device.py``).
 
     flowtron-torch-train -c config.json -p train_config.epochs=1 ...
-    flowtron-torch-infer -c config.json -f model.pt -w waveglow.pt -t "text"
+    flowtron-torch-infer -c config.json -f model.pt [-w waveglow.pt] -t "text"
+        [-d 0.1] [--stream]
 """
 
 import argparse
@@ -34,8 +35,8 @@ def inference_main(argv=None):
     parser.add_argument("-f", "--flowtron_path", type=str, required=True,
                         help="reference-format .pt state_dict")
     parser.add_argument("-w", "--waveglow_path", type=str, default="",
-                        help="WaveGlow .pt state_dict (required: Griffin-Lim "
-                             "is not ported yet)")
+                        help="WaveGlow .pt state_dict; without it the mel "
+                             "is vocoded by Griffin-Lim on the host")
     parser.add_argument("-t", "--text", type=str, required=True)
     parser.add_argument("-i", "--id", type=int, default=0,
                         help="speaker id")
@@ -45,7 +46,7 @@ def inference_main(argv=None):
     parser.add_argument("-o", "--output_dir", type=str, default="results")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("-d", "--denoise", type=float, default=0.0,
-                        help="denoiser strength (not yet ported; must be 0)")
+                        help="WaveGlow bias-denoiser strength (0 = off)")
     parser.add_argument("--int8", action="store_true",
                         help="int8 weight-only flows (alias for --quantize "
                              "w8)")
@@ -59,11 +60,9 @@ def inference_main(argv=None):
                              "fired (the decoder kernel's early exit); on "
                              "CUDA the flows always run the kernel")
     parser.add_argument("--stream", action="store_true",
-                        help="not yet ported")
+                        help="write the wav chunk by chunk as synthesis "
+                             "runs (needs -w)")
     args = parser.parse_args(argv)
-    if args.stream:
-        parser.error("--stream is not yet ported to the PyTorch package "
-                     "(see ROADMAP.md Queue 1, slice C item 17)")
 
     config = load_config(args.config, args.params)
     from flowtron_tpu_torch.infer.sampling import run_inference

@@ -1,25 +1,35 @@
 """Inference: text -> mel -> audio (port of ``load_model_for_inference``,
-``synthesize`` and ``run_inference`` in flowtron_tpu/infer/sampling.py).
+``synthesize``, ``mel_to_audio_griffinlim``, ``_run_streaming`` and
+``run_inference`` in flowtron_tpu/infer/sampling.py).
 
 Loads a reference-format ``.pt`` state_dict, turns text into ids through
 the port's frontend, samples z ~ N(0, sigma^2) from a seeded
-``torch.Generator``, inverts the flows and vocodes with WaveGlow. On a
-CUDA device the flows run kernel K1 (a quantized flow runs the per-frame
-loop, with kernel K4 for ``w8a8``) and the vocoder's WN layers kernel K2.
-``run_inference`` runs on ``cuda:0`` unless asked for the CPU
+``torch.Generator``, inverts the flows, writes the mel and attention PNG
+(matplotlib) and vocodes: with WaveGlow when ``-w`` gives one (``-d``
+then runs the bias denoiser), else with Griffin-Lim on the host, as the
+JAX package does. ``--stream`` writes the wav chunk by chunk as
+``infer/streaming.py`` synthesizes it. On a CUDA device the flows run
+kernel K1 (a quantized flow runs the per-frame loop, with kernel K4 for
+``w8a8``; a streamed flow 0 the loop) and the vocoder's WN layers kernel
+K2. ``run_inference`` runs on ``cuda:0`` unless asked for the CPU
 (``utils/device.py``).
 """
 
 import os
+import time
 import wave
 
 import numpy as np
 import torch
 
+from flowtron_tpu_torch.audio.griffin_lim import griffin_lim_numpy
+from flowtron_tpu_torch.audio.mel import mel_filterbank
 from flowtron_tpu_torch.data.frontend import TextFrontend
 from flowtron_tpu_torch.infer.quantize import quantize_flows_for_inference
+from flowtron_tpu_torch.infer.streaming import stream_tts
 from flowtron_tpu_torch.models.flowtron import flowtron_init, flowtron_infer
 from flowtron_tpu_torch.utils.device import resolve_device
+from flowtron_tpu_torch.vocoder.denoiser import Denoiser, StreamingDenoiser
 from flowtron_tpu_torch.vocoder.waveglow import load_waveglow, waveglow_infer
 
 
@@ -67,6 +77,24 @@ def text_to_audio(model, static_cfg, wg_model, wg_cfg, text_ids, speaker_id,
     return audio[0].cpu().numpy(), mel, n
 
 
+def mel_to_audio_griffinlim(mel, data_config, n_iters=30, seed=0):
+    """The vocoder without a WaveGlow checkpoint: invert the mel filterbank
+    (pinv, clamped at 0) then Griffin-Lim phase recovery, host numpy. A
+    mel of <= 1 frame gives one hop of silence."""
+    basis = mel_filterbank(
+        data_config["sampling_rate"], data_config["filter_length"],
+        int(np.asarray(mel).shape[0]), data_config["mel_fmin"],
+        data_config["mel_fmax"])
+    mag_est = np.clip(np.linalg.pinv(basis) @ np.exp(np.asarray(mel)),
+                      0, None)
+    audio = griffin_lim_numpy(
+        mag_est, data_config["filter_length"], data_config["hop_length"],
+        data_config["win_length"], n_iters=n_iters, seed=seed)
+    if audio.size == 0:  # <= 1 mel frame inverts to zero samples
+        audio = np.zeros(data_config["hop_length"], np.float32)
+    return audio
+
+
 def write_wav(path, audio, sampling_rate):
     """Peak-normalised 16-bit mono PCM."""
     audio = audio / max(1e-8, float(np.abs(audio).max()))
@@ -78,18 +106,85 @@ def write_wav(path, audio, sampling_rate):
         w.writeframes(pcm.tobytes())
 
 
-def run_inference(config, args, device=None):
-    """CLI entry (reference:inference.py:93-132 contract, with ``-w``).
-    ``args.quantize`` ("w8", "w8a8", "w4") or ``args.int8`` (w8) quantize
-    the flows first, as flowtron_tpu/infer/sampling.py:128-132 does."""
+def save_mel_attention_png(path, mel, attns):
+    """The mel (n_mel, n) and each flow's attention (n, Tk) as one PNG
+    (matplotlib, imported here as the JAX package does)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(1 + len(attns), 1,
+                             figsize=(8, 3 * (1 + len(attns))))
+    axes = np.atleast_1d(axes)
+    axes[0].imshow(mel, aspect="auto", origin="lower", interpolation="none")
+    axes[0].set_title("mel")
+    for i, a in enumerate(attns):
+        axes[1 + i].imshow(a.T, aspect="auto", origin="lower",
+                           interpolation="none")
+        axes[1 + i].set_title(f"attention flow {i}")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def _denoiser(wg_model, wg_cfg, data_config):
+    return Denoiser(wg_model, wg_cfg,
+                    filter_length=data_config["filter_length"],
+                    hop_length=data_config["hop_length"],
+                    win_length=data_config["win_length"],
+                    n_mel_channels=wg_cfg["n_mel_channels"])
+
+
+def _run_streaming(args, model, static_cfg, text_ids, speaker_id,
+                   data_config, device):
+    """--stream: write the wav as synthesis runs (any n_flows; a neural
+    vocoder is required), through a StreamingDenoiser with ``-d``."""
     if not args.waveglow_path:
-        raise NotImplementedError(
-            "Griffin-Lim is not ported yet (see ROADMAP.md Queue 1, "
-            "'Griffin-Lim / STFT'); pass a WaveGlow state_dict with -w")
+        raise SystemExit("--stream requires a vocoder checkpoint (-w)")
+    wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
+    sd = None
     if getattr(args, "denoise", 0.0) > 0:
-        raise NotImplementedError(
-            "the denoiser is not ported yet (see ROADMAP.md Queue 1, "
-            "slice C item 21)")
+        sd = StreamingDenoiser(_denoiser(wg_model, wg_cfg, data_config),
+                               strength=args.denoise)
+    os.makedirs(args.output_dir, exist_ok=True)
+    base = os.path.join(
+        args.output_dir,
+        f"sid{args.id}_sigma{args.sigma}_seed{args.seed}_stream")
+    sr = data_config["sampling_rate"]
+    t0 = time.perf_counter()
+    n = 0
+    with wave.open(base + ".wav", "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+
+        def write(samples):
+            nonlocal n
+            if samples.size == 0:
+                return
+            pcm = (np.clip(samples, -1, 1) * 32767).astype("<i2")
+            w.writeframes(pcm.tobytes())
+            n += len(pcm)
+            print(f"  +{len(pcm) / sr:.2f}s audio at "
+                  f"t={time.perf_counter() - t0:.2f}s", flush=True)
+
+        for chunk in stream_tts(
+                model, static_cfg, wg_model, wg_cfg, args.seed,
+                torch.tensor([speaker_id], device=device),
+                torch.as_tensor(np.asarray(text_ids)[None], device=device),
+                sigma=args.sigma, gate_threshold=args.gate,
+                max_frames=args.n_frames):
+            write(sd.feed(chunk[0]) if sd is not None else chunk[0])
+        if sd is not None:
+            write(sd.flush())
+    print(f"wrote {base}.wav ({n / sr:.2f}s)")
+    return base
+
+
+def run_inference(config, args, device=None):
+    """CLI entry (reference:inference.py:93-132 contract). ``args.quantize``
+    ("w8", "w8a8", "w4") or ``args.int8`` (w8) quantize the flows first,
+    as flowtron_tpu/infer/sampling.py:128-132 does."""
     device = resolve_device(device)
     data_config = config["data_config"]
     model, static_cfg = load_model_for_inference(config, args.flowtron_path,
@@ -98,19 +193,40 @@ def run_inference(config, args, device=None):
         "w8" if getattr(args, "int8", False) else "")
     if qmode:
         model = quantize_flows_for_inference(model, mode=qmode)
-    wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
     frontend = TextFrontend.from_config(data_config)
     text_ids = frontend.get_text(args.text)
     speaker_id = int(frontend.get_speaker_id(args.id))
-    audio, _, n_valid = text_to_audio(
-        model, static_cfg, wg_model, wg_cfg, text_ids, speaker_id,
-        n_frames=args.n_frames, sigma=args.sigma, gate_threshold=args.gate,
-        seed=args.seed, fused="early" if args.fused else False)
+    if getattr(args, "stream", False):
+        return _run_streaming(args, model, static_cfg, text_ids, speaker_id,
+                              data_config, device)
+
+    mel, attns, n_valid = synthesize(
+        model, static_cfg, text_ids, speaker_id, n_frames=args.n_frames,
+        sigma=args.sigma, gate_threshold=args.gate, seed=args.seed,
+        fused="early" if getattr(args, "fused", False) else False)
     hop, sr = data_config["hop_length"], data_config["sampling_rate"]
     print(f"synthesized {n_valid} mel frames ({n_valid * hop / sr:.2f}s)")
     os.makedirs(args.output_dir, exist_ok=True)
     base = os.path.join(args.output_dir,
                         f"sid{args.id}_sigma{args.sigma}_seed{args.seed}")
+    save_mel_attention_png(base + ".png", mel.cpu().numpy(),
+                           [a.cpu().numpy() for a in attns])
+
+    if args.waveglow_path:
+        wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
+        audio = waveglow_infer(wg_model, wg_cfg, mel[None], sigma=0.8,
+                               seed=args.seed)
+        if getattr(args, "denoise", 0.0) > 0:
+            audio = _denoiser(wg_model, wg_cfg, data_config)(
+                audio, strength=args.denoise)
+        audio = audio[0].cpu().numpy()
+    else:
+        print("no vocoder checkpoint; using Griffin-Lim")
+        audio = mel_to_audio_griffinlim(mel.cpu().numpy(), data_config)
+    if audio.size == 0:
+        # a 1-frame mel denoised, or vocoded by Griffin-Lim, has no
+        # samples; still write a valid (silent) wav
+        audio = np.zeros(hop, np.float32)
     write_wav(base + ".wav", audio, sr)
     print("wrote", base + ".wav")
     return base

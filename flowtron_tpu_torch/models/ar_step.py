@@ -19,6 +19,10 @@ other flow runs the per-frame loop ``_scan_infer`` on either device: it is
 the counterpart of JAX's ``lax.scan`` (its body,
 flowtron_tpu/models/ar_step.py:262-314), with every dot through
 ``utils/weights.py:qdot`` (so kernel K4 on an ``a8`` quantized flow).
+
+A chunked (streaming) call, with ``carry`` or ``return_carry``, always
+runs the loop: K1 starts from zero state and returns none, and the JAX
+package does not fuse that path either (its ar_step.py:221).
 """
 
 import torch
@@ -150,19 +154,26 @@ def in_k1_subset(flow, attn_prior, temperature):
     return scalar_temp and attn_prior is None and not is_quantized(flow)
 
 
-def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature):
+def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
+                carry=None):
     """The per-frame loop: the JAX scan body written out, every dot
-    through ``qdot``."""
+    through ``qdot``. ``carry`` is the state (h_att, c_att, hs, cs, prev
+    frame) to start from, None for zeros. Returns (mel (N, B, n_mel),
+    attn (B, N, Tk), gates (N, B), the final state)."""
     N, B, n_mel = residual.shape
     k_proj, vals = attention_precompute(flow.attention_layer, text, text)
     att_w_ih, att_w_hh, att_b_ih, att_b_hh = \
         flow.attention_lstm.layer_weights(0)
     layers = [flow.lstm.layer_weights(k) for k in range(flow.lstm.num_layers)]
-    H = att_w_hh.shape[1]             # (4H, H), float or quantized
-    h_att = c_att = residual.new_zeros(B, H)
-    hs = [residual.new_zeros(B, H) for _ in layers]
-    cs = [residual.new_zeros(B, H) for _ in layers]
-    prev = residual.new_zeros(B, n_mel)
+    if carry is None:
+        H = att_w_hh.shape[1]         # (4H, H), float or quantized
+        h_att = c_att = residual.new_zeros(B, H)
+        hs = [residual.new_zeros(B, H) for _ in layers]
+        cs = [residual.new_zeros(B, H) for _ in layers]
+        prev = residual.new_zeros(B, n_mel)
+    else:
+        h_att, c_att, hs, cs, prev = carry
+        hs, cs = list(hs), list(cs)
     mels, attns, gates = [], [], []
     for t in range(N):
         h_att, c_att = lstm_cell(qdot(prev, att_w_ih) + att_b_ih + att_b_hh,
@@ -184,12 +195,13 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature):
         mels.append(prev)
         attns.append(attn_w)
         gates.append(gate)
-    return torch.stack(mels), torch.stack(attns, dim=1), torch.stack(gates)
+    return (torch.stack(mels), torch.stack(attns, dim=1), torch.stack(gates),
+            (h_att, c_att, tuple(hs), tuple(cs), prev))
 
 
 def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
                   temperature=1.0, gate_threshold=0.5, n_valid=None,
-                  fused=False):
+                  fused=False, carry=None, return_carry=False):
     """Invert one flow over sampled latents.
 
     Args:
@@ -202,12 +214,19 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
       fused: on CPU, truthy runs K1's plain version instead of the loop
         for a flow in K1's subset; ``"early"`` turns on early exit (see
         ops/decoder.py).
+      carry / return_carry: chunked (streaming) synthesis, on the loop.
+        ``carry`` is the state a previous call returned with
+        ``return_carry=True`` (None: a fresh start); with
+        ``return_carry=True`` the call returns (mel, attn, gates (N, B),
+        carry) and leaves the gate's end of the utterance to the caller
+        (infer/streaming.py).
 
     Returns (mel (N, B, n_mel), attn (B, N, Tk), n_valid (B,)).
     """
     N, B, _ = residual.shape
-    if in_k1_subset(flow, attn_prior, temperature) and (
-            residual.device.type == "cuda" or fused):
+    if carry is None and not return_carry \
+            and in_k1_subset(flow, attn_prior, temperature) \
+            and (residual.device.type == "cuda" or fused):
         k_proj, vals = attention_precompute(flow.attention_layer, text, text)
         km = torch.ones(B, text.shape[0], device=residual.device) \
             if key_mask is None else key_mask.to(torch.float32)
@@ -218,8 +237,10 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
             n_valid_in=n_valid)
         attn = attn.transpose(0, 1)
     else:
-        mel, attn, gates = _scan_infer(flow, residual, text, key_mask,
-                                       attn_prior, temperature)
+        mel, attn, gates, carry = _scan_infer(
+            flow, residual, text, key_mask, attn_prior, temperature, carry)
+        if return_carry:
+            return mel, attn, gates, carry
     if hasattr(flow, "gate_layer"):
         n_valid = _n_valid_from_gates(gates, gate_threshold, n_valid)
     elif n_valid is None:

@@ -10,7 +10,9 @@ checkout, named by a hash of the source, the shared headers
 source is reused.
 
 Nothing here runs at import time: the CPU tests import every module on
-machines with no ``nvcc``.
+machines with no ``nvcc``. Each library loads under its own lock (the
+server's dispatcher and stream threads launch kernels side by side, and
+``chip_smoke.py`` builds the sources in parallel).
 """
 
 import ctypes
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # where nvcc is not on PATH
 
 _loaded = {}
+_locks = {}                       # name -> the lock of its build and load
+_locks_lock = threading.Lock()
 # name -> nvcc seconds of this process's build (0.0 when a library was reused)
 build_seconds = {}
 
@@ -48,6 +53,15 @@ def load_library(name):
     """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
     if name in _loaded:
         return _loaded[name]
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _loaded:
+            _loaded[name] = _build_and_load(name)
+    return _loaded[name]
+
+
+def _build_and_load(name):
     src = CSRC / f"{name}.cu"
     # the shared headers too, so an edit of one rebuilds its includers
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
@@ -68,9 +82,7 @@ def load_library(name):
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
         build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
-    return lib
+    return ctypes.CDLL(str(lib_path))
 
 
 def check_tensor(name, t, shape, device, contiguous=True,

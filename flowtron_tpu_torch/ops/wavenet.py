@@ -19,6 +19,7 @@ cached until a weight changes); on CPU tensors it runs
 
 import ctypes
 import functools
+import threading
 from collections import namedtuple
 
 import torch
@@ -105,18 +106,21 @@ def wn_split_weights(w_cat, w_rs, nh):
 
 
 # w_cat -> {nh: (w_rs, versions, w1, w2)}: a layer's packs, made once and
-# made again when a weight changes (its _version moves)
+# made again when a weight changes (its _version moves); the lock, because
+# the server's dispatcher and stream threads vocode side by side
 _SPLITS = WeakIdKeyDictionary()
+_SPLITS_LOCK = threading.Lock()
 
 
 def _packed(w_cat, w_rs, nh):
     versions = (w_cat._version, w_rs._version)
-    per_nh = _SPLITS.setdefault(w_cat, {})
-    hit = per_nh.get(nh)
-    if hit is None or hit[0] is not w_rs or hit[1] != versions:
-        with torch.no_grad():
-            hit = (w_rs, versions) + wn_split_weights(w_cat, w_rs, nh)
-        per_nh[nh] = hit
+    with _SPLITS_LOCK:
+        per_nh = _SPLITS.setdefault(w_cat, {})
+        hit = per_nh.get(nh)
+        if hit is None or hit[0] is not w_rs or hit[1] != versions:
+            with torch.no_grad():
+                hit = (w_rs, versions) + wn_split_weights(w_cat, w_rs, nh)
+            per_nh[nh] = hit
     return hit[2], hit[3]
 
 

@@ -1,32 +1,49 @@
 """Serving runtime: an HTTP TTS endpoint with dynamic request batching
-(port of the batch path of flowtron_tpu/serve).
+and streaming (port of flowtron_tpu/serve without the multistream mux,
+replicas, mesh, bf16, staged vocoding, runtime model loading and
+profiling).
 
 A micro-batching queue coalesces concurrent requests into one synthesis
 chain on the card: latents -> flows (kernel K1, or the per-frame loop for
 a quantized flow or a batch of mixed temperatures, with kernel K4 under
-``--quantize w8a8``) -> gate masking -> WaveGlow (kernel K2) ->
-peak-normalised int16. A dispatcher thread launches each batch and a
-completion thread copies it to the host.
+``--quantize w8a8``) -> gate masking -> WaveGlow (kernel K2) -> the bias
+denoiser with per-request strengths (``-d``) -> peak-normalised int16. A
+dispatcher thread launches each batch and a completion thread copies it
+to the host. Without a vocoder (no ``-w``) the chain ends at the mel and
+the completion thread vocodes each request with Griffin-Lim on the host.
+Streams run on a pool of ``--stream-workers`` warm streamer pairs, each
+stream on its own producer thread (infer/streaming.py: the prelude flows
+through K1, flow 0 through the loop chunk by chunk, K2 for each vocoder
+window).
 
 POST /synthesize  {"text": "...", "speaker_id": 0, "sigma": 0.5,
                    "n_frames": 400, "temperature": 1.0, "seed": 1234,
-                   "split": false, "model": "default"}
+                   "split": false, "denoise": 0.1, "model": "default"}
   -> audio/wav bytes. Text longer than the largest bucket is rejected
   with 413 unless "split": true, which sentence-splits it and
   synthesizes the segments as one micro-batch. A full queue answers 429;
-  a body over 1 MB 413.
+  a body over 1 MB 413. "denoise" overrides -d's strength (only on an
+  engine started with -d).
+POST /stream      same body -> chunked-transfer audio/wav (PCM16 with
+                  unknown sizes), bytes flowing as synthesis runs; a
+                  fixed clip scale, not peak-normalised. All stream
+                  workers busy: 429. Without a vocoder: 501.
+GET /stream-ws    WebSocket (RFC 6455): one text frame with the same JSON
+                  body in; {"sample_rate", "format"}, binary PCM16 frames
+                  and a close frame out; errors as a JSON text frame.
 GET /healthz      -> {"status": "ok", "queue_depth": N}
-GET /metrics      -> request/batch/error/rejection counters, audio
+GET /metrics      -> request/batch/stream/error/rejection counters, audio
                   seconds, recent batch-latency percentiles
 GET /models       -> loaded voices (``--model`` adds more)
 GET /             -> the endpoint index
 
-Not ported yet, each answering 501 with its ROADMAP.md item: /stream,
-/stream-ws, /profile, POST /models, DELETE /models/<name>.
+Not ported yet, each answering 501 with its ROADMAP.md item: /profile,
+POST /models, DELETE /models/<name>.
 
 Run: python -m flowtron_tpu_torch.serve -c config.json -f model.pt
-     -w waveglow.pt [--port 8080 --max-batch 8 --batch-timeout-ms 20
-     --max-queue 64 --quantize w8|w8a8|w4 --warmup]
+     [-w waveglow.pt -d 0.1 --stream-workers 2] [--port 8080
+     --max-batch 8 --batch-timeout-ms 20 --max-queue 64
+     --quantize w8|w8a8|w4 --warmup]
 """
 
 from flowtron_tpu_torch.serve.common import (EngineOverloaded, TextTooLong,

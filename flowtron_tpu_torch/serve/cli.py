@@ -4,8 +4,11 @@ flowtron_tpu/serve/cli.py). ``build_server`` does everything but serve,
 so a caller can run the server in-process.
 
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
-        -w waveglow.pt [--quantize w8a8] [--max-batch 8] [--warmup] \\
-        [--model NAME=CONFIG:CKPT[:VOCODER] ...]
+        [-w waveglow.pt] [-d 0.1] [--stream-workers 2] [--quantize w8a8] \\
+        [--max-batch 8] [--warmup] [--model NAME=CONFIG:CKPT[:VOCODER] ...]
+
+Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
+stream.
 
 Runs on cuda:0; ``FLOWTRON_PLATFORM=cpu`` runs it on the CPU. The JAX
 server's flags that are not ported exit with an error naming their
@@ -23,15 +26,13 @@ from flowtron_tpu_torch.serve.http import make_handler
 
 # flag -> its ROADMAP.md item (Queue 1)
 UNPORTED_FLAGS = {
-    "stream_workers": ("--stream-workers", "slice C item 17 (streaming)"),
-    "stream_mux": ("--stream-mux", "slice C item 18 (multistream mux)"),
+    "stream_mux": ("--stream-mux", "(e) slice C item 18 (multistream mux)"),
     "mux_joins_per_tick": ("--mux-joins-per-tick",
-                           "slice C item 18 (multistream mux)"),
+                           "(e) slice C item 18 (multistream mux)"),
     "mesh": ("--mesh", "slice C item 23 (replicas and mesh serving)"),
     "replicas": ("--replicas", "slice C item 23 (replicas and mesh "
                  "serving)"),
     "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
-    "denoise": ("-d/--denoise", "slice C item 21 (denoiser)"),
     "vocode_buckets": ("--vocode-buckets",
                        "slice C item 22 (staged vocoding)"),
     "compile_cache": ("--compile-cache", "slice C item 25"),
@@ -47,8 +48,15 @@ def _parser():
     parser.add_argument("-f", "--flowtron_path", required=True,
                         help="reference-format .pt state_dict")
     parser.add_argument("-w", "--waveglow_path", default="",
-                        help="WaveGlow .pt state_dict (required: "
-                             "Griffin-Lim is not ported yet)")
+                        help="WaveGlow .pt state_dict; without it requests "
+                             "are vocoded by Griffin-Lim on the host")
+    parser.add_argument("-d", "--denoise", type=float, default=0.0,
+                        help="WaveGlow bias-denoiser strength (0 = off; "
+                             "needs -w); requests override it with "
+                             "\"denoise\"")
+    parser.add_argument("--stream-workers", type=int, default=2,
+                        help="concurrent /stream(-ws) capacity: warm "
+                             "streamer pairs (needs -w)")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--batch-timeout-ms", type=float, default=20.0)
@@ -72,9 +80,8 @@ def _parser():
                              "('default'); requests pick one with a "
                              "\"model\" field")
     for dest, (flag, _) in UNPORTED_FLAGS.items():
-        names = ["-d", "--denoise"] if dest == "denoise" else [flag]
         kind = {"action": "store_true"} if dest == "bf16" else {"default": None}
-        parser.add_argument(*names, dest=dest, help="not ported yet", **kind)
+        parser.add_argument(flag, dest=dest, help="not ported yet", **kind)
     return parser
 
 
@@ -88,9 +95,6 @@ def build_server(argv=None, host="0.0.0.0"):
         if getattr(args, dest) not in (None, False):
             parser.error(f"{flag} is not ported to the PyTorch package yet; "
                          f"see ROADMAP.md Queue 1, {item}")
-    if not args.waveglow_path:
-        parser.error("-w is required: Griffin-Lim is not ported yet; see "
-                     "ROADMAP.md Queue 1, deferred item 1")
 
     def build(config_path, ckpt, vocoder):
         return SynthesisEngine(
@@ -98,7 +102,10 @@ def build_server(argv=None, host="0.0.0.0"):
             max_batch=args.max_batch,
             batch_timeout_ms=args.batch_timeout_ms, n_frames=args.n_frames,
             int8=args.int8, quantize=args.quantize, fused=args.fused,
-            max_queue=args.max_queue)
+            max_queue=args.max_queue,
+            # as in the JAX server, -d applies to the voices with a vocoder
+            denoise=args.denoise if vocoder else 0.0,
+            stream_workers=args.stream_workers)
 
     engines = {"default": build(args.config, args.flowtron_path,
                                 args.waveglow_path)}

@@ -1,7 +1,8 @@
 """SynthesisEngine's micro-batching side: the dispatcher/completion
-thread pair (port of flowtron_tpu/serve/dispatch.py:24-86 and its batch
-assembly, :95-157, with the one-chain kind of dispatch only). Mixed into
-SynthesisEngine (engine.py)."""
+thread pair (port of flowtron_tpu/serve/dispatch.py:24-86, its batch
+assembly, :95-157, and its completion, :229-263: the one-chain dispatch
+and, for an engine without a vocoder, Griffin-Lim on the host). Mixed
+into SynthesisEngine (engine.py)."""
 
 import queue
 import time
@@ -113,7 +114,9 @@ class DispatchMixin:
         sigmas = np.full((B,), 0.5, np.float32)
         temps = np.ones((B,), np.float32)
         frames_cap = np.full((B,), self.n_frames, np.int64)
-        for b, (ids, sid, sigma, seed, nf, temp, _, _) in enumerate(batch):
+        strengths = np.full((B,), self._denoise, np.float32)
+        for b, (ids, sid, sigma, seed, nf, temp, dstr, _, _) in \
+                enumerate(batch):
             n = len(ids)
             if n > Tk:  # unreachable after validation; never truncate
                 # silently: count and clamp
@@ -128,6 +131,7 @@ class DispatchMixin:
                 temps[b] = float(temp)
             if nf is not None:
                 frames_cap[b] = max(1, min(int(nf), self.n_frames))
+            strengths[b] = dstr
         for b in range(len(batch), B):
             text_pad[b], in_lens[b] = text_pad[0], in_lens[0]
             sids[b], seeds[b], sigmas[b] = sids[0], seeds[0], sigmas[0]
@@ -138,15 +142,23 @@ class DispatchMixin:
         temp_arg = float(temps[0]) if np.all(temps == temps[0]) \
             else temps[:, None]
         return self._synth_vocode(seeds, sigmas, sids, text_pad, in_lens,
-                                  temp_arg, frames_cap)
+                                  temp_arg, frames_cap, strengths)
 
     def _complete_batch(self, batch, handles):
-        pcm_dev, n_valid_dev = handles
-        audio_all = pcm_dev.cpu().numpy()       # waits for the device
+        """Hand each request its int16 audio: the chain's PCM, or for an
+        engine without a vocoder its mel vocoded here by Griffin-Lim and
+        peak-normalised."""
+        kind, out_dev, n_valid_dev = handles
+        out = out_dev.cpu().numpy()             # waits for the device
         n_valid = n_valid_dev.cpu().numpy()     # already capped
         for b, (*_, slot, done) in enumerate(batch):
             n = max(1, int(n_valid[b]))
-            slot["wav"] = audio_all[b, :n * 256]
+            if kind == "pcm":
+                slot["wav"] = out[b, :n * 256]
+            else:
+                audio = self._vocode(out[b, :, :n])
+                audio = audio / max(1e-8, float(np.abs(audio).max()))
+                slot["wav"] = (audio * 32767).astype(np.int16)
             done.set()
         with self._metrics_lock:
             self._metrics["audio_seconds"] += float(

@@ -1,16 +1,21 @@
 """The serving engine: the request queue that micro-batches concurrent
-requests into one synthesis chain on the device (port of the batch path
-of flowtron_tpu/serve/engine.py; see the package docstring for the
-protocol).
+requests into one synthesis chain on the device, and the pool of warm
+streamer pairs (port of flowtron_tpu/serve/engine.py without replicas,
+mesh, bf16, staged vocoding and the mux; see the package docstring for
+the protocol).
 
 This file owns construction and lifecycle (``submit``, ``metrics``,
 ``warmup``, ``shutdown``) and the request chain itself,
-``_synth_vocode``: latents -> flows -> gate masking -> WaveGlow ->
-peak-normalised int16, the counterpart of the JAX engine's one jitted
-dispatch (flowtron_tpu/serve/engine.py:153-253). PyTorch runs it eagerly:
-there is nothing to compile, and ``warmup`` runs one dummy batch per
-(batch bucket, text bucket) to set up the kernels and allocator.
-dispatch.py owns the dispatcher/completion thread pair.
+``_synth_vocode``: latents -> flows -> gate masking -> WaveGlow (-> the
+denoiser with per-request strengths) -> peak-normalised int16, the
+counterpart of the JAX engine's one jitted dispatch
+(flowtron_tpu/serve/engine.py:153-253). Without a vocoder the chain ends
+at the masked mel, and the completion thread vocodes each request with
+Griffin-Lim on the host (flowtron_tpu/serve/dispatch.py:204-214,
+:250-263). PyTorch runs it eagerly: there is nothing to compile, and
+``warmup`` runs one dummy batch per (batch bucket, text bucket) to set
+up the kernels and allocator. dispatch.py owns the dispatcher/completion
+thread pair, streaming.py the stream path.
 
 Options of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP.md item.
@@ -28,13 +33,20 @@ from flowtron_tpu_torch.data.frontend import TextFrontend
 from flowtron_tpu_torch.infer.quantize import (
     MODES, quantize_flows_for_inference,
 )
-from flowtron_tpu_torch.infer.sampling import load_model_for_inference
+from flowtron_tpu_torch.infer.sampling import (
+    load_model_for_inference, mel_to_audio_griffinlim,
+)
+from flowtron_tpu_torch.infer.streaming import (
+    StreamingMelSynthesizer, StreamingVocoder, stream_generators,
+)
 from flowtron_tpu_torch.models.flowtron import flowtron_infer
 from flowtron_tpu_torch.serve.common import (
     EngineOverloaded, TextTooLong, _SHUTDOWN, split_measured,
 )
 from flowtron_tpu_torch.serve.dispatch import DispatchMixin
+from flowtron_tpu_torch.serve.streaming import StreamPathMixin
 from flowtron_tpu_torch.utils.device import resolve_device
+from flowtron_tpu_torch.vocoder.denoiser import Denoiser
 from flowtron_tpu_torch.vocoder.waveglow import (
     load_waveglow, waveglow_infer_z, waveglow_n_remaining,
 )
@@ -42,20 +54,18 @@ from flowtron_tpu_torch.vocoder.waveglow import (
 HOP = 256
 MEL_FLOOR = math.log(1e-5)      # mel past a request's n_valid
 WG_SIGMA = 0.8
-VOCODER_STREAM = 1986           # separates vocoder from mel latents
+GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
 
-def _refuse_unported(waveglow_path, bf16, mesh_shape, replicas,
-                     vocode_buckets, denoise, stream_mux):
+def _refuse_unported(bf16, mesh_shape, replicas, vocode_buckets,
+                     stream_mux):
     refusals = [
-        (not waveglow_path, "an engine without a vocoder (Griffin-Lim)",
-         "Queue 1, deferred item 1 (Griffin-Lim / STFT)"),
         (bf16, "bf16", "Queue 1, deferred item 3 (bf16 kernels)"),
         (mesh_shape, "mesh_shape", "Queue 1, slice C item 23"),
         (int(replicas or 1) > 1, "replicas > 1", "Queue 1, slice C item 23"),
         (vocode_buckets, "vocode_buckets", "Queue 1, slice C item 22"),
-        (denoise, "denoise", "Queue 1, slice C item 21"),
-        (stream_mux, "stream_mux", "Queue 1, slice C item 18"),
+        (stream_mux, "stream_mux",
+         "Queue 1 (e), slice C item 18 (multistream mux)"),
     ]
     for on, what, item in refusals:
         if on:
@@ -73,12 +83,12 @@ def mel_latents(seed, sigma, n_mel, n_frames):
 def vocoder_latents(seed, wg_cfg, n_frames):
     """A request's WaveGlow latents at the full ``n_frames`` length:
     (z_main (n_remaining, Tg), [z_early (n_early_size, Tg) or None per
-    flow]), sigma 0.8. Their generator is seeded from (seed, 1986), apart
-    from the mel latents' (``seed``), as the JAX engine folds 1986 into
-    the request key; drawing at full length and slicing keeps a request's
-    audio independent of the batch it lands in."""
-    entropy = np.random.SeedSequence([int(seed) % 2 ** 64, VOCODER_STREAM])
-    g = torch.Generator().manual_seed(int(entropy.generate_state(1)[0]))
+    flow]), sigma 0.8. Their generator is a stream's vocoder generator
+    (``stream_generators``: seeded from (seed, 1986), apart from the mel
+    latents' ``seed``), as the JAX engine folds 1986 into the request
+    key; drawing at full length and slicing keeps a request's audio
+    independent of the batch it lands in."""
+    g = stream_generators(seed)[1]
     Tg = n_frames * HOP // wg_cfg["n_group"]
     z_main = WG_SIGMA * torch.randn(waveglow_n_remaining(wg_cfg), Tg,
                                     generator=g)
@@ -89,21 +99,29 @@ def vocoder_latents(seed, wg_cfg, n_frames):
     return z_main, z_early
 
 
-class SynthesisEngine(DispatchMixin):
+class SynthesisEngine(StreamPathMixin, DispatchMixin):
     """Batched synthesis over fixed shape buckets: batches are padded to a
-    power of two, texts to the smallest text bucket that holds them."""
+    power of two, texts to the smallest text bucket that holds them. With
+    a vocoder, ``stream_workers`` warm streamer pairs serve ``stream``."""
+
+    # seconds a stream waits for a free streamer pair before 429, and a
+    # stalled consumer (a dead client) may hold its pair
+    stream_acquire_timeout = 5.0
+    stream_stall_timeout = 30.0
 
     def __init__(self, config, flowtron_path, waveglow_path="",
                  max_batch=8, batch_timeout_ms=20.0, text_buckets=(64, 128),
                  n_frames=400, int8=False, quantize="", fused=False,
                  max_queue=64, device=None, bf16=False, mesh_shape=None,
                  replicas=1, vocode_buckets=None, denoise=0.0,
-                 stream_mux=0):
-        _refuse_unported(waveglow_path, bf16, mesh_shape, replicas,
-                         vocode_buckets, denoise, stream_mux)
+                 stream_mux=0, stream_workers=2):
+        _refuse_unported(bf16, mesh_shape, replicas, vocode_buckets,
+                         stream_mux)
         qmode = quantize or ("w8" if int8 else "")
         if qmode and qmode not in MODES:
             raise ValueError(f"quantize {qmode!r}; expected one of {MODES}")
+        if denoise and not waveglow_path:
+            raise ValueError("denoise needs a WaveGlow vocoder (-w)")
         self.device = resolve_device(device)
         self.config = config
         self.data_config = dict(config["data_config"])
@@ -118,12 +136,42 @@ class SynthesisEngine(DispatchMixin):
             config, flowtron_path, self.device)
         if qmode:
             self.model = quantize_flows_for_inference(self.model, mode=qmode)
-        self.wg, self.wg_cfg = load_waveglow(waveglow_path, self.device)
+        self.wg = self.wg_cfg = None
+        if waveglow_path:
+            self.wg, self.wg_cfg = load_waveglow(waveglow_path, self.device)
         self.frontend = TextFrontend.from_config(self.data_config)
 
+        # the WaveGlow bias denoiser (-d): its bias spectrum is estimated
+        # once here; the batch chain subtracts it on the device, streams
+        # through a host StreamingDenoiser
+        self._denoise = float(denoise or 0.0)
+        self._denoiser = None
+        if self._denoise > 0:
+            dc = self.data_config
+            self._denoiser = Denoiser(
+                self.wg, self.wg_cfg, filter_length=dc["filter_length"],
+                hop_length=dc["hop_length"], win_length=dc["win_length"],
+                n_mel_channels=self.static_cfg["n_mel_channels"])
+
+        # the stream path: a pool of warm streamer pairs, one a concurrent
+        # stream (beyond that a stream waits for a pair, then 429)
+        self._stream_workers = max(1, int(stream_workers))
+        self._stream_pool = None
+        if self.wg is not None:
+            self._stream_pool = queue.Queue()
+            for _ in range(self._stream_workers):
+                self._stream_pool.put((
+                    StreamingMelSynthesizer(
+                        self.model, self.static_cfg, chunk_frames=40,
+                        gate_threshold=0.5, max_frames=self.n_frames,
+                        fused=self.fused),
+                    StreamingVocoder(self.wg, self.wg_cfg, sigma=WG_SIGMA,
+                                     max_frames=self.n_frames)))
+
         self._metrics = {"requests": 0, "batches": 0, "errors": 0,
-                         "audio_seconds": 0.0, "rejected_too_long": 0,
-                         "rejected_overload": 0, "text_clamped": 0}
+                         "audio_seconds": 0.0, "stream_requests": 0,
+                         "rejected_too_long": 0, "rejected_overload": 0,
+                         "text_clamped": 0, "stream_stalls": 0}
         self._recent_batch_ms = []
         self._metrics_lock = threading.Lock()
         self._closed = False
@@ -140,8 +188,6 @@ class SynthesisEngine(DispatchMixin):
                                            daemon=True)
         self._completer.start()
 
-    can_stream = False      # the streaming endpoints are not ported yet
-
     def _count(self, name, by=1):
         with self._metrics_lock:
             self._metrics[name] += by
@@ -149,10 +195,12 @@ class SynthesisEngine(DispatchMixin):
     # -- the request chain -------------------------------------------------
     @torch.no_grad()
     def _synth_vocode(self, seeds, sigmas, sids, text, in_lens, temperature,
-                      frames_cap):
-        """One batch from host arrays to device tensors: (pcm (B, n_frames
-        * 256) int16, n_valid (B,)). Launches the work and returns without
-        waiting for it (the completion thread copies to the host)."""
+                      frames_cap, strengths):
+        """One batch from host arrays to device tensors: ("pcm", (B,
+        n_frames * 256) int16, n_valid (B,)), or without a vocoder ("mel",
+        the masked (B, n_mel, n_frames) mel, n_valid). ``strengths`` (B,)
+        are the denoiser's. Launches the work and returns without waiting
+        for it (the completion thread copies to the host)."""
         dev, N = self.device, self.n_frames
         n_mel = self.static_cfg["n_mel_channels"]
         residual = torch.cat([mel_latents(s, sg, n_mel, N)
@@ -171,6 +219,8 @@ class SynthesisEngine(DispatchMixin):
                                 torch.as_tensor(frames_cap, device=dev))
         valid_f = torch.arange(N, device=dev)[None, :] < n_valid[:, None]
         mel = torch.where(valid_f[:, None, :], mel, MEL_FLOOR)
+        if self.wg is None:
+            return "mel", mel, n_valid
         Tg = N * HOP // self.wg_cfg["n_group"]
         zs = [vocoder_latents(s, self.wg_cfg, self.n_frames) for s in seeds]
         z_main = torch.stack([z[:, :Tg] for z, _ in zs]).to(dev)
@@ -178,12 +228,37 @@ class SynthesisEngine(DispatchMixin):
                    torch.stack([e[f][:, :Tg] for _, e in zs]).to(dev)
                    for f in range(self.wg_cfg["n_flows"])]
         audio = waveglow_infer_z(self.wg, self.wg_cfg, mel, z_main, z_early)
+        if self._denoiser is not None:
+            T = audio.shape[1]
+            audio = self._denoiser(audio, strength=torch.as_tensor(
+                strengths, device=dev)[:, None, None])
+            # the ISTFT's framing can shorten the tail: back to T samples,
+            # so the sample mask below lines up
+            audio = torch.nn.functional.pad(
+                audio, (0, max(0, T - audio.shape[1])))[:, :T]
         valid = torch.arange(audio.shape[1], device=dev)[None, :] \
             < (n_valid * HOP)[:, None]
         peak = (audio.abs() * valid).amax(dim=1, keepdim=True)
         out = audio / peak.clamp(min=1e-8) * valid
         pcm = torch.clamp(out * 32767.0, -32767, 32767).to(torch.int16)
-        return pcm, n_valid
+        return "pcm", pcm, n_valid
+
+    def _vocode(self, mel):
+        """Griffin-Lim for an engine without a vocoder: one request's
+        (n_mel, n) host mel -> float32 audio, on the host."""
+        return mel_to_audio_griffinlim(mel, self.data_config,
+                                       n_iters=GL_ITERS)
+
+    def _request_denoise(self, denoise):
+        """A request's denoiser strength: its own ``denoise``, which only
+        an engine started with -d takes, else the engine's."""
+        if denoise is None:
+            return self._denoise
+        if self._denoiser is None:
+            raise ValueError(
+                "per-request denoise requires an engine started with -d "
+                "(the bias spectrum is estimated at init)")
+        return float(denoise)
 
     # -- request path -----------------------------------------------------
     def _text_to_ids(self, text):
@@ -205,14 +280,12 @@ class SynthesisEngine(DispatchMixin):
         unless split=True: then it is sentence-split, the segments are
         enqueued together (they coalesce into one micro-batch) and the
         audio is concatenated. Raises EngineOverloaded when the request
-        queue is full.
+        queue is full. ``denoise`` overrides the engine's -d strength for
+        this request (only on an engine started with -d).
         """
         if self._closed:
             raise RuntimeError("engine is shut down")
-        if denoise is not None:
-            raise ValueError(
-                "per-request denoise needs the denoiser, which is not "
-                "ported yet; see ROADMAP.md Queue 1, slice C item 21")
+        denoise = self._request_denoise(denoise)
         try:
             pieces = [(text, self._text_to_ids(text))]
         except TextTooLong:
@@ -233,7 +306,7 @@ class SynthesisEngine(DispatchMixin):
             done = threading.Event()
             slot = {}
             item = (ids, speaker_id, sigma, int(seed) + i, n_frames,
-                    temperature, slot, done)
+                    temperature, denoise, slot, done)
             with self._lifecycle_lock:
                 if self._closed:  # atomic vs shutdown's queue drain
                     for s, _d in slots:
@@ -297,17 +370,20 @@ class SynthesisEngine(DispatchMixin):
             for Tk in self.text_buckets:
                 text = np.zeros((B, Tk), np.int64)
                 text[:, 0] = 1
-                pcm, n_valid = self._synth_vocode(
+                _, out, n_valid = self._synth_vocode(
                     np.zeros(B, np.int64), np.full(B, 0.5, np.float32),
                     np.zeros(B, np.int64), text, np.ones(B, np.int64), 1.0,
-                    np.full(B, self.n_frames, np.int64))
-                pcm.cpu(), n_valid.cpu()
+                    np.full(B, self.n_frames, np.int64),
+                    np.full(B, self._denoise, np.float32))
+                out.cpu(), n_valid.cpu()
                 n += 1
         return {"batches": n, "seconds": round(time.time() - t0, 2)}
 
     def shutdown(self, timeout=60.0):
-        """Stop serving and drop the model. New submits raise at once;
-        requests already dispatched complete. Safe to call twice."""
+        """Stop serving and drop the model. New submits and streams raise
+        at once; requests already dispatched complete; active streams run
+        to their end before their streamer pair is reclaimed. Safe to call
+        twice."""
         with self._lifecycle_lock:
             if self._closed:
                 return
@@ -338,4 +414,17 @@ class SynthesisEngine(DispatchMixin):
                 break
             if item is not _SHUTDOWN:
                 self._fail_batch([item], RuntimeError("engine shut down"))
-        self.model = self.wg = None
+        # reclaim the streamer pairs: each active stream returns its pair
+        # when it finishes (stream() refuses new checkouts once closed)
+        pool = self._stream_pool
+        if pool is not None:
+            deadline = time.time() + timeout
+            got = 0
+            while got < self._stream_workers and time.time() < deadline:
+                try:
+                    pool.get(timeout=0.2)
+                    got += 1
+                except queue.Empty:
+                    pass
+            self._stream_pool = None
+        self.model = self.wg = self._denoiser = None

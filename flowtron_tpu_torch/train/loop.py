@@ -13,12 +13,14 @@ iterations it runs the validation set and writes ``model_{iteration}.pt``
 
 The CTC weight and the prior strength reach the step as tensors, so a
 change of either changes no code path. Each step's numbers go to
-``{output_directory}/train_log.jsonl`` and to stdout.
+``{output_directory}/train_log.jsonl`` and to stdout, and with
+``with_tensorboard`` to TensorBoard under ``{output_directory}/logs``
+(train/logger.py; tensorboardX and matplotlib).
 
 Runs on ``cuda:0``, or on the CPU when asked (``utils/device.py``:
 ``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``). Features of the
 JAX loop that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: TensorBoard, tone-CER validation, grain, the profiler,
+ROADMAP.md item: tone-CER validation, grain, the profiler,
 non-pickle checkpoint formats, ``remat`` and a mesh of more than one
 device.
 """
@@ -38,6 +40,7 @@ from flowtron_tpu_torch.models.flowtron import flowtron_forward, flowtron_init
 from flowtron_tpu_torch.train.checkpoints import (
     load_checkpoint, save_checkpoint, warmstart,
 )
+from flowtron_tpu_torch.train.logger import FlowtronLogger
 from flowtron_tpu_torch.train.loss import flowtron_loss
 from flowtron_tpu_torch.train.radam import (
     build_optimizer, clip_by_global_norm, trainable_parameters,
@@ -171,8 +174,6 @@ def compute_validation_loss(eval_step, val_loader, device, ctc_weight):
 def _refuse_unported(train_config, dist_config):
     """Raise for a JAX-loop feature the port does not have yet."""
     refusals = [
-        (train_config.get("with_tensorboard"), "with_tensorboard",
-         "Queue 1 item 14, the TensorBoard logger"),
         (int(train_config.get("tone_cer_validation_texts", 0)) > 0,
          "tone_cer_validation_texts", "Queue 1 item 14, train/evaluate.py "
          "and tone-CER"),
@@ -230,6 +231,8 @@ def train(config, device=None):
     output_directory = train_config.get("output_directory", "outdir")
     os.makedirs(output_directory, exist_ok=True)
     log_path = os.path.join(output_directory, "train_log.jsonl")
+    logger = FlowtronLogger(os.path.join(output_directory, "logs")) \
+        if train_config.get("with_tensorboard") else None
 
     use_ctc = bool(train_config.get("use_ctc_loss", False))
     ctc_start = int(train_config.get("ctc_loss_start_iter", 0))
@@ -264,6 +267,10 @@ def train(config, device=None):
                 print(f"{iteration}:\t{metrics['loss']:.9f}\t"
                       f"({now - t_last:.2f}s)", flush=True)
                 t_last = now
+                if logger is not None:
+                    logger.log_training(metrics["loss"], metrics["gate"],
+                                        metrics["nll"], metrics["ctc"],
+                                        learning_rate, iteration)
                 log.write(json.dumps({
                     "iteration": iteration, **metrics, "step_s": step_s,
                     "frames": int(batch["out_lens"].sum()),
@@ -272,9 +279,13 @@ def train(config, device=None):
                     else list(batch["mel"].shape)}) + "\n")
 
                 if iteration % iters_per_checkpoint == 0:
-                    val, _ = compute_validation_loss(
+                    val, last = compute_validation_loss(
                         eval_step, val_loader, device, ctc_weight)
                     print(f"Validation loss {iteration}: {val['loss']:9f}")
+                    if logger is not None:
+                        logger.log_validation(
+                            val["loss"], val["nll"], val["gate"], val["ctc"],
+                            last, iteration)
                     log.write(json.dumps({"iteration": iteration,
                                           "validation": val}) + "\n")
                     save_checkpoint(

@@ -298,7 +298,6 @@ def test_prior_strength_schedule_matches_jax(iteration):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"with_tensorboard": True}, "item 14"),
     ({"tone_cer_validation_texts": 4}, "item 14"),
     ({"profile_dir": "prof"}, "item 14"),
     ({"checkpoint_format": "orbax"}, "deferred item 2"),

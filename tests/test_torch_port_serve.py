@@ -1,13 +1,19 @@
 """The port's serving engine and HTTP front end on the CPU (mirrors
-tests/test_serve.py for the batch path): micro-batching, per-request
-controls and independence from the batch, error paths, the endpoints,
-the refusals of what is not ported, a w8a8 engine through K4's plain
-version, and the server CLI's ``build_server``. Toy flows at n_mel 80 with the
-published WaveGlow layout on random weights, 6 frames per request."""
+tests/test_serve.py): micro-batching, per-request controls and
+independence from the batch, error paths, the endpoints, the refusals of
+what is not ported, a w8a8 engine through K4's plain version, an engine
+without a vocoder (Griffin-Lim on the host), the denoiser with
+per-request strengths, streams over ``POST /stream`` and ``GET
+/stream-ws``, and the server CLI's ``build_server``. Toy flows at n_mel 80
+with the published WaveGlow layout on random weights, 6 frames per
+request."""
 
+import base64
 import json
+import os
 import queue
 import socket
+import struct
 import threading
 import urllib.error
 import urllib.request
@@ -82,6 +88,24 @@ def config(files):
 def engine(files, config):
     eng = SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
                           **ENGINE)
+    yield eng
+    eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def dengine(files, config):
+    """An engine started with -d 0.1 (the WaveGlow's end convs are
+    perturbed, so its bias spectrum is not zero)."""
+    eng = SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
+                          denoise=0.1, **ENGINE)
+    yield eng
+    eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def glengine(files, config):
+    """An engine without a vocoder: Griffin-Lim on the host."""
+    eng = SynthesisEngine(config, str(files / "ft.pt"), **ENGINE)
     yield eng
     eng.shutdown()
 
@@ -205,9 +229,99 @@ class TestEngine:
             engine._queue = old
         assert engine.metrics()["rejected_overload"] >= 1
 
-    def test_per_request_denoise_names_roadmap(self, engine):
-        with pytest.raises(ValueError, match="ROADMAP.md.*item 21"):
-            engine.submit("Hello.", 0, denoise=0.1)
+    def test_per_request_denoise_needs_engine_denoiser(self, engine):
+        """An engine started without -d has no bias spectrum: a request's
+        ``denoise`` is refused, on both paths, before any work."""
+        for call in (engine.submit, engine.stream):
+            with pytest.raises(ValueError, match="started with -d"):
+                call("Hello.", 0, denoise=0.1)
+
+    def test_per_request_denoise_changes_audio_keeps_length(self, dengine):
+        """Strengths 0 and 2 differ from the engine's 0.1 and each other,
+        at the same length; batched together each equals itself alone."""
+        alone = {d: dengine.submit("Denoise me.", 0, seed=4,
+                                   denoise=d)[0] for d in (None, 0.0, 2.0)}
+        assert len({len(w) for w in alone.values()}) == 1
+        assert len(alone[None]) == N_FRAMES * 256
+        assert not np.array_equal(alone[0.0], alone[2.0])
+        assert not np.array_equal(alone[None], alone[2.0])
+        reqs = [dict(text="Denoise me.", seed=4, denoise=d)
+                for d in (None, 0.0, 2.0)]
+        batched, (_, n_batches) = _concurrent(dengine, reqs)
+        assert n_batches < 3
+        for kw, wav in zip(reqs, batched):
+            assert np.abs(alone[kw["denoise"]].astype(np.int32)
+                          - wav).max() <= 1, kw
+
+    def test_engine_without_vocoder_runs_griffin_lim(self, glengine,
+                                                     config):
+        """No -w: the flows run on the device, each request's mel is
+        vocoded by Griffin-Lim (20 iterations) on the host and
+        peak-normalised; n frames give (n - 1) * 256 samples."""
+        from flowtron_tpu_torch.infer.sampling import (
+            mel_to_audio_griffinlim)
+        seen = []
+        vocode = glengine._vocode
+
+        def spy(mel):
+            seen.append(mel)
+            return vocode(mel)
+        glengine._vocode = spy
+        try:
+            wav, sr = glengine.submit("Hello there.", 0)
+            capped, _ = glengine.submit("Hello there.", 0, n_frames=3)
+        finally:
+            glengine._vocode = vocode
+        assert sr == 22050 and wav.dtype == np.int16
+        assert len(wav) == (N_FRAMES - 1) * 256 and len(capped) == 2 * 256
+        assert np.abs(wav).max() == 32767
+        assert seen[0].shape == (80, N_FRAMES)
+        ref = mel_to_audio_griffinlim(seen[0], config["data_config"],
+                                      n_iters=20)
+        np.testing.assert_array_equal(
+            wav, (ref / np.abs(ref).max() * 32767).astype(np.int16))
+        assert not glengine.can_stream
+        with pytest.raises(RuntimeError, match="vocoder"):
+            glengine.stream("Hello.", 0)
+
+    def test_stream_concatenates_to_n_valid_frames(self, engine):
+        """``stream`` yields int16 chunks that add up to n_valid * 256
+        samples (the gate is biased off: N_FRAMES), the same for the same
+        seed; per-stream generators: another seed differs."""
+        a = np.concatenate(list(engine.stream("Stream this.", 0, seed=3)))
+        b = np.concatenate(list(engine.stream("Stream this.", 0, seed=3)))
+        c = np.concatenate(list(engine.stream("Stream this.", 0, seed=4)))
+        assert a.dtype == np.int16 and len(a) == N_FRAMES * 256
+        assert np.array_equal(a, b) and not np.array_equal(a, c)
+        capped = np.concatenate(list(engine.stream("Stream this.", 0,
+                                                   n_frames=2)))
+        assert len(capped) == 2 * 256
+        assert engine.metrics()["stream_requests"] >= 4
+
+    def test_stream_with_denoise_and_split(self, dengine):
+        """-d streams through a StreamingDenoiser (same length, other
+        samples); split=True streams every segment back to back."""
+        raw = np.concatenate(list(dengine.stream("Stream me.", 0, seed=2,
+                                                 denoise=0.0)))
+        den = np.concatenate(list(dengine.stream("Stream me.", 0, seed=2)))
+        assert len(raw) == len(den) == N_FRAMES * 256
+        assert not np.array_equal(raw, den)
+        long = np.concatenate(list(dengine.stream("One two three. " * 8, 0,
+                                                  split=True)))
+        assert len(long) >= 4 * N_FRAMES * 256
+
+    def test_stream_pool_overload_raises_429(self, engine):
+        pool = engine._stream_pool
+        held = [pool.get(timeout=60) for _ in range(engine._stream_workers)]
+        old = engine.stream_acquire_timeout
+        engine.stream_acquire_timeout = 0.05
+        try:
+            with pytest.raises(EngineOverloaded, match="streaming workers"):
+                engine.stream("Hello.", 0)
+        finally:
+            engine.stream_acquire_timeout = old
+            for pair in held:
+                pool.put(pair)
 
     def test_warmup_runs_every_bucket_pair(self, engine):
         out = engine.warmup()
@@ -230,13 +344,11 @@ class TestEngine:
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(waveglow_path=""), "deferred item 1"),
     (dict(bf16=True), "deferred item 3"),
     (dict(mesh_shape=[1, 1]), "item 23"),
     (dict(replicas=2), "item 23"),
     (dict(vocode_buckets=[2]), "item 22"),
-    (dict(denoise=0.1), "item 21"),
-    (dict(stream_mux=2), "item 18"),
+    (dict(stream_mux=2), r"Queue 1 \(e\), slice C item 18"),
 ])
 def test_unported_engine_options_raise(files, config, option, item):
     kw = dict(waveglow_path=str(files / "wg.pt"), device="cpu")
@@ -342,7 +454,7 @@ class TestHTTP:
         models = self._get(server + "/models")
         assert models["default"] == "default"
         assert [m["name"] for m in models["models"]] == ["default", "w8a8"]
-        assert all(m["can_stream"] is False for m in models["models"])
+        assert all(m["can_stream"] is True for m in models["models"])
         self._post(server + "/synthesize", {"text": "Count me."}).read()
         m = self._get(server + "/metrics")
         assert m["default"]["requests"] >= 1
@@ -394,8 +506,81 @@ class TestHTTP:
             engine._queue = old
         assert code == 429 and "queue full" in err["error"]
 
+    def test_stream_is_a_chunked_wav(self, server, engine):
+        """POST /stream: a WAV header with unknown sizes, then PCM16 that
+        equals the engine's own stream of the same request."""
+        body = {"text": "Stream over HTTP.", "seed": 7}
+        with self._post(server + "/stream", body) as r:
+            assert r.headers["Transfer-Encoding"] == "chunked"
+            assert r.headers["Content-Type"] == "audio/wav"
+            data = r.read()
+        assert data[:4] == b"RIFF" and data[8:16] == b"WAVEfmt "
+        assert struct.unpack("<I", data[4:8])[0] == 0xFFFFFFFF
+        assert struct.unpack("<I", data[24:28])[0] == 22050
+        assert data[36:40] == b"data"
+        pcm = np.frombuffer(data[44:], "<i2")
+        assert len(pcm) == N_FRAMES * 256
+        ref = np.concatenate(list(engine.stream(body["text"], seed=7)))
+        np.testing.assert_array_equal(pcm, ref)
+
+    def test_stream_errors_before_the_response(self, server):
+        assert self._status(server + "/stream", {"sigma": 0.5})[0] == 400
+        code, err = self._status(server + "/stream",
+                                 {"text": "Hi.", "denoise": 0.2})
+        assert code == 400 and "started with -d" in err["error"]
+        assert self._status(server + "/stream",
+                            {"text": "word " * 60})[0] == 413
+        assert self._status(server + "/stream",
+                            {"text": "Hi.", "model": "nope"})[0] == 404
+
+    @staticmethod
+    def _ws_stream(url, req):
+        """GET /stream-ws: handshake, one masked text frame with ``req``;
+        returns the accept key's check and the frames (opcode, payload)
+        up to the close."""
+        host, port = url.replace("http://", "").split(":")
+        key = base64.b64encode(os.urandom(16)).decode()
+        with socket.create_connection((host, int(port)), timeout=300) as s:
+            s.sendall((f"GET /stream-ws HTTP/1.1\r\nHost: {host}\r\n"
+                       "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                       f"Sec-WebSocket-Key: {key}\r\n"
+                       "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+            f = s.makefile("rb")
+            status = f.readline()
+            headers = {}
+            while (line := f.readline().strip()):
+                k, _, v = line.decode().partition(":")
+                headers[k.lower()] = v.strip()
+            payload, mask = json.dumps(req).encode(), os.urandom(4)
+            s.sendall(bytes([0x81, 0x80 | len(payload)]) + mask + bytes(
+                b ^ mask[i % 4] for i, b in enumerate(payload)))
+            frames = []
+            while True:
+                h = f.read(2)
+                n = h[1] & 0x7F
+                if n == 126:
+                    n = struct.unpack(">H", f.read(2))[0]
+                elif n == 127:
+                    n = struct.unpack(">Q", f.read(8))[0]
+                frames.append((h[0] & 0x0F, f.read(n)))
+                if frames[-1][0] == 8:
+                    return status, headers, key, frames
+
+    def test_stream_ws(self, server):
+        from flowtron_tpu_torch.serve.wire import _ws_accept_key
+        status, headers, key, frames = self._ws_stream(
+            server, {"text": "Stream over a socket.", "seed": 7})
+        assert b"101" in status
+        assert headers["sec-websocket-accept"] == _ws_accept_key(key)
+        assert frames[0][0] == 1 and json.loads(frames[0][1]) == {
+            "sample_rate": 22050, "format": "pcm16"}
+        assert frames[-1] == (8, b"\x03\xe8")
+        pcm = b"".join(p for op, p in frames[1:-1] if op == 2)
+        assert len(pcm) == 2 * N_FRAMES * 256
+        _, _, _, frames = self._ws_stream(server, {"sigma": 0.5})
+        assert "missing field" in json.loads(frames[0][1])["error"]
+
     @pytest.mark.parametrize("method,path,item", [
-        ("POST", "/stream", "item 17"), ("GET", "/stream-ws", "item 17"),
         ("POST", "/profile", "item 25"), ("POST", "/models", "item 24"),
         ("DELETE", "/models/default", "item 24")])
     def test_unported_endpoints_are_501(self, server, method, path, item):
@@ -411,7 +596,7 @@ class TestHTTP:
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "1,1"], ["--replicas", "2"], ["--stream-mux", "2"],
-    ["--bf16"], ["-d", "0.1"], ["--vocode-buckets", "100"],
+    ["--bf16"], ["--mux-joins-per-tick", "2"], ["--vocode-buckets", "100"],
     ["--compile-cache", "x"], ["--profiler-port", "9999"]])
 def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
     with pytest.raises(SystemExit):
@@ -419,6 +604,54 @@ def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
                      + flag)
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md Queue 1" in err
+
+
+def test_stream_mux_refusal_names_queue_1_e(capsys):
+    with pytest.raises(SystemExit):
+        build_server(["-c", "config.json", "-f", "x.pt", "-w", "y.pt",
+                      "--stream-mux", "4"])
+    assert "ROADMAP.md Queue 1, (e) slice C item 18 (multistream mux)" in \
+        capsys.readouterr().err
+
+
+def test_build_server_denoise_and_stream_workers(files, monkeypatch):
+    """``build_server`` with -d and --stream-workers: the engine's bias
+    spectrum and pool, one stream over HTTP, and a voice without a vocoder
+    (--model NAME=CONFIG:CKPT) that -d leaves alone and that cannot
+    stream."""
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    cfg, ft, wg = (str(files / n) for n in ("config.json", "ft.pt",
+                                            "wg.pt"))
+    server, engines = build_server(
+        ["-c", cfg, "-f", ft, "-w", wg, "--port", "0", "--n-frames", "4",
+         "-d", "0.1", "--stream-workers", "1", "--model",
+         f"gl={cfg}:{ft}"], host="127.0.0.1")
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        eng = engines["default"]
+        assert eng._denoiser is not None and eng._stream_workers == 1
+        assert engines["gl"]._denoiser is None
+        assert not engines["gl"].can_stream
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        req = urllib.request.Request(url + "/stream", data=json.dumps(
+            {"text": "Hi there."}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert len(r.read()) == 44 + 2 * 4 * 256
+        req = urllib.request.Request(url + "/stream", data=json.dumps(
+            {"text": "Hi there.", "model": "gl"}).encode())
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(req, timeout=300)
+        assert ei.value.code == 501
+        req = urllib.request.Request(url + "/synthesize", data=json.dumps(
+            {"text": "Hi there.", "model": "gl"}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert len(r.read()) == 44 + 2 * 3 * 256
+    finally:
+        server.shutdown()
+        server.server_close()
+        for e in engines.values():
+            e.shutdown()
 
 
 def test_build_server_serves_a_quantized_voice(files, monkeypatch):

@@ -128,10 +128,11 @@ def _run(code_or_args, cwd=ROOT):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Import every module of the port, the training slice's by name too,
-    and run a tiny synthesis, a tiny training step (forward, losses,
-    backward through K3's plain versions, RAdam) and one request through
-    a w8a8 serving engine (K4's plain version) in a fresh interpreter:
+    """Import every module of the port, the training and streaming ones by
+    name too, and run a tiny synthesis, a tiny training step (forward,
+    losses, backward through K3's plain versions, RAdam), one request and
+    one stream through a w8a8 serving engine (K4's plain version) in a
+    fresh interpreter:
     neither jax nor the JAX package (``flowtron_tpu`` or
     ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
     test process already imported both."""
@@ -141,7 +142,8 @@ def test_port_never_imports_jax(tmp_path):
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for name in ('train.loop', 'data.dataset', 'ops.attention', "
-        "'cli'):\n"
+        "'cli', 'train.logger', 'audio.griffin_lim', 'vocoder.denoiser', "
+        "'infer.streaming', 'serve.streaming'):\n"
         "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
@@ -180,8 +182,10 @@ def test_port_never_imports_jax(tmp_path):
         "eng = SynthesisEngine(cfg, root + '/ft.pt', root + '/wg.pt', "
         "n_frames=3, quantize='w8a8', device='cpu')\n"
         "wav, sr = eng.submit('Hello there.')\n"
+        "pcm = [p for p in eng.stream('Hello there.')]\n"
         "eng.shutdown()\n"
         "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
+        "assert sum(len(p) for p in pcm) in (256, 512, 768), pcm\n"
         "bad = [k for k in sys.modules if k in ('jax', 'flowtron_tpu') or "
         "k.startswith(('jax.', 'flowtron_tpu.'))]\n"
         "print('JAX_MODULES', bad)\n"
@@ -244,9 +248,11 @@ def test_kernel_build_failure_names_the_command(tmp_path, monkeypatch,
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-def _cli_wav(tmp_path, dims, flags):
+def _cli_wav(tmp_path, dims, flags, vocoder=True):
     """flowtron-torch-infer with ``flags`` on the CPU from reference-format
-    .pt checkpoints; returns the one wav's (rate, frames)."""
+    .pt checkpoints (with a WaveGlow ``-w`` unless ``vocoder`` is False);
+    returns the one wav's (rate, frames). Without ``--stream`` it also
+    checks the mel/attention PNG beside it."""
     import wave
     from flowtron_tpu_torch.cli import inference_main
 
@@ -256,8 +262,10 @@ def _cli_wav(tmp_path, dims, flags):
     torch.save(wg.state_dict(), tmp_path / "wg.pt")
     overrides = [f"model_config.{k}={v}" for k, v in dims.items()]
     argv = ["-c", str(ROOT / "config.json"), "-p", *overrides,
-            "-f", str(tmp_path / "ft.pt"), "-w", str(tmp_path / "wg.pt"),
-            "-t", "Hello world.", "-n", "6", "-o", str(tmp_path / "out")]
+            "-f", str(tmp_path / "ft.pt"), "-t", "Hello world.", "-n", "6",
+            "-o", str(tmp_path / "out")]
+    if vocoder:
+        argv += ["-w", str(tmp_path / "wg.pt")]
     cwd = os.getcwd()
     os.chdir(ROOT)      # config.json's filelist and cmudict paths
     try:
@@ -266,6 +274,12 @@ def _cli_wav(tmp_path, dims, flags):
         os.chdir(cwd)
     wavs = list((tmp_path / "out").glob("*.wav"))
     assert len(wavs) == 1
+    pngs = list((tmp_path / "out").glob("*.png"))
+    if "--stream" in flags:
+        assert wavs[0].name.endswith("_stream.wav") and not pngs
+    else:
+        assert [p.stem for p in pngs] == [wavs[0].stem]
+        assert pngs[0].read_bytes()[:4] == b"\x89PNG"
     with wave.open(str(wavs[0])) as w:
         return w.getframerate(), w.getnframes()
 
@@ -304,17 +318,11 @@ def test_cli_quantized_modes_write_wav(tmp_path, monkeypatch, flag):
     assert len(seen) == 1 and seen[0][0] == mode and seen[0][1] > 0
 
 
-@pytest.mark.parametrize("flag", [["--stream"]])
-def test_cli_unported_modes_refuse(flag, capsys):
-    from flowtron_tpu_torch.cli import inference_main
-    with pytest.raises(SystemExit):
-        inference_main(["-c", "config.json", "-f", "x.pt", "-t", "hi"] + flag)
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md" in err
-
-
-def test_no_vocoder_names_roadmap_item():
-    from types import SimpleNamespace
-    from flowtron_tpu_torch.infer.sampling import run_inference
-    with pytest.raises(NotImplementedError, match="Griffin-Lim"):
-        run_inference({}, SimpleNamespace(waveglow_path=""))
+def test_no_vocoder_runs_griffin_lim(tmp_path, monkeypatch):
+    """Without -w the mel is vocoded by Griffin-Lim on the host: n_valid
+    frames give (n_valid - 1) * 256 samples, one frame one hop of
+    silence."""
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    rate, frames = _cli_wav(tmp_path, dict(DIMS, n_mel_channels=80), [],
+                            vocoder=False)
+    assert rate == 22050 and frames % 256 == 0 and 0 < frames <= 5 * 256

@@ -1,6 +1,7 @@
 """``flowtron_tpu_torch.cli.train_main`` end to end on the CPU: a
-coded-tone corpus, config.json at toy widths through ``-p``, two steps;
-the checkpoint it writes loads into the port's inference path with
+coded-tone corpus, config.json at toy widths through ``-p``, two steps
+with TensorBoard on (as every config in the repo has it); the
+checkpoint it writes loads into the port's inference path with
 strict=True and into the JAX package's ``warmstart`` as a ``.pt``, and a
 resumed run carries on from its iteration."""
 
@@ -34,7 +35,7 @@ def _overrides(train_fl, val_fl, out_dir, **extra):
           "data_config.validation_files": val_fl,
           "train_config.output_directory": out_dir,
           "train_config.epochs": 1, "train_config.iters_per_checkpoint": 1,
-          "train_config.with_tensorboard": False,
+          "train_config.with_tensorboard": True,
           "train_config.batch_size": 2,
           **{f"model_config.{k}": v for k, v in DIMS.items()}, **extra}
     return [f"{k}={v}" for k, v in kv.items()]
@@ -71,6 +72,17 @@ def test_two_steps_log_and_checkpoints(run):
     assert [r["iteration"] for r in log if "validation" in r] == [0, 1]
     assert sorted(f for f in os.listdir(out_dir) if f.endswith(".pt")) == \
         ["model_0.pt", "model_1.pt"]
+
+
+def test_train_with_tensorboard_writes_event_file(run):
+    """``with_tensorboard: true``: the steps and validations land in
+    ``<output_directory>/logs`` (scalars and the attention and gate
+    images)."""
+    _, out_dir, _, _ = run
+    logs = os.path.join(out_dir, "logs")
+    files = [f for f in os.listdir(logs) if "tfevents" in f]
+    assert len(files) == 1
+    assert os.path.getsize(os.path.join(logs, files[0])) > 1000
 
 
 def test_checkpoint_loads_for_inference_strict(run):
