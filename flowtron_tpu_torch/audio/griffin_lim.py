@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flowtron_tpu_torch.audio.stft import hann_window, pad_center
+from flowtron_tpu_torch.audio.stft import hann_window, on_device, pad_center
 
 
 def window_sumsquare(win_length, filter_length, hop_length, n_frames):
@@ -46,21 +46,30 @@ class InverseSTFT:
         self.hop_length = hop_length
         self.win_length = win_length
         self.window = pad_center(hann_window(win_length), filter_length)
+        # the window a device, the normalisation a (n_frames, dtype,
+        # device): a caller's n_frames takes few values (the engine's is
+        # fixed, Griffin-Lim's the same every iteration)
+        self._on_device = {}
+
+    def _norm(self, n_frames, dtype, device):
+        wss = window_sumsquare(self.win_length, self.filter_length,
+                               self.hop_length, n_frames)
+        norm = np.where(wss > np.finfo(np.float32).tiny, wss, 1.0)
+        return torch.as_tensor(norm, dtype=dtype, device=device)
 
     def __call__(self, magnitude, phase):
         """(B, n_bins, n_frames) magnitude and phase tensors -> (B, hop *
         (n_frames - 1)) waveform."""
-        n_frames = magnitude.shape[-1]
+        n_frames, dev = magnitude.shape[-1], magnitude.device
         spec = torch.polar(magnitude, phase)
-        window = torch.as_tensor(self.window, device=magnitude.device)
+        window = on_device(self._on_device, ("window", dev),
+                           lambda: torch.as_tensor(self.window, device=dev))
         frames = torch.fft.irfft(spec.transpose(1, 2), n=self.filter_length,
                                  dim=-1) * window
         signal = _overlap_add(frames, self.filter_length, self.hop_length)
-        wss = window_sumsquare(self.win_length, self.filter_length,
-                               self.hop_length, n_frames)
-        norm = np.where(wss > np.finfo(np.float32).tiny, wss, 1.0)
-        signal = signal / torch.as_tensor(norm, dtype=signal.dtype,
-                                          device=signal.device)
+        signal = signal / on_device(
+            self._on_device, ("norm", n_frames, signal.dtype, dev),
+            lambda: self._norm(n_frames, signal.dtype, dev))
         # irfft carries the 1/filter_length factor: no hop-ratio rescale
         pad = self.filter_length // 2
         return signal[:, pad:-pad]

@@ -11,6 +11,8 @@ T // hop + 1``, Slaney mel filterbank, log of the magnitude mel clipped at
 ``clip_val``.
 """
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -41,14 +43,28 @@ def _reflect_index(T, pad):
     return np.where(m < T, m, period - m)
 
 
+@lru_cache(maxsize=64)
+def _reflect_index_on(T, pad, device):
+    """``_reflect_index`` as a tensor on ``device``, built once a length."""
+    return torch.as_tensor(_reflect_index(T, pad), device=device)
+
+
+def on_device(cache, key, make):
+    """``cache[key]``, made by ``make()`` on first use: the host constants
+    (windows, bases, normalisations) copied once a device, not a call."""
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = make()
+    return t
+
+
 def _frame_signal(audio, filter_length, hop_length):
     """(B, T) -> (B, n_frames, filter_length) frames of the reflect-padded
     signal (zero-padded at the end where the last frame needs it),
     ``n_frames = T // hop + 1``."""
     T = audio.shape[1]
     n_frames = T // hop_length + 1
-    idx = torch.as_tensor(_reflect_index(T, filter_length // 2),
-                          device=audio.device)
+    idx = _reflect_index_on(T, filter_length // 2, audio.device)
     x = audio.index_select(1, idx)
     need = (n_frames - 1) * hop_length + filter_length
     if x.shape[1] < need:
@@ -73,10 +89,13 @@ class MelSpectrogram:
         self.window = pad_center(hann_window(win_length), filter_length)
         self.mel_basis = mel_filterbank(sampling_rate, filter_length,
                                         n_mel_channels, mel_fmin, mel_fmax)
+        self._on_device = {}
 
     def stft(self, audio):
         """(B, T) -> (B, 1 + n_fft/2, n_frames) complex spectrum."""
-        window = torch.as_tensor(self.window, device=audio.device)
+        window = on_device(self._on_device, ("window", audio.device),
+                           lambda: torch.as_tensor(self.window,
+                                                   device=audio.device))
         frames = _frame_signal(audio, self.filter_length, self.hop_length)
         return torch.fft.rfft(frames * window, dim=-1).transpose(1, 2)
 
@@ -89,7 +108,10 @@ class MelSpectrogram:
         return self.mel_from_magnitude(self.magnitude(audio))
 
     def mel_from_magnitude(self, magnitudes):
-        basis = torch.as_tensor(self.mel_basis, device=magnitudes.device)
+        dev = magnitudes.device
+        basis = on_device(self._on_device, ("basis", dev),
+                          lambda: torch.as_tensor(self.mel_basis,
+                                                  device=dev))
         mel = torch.einsum("mf,bft->bmt", basis, magnitudes)
         return torch.log(torch.clamp(mel, min=self.clip_val))
 

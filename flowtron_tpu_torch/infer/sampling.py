@@ -68,13 +68,17 @@ def synthesize(model, static_cfg, text_ids, speaker_id, n_frames=400,
 
 def text_to_audio(model, static_cfg, wg_model, wg_cfg, text_ids, speaker_id,
                   n_frames=400, sigma=0.5, gate_threshold=0.5, seed=1234,
-                  fused=False, wg_sigma=0.8):
-    """text ids -> (audio (n_valid * 256,) float32 numpy, mel, n_valid)."""
-    mel, _, n = synthesize(model, static_cfg, text_ids, speaker_id, n_frames,
-                           sigma, gate_threshold, seed, fused)
+                  fused=False, wg_sigma=0.8, denoiser=None, strength=0.0):
+    """text ids -> (audio (n_valid * 256,) float32 numpy, mel, attns,
+    n_valid): the flows, WaveGlow, then the ``denoiser`` at ``strength``
+    when one is given."""
+    mel, attns, n = synthesize(model, static_cfg, text_ids, speaker_id,
+                               n_frames, sigma, gate_threshold, seed, fused)
     audio = waveglow_infer(wg_model, wg_cfg, mel[None], sigma=wg_sigma,
                            seed=seed)
-    return audio[0].cpu().numpy(), mel, n
+    if denoiser is not None:
+        audio = denoiser(audio, strength=strength)
+    return audio[0].cpu().numpy(), mel, attns, n
 
 
 def mel_to_audio_griffinlim(mel, data_config, n_iters=30, seed=0):
@@ -127,14 +131,6 @@ def save_mel_attention_png(path, mel, attns):
     plt.close(fig)
 
 
-def _denoiser(wg_model, wg_cfg, data_config):
-    return Denoiser(wg_model, wg_cfg,
-                    filter_length=data_config["filter_length"],
-                    hop_length=data_config["hop_length"],
-                    win_length=data_config["win_length"],
-                    n_mel_channels=wg_cfg["n_mel_channels"])
-
-
 def _run_streaming(args, model, static_cfg, text_ids, speaker_id,
                    data_config, device):
     """--stream: write the wav as synthesis runs (any n_flows; a neural
@@ -144,8 +140,9 @@ def _run_streaming(args, model, static_cfg, text_ids, speaker_id,
     wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
     sd = None
     if getattr(args, "denoise", 0.0) > 0:
-        sd = StreamingDenoiser(_denoiser(wg_model, wg_cfg, data_config),
-                               strength=args.denoise)
+        sd = StreamingDenoiser(
+            Denoiser.from_data_config(wg_model, wg_cfg, data_config),
+            strength=args.denoise)
     os.makedirs(args.output_dir, exist_ok=True)
     base = os.path.join(
         args.output_dir,
@@ -200,10 +197,22 @@ def run_inference(config, args, device=None):
         return _run_streaming(args, model, static_cfg, text_ids, speaker_id,
                               data_config, device)
 
-    mel, attns, n_valid = synthesize(
-        model, static_cfg, text_ids, speaker_id, n_frames=args.n_frames,
-        sigma=args.sigma, gate_threshold=args.gate, seed=args.seed,
-        fused="early" if getattr(args, "fused", False) else False)
+    request = dict(n_frames=args.n_frames, sigma=args.sigma,
+                   gate_threshold=args.gate, seed=args.seed,
+                   fused="early" if getattr(args, "fused", False) else False)
+    if args.waveglow_path:
+        wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
+        denoise = getattr(args, "denoise", 0.0)
+        denoiser = Denoiser.from_data_config(
+            wg_model, wg_cfg, data_config) if denoise > 0 else None
+        audio, mel, attns, n_valid = text_to_audio(
+            model, static_cfg, wg_model, wg_cfg, text_ids, speaker_id,
+            denoiser=denoiser, strength=denoise, **request)
+    else:
+        mel, attns, n_valid = synthesize(model, static_cfg, text_ids,
+                                         speaker_id, **request)
+        print("no vocoder checkpoint; using Griffin-Lim")
+        audio = mel_to_audio_griffinlim(mel.cpu().numpy(), data_config)
     hop, sr = data_config["hop_length"], data_config["sampling_rate"]
     print(f"synthesized {n_valid} mel frames ({n_valid * hop / sr:.2f}s)")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -211,18 +220,6 @@ def run_inference(config, args, device=None):
                         f"sid{args.id}_sigma{args.sigma}_seed{args.seed}")
     save_mel_attention_png(base + ".png", mel.cpu().numpy(),
                            [a.cpu().numpy() for a in attns])
-
-    if args.waveglow_path:
-        wg_model, wg_cfg = load_waveglow(args.waveglow_path, device)
-        audio = waveglow_infer(wg_model, wg_cfg, mel[None], sigma=0.8,
-                               seed=args.seed)
-        if getattr(args, "denoise", 0.0) > 0:
-            audio = _denoiser(wg_model, wg_cfg, data_config)(
-                audio, strength=args.denoise)
-        audio = audio[0].cpu().numpy()
-    else:
-        print("no vocoder checkpoint; using Griffin-Lim")
-        audio = mel_to_audio_griffinlim(mel.cpu().numpy(), data_config)
     if audio.size == 0:
         # a 1-frame mel denoised, or vocoded by Griffin-Lim, has no
         # samples; still write a valid (silent) wav

@@ -21,7 +21,6 @@ Options of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP.md item.
 """
 
-import math
 import queue
 import threading
 import time
@@ -37,7 +36,8 @@ from flowtron_tpu_torch.infer.sampling import (
     load_model_for_inference, mel_to_audio_griffinlim,
 )
 from flowtron_tpu_torch.infer.streaming import (
-    StreamingMelSynthesizer, StreamingVocoder, stream_generators,
+    HOP, SILENCE, StreamingMelSynthesizer, StreamingVocoder,
+    stream_generators,
 )
 from flowtron_tpu_torch.models.flowtron import flowtron_infer
 from flowtron_tpu_torch.serve.common import (
@@ -51,8 +51,6 @@ from flowtron_tpu_torch.vocoder.waveglow import (
     load_waveglow, waveglow_infer_z, waveglow_n_remaining,
 )
 
-HOP = 256
-MEL_FLOOR = math.log(1e-5)      # mel past a request's n_valid
 WG_SIGMA = 0.8
 GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
@@ -147,11 +145,8 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self._denoise = float(denoise or 0.0)
         self._denoiser = None
         if self._denoise > 0:
-            dc = self.data_config
-            self._denoiser = Denoiser(
-                self.wg, self.wg_cfg, filter_length=dc["filter_length"],
-                hop_length=dc["hop_length"], win_length=dc["win_length"],
-                n_mel_channels=self.static_cfg["n_mel_channels"])
+            self._denoiser = Denoiser.from_data_config(
+                self.wg, self.wg_cfg, self.data_config)
 
         # the stream path: a pool of warm streamer pairs, one a concurrent
         # stream (beyond that a stream waits for a pair, then 429)
@@ -218,7 +213,7 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         n_valid = torch.minimum(n_valid.clamp(min=1),
                                 torch.as_tensor(frames_cap, device=dev))
         valid_f = torch.arange(N, device=dev)[None, :] < n_valid[:, None]
-        mel = torch.where(valid_f[:, None, :], mel, MEL_FLOOR)
+        mel = torch.where(valid_f[:, None, :], mel, SILENCE)
         if self.wg is None:
             return "mel", mel, n_valid
         Tg = N * HOP // self.wg_cfg["n_group"]

@@ -22,27 +22,28 @@ BIAS_FRAMES = 88     # the mel frames of the bias pass
 class Denoiser:
     @torch.no_grad()
     def __init__(self, wg_model, wg_config, filter_length=1024,
-                 hop_length=256, win_length=1024, n_mel_channels=80,
-                 mode="zeros"):
+                 hop_length=256, win_length=1024, n_mel_channels=80):
         self.filter_length = filter_length
         self.hop_length = hop_length
         self.win_length = win_length
         self._ms = MelSpectrogram(filter_length, hop_length, win_length,
                                   n_mel_channels)
         self._istft = InverseSTFT(filter_length, hop_length, win_length)
-        if mode == "zeros":
-            mel = np.zeros((1, n_mel_channels, BIAS_FRAMES), np.float32)
-        elif mode == "normal":
-            mel = np.random.default_rng(0).standard_normal(
-                (1, n_mel_channels, BIAS_FRAMES)).astype(np.float32)
-        else:
-            raise ValueError(f"unsupported mode {mode}")
         device = next(wg_model.parameters()).device
-        bias_audio = waveglow_infer(wg_model, wg_config,
-                                    torch.from_numpy(mel).to(device),
-                                    sigma=0.0)
+        mel = torch.zeros(1, n_mel_channels, BIAS_FRAMES, device=device)
+        bias_audio = waveglow_infer(wg_model, wg_config, mel, sigma=0.0)
         # (1, n_bins, 1): the first frame's magnitudes
         self.bias_spec = self._ms.magnitude(bias_audio)[:, :, :1]
+
+    @classmethod
+    def from_data_config(cls, wg_model, wg_config, data_config):
+        """The denoiser at a data config's STFT and the vocoder's mel
+        width, as the CLI and the server build it."""
+        return cls(wg_model, wg_config,
+                   filter_length=data_config["filter_length"],
+                   hop_length=data_config["hop_length"],
+                   win_length=data_config["win_length"],
+                   n_mel_channels=wg_config["n_mel_channels"])
 
     @torch.no_grad()
     def __call__(self, audio, strength=0.1):

@@ -117,6 +117,24 @@ def test_inverse_stft_matches_jax(fl, hop, wl):
     _close(ours.numpy(), ref, 1e-5)
 
 
+def test_one_instance_over_several_lengths_matches_jax():
+    """The window, mel basis, reflect index and window-sumsquare
+    normalisation are built once and kept: one MelSpectrogram and one
+    InverseSTFT, called at lengths that come and go back, still agree
+    with JAX at each."""
+    ms, jms = MelSpectrogram(), JaxMelSpectrogram()
+    istft, jistft = InverseSTFT(), JaxInverseSTFT()
+    rng = np.random.default_rng(3)
+    for T, n_frames in [(4000, 12), (1500, 5), (4000, 12), (1500, 3)]:
+        x = _audio(T=T, seed=T)
+        _close(ms(torch.from_numpy(x)).numpy(), jms(jnp.asarray(x)), 1e-5)
+        mag = np.abs(rng.standard_normal((2, 513, n_frames))).astype(
+            np.float32)
+        phase = rng.uniform(-np.pi, np.pi, mag.shape).astype(np.float32)
+        _close(istft(torch.from_numpy(mag), torch.from_numpy(phase)).numpy(),
+               jistft(jnp.asarray(mag), jnp.asarray(phase)), 1e-5)
+
+
 def test_griffin_lim_from_the_same_phases_matches_jax():
     """The tensor Griffin-Lim from JAX's own initial phases, 8 iterations,
     within 1e-4 of the output scale."""
