@@ -18,14 +18,23 @@ drives the port's three paths at the full width of the repo's
 - inference (text -> mel -> audio) through
   ``flowtron_tpu_torch.infer.sampling`` with the
   ``configs/config_waveglow.json`` vocoder (kernels K1, K2);
+- the multistream mux (``infer/multistream.py``): 8 slots, eight streams
+  (six joining at once, two later, one capped, one at another
+  temperature), each held against its solo stream; K1 once a join (the
+  prelude), never in a tick, K2 for each window group; then two w8a8
+  streams (K4);
 - batch serving: the HTTP server of ``flowtron_tpu_torch.serve``, built
   in-process by ``serve/cli.py:build_server`` from the model saved to
   ``.pt`` files, first unquantized (K1, K2), then with ``--quantize
   w8a8`` (K4, K2), each answering concurrent ``POST /synthesize``
   requests; then the quantized modes (w8, w8a8, w4) card against CPU;
   then with ``--stream-workers 2 -d 0.1``, two ``POST /stream`` and a
-  ``GET /stream-ws`` beside a wave of ``POST /synthesize``; then without
-  a vocoder (Griffin-Lim on the host, no K2);
+  ``GET /stream-ws`` beside a wave of ``POST /synthesize``; then with
+  ``--stream-mux 4 --mux-joins-per-tick 2 -d 0.1``, four ``POST /stream``
+  beside a wave, a fifth refused with 429, a ``GET /stream-ws``, one
+  stream held against the pooled server's; then staged vocoding
+  (``--vocode-buckets 120,240``), capped waves staged and one-pass in
+  turns; then without a vocoder (Griffin-Lim on the host, no K2);
 - training through ``flowtron_tpu_torch.cli.train_main`` on a synthetic
   coded-tone corpus written to a temporary directory: one epoch of 10
   steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
@@ -85,6 +94,17 @@ SEAM_TOL = 5e-3     # streamed audio vs one vocoder pass on the same latents,
                     # of the scale: JAX's seam bar (tests/test_streaming.py)
 # stream_tts on the main path: the server's chunk and window settings
 STREAM = dict(max_frames=N_FRAMES, chunk_frames=40, context=24, lookahead=16)
+# the multistream mux: the server's geometry, 8 slots, text at TK
+MUX = dict(chunk_frames=40, context=24, lookahead=16, max_frames=N_FRAMES,
+           text_len=TK, gate_threshold=0.5)
+MUX_SEED = 500      # latents seed of the mux's first stream
+# the stream servers' text frontend without its random ARPAbet
+# substitutions (p_arpabet 0.5 draws them from a stream each server
+# advances with every request), so one text gets the same ids on two
+# servers and serve_mux can hold a muxed stream against a pooled one
+NO_ARPABET = "data_config.p_arpabet=0.0"
+MUX_TOL = 1e-3      # a muxed stream vs its solo stream on the card: mel
+                    # max-abs, audio of its scale
 N_UTTS, N_VAL = 66, 6   # corpus: 60 training utterances = 10 steps at B=6
 LOSS_TOL, GNORM_TOL = 1e-4, 1e-3   # card step vs CPU plain step, relative
 INV_TOL = 1e-4      # invertibility oracle on the card, fp32
@@ -1230,20 +1250,22 @@ def read_stream_ws(url, body):
 
 
 def phase_serve_stream(ft_path, wg_path, kernels):
-    """Streams from the server: ``build_server`` with --stream-workers 2
-    and -d 0.1; two concurrent ``POST /stream`` (one with the engine's
-    strength, one with its own) beside a wave of four ``POST /synthesize``,
-    and a ``GET /stream-ws`` beside a second wave as soon as a streamer
-    pair is free (two workers). Each stream's PCM is its n_frames cap x 256
-    samples (the gate is biased off) with well-formed framing. Then one
-    stream alone, its launches counted. Returns them."""
+    """Streams from the server: ``build_server`` with --stream-workers 2,
+    -d 0.1 and no ARPAbet substitutions; two concurrent ``POST /stream``
+    (one with the engine's strength, one with its own) beside a wave of
+    four ``POST /synthesize``, and a ``GET /stream-ws`` beside a second
+    wave as soon as a streamer pair is free (two workers). Each stream's
+    PCM is its n_frames cap x 256 samples (the gate is biased off) with
+    well-formed framing. Then one stream alone, its launches counted.
+    Returns them, and that stream's body and PCM."""
     import struct
 
     from flowtron_tpu_torch.serve.cli import build_server
 
     server, engines = build_server(
-        ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port", "0",
-         "--stream-workers", "2", "-d", "0.1"], host="127.0.0.1")
+        ["-c", "config.json", "-p", NO_ARPABET, "-f", ft_path, "-w", wg_path,
+         "--port", "0", "--stream-workers", "2", "-d", "0.1"],
+        host="127.0.0.1")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1312,6 +1334,447 @@ def phase_serve_stream(ft_path, wg_path, kernels):
          wave_latency_s=[[r[1] for r in results] for results, _ in waves],
          alone_ttfa_ms=alone_ms,
          alone_launches=launches)
+    return launches, streams[0], alone
+
+
+def solo_stream(model, cfg, wg, wg_cfg, seed, sid, ids, temperature=1.0,
+                cap=None):
+    """``pump_stream`` at B=1 with the mux's settings (text padded to TK
+    with its length, the stream's generators): the stream a muxed one
+    must equal. Returns (audio (n,), mel (80, n), wall seconds)."""
+    from flowtron_tpu_torch.infer import streaming as S
+
+    g_mel, g_voc = S.stream_generators(seed)
+    mel_s = S.StreamingMelSynthesizer(
+        model, cfg, chunk_frames=MUX["chunk_frames"],
+        gate_threshold=MUX["gate_threshold"], max_frames=N_FRAMES,
+        temperature=temperature)
+    voc = S.StreamingVocoder(wg, wg_cfg, context=MUX["context"],
+                             lookahead=MUX["lookahead"], max_frames=N_FRAMES,
+                             generator=g_voc)
+    seen, push = [], voc.push
+
+    def push_spy(mel_chunk):
+        seen.append(mel_chunk.cpu())
+        return push(mel_chunk)
+
+    voc.push = push_spy
+    text = torch.zeros(1, TK, dtype=torch.long)
+    text[0, :len(ids)] = torch.as_tensor(ids)
+    dev = next(model.parameters()).device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = list(S.pump_stream(
+        mel_s, voc, g_mel, torch.tensor([sid], device=dev), text.to(dev),
+        in_lens=torch.tensor([len(ids)], device=dev), max_frames=cap))
+    wall = time.perf_counter() - t0
+    return (np.concatenate([c[0] for c in chunks]),
+            torch.cat(seen, dim=2)[0].numpy(), wall)
+
+
+def run_mux(mux, opens, late=(), at_tick=0, kernels=None):
+    """Drive ``mux``: ``opens`` (seed, sid, ids, temperature, cap) join at
+    once, ``late`` after ``at_tick`` ticks; tick until all are done. Each
+    step's tick is timed (synchronised around ``ar_step_infer``) with its
+    live lanes; K1's count is read around every join and every step.
+    Returns per stream (in order) its audio, mel and ms from its open() to
+    its first audio, then the ticks [(live lanes, ms)], the K1 launches of
+    the joins and of the steps with the joins' ms, and the wall
+    seconds."""
+    from flowtron_tpu_torch.infer import multistream as MS
+
+    ticks, k1 = [], {"joins": 0, "steps": 0, "join_ms": []}
+    fused = kernels["fused_flow_infer"][0] if kernels else None
+    ar_step_infer = MS.ar_step_infer
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ar_step_infer(*a, **k)
+        torch.cuda.synchronize()
+        ticks[-1][1] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def k1_now():
+        return fused.launches if fused is not None else 0
+
+    handles, t_open, slots = [], {}, {}
+
+    def open_all(streams):
+        for seed, sid, ids, temp, cap in streams:
+            before = k1_now()
+            t_open_h = time.perf_counter()
+            h = mux.open(seed, sid, ids, temperature=temp, max_frames=cap)
+            k1["join_ms"].append(1e3 * (time.perf_counter() - t_open_h))
+            k1["joins"] += k1_now() - before
+            handles.append(h)
+            t_open[h] = t_open_h
+        slots.update({s.handle: s for s in mux._slots if s is not None})
+
+    out, first, done = {}, {}, set()
+    MS.ar_step_infer = timed
+    try:
+        t0 = time.perf_counter()
+        open_all(opens)
+        n = 0
+        while n < 1000 and (mux.active or n < at_tick):
+            if n == at_tick:
+                open_all(late)
+            with mux._lock:
+                live = sum(s is not None and s.joined and not s.done_mel
+                           for s in mux._slots)
+            ticks.append([live, None])
+            before = k1_now()
+            events = mux.step()
+            k1["steps"] += k1_now() - before
+            now = time.perf_counter()
+            for h, audio, fin in events:
+                out.setdefault(h, []).append(audio)
+                if audio.size and h not in first:
+                    first[h] = 1e3 * (now - t_open[h])
+                if fin:
+                    done.add(h)
+            n += 1
+        wall = time.perf_counter() - t0
+    finally:
+        MS.ar_step_infer = ar_step_infer
+    check(done == set(handles), f"mux: streams {set(handles) - done} never "
+          "finished")
+    return ([(np.concatenate(out[h]), slots[h].mel_buf, first.get(h))
+             for h in handles], [t for t in ticks if t[1] is not None],
+            k1, wall)
+
+
+def phase_mux(model, cfg, wg, wg_cfg, ids, sid, kernels, dev):
+    """The multistream mux (infer/multistream.py) at full width, the gate
+    biased off: 8 slots, chunks of 40, context 24, lookahead 16, 400
+    frames. One stream alone first (its ticks at 1 live lane), then six
+    streams join at once and two before the third tick (which runs all 8
+    lanes); one is capped at 120
+    frames, one runs at temperature 0.7. Each held against its solo
+    ``pump_stream`` on the card: mel within MUX_TOL max-abs, audio within
+    MUX_TOL of its scale. K1 launches once a join (the prelude) and never
+    in a tick; K2 at the widest group's shape against its plain version.
+    Then two w8a8 streams (80 frames) against the w8a8 solo stream: K4
+    launches, K1 does not. Returns the 8-stream run's launches."""
+    from flowtron_tpu_torch.infer import multistream as MS
+    from flowtron_tpu_torch.infer.quantize import (
+        quantize_flows_for_inference)
+    from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference
+
+    def mux_of(m, slots=8):
+        return MS.MultiStreamTTS(m, cfg, wg, wg_cfg, slots=slots, **MUX)
+
+    streams = [(MUX_SEED + i, sid, ids[i % len(ids)],
+                0.7 if i == 5 else 1.0, 120 if i == 2 else None)
+               for i in range(8)]
+    run_mux(mux_of(model), streams[:1], kernels=kernels)   # warm-up
+    (alone,), alone_ticks, _, alone_wall = run_mux(
+        mux_of(model), [streams[0][:4] + (200,)], kernels=kernels)
+
+    groups, window = [], MS.MultiStreamTTS._window_audio
+
+    def window_spy(self, members, W):
+        t0 = time.perf_counter()
+        out = window(self, members, W)      # ends in a copy to the host
+        groups.append((len(members), W, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    MS.MultiStreamTTS._window_audio = window_spy
+    try:
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        got, ticks, k1, wall = run_mux(mux_of(model), streams[:6],
+                                       streams[6:], at_tick=2,
+                                       kernels=kernels)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+    finally:
+        MS.MultiStreamTTS._window_audio = window
+    check(k1["joins"] == len(streams) and k1["steps"] == 0
+          and launches["fused_flow_infer"] == len(streams)
+          and launches["wn_layer"] > 0
+          and launches["quantized_matmul_w8a8"] == 0,
+          f"mux launches {launches}, K1 {k1}")
+
+    errs, solo_wall, audio_s = [], [], 0.0
+    for (seed, s_id, s_ids, temp, cap), (audio, mel, _) in zip(streams, got):
+        want, want_mel, w = solo_stream(model, cfg, wg, wg_cfg, seed, s_id,
+                                        s_ids, temp, cap)
+        n = min(cap or N_FRAMES, N_FRAMES)
+        check(mel.shape == want_mel.shape == (80, n)
+              and audio.shape == want.shape == (n * HOP,)
+              and bool(np.isfinite(audio).all()),
+              f"mux stream {seed}: mel {mel.shape} {want_mel.shape} audio "
+              f"{audio.shape} {want.shape}")
+        errs.append((float(np.abs(mel - want_mel).max()),
+                     rel_err(torch.from_numpy(audio),
+                             torch.from_numpy(want))))
+        check(errs[-1][0] <= MUX_TOL and errs[-1][1] <= MUX_TOL,
+              f"mux stream {seed} vs solo: mel, audio {errs[-1]}")
+        solo_wall.append(w)
+        audio_s += n * HOP / SR
+
+    # K2 at the widest group's shape, layer 3, against its plain version
+    G, W, _ = max(groups, key=lambda g: g[0] * g[1])
+    wn, ng = wg.WN[0], wg_cfg["n_group"]
+    C, Tp = wn.n_channels, W * HOP // ng
+    gk = torch.Generator().manual_seed(34)
+    w_cat, b, w_rs, b_rs = wn.packed_layers()[3]
+    args = (torch.randn(G, Tp, C, generator=gk).to(dev), 8,
+            torch.randn(G, Tp, 2 * C, generator=gk).to(dev), w_cat, b, w_rs,
+            b_rs, Tp)
+    with torch.no_grad():
+        k_ms, p_ms, _, out_k, out_p = paired_ms(
+            lambda: wn_layer(*args), lambda: wn_layer_reference(*args),
+            reps=20, plain_reps=20)
+    k2_err = max(rel_err(a, r) for a, r in zip(out_k, out_p))
+    check(k2_err <= K2_TOL, f"K2 at the mux group shape: {k2_err}")
+
+    # w8a8: the tick's and the prelude's dots through K4
+    qmodel = quantize_flows_for_inference(model, mode="w8a8")
+    q_streams = [(MUX_SEED + 20 + i, sid, ids[i], 1.0, 80) for i in range(2)]
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    q_got, _, q_k1, _ = run_mux(mux_of(qmodel, slots=2), q_streams,
+                                kernels=kernels)
+    torch.cuda.synchronize()
+    q_launches = read_launches(kernels)
+    check(q_launches["quantized_matmul_w8a8"] > 0
+          and q_launches["fused_flow_infer"] == 0 and q_k1["joins"] == 0,
+          f"w8a8 mux launches {q_launches}")
+    q_errs = []
+    for (seed, s_id, s_ids, temp, cap), (audio, _, _) in zip(q_streams,
+                                                           q_got):
+        want, _, _ = solo_stream(qmodel, cfg, wg, wg_cfg, seed, s_id, s_ids,
+                                 temp, cap)
+        check(audio.shape == want.shape, f"w8a8 mux stream {seed} shape")
+        q_errs.append(rel_err(torch.from_numpy(audio),
+                              torch.from_numpy(want)))
+    check(max(q_errs) <= MUX_TOL, f"w8a8 mux vs solo {q_errs}")
+    del qmodel
+    torch.cuda.empty_cache()
+
+    def tick_ms(ts, lanes):
+        sel = [ms for n, ms in ts if n == lanes]
+        return statistics.median(sel) if sel else None
+
+    emit("mux", slots=8, streams=len(streams), caps=[s[4] for s in streams],
+         temperatures=[s[3] for s in streams],
+         tick_ms_1_live=tick_ms(alone_ticks, 1),
+         tick_ms_8_live=tick_ms(ticks, 8),
+         tick_ms_by_live={n: tick_ms(ticks, n)
+                          for n in sorted({n for n, _ in ticks})},
+         ticks=len(ticks), first_audio_ms=[g[2] for g in got],
+         alone_first_audio_ms=alone[2], alone_wall_s=alone_wall,
+         wall_s=wall, audio_s=audio_s,
+         audio_s_per_wall_s=audio_s / wall,
+         solo_wall_s=solo_wall,
+         solo_audio_s_per_wall_s=audio_s / sum(solo_wall),
+         mel_max_abs_err_vs_solo=[e[0] for e in errs],
+         audio_rel_err_vs_solo=[e[1] for e in errs],
+         # where the 8-stream run's wall time went: joins, ticks, window
+         # groups (each synchronised), the rest on the host
+         split_ms=dict(joins=sum(k1["join_ms"]),
+                       ticks=sum(ms for _, ms in ticks),
+                       windows=sum(g[2] for g in groups), wall=1e3 * wall),
+         groups=[g[:2] for g in groups],
+         group_ms={f"{G}x{W}": statistics.median(
+             g[2] for g in groups if g[:2] == (G, W))
+             for G, W in sorted({g[:2] for g in groups})},
+         launches=launches, k1_launches=k1,
+         k2_group=dict(G=G, W=W, Tp=Tp, layer=3, kernel_ms=k_ms,
+                       plain_ms=p_ms, max_rel_err=k2_err),
+         w8a8=dict(streams=len(q_streams), audio_rel_err_vs_solo=q_errs,
+                   launches=q_launches))
+    return launches
+
+
+def phase_serve_mux(ft_path, wg_path, kernels, pooled_body, pooled_pcm):
+    """Streams through the server's mux: ``build_server`` with --stream-mux
+    4 --mux-joins-per-tick 2 -d 0.1, no ARPAbet substitutions. Four ``POST
+    /stream`` beside a wave of ``POST /synthesize``; once the four hold
+    every slot, a fifth stream gets 429; a ``GET /stream-ws`` as soon as a
+    slot frees. Every PCM is its n_frames cap x 256 samples; the stream of
+    ``pooled_body`` is held against the pooled server's PCM of the same
+    request (phase serve_stream) within 1e-3 of full scale. Returns the
+    launches."""
+    import urllib.error
+
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    server, engines = build_server(
+        ["-c", "config.json", "-p", NO_ARPABET, "-f", ft_path, "-w", wg_path,
+         "--port", "0", "--stream-mux", "4", "--mux-joins-per-tick", "2",
+         "-d", "0.1"], host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    streams = [pooled_body,
+               {"text": TEXTS[1], "seed": 311, "n_frames": 400},
+               {"text": TEXTS[2], "seed": 312, "n_frames": 320},
+               {"text": TEXTS[3], "seed": 313, "n_frames": 400,
+                "temperature": 0.7}]
+    ws_body = {"text": TEXTS[0], "seed": 314, "n_frames": 160}
+    wave_bodies = [{"text": t, "seed": REQ_SEED + 90 + i}
+                   for i, t in enumerate(TEXTS)]
+    try:
+        get_json(url, "/healthz")
+        # one stream to set up cuBLAS/cuDNN and the vocoder's shapes
+        read_stream(url, {"text": TEXTS[3], "seed": 1, "n_frames": 80})
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        with ThreadPoolExecutor(6) as pool:
+            t0 = time.perf_counter()
+            futs = [pool.submit(read_stream, url, b) for b in streams]
+            wave = pool.submit(wave_of, url, wave_bodies)
+            deadline = time.time() + 30
+            while get_json(url, "/metrics")["mux_active_streams"] < 4:
+                check(time.time() < deadline and not any(
+                    f.done() for f in futs), "the four streams never held "
+                      "the four slots at once")
+                time.sleep(0.005)
+            try:
+                read_stream(url, {"text": TEXTS[0], "seed": 315})
+                refused = None
+            except urllib.error.HTTPError as e:
+                refused = e.code
+            check(refused == 429, f"the stream past the slots: {refused}")
+            wait(futs, return_when=FIRST_COMPLETED)
+            ws = pool.submit(read_stream_ws, url, ws_body)
+            got = [f.result() for f in futs]
+            ws_ttfa, frames = ws.result()
+            wave_results, wave_wall = wave.result()
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        check_answers("serve_mux wave", wave_bodies, wave_results, N_FRAMES)
+        for body, (_, _, pcm) in zip(streams, got):
+            check(len(pcm) == 2 * body["n_frames"] * HOP,
+                  f"/stream through the mux: {len(pcm) // 2} samples for "
+                  f"{body}")
+        ws_bytes = sum(len(p) for op, p in frames[1:-1] if op == 2)
+        check(frames[-1] == (8, b"\x03\xe8")
+              and ws_bytes == 2 * ws_body["n_frames"] * HOP,
+              f"/stream-ws through the mux: {ws_bytes // 2} samples")
+        muxed = np.frombuffer(got[0][2], "<i2").astype(np.int32)
+        pooled = np.frombuffer(pooled_pcm, "<i2").astype(np.int32)
+        vs_pool = float(np.abs(muxed - pooled).max()) / 32767 \
+            if len(muxed) == len(pooled) else None
+        check(vs_pool is not None and vs_pool <= MUX_TOL,
+              f"muxed PCM vs pooled: lengths {len(muxed)} {len(pooled)}, "
+              f"err {vs_pool}")
+        metrics = get_json(url, "/metrics")
+        check(metrics["mux_slots"] == 4 and metrics["rejected_overload"] == 1
+              and metrics["errors"] == 0 and metrics["stream_requests"] == 6
+              and metrics["mux_active_streams"] == 0,
+              f"serve_mux metrics {metrics}")
+        check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] > 0
+              and launches["quantized_matmul_w8a8"] == 0,
+              f"serve_mux launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        for eng in engines.values():
+            eng.shutdown()
+        torch.cuda.empty_cache()
+    emit("serve_mux", stream_mux=4, mux_joins_per_tick=2, denoise=0.1,
+         wall_s=wall, stream_ttfa_ms=[g[0] for g in got],
+         ws_ttfa_ms=ws_ttfa, stream_samples=[len(g[2]) // 2 for g in got],
+         ws_samples=ws_bytes // 2, refused=refused, wave_wall_s=wave_wall,
+         wave_latency_s=[r[1] for r in wave_results],
+         pcm_max_abs_err_vs_pool=vs_pool, launches=launches)
+    return launches
+
+
+def phase_serve_staged(ft_path, wg_path, kernels):
+    """Staged vocoding: ``build_server`` with --vocode-buckets 120,240.
+    Waves of four requests capped at 100 frames (bucket 120) and at 200
+    (bucket 240), staged, then the same waves with staging off on the same
+    engine (the one-pass chain at 400 frames), twice in turns; each
+    request its cap x 256 samples, every staged batch counted at its
+    bucket. Returns the first staged waves' launches."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    server, engines = build_server(
+        ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port", "0",
+         "--vocode-buckets", "120,240"], host="127.0.0.1")
+    eng = engines["default"]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    buckets = eng._vocode_buckets
+    waves = {cap: [{"text": t, "seed": REQ_SEED + 100 + i, "n_frames": cap}
+                   for i, t in enumerate(TEXTS)] for cap in (100, 200)}
+    runs = {(cap, staged): [] for cap in waves for staged in (True, False)}
+    try:
+        check(buckets == (120, 240, N_FRAMES), f"buckets {buckets}")
+        served = 0
+
+        def wave(bodies):
+            """A wave, then wait until the completion thread has recorded
+            its batches (it answers the requests first)."""
+            nonlocal served
+            out = wave_of(url, bodies)
+            served += len(bodies)
+            deadline = time.time() + 30
+            while eng.metrics()["requests"] < served:
+                check(time.time() < deadline, "staged wave never recorded")
+                time.sleep(0.005)
+            return out
+
+        for cap in waves:                  # set-up: each bucket once
+            wave(waves[cap][:1])
+        m0 = get_json(url, "/metrics")
+        launches = None
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        for staged in (True, False, False, True):
+            eng._vocode_buckets = buckets if staged else None
+            for cap, bodies in waves.items():
+                n_before = len(eng._recent_batch_ms)
+                results, wall = wave(bodies)
+                for body, (status, _, rate, n, peak) in zip(bodies, results):
+                    check(status == 200 and n == cap * HOP and peak > 0,
+                          f"staged wave: {n} samples for {body}")
+                runs[(cap, staged)].append(
+                    dict(wall_s=wall,
+                         batch_ms=eng._recent_batch_ms[n_before:]))
+            if launches is None:
+                torch.cuda.synchronize()
+                launches = read_launches(kernels)
+        m1 = get_json(url, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        for e in engines.values():
+            e.shutdown()
+        torch.cuda.empty_cache()
+    hits = {b: m1["vocode_bucket_hits"][b] - m0["vocode_bucket_hits"][b]
+            for b in m1["vocode_bucket_hits"]}
+    staged_batches = m1["staged_batches"] - m0["staged_batches"]
+    n_staged = {cap: sum(len(r["batch_ms"]) for r in runs[(cap, True)])
+                for cap in waves}
+    check(staged_batches == sum(n_staged.values())
+          and hits == {"120": n_staged[100], "240": n_staged[200],
+                       str(N_FRAMES): 0},
+          f"staged batches {staged_batches}, hits {hits}, {n_staged}")
+    check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] > 0,
+          f"staged launches {launches}")
+
+    def med(cap, staged):
+        return statistics.median(ms for r in runs[(cap, staged)]
+                                 for ms in r["batch_ms"])
+
+    emit("serve_staged", buckets=list(buckets), caps=list(waves),
+         staged_batches=staged_batches, vocode_bucket_hits=hits,
+         batch_ms={f"{cap}_{'staged' if st else 'one_pass'}": med(cap, st)
+                   for cap in waves for st in (True, False)},
+         vocoded_frames={f"{cap}": [min(b for b in buckets if b >= cap),
+                                    N_FRAMES] for cap in waves},
+         runs={f"{cap}_{'staged' if st else 'one_pass'}": r
+               for (cap, st), r in runs.items()},
+         launches=launches)
     return launches
 
 
@@ -2103,6 +2566,8 @@ def main():
           and infer_launches["quantized_matmul_w8a8"] == 0,
           f"inference path: {infer_launches}")
     phase_cpu_agreement(model, cfg, wg, wg_cfg, dev)
+    # the mux at full width, the gate biased off by phase_slice
+    mux_launches = phase_mux(model, cfg, wg, wg_cfg, ids, sid, kernels, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # the model as phase_slice left it: heads perturbed, the gate
@@ -2126,11 +2591,16 @@ def main():
               and q_serve["fused_flow_infer"] == 0
               and q_serve["quantized_matmul_w8"] == 0,
               f"w8a8 serving path: {q_serve}")
-        serve_stream = phase_serve_stream(ft_path, wg_path, kernels)
+        serve_stream, pooled_body, pooled_pcm = phase_serve_stream(
+            ft_path, wg_path, kernels)
+        serve_mux = phase_serve_mux(ft_path, wg_path, kernels, pooled_body,
+                                    pooled_pcm)
+        serve_staged = phase_serve_staged(ft_path, wg_path, kernels)
         gl_serve = phase_griffin_lim_serve(ft_path, kernels)
     emit("launches_by_path", inference=infer_launches, stream=stream_launches,
          denoiser=stft_launches, serve=serve, serve_stream=serve_stream,
-         griffin_lim_serve=gl_serve, serve_w8a8=q_serve)
+         griffin_lim_serve=gl_serve, serve_w8a8=q_serve, mux=mux_launches,
+         serve_mux=serve_mux, serve_staged=serve_staged)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -177,19 +177,6 @@ class StreamingMelSynthesizer:
         self.n_valid = n_valid.copy()
 
     # -- n_flows >= 2: offline prelude + streamed forward flow -----------
-    def _prelude(self, z, enc, key_mask, temp):
-        """Flows n-1..1 of the reversed inference chain
-        (reference:flowtron.py:924-929 without the last inverse step).
-        Returns (flow 0's input (N, B, n_mel), n_valid (B,))."""
-        n_valid = None
-        for rev_i, flow in enumerate(reversed(self.model.flows[1:])):
-            i = self.n_flows - 1 - rev_i
-            step = ar_step_infer if i % 2 == 0 else ar_back_step_infer
-            z, _, n_valid = step(flow, z, enc, key_mask, None, temp,
-                                 self.gate_threshold, n_valid=n_valid,
-                                 fused=self.fused)
-        return z, n_valid
-
     def _stream_two_stage(self, generator, enc, key_mask, B, sigma,
                           residual, temp, max_frames_arg):
         C = self.chunk_frames
@@ -200,7 +187,8 @@ class StreamingMelSynthesizer:
         z_tbm = residual.permute(2, 0, 1).to(self.device, self._dtype) \
             .contiguous()
         N = z_tbm.shape[0]
-        z1, n_valid = self._prelude(z_tbm, enc, key_mask, temp)
+        z1, n_valid = run_prelude(self.model, z_tbm, enc, key_mask, temp,
+                                  self.gate_threshold, self.fused)
         nv = n_valid.cpu().numpy().astype(np.int64)
         if max_frames_arg is not None:
             nv = np.minimum(nv, int(max_frames_arg))
@@ -214,6 +202,22 @@ class StreamingMelSynthesizer:
             mel_c, _attn, _gates, carry = self._chunk(
                 z1[c0:c0 + n_real], enc, key_mask, carry, temp)
             yield _mask_past_valid(mel_c, c0, nv, every).permute(1, 2, 0)
+
+
+def run_prelude(model, z, enc, key_mask, temperature, gate_threshold,
+                fused=False):
+    """Flows n-1..1 of the reversed inference chain
+    (reference:flowtron.py:924-929 without the last inverse step) over
+    latents ``z`` (N, B, n_mel): on the card kernel K1 for a flow in its
+    subset. Returns (flow 0's input (N, B, n_mel), n_valid (B,))."""
+    n_flows = len(model.flows)
+    n_valid = None
+    for rev_i, flow in enumerate(reversed(model.flows[1:])):
+        i = n_flows - 1 - rev_i
+        step = ar_step_infer if i % 2 == 0 else ar_back_step_infer
+        z, _, n_valid = step(flow, z, enc, key_mask, None, temperature,
+                             gate_threshold, n_valid=n_valid, fused=fused)
+    return z, n_valid
 
 
 def _mask_past_valid(mel_nbm, c0, n_valid, active):

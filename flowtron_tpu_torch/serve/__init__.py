@@ -1,7 +1,6 @@
 """Serving runtime: an HTTP TTS endpoint with dynamic request batching
-and streaming (port of flowtron_tpu/serve without the multistream mux,
-replicas, mesh, bf16, staged vocoding, runtime model loading and
-profiling).
+and streaming (port of flowtron_tpu/serve without replicas, mesh, bf16,
+runtime model loading and profiling).
 
 A micro-batching queue coalesces concurrent requests into one synthesis
 chain on the card: latents -> flows (kernel K1, or the per-frame loop for
@@ -9,12 +8,18 @@ a quantized flow or a batch of mixed temperatures, with kernel K4 under
 ``--quantize w8a8``) -> gate masking -> WaveGlow (kernel K2) -> the bias
 denoiser with per-request strengths (``-d``) -> peak-normalised int16. A
 dispatcher thread launches each batch and a completion thread copies it
-to the host. Without a vocoder (no ``-w``) the chain ends at the mel and
-the completion thread vocodes each request with Griffin-Lim on the host.
+to the host. With ``--vocode-buckets`` a batch whose n_frames caps all
+fit a bucket below ``--n-frames`` is staged: its mel first, then the
+completion thread vocodes it at the smallest bucket that covers its
+frames. Without a vocoder (no ``-w``) the chain ends at the mel and the
+completion thread vocodes each request with Griffin-Lim on the host.
 Streams run on a pool of ``--stream-workers`` warm streamer pairs, each
 stream on its own producer thread (infer/streaming.py: the prelude flows
 through K1, flow 0 through the loop chunk by chunk, K2 for each vocoder
-window).
+window), or with ``--stream-mux N`` on the N slots of one multiplexer
+(infer/multistream.py): a stepper thread advances every stream with one
+batched loop a tick of 40 frames and vocodes the ready windows in
+batches; ``--mux-joins-per-tick K`` joins at most K streams a tick.
 
 POST /synthesize  {"text": "...", "speaker_id": 0, "sigma": 0.5,
                    "n_frames": 400, "temperature": 1.0, "seed": 1234,
@@ -27,13 +32,16 @@ POST /synthesize  {"text": "...", "speaker_id": 0, "sigma": 0.5,
 POST /stream      same body -> chunked-transfer audio/wav (PCM16 with
                   unknown sizes), bytes flowing as synthesis runs; a
                   fixed clip scale, not peak-normalised. All stream
-                  workers busy: 429. Without a vocoder: 501.
+                  workers (or mux slots) busy: 429. Without a vocoder:
+                  501.
 GET /stream-ws    WebSocket (RFC 6455): one text frame with the same JSON
                   body in; {"sample_rate", "format"}, binary PCM16 frames
                   and a close frame out; errors as a JSON text frame.
 GET /healthz      -> {"status": "ok", "queue_depth": N}
 GET /metrics      -> request/batch/stream/error/rejection counters, audio
-                  seconds, recent batch-latency percentiles
+                  seconds, recent batch-latency percentiles, staged
+                  batches and hits per vocode bucket; with the mux
+                  mux_active_streams and mux_slots
 GET /models       -> loaded voices (``--model`` adds more)
 GET /             -> the endpoint index
 
@@ -41,7 +49,8 @@ Not ported yet, each answering 501 with its ROADMAP.md item: /profile,
 POST /models, DELETE /models/<name>.
 
 Run: python -m flowtron_tpu_torch.serve -c config.json -f model.pt
-     [-w waveglow.pt -d 0.1 --stream-workers 2] [--port 8080
+     [-w waveglow.pt -d 0.1 --stream-workers 2 | --stream-mux 8
+     --mux-joins-per-tick 2] [--vocode-buckets 120,240] [--port 8080
      --max-batch 8 --batch-timeout-ms 20 --max-queue 64
      --quantize w8|w8a8|w4 --warmup]
 """

@@ -4,8 +4,10 @@ flowtron_tpu/serve/cli.py). ``build_server`` does everything but serve,
 so a caller can run the server in-process.
 
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
-        [-w waveglow.pt] [-d 0.1] [--stream-workers 2] [--quantize w8a8] \\
-        [--max-batch 8] [--warmup] [--model NAME=CONFIG:CKPT[:VOCODER] ...]
+        [-w waveglow.pt] [-d 0.1] [--stream-workers 2 | --stream-mux 8 \\
+        [--mux-joins-per-tick 2]] [--vocode-buckets 120,240] \\
+        [--quantize w8a8] [--max-batch 8] [--warmup] \\
+        [--model NAME=CONFIG:CKPT[:VOCODER] ...]
 
 Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
 stream.
@@ -26,15 +28,10 @@ from flowtron_tpu_torch.serve.http import make_handler
 
 # flag -> its ROADMAP.md item (Queue 1)
 UNPORTED_FLAGS = {
-    "stream_mux": ("--stream-mux", "(e) slice C item 18 (multistream mux)"),
-    "mux_joins_per_tick": ("--mux-joins-per-tick",
-                           "(e) slice C item 18 (multistream mux)"),
     "mesh": ("--mesh", "slice C item 23 (replicas and mesh serving)"),
     "replicas": ("--replicas", "slice C item 23 (replicas and mesh "
                  "serving)"),
     "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
-    "vocode_buckets": ("--vocode-buckets",
-                       "slice C item 22 (staged vocoding)"),
     "compile_cache": ("--compile-cache", "slice C item 25"),
     "profiler_port": ("--profiler-port", "slice C item 25 (/profile)"),
 }
@@ -57,6 +54,20 @@ def _parser():
     parser.add_argument("--stream-workers", type=int, default=2,
                         help="concurrent /stream(-ws) capacity: warm "
                              "streamer pairs (needs -w)")
+    parser.add_argument("--stream-mux", type=int, default=0,
+                        help="N > 0: serve streams through one batched "
+                             "N-slot multiplexer (one frame loop advances "
+                             "every stream) instead of the streamer pool")
+    parser.add_argument("--mux-joins-per-tick", type=int, default=0,
+                        help="K > 0: --stream-mux joins at most K new "
+                             "streams a tick (encode and prelude), so a "
+                             "rush of joins cannot stall running streams; "
+                             "0 joins in the request thread")
+    parser.add_argument("--vocode-buckets", default="",
+                        help="comma list of mel-frame buckets (e.g. "
+                             "'120,240'): a batch whose n_frames caps all "
+                             "fit a bucket below --n-frames is vocoded at "
+                             "the smallest bucket that covers it")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--batch-timeout-ms", type=float, default=20.0)
@@ -105,7 +116,10 @@ def build_server(argv=None, host="0.0.0.0"):
             max_queue=args.max_queue,
             # as in the JAX server, -d applies to the voices with a vocoder
             denoise=args.denoise if vocoder else 0.0,
-            stream_workers=args.stream_workers)
+            stream_workers=args.stream_workers, stream_mux=args.stream_mux,
+            mux_joins_per_tick=args.mux_joins_per_tick,
+            vocode_buckets=[int(x) for x in args.vocode_buckets.split(",")]
+            if args.vocode_buckets else None)
 
     engines = {"default": build(args.config, args.flowtron_path,
                                 args.waveglow_path)}

@@ -1,8 +1,10 @@
 """SynthesisEngine's micro-batching side: the dispatcher/completion
 thread pair (port of flowtron_tpu/serve/dispatch.py:24-86, its batch
-assembly, :95-157, and its completion, :229-263: the one-chain dispatch
-and, for an engine without a vocoder, Griffin-Lim on the host). Mixed
-into SynthesisEngine (engine.py)."""
+assembly, :95-157, its per-batch choice of staged vocoding, :175-198,
+and its completion, :225-263: the one-pass chain, the staged vocode
+stage at the smallest bucket that covers the batch, and, for an engine
+without a vocoder, Griffin-Lim on the host). Mixed into SynthesisEngine
+(engine.py)."""
 
 import queue
 import time
@@ -141,16 +143,40 @@ class DispatchMixin:
         # K1's subset), (B, 1) otherwise (the per-frame loop)
         temp_arg = float(temps[0]) if np.all(temps == temps[0]) \
             else temps[:, None]
+        if self._staged(frames_cap[:len(batch)]):
+            # the mel now; the completion thread reads n_valid and
+            # vocodes at the smallest bucket that covers it
+            mel, n_valid = self._synth_mel(seeds, sigmas, sids, text_pad,
+                                           in_lens, temp_arg, frames_cap)
+            return "staged", (mel, seeds, strengths), n_valid
         return self._synth_vocode(seeds, sigmas, sids, text_pad, in_lens,
                                   temp_arg, frames_cap, strengths)
 
+    def _staged(self, frames_cap):
+        """JAX's rule: stage a batch only when every request's n_frames
+        cap fits a bucket below n_frames. A batch that ends only at the
+        gate is not known to end early before its mel, so it stays on the
+        one-pass chain."""
+        return self._vocode_buckets is not None \
+            and int(frames_cap.max()) <= self._vocode_buckets[-2]
+
     def _complete_batch(self, batch, handles):
-        """Hand each request its int16 audio: the chain's PCM, or for an
-        engine without a vocoder its mel vocoded here by Griffin-Lim and
-        peak-normalised."""
+        """Hand each request its int16 audio: the chain's PCM, a staged
+        batch's PCM vocoded here at its bucket, or for an engine without a
+        vocoder its mel vocoded here by Griffin-Lim and peak-normalised."""
         kind, out_dev, n_valid_dev = handles
+        n_valid = n_valid_dev.cpu().numpy()     # waits; already capped
+        if kind == "staged":
+            mel, seeds, strengths = out_dev
+            need = max(1, int(n_valid[:len(batch)].max()))
+            Nb = next(b for b in self._vocode_buckets if b >= need)
+            out_dev = self._vocode_norm(mel[:, :, :Nb], n_valid_dev, seeds,
+                                        strengths)
+            kind = "pcm"
+            with self._metrics_lock:
+                self._metrics["staged_batches"] += 1
+                self._metrics["vocode_bucket_hits"][Nb] += 1
         out = out_dev.cpu().numpy()             # waits for the device
-        n_valid = n_valid_dev.cpu().numpy()     # already capped
         for b, (*_, slot, done) in enumerate(batch):
             n = max(1, int(n_valid[b]))
             if kind == "pcm":

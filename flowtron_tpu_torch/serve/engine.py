@@ -1,21 +1,25 @@
 """The serving engine: the request queue that micro-batches concurrent
-requests into one synthesis chain on the device, and the pool of warm
-streamer pairs (port of flowtron_tpu/serve/engine.py without replicas,
-mesh, bf16, staged vocoding and the mux; see the package docstring for
-the protocol).
+requests into one synthesis chain on the device, and the stream path
+(a pool of warm streamer pairs, or with ``stream_mux`` the batched
+multiplexer of infer/multistream.py) (port of
+flowtron_tpu/serve/engine.py without replicas, mesh and bf16; see the
+package docstring for the protocol).
 
 This file owns construction and lifecycle (``submit``, ``metrics``,
-``warmup``, ``shutdown``) and the request chain itself,
-``_synth_vocode``: latents -> flows -> gate masking -> WaveGlow (-> the
-denoiser with per-request strengths) -> peak-normalised int16, the
-counterpart of the JAX engine's one jitted dispatch
-(flowtron_tpu/serve/engine.py:153-253). Without a vocoder the chain ends
-at the masked mel, and the completion thread vocodes each request with
-Griffin-Lim on the host (flowtron_tpu/serve/dispatch.py:204-214,
-:250-263). PyTorch runs it eagerly: there is nothing to compile, and
-``warmup`` runs one dummy batch per (batch bucket, text bucket) to set
-up the kernels and allocator. dispatch.py owns the dispatcher/completion
-thread pair, streaming.py the stream path.
+``warmup``, ``shutdown``) and the request chain itself in two stages:
+``_synth_mel``, latents -> flows -> gate masking, and ``_vocode_norm``,
+WaveGlow (-> the denoiser with per-request strengths) -> peak-normalised
+int16, the counterparts of the JAX engine's ``synth_mel`` and
+``vocode_norm`` (flowtron_tpu/serve/engine.py:153-253). A batch runs
+both at the engine's ``n_frames``, unless staged vocoding
+(``vocode_buckets``) lets the completion thread vocode it at the
+smallest bucket that covers its frames (dispatch.py). Without a vocoder
+the chain ends at the masked mel, and the completion thread vocodes each
+request with Griffin-Lim on the host (flowtron_tpu/serve/dispatch.py:
+204-214, :250-263). PyTorch runs it eagerly: there is nothing to
+compile, and ``warmup`` runs one dummy batch per (batch bucket, text
+bucket) to set up the kernels and allocator. dispatch.py owns the
+dispatcher/completion thread pair, streaming.py the stream path.
 
 Options of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP.md item.
@@ -24,6 +28,7 @@ naming their ROADMAP.md item.
 import queue
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -35,13 +40,14 @@ from flowtron_tpu_torch.infer.quantize import (
 from flowtron_tpu_torch.infer.sampling import (
     load_model_for_inference, mel_to_audio_griffinlim,
 )
+from flowtron_tpu_torch.infer.multistream import MultiStreamTTS
 from flowtron_tpu_torch.infer.streaming import (
     HOP, SILENCE, StreamingMelSynthesizer, StreamingVocoder,
     stream_generators,
 )
 from flowtron_tpu_torch.models.flowtron import flowtron_infer
 from flowtron_tpu_torch.serve.common import (
-    EngineOverloaded, TextTooLong, _SHUTDOWN, split_measured,
+    EngineOverloaded, TextTooLong, _SHUTDOWN, _log, split_measured,
 )
 from flowtron_tpu_torch.serve.dispatch import DispatchMixin
 from flowtron_tpu_torch.serve.streaming import StreamPathMixin
@@ -55,15 +61,11 @@ WG_SIGMA = 0.8
 GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
 
-def _refuse_unported(bf16, mesh_shape, replicas, vocode_buckets,
-                     stream_mux):
+def _refuse_unported(bf16, mesh_shape, replicas):
     refusals = [
         (bf16, "bf16", "Queue 1, deferred item 3 (bf16 kernels)"),
         (mesh_shape, "mesh_shape", "Queue 1, slice C item 23"),
         (int(replicas or 1) > 1, "replicas > 1", "Queue 1, slice C item 23"),
-        (vocode_buckets, "vocode_buckets", "Queue 1, slice C item 22"),
-        (stream_mux, "stream_mux",
-         "Queue 1 (e), slice C item 18 (multistream mux)"),
     ]
     for on, what, item in refusals:
         if on:
@@ -100,7 +102,10 @@ def vocoder_latents(seed, wg_cfg, n_frames):
 class SynthesisEngine(StreamPathMixin, DispatchMixin):
     """Batched synthesis over fixed shape buckets: batches are padded to a
     power of two, texts to the smallest text bucket that holds them. With
-    a vocoder, ``stream_workers`` warm streamer pairs serve ``stream``."""
+    a vocoder, ``stream_workers`` warm streamer pairs serve ``stream``, or
+    with ``stream_mux`` N > 0 one N-slot multiplexer driven by a stepper
+    thread (``mux_joins_per_tick`` K > 0 joins at most K streams a tick).
+    ``vocode_buckets`` (mel frames) turns on staged vocoding."""
 
     # seconds a stream waits for a free streamer pair before 429, and a
     # stalled consumer (a dead client) may hold its pair
@@ -112,9 +117,8 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                  n_frames=400, int8=False, quantize="", fused=False,
                  max_queue=64, device=None, bf16=False, mesh_shape=None,
                  replicas=1, vocode_buckets=None, denoise=0.0,
-                 stream_mux=0, stream_workers=2):
-        _refuse_unported(bf16, mesh_shape, replicas, vocode_buckets,
-                         stream_mux)
+                 stream_mux=0, mux_joins_per_tick=0, stream_workers=2):
+        _refuse_unported(bf16, mesh_shape, replicas)
         qmode = quantize or ("w8" if int8 else "")
         if qmode and qmode not in MODES:
             raise ValueError(f"quantize {qmode!r}; expected one of {MODES}")
@@ -148,11 +152,40 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
             self._denoiser = Denoiser.from_data_config(
                 self.wg, self.wg_cfg, self.data_config)
 
-        # the stream path: a pool of warm streamer pairs, one a concurrent
-        # stream (beyond that a stream waits for a pair, then 429)
+        # staged vocoding: the buckets end at n_frames
+        self._vocode_buckets = None
+        if vocode_buckets and self.wg is not None:
+            bs = sorted({int(b) for b in vocode_buckets
+                         if 0 < int(b) < self.n_frames})
+            if bs:
+                self._vocode_buckets = tuple(bs) + (self.n_frames,)
+            else:
+                warnings.warn(f"vocode_buckets has no bucket below n_frames="
+                              f"{self.n_frames}; staged vocoding disabled",
+                              stacklevel=2)
+
+        # the stream path: the multiplexer (one stepper thread, started at
+        # the end of __init__), else a pool of warm streamer pairs, one a
+        # concurrent stream (beyond that a stream waits for a pair, then
+        # 429)
+        self._mux = None
+        self._mux_routes = {}
+        self._mux_lock = threading.Lock()
+        if self.wg is not None and int(stream_mux or 0) > 0:
+            self._mux = MultiStreamTTS(
+                self.model, self.static_cfg, self.wg, self.wg_cfg,
+                slots=int(stream_mux), chunk_frames=40,
+                text_len=self.text_buckets[-1], max_frames=self.n_frames,
+                gate_threshold=0.5, wg_sigma=WG_SIGMA, fused=self.fused,
+                max_joins_per_tick=(int(mux_joins_per_tick)
+                                    if int(mux_joins_per_tick or 0) > 0
+                                    else None))
+            self._mux_wake = threading.Event()
+            self._mux_thread = threading.Thread(target=self._mux_loop,
+                                                daemon=True)
         self._stream_workers = max(1, int(stream_workers))
         self._stream_pool = None
-        if self.wg is not None:
+        if self.wg is not None and self._mux is None:
             self._stream_pool = queue.Queue()
             for _ in range(self._stream_workers):
                 self._stream_pool.put((
@@ -166,7 +199,10 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self._metrics = {"requests": 0, "batches": 0, "errors": 0,
                          "audio_seconds": 0.0, "stream_requests": 0,
                          "rejected_too_long": 0, "rejected_overload": 0,
-                         "text_clamped": 0, "stream_stalls": 0}
+                         "text_clamped": 0, "stream_stalls": 0,
+                         "staged_batches": 0,
+                         "vocode_bucket_hits": dict.fromkeys(
+                             self._vocode_buckets or (), 0)}
         self._recent_batch_ms = []
         self._metrics_lock = threading.Lock()
         self._closed = False
@@ -182,20 +218,35 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self._completer = threading.Thread(target=self._complete_loop,
                                            daemon=True)
         self._completer.start()
+        if self._mux is not None:
+            self._mux_thread.start()
 
     def _count(self, name, by=1):
         with self._metrics_lock:
             self._metrics[name] += by
 
     # -- the request chain -------------------------------------------------
-    @torch.no_grad()
     def _synth_vocode(self, seeds, sigmas, sids, text, in_lens, temperature,
                       frames_cap, strengths):
-        """One batch from host arrays to device tensors: ("pcm", (B,
-        n_frames * 256) int16, n_valid (B,)), or without a vocoder ("mel",
-        the masked (B, n_mel, n_frames) mel, n_valid). ``strengths`` (B,)
-        are the denoiser's. Launches the work and returns without waiting
-        for it (the completion thread copies to the host)."""
+        """One batch from host arrays to device tensors in one pass: ("pcm",
+        (B, n_frames * 256) int16, n_valid (B,)), or without a vocoder
+        ("mel", the masked (B, n_mel, n_frames) mel, n_valid).
+        ``strengths`` (B,) are the denoiser's. Launches the work and
+        returns without waiting for it (the completion thread copies to
+        the host)."""
+        mel, n_valid = self._synth_mel(seeds, sigmas, sids, text, in_lens,
+                                       temperature, frames_cap)
+        if self.wg is None:
+            return "mel", mel, n_valid
+        return "pcm", self._vocode_norm(mel, n_valid, seeds,
+                                        strengths), n_valid
+
+    @torch.no_grad()
+    def _synth_mel(self, seeds, sigmas, sids, text, in_lens, temperature,
+                   frames_cap):
+        """The mel stage: latents -> flows -> n_valid capped by each
+        request's ``frames_cap`` -> frames past it silenced. Returns the
+        device tensors (mel (B, n_mel, n_frames), n_valid (B,))."""
         dev, N = self.device, self.n_frames
         n_mel = self.static_cfg["n_mel_channels"]
         residual = torch.cat([mel_latents(s, sg, n_mel, N)
@@ -213,10 +264,17 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         n_valid = torch.minimum(n_valid.clamp(min=1),
                                 torch.as_tensor(frames_cap, device=dev))
         valid_f = torch.arange(N, device=dev)[None, :] < n_valid[:, None]
-        mel = torch.where(valid_f[:, None, :], mel, SILENCE)
-        if self.wg is None:
-            return "mel", mel, n_valid
-        Tg = N * HOP // self.wg_cfg["n_group"]
+        return torch.where(valid_f[:, None, :], mel, SILENCE), n_valid
+
+    @torch.no_grad()
+    def _vocode_norm(self, mel, n_valid, seeds, strengths):
+        """The vocode stage at the mel's own length (n_frames, or a staged
+        bucket): WaveGlow on each request's latents (drawn at n_frames and
+        sliced, so its audio does not depend on the bucket) -> the
+        denoiser -> peak-normalised int16 over its n_valid frames. Returns
+        the device (B, frames * 256) PCM."""
+        dev = self.device
+        Tg = mel.shape[2] * HOP // self.wg_cfg["n_group"]
         zs = [vocoder_latents(s, self.wg_cfg, self.n_frames) for s in seeds]
         z_main = torch.stack([z[:, :Tg] for z, _ in zs]).to(dev)
         z_early = [None if zs[0][1][f] is None else
@@ -235,8 +293,7 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
             < (n_valid * HOP)[:, None]
         peak = (audio.abs() * valid).amax(dim=1, keepdim=True)
         out = audio / peak.clamp(min=1e-8) * valid
-        pcm = torch.clamp(out * 32767.0, -32767, 32767).to(torch.int16)
-        return "pcm", pcm, n_valid
+        return torch.clamp(out * 32767.0, -32767, 32767).to(torch.int16)
 
     def _vocode(self, mel):
         """Griffin-Lim for an engine without a vocoder: one request's
@@ -336,7 +393,12 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         with self._metrics_lock:
             recent = list(self._recent_batch_ms)
             out = dict(self._metrics)
+            out["vocode_bucket_hits"] = {
+                str(k): v for k, v in out["vocode_bucket_hits"].items()}
         out["queue_depth"] = self.queue_depth
+        if self._mux is not None:
+            out["mux_active_streams"] = self.active_mux_streams
+            out["mux_slots"] = self._mux.slots
         if recent:
             r = sorted(recent)
             out["batch_ms_p50"] = round(r[len(r) // 2], 1)
@@ -358,21 +420,38 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         bucket, text bucket) pair and wait for each, so the first real
         request pays no kernel build, cuBLAS/cuDNN set-up or allocator
         growth. Uniform temperature (the K1 path on an unquantized
-        model)."""
-        n = 0
+        model). With staged vocoding, also the vocode stage at each bucket
+        below n_frames for every batch bucket; with the mux, one
+        throwaway stream through it."""
+        n = staged = 0
         t0 = time.time()
         for B in self.batch_buckets():
             for Tk in self.text_buckets:
                 text = np.zeros((B, Tk), np.int64)
                 text[:, 0] = 1
-                _, out, n_valid = self._synth_vocode(
-                    np.zeros(B, np.int64), np.full(B, 0.5, np.float32),
+                seeds = np.zeros(B, np.int64)
+                strengths = np.full(B, self._denoise, np.float32)
+                mel, n_valid = self._synth_mel(
+                    seeds, np.full(B, 0.5, np.float32),
                     np.zeros(B, np.int64), text, np.ones(B, np.int64), 1.0,
-                    np.full(B, self.n_frames, np.int64),
-                    np.full(B, self._denoise, np.float32))
+                    np.full(B, self.n_frames, np.int64))
+                out = mel if self.wg is None else self._vocode_norm(
+                    mel, n_valid, seeds, strengths)
                 out.cpu(), n_valid.cpu()
                 n += 1
-        return {"batches": n, "seconds": round(time.time() - t0, 2)}
+                if self._vocode_buckets is not None \
+                        and Tk == self.text_buckets[0]:
+                    for Nb in self._vocode_buckets[:-1]:
+                        self._vocode_norm(mel[:, :, :Nb], n_valid, seeds,
+                                          strengths).cpu()
+                        staged += 1
+        done = {"batches": n}
+        if staged:
+            done["staged_vocodes"] = staged
+        if self._mux is not None:
+            done["mux_streams"] = self._warm_mux()
+        done["seconds"] = round(time.time() - t0, 2)
+        return done
 
     def shutdown(self, timeout=60.0):
         """Stop serving and drop the model. New submits and streams raise
@@ -422,4 +501,17 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                 except queue.Empty:
                     pass
             self._stream_pool = None
+        if self._mux is not None:
+            # stop the stepper, then fail the consumers still waiting
+            self._mux_wake.set()
+            self._mux_thread.join(timeout)
+            with self._mux_lock:
+                routes, self._mux_routes = self._mux_routes, {}
+            for q in routes.values():
+                try:
+                    q.put_nowait(RuntimeError("engine shut down"))
+                except queue.Full:
+                    _log.debug("shutdown sentinel dropped on a full mux "
+                               "route")
+            self._mux = None
         self.model = self.wg = self._denoiser = None

@@ -4,9 +4,10 @@ independence from the batch, error paths, the endpoints, the refusals of
 what is not ported, a w8a8 engine through K4's plain version, an engine
 without a vocoder (Griffin-Lim on the host), the denoiser with
 per-request strengths, streams over ``POST /stream`` and ``GET
-/stream-ws``, and the server CLI's ``build_server``. Toy flows at n_mel 80
-with the published WaveGlow layout on random weights, 6 frames per
-request."""
+/stream-ws``, streams through the multistream mux (``stream_mux``),
+staged vocoding (``vocode_buckets``), and the server CLI's
+``build_server``. Toy flows at n_mel 80 with the published WaveGlow
+layout on random weights, 6 frames per request."""
 
 import base64
 import json
@@ -116,6 +117,41 @@ def qengine(files, config):
                           quantize="w8a8", **ENGINE)
     yield eng
     eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def mengine(files, config):
+    """Streams through a 3-slot multiplexer instead of the pool."""
+    eng = SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
+                          stream_mux=3, **ENGINE)
+    yield eng
+    eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def sengine(files, config):
+    """-d 0.1 with staged vocoding at a 3-frame bucket."""
+    eng = SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
+                          denoise=0.1, vocode_buckets=(3,), **ENGINE)
+    yield eng
+    eng.shutdown()
+
+
+def _pcm(gen):
+    return np.concatenate(list(gen))
+
+
+def _held_stepper(eng):
+    """Hold ``eng``'s mux stepper before its next tick; returns the event
+    that releases it."""
+    release = threading.Event()
+    step = eng._mux.step
+
+    def held():
+        release.wait(timeout=300)
+        return step()
+    eng._mux.step = held
+    return release
 
 
 def _concurrent(eng, kwargs_list):
@@ -343,18 +379,264 @@ class TestEngine:
         assert len(calls) == 2 * 5 * N_FRAMES and all(calls)
 
 
+class TestMux:
+    """``stream_mux``: every stream holds a slot of one multiplexer."""
+
+    def test_muxed_stream_equals_pooled_stream(self, mengine, engine):
+        """The same request through the mux and through the pool: the same
+        seeds (segment 0: ``stream_generators(seed)``), one tick of 6
+        frames, within one int16 step."""
+        for kw in (dict(seed=11), dict(seed=12, temperature=0.6,
+                                       n_frames=4)):
+            a = _pcm(mengine.stream("Hello there mux.", 0, **kw))
+            b = _pcm(engine.stream("Hello there mux.", 0, **kw))
+            assert len(a) == len(b) == kw.get("n_frames", N_FRAMES) * 256
+            assert np.abs(a.astype(np.int32) - b).max() <= 1, kw
+        assert mengine.active_mux_streams == 0
+
+    def test_concurrent_streams_complete(self, mengine):
+        """Three streams at once share the ticks; each equals itself
+        streamed alone."""
+        texts = ["First mux stream.", "Second one here.", "Third."]
+        out = [None] * 3
+
+        def run(i):
+            out[i] = _pcm(mengine.stream(texts[i], 0, seed=30 + i))
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        for i in range(3):
+            alone = _pcm(mengine.stream(texts[i], 0, seed=30 + i))
+            assert len(out[i]) == N_FRAMES * 256
+            assert np.abs(alone.astype(np.int32) - out[i]).max() <= 1
+
+    def test_metrics_show_the_mux(self, mengine):
+        m = mengine.metrics()
+        assert m["mux_slots"] == 3 and m["mux_active_streams"] == 0
+        before = m["stream_requests"]
+        _pcm(mengine.stream("Count me.", 0))
+        assert mengine.metrics()["stream_requests"] == before + 1
+
+    def test_warmup_runs_the_mux(self, mengine):
+        out = mengine.warmup()
+        assert out["mux_streams"] == 1 and out["batches"] == 6
+        assert mengine.active_mux_streams == 0
+        assert len(_pcm(mengine.stream("After warmup.", 0))) == \
+            N_FRAMES * 256
+
+    def test_abandoned_stream_frees_its_slot(self, files, config):
+        """A consumer that leaves after its first chunk closes its slot;
+        the mux then serves the next stream. Chunks of 2 frames, context
+        and lookahead 2, so the stream is left mid-way."""
+        eng = SynthesisEngine(config, str(files / "ft.pt"),
+                              str(files / "wg.pt"), stream_mux=1, **ENGINE)
+        eng._mux.C = eng._mux.context = eng._mux.lookahead = 2
+        try:
+            gen = eng.stream("Abandon me.", 0, seed=50)
+            first = next(gen)
+            assert 0 < len(first) < N_FRAMES * 256
+            gen.close()
+            for _ in range(600):
+                if eng.active_mux_streams == 0:
+                    break
+                threading.Event().wait(0.05)
+            assert eng.active_mux_streams == 0
+            assert len(_pcm(eng.stream("Still here.", 0, seed=51))) == \
+                N_FRAMES * 256
+        finally:
+            eng.shutdown()
+
+    def test_one_slot_gives_429_and_shutdown_fails_waiters(self, files,
+                                                           config):
+        """stream_mux=1, the stepper held: a second stream is refused
+        (EngineOverloaded, 429 over HTTP); shutdown hands the waiting
+        consumer an error."""
+        from http.server import ThreadingHTTPServer
+        eng = SynthesisEngine(config, str(files / "ft.pt"),
+                              str(files / "wg.pt"), stream_mux=1, **ENGINE)
+        release = _held_stepper(eng)
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(eng))
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        got = {}
+
+        def consume():
+            try:
+                got["pcm"] = _pcm(gen)
+            except RuntimeError as e:
+                got["error"] = str(e)
+        try:
+            gen = eng.stream("Hold the slot.", 0)
+            with pytest.raises(EngineOverloaded, match="mux stream slots"):
+                eng.stream("Second.", 0)
+            code, err = TestHTTP()._status(
+                f"http://127.0.0.1:{srv.server_address[1]}/stream",
+                {"text": "Third."})
+            assert code == 429 and "mux" in err["error"]
+            assert eng.metrics()["rejected_overload"] == 2
+            c = threading.Thread(target=consume)
+            c.start()
+            eng.shutdown(timeout=1)
+            c.join(timeout=60)
+            assert not c.is_alive()
+            assert got == {"error": "engine shut down"}
+        finally:
+            release.set()
+            srv.shutdown()
+            srv.server_close()
+            eng.shutdown()
+
+    def test_denoise_and_split_through_the_mux(self, files, config,
+                                               dengine):
+        """-d: a muxed stream is denoised as the pooled one (within an
+        int16 step); split=True streams every segment, each on its own
+        slot and seed, as the pool does."""
+        eng = SynthesisEngine(config, str(files / "ft.pt"),
+                              str(files / "wg.pt"), stream_mux=2,
+                              denoise=0.1, **ENGINE)
+        try:
+            for kw in (dict(seed=2), dict(seed=2, denoise=0.0)):
+                a = _pcm(eng.stream("Stream me.", 0, **kw))
+                b = _pcm(dengine.stream("Stream me.", 0, **kw))
+                assert len(a) == len(b) == N_FRAMES * 256
+                assert np.abs(a.astype(np.int32) - b).max() <= 1, kw
+            text = "One two three. " * 8
+            a = _pcm(eng.stream(text, 0, seed=4, split=True))
+            b = _pcm(dengine.stream(text, 0, seed=4, split=True))
+            assert len(a) == len(b) >= 4 * N_FRAMES * 256
+            assert np.abs(a.astype(np.int32) - b).max() <= 1
+        finally:
+            eng.shutdown()
+
+    def test_http_stream_and_ws_through_the_mux(self, mengine):
+        from http.server import ThreadingHTTPServer
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(mengine))
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            with TestHTTP._post(url + "/stream",
+                                {"text": "Over HTTP.", "seed": 7}) as r:
+                pcm = np.frombuffer(r.read()[44:], "<i2")
+            ref = _pcm(mengine.stream("Over HTTP.", seed=7))
+            np.testing.assert_array_equal(pcm, ref)
+            _, _, _, frames = TestHTTP._ws_stream(
+                url, {"text": "Over a socket.", "seed": 7})
+            assert frames[-1] == (8, b"\x03\xe8")
+            assert sum(len(p) for op, p in frames if op == 2) == \
+                2 * N_FRAMES * 256
+            assert TestHTTP._get(url + "/metrics")["mux_slots"] == 3
+        finally:
+            srv.shutdown()
+            srv.server_close()
+
+
+class TestStaged:
+    """``vocode_buckets``: a batch whose n_frames caps fit a bucket below
+    n_frames is vocoded at the smallest bucket that covers it."""
+
+    def test_staged_at_full_bucket_equals_one_pass(self, sengine, dengine,
+                                                   monkeypatch):
+        """Staging forced for every batch: an uncapped request is vocoded
+        at the full bucket, the one-pass chain's audio within an int16
+        step."""
+        assert sengine._vocode_buckets == (3, N_FRAMES)
+        monkeypatch.setattr(sengine, "_staged", lambda caps: True)
+        before = sengine.metrics()["vocode_bucket_hits"][str(N_FRAMES)]
+        got, _ = sengine.submit("Hello staged.", 0, seed=21)
+        want, _ = dengine.submit("Hello staged.", 0, seed=21)
+        assert len(got) == len(want) == N_FRAMES * 256
+        assert np.abs(got.astype(np.int32) - want).max() <= 1
+        assert sengine.metrics()["vocode_bucket_hits"][str(N_FRAMES)] == \
+            before + 1
+
+    def test_capped_batch_is_staged_with_denoise(self, sengine):
+        """Caps of 2 frames fit the 3-frame bucket: staged, a hit counted,
+        -d applied at the request's own strength; an uncapped request
+        stays on the one-pass chain."""
+        m0 = sengine.metrics()
+        wavs = {d: sengine.submit("Short one.", 0, seed=5, n_frames=2,
+                                  denoise=d)[0] for d in (None, 0.0, 2.0)}
+        assert all(len(w) == 2 * 256 for w in wavs.values())
+        assert np.abs(wavs[None]).max() == 32767
+        assert not np.array_equal(wavs[0.0], wavs[2.0])
+        again, _ = sengine.submit("Short one.", 0, seed=5, n_frames=2)
+        np.testing.assert_array_equal(again, wavs[None])
+        m1 = sengine.metrics()
+        assert m1["staged_batches"] - m0["staged_batches"] == 4
+        assert m1["vocode_bucket_hits"]["3"] - \
+            m0["vocode_bucket_hits"]["3"] == 4
+        sengine.submit("Full length.", 0, seed=6)
+        assert sengine.metrics()["staged_batches"] == m1["staged_batches"]
+
+    def test_no_sub_bucket_warns_and_disables_staging(self, files, config):
+        with pytest.warns(UserWarning, match="no bucket below n_frames"):
+            eng = SynthesisEngine(config, str(files / "ft.pt"),
+                                  str(files / "wg.pt"),
+                                  vocode_buckets=(N_FRAMES, 9), **ENGINE)
+        try:
+            assert eng._vocode_buckets is None
+            wav, _ = eng.submit("Still serves.", 0, n_frames=2)
+            assert len(wav) == 2 * 256
+            assert eng.metrics()["staged_batches"] == 0
+        finally:
+            eng.shutdown()
+
+    def test_warmup_vocodes_each_sub_bucket(self, sengine):
+        out = sengine.warmup()
+        assert out["batches"] == 6 and out["staged_vocodes"] == 3
+
+
 @pytest.mark.parametrize("option,item", [
     (dict(bf16=True), "deferred item 3"),
     (dict(mesh_shape=[1, 1]), "item 23"),
     (dict(replicas=2), "item 23"),
-    (dict(vocode_buckets=[2]), "item 22"),
-    (dict(stream_mux=2), r"Queue 1 \(e\), slice C item 18"),
 ])
 def test_unported_engine_options_raise(files, config, option, item):
     kw = dict(waveglow_path=str(files / "wg.pt"), device="cpu")
     kw.update(option)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         SynthesisEngine(config, str(files / "ft.pt"), **kw)
+
+
+@pytest.mark.parametrize("option,built", [
+    (dict(vocode_buckets=[2]),
+     lambda e: e._vocode_buckets == (2, N_FRAMES) and e.can_stream),
+    (dict(stream_mux=2),
+     lambda e: e._mux.slots == 2 and e._stream_pool is None
+     and e._mux.max_joins_per_tick is None),
+    (["--stream-mux", "2"], lambda e: e._mux.slots == 2),
+    (["--stream-mux", "2", "--mux-joins-per-tick", "2"],
+     lambda e: e._mux.max_joins_per_tick == 2),
+    (["--vocode-buckets", "2,4"],
+     lambda e: e._vocode_buckets == (2, 4, N_FRAMES) and e._mux is None),
+    (["--stream-mux", "4"],
+     lambda e: e._mux.slots == 4 and e._mux.Tk == 128 and e.can_stream),
+])
+def test_ported_options_build_their_engine(files, config, monkeypatch,
+                                           option, built):
+    """The options that used to be refused (the engine's stream_mux and
+    vocode_buckets, the server's --stream-mux, --mux-joins-per-tick and
+    --vocode-buckets) now build their engine."""
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    if isinstance(option, dict):
+        engines = {"default": SynthesisEngine(
+            config, str(files / "ft.pt"), str(files / "wg.pt"),
+            **dict(ENGINE, **option))}
+    else:
+        server, engines = build_server(
+            ["-c", str(files / "config.json"), "-f", str(files / "ft.pt"),
+             "-w", str(files / "wg.pt"), "--port", "0", "--n-frames",
+             str(N_FRAMES)] + option, host="127.0.0.1")
+        server.server_close()
+    try:
+        assert built(engines["default"])
+    finally:
+        engines["default"].shutdown()
 
 
 def test_device_defaults_to_cuda_and_names_the_variable(monkeypatch):
@@ -595,8 +877,7 @@ class TestHTTP:
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "1,1"], ["--replicas", "2"], ["--stream-mux", "2"],
-    ["--bf16"], ["--mux-joins-per-tick", "2"], ["--vocode-buckets", "100"],
+    ["--mesh", "1,1"], ["--replicas", "2"], ["--bf16"],
     ["--compile-cache", "x"], ["--profiler-port", "9999"]])
 def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
     with pytest.raises(SystemExit):
@@ -604,14 +885,6 @@ def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
                      + flag)
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md Queue 1" in err
-
-
-def test_stream_mux_refusal_names_queue_1_e(capsys):
-    with pytest.raises(SystemExit):
-        build_server(["-c", "config.json", "-f", "x.pt", "-w", "y.pt",
-                      "--stream-mux", "4"])
-    assert "ROADMAP.md Queue 1, (e) slice C item 18 (multistream mux)" in \
-        capsys.readouterr().err
 
 
 def test_build_server_denoise_and_stream_workers(files, monkeypatch):

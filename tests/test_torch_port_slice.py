@@ -128,10 +128,11 @@ def _run(code_or_args, cwd=ROOT):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Import every module of the port, the training and streaming ones by
-    name too, and run a tiny synthesis, a tiny training step (forward,
-    losses, backward through K3's plain versions, RAdam), one request and
-    one stream through a w8a8 serving engine (K4's plain version) in a
+    """Import every module of the port, the training, streaming and mux
+    ones by name too, and run a tiny synthesis, a tiny training step
+    (forward, losses, backward through K3's plain versions, RAdam), one
+    request and one stream through a w8a8 serving engine (K4's plain
+    version) and one stream through an engine's multistream mux in a
     fresh interpreter:
     neither jax nor the JAX package (``flowtron_tpu`` or
     ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
@@ -143,7 +144,7 @@ def test_port_never_imports_jax(tmp_path):
         "    importlib.import_module(m.name)\n"
         "for name in ('train.loop', 'data.dataset', 'ops.attention', "
         "'cli', 'train.logger', 'audio.griffin_lim', 'vocoder.denoiser', "
-        "'infer.streaming', 'serve.streaming'):\n"
+        "'infer.streaming', 'serve.streaming', 'infer.multistream'):\n"
         "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
@@ -184,6 +185,11 @@ def test_port_never_imports_jax(tmp_path):
         "wav, sr = eng.submit('Hello there.')\n"
         "pcm = [p for p in eng.stream('Hello there.')]\n"
         "eng.shutdown()\n"
+        "eng = SynthesisEngine(cfg, root + '/ft.pt', root + '/wg.pt', "
+        "n_frames=3, stream_mux=1, device='cpu')\n"
+        "muxed = [p for p in eng.stream('Hello there.')]\n"
+        "eng.shutdown()\n"
+        "assert sum(len(p) for p in muxed) in (256, 512, 768), muxed\n"
         "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
         "assert sum(len(p) for p in pcm) in (256, 512, 768), pcm\n"
         "bad = [k for k in sys.modules if k in ('jax', 'flowtron_tpu') or "
