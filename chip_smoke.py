@@ -39,7 +39,16 @@ drives the port's three paths at the full width of the repo's
   coded-tone corpus written to a temporary directory: one epoch of 10
   steps with ``config.json``'s bf16 policy, then one in fp32 (kernel K3,
   forward and backward); the fp32 run's checkpoint is then loaded for
-  inference and put through the invertibility oracle;
+  inference and put through the invertibility oracle; then the rest of
+  the trainer: ``configs/config_libritts2k_gm.json``'s Gaussian-mixture
+  model at its full width (16 steps, its bf16 policy, steps 10-14 traced
+  by ``torch.profiler``, the trace checked for K3's kernels) and one of
+  its steps card against CPU; config.json in fp32 with ``remat`` (its
+  losses against the fp32 run's); config.json with cumulative attention
+  (3 steps and a 400-frame request, neither K1 nor K3 in its flows);
+  ``flowtron-torch-evaluate --plots --tone-cer 4`` on the GM checkpoint
+  (its losses against the loop's validation, the oracle with the heads
+  perturbed) and ``flowtron-torch-infer`` on it;
 - the TPU probes of ``scripts/exp_*.py`` (P1-P5) through their ports in
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
@@ -1980,72 +1989,99 @@ def phase_k3(shape, D, dev):
     return table
 
 
+def run_train(argv, out_dir, kernels, dev, tag, min_steps, untimed=()):
+    """cli.train_main(argv) with every launch count set to 0 just before
+    and read just after. Checks that at least ``min_steps`` steps ran with
+    finite losses; returns the log's steps and validations, the launches,
+    the peak memory and the median step time over the steps after the
+    first (warm-up) that are not in ``untimed``."""
+    from flowtron_tpu_torch.cli import train_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)    # by earlier phases
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    check(len(steps) >= min_steps, f"train {tag}: {len(steps)} steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"train {tag}: loss not finite {losses}")
+    timed = [r for r in steps[1:] if r["iteration"] not in untimed]
+    frames = sum(r["frames"] for r in timed)
+    seconds = sum(r["step_s"] for r in timed)
+    return dict(steps=steps, losses=losses,
+                vals=[r for r in log if "validation" in r],
+                launches=launches, peak=peak, held=held, wall=wall,
+                ms_median=1e3 * statistics.median(r["step_s"]
+                                                  for r in timed),
+                frames_per_s=frames / seconds)
+
+
+def emit_train(phase, run, **extra):
+    steps = run["steps"]
+    emit(phase, steps=len(steps), loss=run["losses"],
+         nll=[r["nll"] for r in steps], gate=[r["gate"] for r in steps],
+         grad_norm=[r["grad_norm"] for r in steps],
+         padded_shapes=[r["padded_shape"] for r in steps],
+         step_ms=[1e3 * r["step_s"] for r in steps],
+         ms_per_step_median=run["ms_median"],
+         mel_frames_per_s=run["frames_per_s"],
+         peak_memory_allocated_bytes=run["peak"],
+         allocated_before_run_bytes=run["held"],
+         validation=[{"iteration": r["iteration"], **r["validation"]}
+                     for r in run["vals"]],
+         wall_s=run["wall"], launches=run["launches"], **extra)
+
+
+def check_training_kernels(tag, launches):
+    """K3 forward and backward launched; no inference kernel."""
+    check(launches["attention_scores_fwd"] > 0
+          and launches["attention_scores_bwd"] > 0,
+          f"train {tag}: K3 not launched {launches}")
+    check(launches["fused_flow_infer"] == 0 and launches["wn_layer"] == 0
+          and launches["quantized_matmul_w8a8"] == 0
+          and launches["quantized_matmul_w8"] == 0,
+          f"train {tag}: inference kernels launched {launches}")
+
+
 def phase_train(corpus, tmp, kernels, dev):
     """The training path: cli.train_main from config.json, once with its
     bf16 policy (fp16_run true) and once in fp32, 10 flagship-width steps
-    each. Returns the fp32 run's output directory, K3's launches and the
-    padded (B, T, Tk) of the first batch, from the training log."""
-    from flowtron_tpu_torch.cli import train_main
-
-    launches = {}
+    each. Returns the fp32 run's output directory and its run (launches,
+    losses, peak memory, step times), and the padded (B, T, Tk) of the
+    first batch, from the training log."""
+    runs = {}
     for fp16_run in (True, False):
-        out_dir = os.path.join(tmp, "bf16" if fp16_run else "fp32")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        held = torch.cuda.memory_allocated(dev)    # by earlier phases
-        reset_launches(kernels)
-        t0 = time.perf_counter()
-        train_main(train_args(corpus, out_dir, fp16_run))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[fp16_run] = read_launches(kernels)
-        peak = torch.cuda.max_memory_allocated(dev)
-        with open(os.path.join(out_dir, "train_log.jsonl")) as f:
-            log = [json.loads(line) for line in f]
-        steps = [r for r in log if "loss" in r]
-        vals = [r for r in log if "validation" in r]
-        losses = [r["loss"] for r in steps]
         tag = "bf16" if fp16_run else "fp32"
-        check(len(steps) >= 10, f"train {tag}: {len(steps)} steps")
-        check(all(math.isfinite(x) for x in losses),
-              f"train {tag}: loss not finite {losses}")
+        out_dir = os.path.join(tmp, tag)
+        run = run_train(train_args(corpus, out_dir, fp16_run), out_dir,
+                        kernels, dev, tag, 10)
+        losses = run["losses"]
         check(losses[-1] < losses[0],
               f"train {tag}: last loss {losses[-1]} not below the first "
               f"{losses[0]}")
-        check(launches[fp16_run]["attention_scores_fwd"] > 0
-              and launches[fp16_run]["attention_scores_bwd"] > 0,
-              f"train {tag}: K3 not launched {launches[fp16_run]}")
-        check(launches[fp16_run]["fused_flow_infer"] == 0
-              and launches[fp16_run]["wn_layer"] == 0
-              and launches[fp16_run]["quantized_matmul_w8a8"] == 0
-              and launches[fp16_run]["quantized_matmul_w8"] == 0,
-              f"train {tag}: inference kernels launched")
+        check_training_kernels(tag, run["launches"])
         check(os.path.exists(os.path.join(out_dir, "model_9.pt")),
               f"train {tag}: no checkpoint model_9.pt")
-        timed = steps[1:]                     # step 0 includes warm-up
-        frames = sum(r["frames"] for r in timed)
-        seconds = sum(r["step_s"] for r in timed)
-        emit("train", policy=tag, steps=len(steps),
-             loss=losses, nll=[r["nll"] for r in steps],
-             gate=[r["gate"] for r in steps],
-             grad_norm=[r["grad_norm"] for r in steps],
-             padded_shapes=[r["padded_shape"] for r in steps],
-             step_ms=[1e3 * r["step_s"] for r in steps],
-             ms_per_step_median=1e3 * statistics.median(
-                 r["step_s"] for r in timed),
-             mel_frames_per_s=frames / seconds,
-             peak_memory_allocated_bytes=peak,
-             allocated_before_run_bytes=held,
-             validation=[{"iteration": r["iteration"], **r["validation"]}
-                         for r in vals],
-             wall_s=wall, launches=launches[fp16_run])
-    return os.path.join(tmp, "fp32"), launches[False], \
-        tuple(steps[0]["padded_shape"])
+        emit_train("train", run, policy=tag)
+        runs[tag] = run
+    return os.path.join(tmp, "fp32"), runs["fp32"], \
+        tuple(runs["fp32"]["steps"][0]["padded_shape"])
 
 
-def phase_train_vs_cpu(config, dev):
-    """One flagship-width step (B=2, T=32, fp32, CTC on, dropout off) on
-    the card against the plain path on the CPU: loss and gradient norm."""
+def phase_train_vs_cpu(config, dev, phase="train_vs_cpu"):
+    """One flagship-width step (B=2, T=32, fp32, CTC on, dropout off) of
+    ``config``'s model (with its Gaussian-mixture NLL where it has the
+    head) on the card against the plain path on the CPU: loss and
+    gradient norm."""
     from flowtron_tpu_torch.data.prior import beta_binomial_prior
     from flowtron_tpu_torch.models.flowtron import (
         flowtron_forward, flowtron_init)
@@ -2078,6 +2114,7 @@ def phase_train_vs_cpu(config, dev):
         nll, gl, ctc = flowtron_loss(
             out, gate.to(d), in_lens.to(d), out_lens.to(d),
             sigma=tc["sigma"], use_ctc_loss=True,
+            gm_loss=cfg["n_components"] > 1,
             blank_logprob=float(tc["blank_logprob"]))
         total = nll + gl + ctc
         total.backward()
@@ -2090,7 +2127,7 @@ def phase_train_vs_cpu(config, dev):
     check(loss_rel <= LOSS_TOL and gn_rel <= GNORM_TOL,
           f"train step card vs cpu: loss rel {loss_rel}, grad norm rel "
           f"{gn_rel}")
-    emit("train_vs_cpu", B=B, T=T, Tk=Tk,
+    emit(phase, B=B, T=T, Tk=Tk, n_components=cfg["n_components"],
          card_loss_nll_gate_ctc_gradnorm=res["card"],
          cpu_loss_nll_gate_ctc_gradnorm=res["cpu"],
          loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel)
@@ -2129,6 +2166,285 @@ def phase_train_to_infer(config, ckpt, ids, sid, dev):
          invertibility_mean_abs_trained_perturbed=errs,
          coupling_head_max_abs_trained_perturbed=heads,
          request_n_valid=n, request_text_len=len(ids[1]))
+
+
+GM_CONFIG = "configs/config_libritts2k_gm.json"
+GM_STEPS = 16          # steps of the GM run: the trace window is 10..14
+CUMM_STEPS = 3         # steps of the cumulative-attention run
+K3_KERNELS = ("scores_fwd_kernel", "scores_bwd_kernel")   # csrc/attention.cu
+
+
+def filelist_of(src, n, path):
+    """A filelist of ``src``'s first ``n`` lines, from the top again where
+    it has fewer."""
+    with open(src) as f:
+        lines = f.read().splitlines()
+    with open(path, "w") as f:
+        f.write("\n".join((lines * (1 + n // len(lines)))[:n]) + "\n")
+    return path
+
+
+def gm_args(train_fl, val_fl, out_dir, *extra):
+    """cli.train_main's argv for configs/config_libritts2k_gm.json (its
+    bf16 policy, B=6, 8 components): the filelists, no random ARPAbet
+    substitution (its draws advance with every pass over the validation
+    set, so a later pass would read other text ids), the output directory,
+    one epoch, a checkpoint at the last step, TensorBoard off and CTC from
+    the first step."""
+    return ["-c", GM_CONFIG, "-p",
+            f"data_config.training_files={train_fl}",
+            f"data_config.validation_files={val_fl}", NO_ARPABET,
+            f"train_config.output_directory={out_dir}",
+            "train_config.epochs=1",
+            f"train_config.iters_per_checkpoint={GM_STEPS - 1}",
+            "train_config.with_tensorboard=False",
+            "train_config.ctc_loss_start_iter=0", *extra]
+
+
+def trace_kernels(path):
+    """From a Chrome trace: the K3 kernels' launches by name, all GPU
+    kernels' summed duration and the window from the first to the last
+    event (us)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k3 = {n: sum(n in e.get("name", "") for e in kernels)
+          for n in K3_KERNELS}
+    span = max(e["ts"] + e.get("dur", 0) for e in events) \
+        - min(e["ts"] for e in events)
+    return k3, sum(e.get("dur", 0) for e in kernels), span, len(events)
+
+
+def phase_train_gm(corpus, tmp, kernels, dev):
+    """The Gaussian-mixture model of configs/config_libritts2k_gm.json at
+    its full width (2 flows, n_hidden 1024, 2311 speakers, 8 components,
+    a mel encoder of 512), B=6, its bf16 policy, CTC on: GM_STEPS steps
+    through cli.train_main over the corpus' training utterances and the
+    first ones again (96 in all), with ``profile_dir`` set. Returns the
+    run and the checkpoint of its last step."""
+    train_fl, val_fl = corpus
+    gm_fl = filelist_of(train_fl, 6 * GM_STEPS,
+                        os.path.join(tmp, "gm_train.txt"))
+    out_dir, prof = (os.path.join(tmp, n) for n in ("gm", "gm_trace"))
+    run = run_train(gm_args(gm_fl, val_fl, out_dir,
+                            f"train_config.profile_dir={prof}"),
+                    out_dir, kernels, dev, "gm", GM_STEPS,
+                    untimed=range(10, 15))
+    losses = run["losses"]
+    check(len(losses) == GM_STEPS, f"train gm: {len(losses)} steps")
+    check(losses[-1] < losses[0],
+          f"train gm: last loss {losses[-1]} not below the first "
+          f"{losses[0]}")
+    check_training_kernels("gm", run["launches"])
+    ckpt = os.path.join(out_dir, f"model_{GM_STEPS - 1}.pt")
+    check(os.path.exists(ckpt), f"train gm: no checkpoint {ckpt}")
+    trace = os.path.join(prof, "trace.json")
+    check(os.path.exists(trace), f"train gm: no trace {trace}")
+    k3, busy_us, span_us, n_events = trace_kernels(trace)
+    check(all(n > 0 for n in k3.values()),
+          f"train gm: the trace names no K3 kernel {k3}")
+    emit_train("train_gm", run, config=GM_CONFIG,
+               timed_steps="1-9 and 15 (10-14 traced)",
+               trace_bytes=os.path.getsize(trace), trace_events=n_events,
+               trace_k3_kernels=k3,
+               trace_device_busy_share=busy_us / span_us,
+               trace_window_ms=span_us / 1e3)
+    return run, ckpt
+
+
+def phase_train_remat(corpus, tmp, kernels, dev, fp32_run):
+    """config.json in fp32 with ``remat: true``, 10 steps: each step's
+    loss against the ``train`` phase's fp32 run (same data, dropout and
+    weights), peak memory and step time beside that run's."""
+    out_dir = os.path.join(tmp, "remat")
+    run = run_train(train_args(corpus, out_dir, False)
+                    + ["train_config.remat=True"], out_dir, kernels, dev,
+                    "remat", 10)
+    check_training_kernels("remat", run["launches"])
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(run["losses"], fp32_run["losses"])]
+    check(len(rel) == len(fp32_run["losses"]) and max(rel) <= LOSS_TOL,
+          f"remat losses vs fp32: rel {rel}")
+    emit_train("train_remat", run, loss_rel_err_vs_fp32=rel,
+               fp32_ms_per_step_median=fp32_run["ms_median"],
+               fp32_peak_memory_allocated_bytes=fp32_run["peak"],
+               fp32_launches=fp32_run["launches"])
+    return run["launches"]
+
+
+def phase_cumm(corpus, tmp, ids, kernels, dev):
+    """config.json with ``use_cumm_attention: true`` (its bf16 policy):
+    CUMM_STEPS training steps, whose flows run the per-frame pass (no K3),
+    then one B=1 request of N_FRAMES frames from the checkpoint, gate off,
+    on the loop (no K1)."""
+    from flowtron_tpu_torch.config import load_config
+    from flowtron_tpu_torch.infer.sampling import (
+        load_model_for_inference, synthesize)
+
+    train_fl, val_fl = corpus
+    fl = filelist_of(train_fl, 6 * CUMM_STEPS,
+                     os.path.join(tmp, "cumm_train.txt"))
+    out_dir = os.path.join(tmp, "cumm")
+    args = train_args((fl, val_fl), out_dir, True) + [
+        "model_config.use_cumm_attention=True",
+        f"train_config.iters_per_checkpoint={CUMM_STEPS - 1}"]
+    run = run_train(args, out_dir, kernels, dev, "cumm", CUMM_STEPS)
+    check(run["launches"]["attention_scores_fwd"] == 0
+          and run["launches"]["attention_scores_bwd"] == 0
+          and run["launches"]["fused_flow_infer"] == 0,
+          f"cumm training launched K3 or K1: {run['launches']}")
+    config = load_config("config.json", args[3:])
+    model, cfg = load_model_for_inference(
+        config, os.path.join(out_dir, f"model_{CUMM_STEPS - 1}.pt"), dev)
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel, _, n = synthesize(model, cfg, ids, 0, n_frames=N_FRAMES,
+                           sigma=SIGMA, gate_threshold=1e6, seed=REQ_SEED)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    infer_launches = read_launches(kernels)
+    check(n == N_FRAMES and bool(torch.isfinite(mel).all()),
+          f"cumm request: n_valid {n}")
+    check(infer_launches["fused_flow_infer"] == 0,
+          f"cumm request reached K1: {infer_launches}")
+    emit_train("cumm", run, request_frames=n, request_s=request_s,
+               request_launches=infer_launches)
+    return run["launches"], infer_launches
+
+
+def timed_calls(targets):
+    """Wrap each (module, name) so that its calls add their synchronised
+    seconds to the returned dict under ``name``; returns the dict and a
+    function that restores the originals."""
+    seconds, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[_name] = seconds.get(_name, 0.0) \
+                + time.perf_counter() - t0
+            return out
+        setattr(mod, name, timed)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return seconds, restore
+
+
+def phase_evaluate(corpus, tmp, gm_run, ckpt, kernels, dev):
+    """``flowtron-torch-evaluate --plots --tone-cer 4`` on the GM run's
+    last checkpoint: its nll / gate / ctc against the loop's validation at
+    that step, seconds by part, K1 launched (tone-CER's synthesis, the
+    oracle's inverse). ``--plots`` needs matplotlib, as in the JAX
+    package; where it is not installed the run goes without it and the
+    line says so. Then the oracle on the loaded checkpoint with its
+    coupling heads perturbed (16 steps leave them near zero, where mel is
+    close to z whatever K1 and K3 compute), and GM inference on the
+    checkpoint (``phase_gm_infer``)."""
+    import contextlib
+    from flowtron_tpu_torch import cli
+    from flowtron_tpu_torch.data import tone_cer
+    from flowtron_tpu_torch.models import flowtron
+    from flowtron_tpu_torch.train import evaluate as ev
+    from flowtron_tpu_torch.train import loop
+
+    import importlib.util
+    args = gm_args(*corpus, os.path.join(tmp, "gm"))[:6]   # -c, data
+    plots = os.path.join(tmp, "gm_plots") \
+        if importlib.util.find_spec("matplotlib") else None
+    seconds, restore = timed_calls(
+        [(loop, "compute_validation_loss"), (ev, "_save_plots"),
+         (tone_cer, "tone_cer_report"),
+         (flowtron, "flowtron_test_invertibility")])
+    out = io.StringIO()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.evaluate_main(args + ["-f", ckpt, "--tone-cer", "4"]
+                              + (["--plots", plots] if plots else []))
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    val = gm_run["vals"][-1]
+    check(val["iteration"] == GM_STEPS - 1, f"last validation {val}")
+    rel = {k: abs(result[k] - val["validation"][k])
+           / max(abs(val["validation"][k]), 1e-12)
+           for k in ("nll", "gate", "ctc")}
+    check(max(rel.values()) <= 1e-5,
+          f"evaluate vs the loop's validation: {rel}")
+    check(launches["fused_flow_infer"] > 0
+          and launches["attention_scores_fwd"] > 0,
+          f"evaluate: K1 or K3 not launched {launches}")
+    check(plots is None or all(
+        os.path.getsize(os.path.join(plots, n)) > 0
+        for n in ("attention.png", "gate.png")), "evaluate: plots")
+    # the oracle on the loaded model with its heads perturbed, as
+    # evaluate runs it (a seeded residual of 100 frames, TF32 off)
+    from flowtron_tpu_torch.config import load_config
+    from flowtron_tpu_torch.data.frontend import TextFrontend
+    from flowtron_tpu_torch.infer.sampling import load_model_for_inference
+    config = load_config(GM_CONFIG, args[3:])
+    model, cfg = load_model_for_inference(config, ckpt, dev)
+    perturb_flow_heads(model, torch.Generator().manual_seed(33))
+    text = torch.as_tensor(TextFrontend.from_config(
+        config["data_config"]).get_text(TEXTS[3])[None]).to(dev)
+    g = torch.Generator().manual_seed(1234)
+    residual = (float(config["train_config"]["sigma"])
+                * torch.randn(1, 80, 100, generator=g)).to(dev)
+    with ev.tf32_off():
+        inv_err = float(flowtron.flowtron_test_invertibility(
+            model, cfg, residual, torch.zeros(1, dtype=torch.long,
+                                              device=dev), text))
+    del model
+    check(inv_err <= INV_TOL,
+          f"invertibility with the heads perturbed: {inv_err}")
+    emit("evaluate", checkpoint=os.path.basename(ckpt), result=result,
+         plots="written" if plots else "not run: no matplotlib here",
+         loop_validation=val["validation"], rel_err_vs_loop=rel,
+         seconds_by_part=seconds, wall_s=wall, launches=launches,
+         perturbed_heads_invertibility_err=inv_err)
+    phase_gm_infer(args, ckpt, kernels)
+    return launches
+
+
+def phase_gm_infer(args, ckpt, kernels):
+    """``flowtron-torch-infer`` with the GM config on ``ckpt`` (Griffin-Lim,
+    no -w): the CLI's whole path, with its mel/attention PNG (matplotlib,
+    which the card's machine may lack) replaced by a no-op for the
+    call."""
+    import contextlib
+    from flowtron_tpu_torch import cli
+    from flowtron_tpu_torch.infer import sampling
+
+    res = os.path.join(os.path.dirname(ckpt), "gm_res")
+    png = sampling.save_mel_attention_png
+    sampling.save_mel_attention_png = lambda *a, **k: None
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.inference_main(args + ["-f", ckpt, "-t", TEXTS[3],
+                                       "-o", res])
+    finally:
+        sampling.save_mel_attention_png = png
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    wavs = [f for f in os.listdir(res) if f.endswith(".wav")]
+    check(len(wavs) == 1 and os.path.getsize(os.path.join(res, wavs[0])) > 44
+          and launches["fused_flow_infer"] > 0,
+          f"GM inference (flowtron-torch-infer): {wavs} {launches}")
+    emit("gm_infer", route="flowtron-torch-infer (PNG left out)",
+         seconds=seconds, launches=launches)
 
 
 def probe_check(tag, out, ref, tol):
@@ -2597,10 +2913,11 @@ def main():
                                     pooled_pcm)
         serve_staged = phase_serve_staged(ft_path, wg_path, kernels)
         gl_serve = phase_griffin_lim_serve(ft_path, kernels)
-    emit("launches_by_path", inference=infer_launches, stream=stream_launches,
-         denoiser=stft_launches, serve=serve, serve_stream=serve_stream,
-         griffin_lim_serve=gl_serve, serve_w8a8=q_serve, mux=mux_launches,
-         serve_mux=serve_mux, serve_staged=serve_staged)
+    paths = dict(inference=infer_launches, stream=stream_launches,
+                 denoiser=stft_launches, serve=serve,
+                 serve_stream=serve_stream, griffin_lim_serve=gl_serve,
+                 serve_w8a8=q_serve, mux=mux_launches, serve_mux=serve_mux,
+                 serve_staged=serve_staged)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2609,12 +2926,25 @@ def main():
                                      val_count=N_VAL)
         emit("corpus", utterances=N_UTTS, validation=N_VAL,
              seconds=time.perf_counter() - t0)
-        out_dir, train_launches, shape = phase_train(corpus, tmp, kernels,
-                                                     dev)
+        out_dir, fp32_run, shape = phase_train(corpus, tmp, kernels, dev)
+        train_launches = fp32_run["launches"]
         k3 = phase_k3(shape, config["model_config"]["n_attn_channels"], dev)
         phase_train_vs_cpu(config, dev)
         phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
                              ids, sid, dev)
+        gm_run, gm_ckpt = phase_train_gm(corpus, tmp, kernels, dev)
+        with open(GM_CONFIG) as f:
+            phase_train_vs_cpu(json.load(f), dev, "train_gm_vs_cpu")
+        remat_launches = phase_train_remat(corpus, tmp, kernels, dev,
+                                           fp32_run)
+        cumm_launches, cumm_infer = phase_cumm(corpus, tmp, ids[3], kernels,
+                                               dev)
+        eval_launches = phase_evaluate(corpus, tmp, gm_run, gm_ckpt, kernels,
+                                       dev)
+    emit("launches_by_path", **paths, train_fp32=train_launches,
+         train_gm=gm_run["launches"], train_remat=remat_launches,
+         cumm_train=cumm_launches, cumm_request=cumm_infer,
+         evaluate=eval_launches)
     probes, probe_launches = phase_probes(kernels, k1_frames, dev)
     loaded = [m for m in sys.modules if m in ("jax", "flowtron_tpu")
               or m.startswith(("jax.", "flowtron_tpu."))]

@@ -7,6 +7,8 @@ without that variable the commands raise (``utils/device.py``).
     flowtron-torch-train -c config.json -p train_config.epochs=1 ...
     flowtron-torch-infer -c config.json -f model.pt [-w waveglow.pt] -t "text"
         [-d 0.1] [--stream]
+    flowtron-torch-evaluate -c config.json -f model.pt [--plots DIR]
+        [--tone-cer N] [--invertibility-frames 100] [--seed 1234]
 """
 
 import argparse
@@ -67,6 +69,43 @@ def inference_main(argv=None):
     config = load_config(args.config, args.params)
     from flowtron_tpu_torch.infer.sampling import run_inference
     run_inference(config, args)
+
+
+def evaluate_main(argv=None):
+    """Checkpoint health check without training: the validation nll /
+    gate / ctc over the config's validation filelist, the health means,
+    optional plots and tone-CER, and the invertibility oracle. Prints one
+    JSON line (unrounded floats)."""
+    import json
+
+    parser = argparse.ArgumentParser(
+        description="Evaluate a Flowtron checkpoint (PyTorch/CUDA port)")
+    parser.add_argument("-c", "--config", type=str, required=True)
+    parser.add_argument("-p", "--params", nargs="+", default=[])
+    parser.add_argument("-f", "--flowtron_path", type=str, required=True,
+                        help=".pt checkpoint (a training checkpoint or a "
+                             "reference-format state_dict)")
+    parser.add_argument("--invertibility-frames", type=int, default=100,
+                        help="latent frames for the round-trip oracle "
+                             "(0 disables it)")
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--plots", type=str, default="",
+                        help="directory for attention.png and gate.png of "
+                             "a validation batch")
+    parser.add_argument("--tone-cer", type=int, default=0,
+                        help="synthesize this many validation transcripts "
+                             "and report the tone-CER (coded-tone corpora "
+                             "only; 0 disables)")
+    args = parser.parse_args(argv)
+
+    config = load_config(args.config, args.params)
+    from flowtron_tpu_torch.train.evaluate import evaluate
+    result = evaluate(config, args.flowtron_path,
+                      invertibility_frames=args.invertibility_frames,
+                      seed=args.seed, plots_dir=args.plots or None,
+                      tone_cer_texts=args.tone_cer)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -18,7 +18,9 @@ streams in batches.
   and nothing reads what they compute.
 - **Joins**: encode at ``text_len`` and, for n_flows >= 2, the prelude
   (flows n-1..1) at B=1: one K1 launch a join on the card (a scalar
-  temperature keeps it in K1's subset). Then the slot's rows of the
+  temperature keeps it in K1's subset; a cumulative-attention model runs
+  it on the loop). The carry holds JAX's seven entries, the attention
+  ones at (slots, text_len). Then the slot's rows of the
   shared buffers are written in place. A join runs in ``open()``, or,
   with ``max_joins_per_tick``, in ``step()`` at most K a tick in arrival
   order, so a rush of joins cannot stall the running streams. Every
@@ -297,8 +299,10 @@ class MultiStreamTTS:
 
     # -- the tick ---------------------------------------------------------
     def _init_carry(self):
-        """The loop's zero state at (slots, H), ``_scan_infer``'s layout:
-        (h_att, c_att, hs, cs, previous frame)."""
+        """The loop's zero state, ``_scan_infer``'s layout: (h_att, c_att,
+        hs, cs) at (slots, H), the previous frame at (slots, n_mel), the
+        cumulative and previous attention at (slots, Tk), the joins' text
+        bucket, as JAX's ``_init_carry``."""
         flow = self.model.flows[0]
         H = flow.attention_lstm.layer_weights(0)[1].shape[1]
 
@@ -308,21 +312,22 @@ class MultiStreamTTS:
 
         n_layers = flow.lstm.num_layers
         return (z(H), z(H), tuple(z(H) for _ in range(n_layers)),
-                tuple(z(H) for _ in range(n_layers)), z(self.n_mel))
+                tuple(z(H) for _ in range(n_layers)), z(self.n_mel),
+                z(self.Tk), z(self.Tk))
 
     def _tick(self, mel_live, fresh):
         """One chunk of every lane. Returns host (C, slots, n_mel) mel and
         (C, slots) gates."""
         C, B, M, dev = self.C, self.slots, self.n_mel, self.device
         fresh_t = torch.as_tensor(fresh, device=dev)[:, None]
-        h_att, c_att, hs, cs, prev = self._carry
+        h_att, c_att, hs, cs, *rest = self._carry
 
         def zero_fresh(x):
             return x.masked_fill(fresh_t, 0.0)
 
         carry = (zero_fresh(h_att), zero_fresh(c_att),
                  tuple(map(zero_fresh, hs)), tuple(map(zero_fresh, cs)),
-                 zero_fresh(prev))
+                 *map(zero_fresh, rest))
         if self.n_flows == 1:
             z = torch.zeros(C, B, M, dtype=self._dtype)
             for b, s in mel_live:

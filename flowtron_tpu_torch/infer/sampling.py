@@ -50,13 +50,18 @@ def load_model_for_inference(config, checkpoint_path, device="cpu"):
 
 
 def synthesize(model, static_cfg, text_ids, speaker_id, n_frames=400,
-               sigma=0.5, gate_threshold=0.5, seed=1234, fused=False):
+               sigma=0.5, gate_threshold=0.5, seed=1234, fused=False,
+               latents=None):
     """text ids -> (mel (n_mel, n_valid), attns [(n_valid, Tk)], n_valid),
-    tensors on the model's device."""
+    tensors on the model's device. ``latents``: a standard-normal (1,
+    n_mel, n_frames) draw to use instead of the seeded one (sigma is
+    applied here)."""
     device = next(model.parameters()).device
-    g = torch.Generator().manual_seed(seed)
-    residual = (torch.randn(1, static_cfg["n_mel_channels"], n_frames,
-                            generator=g) * sigma).to(device)
+    if latents is None:
+        g = torch.Generator().manual_seed(seed)
+        latents = torch.randn(1, static_cfg["n_mel_channels"], n_frames,
+                              generator=g)
+    residual = (torch.as_tensor(latents) * sigma).to(device)
     text = torch.as_tensor(np.asarray(text_ids)[None], device=device)
     sid = torch.tensor([speaker_id], device=device)
     mel, attns, n_valid = flowtron_infer(

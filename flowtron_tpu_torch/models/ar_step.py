@@ -23,13 +23,28 @@ flowtron_tpu/models/ar_step.py:262-314), with every dot through
 A chunked (streaming) call, with ``carry`` or ``return_carry``, always
 runs the loop: K1 starts from zero state and returns none, and the JAX
 package does not fuse that path either (its ar_step.py:221).
+
+Cumulative attention (a flow with ``attn_cond_layer``): each frame a conv
+over the (cumulative, previous) attention gates the text keys, which are
+projected anew (reference:flowtron.py:697-723). Training runs it as a
+per-frame pass in plain PyTorch, without the prior and without K3, as
+the JAX package runs its ``attention_step`` in XLA; inference runs the
+loop, never K1. The loop's state always has JAX's seven entries, (h_att,
+c_att, hs, cs, previous frame, cumulative attention, previous attention),
+whether or not the flow uses the last two.
+
+``remat`` rematerializes a flow's teacher-forced pass in the backward
+(``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+``remat_scans`` does for the flows' LSTM scans.
 """
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from flowtron_tpu_torch.models.attention import (
-    Attention, attention_forward, attention_precompute, attention_step,
+    Attention, AttentionConditioning, attention_conditioning_apply,
+    attention_forward, attention_precompute, attention_step,
 )
 from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm, linear
 from flowtron_tpu_torch.ops.decoder import pack_flow_weights, fused_flow_infer
@@ -45,7 +60,8 @@ class ARStep(nn.Module):
 
     def __init__(self, n_mel_channels=80, n_speaker_dim=128,
                  n_text_channels=512, n_hidden=1024, n_attn_channels=640,
-                 n_lstm_layers=2, add_gate=False, generator=None):
+                 n_lstm_layers=2, add_gate=False, use_cumm_attention=False,
+                 generator=None):
         super().__init__()
         # zero-init coupling head: every flow starts as the identity
         # (reference:flowtron.py:651-653); a 1x1 conv, weight (2M, H, 1)
@@ -66,7 +82,15 @@ class ARStep(nn.Module):
             self.gate_layer = LinearNorm(n_hidden + n_attn_channels, 1,
                                          bias=True, w_init_gain="sigmoid",
                                          generator=generator)
+        if use_cumm_attention:
+            self.attn_cond_layer = AttentionConditioning(
+                input_dim=2, attention_dim=n_text_channels + n_speaker_dim,
+                generator=generator)
         self._packed = None
+
+    def forward(self, mel, text, key_mask, out_mask, attn_prior=None):
+        """The teacher-forced pass (``ar_step_forward`` without remat)."""
+        return _ar_step_pass(self, mel, text, key_mask, out_mask, attn_prior)
 
     def _apply(self, fn, *args, **kwargs):
         self._packed = None        # moved or cast: pack anew
@@ -90,7 +114,41 @@ class ARBackStep(nn.Module):
         self.ar_step = ARStep(*args, **kwargs)
 
 
-def ar_step_forward(flow, mel, text, key_mask, out_mask, attn_prior=None):
+def _cumm_keys(flow, text_b, attn_cumm, attn_prev):
+    """A cumulative-attention flow's keys for one frame: the conditioning
+    layer over (cumulative, previous) attention (B, Tk) gates the text
+    ``text_b`` (B, Tk, Din) before the key projection. After the frame's
+    attention ``attn_w`` both callers update the state the same way:
+    ``attn_cumm, attn_prev = attn_cumm + attn_w, attn_w``."""
+    cond = attention_conditioning_apply(
+        flow.attn_cond_layer, torch.stack([attn_cumm, attn_prev], 1))
+    return flow.attention_layer.key(text_b * cond.transpose(1, 2))
+
+
+def _cumm_attention_pass(flow, attention_hidden, text, key_mask):
+    """The teacher-forced cumulative-attention pass, frame by frame (JAX
+    ``_cumm_attention_scan``): the conditioning layer gates the text
+    before each frame's key projection. No prior, as in the JAX package
+    and the reference. Returns context (T, B, D), attn (B, T, Tk) and
+    attn_logprob (B, T, Tk) fp32."""
+    Tk, B, _ = text.shape
+    text_b = text.transpose(0, 1)                              # (B, Tk, Din)
+    vals = flow.attention_layer.value(text_b)                  # (B, Tk, D)
+    attn_cumm = attn_prev = text.new_zeros(B, Tk)
+    contexts, attns = [], []
+    for q_t in attention_hidden:
+        k_proj = _cumm_keys(flow, text_b, attn_cumm, attn_prev)
+        context, attn_w = attention_step(flow.attention_layer, q_t, k_proj,
+                                         vals, key_mask=key_mask)
+        attn_cumm, attn_prev = attn_cumm + attn_w, attn_w
+        contexts.append(context)
+        attns.append(attn_w)
+    attns = torch.stack(attns, dim=1)
+    return torch.stack(contexts), attns, torch.log(attns.float() + 1e-8)
+
+
+def ar_step_forward(flow, mel, text, key_mask, out_mask, attn_prior=None,
+                    remat=False):
     """Teacher-forced forward flow.
 
     Args:
@@ -98,19 +156,38 @@ def ar_step_forward(flow, mel, text, key_mask, out_mask, attn_prior=None):
       mel: (T, B, n_mel) time-major mel (this flow's input).
       text: (Tk, B, text + speaker) encoder outputs.
       key_mask: (B, Tk) bool. out_mask: (T, B) bool, valid mel frames.
-      attn_prior: (B, T, Tk) or None.
+      attn_prior: (B, T, Tk) or None (a cumulative-attention flow ignores
+        it, as the JAX package does).
+      remat: keep only the pass's inputs for the backward and run the
+        pass again there. The recompute runs on the tensors the pass
+        used (``torch.func.functional_call``), so it also holds under the
+        bf16 policy's cast copies of the parameters.
 
     Returns (mel_out (T, B, n_mel), log_s (T, B, n_mel), gates (T, B, 1)
     or None, attn (B, T, Tk), attn_logprob (B, T, Tk) fp32).
     """
+    if remat:
+        state = dict(flow.named_parameters())
+        state.update(flow.named_buffers())
+        return torch.utils.checkpoint.checkpoint(
+            torch.func.functional_call, flow, state,
+            (mel, text, key_mask, out_mask, attn_prior), use_reentrant=False)
+    return flow(mel, text, key_mask, out_mask, attn_prior)
+
+
+def _ar_step_pass(flow, mel, text, key_mask, out_mask, attn_prior):
     n_mel = mel.shape[2]
     mel0 = torch.cat([mel.new_zeros((1,) + mel.shape[1:]), mel[:-1]], dim=0)
     attention_hidden, _ = lstm_forward(flow.attention_lstm, mel0, out_mask)
-    context, attn, attn_logprob = attention_forward(
-        flow.attention_layer, attention_hidden, text, text,
-        key_mask=key_mask, attn_prior=attn_prior)
-    decoder_input = torch.cat([attention_hidden, context.permute(2, 0, 1)],
-                              dim=-1)
+    if hasattr(flow, "attn_cond_layer"):
+        context, attn, attn_logprob = _cumm_attention_pass(
+            flow, attention_hidden, text, key_mask)
+    else:
+        context, attn, attn_logprob = attention_forward(
+            flow.attention_layer, attention_hidden, text, text,
+            key_mask=key_mask, attn_prior=attn_prior)
+        context = context.permute(2, 0, 1)
+    decoder_input = torch.cat([attention_hidden, context], dim=-1)
     gates = flow.gate_layer(decoder_input) if hasattr(flow, "gate_layer") \
         else None
     lstm_hidden, _ = lstm_forward(flow.lstm, decoder_input, out_mask)
@@ -122,7 +199,7 @@ def ar_step_forward(flow, mel, text, key_mask, out_mask, attn_prior=None):
 
 
 def ar_back_step_forward(flow, mel, text, key_mask, out_mask, out_lens,
-                         attn_prior=None):
+                         attn_prior=None, remat=False):
     """Backward flow: ``ar_step_forward`` on mel (and prior) flipped within
     ``out_lens``; mel comes back un-flipped, log_s / gates / attn stay in
     flipped order (reference:flowtron.py:605-627). ``flow`` is an
@@ -131,7 +208,7 @@ def ar_back_step_forward(flow, mel, text, key_mask, out_mask, out_lens,
     prior_f = None if attn_prior is None else \
         flip_time_batch_major(attn_prior, out_lens)
     mel_out, log_s, gates, attn, attn_logprob = ar_step_forward(
-        flow.ar_step, mel_f, text, key_mask, out_mask, prior_f)
+        flow.ar_step, mel_f, text, key_mask, out_mask, prior_f, remat)
     return flip_time(mel_out, out_lens), log_s, gates, attn, attn_logprob
 
 
@@ -147,21 +224,27 @@ def _n_valid_from_gates(gates, gate_threshold, n_valid):
 
 def in_k1_subset(flow, attn_prior, temperature):
     """Whether kernel K1 can run this flow: a scalar temperature, no
-    attention prior and no quantized weight. (External and cumulative
-    attention, the rest of the JAX condition, are not ported and raise
-    before this point.)"""
+    attention prior, no quantized weight and no cumulative attention, as
+    the JAX package's fused condition (flowtron_tpu/models/ar_step.py:223).
+    An external attention map, the rest of that condition, is not ported
+    (``attention_forward`` raises for one)."""
     scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
-    return scalar_temp and attn_prior is None and not is_quantized(flow)
+    return scalar_temp and attn_prior is None and not is_quantized(flow) \
+        and not hasattr(flow, "attn_cond_layer")
 
 
 def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
                 carry=None):
     """The per-frame loop: the JAX scan body written out, every dot
     through ``qdot``. ``carry`` is the state (h_att, c_att, hs, cs, prev
-    frame) to start from, None for zeros. Returns (mel (N, B, n_mel),
-    attn (B, N, Tk), gates (N, B), the final state)."""
+    frame, cumulative attention, previous attention) to start from, None
+    for zeros. Returns (mel (N, B, n_mel), attn (B, N, Tk), gates (N, B),
+    the final state)."""
     N, B, n_mel = residual.shape
+    Tk = text.shape[0]
     k_proj, vals = attention_precompute(flow.attention_layer, text, text)
+    cumm = hasattr(flow, "attn_cond_layer")
+    text_b = text.transpose(0, 1) if cumm else None
     att_w_ih, att_w_hh, att_b_ih, att_b_hh = \
         flow.attention_lstm.layer_weights(0)
     layers = [flow.lstm.layer_weights(k) for k in range(flow.lstm.num_layers)]
@@ -171,17 +254,21 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
         hs = [residual.new_zeros(B, H) for _ in layers]
         cs = [residual.new_zeros(B, H) for _ in layers]
         prev = residual.new_zeros(B, n_mel)
+        attn_cumm = attn_prev = residual.new_zeros(B, Tk)
     else:
-        h_att, c_att, hs, cs, prev = carry
+        h_att, c_att, hs, cs, prev, attn_cumm, attn_prev = carry
         hs, cs = list(hs), list(cs)
     mels, attns, gates = [], [], []
     for t in range(N):
         h_att, c_att = lstm_cell(qdot(prev, att_w_ih) + att_b_ih + att_b_hh,
                                  h_att, c_att, att_w_hh)
         prior_t = None if attn_prior is None else attn_prior[:, t]
+        if cumm:
+            k_proj = _cumm_keys(flow, text_b, attn_cumm, attn_prev)
         context, attn_w = attention_step(
             flow.attention_layer, h_att, k_proj, vals, key_mask=key_mask,
             prior_t=prior_t, temperature=temperature)
+        attn_cumm, attn_prev = attn_cumm + attn_w, attn_w
         x = torch.cat([h_att, context], dim=-1)
         gate = torch.sigmoid(flow.gate_layer(x))[:, 0] \
             if hasattr(flow, "gate_layer") else residual.new_zeros(B)
@@ -196,7 +283,7 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
         attns.append(attn_w)
         gates.append(gate)
     return (torch.stack(mels), torch.stack(attns, dim=1), torch.stack(gates),
-            (h_att, c_att, tuple(hs), tuple(cs), prev))
+            (h_att, c_att, tuple(hs), tuple(cs), prev, attn_cumm, attn_prev))
 
 
 def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,

@@ -5,12 +5,15 @@ flowtron_tpu/models/attention.py).
 score = v . tanh(q + k) / temperature, softmax over text positions,
 optional beta-binomial prior posterior (reference:flowtron.py:528-592).
 The teacher-forced scores go through kernel K3 (``ops/attention.py``).
+``AttentionConditioning`` is the cumulative-attention layer (port of
+``attention_conditioning_params`` / ``_apply``): two convs over the
+(cumulative, previous) attention that gate the text keys.
 """
 
 import torch
 from torch import nn
 
-from flowtron_tpu_torch.models.layers import LinearNorm
+from flowtron_tpu_torch.models.layers import ConvNorm, LinearNorm
 from flowtron_tpu_torch.ops.attention import (
     attention_scores as _k3_attention_scores,
 )
@@ -28,6 +31,57 @@ class Attention(nn.Module):
         self.key = LinearNorm(kd, n_att_channels, **g)
         self.value = LinearNorm(kd, n_att_channels, **g)
         self.v = LinearNorm(n_att_channels, 1, **g)
+
+
+class AttentionConditioning(nn.Module):
+    """Conv 2 -> 32 (kernel 5, ReLU), conv 32 -> attention_dim (kernel 3,
+    sigmoid) over (B, 2, Tk) (reference:flowtron.py:129-152). The
+    reference registers each conv twice, as an attribute and inside
+    ``conv_layers``, so its state_dict holds both names. This module
+    holds each conv once (a module registered twice breaks
+    ``torch.func.functional_call``, which the bf16 policy and remat use:
+    the shared parameter keeps the cast copy afterwards) and writes and
+    reads the ``conv_layers.0`` / ``conv_layers.2`` names as aliases, so
+    such a checkpoint still loads with ``strict=True``."""
+
+    def __init__(self, input_dim=2, attention_n_filters=32,
+                 attention_kernel_sizes=(5, 3), attention_dim=640,
+                 generator=None):
+        super().__init__()
+        self.location_conv_hidden = ConvNorm(
+            input_dim, attention_n_filters, attention_kernel_sizes[0],
+            w_init_gain="relu", generator=generator)
+        self.location_conv_out = ConvNorm(
+            attention_n_filters, attention_dim, attention_kernel_sizes[1],
+            w_init_gain="sigmoid", generator=generator)
+        self.register_state_dict_post_hook(_write_cond_aliases)
+        self.register_load_state_dict_pre_hook(_read_cond_aliases)
+
+
+def _cond_alias_names(prefix):
+    for ours, theirs in (("location_conv_hidden", "conv_layers.0"),
+                         ("location_conv_out", "conv_layers.2")):
+        for leaf in ("weight", "bias"):
+            yield (f"{prefix}{ours}.conv.{leaf}",
+                   f"{prefix}{theirs}.conv.{leaf}")
+
+
+def _write_cond_aliases(module, state_dict, prefix, local_metadata):
+    for ours, alias in _cond_alias_names(prefix):
+        state_dict[alias] = state_dict[ours]
+
+
+def _read_cond_aliases(module, state_dict, prefix, local_metadata, strict,
+                       missing_keys, unexpected_keys, error_msgs):
+    for _, alias in _cond_alias_names(prefix):
+        if state_dict.pop(alias, None) is None:
+            missing_keys.append(alias)
+
+
+def attention_conditioning_apply(layer, attn_cat):
+    """attn_cat (B, 2, Tk) -> (B, attention_dim, Tk) sigmoid gates."""
+    h = torch.relu(layer.location_conv_hidden(attn_cat))
+    return torch.sigmoid(layer.location_conv_out(h))
 
 
 def attention_scores(attn, queries_proj, keys_proj, temperature=1.0):

@@ -5,7 +5,9 @@
 n_flows alternating forward (even index) and backward (odd index) AR
 steps, the gate only on the last flow; training pushes mel through the
 flows in order, inference runs them in reverse
-(reference:flowtron.py:831-961).
+(reference:flowtron.py:831-961). With ``n_components > 1`` a mel encoder
+feeds the Gaussian-mixture head, whose (mean, log_var, prob) the
+training forward returns for the mixture NLL.
 """
 
 import torch
@@ -16,7 +18,10 @@ from flowtron_tpu_torch.models.ar_step import (
     ar_step_infer, ar_back_step_infer,
 )
 from flowtron_tpu_torch.models.encoder import (
-    Encoder, encoder_forward, encoder_infer,
+    Encoder, MelEncoder, encoder_forward, encoder_infer, mel_encoder_forward,
+)
+from flowtron_tpu_torch.models.gaussian_mixture import (
+    GaussianMixture, gaussian_mixture_forward,
 )
 from flowtron_tpu_torch.models.layers import Embedding
 from flowtron_tpu_torch.utils.masks import sequence_mask
@@ -39,19 +44,18 @@ class Flowtron(nn.Module):
                        "n_components": n_components,
                        "dummy_speaker_embedding": dummy_speaker_embedding,
                        "use_gate_layer": use_gate_layer}
-        if n_components > 1:
-            raise NotImplementedError(
-                "the Gaussian-mixture head and mel encoder are not ported "
-                "yet; see ROADMAP.md Queue 1, 'GM head + MelEncoder'")
-        if use_cumm_attention:
-            raise NotImplementedError(
-                "cumulative attention is not ported yet; see ROADMAP.md "
-                "Queue 1, 'Attention: cumulative-attention layer'")
         self.speaker_embedding = Embedding(n_speakers, n_speaker_dim,
                                            generator)
         self.embedding = Embedding(n_text, n_text_dim, generator)
         self.encoder = Encoder(encoder_embedding_dim=n_text_dim,
                                generator=generator)
+        if n_components > 1:
+            self.mel_encoder = MelEncoder(mel_encoder_n_hidden,
+                                          n_mel_channels=n_mel_channels,
+                                          generator=generator)
+            self.gaussian_mixture = GaussianMixture(
+                mel_encoder_n_hidden, n_components, n_mel_channels,
+                fixed_gaussian, mean_scale, generator=generator)
         self.flows = nn.ModuleList()
         for i in range(n_flows):
             step = ARStep if i % 2 == 0 else ARBackStep
@@ -59,7 +63,7 @@ class Flowtron(nn.Module):
                 n_mel_channels, n_speaker_dim, n_text_dim, n_hidden,
                 n_attn_channels, n_lstm_layers,
                 add_gate=(i == n_flows - 1) and use_gate_layer,
-                generator=generator))
+                use_cumm_attention=use_cumm_attention, generator=generator))
 
     def forward(self, *args, **kwargs):
         """``flowtron_forward``'s body on this module's (possibly swapped,
@@ -99,14 +103,15 @@ def _encode_text(model, config, speaker_ids, text, in_lens_mask=None,
 
 def flowtron_forward(model, config, mel, speaker_ids, text, in_lens,
                      out_lens, attn_prior=None, train=False, generator=None,
-                     compute_dtype=None):
+                     compute_dtype=None, remat=False):
     """Training-direction pass: mel -> z.
 
     Args:
       mel: (B, n_mel, T); speaker_ids: (B,); text: (B, Tk) int ids.
       in_lens / out_lens: (B,) true lengths. attn_prior: (B, T, Tk) or None.
-      train / generator: encoder dropout, drawn from ``generator`` (on the
-        model's device) when ``train``.
+      train / generator: dropout of the text encoder, then of the mel
+        encoder, drawn from ``generator`` (on the model's device) when
+        ``train``.
       compute_dtype: e.g. torch.bfloat16, the ``fp16_run`` policy of the
         JAX package: the forward runs on cast copies of the fp32 master
         parameters (``torch.func.functional_call``, so gradients reach the
@@ -114,50 +119,63 @@ def flowtron_forward(model, config, mel, speaker_ids, text, in_lens,
         package, the attention posterior stays fp32, so the context it
         gives promotes everything after it (decoder LSTMs, dense stack,
         head, z and the next flow) to fp32 on bf16-rounded weights; the
-        losses are fp32.
+        losses are fp32. The fixed-gaussian buffers are cast too, as the
+        JAX package casts every floating leaf.
+      remat: rematerialize each flow's teacher-forced pass in the
+        backward (``ar_step_forward``); the encoders are not, as in the
+        JAX package (a recompute would draw other dropout masks).
 
     Returns (z (T, B, n_mel), log_s list, gate (T, B, 1), attn list,
-    attn_logprob list, mean, log_var, prob): the JAX tuple, with the
-    Gaussian-mixture entries None (that head is not ported).
+    attn_logprob list, mean, log_var, prob): the JAX tuple, the last
+    three None without the Gaussian-mixture head.
     """
     if compute_dtype is not None:
         mel = mel.to(compute_dtype)
         if attn_prior is not None:
             attn_prior = attn_prior.to(compute_dtype)
     args = (config, mel, speaker_ids, text, in_lens, out_lens, attn_prior,
-            train, generator)
+            train, generator, remat)
     if compute_dtype is None:
         return _forward(model, *args)
     cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
-            for name, p in model.named_parameters()}
+            for name, p in (*model.named_parameters(),
+                            *model.named_buffers())}
     return torch.func.functional_call(model, cast, args)
 
 
 def _forward(model, config, mel, speaker_ids, text, in_lens, out_lens,
-             attn_prior, train, generator):
+             attn_prior, train, generator, remat=False):
     T, Tk = mel.shape[2], text.shape[1]
     key_mask = sequence_mask(in_lens, Tk)                      # (B, Tk)
     out_mask = sequence_mask(out_lens, T).t()                  # (T, B)
     encoder_outputs = _encode_text(model, config, speaker_ids, text,
                                    key_mask, train, generator)
+    mean = log_var = prob = None
+    if config["n_components"] > 1:
+        mel_embedding = mel_encoder_forward(
+            model.mel_encoder, mel, out_mask.t(), train, generator)
+        mean, log_var, prob = gaussian_mixture_forward(
+            model.gaussian_mixture, mel_embedding, config["n_components"],
+            config["n_mel_channels"])
     z = mel.permute(2, 0, 1)                                   # (T, B, M)
     log_s_list, attn_list, attn_logprob_list = [], [], []
     gate_pred = None
     for i, flow in enumerate(model.flows):
         if i % 2 == 0:
             z, log_s, gate, attn, attn_logprob = ar_step_forward(
-                flow, z, encoder_outputs, key_mask, out_mask, attn_prior)
+                flow, z, encoder_outputs, key_mask, out_mask, attn_prior,
+                remat)
         else:
             z, log_s, gate, attn, attn_logprob = ar_back_step_forward(
                 flow, z, encoder_outputs, key_mask, out_mask, out_lens,
-                attn_prior)
+                attn_prior, remat)
         if gate is not None:
             gate_pred = gate
         log_s_list.append(log_s)
         attn_list.append(attn)
         attn_logprob_list.append(attn_logprob)
     return (z, log_s_list, gate_pred, attn_list, attn_logprob_list,
-            None, None, None)
+            mean, log_var, prob)
 
 
 @torch.no_grad()

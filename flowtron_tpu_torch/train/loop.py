@@ -9,20 +9,26 @@ attention scores through kernel K3 on CUDA) -> ``flowtron_loss`` ->
 backward -> clip -> optimizer step. Every ``iters_per_checkpoint``
 iterations it runs the validation set and writes ``model_{iteration}.pt``
 (train/checkpoints.py). ``fp16_run`` selects the bf16 compute policy of
-``flowtron_forward`` (fp32 master weights, fp32 losses).
+``flowtron_forward`` (fp32 master weights, fp32 losses); ``remat``
+rematerializes each flow's teacher-forced pass in the backward.
 
 The CTC weight and the prior strength reach the step as tensors, so a
 change of either changes no code path. Each step's numbers go to
 ``{output_directory}/train_log.jsonl`` and to stdout, and with
 ``with_tensorboard`` to TensorBoard under ``{output_directory}/logs``
-(train/logger.py; tensorboardX and matplotlib).
+(train/logger.py; tensorboardX and matplotlib). With
+``tone_cer_validation_texts`` > 0 each validation also synthesizes that
+many validation transcripts and logs their mel-decoded tone-CER
+(``validation/tone_cer_mel``, data/tone_cer.py). With ``profile_dir``,
+``torch.profiler`` records steps 10 to 14 (CPU and, on the card, CUDA
+activity) into ``{profile_dir}/trace.json``, a Chrome trace; a run that
+ends inside that window writes it at its end.
 
 Runs on ``cuda:0``, or on the CPU when asked (``utils/device.py``:
 ``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``). Features of the
 JAX loop that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: tone-CER validation, grain, the profiler,
-non-pickle checkpoint formats, ``remat`` and a mesh of more than one
-device.
+ROADMAP.md item: grain, non-pickle checkpoint formats and a mesh of more
+than one device.
 """
 
 import json
@@ -77,6 +83,7 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
     device; ``params`` are the optimizer's (trainable) parameters."""
     loss_kw = _loss_settings(static_cfg, train_config)
     compute_dtype = torch.bfloat16 if train_config.get("fp16_run") else None
+    remat = bool(train_config.get("remat"))
     anneal_end = int(train_config.get("prior_anneal_end_iter", 0))
     clip = float(train_config.get("grad_clip_val", 0.0))
 
@@ -90,7 +97,7 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
             model, static_cfg, batch["mel"], batch["speaker_ids"],
             batch["text"], batch["in_lens"], batch["out_lens"],
             attn_prior=attn_prior, train=True, generator=generator,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, remat=remat)
         nll, gate, ctc = flowtron_loss(out, batch["gate_target"],
                                        batch["in_lens"], batch["out_lens"],
                                        **loss_kw)
@@ -152,9 +159,12 @@ def prepare_dataloaders(data_config, batch_size, seed=1234,
     return train_loader, val_loader
 
 
-def compute_validation_loss(eval_step, val_loader, device, ctc_weight):
+def compute_validation_loss(eval_step, val_loader, device, ctc_weight,
+                            on_batch=None):
     """Mean nll / gate / ctc over the validation batches and the total
-    loss at ``ctc_weight``; also returns the last batch's outputs."""
+    loss at ``ctc_weight``; also returns the last batch's outputs.
+    ``on_batch(out, host_batch)``, when given, sees every batch
+    (``evaluate`` accumulates its health metrics with it)."""
     totals = {"nll": 0.0, "gate": 0.0, "ctc": 0.0}
     n, last = 0, None
     for batch in val_loader:
@@ -163,6 +173,8 @@ def compute_validation_loss(eval_step, val_loader, device, ctc_weight):
             totals[k] += float(out[k])
         n += 1
         last = {**out, "batch": batch}
+        if on_batch is not None:
+            on_batch(out, batch)
     if n == 0:
         return {"loss": 0.0, **totals}, None
     for k in totals:
@@ -174,15 +186,9 @@ def compute_validation_loss(eval_step, val_loader, device, ctc_weight):
 def _refuse_unported(train_config, dist_config):
     """Raise for a JAX-loop feature the port does not have yet."""
     refusals = [
-        (int(train_config.get("tone_cer_validation_texts", 0)) > 0,
-         "tone_cer_validation_texts", "Queue 1 item 14, train/evaluate.py "
-         "and tone-CER"),
-        (train_config.get("profile_dir"), "profile_dir",
-         "Queue 1 item 14, the profiler trace"),
         (train_config.get("checkpoint_format") not in (None, "", "pickle")
          or train_config.get("sharded_checkpoints"), "checkpoint_format",
          "deferred item 2 and Queue 1 item 16 (only .pt checkpoints)"),
-        (train_config.get("remat"), "remat", "Queue 1 item 12"),
         (math.prod(max(1, int(s)) for s in
                    dist_config.get("mesh_shape", (-1,))) > 1
          or dist_config.get("dcn_mesh_shape"), "dist_config.mesh_shape",
@@ -192,6 +198,26 @@ def _refuse_unported(train_config, dist_config):
         if on:
             raise NotImplementedError(
                 f"{key} is not ported yet; see ROADMAP.md {item}")
+
+
+PROFILE_STEPS = (10, 15)     # the JAX loop's trace window, [start, stop)
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir):
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
 
 
 def train(config, device=None):
@@ -240,15 +266,23 @@ def train(config, device=None):
     pa_start = int(train_config.get("prior_anneal_start_iter", 0))
     pa_end = int(train_config.get("prior_anneal_end_iter", 0))
     iters_per_checkpoint = int(train_config.get("iters_per_checkpoint", 1000))
+    tone_cer_texts = int(train_config.get("tone_cer_validation_texts", 0))
     epochs = int(train_config.get("epochs", 1))
     epoch_offset = max(0, iteration // max(1, len(train_loader)))
     generator = torch.Generator(device=device)
+    profile_dir = train_config.get("profile_dir", "")
+    prof = None
 
     with open(log_path, "a") as log:
         t_last = time.time()
         for epoch in range(epoch_offset, epochs):
             print(f"Epoch: {epoch}")
             for batch in train_loader:
+                if profile_dir and iteration == PROFILE_STEPS[0]:
+                    prof = _start_profiler(device)
+                if prof is not None and iteration == PROFILE_STEPS[1]:
+                    _stop_profiler(prof, profile_dir)
+                    prof = None
                 ctc_weight = ctc_w if (use_ctc and iteration >= ctc_start) \
                     else 0.0
                 strength = prior_strength_schedule(iteration, pa_start,
@@ -286,6 +320,20 @@ def train(config, device=None):
                         logger.log_validation(
                             val["loss"], val["nll"], val["gate"], val["ctc"],
                             last, iteration)
+                    if tone_cer_texts > 0:
+                        # content-level intelligibility of free-running
+                        # synthesis, decoded from the mel (no vocoder)
+                        from flowtron_tpu_torch.data.tone_cer import (
+                            tone_cer_report)
+                        rep = tone_cer_report(config, model, static_cfg,
+                                              max_texts=tone_cer_texts,
+                                              via_audio=False)
+                        val["tone_cer_mel"] = rep["tone_cer_mel"]
+                        print(f"Validation tone-CER(mel) {iteration}: "
+                              f"{rep['tone_cer_mel']:.4f}")
+                        if logger is not None:
+                            logger.add_scalar("validation/tone_cer_mel",
+                                              rep["tone_cer_mel"], iteration)
                     log.write(json.dumps({"iteration": iteration,
                                           "validation": val}) + "\n")
                     save_checkpoint(
@@ -294,4 +342,6 @@ def train(config, device=None):
                         model, optimizer, iteration, learning_rate, config)
                 log.flush()
                 iteration += 1
+    if prof is not None:                 # the run ended inside the window
+        _stop_profiler(prof, profile_dir)
     return model, optimizer, iteration

@@ -2,7 +2,9 @@
 (port of flowtron_tpu/train/loss.py; reference:flowtron.py:155-275).
 
 - NLL = sum(z^2 * mask) / (2 sigma^2) - sum_i sum(log_s_i * mask),
-  normalised by n_valid_frames * n_mel.
+  normalised by n_valid_frames * n_mel; with the Gaussian-mixture head,
+  the mixture's negative log-likelihood of z (a log-sum-exp over the
+  components) in place of the first term.
 - Gate: BCE with logits, masked, normalised by n_valid_frames.
 - CTC over the attention log-posterior with a prepended blank column,
   target sequence 1..key_len, per-sample loss divided by key_len, averaged
@@ -40,24 +42,41 @@ def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0):
     return (per_seq / in_lens.to(per_seq.dtype)).mean()
 
 
+def gaussian_mixture_nll(z, mask, mean, log_var, prob):
+    """-sum over valid frames of log sum_k prob_k N(z; mean_k, exp(log_var_k))
+    without the 2 pi term, as the reference: z (T, B, M) against mean and
+    log_var (1 or B, M, K) and prob (B, K), in fp32 through a
+    log-sum-exp. ``amax`` shares the gradient among tied maxima, as
+    JAX's ``max`` does (fixed means tie in every channel they leave 0)."""
+    zk = z[..., None]                                          # (T,B,M,1)
+    mean_b, log_var_b = mean.float()[None], log_var.float()[None]
+    prob_b = prob.float()[None, :, None, :]                    # (1,B,1,K)
+    _z = -(zk - mean_b) ** 2 / (2.0 * torch.exp(log_var_b))
+    _zmax = torch.amax(_z, dim=3, keepdim=True)
+    _z = prob_b * torch.exp(_z - _zmax) / torch.sqrt(torch.exp(log_var_b))
+    _z = _zmax + torch.log(_z.sum(dim=3, keepdim=True))
+    return -(mask[..., None] * _z).sum()
+
+
 def flowtron_loss(model_output, gate_target, in_lens, out_lens, sigma=1.0,
                   gm_loss=False, gate_loss=True, use_ctc_loss=False,
                   blank_logprob=-1.0):
     """(nll, gate, ctc) from ``flowtron_forward``'s output.
     gate_target: (B, T), 1.0 from the last real frame onward."""
-    if gm_loss:
-        raise NotImplementedError(
-            "the Gaussian-mixture NLL is not ported yet; see ROADMAP.md "
-            "Queue 1, 'GM head + MelEncoder'")
-    z, log_s_list, gate_pred, _, attn_logprob_list = model_output[:5]
+    (z, log_s_list, gate_pred, _, attn_logprob_list,
+     mean, log_var, prob) = model_output
     z = z.float()
     T, B, n_mel = z.shape
     mask = sequence_mask(out_lens, T).t()[..., None].to(z.dtype)  # (T,B,1)
     n_elements = mask.sum()
     log_s_total = sum((log_s.float() * mask).sum() for log_s in log_s_list)
-    zm = z * mask
-    loss_nll = ((zm * zm).sum() / (2.0 * sigma * sigma) - log_s_total) \
-        / (n_elements * n_mel)
+    if gm_loss:
+        loss_nll = gaussian_mixture_nll(z, mask, mean, log_var, prob) \
+            - log_s_total
+    else:
+        zm = z * mask
+        loss_nll = (zm * zm).sum() / (2.0 * sigma * sigma) - log_s_total
+    loss_nll = loss_nll / (n_elements * n_mel)
 
     loss_gate = z.new_zeros(())
     if gate_loss and gate_pred is not None:

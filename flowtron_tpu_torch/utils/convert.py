@@ -54,27 +54,46 @@ def _linear_entries(name, p):
         yield f"{name}.bias", p, "b", "same"
 
 
-def _flowtron_entries(p):
-    """Yield (state_dict name, JAX sub-dict, key in it, layout kind) for
-    every parameter of a JAX ``flowtron_init`` pytree."""
-    yield "speaker_embedding.weight", p["speaker_embedding"], "table", "same"
-    yield "embedding.weight", p["embedding"], "table", "same"
-    for i, conv in enumerate(p["encoder"]["convolutions"]):
-        pre = f"encoder.convolutions.{i}"
+def _encoder_entries(prefix, enc):
+    for i, conv in enumerate(enc["convolutions"]):
+        pre = f"{prefix}.convolutions.{i}"
         yield f"{pre}.0.conv.weight", conv["conv"], "w", "same"
         yield f"{pre}.0.conv.bias", conv["conv"], "b", "same"
         yield f"{pre}.1.weight", conv["norm"], "weight", "same"
         yield f"{pre}.1.bias", conv["norm"], "bias", "same"
-    yield from _lstm_entries("encoder.lstm", p["encoder"]["lstm"])
-    if "mel_encoder" in p or "gaussian_mixture" in p:
-        raise NotImplementedError(
-            "the Gaussian-mixture head and mel encoder are not ported yet; "
-            "see ROADMAP.md Queue 1, 'GM head + MelEncoder'")
+    yield from _lstm_entries(f"{prefix}.lstm", enc["lstm"])
+
+
+# the reference registers each conditioning conv twice, as an attribute
+# and inside ``conv_layers`` (reference:flowtron.py:138-148), so its
+# state_dict holds both names (flowtron_tpu/train/checkpoints.py:117-131)
+_ATTN_COND_NAMES = (("conv_hidden", "location_conv_hidden"),
+                    ("conv_out", "location_conv_out"),
+                    ("conv_hidden", "conv_layers.0"),
+                    ("conv_out", "conv_layers.2"))
+
+
+def _flowtron_entries(p):
+    """Yield (state_dict name, JAX sub-dict, key in it, layout kind) for
+    every parameter and buffer of a JAX ``flowtron_init`` pytree, in the
+    names ``export_torch_state_dict`` writes."""
+    yield "speaker_embedding.weight", p["speaker_embedding"], "table", "same"
+    yield "embedding.weight", p["embedding"], "table", "same"
+    yield from _encoder_entries("encoder", p["encoder"])
+    if "mel_encoder" in p:
+        yield from _encoder_entries("mel_encoder", p["mel_encoder"])
+    if "gaussian_mixture" in p:
+        gm = p["gaussian_mixture"]
+        yield from _linear_entries("gaussian_mixture.prob_layer.linear_layer",
+                                   gm["prob_layer"])
+        if "mean" in gm:                  # the fixed-gaussian buffers
+            yield "gaussian_mixture.mean", gm, "mean", "same"
+            yield "gaussian_mixture.log_var", gm, "log_var", "same"
+        else:
+            for name in ("mean_layer", "log_var_layer"):
+                yield from _linear_entries(
+                    f"gaussian_mixture.{name}.linear_layer", gm[name])
     for i, flow in enumerate(p["flows"]):
-        if "attn_cond_layer" in flow:
-            raise NotImplementedError(
-                "cumulative attention is not ported yet; see ROADMAP.md "
-                "Queue 1, 'Attention: cumulative-attention layer'")
         pre = f"flows.{i}" if i % 2 == 0 else f"flows.{i}.ar_step"
         yield f"{pre}.conv.weight", flow["conv"], "w", "conv1x1"
         yield f"{pre}.conv.bias", flow["conv"], "b", "same"
@@ -91,6 +110,12 @@ def _flowtron_entries(p):
         if "gate_layer" in flow:
             yield from _linear_entries(f"{pre}.gate_layer.linear_layer",
                                        flow["gate_layer"])
+        if "attn_cond_layer" in flow:
+            for ours, theirs in _ATTN_COND_NAMES:
+                conv = flow["attn_cond_layer"][ours]
+                name = f"{pre}.attn_cond_layer.{theirs}.conv"
+                yield f"{name}.weight", conv, "w", "same"
+                yield f"{name}.bias", conv, "b", "same"
 
 
 def flowtron_state_dict_from_jax(np_params):

@@ -63,11 +63,11 @@ def _streams(n, seed, base_len, step=1):
             for i in range(n)]
 
 
-def _mux(port, wg_port, slots, thr, **kw):
+def _mux(port, wg_port, slots, thr, max_frames=MAXF, **kw):
     (model, cfg), (wg_model, wg_cfg) = port, wg_port
     return MultiStreamTTS(model, cfg, wg_model, wg_cfg, slots=slots,
-                          text_len=TK, max_frames=MAXF, gate_threshold=thr,
-                          **GEO, **kw)
+                          text_len=TK, max_frames=max_frames,
+                          gate_threshold=thr, **GEO, **kw)
 
 
 def _solo(port, wg_port, seed, sid, ids, thr, temperature=1.0, cap=None):
@@ -120,18 +120,21 @@ def _close(got, want, tol):
 
 
 # -- against JAX's MultiStreamTTS -------------------------------------------
-def _jax_draws(key, n_flows, cfg):
+def _jax_draws(key, n_flows, cfg, max_frames=MAXF):
     """What JAX's mux draws for a stream of ``key``: flow 0's latents (one
-    (C, 1, M) draw a chunk for one flow, the whole (1, M, MAXF) for two)
+    (C, 1, M) draw a chunk for one flow, the whole (1, M, max_frames) for
+    two)
     as the port's (1, M, N) ``residual``, and its vocoder latents as a
     source."""
     k_mel, k_voc = jax.random.split(key)
     if n_flows == 1:
         z = jnp.concatenate([0.5 * jax.random.normal(
-            jax.random.fold_in(k_mel, c), (8, 1, M)) for c in range(6)])
+            jax.random.fold_in(k_mel, c), (8, 1, M))
+            for c in range(max_frames // 8)])
         residual = np.transpose(np.asarray(z), (1, 2, 0))
     else:
-        residual = np.asarray(0.5 * jax.random.normal(k_mel, (1, M, MAXF)))
+        residual = np.asarray(0.5 * jax.random.normal(k_mel,
+                                                      (1, M, max_frames)))
 
     def source(start, n):
         z_main, z_early = jax_streaming.positional_z(k_voc, cfg, 1, start,
@@ -140,22 +143,25 @@ def _jax_draws(key, n_flows, cfg):
     return _t(residual), source
 
 
-def _both(jax_pair, port_pair, wg, slots, thr, opens, late=(), at_tick=2):
+def _both(jax_pair, port_pair, wg, slots, thr, opens, late=(), at_tick=2,
+          max_frames=MAXF):
     """Run JAX's mux and the port's over the same streams: ``opens`` (key
     seed, sid, ids, temperature) join first, ``late`` ones after
-    ``at_tick`` ticks. Returns each run's audio, in the streams' order."""
+    ``at_tick`` ticks; both capped at ``max_frames``. Returns each run's
+    audio, in the streams' order."""
     (params, cfg), (wg_params, wg_cfg) = jax_pair, wg[0]
     jm = jax_multistream.MultiStreamTTS(
         params, cfg, wg_params, wg_cfg, slots=slots, text_len=TK,
-        max_frames=MAXF, gate_threshold=thr, **GEO)
-    pm = _mux(port_pair, wg[1], slots, thr)
+        max_frames=max_frames, gate_threshold=thr, **GEO)
+    pm = _mux(port_pair, wg[1], slots, thr, max_frames)
     runs = []
     for mux, is_jax in ((jm, True), (pm, False)):
         def open_(k, sid, ids, temp):
             key = jax.random.PRNGKey(k)
             if is_jax:
                 return mux.open(key, sid, ids, temperature=temp)
-            residual, source = _jax_draws(key, cfg["n_flows"], wg_cfg)
+            residual, source = _jax_draws(key, cfg["n_flows"], wg_cfg,
+                                          max_frames)
             return mux.open(k, sid, ids, temperature=temp,
                             residual=residual, latents=source)
         hs = [open_(*s) for s in opens]

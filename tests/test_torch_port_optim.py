@@ -298,10 +298,7 @@ def test_prior_strength_schedule_matches_jax(iteration):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"tone_cer_validation_texts": 4}, "item 14"),
-    ({"profile_dir": "prof"}, "item 14"),
     ({"checkpoint_format": "orbax"}, "deferred item 2"),
-    ({"remat": True}, "item 12"),
     ("mesh", "item 16"),
 ])
 def test_train_refuses_unported_features(override, item):

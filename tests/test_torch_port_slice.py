@@ -128,12 +128,13 @@ def _run(code_or_args, cwd=ROOT):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Import every module of the port, the training, streaming and mux
-    ones by name too, and run a tiny synthesis, a tiny training step
-    (forward, losses, backward through K3's plain versions, RAdam), one
-    request and one stream through a w8a8 serving engine (K4's plain
-    version) and one stream through an engine's multistream mux in a
-    fresh interpreter:
+    """Import every module of the port, the training, streaming, mux,
+    evaluation, tone-CER and Gaussian-mixture ones by name too, and run a
+    tiny synthesis, a tiny training step (forward, losses, backward
+    through K3's plain versions, RAdam), one Gaussian-mixture step with
+    remat, one request and one stream through a w8a8 serving engine (K4's
+    plain version) and one stream through an engine's multistream mux in
+    a fresh interpreter:
     neither jax nor the JAX package (``flowtron_tpu`` or
     ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
     test process already imported both."""
@@ -144,7 +145,8 @@ def test_port_never_imports_jax(tmp_path):
         "    importlib.import_module(m.name)\n"
         "for name in ('train.loop', 'data.dataset', 'ops.attention', "
         "'cli', 'train.logger', 'audio.griffin_lim', 'vocoder.denoiser', "
-        "'infer.streaming', 'serve.streaming', 'infer.multistream'):\n"
+        "'infer.streaming', 'serve.streaming', 'infer.multistream', "
+        "'train.evaluate', 'data.tone_cer', 'models.gaussian_mixture'):\n"
         "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
@@ -163,6 +165,15 @@ def test_port_never_imports_jax(tmp_path):
         "'in_lens': torch.tensor([4, 3]), 'out_lens': torch.tensor([5, 4]),"
         " 'gate_target': torch.zeros(2, 5), 'attn_prior': "
         "torch.full((2, 5, 4), 0.25)}\n"
+        "out = step(batch, torch.Generator().manual_seed(0), "
+        "torch.tensor(0.01), torch.tensor(1.0))\n"
+        "assert all(torch.isfinite(v) for v in out.values()), out\n"
+        "mg, cg = flowtron_init(0, n_speaker_dim=4, n_text_dim=12, "
+        "n_mel_channels=8, n_hidden=16, n_attn_channels=8, "
+        "mel_encoder_n_hidden=8, n_components=3, mean_scale=1.0)\n"
+        "step = make_train_step(mg, cg, RAdam(mg.parameters()), "
+        "list(mg.parameters()), {'sigma': 1.0, 'use_ctc_loss': True, "
+        "'grad_clip_val': 1.0, 'remat': True})\n"
         "out = step(batch, torch.Generator().manual_seed(0), "
         "torch.tensor(0.01), torch.tensor(1.0))\n"
         "assert all(torch.isfinite(v) for v in out.values()), out\n"

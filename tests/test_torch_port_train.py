@@ -5,8 +5,6 @@ loss, the bf16 policy and the invertibility oracle. Same weights through
 flowtron_state_dict_from_jax, the zero-init coupling heads perturbed,
 inputs drawn with numpy."""
 
-import os
-
 import numpy as np
 import pytest
 import jax
@@ -24,7 +22,6 @@ from flowtron_tpu.train.loss import (  # noqa: E402
     attention_ctc_loss as jax_ctc, flowtron_loss as jax_loss,
 )
 
-from flowtron_tpu_torch.cli import train_main  # noqa: E402
 from flowtron_tpu_torch.models.attention import attention_forward  # noqa: E402
 from flowtron_tpu_torch.models.encoder import Encoder, _conv_stack  # noqa: E402
 from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
@@ -178,16 +175,6 @@ def test_lstm_forward_matches_jax_masked(models):
     for (h, c), (rh, rc) in zip(fin, ref_fin):
         np.testing.assert_allclose(h.numpy(), np.asarray(rh), atol=1e-5)
         np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=1e-5)
-
-
-def test_remat_names_its_roadmap_item():
-    """remat is not ported: the training entry point refuses it, naming
-    its ROADMAP.md item, before it builds anything."""
-    config = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "config.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        train_main(["-c", config, "-p", "train_config.remat=True",
-                    "train_config.with_tensorboard=False"])
 
 
 # --------------------------------------------------------------------------
