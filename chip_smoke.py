@@ -49,6 +49,15 @@ drives the port's three paths at the full width of the repo's
   ``flowtron-torch-evaluate --plots --tone-cer 4`` on the GM checkpoint
   (its losses against the loop's validation, the oracle with the heads
   perturbed) and ``flowtron-torch-infer`` on it;
+- the vocoder trainer (``flowtron_tpu_torch.scripts.train_waveglow``) on
+  ``configs/config_waveglow.json`` at full width, B=4, 16000-sample
+  segments of the same corpus, 10 steps in its bf16 policy and 10 in
+  fp32 (no kernel: K2 has no backward), one step at reduced depth card
+  against CPU; then WaveGlows wider than 256: a 512-channel one trained
+  one step and a seeded 1024-channel one, each saved, loaded by
+  ``load_waveglow`` and vocoding 400 frames through K2's wide builds
+  against the plain path on the card (K2 at 512 and 1024 is first held
+  against its plain version at the vocoder's shapes, ``k2`` / ``k2_bm``);
 - the TPU probes of ``scripts/exp_*.py`` (P1-P5) through their ports in
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
@@ -70,6 +79,7 @@ Imports nothing of JAX or of the JAX package ``flowtron_tpu`` (checked
 at the end): the port carries its own text frontend and config.
 """
 
+import contextlib
 import io
 import json
 import math
@@ -94,6 +104,7 @@ SIGMA = 0.5         # the latents' scale in infer/sampling.py:synthesize
 REQ_SEED = 100      # latents seed of the first request
 K1_TOL = 1e-3       # mel / attn / gate max-abs, kernel vs plain, fp32
 K2_TOL = 1e-4       # max-abs relative to the output scale, fp32
+K2_WIDE = (512, 1024)   # K2's builds past the 256-channel vocoder
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # of the output scale
 SLICE_TOL = 1e-3    # card slice vs CPU plain slice, fp32
 STFT_TOL = 1e-4     # STFT, ISTFT, Griffin-Lim, denoiser: card vs CPU, and
@@ -494,16 +505,96 @@ def phase_k1(model, cfg, ids, sid, dev):
     return max_err, times, stop, frames
 
 
+def k2_work(B, Tp, C, n_rs):
+    """A WN layer's fp32 FLOPs and bytes: x, cond, weights and biases read
+    once, x' (not on the last layer) and skip written once."""
+    flops = 2 * B * Tp * (3 * C * 2 * C + C * n_rs)
+    n_bytes = 4 * (B * Tp * C + B * Tp * 2 * C + 3 * C * 2 * C + 2 * C
+                   + C * n_rs + n_rs + (2 if n_rs > C else 1) * B * Tp * C)
+    return flops, n_bytes
+
+
+def k2_case(args, layer, T, reps, sms):
+    """K2 against its plain version on one layer's arguments (x with Tp -
+    T pad rows), in turns: within K2_TOL of the output scale, pad rows
+    zero, two calls bitwise equal; emits a ``k2`` line. Returns the max
+    abs error and (ms, plain ms, bound ms, bound_by, rows a block)."""
+    from flowtron_tpu_torch.ops.wavenet import (
+        wn_layer, wn_layer_reference, wn_plan)
+
+    B, Tp, C = args[0].shape
+    n_rs = args[5].shape[1]
+    with torch.no_grad():
+        k_ms, p_ms, runs, out_k, out_p = paired_ms(
+            lambda: wn_layer(*args), lambda: wn_layer_reference(*args),
+            reps=reps, plain_reps=reps)
+        again = wn_layer(*args)
+    abs_errs, errs = [], []
+    for a, r in zip(out_k, out_p):
+        if r is not None:
+            abs_errs.append(float((a - r).abs().max()))
+            errs.append(abs_errs[-1] / max(1.0, float(r.abs().max())))
+    check(all(e <= K2_TOL for e in errs),
+          f"K2 C={C} layer {layer} B={B} Tp={Tp} err {errs}")
+    bitwise = all(a is None or torch.equal(a, b)
+                  for a, b in zip(out_k, again))
+    check(bitwise, f"K2 C={C} layer {layer} B={B}: two calls differ")
+    if out_k[0] is not None and Tp > T:
+        check(bool((out_k[0][:, T:] == 0).all()), "K2 pad rows not zero")
+    flops, n_bytes = k2_work(B, Tp, C, n_rs)
+    # the kernel does the fp32 products as three bf16 passes
+    bound_ms, bound_by = bound(n_bytes, {"bf16": 3 * flops})
+    plan = wn_plan(B, Tp, C, sms)
+    emit("k2", layer=layer, d=args[1], last=out_k[0] is None, C=C, B=B,
+         T=T, Tp=Tp, plan=plan._asdict(), max_abs_err=max(abs_errs),
+         max_rel_err=max(errs), bitwise=bitwise, kernel_ms=k_ms,
+         plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+         runs_plain_kernel_kernel_plain_ms=runs,
+         kernel_tflops_fp32=flops / k_ms / 1e9,
+         kernel_tflops_bf16=3 * flops / k_ms / 1e9,
+         plain_tflops=flops / p_ms / 1e9)
+    return max(abs_errs), (k_ms, p_ms, bound_ms, bound_by, plan.bm)
+
+
+def k2_builds(args, reps, sms):
+    """Every build of the width, rows a block, on one layer's arguments in
+    turns, each bitwise equal to the planned one; emits a ``k2_bm`` line
+    with each build's ms and its row's time in a full wave, against the
+    width's first build (what ops/wavenet.py:WN_ROW_COST records)."""
+    from flowtron_tpu_torch.ops.wavenet import WN_BUILDS, wn_layer, wn_plan
+
+    B, T, C = args[0].shape
+    builds = list(WN_BUILDS[C])
+    with torch.no_grad():
+        ref = wn_layer(*args)
+        fns = [lambda bm=bm: wn_layer(*args, bm=bm) for bm in builds]
+        for f in fns:
+            f()
+        ms = {bm: [] for bm in builds}
+        for _ in range(3):
+            for bm, f in list(zip(builds, fns)) + list(
+                    zip(builds, fns))[::-1]:
+                ms[bm].append(cuda_ms(f, reps)[0])
+        for bm, f in zip(builds, fns):
+            check(all(torch.equal(a, b) for a, b in zip(f(), ref)),
+                  f"K2 C={C} bm={bm} differs from the planned bm")
+    med = {bm: statistics.median(v) for bm, v in ms.items()}
+    plans = {bm: wn_plan(B, T, C, sms, bm) for bm in builds}
+    row_us = {bm: 1e3 * med[bm] / (-(-plans[bm].grid // sms) * bm)
+              for bm in builds}
+    emit("k2_bm", B=B, T=T, C=C, planned=wn_plan(B, T, C, sms).bm, ms=med,
+         row_us=row_us,
+         row_cost={bm: row_us[bm] / row_us[builds[0]] for bm in builds},
+         plans={bm: p._asdict() for bm, p in plans.items()})
+
+
 def phase_k2(wg, dev):
     """K2 against its plain version at the vocoder's shapes: layers 0, 3
     and 7 (d = 1, 8, 128; 7 the last) at B=1, T=12800 (400 mel frames),
     layer 3 with 96 pad rows, and layer 3 at B=8 (the server's largest
-    batch); each within K2_TOL, pad rows zero, two calls bitwise equal.
-    Then every block size built for C=256 at B=1 and B=8. Returns the max
-    error and (ms, plain ms, bound, bound_by) of layer 3 at B=1."""
-    from flowtron_tpu_torch.ops.wavenet import (
-        WN_BUILDS, wn_layer, wn_layer_reference, wn_plan)
-
+    batch). Then every block size built for C=256 at B=1 and B=8. Returns
+    the max error and (ms, plain ms, bound, bound_by, rows a block) of
+    layer 3 at B=1."""
     wn = wg.WN[0]
     C, L = wn.n_channels, wn.n_layers
     T = N_FRAMES * HOP // 8                   # 12800 grouped samples
@@ -518,75 +609,55 @@ def phase_k2(wg, dev):
         cond = cond_all[..., 2 * C * layer:2 * C * (layer + 1)]
         return (x.to(dev), 2 ** layer, cond, w_cat, b, w_rs, b_rs, T)
 
-    def work(B, Tp, n_rs):
-        """fp32 FLOPs; bytes: x, cond, weights and biases read once, x'
-        (not on the last layer) and skip written once"""
-        flops = 2 * B * Tp * (3 * C * 2 * C + C * n_rs)
-        n_bytes = 4 * (B * Tp * C + B * Tp * 2 * C + 3 * C * 2 * C + 2 * C
-                       + C * n_rs + n_rs + (2 if n_rs > C else 1) * B * Tp * C)
-        return flops, n_bytes
-
     max_err, times = 0.0, None
     for layer, B, Tp in ((0, 1, T), (3, 1, T), (7, 1, T), (3, 1, T + 96),
                          (3, 8, T)):
-        args = layer_args(layer, B, Tp)
-        n_rs = args[5].shape[1]
-        reps = 20 if B == 1 else 5
-        with torch.no_grad():
-            k_ms, p_ms, runs, out_k, out_p = paired_ms(
-                lambda: wn_layer(*args), lambda: wn_layer_reference(*args),
-                reps=reps, plain_reps=reps)
-            again = wn_layer(*args)
-        abs_errs, errs = [], []
-        for a, r in zip(out_k, out_p):
-            if r is not None:
-                abs_errs.append(float((a - r).abs().max()))
-                errs.append(abs_errs[-1] / max(1.0, float(r.abs().max())))
-        check(all(e <= K2_TOL for e in errs),
-              f"K2 layer {layer} B={B} Tp={Tp} err {errs}")
-        bitwise = all(a is None or torch.equal(a, b)
-                      for a, b in zip(out_k, again))
-        check(bitwise, f"K2 layer {layer} B={B}: two calls differ")
-        if out_k[0] is not None and Tp > T:
-            check(bool((out_k[0][:, T:] == 0).all()), "K2 pad rows not zero")
-        max_err = max([max_err] + abs_errs)
-        flops, n_bytes = work(B, Tp, n_rs)
-        # the kernel does the fp32 products as three bf16 passes
-        bound_ms, bound_by = bound(n_bytes, {"bf16": 3 * flops})
+        err, case = k2_case(layer_args(layer, B, Tp), layer, T,
+                            20 if B == 1 else 5, sms)
+        max_err = max(max_err, err)
         if (layer, B, Tp) == (3, 1, T):
-            times = (k_ms, p_ms, bound_ms, bound_by)
-        emit("k2", layer=layer, d=2 ** layer, last=out_k[0] is None, C=C,
-             B=B, T=T, Tp=Tp, plan=wn_plan(B, Tp, C, sms)._asdict(),
-             max_abs_err=max(abs_errs), max_rel_err=max(errs),
-             bitwise=bitwise, kernel_ms=k_ms, plain_ms=p_ms,
-             bound_ms=bound_ms, bound_by=bound_by,
-             runs_plain_kernel_kernel_plain_ms=runs,
-             kernel_tflops_fp32=flops / k_ms / 1e9,
-             kernel_tflops_bf16=3 * flops / k_ms / 1e9,
-             plain_tflops=flops / p_ms / 1e9)
-
-    # block sizes: each build's rows a block, layer 3, in turns
+            times = case
     for B in (1, 8):
-        args = layer_args(3, B, T)
-        builds = sorted(WN_BUILDS[C])
-        with torch.no_grad():
-            ref = wn_layer(*args)
-            fns = [lambda bm=bm: wn_layer(*args, bm=bm) for bm in builds]
-            for f in fns:
-                f()
-            ms = {bm: [] for bm in builds}
-            for _ in range(3):
-                for bm, f in list(zip(builds, fns)) + list(
-                        zip(builds, fns))[::-1]:
-                    ms[bm].append(cuda_ms(f, 20 if B == 1 else 5)[0])
-            for bm, f in zip(builds, fns):
-                check(all(torch.equal(a, b) for a, b in zip(f(), ref)),
-                      f"K2 bm={bm} differs from the planned bm")
-        emit("k2_bm", B=B, T=T, C=C, planned=wn_plan(B, T, C, sms).bm,
-             ms={bm: statistics.median(v) for bm, v in ms.items()},
-             plans={bm: wn_plan(B, T, C, sms, bm)._asdict()
-                    for bm in builds})
+        k2_builds(layer_args(3, B, T), 20 if B == 1 else 5, sms)
     return max_err, times
+
+
+def phase_k2_wide(dev):
+    """K2's wide builds against the plain version at the vocoder's shapes,
+    on init-scaled random weights: for C = 512 and 1024, a middle layer
+    (layer 3, d = 8) and the last (layer 7, d = 128) at B=1, T=12800, and
+    layer 3 at B=8, cond a strided slice. Then each build of the width at
+    B=1 and B=8. Returns {C: (max abs err, ms, plain ms, bound ms,
+    bound_by, rows a block)} of layer 3 at B=1."""
+    T = N_FRAMES * HOP // 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    out = {}
+    for C in K2_WIDE:
+        def layer_args(layer, B):
+            n_rs = C if layer == 7 else 2 * C
+            cond = rand(B, T, 4 * C)[..., 2 * C:]          # row stride 4C
+            return (rand(B, T, C), 2 ** layer, cond,
+                    rand(3 * C, 2 * C, scale=(3 * C) ** -0.5),
+                    rand(2 * C, scale=0.1), rand(C, n_rs, scale=C ** -0.5),
+                    rand(n_rs, scale=0.1), T)
+
+        max_err, times = 0.0, None
+        for layer, B in ((3, 1), (7, 1), (3, 8)):
+            err, case = k2_case(layer_args(layer, B), layer, T,
+                                10 if B == 1 else 2, sms)
+            max_err = max(max_err, err)
+            if (layer, B) == (3, 1):
+                times = case
+        out[C] = (max_err,) + times
+        for B in (1, 8):
+            k2_builds(layer_args(3, B), 5 if B == 1 else 2, sms)
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_waveglow_split(wg, wg_cfg, dev):
@@ -2348,7 +2419,6 @@ def phase_evaluate(corpus, tmp, gm_run, ckpt, kernels, dev):
     coupling heads perturbed (16 steps leave them near zero, where mel is
     close to z whatever K1 and K3 compute), and GM inference on the
     checkpoint (``phase_gm_infer``)."""
-    import contextlib
     from flowtron_tpu_torch import cli
     from flowtron_tpu_torch.data import tone_cer
     from flowtron_tpu_torch.models import flowtron
@@ -2422,7 +2492,6 @@ def phase_gm_infer(args, ckpt, kernels):
     no -w): the CLI's whole path, with its mel/attention PNG (matplotlib,
     which the card's machine may lack) replaced by a no-op for the
     call."""
-    import contextlib
     from flowtron_tpu_torch import cli
     from flowtron_tpu_torch.infer import sampling
 
@@ -2445,6 +2514,232 @@ def phase_gm_infer(args, ckpt, kernels):
           f"GM inference (flowtron-torch-infer): {wavs} {launches}")
     emit("gm_infer", route="flowtron-torch-infer (PNG left out)",
          seconds=seconds, launches=launches)
+
+
+WG_CONFIG = "configs/config_waveglow.json"
+WG_STEPS, WG_B = 10, 4      # steps of each precision; the config's batch
+
+
+def wg_args(train_fl, out_dir, *extra):
+    """The vocoder trainer's argv: config_waveglow.json with the filelist,
+    the output directory, one epoch and a checkpoint at iteration 0."""
+    return ["-c", WG_CONFIG, "-p", f"data_config.training_files={train_fl}",
+            f"train_config.output_directory={out_dir}",
+            "train_config.epochs=1", f"train_config.batch_size={WG_B}",
+            "train_config.iters_per_checkpoint=1000", *extra]
+
+
+def waveglow_forward_flops(wc, B, seg, hop=HOP):
+    """The training forward's products: per flow the start, the one cond
+    conv of all layers, the dilated and res/skip convs, the end and the
+    1x1 conv over B * seg / n_group rows, and the upsample's matmul."""
+    n_group, C, L = wc["n_group"], wc["n_channels"], wc["n_layers"]
+    rows = B * (seg // n_group)
+    flops, n_rem = 0, n_group
+    for f in range(wc["n_flows"]):
+        if f % wc["n_early_every"] == 0 and f > 0:
+            n_rem -= wc["n_early_size"]
+        h = n_rem // 2
+        per_row = (2 * h * C + 2 * wc["n_mel_channels"] * n_group * 2 * C * L
+                   + L * 2 * 3 * C * 2 * C + (L - 1) * 2 * C * 2 * C
+                   + 2 * C * C + 2 * C * 2 * h + 2 * n_rem * n_rem)
+        flops += rows * per_row
+    n_mel = wc["n_mel_channels"]
+    return flops + 2 * B * (seg // hop) * 4 * n_mel * n_mel * hop
+
+
+def phase_waveglow_train(corpus, tmp, kernels, dev):
+    """The vocoder trainer (``flowtron_tpu_torch.scripts.train_waveglow``)
+    on config_waveglow.json at full width (12 flows, 8 layers, 256
+    channels), B=4, 16000-sample segments of the synthetic corpus, its
+    bf16 policy and fp32 (TF32 off), WG_STEPS steps each: ms a step
+    (median of steps 1-9) beside the device floor of its products, peak
+    memory, and no kernel launched (K2 has no backward; the training WN
+    runs on cuDNN's convolutions)."""
+    from flowtron_tpu_torch.scripts import train_waveglow
+
+    fl = filelist_of(corpus[0], WG_B * WG_STEPS,
+                     os.path.join(tmp, "wg_train.txt"))
+    with open(WG_CONFIG) as f:
+        wcfg = json.load(f)
+    wc, dc = wcfg["waveglow_config"], wcfg["data_config"]
+    seg = dc["segment_length"] // HOP * HOP
+    step_flops = 3 * waveglow_forward_flops(wc, WG_B, seg)
+    for fp16_run in (True, False):
+        tag = "bf16" if fp16_run else "fp32"
+        out_dir = os.path.join(tmp, f"wg_{tag}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, _, hist = train_waveglow.main(
+                wg_args(fl, out_dir, f"train_config.fp16_run={fp16_run}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == WG_STEPS and all(map(math.isfinite, losses)),
+              f"waveglow_train {tag}: {losses}")
+        check(all(v == 0 for v in launches.values()),
+              f"waveglow_train {tag}: kernels launched {launches}")
+        check(os.path.exists(os.path.join(out_dir, "waveglow_0.pt")),
+              f"waveglow_train {tag}: no waveglow_0.pt")
+        ms = 1e3 * statistics.median(h["step_s"] for h in hist[1:])
+        floor_ms = step_flops / PEAK_OPS_S[tag] * 1e3
+        emit("waveglow_train", policy=tag, B=WG_B, segment=seg,
+             rows=WG_B * (seg // wc["n_group"]), steps=len(hist),
+             loss=losses, step_ms=[1e3 * h["step_s"] for h in hist],
+             ms_per_step_median=ms, step_tflop=step_flops / 1e12,
+             floor_ms=floor_ms, floor_share=floor_ms / ms,
+             peak_memory_allocated_bytes=peak,
+             allocated_before_run_bytes=held, wall_s=wall,
+             launches=launches)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_waveglow_train_vs_cpu(corpus, dev):
+    """One fp32 step of config_waveglow.json at full width and reduced
+    depth (2 flows, 2 layers), its end convs perturbed, on one B=4 batch
+    of the trainer's sampler: the card against the CPU, loss and gradient
+    norm."""
+    from flowtron_tpu_torch.audio.stft import MelSpectrogram
+    from flowtron_tpu_torch.scripts import train_waveglow
+    from flowtron_tpu_torch.vocoder.waveglow import waveglow_init
+
+    with open(WG_CONFIG) as f:
+        wcfg = json.load(f)
+    wc, dc = wcfg["waveglow_config"], wcfg["data_config"]
+    model, cfg = waveglow_init(5, **dict(wc, n_flows=2, n_layers=2))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for wn in model.WN:
+            wn.end.weight.copy_(0.05 * torch.randn(wn.end.weight.shape,
+                                                   generator=g))
+    ms = MelSpectrogram(dc["filter_length"], HOP, dc["win_length"],
+                        wc["n_mel_channels"], dc["sampling_rate"],
+                        dc["mel_fmin"], dc["mel_fmax"])
+    seg = dc["segment_length"] // HOP * HOP
+    mel, audio = train_waveglow.sample_batch(
+        np.random.default_rng(0), train_waveglow.training_files(corpus[0]),
+        WG_B, seg, dc, ms.mel_numpy)
+    sigma = float(wcfg["train_config"]["sigma"])
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model.to(d)
+        model.zero_grad(set_to_none=True)
+        loss = train_waveglow.waveglow_train_loss(
+            model, cfg, torch.from_numpy(mel).to(d),
+            torch.from_numpy(audio).to(d), sigma, None)
+        loss.backward()
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in model.parameters()]))
+        res[where] = [float(loss.detach()), float(gnorm)]
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    gn_rel = abs(res["card"][1] - res["cpu"][1]) / res["cpu"][1]
+    check(loss_rel <= LOSS_TOL and gn_rel <= GNORM_TOL,
+          f"waveglow step card vs cpu: loss rel {loss_rel}, grad norm rel "
+          f"{gn_rel}")
+    emit("waveglow_train_vs_cpu", B=WG_B, segment=seg, n_flows=2,
+         n_layers=2, n_channels=wc["n_channels"],
+         card_loss_gradnorm=res["card"], cpu_loss_gradnorm=res["cpu"],
+         loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel)
+
+
+def phase_waveglow_wide(corpus, tmp, kernels, dev):
+    """WaveGlows wider than 256 through K2: for C in K2_WIDE, one trainer
+    step at that width (``-p waveglow_config.n_channels=C``) writes
+    waveglow_0.pt, which ``load_waveglow`` reads at its width and which
+    vocodes a 400-frame mel at B=1 on the card: K2 n_flows * n_layers
+    times a pass, the audio within K2_TOL of its scale from the same
+    model's plain path on the card (``wn_layer_reference`` in K2's place).
+    One step leaves the end convs near zero, where the audio hardly
+    depends on the WN stack, so the model is vocoded again with them at
+    0.05 * sqrt(256 / C) * normal (``perturb_heads``' 0.05 at 256
+    channels, the end conv's output kept at its size), within K2_TOL too.
+    At 0.05 whatever the width, a seeded 1024-channel model put kernel and
+    plain 4.2e-2 of the audio's scale apart while each layer agreed within
+    1.2e-5 (PERF.md §6). Returns {C: launches of the pass}."""
+    from flowtron_tpu_torch.ops.wavenet import wn_layer_reference, wn_plan
+    from flowtron_tpu_torch.scripts import train_waveglow
+    from flowtron_tpu_torch.vocoder import waveglow as wgm
+
+    fl = filelist_of(corpus[0], WG_B, os.path.join(tmp, "wg_one.txt"))
+    paths, train_s = {}, {}
+    for C in K2_WIDE:
+        out_dir = os.path.join(tmp, f"wg_{C}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_waveglow.main(wg_args(fl, out_dir,
+                                        f"waveglow_config.n_channels={C}"))
+        train_s[C] = time.perf_counter() - t0
+        paths[C] = os.path.join(out_dir, "waveglow_0.pt")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for C, path in paths.items():
+        wg, cfg = wgm.load_waveglow(path, dev)
+        check(cfg["n_channels"] == C and wg.WN[0].n_channels == C,
+              f"waveglow_wide: {path} loaded at {cfg}")
+        gen = torch.Generator().manual_seed(40 + C)
+        Tg = N_FRAMES * HOP // cfg["n_group"]
+        mel = (torch.randn(1, cfg["n_mel_channels"], N_FRAMES, generator=gen)
+               - 5.0).to(dev)
+        z_main = (0.8 * torch.randn(1, wgm.waveglow_n_remaining(cfg), Tg,
+                                    generator=gen)).to(dev)
+        z_early = [(0.8 * torch.randn(1, cfg["n_early_size"], Tg,
+                                      generator=gen)).to(dev)
+                   if f % cfg["n_early_every"] == 0 and f > 0 else None
+                   for f in range(cfg["n_flows"])]
+        wgm.waveglow_infer_z(wg, cfg, mel, z_main, z_early)   # warm-up
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        pass_ms, audio = cuda_ms(
+            lambda: wgm.waveglow_infer_z(wg, cfg, mel, z_main, z_early))
+        launches = read_launches(kernels)
+        n_layers = cfg["n_flows"] * cfg["n_layers"]
+        check(launches["wn_layer"] == n_layers
+              and sum(launches.values()) == n_layers,
+              f"waveglow_wide C={C}: launches {launches}")
+        kernel = wgm.wn_layer
+        wgm.wn_layer = wn_layer_reference
+        try:
+            plain_ms, plain = cuda_ms(
+                lambda: wgm.waveglow_infer_z(wg, cfg, mel, z_main, z_early))
+        finally:
+            wgm.wn_layer = kernel
+        abs_err = float((audio - plain).abs().max())
+        err = abs_err / max(1.0, float(plain.abs().max()))
+        check(tuple(audio.shape) == (1, N_FRAMES * HOP)
+              and bool(torch.isfinite(audio).all()) and err <= K2_TOL,
+              f"waveglow_wide C={C}: audio vs plain {err}")
+        g = torch.Generator().manual_seed(C)
+        with torch.no_grad():
+            for wn in wg.WN:
+                wn.end.weight.copy_(0.05 * (256 / C) ** 0.5 * torch.randn(
+                    wn.end.weight.shape, generator=g))
+        heads = wgm.waveglow_infer_z(wg, cfg, mel, z_main, z_early)
+        wgm.wn_layer = wn_layer_reference
+        try:
+            heads_plain = wgm.waveglow_infer_z(wg, cfg, mel, z_main, z_early)
+        finally:
+            wgm.wn_layer = kernel
+        heads_scale = max(1.0, float(heads_plain.abs().max()))
+        heads_err = float((heads - heads_plain).abs().max()) / heads_scale
+        check(bool(torch.isfinite(heads).all()) and heads_err <= K2_TOL,
+              f"waveglow_wide C={C}, end convs perturbed: audio vs plain "
+              f"{heads_err}")
+        emit("waveglow_wide", C=C, trainer_s=train_s[C], frames=N_FRAMES,
+             plan=wn_plan(1, Tg, C, sms)._asdict(), launches=launches,
+             max_abs_err=abs_err, max_rel_err=err, pass_ms=pass_ms,
+             plain_pass_ms=plain_ms, heads_perturbed_rel_err=heads_err,
+             heads_perturbed_audio_scale=heads_scale)
+        out[C] = launches["wn_layer"]
+        del wg
+        torch.cuda.empty_cache()
+    return out
 
 
 def probe_check(tag, out, ref, tol):
@@ -2867,6 +3162,7 @@ def main():
 
     k1_err, k1_times, stop, k1_frames = phase_k1(model, cfg, ids, sid, dev)
     k2_err, k2_times = phase_k2(wg, dev)
+    k2_wide = phase_k2_wide(dev)
     phase_waveglow_split(wg, wg_cfg, dev)
     k4 = phase_k4(dev)
     # the audio tail and the streaming path, the gate as drawn
@@ -2941,14 +3237,18 @@ def main():
                                                dev)
         eval_launches = phase_evaluate(corpus, tmp, gm_run, gm_ckpt, kernels,
                                        dev)
+        phase_waveglow_train(corpus, tmp, kernels, dev)
+        phase_waveglow_train_vs_cpu(corpus, dev)
+        wide_launches = phase_waveglow_wide(corpus, tmp, kernels, dev)
     emit("launches_by_path", **paths, train_fp32=train_launches,
          train_gm=gm_run["launches"], train_remat=remat_launches,
          cumm_train=cumm_launches, cumm_request=cumm_infer,
-         evaluate=eval_launches)
+         evaluate=eval_launches, waveglow_wide=wide_launches)
     probes, probe_launches = phase_probes(kernels, k1_frames, dev)
-    loaded = [m for m in sys.modules if m in ("jax", "flowtron_tpu")
-              or m.startswith(("jax.", "flowtron_tpu."))]
-    check(not loaded, f"the JAX package or jax was imported: {loaded}")
+    loaded = [m for m in sys.modules if m in ("jax", "optax", "flowtron_tpu")
+              or m.startswith(("jax.", "optax.", "flowtron_tpu."))]
+    check(not loaded, f"the JAX package, jax or optax was imported: "
+          f"{loaded}")
 
     def row(name, source, replaces, launches, err, times, library_ms=None):
         ms, plain_ms, bound_ms, bound_by = times[:4]
@@ -2960,18 +3260,26 @@ def main():
 
     # K1: one gated flow of the first request (B=1, 400 frames); K2: one
     # WN layer (layer 3) at B=1, T=12800, its bound the three bf16 passes
-    # of its products; K3: the first training batch, fp32; K4: one
-    # flow-frame's nine calls at B=8, summed (the library call is the
-    # fp32 cuBLAS product on the pre-dequantized weight). K4's launches
+    # of its products (C=256; by_width: 512 and 1024); K3: the first
+    # training batch, fp32; K4: one flow-frame's nine calls at B=8, summed
+    # (the library call is the fp32 cuBLAS product on the pre-dequantized
+    # weight). K4's launches
     # are the w8a8 server's main wave: JAX routes only a8 leaves to the
     # kernel, so the weight-only body launches 0 times on any path.
     print(json.dumps({"kernels": [
         row("fused_flow_infer", "flowtron_tpu_torch/csrc/decoder.cu",
             "flowtron_tpu/ops/decoder_pallas.py:229",
             infer_launches["fused_flow_infer"], k1_err, k1_times),
-        row("wn_layer", "flowtron_tpu_torch/csrc/wavenet.cu",
-            "flowtron_tpu/ops/wavenet_pallas.py:57",
-            infer_launches["wn_layer"], k2_err, k2_times),
+        dict(row("wn_layer", "flowtron_tpu_torch/csrc/wavenet.cu",
+                 "flowtron_tpu/ops/wavenet_pallas.py:57",
+                 infer_launches["wn_layer"], k2_err, k2_times),
+             # the wide builds: layer 3 at B=1, T=12800; launches of one
+             # 400-frame pass of a WaveGlow that wide (waveglow_wide)
+             by_width={C: dict(row(
+                 "wn_layer", "flowtron_tpu_torch/csrc/wavenet.cu",
+                 "flowtron_tpu/ops/wavenet_pallas.py:57", wide_launches[C],
+                 k2_wide[C][0], k2_wide[C][1:5]), bm=k2_wide[C][5])
+                 for C in K2_WIDE}),
         row("attention_scores_fwd", "flowtron_tpu_torch/csrc/attention.cu",
             "flowtron_tpu/ops/attention_pallas.py:46",
             train_launches["attention_scores_fwd"], k3["fwd"][0],

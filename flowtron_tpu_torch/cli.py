@@ -35,10 +35,12 @@ def inference_main(argv=None):
     parser.add_argument("-c", "--config", type=str, required=True)
     parser.add_argument("-p", "--params", nargs="+", default=[])
     parser.add_argument("-f", "--flowtron_path", type=str, required=True,
-                        help="reference-format .pt state_dict")
+                        help="reference-format .pt state_dict or a JAX "
+                             "package pickle checkpoint")
     parser.add_argument("-w", "--waveglow_path", type=str, default="",
-                        help="WaveGlow .pt state_dict; without it the mel "
-                             "is vocoded by Griffin-Lim on the host")
+                        help="WaveGlow .pt or JAX package pickle; without "
+                             "it the mel is vocoded by Griffin-Lim on the "
+                             "host")
     parser.add_argument("-t", "--text", type=str, required=True)
     parser.add_argument("-i", "--id", type=int, default=0,
                         help="speaker id")
@@ -84,7 +86,8 @@ def evaluate_main(argv=None):
     parser.add_argument("-p", "--params", nargs="+", default=[])
     parser.add_argument("-f", "--flowtron_path", type=str, required=True,
                         help=".pt checkpoint (a training checkpoint or a "
-                             "reference-format state_dict)")
+                             "reference-format state_dict) or a JAX "
+                             "package pickle checkpoint")
     parser.add_argument("--invertibility-frames", type=int, default=100,
                         help="latent frames for the round-trip oracle "
                              "(0 disables it)")

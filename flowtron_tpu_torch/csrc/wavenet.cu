@@ -62,7 +62,12 @@
 // in place of mma.sync did not hide them. A producer warp feeding a
 // decoupled ring is the next step.
 // BM and NH come from ops/wavenet.py:wn_plan and WN_BUILDS; each (C, BM)
-// is instantiated below.
+// is instantiated below. Past C = 256, z (2 * BM * C * 2 bytes) and the
+// weight ring no longer fit one pass of 64 rows: C = 512 walks the columns
+// in 4 passes at 64 rows or 2 at 32, C = 1024 in 8 at 32 rows (z alone is
+// 256 KB at 64). Each pass stages x again, and every block reads all of a
+// layer's weights from L2 for its BM rows, so these builds are right but
+// not fast (PERF.md §6, K2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -464,6 +469,9 @@ cudaError_t dispatch(int C, int bm, bool last, int* cfg, const Args* args,
   WN_CASE(128, 64, 4, 1)
   WN_CASE(256, 64, 8, 1)
   WN_CASE(256, 112, 4, 2)
+  WN_CASE(512, 64, 4, 4)
+  WN_CASE(512, 32, 8, 2)
+  WN_CASE(1024, 32, 4, 8)
 #undef WN_CASE
   return cudaErrorInvalidValue;
 }

@@ -30,11 +30,17 @@ from flowtron_tpu_torch.ops import _build
 
 # csrc/wavenet.cu's builds: {C: {rows a block: column passes}}, its k rows
 # a chunk, the SMs of an H100 SXM and a block's shared memory
-WN_BUILDS = {64: {64: 1}, 128: {64: 1}, 256: {64: 1, 112: 2}}
+WN_BUILDS = {64: {64: 1}, 128: {64: 1}, 256: {64: 1, 112: 2},
+             512: {64: 4, 32: 2}, 1024: {32: 8}}
 KC, H100_SMS, SMEM_LIMIT = 16, 132, 232448
-# a row's time in a block of two column passes over one pass (it stages x
-# twice), measured on an H100 at C = 256 (64 against 112 rows a block)
-TWO_PASS_ROW_COST = 1.09
+# a row's time in a full wave of each (C, rows a block) build, relative to
+# the first build of its width, measured on an H100 (chip_smoke.py's
+# k2_bm line: a layer's ms over its waves times its rows a block). A pass
+# more stages x again; fewer rows a block read the weights from L2 for
+# fewer rows.
+WN_ROW_COST = {(64, 64): 1.0, (128, 64): 1.0, (256, 64): 1.0,
+               (256, 112): 1.09, (512, 64): 1.0, (512, 32): 0.95,
+               (1024, 32): 1.0}
 
 WnPlan = namedtuple("WnPlan", "bm nh stages smem grid")
 WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block of 256
@@ -56,11 +62,10 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
     """Tile B * Tp rows of width C for csrc/wavenet.cu on a card of ``sms``
     SMs (None: an H100's 132), one block a SM. ``bm`` (rows a block) is
     one of the builds for C; by default the one whose busiest SM takes the
-    least time, ceil(blocks / sms) * bm rows at TWO_PASS_ROW_COST where
-    the build walks the columns in two passes, the larger on a tie: at
-    C = 256, 112 rows at B=1 (one wave of 115 blocks) and 64 at B=8.
-    Returns a WnPlan; raises ValueError for a shape the kernel does not
-    take."""
+    least time, ceil(blocks / sms) * bm rows at the build's measured
+    ``WN_ROW_COST``, the larger on a tie: at C = 256, 112 rows at B=1 (one
+    wave of 115 blocks) and 64 at B=8. Returns a WnPlan; raises
+    ValueError for a shape the kernel does not take."""
     if C not in WN_BUILDS:
         raise ValueError(f"the kernel takes C in {sorted(WN_BUILDS)}, "
                          f"got {C}")
@@ -71,8 +76,7 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
     builds = WN_BUILDS[C]
     if bm is None:
         bm = min(builds, key=lambda r: (
-            -(-(-(-M // r)) // sms) * r
-            * (TWO_PASS_ROW_COST if builds[r] == 2 else 1), -r))
+            -(-(-(-M // r)) // sms) * r * WN_ROW_COST[(C, r)], -r))
     elif bm not in builds:
         raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
     nh = builds[bm]
@@ -183,6 +187,13 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
         return wn_layer_reference(x, d, cond, w_cat, b, w_rs, b_rs, T)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, cond, w_cat, b, w_rs, b_rs)):
+        raise RuntimeError(
+            "wn_layer has no backward: the kernel's outputs would be cut "
+            "from the autograd graph. Call it under torch.no_grad(); "
+            "training runs vocoder/waveglow.py:waveglow_forward, which "
+            "never reaches it")
     dev = x.device
     B, Tp, C = x.shape
     n_rs = w_rs.shape[1]

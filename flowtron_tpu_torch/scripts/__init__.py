@@ -15,4 +15,8 @@ CUDA graphs so host dispatch does not count.
 Nothing runs at import: arguments are parsed in ``main(argv=None)``, and
 the scripts' module constants are keyword parameters with the scripts'
 values as defaults.
+
+Beside the probes: ``train_waveglow`` (the vocoder trainer of
+scripts/train_waveglow.py), ``k3_time``, ``k4_split``, ``probe_f64`` and
+``remat_trace`` (measurements of the port's kernels and trainer).
 """

@@ -43,10 +43,12 @@ def _parser():
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("-p", "--params", nargs="+", default=[])
     parser.add_argument("-f", "--flowtron_path", required=True,
-                        help="reference-format .pt state_dict")
+                        help="reference-format .pt state_dict or a JAX "
+                             "package pickle checkpoint")
     parser.add_argument("-w", "--waveglow_path", default="",
-                        help="WaveGlow .pt state_dict; without it requests "
-                             "are vocoded by Griffin-Lim on the host")
+                        help="WaveGlow .pt or JAX package pickle; without "
+                             "it requests are vocoded by Griffin-Lim on the "
+                             "host")
     parser.add_argument("-d", "--denoise", type=float, default=0.0,
                         help="WaveGlow bias-denoiser strength (0 = off; "
                              "needs -w); requests override it with "

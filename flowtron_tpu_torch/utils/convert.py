@@ -9,8 +9,11 @@ it; ``flowtron_jax_from_state_dict`` is its inverse (the semantics of
 ``import_torch_state_dict``), filling a numpy pytree of the JAX layout.
 ``radam_state_from_jax`` maps a JAX ``RAdamState`` (numpy leaves) onto
 the port's parameter names, so the two optimizers' moments can be
-compared. ``waveglow_from_jax`` writes the published WaveGlow checkpoint
-names (``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``).
+compared and a JAX checkpoint's moments loaded. ``flatten_jax`` gives a
+pytree's flat keys as the JAX package's checkpoints name them, and
+``flowtron_jax_keys`` the key of each state_dict name.
+``waveglow_from_jax`` writes the published WaveGlow checkpoint names
+(``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``).
 ``quantized_model_from_jax`` carries a pytree that the JAX package's
 ``quantize_flows_for_inference`` made (int8 ``q``/``s`` leaves with or
 without the ``a8`` marker, int4 ``q4``/``s``) into a copy of a port model.
@@ -119,9 +122,46 @@ def _flowtron_entries(p):
 
 
 def flowtron_state_dict_from_jax(np_params):
-    """JAX ``flowtron_init`` params (numpy leaves) -> reference state_dict."""
+    """JAX ``flowtron_init`` params (numpy leaves) -> reference state_dict.
+    A leaf that holds no array (optax's ``MaskedNode`` where a moment tree
+    has a frozen parameter) has no entry."""
     return {name: _t(_LAYOUT[kind][0](np.asarray(sub[key])))
-            for name, sub, key, kind in _flowtron_entries(np_params)}
+            for name, sub, key, kind in _flowtron_entries(np_params)
+            if hasattr(sub[key], "shape")}
+
+
+def flatten_jax(tree, prefix=""):
+    """A JAX pytree's flat keys, as flowtron_tpu/train/checkpoints.py:
+    _flatten writes them (``flows.0.lstm.layers.0.w_ih``) -> leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_jax(v, f"{prefix}{k}."))
+    return out
+
+
+def unflatten_jax(flat, template, prefix=""):
+    """``flatten_jax``'s inverse, in the structure of ``template``."""
+    if isinstance(template, dict):
+        return {k: unflatten_jax(flat, v, f"{prefix}{k}.")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(unflatten_jax(flat, v, f"{prefix}{i}.")
+                              for i, v in enumerate(template))
+    return flat[prefix[:-1]]
+
+
+def flowtron_jax_keys(np_params):
+    """{state_dict name: the JAX flat key of its leaf}; the reference's
+    alias names share one leaf, so one key."""
+    key_of = {id(v): k for k, v in flatten_jax(np_params).items()}
+    return {name: key_of[id(sub[key])]
+            for name, sub, key, _ in _flowtron_entries(np_params)}
 
 
 def _quantized_leaf(leaf, device):
@@ -180,7 +220,7 @@ def radam_state_from_jax(np_state):
     """A JAX ``RAdamState`` (count, exp_avg, exp_avg_sq with numpy leaves,
     the moments shaped like the params) -> ``{"step": int, "exp_avg":
     {name: tensor}, "exp_avg_sq": {name: tensor}}`` in the port's names
-    and layouts."""
+    and layouts; a frozen (``MaskedNode``) leaf has no entry."""
     return {"step": int(np.asarray(np_state.count)),
             "exp_avg": flowtron_state_dict_from_jax(np_state.exp_avg),
             "exp_avg_sq": flowtron_state_dict_from_jax(np_state.exp_avg_sq)}

@@ -1,24 +1,37 @@
-"""WaveGlow flow vocoder, inference direction (port of
-flowtron_tpu/vocoder/waveglow.py: ``waveglow_init``, ``_upsample_mel``,
-the time-major WN stack, the inverse 1x1 conv, ``waveglow_n_remaining``,
-``waveglow_infer_z`` and ``waveglow_infer``).
+"""WaveGlow flow vocoder (port of flowtron_tpu/vocoder/waveglow.py:
+``waveglow_init``, ``_upsample_mel``, the WN stacks, ``_squeeze_audio``,
+``waveglow_forward``, ``waveglow_loss``, the inverse 1x1 conv,
+``waveglow_n_remaining``, ``waveglow_infer_z``, ``waveglow_infer`` and
+``load_waveglow``).
 
 Audio is squeezed into groups of ``n_group`` samples; ``n_flows`` steps of
-[invertible 1x1 conv -> affine coupling] are inverted from z ~ N(0,
-sigma^2), fully parallel over time. The coupling's WN stack runs
-time-major, activations as (B, T, C), and every WN layer goes through
-kernel K2 (``ops/wavenet.py``) on CUDA tensors and its plain version on
-CPU tensors. Parameter names follow the published WaveGlow state_dict
-(``upsample``, ``convinv.{f}.conv``, ``WN.{f}.{start,end,cond_layer,
-in_layers.{l},res_skip_layers.{l}}``).
+[invertible 1x1 conv -> affine coupling] map it to z (training,
+``waveglow_forward``) and are inverted from z ~ N(0, sigma^2) (inference),
+fully parallel over time.
+
+Inference runs the coupling's WN stack time-major, activations as
+(B, T, C), and every WN layer goes through kernel K2 (``ops/wavenet.py``)
+on CUDA tensors and its plain version on CPU tensors. Training runs it in
+the channel-major form of the JAX package's ``_wavenet_nch`` (the path
+JAX's ``waveglow_forward`` takes by default, an XLA convolution and not a
+Pallas kernel): ``F.conv1d`` with dilation, the one conditioning conv of
+all layers, the tanh * sigmoid gate and res/skip, differentiable on every
+device. K2 has no backward, so the training direction never reaches it.
+
+Parameter names follow the published WaveGlow state_dict (``upsample``,
+``convinv.{f}.conv``, ``WN.{f}.{start,end,cond_layer,in_layers.{l},
+res_skip_layers.{l}}``).
 """
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from flowtron_tpu_torch.ops.wavenet import wn_layer
+from flowtron_tpu_torch.utils.convert import waveglow_from_jax
+from flowtron_tpu_torch.utils.jax_pickle import load_jax_pickle
 
 
 def _conv(out_c, in_c, k, generator, zero=False):
@@ -104,6 +117,11 @@ class WaveGlow(nn.Module):
             self.WN.append(WN(n_remaining // 2, n_mel_channels * n_group,
                               n_layers, n_channels, kernel_size, generator))
 
+    def forward(self, config, spect, audio):
+        """``waveglow_forward``'s body on this module's (possibly swapped,
+        see ``torch.func.functional_call``) parameters."""
+        return _forward(self, config, spect, audio)
+
 
 def waveglow_init(seed=0, device="cpu", n_mel_channels=80, n_flows=12,
                   n_group=8, n_early_every=4, n_early_size=2, n_layers=8,
@@ -174,6 +192,98 @@ def _unsqueeze_audio(audio_g):
     return audio_g.transpose(1, 2).reshape(B, Tg * G)
 
 
+def _squeeze_audio(audio, n_group):
+    """(B, T) -> (B, n_group, T // n_group), torch's unfold layout."""
+    B, T = audio.shape
+    Tg = T // n_group
+    return audio[:, :Tg * n_group].reshape(B, Tg, n_group).transpose(1, 2)
+
+
+def _conv1d(conv, x, dilation=1):
+    """A "same" conv (B, C_in, T) -> (B, C_out, T), the bias added after
+    the product as the JAX package adds it."""
+    pad = dilation * (conv.weight.shape[-1] - 1) // 2
+    return F.conv1d(x, conv.weight, padding=pad, dilation=dilation) \
+        + conv.bias[None, :, None]
+
+
+def _wavenet_nch(wn, audio_half, spect):
+    """Channel-major gated WaveNet (the JAX package's ``_wavenet_nch``).
+    audio_half (B, n_half, T), spect (B, n_mel * n_group, T) ->
+    (B, 2 * n_half, T)."""
+    C, L = wn.n_channels, wn.n_layers
+    x = _conv1d(wn.start, audio_half)
+    cond = _conv1d(wn.cond_layer, spect)                # (B, 2 C L, T)
+    output = torch.zeros_like(x)
+    for k in range(L):
+        acts = _conv1d(wn.in_layers[k], x, dilation=2 ** k) \
+            + cond[:, 2 * C * k:2 * C * (k + 1)]
+        z = torch.tanh(acts[:, :C]) * torch.sigmoid(acts[:, C:])
+        rs = _conv1d(wn.res_skip_layers[k], z)
+        if k < L - 1:
+            x = x + rs[:, :C]
+            output = output + rs[:, C:]
+        else:
+            output = output + rs
+    return _conv1d(wn.end, output)
+
+
+def _forward(model, config, spect, audio):
+    n_group, n_early_every = config["n_group"], config["n_early_every"]
+    n_early_size = config["n_early_size"]
+    audio_g = _squeeze_audio(audio, n_group)
+    Tg = audio_g.shape[2]
+    spect_g = _upsample_mel(model, spect, n_group, Tg * n_group)[:, :, :Tg]
+    output_audio, log_s_list, log_det_list = [], [], []
+    for f in range(config["n_flows"]):
+        if f % n_early_every == 0 and f > 0:
+            output_audio.append(audio_g[:, :n_early_size])
+            audio_g = audio_g[:, n_early_size:]
+        W = model.convinv[f].conv.weight[:, :, 0]
+        audio_g = torch.einsum("ij,bjt->bit", W, audio_g)
+        logdet = torch.linalg.slogdet(W.float())[1]
+        log_det_list.append(audio_g.shape[0] * audio_g.shape[2] * logdet)
+        n_half = audio_g.shape[1] // 2
+        audio_0, audio_1 = audio_g[:, :n_half], audio_g[:, n_half:]
+        out = _wavenet_nch(model.WN[f], audio_0, spect_g)
+        log_s, b = out[:, n_half:], out[:, :n_half]
+        audio_1 = torch.exp(log_s) * audio_1 + b
+        log_s_list.append(log_s)
+        audio_g = torch.cat([audio_0, audio_1], dim=1)
+    output_audio.append(audio_g)
+    return torch.cat(output_audio, dim=1), log_s_list, log_det_list
+
+
+def waveglow_forward(model, config, spect, audio, compute_dtype=None):
+    """Training direction: audio (B, T), spect (B, n_mel, T_mel) ->
+    (z (B, n_group, T // n_group), log_s list, log_det list), each
+    log_det ``B * Tg * log|det W|`` in fp32.
+
+    compute_dtype: e.g. torch.bfloat16, the ``fp16_run`` policy of the
+    JAX package's vocoder trainer: the pass runs on cast copies of every
+    floating parameter (``torch.func.functional_call``, so gradients reach
+    the fp32 parameters), with spect and audio cast too; the outputs keep
+    the dtypes the pass gives them (the caller casts them for the loss).
+    """
+    if compute_dtype is None:
+        return _forward(model, config, spect, audio)
+    cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
+            for name, p in model.named_parameters()}
+    return torch.func.functional_call(
+        model, cast, (config, spect.to(compute_dtype),
+                      audio.to(compute_dtype)))
+
+
+def waveglow_loss(z, log_s_list, log_det_list, sigma=1.0):
+    """-log p(x): the Gaussian NLL of z minus the flows' log-determinants,
+    over the elements of z (the WaveGlow paper's convention)."""
+    log_s_total = sum(torch.sum(ls) for ls in log_s_list)
+    log_det_total = sum(log_det_list)
+    loss = (torch.sum(z * z) / (2 * sigma * sigma)
+            - log_s_total - log_det_total)
+    return loss / (z.shape[0] * z.shape[1] * z.shape[2])
+
+
 def waveglow_n_remaining(config):
     """Channel count of the innermost flow after the early outputs."""
     n = config["n_group"]
@@ -229,10 +339,20 @@ def waveglow_infer(model, config, spect, sigma=1.0, seed=0):
 
 
 def load_waveglow(path, device="cpu"):
-    """Load a WaveGlow state_dict file (``.pt``) in the published
-    256-channel layout (``waveglow_init``'s defaults), folding weight_norm
-    pairs (``weight_g``, ``weight_v``) into weights. Only tensors are
-    unpickled (``weights_only=True``)."""
+    """Load a WaveGlow, each kind with ``strict=True``: a ``.pt`` that holds
+    its ``config`` (as ``scripts/train_waveglow.py`` writes it) at that
+    width; a published ``.pt`` state_dict without one in the 256-channel
+    layout (``waveglow_init``'s defaults), weight_norm pairs
+    (``weight_g``, ``weight_v``) folded into weights (only tensors are
+    unpickled, ``weights_only=True``); any other file as the JAX
+    package's ``{"params", "config"}`` pickle of any width
+    (``utils/jax_pickle.py``). Returns (model, config)."""
+    if not path.endswith((".pt", ".pth")):
+        payload = load_jax_pickle(path)
+        model, config = waveglow_init(**payload["config"])
+        model.load_state_dict(waveglow_from_jax(payload["params"], config),
+                              strict=True)
+        return model.to(device), config
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     folded = {}
@@ -244,6 +364,7 @@ def load_waveglow(path, device="cpu"):
             folded[base + ".weight"] = value * v / norm
         elif not name.endswith(".weight_v"):
             folded[name] = value
-    model, config = waveglow_init()   # the published 256-channel layout
+    saved = ckpt.get("config") if isinstance(ckpt, dict) else None
+    model, config = waveglow_init(**(saved or {}))
     model.load_state_dict(folded, strict=True)
     return model.to(device), config

@@ -127,17 +127,39 @@ def _run(code_or_args, cwd=ROOT):
                           capture_output=True, text=True, timeout=240)
 
 
+def _jax_pickles(root):
+    """A JAX package Flowtron checkpoint (its save_checkpoint, a masked
+    RAdam state) at the subprocess's toy widths, and a WaveGlow pickle as
+    its vocoder trainer writes one."""
+    import pickle
+    from flowtron_tpu.train.checkpoints import save_checkpoint, trainable_mask
+    from flowtron_tpu.train.radam import build_optimizer, masked_optimizer
+    params, _ = jax_flowtron_init(
+        jax.random.PRNGKey(0), n_speaker_dim=4, n_text_dim=12,
+        n_mel_channels=8, n_hidden=16, n_attn_channels=8)
+    opt = masked_optimizer(build_optimizer("RAdam", 1e-3, 0.0, 1.0),
+                           trainable_mask(params))
+    save_checkpoint(str(root / "model_3"), params, opt.init(params), 3,
+                    1e-3, None)
+    wg, cfg = jax_waveglow_init(jax.random.PRNGKey(1), **TINY_WG)
+    with open(root / "waveglow_0", "wb") as f:
+        pickle.dump({"params": jax.tree.map(np.asarray, wg), "config": cfg},
+                    f)
+
+
 def test_port_never_imports_jax(tmp_path):
     """Import every module of the port, the training, streaming, mux,
     evaluation, tone-CER and Gaussian-mixture ones by name too, and run a
     tiny synthesis, a tiny training step (forward, losses, backward
     through K3's plain versions, RAdam), one Gaussian-mixture step with
     remat, one request and one stream through a w8a8 serving engine (K4's
-    plain version) and one stream through an engine's multistream mux in
-    a fresh interpreter:
-    neither jax nor the JAX package (``flowtron_tpu`` or
+    plain version) and one stream through an engine's multistream mux,
+    and load a JAX package Flowtron checkpoint (params and optimizer) and
+    WaveGlow pickle, in a fresh interpreter:
+    neither jax, optax nor the JAX package (``flowtron_tpu`` or
     ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
-    test process already imported both."""
+    test process already imported them."""
+    _jax_pickles(tmp_path)
     code = (
         "import importlib, pkgutil, sys\n"
         "import flowtron_tpu_torch as p\n"
@@ -203,8 +225,16 @@ def test_port_never_imports_jax(tmp_path):
         "assert sum(len(p) for p in muxed) in (256, 512, 768), muxed\n"
         "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
         "assert sum(len(p) for p in pcm) in (256, 512, 768), pcm\n"
-        "bad = [k for k in sys.modules if k in ('jax', 'flowtron_tpu') or "
-        "k.startswith(('jax.', 'flowtron_tpu.'))]\n"
+        "from flowtron_tpu_torch.train.checkpoints import load_checkpoint\n"
+        "from flowtron_tpu_torch.vocoder.waveglow import load_waveglow\n"
+        "m, c = flowtron_init(0, n_speaker_dim=4, n_text_dim=12, "
+        "n_mel_channels=8, n_hidden=16, n_attn_channels=8)\n"
+        "assert load_checkpoint(root + '/model_3', m, RAdam(m.parameters()))"
+        " == 3\n"
+        "assert load_waveglow(root + '/waveglow_0')[1]['n_channels'] == 16\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'optax', "
+        "'flowtron_tpu') or k.startswith(('jax.', 'optax.', "
+        "'flowtron_tpu.'))]\n"
         "print('JAX_MODULES', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])

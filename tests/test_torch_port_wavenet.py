@@ -21,7 +21,7 @@ from flowtron_tpu.vocoder.waveglow import (  # noqa: E402
 
 from flowtron_tpu_torch.ops.wavenet import (  # noqa: E402
     SMEM_LIMIT, WN_BUILDS, wn_layer, wn_layer_reference, wn_plan,
-    wn_split_weights,
+    wn_smem_bytes, wn_split_weights,
 )
 from flowtron_tpu_torch.utils.convert import waveglow_from_jax  # noqa: E402
 from flowtron_tpu_torch.vocoder.waveglow import (  # noqa: E402
@@ -196,6 +196,27 @@ class TestKernelArithmetic:
             else:
                 assert np.all(ours[0][:, T:] == 0)
 
+    @pytest.mark.parametrize("C", [512, 1024])
+    def test_emulation_at_the_wide_builds(self, C):
+        """The column passes of the 512- and 1024-wide builds (4 and 2
+        passes at 512, 8 at 1024) keep K2's 1e-4 of the output scale of
+        the plain layer, its last layer too."""
+        rng = np.random.default_rng(C)
+        B, T, Tp, d = 1, 100, 128, 4
+        for last in (False, True):
+            args = _layer_inputs(rng, B, C, T, Tp, last)
+            ref = wn_layer_reference(*map(_t, args[:1]), d,
+                                     *map(_t, args[1:]), T)
+            for nh in sorted(set(WN_BUILDS[C].values())):
+                ours = _emulate_wn_layer(args[0], d, *args[1:], T, nh)
+                for o, r in zip(ours, ref):
+                    if r is None:
+                        assert o is None
+                        continue
+                    r = r.numpy()
+                    assert np.abs(o - r).max() <= 1e-4 * max(
+                        1.0, np.abs(r).max()), (nh, last)
+
     def test_split_reconstructs_to_2e_16(self):
         """hi + lo gives each operand back to 2^-16 of its magnitude (hi
         carries 8 bits, lo the next 8), so the dropped lo*lo term is below
@@ -261,6 +282,21 @@ class TestKernelArithmetic:
             wn_plan(0, 128, 256)
 
 
+    @pytest.mark.parametrize("C", [512, 1024])
+    def test_plan_at_the_wide_builds(self, C):
+        """C = 512 and 1024 fit a block's shared memory at every build;
+        the default build at B=1 and B=8 of a 400-frame pass follows the
+        measured row costs."""
+        for bm, nh in WN_BUILDS[C].items():
+            assert wn_smem_bytes(C, bm, nh, 4) <= SMEM_LIMIT
+            assert wn_plan(1, 12800, C, bm=bm).stages == 4
+        expect = {512: 32, 1024: 32}[C]
+        for B in (1, 8):
+            plan = wn_plan(B, 12800, C)
+            assert plan.bm == expect and plan.nh == WN_BUILDS[C][expect]
+            assert plan.grid == -(-B * 12800 // expect)
+
+
 class TestWaveGlow:
     def test_upsample_matches_jax(self, wg):
         params, _, model, _ = wg
@@ -320,12 +356,17 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,B,d,last", [(64, 2, 4, False), (64, 2, 4, True),
                                         (256, 8, 8, False),
-                                        (256, 2, 128, True)])
+                                        (256, 2, 128, True),
+                                        (512, 2, 8, False),
+                                        (512, 1, 128, True),
+                                        (1024, 2, 4, False),
+                                        (1024, 1, 64, True)])
 def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last):
     """K2 against its plain version, with pad rows and a strided cond
     slice: C = 64 (the smallest width built), the flagship C = 256 at the
-    server's largest batch, and its last layer (d = 128); pad rows zero,
-    two calls bitwise equal."""
+    server's largest batch, and its last layer (d = 128), and the wide
+    builds C = 512 and 1024 (several column passes); pad rows zero, two
+    calls bitwise equal."""
     g = torch.Generator().manual_seed(0)
     T, Tp = 300, 384
     x = torch.randn(B, Tp, C, generator=g)
