@@ -58,6 +58,14 @@ drives the port's three paths at the full width of the repo's
   ``load_waveglow`` and vocoding 400 frames through K2's wide builds
   against the plain path on the card (K2 at 512 and 1024 is first held
   against its plain version at the vocoder's shapes, ``k2`` / ``k2_bm``);
+- distribution: ``train()`` over two ranks on the one card (gloo, spawned
+  by ``parallel/launch.py``), config.json at full width in fp32 without
+  dropout, against one process at the same global batch, then the ranks'
+  ``torch.distributed.checkpoint`` directory resumed here bitwise
+  (``ddp``); the vocoder trainer over two ranks against one
+  (``waveglow_ddp``); and the server with ``--replicas auto`` and
+  ``--replicas 2`` (clamped to the one card, answers bitwise alike,
+  ``serve_replicas``);
 - the TPU probes of ``scripts/exp_*.py`` (P1-P5) through their ports in
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
@@ -2742,6 +2750,368 @@ def phase_waveglow_wide(corpus, tmp, kernels, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# distribution: data-parallel training and replicas
+# --------------------------------------------------------------------------
+
+DDP_STEPS, DDP_B = 4, 6     # steps of the ddp runs; config.json's batch
+DDP_CKPT = DDP_STEPS - 1    # their checkpoint period: iterations 0 and 3
+PARAM_TOL = 1e-4            # two ranks vs one process: each tensor, of its
+                            # largest (at least 1e-6: a conv bias before an
+                            # instance norm has no gradient, only noise)
+WG_DDP_STEPS = 3
+RANKS_MODULE = "chip_smoke"  # where the ranks find ddp_rank, waveglow_rank
+
+
+def no_dropout(loop):
+    """Wrap ``loop.flowtron_forward`` so that the training forward draws no
+    dropout (one process and two ranks draw other masks); returns the
+    original to put back."""
+    forward = loop.flowtron_forward
+
+    def without(*args, **kw):
+        kw["generator"] = None
+        return forward(*args, **kw)
+    loop.flowtron_forward = without
+    return forward
+
+
+def state_digest(model, optimizer=None):
+    """sha256 over the model's state and the optimizer's steps and
+    moments, in a fixed order: equal digests, bitwise equal states."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    if optimizer is not None:
+        for p in (p for g in optimizer.param_groups for p in g["params"]):
+            s = optimizer.state.get(p, {})
+            h.update(repr(float(s.get("step", -1))).encode())
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in s:
+                    h.update(s[k].detach().cpu().contiguous().numpy()
+                             .tobytes())
+    return h.hexdigest()
+
+
+def phase_entry():
+    """``flowtron_tpu_torch.entry.entry()``: the flagship forward and loss
+    at full width (B=4, T=128, Tk=48) on the card, once; a finite loss."""
+    from flowtron_tpu_torch.entry import entry
+    fn, args = entry()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(fn(*args))
+    torch.cuda.synchronize()
+    check(math.isfinite(loss) and args[1].is_cuda, f"entry: loss {loss}")
+    emit("entry", loss=loss, seconds=time.perf_counter() - t0,
+         device=str(args[1].device))
+    del fn, args
+    torch.cuda.empty_cache()
+
+
+def ddp_rank(config):
+    """One rank of phase_ddp (started by parallel/launch.py, gloo, on
+    cuda:0): train(config) without dropout, TF32 off, K3's launches
+    counted around it; returns them, the digest of the final state and
+    rank 0's training log."""
+    from flowtron_tpu_torch.ops.attention import (
+        attention_scores_bwd, attention_scores_fwd)
+    from flowtron_tpu_torch.parallel.mesh import rank, world_size
+    from flowtron_tpu_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    no_dropout(loop)
+    attention_scores_fwd.launches = attention_scores_bwd.launches = 0
+    t0 = time.perf_counter()
+    model, opt, _ = loop.train(config)
+    torch.cuda.synchronize()
+    out = {"rank": rank(), "world": world_size(),
+           "device": str(next(model.parameters()).device),
+           "wall_s": time.perf_counter() - t0,
+           "launches": {"attention_scores_fwd": attention_scores_fwd.launches,
+                        "attention_scores_bwd": attention_scores_bwd.launches},
+           "digest": state_digest(model, opt)}
+    if rank() == 0:
+        out["log"] = read_log(config["train_config"]["output_directory"])
+    return out
+
+
+def read_log(out_dir):
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def ddp_config(train_fl, val_fl, out_dir, *extra):
+    from flowtron_tpu_torch.config import load_config
+    return load_config("config.json", [
+        f"data_config.training_files={train_fl}",
+        f"data_config.validation_files={val_fl}", NO_ARPABET,
+        f"train_config.output_directory={out_dir}", "train_config.epochs=1",
+        f"train_config.iters_per_checkpoint={DDP_CKPT}",
+        "train_config.with_tensorboard=False", "train_config.fp16_run=False",
+        f"train_config.batch_size={DDP_B}", *extra])
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_ddp(corpus, tmp, dev):
+    """Data-parallel training: config.json's model at full width in fp32,
+    dropout off, a global batch of 6 over DDP_STEPS steps of the synthetic
+    corpus (its rows hold different frame counts), once in this process
+    and once over two ranks on cuda:0 (gloo; NCCL refuses two ranks on one
+    card), each rank 3 rows. Losses (1e-4), grad norms (1e-3) and the
+    validations against the one process, the final parameters within
+    PARAM_TOL, the ranks bitwise equal, K3 launched on each rank; then the
+    ranks' last checkpoint, a torch.distributed.checkpoint directory both
+    wrote through AsyncSaver, resumed in this process: model and optimizer
+    bitwise the ranks'. Gloo stages every all-reduce through the host, so
+    the ranks' ms a step stands for no NVLink setup."""
+    from flowtron_tpu_torch.models.flowtron import flowtron_init
+    from flowtron_tpu_torch.ops.attention import (
+        attention_scores_bwd, attention_scores_fwd)
+    from flowtron_tpu_torch.parallel.launch import launch
+    from flowtron_tpu_torch.train import loop
+    from flowtron_tpu_torch.train.checkpoints import load_checkpoint
+    from flowtron_tpu_torch.train.radam import (
+        build_optimizer, trainable_parameters)
+
+    train_fl = filelist_of(corpus[0], DDP_B * DDP_STEPS,
+                           os.path.join(tmp, "ddp_train.txt"))
+    one_dir, two_dir = (os.path.join(tmp, d) for d in ("ddp1", "ddp2"))
+    forward = no_dropout(loop)
+    attention_scores_fwd.launches = attention_scores_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, opt, _ = loop.train(ddp_config(train_fl, corpus[1],
+                                                  one_dir))
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+    finally:
+        loop.flowtron_forward = forward
+    one_launches = attention_scores_fwd.launches
+    one_digest = state_digest(model, opt)
+    one_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt
+    one_log = read_log(one_dir)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ranks = launch(f"{RANKS_MODULE}:ddp_rank", 2, dict(config=ddp_config(
+            train_fl, corpus[1], two_dir,
+            "train_config.checkpoint_format=sharded")), timeout_s=600)
+    two_wall = time.perf_counter() - t0
+    two_log = ranks[0]["log"]
+    steps = [[r for r in log if "loss" in r] for log in (one_log, two_log)]
+    vals = [[r["validation"] for r in log if "validation" in r]
+            for log in (one_log, two_log)]
+    check(len(steps[0]) == len(steps[1]) == DDP_STEPS,
+          f"ddp: steps {[len(s) for s in steps]}")
+    check(all(r["device"] == "cuda:0" and r["world"] == 2 for r in ranks),
+          f"ddp: ranks {[(r['device'], r['world']) for r in ranks]}")
+    loss_rel = [rel(b["loss"], a["loss"]) for a, b in zip(*steps)]
+    gn_rel = [rel(b["grad_norm"], a["grad_norm"]) for a, b in zip(*steps)]
+    val_rel = [rel(b["loss"], a["loss"]) for a, b in zip(*vals)]
+    check(max(loss_rel) <= LOSS_TOL and max(val_rel) <= LOSS_TOL
+          and max(gn_rel) <= GNORM_TOL,
+          f"ddp vs one process: loss {loss_rel}, validation {val_rel}, grad "
+          f"norm {gn_rel}")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          "ddp: the two ranks' states differ")
+    check(all(r["launches"]["attention_scores_fwd"] > 0
+              and r["launches"]["attention_scores_bwd"] > 0 for r in ranks)
+          and one_launches > 0,
+          f"ddp: K3 not launched on every rank {[r['launches'] for r in ranks]}")
+
+    # the ranks' directory, resumed in this process on the card
+    cfg = ddp_config(train_fl, corpus[1], two_dir)
+    tc = cfg["train_config"]
+    model, _ = flowtron_init(int(tc["seed"]) + 1, device=dev,
+                             **cfg["model_config"])
+    params = [p for _, p in trainable_parameters(model)]
+    opt = build_optimizer(params, tc["optim_algo"], float(tc["learning_rate"]),
+                          float(tc["weight_decay"]))
+    ckpt = os.path.join(two_dir, f"model_{DDP_CKPT}")
+    t0 = time.perf_counter()
+    it = load_checkpoint(ckpt, model, opt)
+    resume_s = time.perf_counter() - t0
+    check(it == DDP_CKPT and state_digest(model, opt) == ranks[0]["digest"],
+          f"ddp: the directory {ckpt} did not restore the ranks' state "
+          "bitwise")
+    worst, worst_name = 0.0, None
+    for name, ref in one_state.items():
+        got = model.state_dict()[name]
+        scale = max(float(ref.abs().max()), 1e-6)
+        err = float((got - ref).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, name
+    check(worst <= PARAM_TOL, f"ddp: {worst_name} {worst} of its largest "
+          "from the one process's")
+    files = sorted(os.listdir(ckpt))
+    del model, opt, one_state
+    torch.cuda.empty_cache()
+    emit("ddp", world=2, backend="gloo", device="cuda:0", B_global=DDP_B,
+         B_rank=DDP_B // 2, steps=DDP_STEPS, policy="fp32",
+         frames=[r["frames"] for r in steps[1]],
+         loss_one=[r["loss"] for r in steps[0]],
+         loss_ranks=[r["loss"] for r in steps[1]], loss_rel_err=loss_rel,
+         grad_norm_rel_err=gn_rel, validation_rel_err=val_rel,
+         param_rel_err_max=worst, param_rel_err_tensor=worst_name,
+         ranks_bitwise_equal=True, resume_bitwise=True,
+         resume_s=resume_s, checkpoint_files=files,
+         ms_per_step_one=1e3 * statistics.median(
+             r["step_s"] for r in steps[0][1:]),
+         ms_per_step_ranks=1e3 * statistics.median(
+             r["step_s"] for r in steps[1][1:]),
+         step_ms_one=[1e3 * r["step_s"] for r in steps[0]],
+         step_ms_ranks=[1e3 * r["step_s"] for r in steps[1]],
+         wall_s_one=one_wall, wall_s_ranks=two_wall,
+         rank_wall_s=[r["wall_s"] for r in ranks],
+         launches_one=one_launches,
+         launches_ranks=[r["launches"] for r in ranks],
+         note="two ranks share one card over gloo, which stages each "
+              "all-reduce through the host: no NVLink or NCCL figure")
+    return [r["launches"] for r in ranks]
+
+
+def waveglow_rank(argv):
+    """One rank of phase_waveglow_ddp: the vocoder trainer's main, TF32
+    off; its losses and step times."""
+    from flowtron_tpu_torch.scripts.train_waveglow import main
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, hist = main(argv)
+    return {"losses": [h["loss"] for h in hist],
+            "step_s": [h["step_s"] for h in hist]}
+
+
+def phase_waveglow_ddp(corpus, tmp):
+    """The vocoder trainer on config_waveglow.json at full width (256
+    channels, a width K2 is built for) in fp32, a global batch of WG_B over
+    WG_DDP_STEPS steps: in this process and over two ranks on cuda:0
+    (gloo), each rank WG_B // 2 rows of the same draw. Each step's loss
+    within 1e-4 relative, the ranks' losses equal."""
+    from flowtron_tpu_torch.parallel.launch import launch
+
+    fl = filelist_of(corpus[0], WG_B * WG_DDP_STEPS,
+                     os.path.join(tmp, "wg_ddp.txt"))
+    argv = wg_args(fl, os.path.join(tmp, "wg_ddp"),
+                   "train_config.fp16_run=False")
+    one = waveglow_rank(argv)
+    t0 = time.perf_counter()
+    ranks = launch(f"{RANKS_MODULE}:waveglow_rank", 2, dict(argv=argv),
+                   timeout_s=600)
+    wall = time.perf_counter() - t0
+    losses = [one["losses"]] + [r["losses"] for r in ranks]
+    check(all(len(x) == WG_DDP_STEPS for x in losses),
+          f"waveglow_ddp: steps {[len(x) for x in losses]}")
+    loss_rel = [rel(b, a) for a, b in zip(losses[0], losses[1])]
+    check(max(loss_rel) <= LOSS_TOL and losses[1] == losses[2],
+          f"waveglow_ddp: loss rel {loss_rel}, ranks {losses[1:]}")
+    emit("waveglow_ddp", world=2, backend="gloo", B_global=WG_B,
+         B_rank=WG_B // 2, steps=WG_DDP_STEPS, policy="fp32",
+         loss_one=losses[0], loss_ranks=losses[1], loss_rel_err=loss_rel,
+         step_ms_one=[1e3 * s for s in one["step_s"]],
+         step_ms_ranks=[1e3 * s for s in ranks[0]["step_s"]],
+         wall_s_ranks=wall,
+         note="two ranks share one card over gloo: no NVLink or NCCL "
+              "figure")
+
+
+def post_pcm(url, body):
+    """POST /synthesize; the answer's PCM bytes."""
+    req = urllib.request.Request(url + "/synthesize",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = r.read()
+    with wave.open(io.BytesIO(data)) as w:
+        return w.readframes(w.getnframes())
+
+
+def phase_serve_replicas(ft_path, wg_path, kernels):
+    """The server with ``--replicas auto`` (one replica a visible card):
+    a wave of concurrent requests, ``/metrics``' replica_batches summing to
+    the batches served, then three requests one at a time; then with
+    ``--replicas 2``: the clamp warning where the machine has one card, and
+    the same three requests answered bitwise alike."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    bodies = [{"text": t, "seed": REQ_SEED + 30 + i}
+              for i, t in enumerate(TEXTS)]
+    singles = bodies[:3]
+    out = {}
+    for replicas in ("auto", "2"):
+        argv = ["-c", "config.json", "-f", ft_path, "-w", wg_path,
+                "--port", "0", "--replicas", replicas, "-p", NO_ARPABET]
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            server, engines = build_server(argv, host="127.0.0.1")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            eng = engines["default"]
+            torch.cuda.synchronize()
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            results, wall = wave_of(url, bodies)
+            pcm = [post_pcm(url, b) for b in singles]
+            torch.cuda.synchronize()
+            launches = read_launches(kernels)
+            check_answers(f"serve_replicas {replicas}", bodies, results,
+                          N_FRAMES)
+            # the completion thread hands out the audio, then counts the
+            # batch: wait for the last count
+            deadline = time.monotonic() + 30
+            metrics = get_json(url, "/metrics")
+            while metrics["requests"] < len(bodies) + len(singles) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+                metrics = get_json(url, "/metrics")
+        finally:
+            server.shutdown()
+            server.server_close()
+            for e in engines.values():
+                e.shutdown()
+            thread.join(timeout=60)
+            torch.cuda.empty_cache()
+        out[replicas] = dict(
+            replicas=eng._n_replicas, said=said.getvalue(), pcm=pcm,
+            wall_s=wall, latency_s=[r[1] for r in results],
+            requests=len(bodies) + len(singles), metrics=metrics,
+            launches=launches, seconds=time.perf_counter() - t0)
+        check(sum(metrics["replica_batches"]) == metrics["batches"]
+              and metrics["requests"] == len(bodies) + len(singles),
+              f"serve_replicas {replicas}: {metrics}")
+        check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] > 0,
+              f"serve_replicas {replicas}: {launches}")
+    n = torch.cuda.device_count()
+    check(out["auto"]["replicas"] == n and out["2"]["replicas"] == min(2, n),
+          f"serve_replicas: {out['auto']['replicas']} / "
+          f"{out['2']['replicas']} replicas on {n} cards")
+    if n < 2:
+        check(f"WARNING: --replicas 2 > {n} local devices; clamping"
+              in out["2"]["said"], f"serve_replicas: no clamp warning in "
+              f"{out['2']['said']!r}")
+    check(out["auto"]["pcm"] == out["2"]["pcm"],
+          "serve_replicas: --replicas 2 answered otherwise than auto")
+    emit("serve_replicas", cards=n, **{
+        f"replicas_{k}": {key: v[key] for key in (
+            "replicas", "wall_s", "latency_s", "requests", "launches",
+            "seconds")} | {"replica_batches": v["metrics"]["replica_batches"],
+                           "batches": v["metrics"]["batches"]}
+        for k, v in out.items()},
+        clamp_warning=out["2"]["said"].strip().splitlines()[:1],
+        answers_bitwise_equal=True)
+    return out["auto"]["launches"]
+
+
 def probe_check(tag, out, ref, tol):
     """max |out - ref| within ``tol`` of ref's largest magnitude; returns
     the absolute error."""
@@ -3209,11 +3579,12 @@ def main():
                                     pooled_pcm)
         serve_staged = phase_serve_staged(ft_path, wg_path, kernels)
         gl_serve = phase_griffin_lim_serve(ft_path, kernels)
+        serve_replicas = phase_serve_replicas(ft_path, wg_path, kernels)
     paths = dict(inference=infer_launches, stream=stream_launches,
                  denoiser=stft_launches, serve=serve,
                  serve_stream=serve_stream, griffin_lim_serve=gl_serve,
                  serve_w8a8=q_serve, mux=mux_launches, serve_mux=serve_mux,
-                 serve_staged=serve_staged)
+                 serve_staged=serve_staged, serve_replicas=serve_replicas)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3240,10 +3611,14 @@ def main():
         phase_waveglow_train(corpus, tmp, kernels, dev)
         phase_waveglow_train_vs_cpu(corpus, dev)
         wide_launches = phase_waveglow_wide(corpus, tmp, kernels, dev)
+        phase_entry()
+        ddp_launches = phase_ddp(corpus, tmp, dev)
+        phase_waveglow_ddp(corpus, tmp)
     emit("launches_by_path", **paths, train_fp32=train_launches,
          train_gm=gm_run["launches"], train_remat=remat_launches,
          cumm_train=cumm_launches, cumm_request=cumm_infer,
-         evaluate=eval_launches, waveglow_wide=wide_launches)
+         evaluate=eval_launches, waveglow_wide=wide_launches,
+         ddp_ranks=ddp_launches)
     probes, probe_launches = phase_probes(kernels, k1_frames, dev)
     loaded = [m for m in sys.modules if m in ("jax", "optax", "flowtron_tpu")
               or m.startswith(("jax.", "optax.", "flowtron_tpu."))]

@@ -28,6 +28,10 @@ file names) with kernels of their own: ``ops/w4.py`` + ``csrc/w4.cu``
 (scans with weights kept on chip) and ``ops/fused_cost.py`` +
 ``csrc/fused_cost.cu`` (K1 stripped for cost attribution).
 
+Training and vocoder training also run data-parallel over
+``torch.distributed`` (``parallel/``), and the server keeps one replica a
+card (``--replicas``).
+
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 The package imports ``torch`` and nothing of ``jax`` or ``flowtron_tpu``:
 it carries its own copies of the text frontend (``text/``) and the config

@@ -117,23 +117,37 @@ class PrefetchIterator:
 
 class BatchIterator:
     """Shuffling batch iterator with drop_last (the reference's
-    DataLoader role, reference:train.py:74-77), one process: the JAX
-    package's per-process sharding waits for DDP (ROADMAP.md Queue 1,
-    item 16). Each epoch draws the next permutation of one seeded
-    generator, as the JAX package's single-process iterator does.
+    DataLoader and DistributedSampler roles, reference:train.py:74-77).
+    Each epoch draws the next permutation of one seeded generator.
+
+    ``num_shards`` / ``shard_index``: the per-process sharding of a
+    data-parallel run, as the JAX package's: every process draws the same
+    seeded permutation and takes the stride ``idx[shard_index::
+    num_shards]``, padded by wrap-around to equal length so that every
+    process steps in lockstep; ``batch_size`` is the per-process batch.
+    With stride sharding the processes' batches at step i together are
+    the one-process batch of ``num_shards * batch_size`` at step i.
     """
 
     def __init__(self, dataset, batch_size, collate_fn, shuffle=True,
-                 seed=1234, drop_last=True):
+                 seed=1234, drop_last=True, num_shards=1, shard_index=0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self._rng = np.random.default_rng(seed)
 
-    def __len__(self):
+    def _shard_len(self):
         n = len(self.dataset)
+        if self.num_shards == 1:
+            return n
+        return (n + self.num_shards - 1) // self.num_shards
+
+    def __len__(self):
+        n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -142,6 +156,9 @@ class BatchIterator:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_index::self.num_shards]
+            idx = np.resize(idx, self._shard_len())  # pad by wrap-around
         end = (len(idx) - len(idx) % self.batch_size if self.drop_last
                else len(idx))
         for s in range(0, end, self.batch_size):

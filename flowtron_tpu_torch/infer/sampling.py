@@ -2,8 +2,9 @@
 ``synthesize``, ``mel_to_audio_griffinlim``, ``_run_streaming`` and
 ``run_inference`` in flowtron_tpu/infer/sampling.py).
 
-Loads a reference-format ``.pt`` state_dict or a JAX package pickle
-checkpoint, turns text into ids through the port's frontend, samples
+Loads a reference-format ``.pt`` state_dict or a training checkpoint
+(the JAX package's pickle, sharded or orbax checkpoint, or the port's
+directory), turns text into ids through the port's frontend, samples
 z ~ N(0, sigma^2) from a seeded ``torch.Generator``, inverts the flows,
 writes the mel and attention PNG (matplotlib) and vocodes: with WaveGlow when ``-w`` gives one (``-d``
 then runs the bias denoiser), else with Griffin-Lim on the host, as the
@@ -28,25 +29,26 @@ from flowtron_tpu_torch.data.frontend import TextFrontend
 from flowtron_tpu_torch.infer.quantize import quantize_flows_for_inference
 from flowtron_tpu_torch.infer.streaming import stream_tts
 from flowtron_tpu_torch.models.flowtron import flowtron_init, flowtron_infer
-from flowtron_tpu_torch.train.checkpoints import load_checkpoint
+from flowtron_tpu_torch.train.checkpoints import load_checkpoint, warmstart
 from flowtron_tpu_torch.utils.device import resolve_device
 from flowtron_tpu_torch.vocoder.denoiser import Denoiser, StreamingDenoiser
 from flowtron_tpu_torch.vocoder.waveglow import load_waveglow, waveglow_infer
 
 
 def load_model_for_inference(config, checkpoint_path, device="cpu"):
-    """Build the configured model and load its weights with
-    ``strict=True``: a reference-format ``.pt``/``.pth`` (a bare
-    state_dict, or one under ``state_dict`` or ``model``; only tensors are
-    unpickled), or else the JAX package's pickle checkpoint
-    (``train/checkpoints.py:load_checkpoint``, its restricted
-    unpickler)."""
+    """Build the configured model and load its weights. A
+    reference-format ``.pt``/``.pth`` (a bare state_dict, or one under
+    ``state_dict`` or ``model``; only tensors are unpickled) goes through
+    ``warmstart`` as the JAX package's loader takes it
+    (flowtron_tpu/infer/sampling.py:20-27): unknown keys are ignored, a
+    missing key keeps its init, a speaker table of another shape keeps
+    its init, any other shape mismatch raises. Anything else is a
+    training checkpoint read whole by ``load_checkpoint``: the JAX
+    package's pickle, sharded or orbax checkpoint, or the port's
+    directory."""
     model, static_cfg = flowtron_init(0, **config["model_config"])
     if checkpoint_path.endswith((".pt", ".pth")):
-        ckpt = torch.load(checkpoint_path, map_location="cpu",
-                          weights_only=True)
-        sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
-        model.load_state_dict(sd, strict=True)
+        warmstart(checkpoint_path, model)
     else:
         load_checkpoint(checkpoint_path, model)
     return model.to(device), static_cfg

@@ -1,4 +1,4 @@
-"""Train the WaveGlow vocoder on one device (port of
+"""Train the WaveGlow vocoder, data-parallel over the ranks (port of
 scripts/train_waveglow.py):
 
     python -m flowtron_tpu_torch.scripts.train_waveglow \\
@@ -26,9 +26,16 @@ width. Each step prints ``iteration:\\tloss\\t(seconds)`` as the JAX
 script does.
 
 Like the JAX script, it reads neither ``checkpoint_path`` nor
-``with_tensorboard``. It trains on one device: ``cuda:0``, or the CPU
-with ``FLOWTRON_PLATFORM=cpu`` (``utils/device.py``); the data-parallel
-mesh is ROADMAP.md Queue 1 item 16.
+``with_tensorboard``. It runs on this rank's card (``cuda:0`` for one
+process), or the CPU with ``FLOWTRON_PLATFORM=cpu`` (``utils/device.py``).
+Under several processes (``dist_config`` or ``torchrun`` with
+``dist_config.multiprocess=true``, parallel/mesh.py) ``batch_size`` is
+the global batch, as the JAX script's batch over its mesh: every rank
+draws the same global batch from the one seeded generator and takes its
+``batch_size // world`` rows; its loss is its rows' sums over the global
+batch's element count, and the gradients are summed over the ranks before
+Adam, so each step is the global batch's. Only rank 0 prints and writes
+the checkpoints.
 """
 
 import argparse
@@ -42,6 +49,10 @@ import torch
 from flowtron_tpu_torch.audio.stft import MelSpectrogram
 from flowtron_tpu_torch.config import update_params
 from flowtron_tpu_torch.data.dataset import load_wav
+from flowtron_tpu_torch.parallel.mesh import (
+    all_reduce_sum, broadcast_module, maybe_initialize_distributed,
+    process_grid, rank, refuse_model_axis, sync_gradients, world_size,
+)
 from flowtron_tpu_torch.utils.device import resolve_device
 from flowtron_tpu_torch.vocoder.waveglow import (
     waveglow_forward, waveglow_init, waveglow_loss,
@@ -55,10 +66,12 @@ def training_files(path):
         return [line.strip().split("|")[0] for line in f]
 
 
-def sample_batch(rng, files, batch_size, seg, data_config, mel_fn):
+def sample_batch(rng, files, batch_size, seg, data_config, mel_fn,
+                 rows=None):
     """(mel (B, n_mel, seg // hop), audio (B, seg)) float32 numpy: for
     each row a file and then an offset from ``rng``, as the JAX script's
-    ``sample_batch``."""
+    ``sample_batch``. ``rows`` (a slice) keeps those rows of the batch
+    (all are drawn, so ``rng`` advances as for the whole batch)."""
     audio = np.zeros((batch_size, seg), np.float32)
     for i in range(batch_size):
         wav, _ = load_wav(files[rng.integers(len(files))])
@@ -68,6 +81,8 @@ def sample_batch(rng, files, batch_size, seg, data_config, mel_fn):
             audio[i] = wav[s:s + seg]
         else:
             audio[i, :len(wav)] = wav
+    if rows is not None:
+        audio = audio[rows]
     mel = np.stack([mel_fn(a)[:, :seg // data_config["hop_length"]]
                     for a in audio])
     return mel, audio
@@ -83,15 +98,23 @@ def waveglow_train_loss(model, wg_cfg, mel, audio, sigma, compute_dtype):
 
 
 def make_step(model, wg_cfg, optimizer, sigma, compute_dtype=None):
-    """``step(mel, audio)`` -> the loss (a 0-d tensor): forward, backward,
-    one Adam step."""
+    """``step(mel, audio)`` -> the loss (a 0-d tensor, the global batch's
+    under several ranks): forward, backward, the gradients summed over
+    the ranks, one Adam step. Every rank holds as many rows, so its rows'
+    sums over the global element count are its loss over the world
+    size."""
+    world = world_size()
+
     def step(mel, audio):
         loss = waveglow_train_loss(model, wg_cfg, mel, audio, sigma,
                                    compute_dtype)
+        if world > 1:
+            loss = loss / world
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        sync_gradients(list(model.parameters()))
         optimizer.step()
-        return loss.detach()
+        return all_reduce_sum(loss.detach())
     return step
 
 
@@ -110,11 +133,19 @@ def main(argv=None):
         update_params(config, args.params)
     tc, dc, wc = (config["train_config"], config["data_config"],
                   config["waveglow_config"])
+    dist_config = config.get("dist_config", {})
+    refuse_model_axis(dist_config)
+    maybe_initialize_distributed(dist_config)
+    process_grid(dist_config)
+    world, lead = world_size(), rank() == 0
     device = resolve_device()
 
     seed = int(tc.get("seed", 1234))
     model, wg_cfg = waveglow_init(seed, device=device, **wc)
+    broadcast_module(model)
     batch_size = int(tc["batch_size"])
+    local = max(1, batch_size // world)
+    rows = slice(rank() * local, (rank() + 1) * local)
     hop = dc["hop_length"]
     seg = (int(dc["segment_length"]) // hop) * hop
     ms = MelSpectrogram(dc["filter_length"], hop, dc["win_length"],
@@ -138,17 +169,18 @@ def main(argv=None):
     for _ in range(int(tc.get("epochs", 1))):
         for _ in range(max(1, len(files) // batch_size)):
             mel, audio = sample_batch(rng, files, batch_size, seg, dc,
-                                      ms.mel_numpy)
+                                      ms.mel_numpy, rows)
             mel = torch.from_numpy(mel).to(device)
             audio = torch.from_numpy(audio).to(device)
             t0 = time.perf_counter()
             loss = float(step(mel, audio))          # waits for the step
             history.append({"iteration": iteration, "loss": loss,
                             "step_s": time.perf_counter() - t0})
-            print(f"{iteration}:\t{loss:.6f}\t({time.time() - t_last:.2f}s)",
-                  flush=True)
+            if lead:
+                print(f"{iteration}:\t{loss:.6f}\t"
+                      f"({time.time() - t_last:.2f}s)", flush=True)
             t_last = time.time()
-            if iteration % iters_per_checkpoint == 0:
+            if lead and iteration % iters_per_checkpoint == 0:
                 path = os.path.join(out_dir, f"waveglow_{iteration}.pt")
                 tmp = f"{path}.{os.getpid()}.tmp"
                 torch.save({"model": {k: v.detach().cpu() for k, v in

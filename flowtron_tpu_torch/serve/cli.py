@@ -6,13 +6,14 @@ so a caller can run the server in-process.
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
         [-w waveglow.pt] [-d 0.1] [--stream-workers 2 | --stream-mux 8 \\
         [--mux-joins-per-tick 2]] [--vocode-buckets 120,240] \\
-        [--quantize w8a8] [--max-batch 8] [--warmup] \\
+        [--quantize w8a8] [--max-batch 8] [--replicas N|auto] [--warmup] \\
         [--model NAME=CONFIG:CKPT[:VOCODER] ...]
 
 Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
 stream.
 
-Runs on cuda:0; ``FLOWTRON_PLATFORM=cpu`` runs it on the CPU. The JAX
+Runs on cuda:0 (``--replicas``: one copy a card); ``FLOWTRON_PLATFORM=cpu``
+runs it on the CPU. The JAX
 server's flags that are not ported exit with an error naming their
 ROADMAP.md item.
 """
@@ -23,14 +24,15 @@ import threading
 from http.server import ThreadingHTTPServer
 
 from flowtron_tpu_torch.config import load_config
+from flowtron_tpu_torch.serve import engine as serve_engine
 from flowtron_tpu_torch.serve.engine import SynthesisEngine
 from flowtron_tpu_torch.serve.http import make_handler
+from flowtron_tpu_torch.utils.device import resolve_device
 
 # flag -> its ROADMAP.md item (Queue 1)
 UNPORTED_FLAGS = {
-    "mesh": ("--mesh", "slice C item 23 (replicas and mesh serving)"),
-    "replicas": ("--replicas", "slice C item 23 (replicas and mesh "
-                 "serving)"),
+    "mesh": ("--mesh", "(l2) Item 16b / slice C item 23b: the `model` "
+             "axis"),
     "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
     "compile_cache": ("--compile-cache", "slice C item 25"),
     "profiler_port": ("--profiler-port", "slice C item 25 (/profile)"),
@@ -70,6 +72,11 @@ def _parser():
                              "'120,240'): a batch whose n_frames caps all "
                              "fit a bucket below --n-frames is vocoded at "
                              "the smallest bucket that covers it")
+    parser.add_argument("--replicas", default="1",
+                        help="N or 'auto': data-parallel replicas, one "
+                             "model-and-vocoder copy a visible card, "
+                             "micro-batches dispatched round-robin; 'auto' "
+                             "= the card count, N above it clamps")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--batch-timeout-ms", type=float, default=20.0)
@@ -104,10 +111,19 @@ def build_server(argv=None, host="0.0.0.0"):
     engines)."""
     parser = _parser()
     args = parser.parse_args(argv)
+
+    if args.mesh and args.replicas not in ("1", "auto"):
+        # the JAX server's precedence: the mesh wins over replicas
+        print("WARNING: --replicas is incompatible with --mesh; ignoring "
+              "replicas")
     for dest, (flag, item) in UNPORTED_FLAGS.items():
         if getattr(args, dest) not in (None, False):
             parser.error(f"{flag} is not ported to the PyTorch package yet; "
                          f"see ROADMAP.md Queue 1, {item}")
+    if args.replicas == "auto":
+        n_replicas = len(serve_engine.local_devices(resolve_device()))
+    else:
+        n_replicas = int(args.replicas)
 
     def build(config_path, ckpt, vocoder):
         return SynthesisEngine(
@@ -120,6 +136,7 @@ def build_server(argv=None, host="0.0.0.0"):
             denoise=args.denoise if vocoder else 0.0,
             stream_workers=args.stream_workers, stream_mux=args.stream_mux,
             mux_joins_per_tick=args.mux_joins_per_tick,
+            replicas=n_replicas,
             vocode_buckets=[int(x) for x in args.vocode_buckets.split(",")]
             if args.vocode_buckets else None)
 

@@ -1,10 +1,10 @@
 """SynthesisEngine's micro-batching side: the dispatcher/completion
 thread pair (port of flowtron_tpu/serve/dispatch.py:24-86, its batch
-assembly, :95-157, its per-batch choice of staged vocoding, :175-198,
-and its completion, :225-263: the one-pass chain, the staged vocode
-stage at the smallest bucket that covers the batch, and, for an engine
-without a vocoder, Griffin-Lim on the host). Mixed into SynthesisEngine
-(engine.py)."""
+assembly, :95-157, its round-robin choice of a replica, :159-173, its
+per-batch choice of staged vocoding, :175-198, and its completion,
+:225-263: the one-pass chain, the staged vocode stage at the smallest
+bucket that covers the batch, and, for an engine without a vocoder,
+Griffin-Lim on the host). Mixed into SynthesisEngine (engine.py)."""
 
 import queue
 import time
@@ -143,14 +143,22 @@ class DispatchMixin:
         # K1's subset), (B, 1) otherwise (the per-frame loop)
         temp_arg = float(temps[0]) if np.all(temps == temps[0]) \
             else temps[:, None]
+        # the replica, round-robin (this thread only): the batch's whole
+        # chain runs on its card while the others' batches proceed
+        r = self._rr % self._n_replicas
+        self._rr += 1
+        rep = self._replicas[r]
+        with self._metrics_lock:
+            self._metrics["replica_batches"][r] += 1
         if self._staged(frames_cap[:len(batch)]):
             # the mel now; the completion thread reads n_valid and
             # vocodes at the smallest bucket that covers it
             mel, n_valid = self._synth_mel(seeds, sigmas, sids, text_pad,
-                                           in_lens, temp_arg, frames_cap)
-            return "staged", (mel, seeds, strengths), n_valid
+                                           in_lens, temp_arg, frames_cap,
+                                           rep)
+            return "staged", (mel, seeds, strengths, rep), n_valid
         return self._synth_vocode(seeds, sigmas, sids, text_pad, in_lens,
-                                  temp_arg, frames_cap, strengths)
+                                  temp_arg, frames_cap, strengths, rep)
 
     def _staged(self, frames_cap):
         """JAX's rule: stage a batch only when every request's n_frames
@@ -167,11 +175,11 @@ class DispatchMixin:
         kind, out_dev, n_valid_dev = handles
         n_valid = n_valid_dev.cpu().numpy()     # waits; already capped
         if kind == "staged":
-            mel, seeds, strengths = out_dev
+            mel, seeds, strengths, rep = out_dev
             need = max(1, int(n_valid[:len(batch)].max()))
             Nb = next(b for b in self._vocode_buckets if b >= need)
             out_dev = self._vocode_norm(mel[:, :, :Nb], n_valid_dev, seeds,
-                                        strengths)
+                                        strengths, rep)
             kind = "pcm"
             with self._metrics_lock:
                 self._metrics["staged_batches"] += 1

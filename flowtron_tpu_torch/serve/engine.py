@@ -2,8 +2,8 @@
 requests into one synthesis chain on the device, and the stream path
 (a pool of warm streamer pairs, or with ``stream_mux`` the batched
 multiplexer of infer/multistream.py) (port of
-flowtron_tpu/serve/engine.py without replicas, mesh and bf16; see the
-package docstring for the protocol).
+flowtron_tpu/serve/engine.py without mesh and bf16; see the package
+docstring for the protocol).
 
 This file owns construction and lifecycle (``submit``, ``metrics``,
 ``warmup``, ``shutdown``) and the request chain itself in two stages:
@@ -21,10 +21,21 @@ compile, and ``warmup`` runs one dummy batch per (batch bucket, text
 bucket) to set up the kernels and allocator. dispatch.py owns the
 dispatcher/completion thread pair, streaming.py the stream path.
 
+``replicas`` R > 1 (flowtron_tpu/serve/engine.py:315-342): R copies of
+the model, its vocoder and denoiser, one a visible card (replica 0 on the
+engine's device, replica r on ``local_devices()[r]``); the dispatcher
+hands micro-batches to them round-robin, each batch's whole chain on its
+replica's card, with up to 2R - 1 batches in flight, so every card keeps
+its own double buffer. ``replica_batches`` in ``metrics()`` counts the
+batches each replica took. Warmup runs a replica at a time; the warm
+streamer pairs are spread over the replicas; the mux runs on replica 0.
+R above the number of cards clamps to it with the JAX engine's warning.
+
 Options of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP.md item.
 """
 
+import copy
 import queue
 import threading
 import time
@@ -46,6 +57,7 @@ from flowtron_tpu_torch.infer.streaming import (
     stream_generators,
 )
 from flowtron_tpu_torch.models.flowtron import flowtron_infer
+from flowtron_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
 from flowtron_tpu_torch.serve.common import (
     EngineOverloaded, TextTooLong, _SHUTDOWN, _log, split_measured,
 )
@@ -61,16 +73,32 @@ WG_SIGMA = 0.8
 GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
 
-def _refuse_unported(bf16, mesh_shape, replicas):
+def _refuse_unported(bf16, mesh_shape):
     refusals = [
-        (bf16, "bf16", "Queue 1, deferred item 3 (bf16 kernels)"),
-        (mesh_shape, "mesh_shape", "Queue 1, slice C item 23"),
-        (int(replicas or 1) > 1, "replicas > 1", "Queue 1, slice C item 23"),
+        (bf16, "bf16", "ROADMAP.md Queue 1, deferred item 3 (bf16 kernels)"),
+        (mesh_shape, "mesh_shape (a serving mesh)", MODEL_AXIS_ITEM),
     ]
     for on, what, item in refusals:
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet; see ROADMAP.md {item}")
+                f"{what} is not ported yet; see {item}")
+
+
+def local_devices(device):
+    """The devices replicas may take: every visible card when ``device``
+    is a CUDA device, else ``device`` alone."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+class Replica:
+    """One copy of the request chain's weights on one device."""
+
+    def __init__(self, device, model, wg, denoiser):
+        self.device, self.model, self.wg, self.denoiser = (
+            device, model, wg, denoiser)
 
 
 def mel_latents(seed, sigma, n_mel, n_frames):
@@ -118,7 +146,13 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                  max_queue=64, device=None, bf16=False, mesh_shape=None,
                  replicas=1, vocode_buckets=None, denoise=0.0,
                  stream_mux=0, mux_joins_per_tick=0, stream_workers=2):
-        _refuse_unported(bf16, mesh_shape, replicas)
+        if mesh_shape and replicas and int(replicas) > 1:
+            # replicas are independent single-device programs, a mesh one
+            # program over the devices: the JAX engine lets the mesh win
+            print("WARNING: --replicas is incompatible with --mesh; "
+                  "ignoring replicas")
+            replicas = 1
+        _refuse_unported(bf16, mesh_shape)
         qmode = quantize or ("w8" if int8 else "")
         if qmode and qmode not in MODES:
             raise ValueError(f"quantize {qmode!r}; expected one of {MODES}")
@@ -151,6 +185,24 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         if self._denoise > 0:
             self._denoiser = Denoiser.from_data_config(
                 self.wg, self.wg_cfg, self.data_config)
+
+        # data-parallel replicas: one copy of the chain a card
+        R = max(1, int(replicas or 1))
+        devs = local_devices(self.device)
+        if R > len(devs):
+            print(f"WARNING: --replicas {R} > {len(devs)} local devices; "
+                  "clamping")
+            R = len(devs)
+        self._replicas = [Replica(self.device, self.model, self.wg,
+                                  self._denoiser)]
+        for dev in devs[1:R]:
+            wg = None if self.wg is None else copy.deepcopy(self.wg).to(dev)
+            self._replicas.append(Replica(
+                dev, copy.deepcopy(self.model).to(dev), wg,
+                None if self._denoiser is None else Denoiser.from_data_config(
+                    wg, self.wg_cfg, self.data_config)))
+        self._n_replicas = R
+        self._rr = 0            # round-robin cursor (dispatcher thread only)
 
         # staged vocoding: the buckets end at n_frames
         self._vocode_buckets = None
@@ -186,20 +238,25 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self._stream_workers = max(1, int(stream_workers))
         self._stream_pool = None
         if self.wg is not None and self._mux is None:
+            # warm streamer pairs spread over the replicas' cards, each
+            # with the device its stream's inputs go to
             self._stream_pool = queue.Queue()
-            for _ in range(self._stream_workers):
+            for i in range(self._stream_workers):
+                rep = self._replicas[i % R]
                 self._stream_pool.put((
                     StreamingMelSynthesizer(
-                        self.model, self.static_cfg, chunk_frames=40,
+                        rep.model, self.static_cfg, chunk_frames=40,
                         gate_threshold=0.5, max_frames=self.n_frames,
                         fused=self.fused),
-                    StreamingVocoder(self.wg, self.wg_cfg, sigma=WG_SIGMA,
-                                     max_frames=self.n_frames)))
+                    StreamingVocoder(rep.wg, self.wg_cfg, sigma=WG_SIGMA,
+                                     max_frames=self.n_frames),
+                    rep.device))
 
         self._metrics = {"requests": 0, "batches": 0, "errors": 0,
                          "audio_seconds": 0.0, "stream_requests": 0,
                          "rejected_too_long": 0, "rejected_overload": 0,
                          "text_clamped": 0, "stream_stalls": 0,
+                         "replica_batches": [0] * R,
                          "staged_batches": 0,
                          "vocode_bucket_hits": dict.fromkeys(
                              self._vocode_buckets or (), 0)}
@@ -211,8 +268,9 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         # bounded: overload returns 429 instead of unbounded latency
         self._queue = queue.Queue(maxsize=max(1, int(max_queue)))
         # dispatch/complete pipeline: at most one batch waits behind the
-        # one the completion thread is fetching
-        self._inflight = queue.Queue(maxsize=1)
+        # one the completion thread is fetching; with R replicas 2R - 1,
+        # so every card keeps its own double buffer
+        self._inflight = queue.Queue(maxsize=2 * R - 1)
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
         self._completer = threading.Thread(target=self._complete_loop,
@@ -227,34 +285,36 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
 
     # -- the request chain -------------------------------------------------
     def _synth_vocode(self, seeds, sigmas, sids, text, in_lens, temperature,
-                      frames_cap, strengths):
+                      frames_cap, strengths, rep=None):
         """One batch from host arrays to device tensors in one pass: ("pcm",
         (B, n_frames * 256) int16, n_valid (B,)), or without a vocoder
         ("mel", the masked (B, n_mel, n_frames) mel, n_valid).
-        ``strengths`` (B,) are the denoiser's. Launches the work and
-        returns without waiting for it (the completion thread copies to
-        the host)."""
+        ``strengths`` (B,) are the denoiser's. Runs on replica ``rep``
+        (replica 0 by default). Launches the work and returns without
+        waiting for it (the completion thread copies to the host)."""
         mel, n_valid = self._synth_mel(seeds, sigmas, sids, text, in_lens,
-                                       temperature, frames_cap)
+                                       temperature, frames_cap, rep)
         if self.wg is None:
             return "mel", mel, n_valid
-        return "pcm", self._vocode_norm(mel, n_valid, seeds,
-                                        strengths), n_valid
+        return "pcm", self._vocode_norm(mel, n_valid, seeds, strengths,
+                                        rep), n_valid
 
     @torch.no_grad()
     def _synth_mel(self, seeds, sigmas, sids, text, in_lens, temperature,
-                   frames_cap):
+                   frames_cap, rep=None):
         """The mel stage: latents -> flows -> n_valid capped by each
         request's ``frames_cap`` -> frames past it silenced. Returns the
-        device tensors (mel (B, n_mel, n_frames), n_valid (B,))."""
-        dev, N = self.device, self.n_frames
+        device tensors (mel (B, n_mel, n_frames), n_valid (B,)) on
+        replica ``rep``'s device."""
+        rep = rep or self._replicas[0]
+        dev, N = rep.device, self.n_frames
         n_mel = self.static_cfg["n_mel_channels"]
         residual = torch.cat([mel_latents(s, sg, n_mel, N)
                               for s, sg in zip(seeds, sigmas)]).to(dev)
         if np.ndim(temperature):
             temperature = torch.as_tensor(temperature, device=dev)
         mel, _, n_valid = flowtron_infer(
-            self.model, self.static_cfg, residual,
+            rep.model, self.static_cfg, residual,
             torch.as_tensor(sids, device=dev), torch.as_tensor(text,
                                                                device=dev),
             temperature=temperature, gate_threshold=0.5,
@@ -267,23 +327,24 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         return torch.where(valid_f[:, None, :], mel, SILENCE), n_valid
 
     @torch.no_grad()
-    def _vocode_norm(self, mel, n_valid, seeds, strengths):
+    def _vocode_norm(self, mel, n_valid, seeds, strengths, rep=None):
         """The vocode stage at the mel's own length (n_frames, or a staged
         bucket): WaveGlow on each request's latents (drawn at n_frames and
         sliced, so its audio does not depend on the bucket) -> the
         denoiser -> peak-normalised int16 over its n_valid frames. Returns
-        the device (B, frames * 256) PCM."""
-        dev = self.device
+        the device (B, frames * 256) PCM, on replica ``rep``'s device."""
+        rep = rep or self._replicas[0]
+        dev = rep.device
         Tg = mel.shape[2] * HOP // self.wg_cfg["n_group"]
         zs = [vocoder_latents(s, self.wg_cfg, self.n_frames) for s in seeds]
         z_main = torch.stack([z[:, :Tg] for z, _ in zs]).to(dev)
         z_early = [None if zs[0][1][f] is None else
                    torch.stack([e[f][:, :Tg] for _, e in zs]).to(dev)
                    for f in range(self.wg_cfg["n_flows"])]
-        audio = waveglow_infer_z(self.wg, self.wg_cfg, mel, z_main, z_early)
-        if self._denoiser is not None:
+        audio = waveglow_infer_z(rep.wg, self.wg_cfg, mel, z_main, z_early)
+        if rep.denoiser is not None:
             T = audio.shape[1]
-            audio = self._denoiser(audio, strength=torch.as_tensor(
+            audio = rep.denoiser(audio, strength=torch.as_tensor(
                 strengths, device=dev)[:, None, None])
             # the ISTFT's framing can shorten the tail: back to T samples,
             # so the sample mask below lines up
@@ -393,6 +454,7 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         with self._metrics_lock:
             recent = list(self._recent_batch_ms)
             out = dict(self._metrics)
+            out["replica_batches"] = list(out["replica_batches"])
             out["vocode_bucket_hits"] = {
                 str(k): v for k, v in out["vocode_bucket_hits"].items()}
         out["queue_depth"] = self.queue_depth
@@ -419,32 +481,33 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         """Run one dummy batch through the request chain for every (batch
         bucket, text bucket) pair and wait for each, so the first real
         request pays no kernel build, cuBLAS/cuDNN set-up or allocator
-        growth. Uniform temperature (the K1 path on an unquantized
+        growth; with replicas, on each replica in turn. Uniform temperature (the K1 path on an unquantized
         model). With staged vocoding, also the vocode stage at each bucket
         below n_frames for every batch bucket; with the mux, one
         throwaway stream through it."""
         n = staged = 0
         t0 = time.time()
-        for B in self.batch_buckets():
-            for Tk in self.text_buckets:
-                text = np.zeros((B, Tk), np.int64)
-                text[:, 0] = 1
-                seeds = np.zeros(B, np.int64)
-                strengths = np.full(B, self._denoise, np.float32)
-                mel, n_valid = self._synth_mel(
-                    seeds, np.full(B, 0.5, np.float32),
-                    np.zeros(B, np.int64), text, np.ones(B, np.int64), 1.0,
-                    np.full(B, self.n_frames, np.int64))
-                out = mel if self.wg is None else self._vocode_norm(
-                    mel, n_valid, seeds, strengths)
-                out.cpu(), n_valid.cpu()
-                n += 1
-                if self._vocode_buckets is not None \
-                        and Tk == self.text_buckets[0]:
-                    for Nb in self._vocode_buckets[:-1]:
-                        self._vocode_norm(mel[:, :, :Nb], n_valid, seeds,
-                                          strengths).cpu()
-                        staged += 1
+        for rep, B, Tk in ((rep, B, Tk) for rep in self._replicas
+                           for B in self.batch_buckets()
+                           for Tk in self.text_buckets):
+            text = np.zeros((B, Tk), np.int64)
+            text[:, 0] = 1
+            seeds = np.zeros(B, np.int64)
+            strengths = np.full(B, self._denoise, np.float32)
+            mel, n_valid = self._synth_mel(
+                seeds, np.full(B, 0.5, np.float32), np.zeros(B, np.int64),
+                text, np.ones(B, np.int64), 1.0,
+                np.full(B, self.n_frames, np.int64), rep)
+            out = mel if self.wg is None else self._vocode_norm(
+                mel, n_valid, seeds, strengths, rep)
+            out.cpu(), n_valid.cpu()
+            n += 1
+            if self._vocode_buckets is not None \
+                    and Tk == self.text_buckets[0]:
+                for Nb in self._vocode_buckets[:-1]:
+                    self._vocode_norm(mel[:, :, :Nb], n_valid, seeds,
+                                      strengths, rep).cpu()
+                    staged += 1
         done = {"batches": n}
         if staged:
             done["staged_vocodes"] = staged
@@ -515,3 +578,4 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                                "route")
             self._mux = None
         self.model = self.wg = self._denoiser = None
+        self._replicas = []

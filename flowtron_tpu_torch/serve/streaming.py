@@ -124,7 +124,7 @@ class StreamPathMixin:
         cancel = threading.Event()
         # captured now: shutdown() drops engine attributes under live
         # streams
-        den, device = self._denoiser, self.device
+        den, device = self._denoiser, pair[2]
 
         def emit(samples):
             """float audio -> PCM16 on the queue; False aborts."""
@@ -141,7 +141,7 @@ class StreamPathMixin:
         def produce():
             err = None
             try:
-                mel_s, voc = pair
+                mel_s, voc, _ = pair
                 for si, ids in enumerate(segments):
                     # per segment, as the batch path denoises each
                     # synthesized utterance

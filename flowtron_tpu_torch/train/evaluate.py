@@ -144,7 +144,9 @@ def evaluate(config, checkpoint_path, invertibility_frames=100,
     the last validation batch.
 
     Reads a ``.pt`` checkpoint (a training checkpoint or a reference
-    state_dict) or a JAX package pickle checkpoint; runs on ``cuda:0`` unless ``device`` or
+    state_dict), a JAX package pickle, sharded or orbax checkpoint, or the
+    port's checkpoint directory (``infer/sampling.py:
+    load_model_for_inference``); runs on ``cuda:0`` unless ``device`` or
     ``FLOWTRON_PLATFORM=cpu`` asks for the CPU.
     """
     import torch

@@ -24,15 +24,35 @@ many validation transcripts and logs their mel-decoded tone-CER
 activity) into ``{profile_dir}/trace.json``, a Chrome trace; a run that
 ends inside that window writes it at its end.
 
-Runs on ``cuda:0``, or on the CPU when asked (``utils/device.py``:
-``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``). Features of the
-JAX loop that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: grain, non-pickle checkpoint formats and a mesh of more
-than one device.
+Data-parallel over ``torch.distributed`` (parallel/mesh.py): with
+``dist_config``'s rendezvous (or ``multiprocess: true`` under
+``torchrun``) each rank loads its stride of every epoch's permutation,
+``batch_size // world`` rows of the global ``batch_size``, and steps in
+lockstep. Each rank's losses are its rows' sums over the global batch's
+counts (all-reduced before the forward), so the gradients, summed over
+the ranks in one flat bucket before the clip, are the global batch's, as
+JAX's one program computes them; the printed and logged losses are the
+global batch's. Validation all-reduces each batch's losses the same way.
+Rank r draws its dropout from (seed, iteration, r). Only rank 0 prints,
+logs, runs tone-CER and traces. ``mesh_shape`` lays the ranks out; every
+axis but ``model`` splits the batch.
+
+Checkpoints go through ``AsyncSaver`` (written off the training thread):
+``model_{iteration}.pt`` by rank 0, or with ``checkpoint_format: sharded``
+(or ``sharded_checkpoints: true``) the port's ``torch.distributed.
+checkpoint`` directory ``model_{iteration}`` written by every rank
+(train/dist_ckpt.py). ``orbax`` is the JAX ecosystem's format: the port
+writes its own directory for it and says so once. Resuming and
+warm-starting read every format of either package
+(train/checkpoints.py).
+
+Runs on this rank's card (``cuda:0`` for one process), or on the CPU when
+asked (``utils/device.py``: ``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``).
+A ``model`` mesh axis above 1 (tensor parallelism) and the grain loader
+are not ported and raise, naming their ROADMAP.md items.
 """
 
 import json
-import math
 import os
 import time
 
@@ -43,8 +63,12 @@ from flowtron_tpu_torch.data.collate import (
 )
 from flowtron_tpu_torch.data.dataset import Data, data_kwargs
 from flowtron_tpu_torch.models.flowtron import flowtron_forward, flowtron_init
+from flowtron_tpu_torch.parallel.mesh import (
+    all_reduce_sum, broadcast_module, maybe_initialize_distributed,
+    process_grid, rank, refuse_model_axis, sync_gradients, world_size,
+)
 from flowtron_tpu_torch.train.checkpoints import (
-    load_checkpoint, save_checkpoint, warmstart,
+    AsyncSaver, load_checkpoint, warmstart,
 )
 from flowtron_tpu_torch.train.logger import FlowtronLogger
 from flowtron_tpu_torch.train.loss import flowtron_loss
@@ -76,11 +100,25 @@ def _loss_settings(static_cfg, train_config):
                 blank_logprob=float(train_config.get("blank_logprob", -1)))
 
 
+def global_norm(batch):
+    """The global batch's (valid frames, rows) as a (2,) float tensor,
+    summed over the ranks; None for one process (each loss then divides
+    by its own batch's counts)."""
+    if world_size() == 1:
+        return None
+    out_lens = batch["out_lens"]
+    return all_reduce_sum(torch.stack([
+        out_lens.sum(), torch.tensor(len(out_lens), device=out_lens.device)
+    ]).float())
+
+
 def make_train_step(model, static_cfg, optimizer, params, train_config):
     """The training step: ``step(batch, generator, ctc_weight,
     prior_strength)`` -> metrics (0-d tensors: loss, nll, gate, ctc,
-    grad_norm before clipping). ``batch`` holds tensors on the model's
-    device; ``params`` are the optimizer's (trainable) parameters."""
+    grad_norm before clipping, and the valid frames; the global batch's
+    under several ranks).
+    ``batch`` holds tensors on the model's device (this rank's rows);
+    ``params`` are the optimizer's (trainable) parameters."""
     loss_kw = _loss_settings(static_cfg, train_config)
     compute_dtype = torch.bfloat16 if train_config.get("fp16_run") else None
     remat = bool(train_config.get("remat"))
@@ -93,6 +131,7 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
         attn_prior = batch.get("attn_prior")
         if attn_prior is not None and anneal_end > 0:
             attn_prior = (attn_prior + 1e-20) ** prior_strength
+        norm = global_norm(batch)
         out = flowtron_forward(
             model, static_cfg, batch["mel"], batch["speaker_ids"],
             batch["text"], batch["in_lens"], batch["out_lens"],
@@ -100,33 +139,39 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
             compute_dtype=compute_dtype, remat=remat)
         nll, gate, ctc = flowtron_loss(out, batch["gate_target"],
                                        batch["in_lens"], batch["out_lens"],
-                                       **loss_kw)
+                                       norm=norm, **loss_kw)
         total = nll + gate + ctc * ctc_weight
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        sync_gradients(params)
         grad_norm = clip_by_global_norm(params, clip)
         optimizer.step()
-        return {"loss": total.detach(), "nll": nll.detach(),
-                "gate": gate.detach(), "ctc": ctc.detach(),
-                "grad_norm": grad_norm}
+        losses = all_reduce_sum(torch.stack([total, nll, gate, ctc]).detach())
+        return {"loss": losses[0], "nll": losses[1], "gate": losses[2],
+                "ctc": losses[3], "grad_norm": grad_norm,
+                "frames": batch["out_lens"].sum() if norm is None
+                else norm[0]}
 
     return step
 
 
 def make_eval_step(model, static_cfg, train_config):
-    """``step(batch)`` -> nll, gate, ctc and the last flow's attention and
-    gate predictions, without dropout or gradients."""
+    """``step(batch)`` -> nll, gate, ctc (the global batch's under several
+    ranks) and this rank's last-flow attention and gate predictions,
+    without dropout or gradients."""
     loss_kw = _loss_settings(static_cfg, train_config)
 
     @torch.no_grad()
     def step(batch):
+        norm = global_norm(batch)
         out = flowtron_forward(
             model, static_cfg, batch["mel"], batch["speaker_ids"],
             batch["text"], batch["in_lens"], batch["out_lens"],
             attn_prior=batch.get("attn_prior"), train=False)
-        nll, gate, ctc = flowtron_loss(out, batch["gate_target"],
-                                       batch["in_lens"], batch["out_lens"],
-                                       **loss_kw)
+        losses = all_reduce_sum(torch.stack(flowtron_loss(
+            out, batch["gate_target"], batch["in_lens"], batch["out_lens"],
+            norm=norm, **loss_kw)))
+        nll, gate, ctc = losses
         return {"nll": nll, "gate": gate, "ctc": ctc, "attn": out[3][-1],
                 "gate_pred": out[2]}
 
@@ -141,6 +186,9 @@ def to_device(batch, device):
 
 def prepare_dataloaders(data_config, batch_size, seed=1234,
                         pad_to_multiple=32):
+    """``batch_size`` is the global batch; each rank loads its stride of
+    ``batch_size // world`` rows (the DistributedSampler's role,
+    reference:train.py:74-75)."""
     if data_config.get("use_grain"):
         raise NotImplementedError(
             "the grain loader is not ported (ROADMAP.md Queue 1, 'Not "
@@ -151,18 +199,22 @@ def prepare_dataloaders(data_config, batch_size, seed=1234,
                   **dict(kwargs, speaker_ids=trainset.speaker_ids))
     collate = DataCollate(use_attn_prior=trainset.use_attn_prior,
                           pad_to_multiple=pad_to_multiple)
+    world, me = world_size(), rank()
+    local_bs = max(1, batch_size // world)
     train_loader = PrefetchIterator(
-        BatchIterator(trainset, batch_size, collate, shuffle=True,
-                      seed=seed))
-    val_loader = BatchIterator(valset, batch_size, collate, shuffle=False,
-                               seed=seed, drop_last=False)
+        BatchIterator(trainset, local_bs, collate, shuffle=True,
+                      seed=seed, num_shards=world, shard_index=me))
+    val_loader = BatchIterator(valset, local_bs, collate, shuffle=False,
+                               seed=seed, drop_last=False, num_shards=world,
+                               shard_index=me)
     return train_loader, val_loader
 
 
 def compute_validation_loss(eval_step, val_loader, device, ctc_weight,
                             on_batch=None):
-    """Mean nll / gate / ctc over the validation batches and the total
-    loss at ``ctc_weight``; also returns the last batch's outputs.
+    """Mean nll / gate / ctc over the validation batches (each the global
+    batch's under several ranks) and the total loss at ``ctc_weight``;
+    also returns this rank's last batch's outputs.
     ``on_batch(out, host_batch)``, when given, sees every batch
     (``evaluate`` accumulates its health metrics with it)."""
     totals = {"nll": 0.0, "gate": 0.0, "ctc": 0.0}
@@ -183,21 +235,24 @@ def compute_validation_loss(eval_step, val_loader, device, ctc_weight,
     return {"loss": loss, **totals}, last
 
 
-def _refuse_unported(train_config, dist_config):
-    """Raise for a JAX-loop feature the port does not have yet."""
-    refusals = [
-        (train_config.get("checkpoint_format") not in (None, "", "pickle")
-         or train_config.get("sharded_checkpoints"), "checkpoint_format",
-         "deferred item 2 and Queue 1 item 16 (only .pt checkpoints)"),
-        (math.prod(max(1, int(s)) for s in
-                   dist_config.get("mesh_shape", (-1,))) > 1
-         or dist_config.get("dcn_mesh_shape"), "dist_config.mesh_shape",
-         "Queue 1 item 16 (DDP); the port trains on one device"),
-    ]
-    for on, key, item in refusals:
-        if on:
-            raise NotImplementedError(
-                f"{key} is not ported yet; see ROADMAP.md {item}")
+def checkpoint_format(train_config, announce=True):
+    """"pickle" (a ``.pt`` file) or "sharded" (the port's directory) from
+    ``checkpoint_format`` / ``sharded_checkpoints``; "orbax" writes the
+    port's directory, said once when ``announce``."""
+    fmt = train_config.get("checkpoint_format") or (
+        "sharded" if train_config.get("sharded_checkpoints") else "pickle")
+    if fmt == "orbax":
+        if announce:
+            print("checkpoint_format orbax: orbax is the JAX package's "
+                  "format (ROADMAP.md, 'Not ported (decided)'); the port "
+                  "writes its own torch.distributed.checkpoint directory "
+                  "model_{iteration} instead, which it reads back as it "
+                  "reads orbax directories", flush=True)
+        fmt = "sharded"
+    if fmt not in ("pickle", "sharded"):
+        raise ValueError(f"checkpoint_format {fmt!r}; expected pickle, "
+                         "sharded or orbax")
+    return fmt
 
 
 PROFILE_STEPS = (10, 15)     # the JAX loop's trace window, [start, stop)
@@ -220,13 +275,23 @@ def _stop_profiler(prof, profile_dir):
     print(f"profiler trace written to {path}")
 
 
+RANK_SEED_STRIDE = 1_000_000_007   # apart the ranks' dropout streams
+
+
 def train(config, device=None):
     """Main entry: a config dict with train/data/dist/model sections.
-    Returns (model, optimizer, the next iteration)."""
+    Joins the process group that ``dist_config`` describes (none for one
+    process). Returns (model, optimizer, the next iteration)."""
     train_config = config["train_config"]
     data_config = dict(config["data_config"])
-    _refuse_unported(train_config, config.get("dist_config", {}))
+    dist_config = config.get("dist_config", {})
+    refuse_model_axis(dist_config)
+    maybe_initialize_distributed(dist_config)
+    grid = process_grid(dist_config)
+    me = rank()
+    lead = me == 0
     device = resolve_device(device)
+    fmt = checkpoint_format(train_config, announce=lead)
 
     seed = int(train_config.get("seed", 1234))
     model, static_cfg = flowtron_init(seed, device=device,
@@ -247,18 +312,22 @@ def train(config, device=None):
         iteration = load_checkpoint(
             train_config["checkpoint_path"], model, optimizer,
             train_config.get("ignore_layers", ())) + 1
+    broadcast_module(model)        # every rank starts from rank 0's weights
 
     train_step = make_train_step(model, static_cfg, optimizer, params,
                                  train_config)
     eval_step = make_eval_step(model, static_cfg, train_config)
-    train_loader, val_loader = prepare_dataloaders(
-        data_config, int(train_config["batch_size"]), seed=seed)
+    batch_size = int(train_config["batch_size"])
+    train_loader, val_loader = prepare_dataloaders(data_config, batch_size,
+                                                   seed=seed)
+    if lead and world_size() > 1:
+        print(f"mesh: {grid}; global batch {batch_size}, "
+              f"{batch_size // world_size()} a rank", flush=True)
 
     output_directory = train_config.get("output_directory", "outdir")
     os.makedirs(output_directory, exist_ok=True)
-    log_path = os.path.join(output_directory, "train_log.jsonl")
     logger = FlowtronLogger(os.path.join(output_directory, "logs")) \
-        if train_config.get("with_tensorboard") else None
+        if lead and train_config.get("with_tensorboard") else None
 
     use_ctc = bool(train_config.get("use_ctc_loss", False))
     ctc_start = int(train_config.get("ctc_loss_start_iter", 0))
@@ -270,13 +339,17 @@ def train(config, device=None):
     epochs = int(train_config.get("epochs", 1))
     epoch_offset = max(0, iteration // max(1, len(train_loader)))
     generator = torch.Generator(device=device)
-    profile_dir = train_config.get("profile_dir", "")
+    profile_dir = train_config.get("profile_dir", "") if lead else ""
     prof = None
+    saver = AsyncSaver()
 
-    with open(log_path, "a") as log:
+    log = open(os.path.join(output_directory, "train_log.jsonl"), "a") \
+        if lead else None
+    try:
         t_last = time.time()
         for epoch in range(epoch_offset, epochs):
-            print(f"Epoch: {epoch}")
+            if lead:
+                print(f"Epoch: {epoch}")
             for batch in train_loader:
                 if profile_dir and iteration == PROFILE_STEPS[0]:
                     prof = _start_profiler(device)
@@ -288,60 +361,73 @@ def train(config, device=None):
                 strength = prior_strength_schedule(iteration, pa_start,
                                                    pa_end)
                 # per-iteration dropout stream, so a resumed run draws
-                # what an uninterrupted one would
-                generator.manual_seed(seed * 1_000_003 + iteration)
+                # what an uninterrupted one would; each rank its own
+                generator.manual_seed(seed * 1_000_003 + iteration
+                                      + me * RANK_SEED_STRIDE)
                 t0 = time.perf_counter()
                 metrics = train_step(
                     to_device(batch, device), generator,
                     torch.tensor(ctc_weight, device=device),
                     torch.tensor(strength, device=device))
                 metrics = {k: float(v) for k, v in metrics.items()}
+                frames = int(metrics.pop("frames"))
                 step_s = time.perf_counter() - t0
-                now = time.time()
-                print(f"{iteration}:\t{metrics['loss']:.9f}\t"
-                      f"({now - t_last:.2f}s)", flush=True)
-                t_last = now
-                if logger is not None:
-                    logger.log_training(metrics["loss"], metrics["gate"],
-                                        metrics["nll"], metrics["ctc"],
-                                        learning_rate, iteration)
-                log.write(json.dumps({
-                    "iteration": iteration, **metrics, "step_s": step_s,
-                    "frames": int(batch["out_lens"].sum()),
-                    "padded_shape": list(batch["attn_prior"].shape)
-                    if batch.get("attn_prior") is not None
-                    else list(batch["mel"].shape)}) + "\n")
+                if lead:
+                    now = time.time()
+                    print(f"{iteration}:\t{metrics['loss']:.9f}\t"
+                          f"({now - t_last:.2f}s)", flush=True)
+                    t_last = now
+                    if logger is not None:
+                        logger.log_training(metrics["loss"], metrics["gate"],
+                                            metrics["nll"], metrics["ctc"],
+                                            learning_rate, iteration)
+                    log.write(json.dumps({
+                        "iteration": iteration, **metrics, "step_s": step_s,
+                        "frames": frames,
+                        "padded_shape": list(batch["attn_prior"].shape)
+                        if batch.get("attn_prior") is not None
+                        else list(batch["mel"].shape)}) + "\n")
 
                 if iteration % iters_per_checkpoint == 0:
                     val, last = compute_validation_loss(
                         eval_step, val_loader, device, ctc_weight)
-                    print(f"Validation loss {iteration}: {val['loss']:9f}")
-                    if logger is not None:
-                        logger.log_validation(
-                            val["loss"], val["nll"], val["gate"], val["ctc"],
-                            last, iteration)
-                    if tone_cer_texts > 0:
-                        # content-level intelligibility of free-running
-                        # synthesis, decoded from the mel (no vocoder)
-                        from flowtron_tpu_torch.data.tone_cer import (
-                            tone_cer_report)
-                        rep = tone_cer_report(config, model, static_cfg,
-                                              max_texts=tone_cer_texts,
-                                              via_audio=False)
-                        val["tone_cer_mel"] = rep["tone_cer_mel"]
-                        print(f"Validation tone-CER(mel) {iteration}: "
-                              f"{rep['tone_cer_mel']:.4f}")
-                        if logger is not None:
-                            logger.add_scalar("validation/tone_cer_mel",
-                                              rep["tone_cer_mel"], iteration)
-                    log.write(json.dumps({"iteration": iteration,
-                                          "validation": val}) + "\n")
-                    save_checkpoint(
-                        os.path.join(output_directory,
-                                     f"model_{iteration}.pt"),
-                        model, optimizer, iteration, learning_rate, config)
-                log.flush()
+                    if lead:
+                        _log_validation(config, model, static_cfg, val, last,
+                                        iteration, logger, log,
+                                        tone_cer_texts)
+                    name = f"model_{iteration}" + (
+                        ".pt" if fmt == "pickle" else "")
+                    saver.save(os.path.join(output_directory, name), model,
+                               optimizer, iteration, learning_rate, config,
+                               fmt=fmt)
+                if lead:
+                    log.flush()
                 iteration += 1
-    if prof is not None:                 # the run ended inside the window
-        _stop_profiler(prof, profile_dir)
+        if prof is not None:             # the run ended inside the window
+            _stop_profiler(prof, profile_dir)
+        saver.wait()
+    finally:
+        if log is not None:
+            log.close()
     return model, optimizer, iteration
+
+
+def _log_validation(config, model, static_cfg, val, last, iteration, logger,
+                    log, tone_cer_texts):
+    """Rank 0's report of a validation: stdout, TensorBoard, tone-CER of
+    free-running synthesis decoded from the mel (no vocoder), the log."""
+    print(f"Validation loss {iteration}: {val['loss']:9f}")
+    if logger is not None:
+        logger.log_validation(val["loss"], val["nll"], val["gate"],
+                              val["ctc"], last, iteration)
+    if tone_cer_texts > 0:
+        from flowtron_tpu_torch.data.tone_cer import tone_cer_report
+        rep = tone_cer_report(config, model, static_cfg,
+                              max_texts=tone_cer_texts, via_audio=False)
+        val["tone_cer_mel"] = rep["tone_cer_mel"]
+        print(f"Validation tone-CER(mel) {iteration}: "
+              f"{rep['tone_cer_mel']:.4f}")
+        if logger is not None:
+            logger.add_scalar("validation/tone_cer_mel", rep["tone_cer_mel"],
+                              iteration)
+    log.write(json.dumps({"iteration": iteration, "validation": val}) + "\n")

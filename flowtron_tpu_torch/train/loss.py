@@ -13,6 +13,13 @@
   ``F.ctc_loss`` does not, so the port takes ``log_softmax`` first.
 
 Every loss is computed in fp32 whatever the compute dtype.
+
+In a data-parallel step each rank holds a slice of the global batch and
+passes ``norm``, the global batch's (valid frames, rows): each of its
+losses is then its slice's sums over the global counts, and the ranks'
+losses (and gradients) sum to the global batch's, as JAX's one program
+computes them over the whole batch. Averaging the ranks' own means
+instead would weigh a rank's frames by its share of the frames.
 """
 
 import torch
@@ -23,10 +30,11 @@ from flowtron_tpu_torch.utils.masks import (
 )
 
 
-def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0):
+def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0,
+                       n_rows=None):
     """CTC alignment loss for one flow. attn_logprob (B, T_mel, T_text)
     pre-softmax log-posterior. Returns the batch mean of per-sample CTC
-    NLL / key_len."""
+    NLL / key_len (the sum over ``n_rows`` rows where given)."""
     B, T, Tk = attn_logprob.shape
     logits = F.pad(attn_logprob.float(), (1, 0), value=blank_logprob)
     # classes past key_len + 1 take no part (the reference slices them off)
@@ -39,7 +47,8 @@ def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob=-1.0):
                          reduction="none", zero_infinity=True)
     # as the JAX package's optax path: an impossible alignment scores 0
     per_seq = torch.where(per_seq < 1e5, per_seq, 0.0)
-    return (per_seq / in_lens.to(per_seq.dtype)).mean()
+    per_seq = per_seq / in_lens.to(per_seq.dtype)
+    return per_seq.mean() if n_rows is None else per_seq.sum() / n_rows
 
 
 def gaussian_mixture_nll(z, mask, mean, log_var, prob):
@@ -60,15 +69,17 @@ def gaussian_mixture_nll(z, mask, mean, log_var, prob):
 
 def flowtron_loss(model_output, gate_target, in_lens, out_lens, sigma=1.0,
                   gm_loss=False, gate_loss=True, use_ctc_loss=False,
-                  blank_logprob=-1.0):
+                  blank_logprob=-1.0, norm=None):
     """(nll, gate, ctc) from ``flowtron_forward``'s output.
-    gate_target: (B, T), 1.0 from the last real frame onward."""
+    gate_target: (B, T), 1.0 from the last real frame onward. ``norm``:
+    the (valid frames, rows) to divide by, as a (2,) tensor; this batch's
+    own by default."""
     (z, log_s_list, gate_pred, _, attn_logprob_list,
      mean, log_var, prob) = model_output
     z = z.float()
     T, B, n_mel = z.shape
     mask = sequence_mask(out_lens, T).t()[..., None].to(z.dtype)  # (T,B,1)
-    n_elements = mask.sum()
+    n_elements = mask.sum() if norm is None else norm[0]
     log_s_total = sum((log_s.float() * mask).sum() for log_s in log_s_list)
     if gm_loss:
         loss_nll = gaussian_mixture_nll(z, mask, mean, log_var, prob) \
@@ -91,6 +102,7 @@ def flowtron_loss(model_output, gate_target, in_lens, out_lens, sigma=1.0,
             if i % 2 != 0:
                 attn_logprob = flip_time_batch_major(attn_logprob, out_lens)
             loss_ctc = loss_ctc + attention_ctc_loss(
-                attn_logprob, in_lens, out_lens, blank_logprob)
+                attn_logprob, in_lens, out_lens, blank_logprob,
+                None if norm is None else norm[1])
         loss_ctc = loss_ctc / float(len(attn_logprob_list))
     return loss_nll, loss_gate, loss_ctc

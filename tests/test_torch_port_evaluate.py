@@ -10,8 +10,8 @@ JAX package on the CPU at toy widths.
   ``load_model_for_inference`` reads it through ``warmstart``): nll,
   gate, ctc, the total and the three health means within 1e-5; the
   invertibility oracle within 1e-6 on a given residual; the plots, the
-  tone-CER and oracle keys; the CLI's one JSON line; a checkpoint
-  directory refused with the reason.
+  tone-CER and oracle keys; the CLI's one JSON line; a directory
+  that is no checkpoint refused with the reason.
 """
 
 import json
@@ -219,7 +219,9 @@ def test_evaluate_cli_prints_one_json_line(setup, monkeypatch, capsys):
 
 
 def test_evaluate_names_the_pt_only_limit(setup, tmp_path):
-    """A JAX pickle loads (tests/test_torch_port_jax_pickle.py); the JAX
-    package's sharded and orbax directories are still refused by name."""
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A JAX pickle loads (tests/test_torch_port_jax_pickle.py), and so do
+    the checkpoint directories of both packages
+    (tests/test_torch_port_dist_ckpt.py); a directory that is none of
+    them is refused, naming the markers it lacks."""
+    with pytest.raises(ValueError, match="not a checkpoint directory"):
         evaluate(setup["config"], str(tmp_path), device="cpu")

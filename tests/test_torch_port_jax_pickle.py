@@ -310,9 +310,11 @@ def test_foreign_global_is_refused_before_it_runs(tmp_path):
 
 
 def test_directory_formats_name_their_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """The directory formats load (tests/test_torch_port_dist_ckpt.py); a
+    directory without any format's marker is refused, naming them."""
+    with pytest.raises(ValueError, match="index.json.*meta.json"):
         load_checkpoint(str(tmp_path), _port_model(0))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="not a checkpoint directory"):
         warmstart(str(tmp_path), _port_model(0))
 
 

@@ -276,8 +276,10 @@ def test_warmstart_filters_by_include_layers(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         warmstart(path, bad, ["encoder"])
     # a file that is not .pt is read as a JAX pickle
-    # (tests/test_torch_port_jax_pickle.py); the directory formats refuse
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # (tests/test_torch_port_jax_pickle.py); a directory without the
+    # marker of any checkpoint format is refused by name
+    # (tests/test_torch_port_dist_ckpt.py loads the formats)
+    with pytest.raises(ValueError, match="not a checkpoint directory"):
         warmstart(str(tmp_path), dst)
 
 
@@ -299,19 +301,20 @@ def test_prior_strength_schedule_matches_jax(iteration):
             jax_schedule(iteration, start, end)
 
 
-@pytest.mark.parametrize("override,item", [
-    ({"checkpoint_format": "orbax"}, "deferred item 2"),
-    ("mesh", "item 16"),
+@pytest.mark.parametrize("dist,item", [
+    ({"mesh_shape": [1, 2], "mesh_axis_names": ["data", "model"]},
+     r"\(l2\)"),
+    ({"mesh_shape": [1, 4, 2], "mesh_axis_names": ["dcn", "data", "model"],
+      "dcn_mesh_shape": [2, 1, 1]}, r"\(l2\)"),
 ])
-def test_train_refuses_unported_features(override, item):
-    """Each refusal names its ROADMAP.md item and comes before any work."""
+def test_train_refuses_unported_features(dist, item):
+    """Each refusal names its ROADMAP.md item and comes before any work:
+    a `model` mesh axis above 1 (tensor parallelism; the second case is
+    configs/config_multislice.json's mesh). Checkpoint directories and
+    the batch axes train (tests/test_torch_port_ddp.py,
+    tests/test_torch_port_dist_ckpt.py)."""
     train_config = {"seed": 1, "learning_rate": 1e-3, "batch_size": 2,
-                    "sigma": 1.0}
-    dist = {"mesh_shape": [-1]}
-    if override == "mesh":
-        dist = {"mesh_shape": [2]}
-    else:
-        train_config.update(override)
+                    "sigma": 1.0, "sharded_checkpoints": True}
     config = {"train_config": train_config, "data_config": {},
               "dist_config": dist, "model_config": DIMS}
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):

@@ -594,7 +594,7 @@ class TestStaged:
 @pytest.mark.parametrize("option,item", [
     (dict(bf16=True), "deferred item 3"),
     (dict(mesh_shape=[1, 1]), "item 23"),
-    (dict(replicas=2), "item 23"),
+    (dict(mesh_shape=[2, 1], replicas=2), r"\(l2\)"),
 ])
 def test_unported_engine_options_raise(files, config, option, item):
     kw = dict(waveglow_path=str(files / "wg.pt"), device="cpu")
@@ -877,7 +877,7 @@ class TestHTTP:
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "1,1"], ["--replicas", "2"], ["--bf16"],
+    ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"], ["--bf16"],
     ["--compile-cache", "x"], ["--profiler-port", "9999"]])
 def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
     with pytest.raises(SystemExit):

@@ -129,8 +129,9 @@ def _run(code_or_args, cwd=ROOT):
 
 def _jax_pickles(root):
     """A JAX package Flowtron checkpoint (its save_checkpoint, a masked
-    RAdam state) at the subprocess's toy widths, and a WaveGlow pickle as
-    its vocoder trainer writes one."""
+    RAdam state) at the subprocess's toy widths, pickled and as its
+    sharded and orbax directories, and a WaveGlow pickle as its vocoder
+    trainer writes one."""
     import pickle
     from flowtron_tpu.train.checkpoints import save_checkpoint, trainable_mask
     from flowtron_tpu.train.radam import build_optimizer, masked_optimizer
@@ -139,8 +140,10 @@ def _jax_pickles(root):
         n_mel_channels=8, n_hidden=16, n_attn_channels=8)
     opt = masked_optimizer(build_optimizer("RAdam", 1e-3, 0.0, 1.0),
                            trainable_mask(params))
-    save_checkpoint(str(root / "model_3"), params, opt.init(params), 3,
-                    1e-3, None)
+    for name, fmt in (("model_3", "pickle"), ("sharded_3", "sharded"),
+                      ("orbax_3", "orbax")):
+        save_checkpoint(str(root / name), params, opt.init(params), 3,
+                        1e-3, None, fmt=fmt)
     wg, cfg = jax_waveglow_init(jax.random.PRNGKey(1), **TINY_WG)
     with open(root / "waveglow_0", "wb") as f:
         pickle.dump({"params": jax.tree.map(np.asarray, wg), "config": cfg},
@@ -154,11 +157,12 @@ def test_port_never_imports_jax(tmp_path):
     through K3's plain versions, RAdam), one Gaussian-mixture step with
     remat, one request and one stream through a w8a8 serving engine (K4's
     plain version) and one stream through an engine's multistream mux,
-    and load a JAX package Flowtron checkpoint (params and optimizer) and
-    WaveGlow pickle, in a fresh interpreter:
-    neither jax, optax nor the JAX package (``flowtron_tpu`` or
-    ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because this
-    test process already imported them."""
+    and load a JAX package Flowtron checkpoint (params and optimizer) as a
+    pickle, a sharded directory and an orbax directory (through
+    ``tensorstore``, which may load) and a WaveGlow pickle, in a fresh
+    interpreter: neither jax, optax nor the JAX package (``flowtron_tpu``
+    or ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because
+    this test process already imported them."""
     _jax_pickles(tmp_path)
     code = (
         "import importlib, pkgutil, sys\n"
@@ -168,7 +172,10 @@ def test_port_never_imports_jax(tmp_path):
         "for name in ('train.loop', 'data.dataset', 'ops.attention', "
         "'cli', 'train.logger', 'audio.griffin_lim', 'vocoder.denoiser', "
         "'infer.streaming', 'serve.streaming', 'infer.multistream', "
-        "'train.evaluate', 'data.tone_cer', 'models.gaussian_mixture'):\n"
+        "'train.evaluate', 'data.tone_cer', 'models.gaussian_mixture', "
+        "'parallel.mesh', 'parallel.launch', 'entry', 'train.dist_ckpt', "
+        "'train.sharded_ckpt', 'train.orbax_ckpt', "
+        "'scripts.train_waveglow'):\n"
         "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
@@ -229,8 +236,10 @@ def test_port_never_imports_jax(tmp_path):
         "from flowtron_tpu_torch.vocoder.waveglow import load_waveglow\n"
         "m, c = flowtron_init(0, n_speaker_dim=4, n_text_dim=12, "
         "n_mel_channels=8, n_hidden=16, n_attn_channels=8)\n"
-        "assert load_checkpoint(root + '/model_3', m, RAdam(m.parameters()))"
-        " == 3\n"
+        "for name in ('model_3', 'sharded_3', 'orbax_3'):\n"
+        "    assert load_checkpoint(root + '/' + name, m, "
+        "RAdam(m.parameters())) == 3\n"
+        "assert 'tensorstore' in sys.modules\n"
         "assert load_waveglow(root + '/waveglow_0')[1]['n_channels'] == 16\n"
         "bad = [k for k in sys.modules if k in ('jax', 'optax', "
         "'flowtron_tpu') or k.startswith(('jax.', 'optax.', "
