@@ -66,6 +66,19 @@ drives the port's three paths at the full width of the repo's
   (``waveglow_ddp``); and the server with ``--replicas auto`` and
   ``--replicas 2`` (clamped to the one card, answers bitwise alike,
   ``serve_replicas``);
+- style transfer (``infer/style_transfer.py``, ``style_transfer``): four
+  corpus utterances as references at config.json's full width, K3's
+  forward in ``collect_z`` and K1 once a flow in the inversion, the card
+  against the CPU's plain path, the card's attention maps fed back through
+  ``attns=`` (the loop, no K1) against the K1 run; runtime voices
+  (``serve_models``): ``POST /models`` of a second voice answering bitwise
+  like the default, two concurrent loads of one name (200 and 409),
+  ``DELETE`` giving the device memory back, the last voice kept;
+  ``serve_profile``: ``POST /profile`` during waves of requests (the trace
+  names K1's and K2's kernels), a second capture refused, the
+  ``--profiler-port`` listener, and ``--compile-cache`` reused by a second
+  process; ``native_mel``: the port's C++ mel and WAV reader built with
+  ``g++`` on the host, against numpy and scipy;
 - the TPU probes of ``scripts/exp_*.py`` (P1-P5) through their ports in
   ``flowtron_tpu_torch/scripts/``: the int4 dequant matmuls (``w4.cu``),
   the resident-weight scans (``resident.cu``) and K1 stripped for cost
@@ -92,12 +105,14 @@ import io
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import wave
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
@@ -3112,6 +3127,403 @@ def phase_serve_replicas(ft_path, wg_path, kernels):
     return out["auto"]["launches"]
 
 
+# -- slice 17: style transfer, runtime voices, /profile, the native mel ----
+ST_REFS = 4            # style references: the corpus's first utterances
+ST_SEED = 1700         # numpy seed of the style-transfer noise
+ST_CPU_FRAMES = 64     # frames of the card vs CPU style transfer
+MEM_TOL = 64 * 2 ** 20  # device bytes an unloaded voice may leave behind
+NATIVE_TOL = 1e-5      # native vs numpy log-mel: 1e-5 plus 1e-5 of the value
+NATIVE_WAVS = 16       # corpus wavs the native mel is held on
+K1_K2_KERNELS = ("k1_kernel", "wn_layer_kernel")   # decoder.cu, wavenet.cu
+
+
+def phase_style_transfer(train_fl, config, ids, kernels, smi, dev):
+    """Style transfer (infer/style_transfer.py) at config.json's full
+    width, seeded weights with the heads perturbed and the gate biased off:
+    ST_REFS corpus utterances are the references, TEXTS[1] the target,
+    N_FRAMES frames, sigma SIGMA, the noise from a numpy seed. K3's forward
+    in ``collect_z``, K1 once a flow in the inversion; the entry point
+    against its parts; the card against the CPU's plain path on the same
+    noise at ST_CPU_FRAMES frames; the card run's maps fed back through
+    ``attns=``: the loop, no K1, mel within K1_TOL of the K1 run."""
+    import copy
+    from flowtron_tpu_torch.data.collate import DataCollate
+    from flowtron_tpu_torch.data.dataset import Data, data_kwargs
+    from flowtron_tpu_torch.infer.style_transfer import (
+        collect_z, posterior_mean, style_transfer)
+    from flowtron_tpu_torch.models.flowtron import (
+        flowtron_infer, flowtron_init)
+
+    model, cfg = flowtron_init(1234, **config["model_config"])
+    perturb_flow_heads(model, torch.Generator().manual_seed(17))
+    # random weights end an utterance within its first frames (the gate
+    # fires at once); bias it off, as phase_slice does, so every
+    # comparison below spans all the frames. The CPU tests hold a gate
+    # that fires against the JAX package.
+    with torch.no_grad():
+        model.flows[-1].ar_step.gate_layer.linear_layer.bias.fill_(-20.0)
+    model.to(dev)
+    data = Data(train_fl, **data_kwargs(dict(config["data_config"],
+                                             p_arpabet=0.0)))
+    batch = DataCollate(use_attn_prior=False)(
+        [data[i] for i in range(ST_REFS)])
+    noise = np.random.default_rng(ST_SEED).standard_normal(
+        (1, 80, N_FRAMES)).astype(np.float32)
+    text, sid = ids[1], 0
+    refs = [torch.as_tensor(batch[k], device=dev) for k in (
+        "mel", "speaker_ids", "text", "in_lens", "out_lens")]
+    collect_z(model, cfg, *refs)                 # warm-up: cuDNN, cuBLAS
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    z = collect_z(model, cfg, *refs)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    collect_launches = read_launches(kernels)
+    z = z.cpu().numpy()
+    mu = posterior_mean([z[:int(L), b] for b, L in
+                         enumerate(batch["out_lens"])], batch["out_lens"],
+                        N_FRAMES)
+    residual = torch.as_tensor(mu[None] + SIGMA * noise, device=dev)
+    sids = torch.tensor([sid], device=dev)
+    text_t = torch.as_tensor(text[None], device=dev)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    mel, attns, n_valid = flowtron_infer(model, cfg, residual, sids, text_t)
+    torch.cuda.synchronize()
+    invert_ms = (time.perf_counter() - t0) * 1e3
+    invert_launches = read_launches(kernels)
+    check(collect_launches["attention_scores_fwd"] > 0
+          and collect_launches["fused_flow_infer"] == 0,
+          f"style_transfer collect_z: {collect_launches}")
+    check(invert_launches["fused_flow_infer"] == 2,
+          f"style_transfer inversion: {invert_launches}")
+    n = int(n_valid[0])
+    check(n == N_FRAMES and bool(torch.isfinite(mel).all()),
+          f"style_transfer: n {n}, finite {bool(torch.isfinite(mel).all())}")
+    t0 = time.perf_counter()
+    st_mel, st_n = style_transfer(model, cfg, batch, text, sid,
+                                  n_frames=N_FRAMES, sigma=SIGMA, noise=noise,
+                                  device=dev)
+    entry_ms = (time.perf_counter() - t0) * 1e3
+    entry_err = float(np.abs(st_mel - mel[0, :, :n].cpu().numpy()).max())
+    check(st_n == n and entry_err <= K1_TOL,
+          f"style_transfer entry point vs its parts: n {st_n} / {n}, "
+          f"mel {entry_err}")
+
+    # the card run's maps fed back: the loop (JAX's routing), never K1
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    fed, _, fed_nv = flowtron_infer(model, cfg, residual, sids, text_t,
+                                    attns=list(reversed(attns)))
+    torch.cuda.synchronize()
+    fed_ms = (time.perf_counter() - t0) * 1e3
+    fed_launches = read_launches(kernels)
+    fed_err = float((fed - mel).abs().max())
+    check(fed_launches["fused_flow_infer"] == 0,
+          f"style_transfer with external maps reached K1: {fed_launches}")
+    check(torch.equal(fed_nv, n_valid) and fed_err <= K1_TOL,
+          f"maps fed back: n_valid {fed_nv.tolist()} / {n_valid.tolist()}, "
+          f"mel {fed_err}")
+
+    # card vs the CPU's plain path, on the same noise, short
+    Nc = ST_CPU_FRAMES
+    outs = {}
+    cpu_model = copy.deepcopy(model).cpu()
+    for where, m, d in (("card", model, dev),
+                        ("cpu", cpu_model, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        outs[where] = style_transfer(m, cfg, batch, text, sid, n_frames=Nc,
+                                     sigma=SIGMA, noise=noise[:, :, :Nc],
+                                     device=d) + (time.perf_counter() - t0,)
+    scale = max(1.0, float(np.abs(outs["cpu"][0]).max()))
+    cpu_err = float(np.abs(outs["card"][0] - outs["cpu"][0]).max()) / scale \
+        if outs["card"][1] == outs["cpu"][1] else float("inf")
+    check(outs["card"][1] == outs["cpu"][1] == Nc and cpu_err <= SLICE_TOL,
+          f"style_transfer card vs cpu: n {outs['card'][1]} / "
+          f"{outs['cpu'][1]}, mel {cpu_err}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    emit("style_transfer", nvidia_smi=smi, references=ST_REFS,
+         reference_frames=[int(x) for x in batch["out_lens"]],
+         target_text_len=len(text), n_frames=N_FRAMES, sigma=SIGMA,
+         n_valid=n, collect_z_ms=collect_ms, inversion_ms=invert_ms,
+         entry_point_ms=entry_ms, maps_fed_back_ms=fed_ms,
+         max_abs_err_entry_vs_parts=entry_err,
+         max_abs_err_maps_fed_back=fed_err,
+         card_vs_cpu=dict(n_frames=Nc, n_valid=outs["cpu"][1],
+                          max_err_of_scale=cpu_err,
+                          card_s=outs["card"][2], cpu_s=outs["cpu"][2]),
+         collect_z_launches=collect_launches,
+         inversion_launches=invert_launches,
+         maps_fed_back_launches=fed_launches)
+    return {k: collect_launches[k] + invert_launches[k]
+            for k in collect_launches}
+
+
+def call_json(url, path, body=None, method="POST"):
+    """(status, JSON answer) of one request, error answers included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_serve_admin(ft_path, wg_path, kernels, smi, tmp):
+    """One server built in-process by ``build_server`` with a vocoder, no
+    ``--model`` and ``--profiler-port``: ``serve_models`` (runtime loads and
+    unloads) then ``serve_profile`` (trace capture, and
+    ``--compile-cache`` in two subprocesses). Returns the launches of
+    each."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    port = free_port()
+    server, engines = build_server(
+        ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port", "0",
+         "--max-batch", "4", "--warmup", "--profiler-port", str(port),
+         "-p", NO_ARPABET], host="127.0.0.1")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        models = phase_serve_models(url, ft_path, wg_path, engines, kernels,
+                                    smi)
+        profile = phase_serve_profile(url, f"http://127.0.0.1:{port}",
+                                      ft_path, kernels, smi, tmp)
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.profiler_server.shutdown()
+        server.profiler_server.server_close()
+        for eng in list(engines.values()):
+            eng.shutdown()
+        torch.cuda.empty_cache()
+    return models, profile
+
+
+def phase_serve_models(url, ft_path, wg_path, engines, kernels, smi):
+    """``POST /models`` of a second voice on the saved files; a request to
+    it against the same request to the default voice, bitwise; two
+    concurrent loads of a third name (one 200, one 409); ``DELETE`` of both
+    gives the device memory back (within MEM_TOL after ``gc.collect()``);
+    the last voice 409, an unknown one 404."""
+    import gc
+    body = {"text": TEXTS[2], "seed": REQ_SEED + 40}
+    default_pcm = post_pcm(url, body)            # warm, before the baseline
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    spec = {"config": "config.json", "checkpoint": ft_path,
+            "vocoder": wg_path}
+    t0 = time.perf_counter()
+    loaded = call_json(url, "/models", dict(spec, name="second"))
+    load_s = time.perf_counter() - t0
+    check(loaded == (200, {"loaded": "second", "can_stream": True}),
+          f"serve_models: load {loaded}")
+    mem_loaded = torch.cuda.memory_allocated()
+    reset_launches(kernels)
+    second_pcm = post_pcm(url, dict(body, model="second"))
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    check(second_pcm == default_pcm and len(second_pcm) > 0,
+          "serve_models: the loaded voice answered otherwise than the "
+          "default on the same checkpoint and seed")
+    check(launches["fused_flow_infer"] > 0 and launches["wn_layer"] > 0,
+          f"serve_models: {launches}")
+    answers = [None, None]
+
+    def load(i):
+        answers[i] = call_json(url, "/models", dict(spec, name="third"))
+
+    threads = [threading.Thread(target=load, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(sorted(a[0] for a in answers) == [200, 409],
+          f"serve_models: concurrent loads {answers}")
+    listed = get_json(url, "/models")
+    unloads = [call_json(url, f"/models/{name}", method="DELETE")
+               for name in ("third", "second")]
+    check([u[0] for u in unloads] == [200, 200], f"serve_models: {unloads}")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(abs(mem1 - mem0) <= MEM_TOL,
+          f"serve_models: {mem1 - mem0} bytes left after the unloads")
+    last = call_json(url, "/models/default", method="DELETE")
+    unknown = call_json(url, "/models/nobody", method="DELETE")
+    check(last[0] == 409 and unknown[0] == 404,
+          f"serve_models: last {last}, unknown {unknown}")
+    check(list(engines) == ["default"], f"serve_models: {list(engines)}")
+    emit("serve_models", nvidia_smi=smi, load_s=load_s,
+         concurrent_loads=[a[0] for a in answers],
+         resident_at_most=[m["name"] for m in listed["models"]],
+         memory_allocated_before_mb=mem0 / 2 ** 20,
+         memory_allocated_loaded_mb=mem_loaded / 2 ** 20,
+         memory_allocated_after_unload_mb=mem1 / 2 ** 20,
+         unload_answers=[u[1] for u in unloads], last_voice=last[0],
+         unknown_voice=unknown[0], answers_bitwise_equal=True,
+         launches=launches)
+    return launches
+
+
+def trace_counts(path, names):
+    """From a Chrome trace: the GPU kernels whose names contain each of
+    ``names``, counted, and the trace's event count."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {n: sum(n in k for k in kernels) for n in names}, len(events)
+
+
+def phase_serve_profile(url, purl, ft_path, kernels, smi, tmp):
+    """``POST /profile {"seconds": 2}`` during waves of ``/synthesize``: 200
+    and a trace naming K1's and K2's kernels; a second capture meanwhile
+    409; the same capture through ``--profiler-port`` 200. Then
+    ``--compile-cache``: a subprocess with an empty DIR builds decoder.cu
+    into it, a second reuses it (its build_seconds 0.0)."""
+    stop = threading.Event()
+    waves = []
+
+    def traffic():
+        while not stop.is_set():
+            waves.append(wave_of(url, [{"text": t, "seed": REQ_SEED + 60 + k}
+                                       for k, t in enumerate(TEXTS)])[1])
+
+    trace_dir = os.path.join(tmp, "profile")
+    captured = []
+    capture = threading.Thread(target=lambda: captured.append(call_json(
+        url, "/profile", {"seconds": 2, "dir": trace_dir})))
+    reset_launches(kernels)
+    capture.start()
+    time.sleep(0.2)
+    load = threading.Thread(target=traffic)
+    load.start()
+    time.sleep(0.5)
+    second = call_json(url, "/profile", {"seconds": 0.1})
+    capture.join(120)
+    stop.set()
+    load.join(600)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    check(captured and captured[0] == (200, {"trace_dir": trace_dir,
+                                              "seconds": 2.0}),
+          f"serve_profile: capture {captured}")
+    check(second[0] == 409, f"serve_profile: second capture {second}")
+    counts, n_events = trace_counts(os.path.join(trace_dir, "trace.json"),
+                                    K1_K2_KERNELS)
+    check(all(counts[k] > 0 for k in K1_K2_KERNELS),
+          f"serve_profile: the trace misses K1 or K2: {counts}")
+    port_dir = os.path.join(tmp, "profile_port")
+    via_port = call_json(purl, "/profile", {"seconds": 0.5,
+                                            "dir": port_dir})
+    check(via_port == (200, {"trace_dir": port_dir, "seconds": 0.5})
+          and os.path.exists(os.path.join(port_dir, "trace.json")),
+          f"serve_profile: --profiler-port {via_port}")
+
+    cache = os.path.join(tmp, "compile_cache")
+    code = (
+        "import json, sys\n"
+        "from flowtron_tpu_torch.ops import _build\n"
+        "from flowtron_tpu_torch.serve.cli import build_server\n"
+        f"server, engines = build_server(['-c', 'config.json', '-f', "
+        f"{ft_path!r}, '--port', '0', '--max-batch', '1', '--n-frames', "
+        f"'8', '--warmup', '--compile-cache', {cache!r}], "
+        "host='127.0.0.1')\n"
+        "server.server_close()\n"
+        "[e.shutdown() for e in engines.values()]\n"
+        "print(json.dumps({'build_dir': str(_build.BUILD_DIR), "
+        "'build_seconds': _build.build_seconds}))\n")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=600)
+        check(r.returncode == 0, f"--compile-cache run: {r.stderr[-2000:]}")
+        runs.append(dict(json.loads(r.stdout.strip().splitlines()[-1]),
+                         wall_s=time.perf_counter() - t0))
+    libs = sorted(os.listdir(cache))
+    check(all(os.path.realpath(r["build_dir"]) == os.path.realpath(cache)
+              for r in runs)
+          and runs[0]["build_seconds"].get("decoder", 0) > 0
+          and runs[1]["build_seconds"].get("decoder") == 0.0
+          and any(lib.startswith("decoder-") for lib in libs),
+          f"--compile-cache: {runs}, {libs}")
+    emit("serve_profile", nvidia_smi=smi, seconds=2.0, waves=len(waves),
+         wave_wall_s=waves, trace_kernels=counts, trace_events=n_events,
+         second_capture=second[0], profiler_port=via_port[0],
+         launches=launches, compile_cache=dict(
+             libraries=libs, runs=[{k: r[k] for k in (
+                 "build_seconds", "wall_s")} for r in runs]))
+    return launches
+
+
+def phase_native_mel(train_fl, config):
+    """The port's native library (native/mel.cpp) built with g++ on the
+    card machine's host; NativeMel against the numpy mel on NATIVE_WAVS
+    corpus wavs, decode_wav against scipy bitwise, Data(use_native=True)
+    items against the numpy path's; ms a mel each way (host times)."""
+    from scipy.io import wavfile
+    from flowtron_tpu_torch import native
+    from flowtron_tpu_torch.audio.stft import MelSpectrogram
+    from flowtron_tpu_torch.data.dataset import Data, data_kwargs
+    from flowtron_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    with open(train_fl) as f:
+        paths = [line.split("|")[0] for line in f][:NATIVE_WAVS]
+    ms = MelSpectrogram()
+    nm = native.NativeMel(ms.window, ms.mel_basis)
+    mel_err = rel_worst = 0.0
+    t_native = t_numpy = 0.0
+    for path in paths:
+        sr, pcm = wavfile.read(path)
+        dec, dsr = native.decode_wav(path)
+        check(dsr == sr and np.array_equal(dec, pcm.astype(np.float32)),
+              f"native_mel: decode_wav differs from scipy on {path}")
+        audio = dec / 32768.0
+        t0 = time.perf_counter()
+        a = nm(audio)
+        t_native += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = ms.mel_numpy(audio)
+        t_numpy += time.perf_counter() - t0
+        mel_err = max(mel_err, float(np.abs(a - b).max()))
+        rel_worst = max(rel_worst, float(
+            (np.abs(a - b) / (NATIVE_TOL + NATIVE_TOL * np.abs(b))).max()))
+    check(rel_worst <= 1.0, f"native_mel: max abs {mel_err}, bar ratio "
+          f"{rel_worst}")
+    kw = data_kwargs(dict(config["data_config"], p_arpabet=0.0))
+    nat = Data(train_fl, **dict(kw, use_native=True))
+    plain = Data(train_fl, **kw)
+    check(nat._native_mel is not None, "native_mel: Data fell back to numpy")
+    item_err = 0.0
+    for i in range(4):
+        a, b = nat[i], plain[i]
+        check(np.allclose(a[0], b[0], atol=NATIVE_TOL, rtol=NATIVE_TOL)
+              and np.array_equal(a[2], b[2]) and a[1] == b[1],
+              f"native_mel: Data item {i}")
+        item_err = max(item_err, float(np.abs(a[0] - b[0]).max()))
+    emit("native_mel", cpu=_build._cpu_model(), cpu_count=os.cpu_count(),
+         build_s=build_s, wavs=len(paths), max_abs_err=mel_err,
+         bar_ratio=rel_worst, data_items_max_abs_err=item_err,
+         native_ms_per_mel=t_native / len(paths) * 1e3,
+         numpy_ms_per_mel=t_numpy / len(paths) * 1e3,
+         native_threads=nm.n_threads)
+
+
 def probe_check(tag, out, ref, tol):
     """max |out - ref| within ``tol`` of ref's largest magnitude; returns
     the absolute error."""
@@ -3580,11 +3992,14 @@ def main():
         serve_staged = phase_serve_staged(ft_path, wg_path, kernels)
         gl_serve = phase_griffin_lim_serve(ft_path, kernels)
         serve_replicas = phase_serve_replicas(ft_path, wg_path, kernels)
+        serve_models, serve_profile = phase_serve_admin(
+            ft_path, wg_path, kernels, smi, tmp)
     paths = dict(inference=infer_launches, stream=stream_launches,
                  denoiser=stft_launches, serve=serve,
                  serve_stream=serve_stream, griffin_lim_serve=gl_serve,
                  serve_w8a8=q_serve, mux=mux_launches, serve_mux=serve_mux,
-                 serve_staged=serve_staged, serve_replicas=serve_replicas)
+                 serve_staged=serve_staged, serve_replicas=serve_replicas,
+                 serve_models=serve_models, serve_profile=serve_profile)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3599,6 +4014,9 @@ def main():
         phase_train_vs_cpu(config, dev)
         phase_train_to_infer(config, os.path.join(out_dir, "model_9.pt"),
                              ids, sid, dev)
+        style_launches = phase_style_transfer(corpus[0], config, ids,
+                                              kernels, smi, dev)
+        phase_native_mel(corpus[0], config)
         gm_run, gm_ckpt = phase_train_gm(corpus, tmp, kernels, dev)
         with open(GM_CONFIG) as f:
             phase_train_vs_cpu(json.load(f), dev, "train_gm_vs_cpu")
@@ -3618,7 +4036,7 @@ def main():
          train_gm=gm_run["launches"], train_remat=remat_launches,
          cumm_train=cumm_launches, cumm_request=cumm_infer,
          evaluate=eval_launches, waveglow_wide=wide_launches,
-         ddp_ranks=ddp_launches)
+         ddp_ranks=ddp_launches, style_transfer=style_launches)
     probes, probe_launches = phase_probes(kernels, k1_frames, dev)
     loaded = [m for m in sys.modules if m in ("jax", "optax", "flowtron_tpu")
               or m.startswith(("jax.", "optax.", "flowtron_tpu."))]
@@ -3641,13 +4059,22 @@ def main():
     # weight). K4's launches
     # are the w8a8 server's main wave: JAX routes only a8 leaves to the
     # kernel, so the weight-only body launches 0 times on any path.
+    # each kernel's launches on the paths of style transfer, runtime
+    # voices and the /profile capture, beside its main path's
+    def launches_on(name):
+        return {p: launches[name] for p, launches in (
+            ("style_transfer", style_launches),
+            ("serve_models", serve_models), ("serve_profile", serve_profile))}
+
     print(json.dumps({"kernels": [
-        row("fused_flow_infer", "flowtron_tpu_torch/csrc/decoder.cu",
-            "flowtron_tpu/ops/decoder_pallas.py:229",
-            infer_launches["fused_flow_infer"], k1_err, k1_times),
+        dict(row("fused_flow_infer", "flowtron_tpu_torch/csrc/decoder.cu",
+                 "flowtron_tpu/ops/decoder_pallas.py:229",
+                 infer_launches["fused_flow_infer"], k1_err, k1_times),
+             launches_on=launches_on("fused_flow_infer")),
         dict(row("wn_layer", "flowtron_tpu_torch/csrc/wavenet.cu",
                  "flowtron_tpu/ops/wavenet_pallas.py:57",
                  infer_launches["wn_layer"], k2_err, k2_times),
+             launches_on=launches_on("wn_layer"),
              # the wide builds: layer 3 at B=1, T=12800; launches of one
              # 400-frame pass of a WaveGlow that wide (waveglow_wide)
              by_width={C: dict(row(
@@ -3655,10 +4082,12 @@ def main():
                  "flowtron_tpu/ops/wavenet_pallas.py:57", wide_launches[C],
                  k2_wide[C][0], k2_wide[C][1:5]), bm=k2_wide[C][5])
                  for C in K2_WIDE}),
-        row("attention_scores_fwd", "flowtron_tpu_torch/csrc/attention.cu",
-            "flowtron_tpu/ops/attention_pallas.py:46",
-            train_launches["attention_scores_fwd"], k3["fwd"][0],
-            k3["fwd"][1:]),
+        dict(row("attention_scores_fwd",
+                 "flowtron_tpu_torch/csrc/attention.cu",
+                 "flowtron_tpu/ops/attention_pallas.py:46",
+                 train_launches["attention_scores_fwd"], k3["fwd"][0],
+                 k3["fwd"][1:]),
+             launches_on=launches_on("attention_scores_fwd")),
         row("attention_scores_bwd", "flowtron_tpu_torch/csrc/attention.cu",
             "flowtron_tpu/ops/attention_pallas.py:92",
             train_launches["attention_scores_bwd"], k3["bwd"][0],

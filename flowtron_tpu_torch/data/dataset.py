@@ -3,7 +3,10 @@
 reference:data.py:59-188).
 
 Host-side numpy end to end: the wav is read with scipy, the log-mel comes
-from the port's numpy ``MelSpectrogram``, the text from the port's text
+from the port's numpy ``MelSpectrogram`` (with ``use_native``, both come
+from the port's C++ library, ``native/``, built at first use; if it cannot
+be built the reason is printed and numpy runs, as in the JAX package,
+since the two agree within 1e-5), the text from the port's text
 package through ``data/frontend.py:TextFrontend`` (same filelist shuffle
 and ARPAbet draws from one ``random.Random(seed)``), the prior from
 ``data/prior.py``. The prior disk cache is on only at ``p_arpabet ==
@@ -78,10 +81,6 @@ class Data(TextFrontend):
                  betab_scaling_factor=1.0, randomize=True,
                  keep_ambiguous=False, seed=1234, mel_cache_path="",
                  use_native=False):
-        if use_native:
-            raise NotImplementedError(
-                "the native (C++) wav/mel path is not ported; set "
-                "data_config.use_native=false (ROADMAP.md Queue 1, item 15)")
         super().__init__(filelist_path, p_arpabet=p_arpabet,
                          cmudict_path=cmudict_path,
                          heteronyms_path=heteronyms_path,
@@ -106,6 +105,20 @@ class Data(TextFrontend):
         self.mel_cache_path = mel_cache_path
         if mel_cache_path:
             os.makedirs(mel_cache_path, exist_ok=True)
+        # the native (C++) wav decode and mel (flowtron_tpu/data/
+        # dataset.py:141-152)
+        self._native_mel = None
+        self._native_decode = None
+        if use_native:
+            try:
+                from flowtron_tpu_torch import native
+                if native.available() or native.build():
+                    self._native_mel = native.NativeMel(
+                        self.stft.window, self.stft.mel_basis,
+                        filter_length, hop_length)
+                    self._native_decode = native.decode_wav
+            except (OSError, RuntimeError) as e:
+                print(f"native data path unavailable ({e}); using numpy")
 
     def compute_attention_prior(self, audiopath, mel_length, text_length):
         prior_path = None
@@ -132,7 +145,10 @@ class Data(TextFrontend):
 
     def get_mel(self, audio):
         """audio: float32 waveform in integer scale -> (80, T) log-mel."""
-        return self.stft.mel_numpy(audio / self.max_wav_value)
+        audio_norm = audio / self.max_wav_value
+        if self._native_mel is not None:
+            return self._native_mel(audio_norm)
+        return self.stft.mel_numpy(audio_norm)
 
     def _load_mel_cached(self, audiopath, audio):
         if not self.mel_cache_path:
@@ -148,7 +164,7 @@ class Data(TextFrontend):
 
     def __getitem__(self, index):
         audiopath, text, speaker_id = self.audiopaths_and_text[index]
-        audio, sampling_rate = load_wav(audiopath)
+        audio, sampling_rate = (self._native_decode or load_wav)(audiopath)
         if sampling_rate != self.sampling_rate:
             raise ValueError(f"{sampling_rate} SR doesn't match target "
                              f"{self.sampling_rate} SR")

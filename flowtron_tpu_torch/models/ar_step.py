@@ -11,14 +11,19 @@ exp(-log_s_t)`` (reference:flowtron.py:775-828).
 
 Routing, as the JAX package's (flowtron_tpu/models/ar_step.py:219-227
 with ops/decoder_pallas.py:358-371), through one predicate,
-``in_k1_subset``: a flow with a scalar temperature, no attention prior and
-no quantized weight runs kernel K1 (``ops/decoder.py``) on CUDA tensors,
-``fused="early"`` switching its early exit on; on CPU tensors a truthy
+``in_k1_subset``: a flow with a scalar temperature, no attention prior, no
+external attention map and no quantized weight runs kernel K1
+(``ops/decoder.py``) on CUDA tensors, ``fused="early"`` switching its
+early exit on; on CPU tensors a truthy
 ``fused`` runs K1's plain version and ``fused=False`` the loop below. Any
 other flow runs the per-frame loop ``_scan_infer`` on either device: it is
 the counterpart of JAX's ``lax.scan`` (its body,
 flowtron_tpu/models/ar_step.py:262-314), with every dot through
 ``utils/weights.py:qdot`` (so kernel K4 on an ``a8`` quantized flow).
+
+An external attention map (style transfer, ``attn``: (B, N, Tk)) runs
+the loop, frame t taking ``attn[:, t]`` in place of the attention step, as
+JAX's scan cell does; the cumulative and previous attention still take it.
 
 A chunked (streaming) call, with ``carry`` or ``return_carry``, always
 runs the loop: K1 starts from zero state and returns none, and the JAX
@@ -45,6 +50,7 @@ from torch import nn
 from flowtron_tpu_torch.models.attention import (
     Attention, AttentionConditioning, attention_conditioning_apply,
     attention_forward, attention_precompute, attention_step,
+    attention_step_external,
 )
 from flowtron_tpu_torch.models.layers import DenseLayer, LinearNorm, linear
 from flowtron_tpu_torch.ops.decoder import pack_flow_weights, fused_flow_infer
@@ -222,24 +228,24 @@ def _n_valid_from_gates(gates, gate_threshold, n_valid):
     return nv if n_valid is None else torch.minimum(n_valid.to(nv.dtype), nv)
 
 
-def in_k1_subset(flow, attn_prior, temperature):
+def in_k1_subset(flow, attn_prior, temperature, attn=None):
     """Whether kernel K1 can run this flow: a scalar temperature, no
-    attention prior, no quantized weight and no cumulative attention, as
-    the JAX package's fused condition (flowtron_tpu/models/ar_step.py:223).
-    An external attention map, the rest of that condition, is not ported
-    (``attention_forward`` raises for one)."""
+    attention prior, no external attention map, no quantized weight and no
+    cumulative attention, as the JAX package's fused condition
+    (flowtron_tpu/models/ar_step.py:219-223)."""
     scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
-    return scalar_temp and attn_prior is None and not is_quantized(flow) \
-        and not hasattr(flow, "attn_cond_layer")
+    return scalar_temp and attn_prior is None and attn is None \
+        and not is_quantized(flow) and not hasattr(flow, "attn_cond_layer")
 
 
 def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
-                carry=None):
+                carry=None, attn=None):
     """The per-frame loop: the JAX scan body written out, every dot
     through ``qdot``. ``carry`` is the state (h_att, c_att, hs, cs, prev
     frame, cumulative attention, previous attention) to start from, None
-    for zeros. Returns (mel (N, B, n_mel), attn (B, N, Tk), gates (N, B),
-    the final state)."""
+    for zeros. ``attn`` (B, N, Tk): an external map, frame t's attention
+    in place of the attention step. Returns (mel (N, B, n_mel), attn
+    (B, N, Tk), gates (N, B), the final state)."""
     N, B, n_mel = residual.shape
     Tk = text.shape[0]
     k_proj, vals = attention_precompute(flow.attention_layer, text, text)
@@ -265,9 +271,12 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
         prior_t = None if attn_prior is None else attn_prior[:, t]
         if cumm:
             k_proj = _cumm_keys(flow, text_b, attn_cumm, attn_prev)
-        context, attn_w = attention_step(
-            flow.attention_layer, h_att, k_proj, vals, key_mask=key_mask,
-            prior_t=prior_t, temperature=temperature)
+        if attn is not None:
+            context, attn_w = attention_step_external(attn[:, t], vals)
+        else:
+            context, attn_w = attention_step(
+                flow.attention_layer, h_att, k_proj, vals, key_mask=key_mask,
+                prior_t=prior_t, temperature=temperature)
         attn_cumm, attn_prev = attn_cumm + attn_w, attn_w
         x = torch.cat([h_att, context], dim=-1)
         gate = torch.sigmoid(flow.gate_layer(x))[:, 0] \
@@ -288,7 +297,7 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
 
 def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
                   temperature=1.0, gate_threshold=0.5, n_valid=None,
-                  fused=False, carry=None, return_carry=False):
+                  fused=False, carry=None, return_carry=False, attn=None):
     """Invert one flow over sampled latents.
 
     Args:
@@ -301,6 +310,8 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
       fused: on CPU, truthy runs K1's plain version instead of the loop
         for a flow in K1's subset; ``"early"`` turns on early exit (see
         ops/decoder.py).
+      attn: an external attention map (B, N, Tk) or None; a map runs the
+        loop (never K1), as in the JAX package.
       carry / return_carry: chunked (streaming) synthesis, on the loop.
         ``carry`` is the state a previous call returned with
         ``return_carry=True`` (None: a fresh start); with
@@ -312,7 +323,7 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
     """
     N, B, _ = residual.shape
     if carry is None and not return_carry \
-            and in_k1_subset(flow, attn_prior, temperature) \
+            and in_k1_subset(flow, attn_prior, temperature, attn) \
             and (residual.device.type == "cuda" or fused):
         k_proj, vals = attention_precompute(flow.attention_layer, text, text)
         km = torch.ones(B, text.shape[0], device=residual.device) \
@@ -325,7 +336,8 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
         attn = attn.transpose(0, 1)
     else:
         mel, attn, gates, carry = _scan_infer(
-            flow, residual, text, key_mask, attn_prior, temperature, carry)
+            flow, residual, text, key_mask, attn_prior, temperature, carry,
+            attn)
         if return_carry:
             return mel, attn, gates, carry
     if hasattr(flow, "gate_layer"):
@@ -338,9 +350,12 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
 
 def ar_back_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
                        temperature=1.0, gate_threshold=0.5, n_valid=None,
-                       fused=False):
+                       fused=False, attn=None):
     """Backward flow: flip within n_valid, invert, flip back
-    (reference:flowtron.py:629-642). ``flow`` is an ``ARBackStep``."""
+    (reference:flowtron.py:629-642). ``flow`` is an ``ARBackStep``. As in
+    the JAX package, an external map ``attn`` is not flipped (frame t of
+    the flipped residual takes ``attn[:, t]``), and the attention that
+    comes back stays in the flipped order."""
     N, B, _ = residual.shape
     if n_valid is None:
         n_valid = torch.full((B,), N, dtype=torch.int64,
@@ -350,5 +365,5 @@ def ar_back_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
         flip_time_batch_major(attn_prior, n_valid)
     mel, attn_w, n_valid_out = ar_step_infer(
         flow.ar_step, residual_f, text, key_mask, prior_f, temperature,
-        gate_threshold, n_valid=n_valid, fused=fused)
+        gate_threshold, n_valid=n_valid, fused=fused, attn=attn)
     return flip_time(mel, n_valid_out), attn_w, n_valid_out

@@ -1,6 +1,7 @@
 """Additive (tanh) attention (port of ``attention_scores``,
 ``attention_forward``, ``attention_precompute`` and ``attention_step`` in
-flowtron_tpu/models/attention.py).
+flowtron_tpu/models/attention.py, and of the external-map frame that
+flowtron_tpu/models/ar_step.py computes inline, ``attention_step_external``).
 
 score = v . tanh(q + k) / temperature, softmax over text positions,
 optional beta-binomial prior posterior (reference:flowtron.py:528-592).
@@ -103,7 +104,9 @@ def attention_forward(attn, queries, keys, values, key_mask=None,
       keys / values: (Tk, B, text + speaker dim) encoder outputs.
       key_mask: (B, Tk) bool, True at valid text positions.
       attn_prior: (B, Tq, Tk) beta-binomial prior or None.
-      attn_map: an external attention map; not ported yet (raises).
+      attn_map: an external attention map (B, Tq, Tk) or None. When given,
+        no scores and no softmax are computed: the context is the map
+        applied to the projected values, and attn_logprob is None.
 
     Returns context (B, D_att, Tq), attn (B, Tq, Tk) and attn_logprob
     (B, Tq, Tk) in fp32, taken before the key mask, for the CTC loss.
@@ -111,11 +114,11 @@ def attention_forward(attn, queries, keys, values, key_mask=None,
     package, so under the bf16 policy the context comes out fp32 and
     promotes the decoder after it.
     """
-    if attn_map is not None:
-        raise NotImplementedError(
-            "an external attention map (style transfer) is not ported yet; "
-            "see ROADMAP.md Queue 1, slice C item 26")
     vals = attn.value(values).transpose(0, 1)                  # (B, Tk, D)
+    if attn_map is not None:
+        dt = torch.promote_types(attn_map.dtype, vals.dtype)
+        context = torch.bmm(attn_map.to(dt), vals.to(dt))
+        return context.transpose(1, 2), attn_map, None
     q = attn.query(queries).transpose(0, 1)
     k = attn.key(keys).transpose(0, 1)
     scores = attention_scores(attn, q, k, temperature)
@@ -165,3 +168,9 @@ def attention_step(attn, query, k_proj, vals, key_mask=None, prior_t=None,
         w = torch.softmax(log_post, dim=-1)
     context = torch.einsum("bk,bkd->bd", w, vals)
     return context, w
+
+
+def attention_step_external(attn_t, vals):
+    """One frame with an external map: attn_t (B, Tk), vals (B, Tk, D) ->
+    context (B, D), attn_t (no query, no scores, no softmax)."""
+    return torch.einsum("bk,bkd->bd", attn_t, vals), attn_t

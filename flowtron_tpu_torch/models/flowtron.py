@@ -181,7 +181,7 @@ def _forward(model, config, mel, speaker_ids, text, in_lens, out_lens,
 @torch.no_grad()
 def flowtron_infer(model, config, residual, speaker_ids, text,
                    temperature=1.0, gate_threshold=0.5, attn_prior=None,
-                   in_lens=None, fused=False):
+                   in_lens=None, fused=False, attns=None):
     """Invert the flows over sampled latents.
 
     Args:
@@ -190,6 +190,11 @@ def flowtron_infer(model, config, residual, speaker_ids, text,
       in_lens: (B,) text lengths for padded batches, or None (all valid).
       fused: see ``ar_step_infer``; on CUDA every flow runs kernel K1 and
         ``"early"`` turns its early exit on.
+      attns: external attention maps (B, N, Tk), one a flow, or None. The
+        flow visited ``rev_i``-th takes ``attns[len(attns) - 1 - rev_i]``
+        (the reference's ``reversed(attns)``), so the list this function
+        returns, reversed, feeds the same maps back. A flow with a map
+        runs the loop, never K1.
 
     Returns (mel (B, n_mel, N), attn list of (B, N, Tk), n_valid (B,)).
     """
@@ -204,9 +209,10 @@ def flowtron_infer(model, config, residual, speaker_ids, text,
     for rev_i, flow in enumerate(reversed(model.flows)):
         i = n_flows - 1 - rev_i
         infer = ar_step_infer if i % 2 == 0 else ar_back_step_infer
+        attn_ext = None if attns is None else attns[len(attns) - 1 - rev_i]
         z, attn_w, n_valid = infer(
             flow, z, encoder_outputs, key_mask, attn_prior, temperature,
-            gate_threshold, n_valid=n_valid, fused=fused)
+            gate_threshold, n_valid=n_valid, fused=fused, attn=attn_ext)
         out_attns.append(attn_w)
     return z.permute(1, 2, 0), out_attns, n_valid
 

@@ -1,6 +1,5 @@
 """Serving runtime: an HTTP TTS endpoint with dynamic request batching
-and streaming (port of flowtron_tpu/serve without replicas, mesh, bf16,
-runtime model loading and profiling).
+and streaming (port of flowtron_tpu/serve without the mesh and bf16).
 
 A micro-batching queue coalesces concurrent requests into one synthesis
 chain on the card: latents -> flows (kernel K1, or the per-frame loop for
@@ -43,16 +42,32 @@ GET /metrics      -> request/batch/stream/error/rejection counters, audio
                   batches and hits per vocode bucket; with the mux
                   mux_active_streams and mux_slots
 GET /models       -> loaded voices (``--model`` adds more)
+POST /models      {"name", "config", "checkpoint", "vocoder"?} -> loads a
+                  voice at runtime: {"loaded", "can_stream"}; 400 for a
+                  missing field, 409 for a name loaded or loading, 500 when
+                  the load fails (the name is free again), 501 without a
+                  loader (``make_handler`` without one)
+DELETE /models/<name> -> drains and unloads a voice and gives its device
+                  memory back: {"unloaded", "default"} (unloading the
+                  default promotes the next voice); 404 for an unknown
+                  name, 409 for the last resident voice
+POST /profile     {"seconds": 1.0, "dir": optional} -> a torch.profiler
+                  Chrome trace of the live traffic (seconds clamped to
+                  [0.05, 60]): {"trace_dir", "seconds"}; 400 for a seconds
+                  that is not a number, 409 while a capture runs
 GET /             -> the endpoint index
 
-Not ported yet, each answering 501 with its ROADMAP.md item: /profile,
-POST /models, DELETE /models/<name>.
+``--profiler-port P`` answers POST /profile on a second port;
+``--compile-cache DIR`` makes DIR the kernel libraries' build directory.
+Not ported yet, each refused with its ROADMAP.md item: ``--mesh`` and
+``--bf16``.
 
 Run: python -m flowtron_tpu_torch.serve -c config.json -f model.pt
      [-w waveglow.pt -d 0.1 --stream-workers 2 | --stream-mux 8
      --mux-joins-per-tick 2] [--vocode-buckets 120,240] [--port 8080
      --max-batch 8 --batch-timeout-ms 20 --max-queue 64
-     --quantize w8|w8a8|w4 --warmup]
+     --quantize w8|w8a8|w4 --warmup --compile-cache DIR
+     --profiler-port P]
 """
 
 from flowtron_tpu_torch.serve.common import (EngineOverloaded, TextTooLong,

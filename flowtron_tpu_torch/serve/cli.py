@@ -1,21 +1,33 @@
 """Server CLI: argument parsing, engine construction (with extra
-``--model`` voices), warmup and graceful shutdown (port of
-flowtron_tpu/serve/cli.py). ``build_server`` does everything but serve,
-so a caller can run the server in-process.
+``--model`` voices and the runtime loader of ``POST /models``), warmup
+and graceful shutdown (port of flowtron_tpu/serve/cli.py).
+``build_server`` does everything but serve, so a caller can run the
+server in-process.
 
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
         [-w waveglow.pt] [-d 0.1] [--stream-workers 2 | --stream-mux 8 \\
         [--mux-joins-per-tick 2]] [--vocode-buckets 120,240] \\
         [--quantize w8a8] [--max-batch 8] [--replicas N|auto] [--warmup] \\
+        [--compile-cache DIR] [--profiler-port P] \\
         [--model NAME=CONFIG:CKPT[:VOCODER] ...]
 
 Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
 stream.
 
+``--compile-cache DIR``: the JAX server points XLA's persistent compile
+cache there. Serving compiles nothing here but the kernel libraries, so
+DIR becomes their build directory (``ops/_build.py:set_build_dir``): a
+fresh process or checkout pointed at it reuses the libraries built into
+it (they are keyed by a hash of source, headers and flags).
+``--profiler-port P``: the JAX server starts ``jax.profiler``'s gRPC
+server there for TensorBoard's capture button; PyTorch has none, so this
+starts a second HTTP listener on P that answers ``POST /profile`` alone,
+with the main server's capture and lock. TensorBoard's remote-capture
+button does not reach it.
+
 Runs on cuda:0 (``--replicas``: one copy a card); ``FLOWTRON_PLATFORM=cpu``
-runs it on the CPU. The JAX
-server's flags that are not ported exit with an error naming their
-ROADMAP.md item.
+runs it on the CPU. The JAX server's flags that are not ported exit with
+an error naming their ROADMAP.md item.
 """
 
 import argparse
@@ -24,9 +36,12 @@ import threading
 from http.server import ThreadingHTTPServer
 
 from flowtron_tpu_torch.config import load_config
+from flowtron_tpu_torch.ops import _build
 from flowtron_tpu_torch.serve import engine as serve_engine
 from flowtron_tpu_torch.serve.engine import SynthesisEngine
-from flowtron_tpu_torch.serve.http import make_handler
+from flowtron_tpu_torch.serve.http import (
+    ProfileCapture, make_handler, make_profile_handler,
+)
 from flowtron_tpu_torch.utils.device import resolve_device
 
 # flag -> its ROADMAP.md item (Queue 1)
@@ -34,8 +49,6 @@ UNPORTED_FLAGS = {
     "mesh": ("--mesh", "(l2) Item 16b / slice C item 23b: the `model` "
              "axis"),
     "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
-    "compile_cache": ("--compile-cache", "slice C item 25"),
-    "profiler_port": ("--profiler-port", "slice C item 25 (/profile)"),
 }
 
 
@@ -99,6 +112,16 @@ def _parser():
                         help="an extra named model next to the primary one "
                              "('default'); requests pick one with a "
                              "\"model\" field")
+    parser.add_argument("--compile-cache", default="",
+                        help="build directory of the kernel libraries: a "
+                             "fresh process or checkout pointed at it "
+                             "reuses the libraries built there")
+    parser.add_argument("--profiler-port", type=int, default=0,
+                        help="P > 0: a second HTTP listener on P answering "
+                             "POST /profile alone (torch.profiler, the "
+                             "main server's capture and lock); "
+                             "TensorBoard's remote-capture button does not "
+                             "reach it")
     for dest, (flag, _) in UNPORTED_FLAGS.items():
         kind = {"action": "store_true"} if dest == "bf16" else {"default": None}
         parser.add_argument(flag, dest=dest, help="not ported yet", **kind)
@@ -120,8 +143,11 @@ def build_server(argv=None, host="0.0.0.0"):
         if getattr(args, dest) not in (None, False):
             parser.error(f"{flag} is not ported to the PyTorch package yet; "
                          f"see ROADMAP.md Queue 1, {item}")
+    if args.compile_cache:
+        _build.set_build_dir(args.compile_cache)
+    device = resolve_device()
     if args.replicas == "auto":
-        n_replicas = len(serve_engine.local_devices(resolve_device()))
+        n_replicas = len(serve_engine.local_devices(device))
     else:
         n_replicas = int(args.replicas)
 
@@ -154,7 +180,20 @@ def build_server(argv=None, host="0.0.0.0"):
         for name, eng in engines.items():
             print(f"warming up {name}...", flush=True)
             print(f"  {eng.warmup()}", flush=True)
-    server = ThreadingHTTPServer((host, args.port), make_handler(engines))
+    profile = ProfileCapture(device)
+    server = ThreadingHTTPServer((host, args.port), make_handler(
+        engines, loader=build, profile=profile))
+    # the --profiler-port listener, serving from here on; main() (or the
+    # in-process caller) shuts it down with the server
+    server.profiler_server = None
+    if args.profiler_port:
+        listener = ThreadingHTTPServer((host, args.profiler_port),
+                                       make_profile_handler(profile))
+        threading.Thread(target=listener.serve_forever, daemon=True).start()
+        server.profiler_server = listener
+        print(f"profiler listener on :{listener.server_address[1]} (POST "
+              "/profile, torch.profiler; TensorBoard's remote capture does "
+              "not reach it)", flush=True)
     return server, engines
 
 
@@ -173,6 +212,10 @@ def main(argv=None):
           f"{list(engines)})", flush=True)
     server.serve_forever()
     server.server_close()
-    for eng in engines.values():
+    if server.profiler_server is not None:
+        server.profiler_server.shutdown()
+        server.profiler_server.server_close()
+    # a snapshot: a late POST /models may still change the dict
+    for eng in list(engines.values()):
         eng.shutdown()
     print("shutdown complete")

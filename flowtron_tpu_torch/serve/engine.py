@@ -520,7 +520,12 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         """Stop serving and drop the model. New submits and streams raise
         at once; requests already dispatched complete; active streams run
         to their end before their streamer pair is reclaimed. Safe to call
-        twice."""
+        twice. Afterwards nothing of the engine holds device memory: the
+        streamer pairs, the mux and the replicas are dropped with the
+        model, the vocoder and the denoiser, and the kernels' weight packs
+        go with their modules (K1's cached on each flow, K2's on the WN
+        stack and keyed weakly by the weight in ops/wavenet.py); the
+        caches in ops/ key on shapes only."""
         with self._lifecycle_lock:
             if self._closed:
                 return

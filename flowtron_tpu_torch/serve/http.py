@@ -1,9 +1,16 @@
-"""HTTP front end: request routing, the model registry, and the chunked
-and WebSocket streaming transports (port of flowtron_tpu/serve/http.py;
-see the package docstring for the protocol). Endpoints that are not
-ported answer 501 and name their ROADMAP.md item."""
+"""HTTP front end: request routing, the model registry with runtime
+loads and unloads, trace capture, and the chunked and WebSocket streaming
+transports (port of flowtron_tpu/serve/http.py; see the package docstring
+for the protocol)."""
 
+import gc
 import json
+import tempfile
+import threading
+import time
+from http.server import BaseHTTPRequestHandler
+
+import torch
 
 from flowtron_tpu_torch import __version__
 from flowtron_tpu_torch.serve.common import (
@@ -13,45 +20,125 @@ from flowtron_tpu_torch.serve.wire import (
     _BodyTooLarge, _HTTP_MAX_BODY, _wav_bytes, _wav_stream_header,
     _ws_accept_key, _ws_recv, _ws_send,
 )
-
-UNPORTED = {
-    ("POST", "/profile"): "Queue 1, slice C item 25 (/profile)",
-    ("POST", "/models"): "Queue 1, slice C item 24 (runtime model load)",
-    ("DELETE", "/models/"): "Queue 1, slice C item 24 (runtime model load)",
-}
+from flowtron_tpu_torch.utils.profiler import start_profiler, stop_profiler
 
 
-def make_handler(engine):
+class ProfileCapture:
+    """``POST /profile``'s capture, one at a time: ``torch.profiler`` (CPU
+    activity, plus CUDA activity when ``device`` is a card) for
+    ``seconds`` of whatever traffic is live, written as a Chrome trace
+    ``trace.json`` into ``dir`` or a fresh temporary directory. The
+    server's handler and the ``--profiler-port`` listener share one, so
+    they share its lock. CUDA activity is the whole process's (CUPTI); CPU
+    operator events of the dispatcher and stream threads may be missing."""
+
+    def __init__(self, device):
+        self._device = torch.device(device)
+        self._lock = threading.Lock()
+
+    def __call__(self, req):
+        """A request body -> (HTTP code, JSON answer), as the JAX server's
+        ``_do_profile``: ``seconds`` clamped to [0.05, 60], 400 for one
+        that is not a number, 409 while another capture runs."""
+        try:
+            seconds = min(60.0, max(0.05, float(req.get("seconds", 1.0))))
+        except (TypeError, ValueError):
+            return 400, {"error": "seconds must be a number"}
+        if not self._lock.acquire(blocking=False):
+            return 409, {"error": "a profile capture is already running"}
+        try:
+            trace_dir = req.get("dir") or tempfile.mkdtemp(
+                prefix="flowtron-trace-")
+            prof = start_profiler(self._device)
+            time.sleep(seconds)
+            stop_profiler(prof, trace_dir)
+        except Exception as e:
+            _log.exception("profile capture failed")
+            return 500, {"error": repr(e)}
+        finally:
+            self._lock.release()
+        return 200, {"trace_dir": trace_dir, "seconds": seconds}
+
+
+class _JsonHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # quiet
+        pass
+
+    def _read_json_body(self):
+        """Bounded body read: a declared Content-Length above
+        _HTTP_MAX_BODY is rejected before anything is read."""
+        length = int(self.headers.get("Content-Length", 0))
+        if length > _HTTP_MAX_BODY:
+            raise _BodyTooLarge(length)
+        return json.loads(self.rfile.read(length) or b"{}")
+
+    def _json(self, code, obj):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _json_request(self):
+        """The request body, or None after answering 413 / 400."""
+        try:
+            return self._read_json_body()
+        except _BodyTooLarge as e:
+            self.close_connection = True
+            self._json(413, {"error": str(e)})
+        except Exception as e:
+            self._json(400, {"error": repr(e)})
+        return None
+
+
+def make_profile_handler(profile):
+    """The ``--profiler-port`` listener's handler: ``POST /profile`` with
+    the ``ProfileCapture`` ``profile``, 404 for anything else."""
+
+    class ProfileHandler(_JsonHandler):
+        def do_POST(self):
+            if self.path != "/profile":
+                self.close_connection = True
+                self._json(404, {"error": "not found"})
+                return
+            req = self._json_request()
+            if req is not None:
+                self._json(*profile(req))
+
+    return ProfileHandler
+
+
+def make_handler(engine, loader=None, profile=None):
     """HTTP handler over one engine or a {name: engine} dict; requests
     pick a voice with a "model" field, the first entry is the default.
-    Runtime model loading (the JAX handler's ``loader``) is not ported:
-    POST /models answers 501."""
-    from http.server import BaseHTTPRequestHandler
 
+    With ``loader(config_path, ckpt, vocoder) -> SynthesisEngine``, ``POST
+    /models`` {"name", "config", "checkpoint", "vocoder"?} loads a voice
+    at runtime (501 without one), and ``DELETE /models/<name>`` shuts its
+    engine down and gives its device memory back. The last resident model
+    cannot be unloaded; unloading the default promotes the next voice. The
+    dict is not copied: runtime loads and unloads change the caller's, so
+    its owner shuts the runtime-loaded engines down too. ``profile``: the
+    ``ProfileCapture`` behind ``POST /profile`` (by default a new one on
+    the first engine's device)."""
     engines = engine if isinstance(engine, dict) else {"default": engine}
     if not engines:
         raise ValueError("no models given")
-    default_name = next(iter(engines))
+    reg_lock = threading.Lock()
+    reg = {"default": next(iter(engines)), "loading": set()}
+    if profile is None:
+        profile = ProfileCapture(next(iter(engines.values())).device)
 
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-
-        def log_message(self, fmt, *args):  # quiet
-            pass
-
+    class Handler(_JsonHandler):
         def _engine(self, req):
-            name = req.get("model") or default_name
-            if name not in engines:
-                raise UnknownModel(name, set(engines))
-            return engines[name]
-
-        def _read_json_body(self):
-            """Bounded body read: a declared Content-Length above
-            _HTTP_MAX_BODY is rejected before anything is read."""
-            length = int(self.headers.get("Content-Length", 0))
-            if length > _HTTP_MAX_BODY:
-                raise _BodyTooLarge(length)
-            return json.loads(self.rfile.read(length) or b"{}")
+            with reg_lock:
+                name = req.get("model") or reg["default"]
+                if name not in engines:
+                    raise UnknownModel(name, set(engines))
+                return engines[name]
 
         def _stream_args(self, req, eng):
             """``eng.stream`` on a request body; validation errors raise
@@ -64,39 +151,20 @@ def make_handler(engine):
                 split=bool(req.get("split", False)),
                 denoise=req.get("denoise"))
 
-        def _json(self, code, obj):
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def _unported(self, method):
-            """501 for an endpoint that is not ported; True if it was one.
-            The body is left unread, so the connection closes."""
-            for (m, path), item in UNPORTED.items():
-                if m == method and (self.path == path or (
-                        path.endswith("/") and self.path.startswith(path))):
-                    self.close_connection = True
-                    self._json(501, {"error": f"{method} {self.path} is not "
-                                     f"ported yet; see ROADMAP.md {item}"})
-                    return True
-            return False
-
         def do_GET(self):
-            multi = len(engines) > 1
-            if self._unported("GET"):
-                return
+            with reg_lock:
+                snap = dict(engines)
+                default_name = reg["default"]
+            multi = len(snap) > 1
             if self.path == "/healthz":
-                depths = {n: e.queue_depth for n, e in engines.items()}
+                depths = {n: e.queue_depth for n, e in snap.items()}
                 out = {"status": "ok", "queue_depth": sum(depths.values())}
                 if multi:
                     out["models"] = depths
                 self._json(200, out)
             elif self.path == "/metrics":
-                self._json(200, {n: e.metrics() for n, e in engines.items()}
-                           if multi else engines[default_name].metrics())
+                self._json(200, {n: e.metrics() for n, e in snap.items()}
+                           if multi else snap[default_name].metrics())
             elif self.path == "/models":
                 self._json(200, {
                     "default": default_name,
@@ -108,7 +176,7 @@ def make_handler(engine):
                         .get("n_speakers"),
                         "speaker_ids": sorted(
                             int(s) for s in e.frontend.speaker_ids),
-                    } for n, e in engines.items()]})
+                    } for n, e in snap.items()]})
             elif self.path == "/stream-ws":
                 self._do_stream_ws()
             elif self.path == "/":
@@ -121,8 +189,11 @@ def make_handler(engine):
                         "GET /stream-ws": "WebSocket: json in, pcm16 "
                                           "frames out",
                         "GET /models": "resident voices + speaker ids",
+                        "POST /models": "load a voice at runtime",
+                        "DELETE /models/<name>": "drain + unload",
                         "GET /metrics": "counters + latency percentiles",
                         "GET /healthz": "liveness + queue depth",
+                        "POST /profile": "capture a device trace",
                     },
                     "request_fields": [
                         "text", "speaker_id", "sigma", "seed", "n_frames",
@@ -132,14 +203,91 @@ def make_handler(engine):
                 self._json(404, {"error": "not found"})
 
         def do_DELETE(self):
-            if not self._unported("DELETE"):
+            """DELETE /models/<name>: shut the engine down (its queue
+            drains, active streams finish) and give its device memory
+            back. 404 for an unknown name, 409 for the last resident
+            model."""
+            if not self.path.startswith("/models/"):
                 self._json(404, {"error": "not found"})
+                return
+            name = self.path[len("/models/"):]
+            # decide under the lock, answer outside it: a slow client must
+            # not block the registry
+            eng = err = None
+            with reg_lock:
+                if name not in engines:
+                    err = (404, {"error": f"unknown model {name!r}"})
+                elif len(engines) == 1:
+                    err = (409, {"error": "cannot unload the last resident "
+                                 "model"})
+                else:
+                    eng = engines.pop(name)
+                    if reg["default"] == name:
+                        reg["default"] = next(iter(engines))
+                    new_default = reg["default"]
+            if err is not None:
+                self._json(*err)
+                return
+            on_card = eng.device.type == "cuda"
+            eng.shutdown()
+            del eng
+            if on_card:
+                gc.collect()
+                torch.cuda.empty_cache()
+            self._json(200, {"unloaded": name, "default": new_default})
+
+        def _do_load_model(self, req):
+            """POST /models: load a voice at runtime. The engine is built
+            outside the registry lock (a checkpoint load takes seconds); a
+            set of names being loaded leaves concurrent loads of one name
+            one winner (409 for the others)."""
+            if loader is None:
+                self._json(501, {"error": "runtime model loading is not "
+                                 "enabled (start via the serve CLI, or pass "
+                                 "make_handler a loader)"})
+                return
+            try:
+                name = req["name"]
+                config_path = req["config"]
+                ckpt = req["checkpoint"]
+            except KeyError as e:
+                self._json(400, {"error": f"missing field {e}"})
+                return
+            with reg_lock:
+                taken = name in engines or name in reg["loading"]
+                if not taken:
+                    reg["loading"].add(name)
+            if taken:
+                self._json(409, {"error": f"model {name!r} is already "
+                                 "loaded (or loading)"})
+                return
+            try:
+                eng = loader(config_path, ckpt, req.get("vocoder", ""))
+            except Exception as e:
+                _log.exception("loading model %r failed", name)
+                with reg_lock:
+                    reg["loading"].discard(name)
+                self._json(500, {"error": repr(e)})
+                return
+            # one step: a gap between them would let a concurrent load of
+            # the same name take the slot and leak this engine
+            with reg_lock:
+                reg["loading"].discard(name)
+                engines[name] = eng
+            self._json(200, {"loaded": name, "can_stream": eng.can_stream})
 
         def do_POST(self):
-            if self._unported("POST"):
-                return
             if self.path == "/stream":
                 self._do_stream()
+                return
+            if self.path in ("/models", "/profile"):
+                req = self._json_request()
+                if req is None:
+                    return
+                if self.path == "/models":
+                    self._do_load_model(req)
+                else:
+                    self._json(*profile(req))
                 return
             if self.path != "/synthesize":
                 self.close_connection = True
@@ -238,7 +386,9 @@ def make_handler(engine):
                     or not key:
                 self._json(400, {"error": "expected websocket upgrade"})
                 return
-            if not any(e.can_stream for e in engines.values()):
+            with reg_lock:
+                streamable = any(e.can_stream for e in engines.values())
+            if not streamable:
                 self._json(501, {"error": "streaming requires a neural "
                                  "vocoder (-w)"})
                 return
@@ -294,3 +444,4 @@ def make_handler(engine):
                     gen.close()  # release the streamers
 
     return Handler
+

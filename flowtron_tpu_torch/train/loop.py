@@ -76,6 +76,7 @@ from flowtron_tpu_torch.train.radam import (
     build_optimizer, clip_by_global_norm, trainable_parameters,
 )
 from flowtron_tpu_torch.utils.device import resolve_device
+from flowtron_tpu_torch.utils.profiler import start_profiler, stop_profiler
 
 _TENSOR_KEYS = ("mel", "speaker_ids", "text", "in_lens", "out_lens",
                 "gate_target", "attn_prior")
@@ -258,21 +259,8 @@ def checkpoint_format(train_config, announce=True):
 PROFILE_STEPS = (10, 15)     # the JAX loop's trace window, [start, stop)
 
 
-def _start_profiler(device):
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    return prof
-
-
 def _stop_profiler(prof, profile_dir):
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"profiler trace written to {path}")
+    print(f"profiler trace written to {stop_profiler(prof, profile_dir)}")
 
 
 RANK_SEED_STRIDE = 1_000_000_007   # apart the ranks' dropout streams
@@ -352,7 +340,7 @@ def train(config, device=None):
                 print(f"Epoch: {epoch}")
             for batch in train_loader:
                 if profile_dir and iteration == PROFILE_STEPS[0]:
-                    prof = _start_profiler(device)
+                    prof = start_profiler(device)
                 if prof is not None and iteration == PROFILE_STEPS[1]:
                     _stop_profiler(prof, profile_dir)
                     prof = None

@@ -149,7 +149,3 @@ def test_data_kwargs_match_jax_and_refuse_typos():
     with pytest.raises(TypeError, match="hop_lenght"):
         data_kwargs(dict(data_config, hop_lenght=512))
 
-
-def test_use_native_is_refused(corpus):
-    with pytest.raises(NotImplementedError, match="use_native"):
-        Data(corpus[1], use_native=True)

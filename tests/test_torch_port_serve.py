@@ -862,23 +862,9 @@ class TestHTTP:
         _, _, _, frames = self._ws_stream(server, {"sigma": 0.5})
         assert "missing field" in json.loads(frames[0][1])["error"]
 
-    @pytest.mark.parametrize("method,path,item", [
-        ("POST", "/profile", "item 25"), ("POST", "/models", "item 24"),
-        ("DELETE", "/models/default", "item 24")])
-    def test_unported_endpoints_are_501(self, server, method, path, item):
-        if method == "GET":
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                urllib.request.urlopen(server + path, timeout=60)
-            code, err = ei.value.code, json.loads(ei.value.read())
-        else:
-            code, err = self._status(server + path, {"text": "Hi."}, method)
-        assert code == 501 and f"ROADMAP.md Queue 1, slice C {item}" in \
-            err["error"]
-
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"], ["--bf16"],
-    ["--compile-cache", "x"], ["--profiler-port", "9999"]])
+    ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"], ["--bf16"]])
 def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
     with pytest.raises(SystemExit):
         build_server(["-c", "config.json", "-f", "x.pt", "-w", "y.pt"]
@@ -954,7 +940,8 @@ def test_build_server_serves_a_quantized_voice(files, monkeypatch):
         server.server_close()
         for eng in engines.values():
             eng.shutdown()
-    assert serve_cli.UNPORTED_FLAGS          # the refusals stay listed
+    # the refusals left: the model axis and bf16
+    assert set(serve_cli.UNPORTED_FLAGS) == {"mesh", "bf16"}
 
 
 def test_shutdown_refuses_new_work(files, config):

@@ -152,14 +152,16 @@ def _jax_pickles(root):
 
 def test_port_never_imports_jax(tmp_path):
     """Import every module of the port, the training, streaming, mux,
-    evaluation, tone-CER and Gaussian-mixture ones by name too, and run a
-    tiny synthesis, a tiny training step (forward, losses, backward
-    through K3's plain versions, RAdam), one Gaussian-mixture step with
-    remat, one request and one stream through a w8a8 serving engine (K4's
-    plain version) and one stream through an engine's multistream mux,
-    and load a JAX package Flowtron checkpoint (params and optimizer) as a
-    pickle, a sharded directory and an orbax directory (through
-    ``tensorstore``, which may load) and a WaveGlow pickle, in a fresh
+    evaluation, tone-CER, Gaussian-mixture, style-transfer and native ones
+    by name too, and run a tiny synthesis, a tiny training step (forward,
+    losses, backward through K3's plain versions, RAdam), one
+    Gaussian-mixture step with remat, one request and one stream through a
+    w8a8 serving engine (K4's plain version) and one stream through an
+    engine's multistream mux, load a JAX package Flowtron checkpoint
+    (params and optimizer) as a pickle, a sharded directory and an orbax
+    directory (through ``tensorstore``, which may load) and a WaveGlow
+    pickle, run a tiny style transfer and (with ``g++``) one native mel,
+    in a fresh
     interpreter: neither jax, optax nor the JAX package (``flowtron_tpu``
     or ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because
     this test process already imported them."""
@@ -175,7 +177,8 @@ def test_port_never_imports_jax(tmp_path):
         "'train.evaluate', 'data.tone_cer', 'models.gaussian_mixture', "
         "'parallel.mesh', 'parallel.launch', 'entry', 'train.dist_ckpt', "
         "'train.sharded_ckpt', 'train.orbax_ckpt', "
-        "'scripts.train_waveglow'):\n"
+        "'scripts.train_waveglow', 'infer.style_transfer', 'native', "
+        "'scripts.style_transfer', 'utils.profiler'):\n"
         "    importlib.import_module('flowtron_tpu_torch.' + name)\n"
         "import torch\n"
         "from flowtron_tpu_torch.models.flowtron import flowtron_init, "
@@ -240,6 +243,24 @@ def test_port_never_imports_jax(tmp_path):
         "    assert load_checkpoint(root + '/' + name, m, "
         "RAdam(m.parameters())) == 3\n"
         "assert 'tensorstore' in sys.modules\n"
+        "from flowtron_tpu_torch.infer.style_transfer import "
+        "style_transfer\n"
+        "batch = {'mel': torch.randn(2, 8, 5).numpy(), 'speaker_ids': [0, 0],"
+        " 'text': [[1, 2, 3], [4, 5, 0]], 'in_lens': [3, 2], "
+        "'out_lens': [5, 3]}\n"
+        "mel, n = style_transfer(m, c, batch, [1, 2], 0, n_frames=4, "
+        "gate_threshold=1e6, device='cpu')\n"
+        "assert mel.shape == (8, 4), mel.shape\n"
+        "from flowtron_tpu_torch.ops import _build\n"
+        "from flowtron_tpu_torch import native\n"
+        "_build.set_build_dir(root + '/native_build')\n"
+        "from flowtron_tpu_torch.audio.stft import MelSpectrogram\n"
+        "import shutil\n"
+        "if shutil.which('g++'):\n"
+        "    ms = MelSpectrogram()\n"
+        "    out = native.NativeMel(ms.window, ms.mel_basis)("
+        "torch.zeros(600).numpy())\n"
+        "    assert out.shape == (80, 3), out.shape\n"
         "assert load_waveglow(root + '/waveglow_0')[1]['n_channels'] == 16\n"
         "bad = [k for k in sys.modules if k in ('jax', 'optax', "
         "'flowtron_tpu') or k.startswith(('jax.', 'optax.', "

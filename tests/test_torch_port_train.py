@@ -132,14 +132,6 @@ def test_attention_forward_matches_jax(models, with_prior):
                                    atol=1e-5, rtol=1e-6)
 
 
-def test_attention_forward_external_map_not_ported(models):
-    model = models[2]
-    x = torch.zeros(2, 1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention_forward(model.flows[0].attention_layer, x, x, x,
-                          attn_map=torch.ones(1, 2, 2))
-
-
 @pytest.mark.parametrize("bidirectional", [False, True])
 def test_fused_lstm_matches_loop_masked(bidirectional):
     """torch's fused LSTM with packing (the CUDA path) against the plain
