@@ -23,6 +23,16 @@ drives the port's three paths at the full width of the repo's
   temperature), each held against its solo stream; K1 once a join (the
   prelude), never in a tick, K2 for each window group; then two w8a8
   streams (K4);
+- bf16 serving (the JAX server's ``--bf16``): the bf16 bodies of K1, K2
+  and K4 against their plain versions (and K1's and K2's against their
+  fp32 bodies) at the main path's shapes, then the bf16 chain at full
+  width (``bf16_slice``: a B=1 and a B=4 400-frame request beside the
+  fp32 chain on the same latents, K1 bf16 twice and K2 bf16 96 times a
+  request), and later the servers with ``--bf16`` and ``--bf16 --quantize
+  w8a8`` (the serve phase's waves), a ``POST /stream`` and the 2-slot mux
+  (``serve_bf16``), and ``--bf16`` with ``--quantize w8`` and with
+  ``--quantize w4 --vocode-buckets`` (``serve_bf16_mode``): only the bf16
+  bodies launch;
 - batch serving: the HTTP server of ``flowtron_tpu_torch.serve``, built
   in-process by ``serve/cli.py:build_server`` from the model saved to
   ``.pt`` files, first unquantized (K1, K2), then with ``--quantize
@@ -987,17 +997,20 @@ def check_answers(tag, bodies, results, n_frames):
         check(peak > 0, f"{tag}: silent answer")
 
 
-def phase_serve(ft_path, wg_path, kernels, quantize):
+def phase_serve(ft_path, wg_path, kernels, quantize, bf16=False):
     """The batch-serving path: the port's HTTP server built in-process by
-    serve/cli.py:build_server (--warmup), then 8 concurrent requests (the four
-    texts x 2 seeds) with one capped at 120 frames alongside, then a wave
-    of 4 with mixed temperatures. Returns the launches of the main wave
-    and of the mixed wave."""
+    serve/cli.py:build_server (--warmup, and --bf16 with ``bf16``), then 8
+    concurrent requests (the four texts x 2 seeds) with one capped at 120
+    frames alongside, SERVE_WAVES times (the first wave's launches
+    counted, every wave's requests/s kept), then a wave of 4 with mixed
+    temperatures. Returns the launches of the first main wave and of the
+    mixed wave."""
     from flowtron_tpu_torch.serve.cli import build_server
 
     argv = ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port",
-            "0", "--warmup"] + (["--quantize", quantize] if quantize else [])
-    tag = f"serve {quantize or 'fp32'}"
+            "0", "--warmup"] + (["--quantize", quantize] if quantize else []) \
+        + (["--bf16"] if bf16 else [])
+    tag = f"serve {quantize or 'float'} {'bf16' if bf16 else 'fp32'}"
     t0 = time.perf_counter()
     server, engines = build_server(argv, host="127.0.0.1")
     start_s = time.perf_counter() - t0
@@ -1016,6 +1029,11 @@ def phase_serve(ft_path, wg_path, kernels, quantize):
         torch.cuda.synchronize()
         main_launches = read_launches(kernels)
         check_answers(tag, bodies, results, N_FRAMES)
+        walls = [wall]
+        for _ in range(SERVE_WAVES - 1):
+            again, w = wave_of(url, bodies)
+            check_answers(tag, bodies, again, N_FRAMES)
+            walls.append(w)
         metrics = get_json(url, "/metrics")
         check(metrics["batches"] < metrics["requests"],
               f"{tag}: no micro-batching {metrics}")
@@ -1035,8 +1053,13 @@ def phase_serve(ft_path, wg_path, kernels, quantize):
             eng.shutdown()
         torch.cuda.empty_cache()
     audio_s = [n / SR for _, _, _, n, _ in results]
-    emit("serve", quantize=quantize or None, build_and_warmup_s=start_s,
+    rps = [len(bodies) / w for w in walls]
+    SERVE_RPS[quantize or "float", "bf16" if bf16 else "fp32"] = rps
+    emit("serve", quantize=quantize or None, bf16=bf16,
+         build_and_warmup_s=start_s,
          requests=len(bodies), wall_s=wall, requests_per_s=len(bodies) / wall,
+         waves_requests_per_s=rps,
+         requests_per_s_median=statistics.median(rps),
          latency_s=[r[1] for r in results],
          rtf=[r[1] / a for r, a in zip(results, audio_s)],
          audio_s=audio_s, mixed_wall_s=mixed_wall,
@@ -1941,10 +1964,13 @@ def reset_launches(kernels):
 
 def read_launches(kernels):
     """Each counter, K4's split by body: quantized_matmul counts both
-    bodies' launches, quantized_matmul_w8a8 the W8A8 body's."""
+    bodies' launches, quantized_matmul_w8a8 the W8A8 body's; the _bf16
+    counters the bf16 bodies' alone (of K4 both modes, then W8A8)."""
     out = {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
     out["quantized_matmul_w8"] = out.pop("quantized_matmul") \
         - out["quantized_matmul_w8a8"]
+    out["quantized_matmul_w8_bf16"] = out.pop("quantized_matmul_bf16") \
+        - out["quantized_matmul_w8a8_bf16"]
     return out
 
 
@@ -3875,12 +3901,467 @@ def phase_probes(kernels, k1_frames, dev):
     return rows, launches
 
 
+# ---- bf16 serving: the JAX server's --bf16 and the kernels' bf16 bodies
+
+K1_BF16_RATIO = 1.5   # K1 bf16 mel vs the fp32 kernel's: at most this x
+BF16_SCALE = 1e-3     # the plain bf16 version's distance, plus this of the
+                      # mel's scale (the kernel sums in another order)
+K1_BF16_MEL_TOL = 2e-3   # K1 bf16 vs its plain bf16 version: the mel within
+K1_BF16_ATTN_TOL = 1.5e-3  # this of its scale, attention weights within this
+                      # (both bodies round at the same points; the sums'
+                      # order moves a rounding, which the 400 frames carry)
+K2_BF16_TOL = 1e-2    # K2 bf16 vs plain, of the output scale: each output
+                      # is one bf16 rounding, which the sums' order moves
+K1_BF16_N = 2         # K1 bf16 launches of one request: one a flow
+K2_BF16_N = 96        # K2 bf16 launches of one vocoder pass: 12 flows x 8
+SERVE_WAVES = 4       # main waves a serve phase times
+SERVE_RPS = {}        # (quantize, bf16) -> each main wave's requests/s
+
+
+def bf16_copy(module):
+    """A copy of ``module`` under the serving engine's cast rule."""
+    import copy
+
+    from flowtron_tpu_torch.utils.weights import to_bf16
+    return to_bf16(copy.deepcopy(module))
+
+
+def bf16_ulp(r):
+    """One bf16 ulp of each |r| (its spacing at r's binade)."""
+    return torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=2.0 ** -126)))
+                      - 7)
+
+
+def k1_bf16_bound(weights, N, B, Tk, D, M=80):
+    """K1's bf16 body's floor for one flow over N frames: the packed bf16
+    matrices and fp32 vectors, bf16 keys and values, fp32 latents and key
+    mask read once, mel, attention and gates written once; its operations
+    at the peak of their operands' type: 2 a bf16 weight element a frame
+    and stream at the bf16 rate, and the attention's 6 a (text position,
+    attention channel), whose sums and softmax are fp32, at the fp32
+    rate."""
+    tensors = [t for v in weights.values()
+               for t in ([v] if torch.is_tensor(v) else
+                         [x for pair in v for x in pair])]
+    n_w = {dt: sum(t.numel() for t in tensors if t.dtype == dt)
+           for dt in (torch.bfloat16, torch.float32)}
+    n_bytes = (sum(t.numel() * t.element_size() for t in tensors)
+               + 2 * 2 * B * Tk * D
+               + 4 * (2 * N * B * M + B * Tk + N * B * Tk + N * B))
+    return bound(n_bytes, {
+        "bf16": N * B * 2 * n_w[torch.bfloat16],
+        "fp32": N * B * (2 * n_w[torch.float32] + 6 * Tk * D)})
+
+
+def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
+    """K1's bf16 body on the card at the main path's shapes: both flows of
+    the first request (B=1, its latents) and of the four texts (B=4, key
+    mask), each against its plain bf16 version (the same n_valid, the mel
+    within K1_BF16_MEL_TOL of its scale, attention within K1_BF16_ATTN_TOL)
+    and the fp32 kernel on the same inputs (the bf16 kernel's mel at most
+    K1_BF16_RATIO x the plain bf16 version's distance from it, plus
+    BF16_SCALE of its scale), two calls bitwise equal; the gated flow at
+    B=1 timed against its plain version and the fp32 kernel in turns.
+    Returns the max error and (ms, plain ms, bound, bound_by)."""
+    from flowtron_tpu_torch.models.attention import attention_precompute
+    from flowtron_tpu_torch.models.flowtron import _encode_text
+    from flowtron_tpu_torch.ops.decoder import (
+        fused_flow_infer, fused_flow_infer_reference)
+
+    batch_text, batch_lens = pad_ids(ids)
+    z_req = SIGMA * torch.randn(1, 80, N_FRAMES, generator=torch.Generator()
+                                .manual_seed(REQ_SEED))
+    g = torch.Generator().manual_seed(41)
+    cases = [("request", batch_text[:1, :len(ids[0])], None,
+              z_req.permute(2, 0, 1).flip(0)),
+             ("batch", batch_text, batch_lens,
+              SIGMA * torch.randn(N_FRAMES, 4, 80, generator=g))]
+    max_err, times = 0.0, None
+    for shape, text, lens, res in cases:
+        B, Tk = text.shape
+        mask = None if lens is None else \
+            (torch.arange(Tk)[None] < lens[:, None]).to(dev)
+        km = (torch.ones(B, Tk, device=dev) if mask is None
+              else mask.to(torch.float32)).contiguous()
+        for fi in (len(model.flows) - 1, 0):
+            args = {}
+            for tag, m, dt in (("fp32", model, torch.float32),
+                               ("bf16", model16, torch.bfloat16)):
+                flow = getattr(m.flows[fi], "ar_step", m.flows[fi])
+                with torch.no_grad():
+                    enc = _encode_text(m, cfg, torch.full((B,), sid,
+                                                          device=dev),
+                                       text.to(dev), mask)
+                    kp, vals = attention_precompute(flow.attention_layer,
+                                                    enc, enc)
+                args[tag] = (flow.packed_weights(),
+                             res.to(dev, dt).contiguous(), kp, vals, km, 1.0)
+            w16 = args["bf16"][0]
+            tag = f"K1 bf16 {shape} flow {fi} B={B}"
+            check(w16["att_wi"].dtype == torch.bfloat16
+                  and args["bf16"][2].dtype == torch.bfloat16,
+                  f"{tag}: not a bf16 pack")
+            timed = shape == "request" and fi != 0
+            if timed:
+                k_ms, p_ms, runs, out_k, out_p = paired_ms(
+                    lambda: fused_flow_infer(*args["bf16"]),
+                    lambda: fused_flow_infer_reference(*args["bf16"]),
+                    reps=3)
+                f32_ms, out_32 = cuda_ms(
+                    lambda: fused_flow_infer(*args["fp32"]), reps=3)
+            else:
+                out_k = fused_flow_infer(*args["bf16"])
+                out_p = fused_flow_infer_reference(*args["bf16"])
+                out_32 = fused_flow_infer(*args["fp32"])
+            check(all(torch.equal(a, b) for a, b in zip(
+                out_k, fused_flow_infer(*args["bf16"]))),
+                f"{tag}: two calls differ")
+            errs = [float((a - b).abs().max()) for a, b in zip(out_k, out_p)]
+            e_k = float((out_k[0] - out_32[0]).abs().max())
+            e_p = float((out_p[0] - out_32[0]).abs().max())
+            scale = float(out_32[0].abs().max())
+            nv_k, nv_p = n_valid_of(out_k[2], 0.5), n_valid_of(out_p[2], 0.5)
+            check(all(math.isfinite(e) for e in errs + [e_k]),
+                  f"{tag} not finite")
+            check(torch.equal(nv_k, nv_p), f"{tag} n_valid {nv_k} {nv_p}")
+            check(errs[0] <= K1_BF16_MEL_TOL * scale
+                  and errs[1] <= K1_BF16_ATTN_TOL,
+                  f"{tag}: vs plain bf16 mel {errs[0]}, attn {errs[1]}")
+            check(e_k <= K1_BF16_RATIO * e_p + BF16_SCALE * scale,
+                  f"{tag}: vs fp32 kernel {e_k}, plain bf16 {e_p}")
+            max_err = max(max_err, errs[0])
+            fields = dict(shape=shape, flow=fi, B=B, N=N_FRAMES, Tk=Tk,
+                          max_abs_err_mel=errs[0], max_abs_err_attn=errs[1],
+                          max_abs_err_gate=errs[2],
+                          mel_err_vs_fp32_kernel=e_k,
+                          plain_mel_err_vs_fp32_kernel=e_p, mel_scale=scale,
+                          n_valid=nv_k.tolist())
+            if timed:
+                times = (k_ms, p_ms) + k1_bf16_bound(
+                    w16, N_FRAMES, B, Tk, kp.shape[2])
+                fields.update(kernel_ms=k_ms, plain_ms=p_ms,
+                              fp32_kernel_ms=f32_ms,
+                              bf16_over_fp32=k_ms / f32_ms,
+                              runs_plain_kernel_kernel_plain_ms=runs,
+                              bound_ms=times[2], bound_by=times[3])
+            emit("k1_bf16", **fields)
+    return max_err, times
+
+
+def phase_k2_bf16(wg, wg16, dev):
+    """K2's bf16 body against its plain bf16 version at the vocoder's
+    shapes, the bf16 vocoder's weights: layers 3 (d = 8) and 7 (the last)
+    at B=1, T=12800 and layer 3 at B=8; within K2_BF16_TOL of the output
+    scale, pad rows zero, two calls bitwise equal. Layer 3 at B=1 timed
+    against its plain version and the fp32 body (the fp32 vocoder's
+    weights, the same inputs) in turns. Returns the max error and (ms,
+    plain ms, bound, bound_by)."""
+    from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference
+
+    C, L = wg.WN[0].n_channels, wg.WN[0].n_layers
+    T = N_FRAMES * HOP // 8
+    g = torch.Generator().manual_seed(43)
+    max_err, times = 0.0, None
+    for layer, B in ((3, 1), (7, 1), (3, 8)):
+        x = torch.randn(B, T, C, generator=g).to(dev)
+        cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(dev)
+        cond = slice(2 * C * layer, 2 * C * (layer + 1))
+        args = {tag: (x.to(dt), 2 ** layer, cond_all.to(dt)[..., cond])
+                + tuple(w.packed_layers()[layer]) + (T,)
+                for tag, w, dt in (("fp32", wg.WN[0], torch.float32),
+                                   ("bf16", wg16.WN[0], torch.bfloat16))}
+        a16 = args["bf16"]
+        check(a16[3].dtype == torch.bfloat16, "K2 bf16: not bf16 weights")
+        with torch.no_grad():
+            if layer == 3 and B == 1:
+                k_ms, p_ms, runs, out_k, out_p = paired_ms(
+                    lambda: wn_layer(*a16), lambda: wn_layer_reference(*a16),
+                    reps=20, plain_reps=20)
+                f32_ms, _ = cuda_ms(lambda: wn_layer(*args["fp32"]), 20)
+            else:
+                out_k, out_p = wn_layer(*a16), wn_layer_reference(*a16)
+            again = wn_layer(*a16)
+        errs = []
+        for a, r in zip(out_k, out_p):
+            if r is not None:
+                check(a.dtype == torch.bfloat16, "K2 bf16 output dtype")
+                errs.append(float((a.float() - r.float()).abs().max())
+                            / max(1.0, float(r.float().abs().max())))
+        tag = f"K2 bf16 layer {layer} B={B}"
+        check(all(e <= K2_BF16_TOL for e in errs), f"{tag} err {errs}")
+        check(all(a is None or torch.equal(a, b)
+                  for a, b in zip(out_k, again)), f"{tag}: two calls differ")
+        max_err = max(max_err, max(errs))
+        fields = dict(layer=layer, B=B, T=T, C=C, max_rel_err=max(errs))
+        if layer == 3 and B == 1:
+            flops, _ = k2_work(B, T, C, 2 * C)
+            # every tensor bf16: x, cond, weights and biases read once, x'
+            # and skip written once; one bf16 pass of each product
+            _, n_bytes32 = k2_work(B, T, C, 2 * C)
+            times = (k_ms, p_ms) + bound(n_bytes32 // 2, {"bf16": flops})
+            fields.update(kernel_ms=k_ms, plain_ms=p_ms,
+                          fp32_kernel_ms=f32_ms, bf16_over_fp32=k_ms / f32_ms,
+                          runs_plain_kernel_kernel_plain_ms=runs,
+                          bound_ms=times[2], bound_by=times[3],
+                          kernel_tflops_bf16=flops / k_ms / 1e9)
+        emit("k2_bf16", **fields)
+    return max_err, times
+
+
+def phase_k4_bf16(dev):
+    """K4's bf16 bodies (bf16 x, bf16 out) against their plain versions at
+    the flagship frame's (K, N) at M=8: W8A8 bitwise, weight-only within
+    one bf16 ulp of each output (plus 2^-16 of the scale where a sum
+    cancels), both bitwise repeatable; timed in CUDA graphs beside the
+    bf16 cuBLAS product on the dequantized bf16 weight. Returns per body
+    the max error and the frame's nine calls summed: (ms, plain ms, bound,
+    bound_by, library ms)."""
+    from flowtron_tpu_torch.infer.quantize import _quantize_matrix
+    from flowtron_tpu_torch.ops.qmm import (
+        quantized_matmul, quantized_matmul_reference)
+
+    g = torch.Generator().manual_seed(44)
+    side = torch.cuda.Stream()
+    table, M = {}, 8
+    for a8 in (True, False):
+        body = "w8a8" if a8 else "w8"
+        cases, max_err = {}, 0.0
+        for K, N in sorted(set(K4_FRAME_KN)):
+            leaf = _quantize_matrix(0.05 * torch.randn(N, K, generator=g),
+                                    a8=a8)
+            x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+            q, s = leaf.q.to(dev), leaf.s.to(dev)
+            w = (q.float() * s[:, None]).to(torch.bfloat16)
+            (k_ms, p_ms, lib_ms), (out_k, out_p, _), _ = graph_times([
+                lambda: quantized_matmul(x, q, s, a8=a8),
+                lambda: quantized_matmul_reference(x, q, s, a8=a8),
+                lambda: torch.nn.functional.linear(x, w)], side)
+            tag = f"K4 bf16 {body} K={K} N={N}"
+            check(out_k.dtype == torch.bfloat16, f"{tag} dtype")
+            check(torch.equal(out_k, quantized_matmul(x, q, s, a8=a8)),
+                  f"{tag} not bitwise repeatable")
+            d = (out_k.float() - out_p.float()).abs()
+            if a8:
+                check(torch.equal(out_k, out_p), f"{tag} not bitwise")
+            else:
+                check(bool((d <= bf16_ulp(out_p.float()) + 2.0 ** -16 * float(
+                    out_p.float().abs().max())).all()), f"{tag} ulp")
+            max_err = max(max_err, float(d.max()))
+            n_bytes = 2 * M * K + N * K + 4 * N + 2 * M * N
+            ops = {"int8" if a8 else "bf16": 2 * M * K * N}
+            cases[K, N] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                               library_ms=lib_ms,
+                               bound=bound(n_bytes, ops))
+            emit("k4_bf16", body=body, M=M, K=K, N=N,
+                 max_abs_err=float(d.max()), kernel_ms=k_ms, plain_ms=p_ms,
+                 library_ms=lib_ms, bound_ms=cases[K, N]["bound"][0],
+                 bound_by=cases[K, N]["bound"][1])
+        frame = [cases[kn] for kn in K4_FRAME_KN]
+        sums = {k: sum(f[k] for f in frame)
+                for k in ("kernel_ms", "plain_ms", "library_ms")}
+        b_ms = sum(f["bound"][0] for f in frame)
+        by = "bytes" if all(f["bound"][1] == "bytes" for f in frame) \
+            else "operations"
+        emit("k4_bf16_flow_frame", body=body, M=M, calls=len(frame), **sums,
+             bound_ms=b_ms, bound_by=by)
+        table[body] = (max_err, sums["kernel_ms"], sums["plain_ms"], b_ms,
+                       by, sums["library_ms"])
+    return table
+
+
+def phase_bf16_slice(model, model16, cfg, wg, wg16, wg_cfg, ids, sid,
+                     kernels, dev):
+    """The bf16 request chain at full width, as the serving engine runs it
+    (latents drawn in fp32 and cast, both flows through K1's bf16 body,
+    the bf16 vocoder through K2's, audio back in fp32), the gate biased off
+    (phase_slice): a B=1 and a B=4 400-frame request, each beside the fp32
+    chain on the same latents, in turns. The bf16 request's launches: K1
+    bf16 once a flow, K2 bf16 96 times a vocoder pass, no fp32 body.
+    Returns the B=1 request's launches."""
+    from flowtron_tpu_torch.models.flowtron import flowtron_infer
+    from flowtron_tpu_torch.vocoder.waveglow import waveglow_infer_z
+
+    def request(m, w, dt, res, text, lens, zs):
+        mel, _, nv = flowtron_infer(
+            m, cfg, res.to(dev, dt), torch.full((res.shape[0],), sid,
+                                                device=dev),
+            text.to(dev), gate_threshold=0.5,
+            in_lens=None if lens is None else lens.to(dev), fused="early")
+        audio = waveglow_infer_z(w, wg_cfg, mel, zs[0].to(dev, dt),
+                                 [None if z is None else z.to(dev, dt)
+                                  for z in zs[1]]).float()
+        return mel, nv, audio
+
+    text, lens = pad_ids(ids)
+    out_launches = None
+    for B in (1, 4):
+        g = torch.Generator().manual_seed(50 + B)
+        res = SIGMA * torch.randn(B, 80, N_FRAMES, generator=g)
+        Tg = N_FRAMES * HOP // 8
+        zs = (0.8 * torch.randn(B, 4, Tg, generator=g),
+              [0.8 * torch.randn(B, 2, Tg, generator=g)
+               if f % 4 == 0 and f > 0 else None for f in range(12)])
+        t_b, l_b = (text[:1, :len(ids[0])], None) if B == 1 else (text, lens)
+        with torch.no_grad():
+            request(model16, wg16, torch.bfloat16, res, t_b, l_b, zs)
+            walls = {"fp32": [], "bf16": []}
+            outs = {}
+            for tag in ("fp32", "bf16", "bf16", "fp32"):
+                m, w = (model16, wg16) if tag == "bf16" else (model, wg)
+                dt = torch.bfloat16 if tag == "bf16" else torch.float32
+                torch.cuda.synchronize()
+                if tag == "bf16" and B == 1 and not walls["bf16"]:
+                    reset_launches(kernels)
+                t0 = time.perf_counter()
+                outs[tag] = request(m, w, dt, res, t_b, l_b, zs)
+                torch.cuda.synchronize()
+                walls[tag].append(time.perf_counter() - t0)
+                if tag == "bf16" and B == 1 and len(walls["bf16"]) == 1:
+                    out_launches = read_launches(kernels)
+        mel16, nv16, audio16 = outs["bf16"]
+        mel32, nv32, audio32 = outs["fp32"]
+        check(mel16.dtype == torch.bfloat16, "bf16 slice: mel not bf16")
+        check(bool(torch.isfinite(audio16).all()), "bf16 slice: audio")
+        n = int(torch.minimum(nv16, nv32).min())
+        mel_dev = float((mel16.float() - mel32)[..., :n].abs().max())
+        audio_dev = float((audio16 - audio32)[:, :n * HOP].abs().max()) \
+            / max(1.0, float(audio32.abs().max()))
+        ms = {k: 1e3 * statistics.median(v) for k, v in walls.items()}
+        audio_s = N_FRAMES * HOP / SR
+        emit("bf16_slice", B=B, N=N_FRAMES, n_valid_bf16=nv16.tolist(),
+             n_valid_fp32=nv32.tolist(), request_ms=ms,
+             rtf={k: v / 1e3 / audio_s for k, v in ms.items()},
+             bf16_over_fp32=ms["bf16"] / ms["fp32"],
+             mel_max_abs_dev=mel_dev, audio_max_rel_dev=audio_dev,
+             runs_ms={k: [1e3 * t for t in v] for k, v in walls.items()},
+             **({"launches": out_launches} if B == 1 else {}))
+    L = out_launches
+    check(L["fused_flow_infer_bf16"] == K1_BF16_N
+          and L["fused_flow_infer"] == K1_BF16_N
+          and L["wn_layer_bf16"] == K2_BF16_N and L["wn_layer"] == K2_BF16_N
+          and L["quantized_matmul_w8a8"] == 0
+          and L["quantized_matmul_w8"] == 0,
+          f"bf16 slice launches {L}")
+    return out_launches
+
+
+def bf16_only(tag, launches, k4=False):
+    """The bf16 bodies launched and no fp32 body: K1 and K2 (and with
+    ``k4`` K4's W8A8) each had launches, all of them bf16."""
+    names = ["wn_layer"] + (["quantized_matmul_w8a8"] if k4
+                            else ["fused_flow_infer"])
+    check(all(launches[n] > 0 and launches[n] == launches[n + "_bf16"]
+              for n in names)
+          and launches["quantized_matmul_w8"] == launches[
+              "quantized_matmul_w8_bf16"], f"{tag}: launches {launches}")
+
+
+def phase_serve_bf16_streams(ft_path, wg_path, kernels):
+    """Streams from --bf16 servers: --bf16 --quantize w8a8 with one
+    streamer pair (one POST /stream, its launches counted), then --bf16
+    --stream-mux 2 (two POST /stream through the 2-slot mux at once). Every
+    PCM its n_frames cap x 256 samples. Returns the pooled stream's
+    launches and the mux's."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    out = {}
+    for tag, extra in (("pooled_w8a8", ["--quantize", "w8a8",
+                                        "--stream-workers", "1"]),
+                       ("mux", ["--stream-mux", "2"])):
+        server, engines = build_server(
+            ["-c", "config.json", "-p", NO_ARPABET, "-f", ft_path, "-w",
+             wg_path, "--port", "0", "--bf16"] + extra, host="127.0.0.1")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        bodies = [{"text": TEXTS[0], "seed": 700, "n_frames": 200}]
+        if tag == "mux":
+            bodies.append({"text": TEXTS[1], "seed": 701, "n_frames": 160})
+        try:
+            get_json(url, "/healthz")
+            read_stream(url, bodies[0])          # the first call's set-up
+            torch.cuda.synchronize()
+            reset_launches(kernels)
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                got = list(pool.map(lambda b: read_stream(url, b), bodies))
+            torch.cuda.synchronize()
+            launches = read_launches(kernels)
+        finally:
+            server.shutdown()
+            server.server_close()
+            for eng in engines.values():
+                eng.shutdown()
+            torch.cuda.empty_cache()
+        for body, (_, _, pcm) in zip(bodies, got):
+            check(len(pcm) == 2 * body["n_frames"] * HOP,
+                  f"bf16 {tag} /stream {len(pcm) // 2} samples")
+        # the pooled stream's prelude flow runs K1 and its loop K4; the
+        # mux's ticks run the loop, its joins K1's prelude
+        check(launches["wn_layer"] > 0
+              and launches["wn_layer"] == launches["wn_layer_bf16"]
+              and launches["fused_flow_infer"]
+              == launches["fused_flow_infer_bf16"]
+              and (tag == "mux" or launches["quantized_matmul_w8a8"]
+                   == launches["quantized_matmul_w8a8_bf16"] > 0),
+              f"bf16 {tag} stream launches {launches}")
+        emit("serve_bf16_stream", server=tag, streams=len(bodies),
+             first_audio_ms=[g[0] for g in got],
+             samples=[len(g[2]) // 2 for g in got], launches=launches)
+        out[tag] = launches
+    return out
+
+
+def phase_serve_bf16_modes(ft_path, wg_path, kernels):
+    """The --bf16 server with the modes serve_bf16's waves leave out:
+    --quantize w8, and --quantize w4 with --vocode-buckets 120,240 (no
+    warmup). Two concurrent requests each (capped at 100 and 200 frames):
+    answered, and only K2's bf16 body launched (w8 and w4 leaves run the
+    loop on bf16 weights, never K1 or K4). Returns the launches by mode."""
+    from flowtron_tpu_torch.serve.cli import build_server
+
+    out = {}
+    for tag, extra in (("w8", ["--quantize", "w8"]),
+                       ("w4_buckets", ["--quantize", "w4",
+                                       "--vocode-buckets", "120,240"])):
+        server, engines = build_server(
+            ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port",
+             "0", "--bf16"] + extra, host="127.0.0.1")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        bodies = [{"text": TEXTS[0], "seed": 800, "n_frames": 100},
+                  {"text": TEXTS[1], "seed": 801, "n_frames": 200}]
+        try:
+            get_json(url, "/healthz")
+            torch.cuda.synchronize()
+            reset_launches(kernels)
+            results, wall = wave_of(url, bodies)
+            torch.cuda.synchronize()
+            launches = read_launches(kernels)
+        finally:
+            server.shutdown()
+            server.server_close()
+            for eng in engines.values():
+                eng.shutdown()
+            torch.cuda.empty_cache()
+        check_answers(f"bf16 {tag}", bodies, results, N_FRAMES)
+        check(launches["wn_layer"] == launches["wn_layer_bf16"] > 0
+              and launches["fused_flow_infer"] == 0
+              and launches["quantized_matmul_w8"] == 0
+              and launches["quantized_matmul_w8a8"] == 0,
+              f"bf16 {tag} launches {launches}")
+        emit("serve_bf16_mode", server=tag, wall_s=wall,
+             latency_s=[r[1] for r in results],
+             samples=[r[3] for r in results], launches=launches)
+        out[tag] = launches
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU and has no CPU fallback",
               file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from flowtron_tpu_torch.data.frontend import TextFrontend
@@ -3904,7 +4385,13 @@ def main():
                "attention_scores_fwd": (attention_scores_fwd, "launches"),
                "attention_scores_bwd": (attention_scores_bwd, "launches"),
                "quantized_matmul": (quantized_matmul, "launches"),
-               "quantized_matmul_w8a8": (quantized_matmul, "launches_w8a8")}
+               "quantized_matmul_w8a8": (quantized_matmul, "launches_w8a8"),
+               # the bf16 bodies alone (each also counts in its total)
+               "fused_flow_infer_bf16": (fused_flow_infer, "launches_bf16"),
+               "wn_layer_bf16": (wn_layer, "launches_bf16"),
+               "quantized_matmul_bf16": (quantized_matmul, "launches_bf16"),
+               "quantized_matmul_w8a8_bf16": (quantized_matmul,
+                                              "launches_w8a8_bf16")}
     # the probes' kernels, one counter per Pallas body
     for body in P_W4_BODIES:
         kernels[f"w4_matmul_{body}"] = (w4_matmul, f"launches_{body}")
@@ -3962,6 +4449,18 @@ def main():
     phase_cpu_agreement(model, cfg, wg, wg_cfg, dev)
     # the mux at full width, the gate biased off by phase_slice
     mux_launches = phase_mux(model, cfg, wg, wg_cfg, ids, sid, kernels, dev)
+    # bf16 serving: the kernels' bf16 bodies against their plain versions,
+    # then the bf16 chain beside the fp32 one
+    t0 = time.perf_counter()
+    model16, wg16 = bf16_copy(model), bf16_copy(wg)
+    k1_16 = phase_k1_bf16(model, model16, cfg, ids, sid, dev)
+    k2_16 = phase_k2_bf16(wg, wg16, dev)
+    k4_16 = phase_k4_bf16(dev)
+    slice16 = phase_bf16_slice(model, model16, cfg, wg, wg16, wg_cfg, ids,
+                               sid, kernels, dev)
+    del model16, wg16
+    torch.cuda.empty_cache()
+    bf16_s = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
         # the model as phase_slice left it: heads perturbed, the gate
@@ -3985,6 +4484,38 @@ def main():
               and q_serve["fused_flow_infer"] == 0
               and q_serve["quantized_matmul_w8"] == 0,
               f"w8a8 serving path: {q_serve}")
+        # --bf16: the bf16 bodies and no fp32 body, alone and with w8a8,
+        # then a stream and the 2-slot mux
+        t0 = time.perf_counter()
+        serve16, mixed16 = phase_serve(ft_path, wg_path, kernels, "",
+                                       bf16=True)
+        bf16_only("serve bf16", serve16)
+        check(mixed16["fused_flow_infer"] == 0 and mixed16["wn_layer"]
+              == mixed16["wn_layer_bf16"] > 0,
+              f"bf16 mixed-temperature wave: {mixed16}")
+        q_serve16, _ = phase_serve(ft_path, wg_path, kernels, "w8a8",
+                                   bf16=True)
+        bf16_only("serve bf16 w8a8", q_serve16, k4=True)
+        check(q_serve16["fused_flow_infer"] == 0,
+              f"bf16 w8a8 serving path went through K1: {q_serve16}")
+        streams16 = phase_serve_bf16_streams(ft_path, wg_path, kernels)
+        modes16 = phase_serve_bf16_modes(ft_path, wg_path, kernels)
+        # the ratio of the waves' medians, and its range over the waves
+        # (the slowest bf16 wave over the fastest fp32 one, and back)
+        rps = {k: (statistics.median(v), min(v), max(v))
+               for k, v in SERVE_RPS.items()}
+        emit("serve_bf16", seconds=time.perf_counter() - t0 + bf16_s,
+             waves=SERVE_WAVES,
+             requests_per_s_median_min_max={f"{q} {d}": v
+                                            for (q, d), v in rps.items()},
+             bf16_over_fp32={q: rps[q, "bf16"][0] / rps[q, "fp32"][0]
+                             for q in ("float", "w8a8")},
+             bf16_over_fp32_range={
+                 q: (rps[q, "bf16"][1] / rps[q, "fp32"][2],
+                     rps[q, "bf16"][2] / rps[q, "fp32"][1])
+                 for q in ("float", "w8a8")},
+             launches=serve16, w8a8_launches=q_serve16,
+             mixed_launches=mixed16)
         serve_stream, pooled_body, pooled_pcm = phase_serve_stream(
             ft_path, wg_path, kernels)
         serve_mux = phase_serve_mux(ft_path, wg_path, kernels, pooled_body,
@@ -3999,7 +4530,13 @@ def main():
                  serve_stream=serve_stream, griffin_lim_serve=gl_serve,
                  serve_w8a8=q_serve, mux=mux_launches, serve_mux=serve_mux,
                  serve_staged=serve_staged, serve_replicas=serve_replicas,
-                 serve_models=serve_models, serve_profile=serve_profile)
+                 serve_models=serve_models, serve_profile=serve_profile,
+                 bf16_slice=slice16, serve_bf16=serve16,
+                 serve_bf16_w8a8=q_serve16,
+                 serve_bf16_stream=streams16["pooled_w8a8"],
+                 serve_bf16_mux=streams16["mux"],
+                 serve_bf16_w8=modes16["w8"],
+                 serve_bf16_w4_buckets=modes16["w4_buckets"])
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4066,6 +4603,7 @@ def main():
             ("style_transfer", style_launches),
             ("serve_models", serve_models), ("serve_profile", serve_profile))}
 
+    emit("run", seconds=time.perf_counter() - t_run)
     print(json.dumps({"kernels": [
         dict(row("fused_flow_infer", "flowtron_tpu_torch/csrc/decoder.cu",
                  "flowtron_tpu/ops/decoder_pallas.py:229",
@@ -4100,6 +4638,25 @@ def main():
             "flowtron_tpu/ops/qmm_pallas.py:31",
             q_serve["quantized_matmul_w8"], k4["w8"][0], k4["w8"][1:5],
             k4["w8"][5]),
+        # the bf16 bodies (the JAX server's --bf16): K1 one gated flow of
+        # the first request (B=1, 400 frames); K2 layer 3 at B=1, T=12800,
+        # one bf16 pass; K4 one flow-frame's nine calls at B=8 beside the
+        # bf16 cuBLAS product. Launches: the --bf16 server's main wave (K4:
+        # the --bf16 --quantize w8a8 server's)
+        row("fused_flow_infer_bf16", "flowtron_tpu_torch/csrc/decoder.cu",
+            "flowtron_tpu/ops/decoder_pallas.py:229",
+            serve16["fused_flow_infer_bf16"], k1_16[0], k1_16[1]),
+        row("wn_layer_bf16", "flowtron_tpu_torch/csrc/wavenet.cu",
+            "flowtron_tpu/ops/wavenet_pallas.py:57",
+            serve16["wn_layer_bf16"], k2_16[0], k2_16[1]),
+        row("quantized_matmul_w8a8_bf16", "flowtron_tpu_torch/csrc/qmm.cu",
+            "flowtron_tpu/ops/qmm_pallas.py:37",
+            q_serve16["quantized_matmul_w8a8_bf16"], k4_16["w8a8"][0],
+            k4_16["w8a8"][1:5], k4_16["w8a8"][5]),
+        row("quantized_matmul_w8_bf16", "flowtron_tpu_torch/csrc/qmm.cu",
+            "flowtron_tpu/ops/qmm_pallas.py:31",
+            q_serve16["quantized_matmul_w8_bf16"], k4_16["w8"][0],
+            k4_16["w8"][1:5], k4_16["w8"][5]),
     ] + [
         # the probes: P1 one call at B=64; P2 one step of its 2000-step
         # scan at B=64; P3 a step at B=64, P4 and P5 a step at B=1 (B=8 in

@@ -1,5 +1,5 @@
-// K1: one flow's whole inverse autoregressive scan, fp32, in one
-// persistent cooperative launch.
+// K1: one flow's whole inverse autoregressive scan, fp32 or bf16 weights,
+// in one persistent cooperative launch.
 //
 // Replaces flowtron_tpu/ops/decoder_pallas.py:fused_flow_infer (the Pallas
 // kernel _make_kernel, called at :334), with the semantics of :136-223:
@@ -70,10 +70,27 @@
 //
 // No weight stays resident in shared memory across frames (the buffer is
 // the prefetch's), and the math is plain SIMT fp32.
+//
+// The bf16 body (fused_flow_infer_launch's bf16 flag; the body the Pallas
+// kernel runs when the JAX server casts the params with --bf16, "compute
+// dtype (bf16 in serving)" at decoder_pallas.py:267): the matrices, k_proj and vals
+// are bf16, rows padded to 8 elements (16 bytes, for the bulk copies);
+// the vectors (biases, v, the gate row) are fp32 holding bf16 values.
+// State, softmax, gate and the affine inversion stay fp32, as in the
+// Pallas body. Activations are rounded to bf16 where that body casts
+// them: every dot's input when it is staged (:121, :136, :141, :160,
+// :171, :177, :180), q + k_proj and its tanh (:145-146), and the context
+// attn . vals (:154-155), summed in fp32 over the partials and rounded
+// once. Products of two bf16 values are exact in fp32, so the dots are
+// the fp32 body's loop on half the bytes: each 16-byte load brings 8
+// weights. The same template, the same stages and split.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "grid_sync.cuh"
 #include "mma.cuh"
@@ -93,12 +110,27 @@ constexpr int kMaxParts = 16;     // attention partials (ops/decoder.py)
 constexpr float kMaskValue = -1e9f;
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+// a weight row's padded length: 16 bytes, 4 fp32 or 8 bf16 elements
+__host__ __device__ inline int padk(int n, bool bf) {
+  return bf ? (n + 7) & ~7 : pad4(n);
+}
+
+// x rounded to bf16 (nearest even), as fp32
+__device__ __forceinline__ float rnd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// a read-only weight or projection, through the read-only cache, as fp32
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
 
 // what a job's epilogue does with its row quads
 enum Kind { kAttIH, kRec, kQuery, kIH, kDense, kHead };
 
 struct Job {
-  const float* w;      // (rows, Kp), rows padded to a multiple of 4 floats
+  const void* w;       // (rows, Kp), rows padded to 16 bytes (padk)
   const float* bias;
   int Kp, rows, kind, layer;   // layer: LSTM (-1 = attention), dense
 };
@@ -112,7 +144,8 @@ struct Params {
   Stage st[kMaxStages];
   int n_stages;
   const int* bounds;   // (n_stages, kMaxJobs, grid + 1) quad boundaries
-  const float *z, *kp, *vals, *mask, *v_w, *gate_w, *gate_b;
+  const float *z, *mask, *v_w, *gate_w, *gate_b;
+  const void *kp, *vals;      // (B, Tk, D) of the weights' type
   const int* nvin;
   float *mel, *attn, *gates;
   float *h_att, *c_att, *q, *scores, *pm, *ps, *pc;
@@ -149,8 +182,9 @@ __device__ __forceinline__ float sigmoid(float x) {
 // dst[b * Kp + off + k] = src[b * ld + k] for k < n, 0 for n <= k < npad;
 // src == nullptr stages zeros. Activations are written by other blocks of
 // this launch, so they are read through L2 (__ldcg), kLoads a thread in
-// flight.
+// flight. kRound: rounded to bf16 (the bf16 body's dot inputs).
 constexpr int kLoads = 8;
+template <bool kRound>
 __device__ void stage_rows(float* dst, int Kp, int off, const float* src,
                            int ld, int n, int npad, int nb) {
   const int total = nb * npad;
@@ -167,23 +201,46 @@ __device__ void stage_rows(float* dst, int Kp, int off, const float* src,
     for (int u = 0; u < kLoads; ++u) {
       const int i = i0 + u * blockDim.x;
       const int b = i / npad, k = i - b * npad;
-      if (i < total) dst[b * Kp + off + k] = v[u];
+      if (i < total) dst[b * Kp + off + k] = kRound ? rnd_bf16(v[u]) : v[u];
     }
   }
 }
 
-// One warp: acc[r][b] = sum over float4 columns [i0, i1) of
-// W[r * Kp + .] . xs[b * Kp + .], for r < 4, b < nb; every lane gets the
-// sums. W is in shared memory (the prefetch buffer) or in HBM. Rows
-// r >= nrows (a ragged last quad) read row nrows - 1, and the caller
-// drops their sums. Two float4 of each row in flight a lane.
-template <int NB>
-__device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
+// One warp: acc[r][b] = sum over 16-byte columns [i0, i1) (4 fp32 or 8
+// bf16 weights each) of W[r * Kp + .] . xs[b * Kp + .], for r < 4, b <
+// nb; every lane gets the sums. W is in shared memory (the prefetch
+// buffer) or in HBM. Rows r >= nrows (a ragged last quad) read row nrows -
+// 1, and the caller drops their sums. Two 16-byte pieces of each row in
+// flight a lane.
+__device__ __forceinline__ float dot4(float a, float4 w, float4 x) {
+  a = fmaf(w.x, x.x, a);
+  a = fmaf(w.y, x.y, a);
+  a = fmaf(w.z, x.z, a);
+  return fmaf(w.w, x.w, a);
+}
+
+// 8 bf16 weights against 8 fp32 inputs (exact products, fp32 sums)
+__device__ __forceinline__ float dot8(float a, uint4 w, float4 x0,
+                                      float4 x1) {
+  a = dot4(a, make_float4(__uint_as_float(w.x << 16),
+                          __uint_as_float(w.x & 0xffff0000u),
+                          __uint_as_float(w.y << 16),
+                          __uint_as_float(w.y & 0xffff0000u)), x0);
+  return dot4(a, make_float4(__uint_as_float(w.z << 16),
+                             __uint_as_float(w.z & 0xffff0000u),
+                             __uint_as_float(w.w << 16),
+                             __uint_as_float(w.w & 0xffff0000u)), x1);
+}
+
+template <typename TW, int NB>
+__device__ __forceinline__ void quad_dot(const TW* W, int nrows, int Kp,
                                          int i0, int i1, const float* xs,
                                          int nb, float (&acc)[4][NB]) {
+  constexpr bool kBF = sizeof(TW) == 2;
+  using V = std::conditional_t<kBF, uint4, float4>;
   const int lane = threadIdx.x & 31;
-  const int K4 = Kp >> 2;
-  const float4* W4 = reinterpret_cast<const float4*>(W);
+  const int KV = Kp * (int)sizeof(TW) / 16, K4 = Kp >> 2;
+  const V* WV = reinterpret_cast<const V*>(W);
   const float4* x4 = reinterpret_cast<const float4*>(xs);
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -192,29 +249,33 @@ __device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
   for (int i = i0 + lane; i < i1; i += 64) {
     const bool two = i + 32 < i1;
     const int i2 = two ? i + 32 : i;
-    float4 w0[4], w1[4];
+    V w0[4], w1[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float4* row = W4 + (size_t)min(r, nrows - 1) * K4;
+      const V* row = WV + (size_t)min(r, nrows - 1) * KV;
       w0[r] = row[i];
-      w1[r] = two ? row[i2] : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (two) {
+        w1[r] = row[i2];
+      } else {
+        V z = {};
+        w1[r] = z;
+      }
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b < nb) {
-        const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
+        if constexpr (kBF) {
+          const float4 x0 = x4[b * K4 + 2 * i], x1 = x4[b * K4 + 2 * i + 1];
+          const float4 x2 = x4[b * K4 + 2 * i2];
+          const float4 x3 = x4[b * K4 + 2 * i2 + 1];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float a = acc[r][b];
-          a = fmaf(w0[r].x, x0.x, a);
-          a = fmaf(w0[r].y, x0.y, a);
-          a = fmaf(w0[r].z, x0.z, a);
-          a = fmaf(w0[r].w, x0.w, a);
-          a = fmaf(w1[r].x, x1.x, a);
-          a = fmaf(w1[r].y, x1.y, a);
-          a = fmaf(w1[r].z, x1.z, a);
-          a = fmaf(w1[r].w, x1.w, a);
-          acc[r][b] = a;
+          for (int r = 0; r < 4; ++r)
+            acc[r][b] = dot8(dot8(acc[r][b], w0[r], x0, x1), w1[r], x2, x3);
+        } else {
+          const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[r][b] = dot4(dot4(acc[r][b], w0[r], x0), w1[r], x1);
         }
       }
     }
@@ -241,23 +302,24 @@ __device__ __forceinline__ float pick(const float (&acc)[4][NB], int r,
 // (B = 1, the single caller's case) and up to four have their own smaller
 // bodies: a frame runs every stage's code once, so the instruction cache
 // is cold each time and code size costs time.
-__device__ __forceinline__ void quad_sums(const float* W, int nrows, int Kp,
+template <typename TW>
+__device__ __forceinline__ void quad_sums(const TW* W, int nrows, int Kp,
                                           int i0, int i1, const float* xs,
                                           int nb, float (&y)[4]) {
   const int lane = threadIdx.x & 31;
   if (nb == 1) {
     float acc[4][1];
-    quad_dot<1>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<TW, 1>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = acc[r][0];
   } else if (nb <= 4) {
     float acc[4][4];
-    quad_dot<4>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<TW, 4>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
   } else {
     float acc[4][kMaxB];
-    quad_dot<kMaxB>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<TW, kMaxB>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
   }
@@ -387,8 +449,11 @@ __device__ Smem smem_map(const Params& p, float* sm) {
 // of them: slot (b, j, c) takes keys [j Tk / parts, (j + 1) Tk / parts)
 // of row b, all their scores, and channels [c D / slices, (c + 1) D /
 // slices) of the unnormalised partial context. The c = 0 slot writes the
-// scores, their max and the sum of their exps.
+// scores, their max and the sum of their exps. bf16 (TW): k_proj and vals
+// bf16, q + k and its tanh rounded to bf16, as the Pallas body's.
+template <typename TW>
 __device__ __noinline__ void attention(const Params& p, const Smem& m) {
+  constexpr bool kBF = sizeof(TW) == 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = p.D, Tk = p.Tk, B = p.B;
   const int per_row = p.parts * p.slices;
@@ -397,15 +462,20 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
     const int b = sl / per_row, j = (sl / p.slices) % p.parts;
     const int c = sl % p.slices;
     const int k0 = j * Tk / p.parts, nk = (j + 1) * Tk / p.parts - k0;
-    stage_rows(m.qs, D, 0, p.q + (size_t)b * D, D, D, D, 1);
+    stage_rows<kBF>(m.qs, D, 0, p.q + (size_t)b * D, D, D, D, 1);
     __syncthreads();
     for (int kk = warp; kk < nk; kk += kWarps) {
       const size_t bk = (size_t)b * Tk + k0 + kk;
-      const float* krow = p.kp + bk * D;
+      const TW* krow = static_cast<const TW*>(p.kp) + bk * D;
       float s = 0.f;
 #pragma unroll 20
-      for (int d = lane; d < D; d += 32)
-        s += m.vw[d] * tanhf(m.qs[d] + __ldg(krow + d));
+      for (int d = lane; d < D; d += 32) {
+        if constexpr (kBF)
+          s += m.vw[d] * rnd_bf16(tanhf(rnd_bf16(m.qs[d]
+                                                 + ldg_f32(krow + d))));
+        else
+          s += m.vw[d] * tanhf(m.qs[d] + ldg_f32(krow + d));
+      }
       s = warp_sum(s);
       if (lane == 0) {
         s = s / p.temperature;
@@ -434,10 +504,11 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
     __syncthreads();
     const int d1 = (c + 1) * D / p.slices;
     for (int d = c * D / p.slices + threadIdx.x; d < d1; d += blockDim.x) {
-      const float* v = p.vals + ((size_t)b * Tk + k0) * D + d;
+      const TW* v = static_cast<const TW*>(p.vals) + ((size_t)b * Tk + k0) * D
+                    + d;
       float acc = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < nk; ++k) acc += sc[k] * __ldg(v + (size_t)k * D);
+      for (int k = 0; k < nk; ++k) acc += sc[k] * ldg_f32(v + (size_t)k * D);
       p.pc[((size_t)j * B + b) * D + d] = acc;
     }
     __syncthreads();   // qs and sc are free again
@@ -447,8 +518,9 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
 // Decoder layer 0's stage, before its quads: the partials' max and exp
 // sums combined (ms) into the weights cw = exp(m_j - max) / sum, this
 // block's share of the attention row, the context behind the staged
-// h_att (when this block needs the input) and (block 0) the gate and the
-// done flags.
+// h_att (when this block needs the input; rounded to bf16 in the bf16
+// body) and (block 0) the gate and the done flags.
+template <bool kRound>
 __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
                                      float* xs, int Kp, bool need_input,
                                      const Smem& m) {
@@ -508,7 +580,7 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
 #pragma unroll
       for (int j = 0; j < kMaxParts; ++j)
         if (j < P) v += cw[b * kMaxParts + j] * c[j];
-      xs[b * Kp + H + d] = v;
+      xs[b * Kp + H + d] = kRound ? rnd_bf16(v) : v;
     }
   }
   if (blockIdx.x != 0) return;
@@ -531,12 +603,13 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
 
 // This block's quads of a stage: a range of each job (k1_plan), numbered
 // on locally; the first pre[j] of job j are prefetched into the buffer at
-// base[j], 4 Kp floats a quad, greedily in job order. Computed once a
-// launch into shared memory.
+// base[j] (floats), 4 Kp weights a quad, greedily in job order. Computed
+// once a launch into shared memory.
 struct Quads {
   int lo[kMaxJobs], cnt[kMaxJobs + 1], pre[kMaxJobs], base[kMaxJobs];
 };
 
+template <typename TW>
 __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
   const Stage& s = p.st[si];
   const int* bnd = p.bounds + si * kMaxJobs * (p.grid + 1);
@@ -545,7 +618,8 @@ __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
   for (int j = 0; j < s.n_jobs; ++j) {
     const int* bj = bnd + j * (p.grid + 1);
     q.lo[j] = bj[blockIdx.x];
-    const int n = bj[blockIdx.x + 1] - q.lo[j], per = 4 * s.job[j].Kp;
+    const int n = bj[blockIdx.x + 1] - q.lo[j];
+    const int per = s.job[j].Kp * (int)sizeof(TW);   // floats a quad
     q.cnt[j + 1] = q.cnt[j] + n;
     q.pre[j] = max(0, min(n, (p.wcap - used) / per));
     q.base[j] = used;
@@ -558,33 +632,39 @@ __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
 // thread 0, completing on *bar. The weights never depend on the frame, so this runs before the
 // barrier that the stage waits for, and no thread waits on the copies
 // until the stage reads them.
+template <typename TW>
 __device__ __noinline__ void prefetch(const Stage& s, const Quads& q, float* wb,
                          uint64_t* bar) {
   if (threadIdx.x != 0) return;
   unsigned bytes = 0;
   for (int j = 0; j < s.n_jobs; ++j)
-    bytes += 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), s.job[j].rows)
-                         - 4 * q.lo[j]) * s.job[j].Kp;
+    bytes += (unsigned)sizeof(TW) *
+             max(0, min(4 * (q.lo[j] + q.pre[j]), s.job[j].rows)
+                        - 4 * q.lo[j]) * s.job[j].Kp;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
   for (int j = 0; j < s.n_jobs; ++j) {
     const Job& jb = s.job[j];
-    const unsigned n = 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), jb.rows)
-                                   - 4 * q.lo[j]) * jb.Kp;
+    const unsigned n = (unsigned)sizeof(TW) *
+                       max(0, min(4 * (q.lo[j] + q.pre[j]), jb.rows)
+                              - 4 * q.lo[j]) * jb.Kp;
     if (n)
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
           " [%0], [%1], %2, [%3];"
           :: "r"(smem_addr(wb + q.base[j])),
-             "l"(jb.w + (size_t)4 * q.lo[j] * jb.Kp), "r"(n),
+             "l"(static_cast<const TW*>(jb.w) + (size_t)4 * q.lo[j] * jb.Kp),
+             "r"(n),
              "r"(smem_addr(bar))
           : "memory");
   }
 }
 
+template <typename TW>
 __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
                           const Smem& m, float (*red)[4][kMaxB],
                           uint64_t* bar, unsigned& phase) {
+  constexpr bool kBF = sizeof(TW) == 2;
   const Stage& s = p.st[si];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int xoff[kMaxJobs];
@@ -595,7 +675,7 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
   const int nq = q.cnt[s.n_jobs];
   const bool ih0 = s.job[0].kind == kIH && s.job[0].layer == 0;
   const int ks = (nq >= kWarps || nq == 0) ? 1 : kWarps / nq;
-  if (s.attention) attention(p, m);
+  if (s.attention) attention<TW>(p, m);
 
   // ks warps take each quad, splitting its k (ks > 1 when the block has
   // fewer quads than warps), kWarps / ks quads a round; the first of the
@@ -618,11 +698,11 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
         continue;
       if (j == 0) staged0 = true;
       const In in = job_input(p, jb, t);
-      stage_rows(m.xs + xoff[j], jb.Kp, 0,
+      stage_rows<kBF>(m.xs + xoff[j], jb.Kp, 0,
                  in.src ? in.src + (size_t)g0 * in.ld : nullptr, in.ld,
                  in.n, ih0 && j == 0 ? p.H : jb.Kp, nb);
     }
-    if (ih0) combine(p, t, g0, nb, m.xs, s.job[0].Kp, staged0, m);
+    if (ih0) combine<kBF>(p, t, g0, nb, m.xs, s.job[0].Kp, staged0, m);
     if (g0 == 0) {        // this stage's prefetched rows
       mbar_wait(bar, phase & 1);
       ++phase;
@@ -637,13 +717,17 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
       if (active) {
         while (qq >= q.cnt[j + 1]) ++j;
         const Job& jb = s.job[j];
-        const int l = qq - q.cnt[j], K4 = jb.Kp >> 2;
+        const int l = qq - q.cnt[j];
+        const int KV = jb.Kp * (int)sizeof(TW) / 16;   // 16-byte columns
         u = q.lo[j] + l;
         if (r0 > 0 && part == 0 && lane < nb) epi_load(p, jb, u, g0 + lane, t, o);
-        quad_sums(l < q.pre[j] ? m.wb + q.base[j] + l * 4 * jb.Kp
-                               : jb.w + (size_t)4 * u * jb.Kp,
-                  min(4, jb.rows - 4 * u), jb.Kp, part * K4 / ks,
-                  (part + 1) * K4 / ks, m.xs + xoff[j], nb, y);
+        quad_sums<TW>(l < q.pre[j]
+                          ? reinterpret_cast<const TW*>(m.wb + q.base[j])
+                                + (size_t)l * 4 * jb.Kp
+                          : static_cast<const TW*>(jb.w)
+                                + (size_t)4 * u * jb.Kp,
+                      min(4, jb.rows - 4 * u), jb.Kp, part * KV / ks,
+                      (part + 1) * KV / ks, m.xs + xoff[j], nb, y);
         if (ks > 1 && lane < nb)
 #pragma unroll
           for (int r = 0; r < 4; ++r) red[warp][r][lane] = y[r];
@@ -678,6 +762,7 @@ __device__ __noinline__ void zero_tail(const Params& p, int t) {
     p.gates[(size_t)t * p.B + i] = 1.f;
 }
 
+template <typename TW>
 __global__ void __launch_bounds__(kThreads, 1)
     k1_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
@@ -685,7 +770,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ uint64_t bar;
   __shared__ Quads sq[kMaxStages];
   const Smem m = smem_map(p, reinterpret_cast<float*>(smem4));
-  if (threadIdx.x < p.n_stages) block_quads(p, threadIdx.x, sq[threadIdx.x]);
+  if (threadIdx.x < p.n_stages)
+    block_quads<TW>(p, threadIdx.x, sq[threadIdx.x]);
   if (threadIdx.x == 0) mbar_init(&bar);
   for (int d = threadIdx.x; d < p.D; d += blockDim.x) m.vw[d] = p.v_w[d];
   if (blockIdx.x == 0 && p.gate_w != nullptr)
@@ -693,7 +779,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m.gw[k] = p.gate_w[k];
   __syncthreads();
   unsigned passed = 0, phase = 0;
-  prefetch(p.st[0], sq[0], m.wb, &bar);
+  prefetch<TW>(p.st[0], sq[0], m.wb, &bar);
   for (int t = 0; t < p.N; ++t) {
     if (p.early_exit && t > 0) {
       int all = 1;
@@ -705,12 +791,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     for (int s = 0; s < p.n_stages; ++s) {
-      run_stage(p, s, sq[s], t, m, red, &bar, phase);
+      run_stage<TW>(p, s, sq[s], t, m, red, &bar, phase);
       barrier_arrive(p.bar);
       // the next stage's first rows, while this block waits for the others
       const int next = s + 1 < p.n_stages ? s + 1 : 0;
       if (s + 1 < p.n_stages || t + 1 < p.N)
-        prefetch(p.st[next], sq[next], m.wb, &bar);
+        prefetch<TW>(p.st[next], sq[next], m.wb, &bar);
       barrier_wait(p.bar, ++passed * (unsigned)p.grid);
       if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
         p.clock[(size_t)t * p.n_stages + s] = gtime();
@@ -736,10 +822,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // staged inputs (attention LSTM + recurrent halves of layers 1.., query +
 // layer 0's, decoder layer 0), the attention slot's query row and
 // scores, the combine's weights, scaled sums, max and sums, v_w and
-// gate_w (Smem, smem_map).
+// gate_w (Smem, smem_map). bf: the bf16 body's rows (padk).
 int k1_fixed_floats(int B, int M, int H, int D, int Tk, int n_layers,
-                    int parts) {
-  const int Hp = pad4(H), Mp = pad4(M), Lp = pad4(H + D);
+                    int parts, bool bf) {
+  const int Hp = padk(H, bf), Mp = padk(M, bf), Lp = padk(H + D, bf);
   int w = Mp + (n_layers - 1) * Hp;
   w = w > 2 * Hp ? w : 2 * Hp;
   w = w > Lp ? w : Lp;
@@ -761,109 +847,55 @@ int k1_smem_bytes() {
   return (optin - fixed) & ~15;
 }
 
-int coresident_blocks(int smem) {
+int coresident_blocks(const void* kernel, int smem) {
   int dev = 0, sms = 0, per_sm = 0;
   if (smem < 0 || cudaGetDevice(&dev) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
-      cudaFuncSetAttribute((const void*)k1_kernel,
+      cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, (const void*)k1_kernel, kThreads, smem))
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem))
     return -1;
   return per_sm * sms;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* decoder_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+const void* k1_kernel_of(bool bf) {
+  return bf ? (const void*)k1_kernel<__nv_bfloat16>
+            : (const void*)k1_kernel<float>;
 }
 
-// Blocks of K1 that can be resident at once on this card (the most its
-// cooperative launch may take), or -1.
-int decoder_coresident_blocks(void) {
-  return coresident_blocks(k1_smem_bytes());
-}
-
-// Bytes of weights a block prefetches into shared memory for a stage at
-// most (the buffer), or a negative number when the widths leave none.
-long long decoder_prefetch_bytes(int B, int M, int H, int D, int Tk,
-                                 int n_layers, int parts) {
-  const int smem = k1_smem_bytes();
-  if (smem < 0) return -1;
-  return 4LL * ((smem / 4 - k1_fixed_floats(B, M, H, D, Tk, n_layers, parts))
-                & ~3);
-}
-
-// Floats of workspace fused_flow_infer_f32 needs (the caller allocates
-// it; the entry zeroes it), and ints of integer workspace.
-long long decoder_workspace_floats(int B, int H, int D, int Tk,
-                                   int n_layers, int parts) {
+// Floats of workspace (fp32 state, scores and partials).
+long long workspace_floats(int B, int H, int D, int Tk, int n_layers,
+                           int parts) {
   return (long long)B * (2LL * H + D + Tk + 2LL * n_layers * H
                          + 4LL * (n_layers + 1) * H + 2LL * H
                          + (long long)parts * (2 + D));
 }
 
-int decoder_workspace_ints(int B) { return B + 1; }
-
-// `iters` grid barriers of `mode` (0 = K1's own, 1 = cooperative_groups')
-// over n_blocks blocks; counter: one zeroed unsigned.
-int decoder_barrier_bench(int mode, int iters, int n_blocks,
-                          unsigned* counter, void* stream_handle) {
-  void* args[] = {&counter, &iters, &mode};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)barrier_bench_kernel, n_blocks, kThreads, args, 0,
-      static_cast<cudaStream_t>(stream_handle));
-  return err ? err : cudaGetLastError();
-}
-
-// One flow's inverse scan over N frames, one cooperative launch. Shapes
-// (all fp32, contiguous):
-//   z (N, B, M); kp, vals (B, Tk, D); key_mask (B, Tk); n_valid_in (B,)
-//   int32; outputs mel (N, B, M), attn (N, B, Tk), gates (N, B).
-// Packed weights (ops/decoder.py:pack_flow_weights), with P(n) = n
-// rounded up to a multiple of 4:
-//   att_wi (4H, P(M)), att_wh (4H, P(H)), att_b (4H)   interleaved LSTM rows
-//   q_w (D, P(H)), q_b (D), v_w (D)
-//   lstm_wi[l] (4H, P(K_l)), lstm_wh[l] (4H, P(H)), lstm_b[l] (4H),
-//     K_0 = H + D, K_l = H
-//   dense_w[i] (H, P(H)), dense_b[i] (H)
-//   head_w (2M, P(H)), head_b (2M)              interleaved (log_s, b)
-//   gate_w (H + D), gate_b (1), or both null when the flow has no gate.
-// lstm_wi, lstm_wh, lstm_b, dense_w, dense_b are host arrays of device
-// pointers.
-// bounds: (4 + n_layers + n_dense, 4, n_blocks + 1) int32 on the device,
-// each job's quad boundaries from ops/decoder.py:k1_plan (k1_bounds_array),
-// whose stage and job order this entry repeats; parts: the attention partials
-// (ops/decoder.py:k1_attn_parts). clock: null, or (N, n_stages) int64
-// that receives the ns time at which block 0 passes each stage's barrier.
-int fused_flow_infer_f32(
-    const float* z, const float* kp, const float* vals,
-    const float* key_mask, const int* n_valid_in, const float* att_wi,
-    const float* att_wh,
-    const float* att_b, const float* q_w, const float* q_b,
-    const float* v_w, const float* const* lstm_wi,
-    const float* const* lstm_wh,
-    const float* const* lstm_b, int n_layers, const float* const* dense_w,
-    const float* const* dense_b, int n_dense, const float* head_w,
-    const float* head_b, const float* gate_w, const float* gate_b,
-    float* mel, float* attn, float* gates, float* work, int* iwork,
-    const int* bounds, int n_blocks, int parts, int slices,
-    long long* clock, int N,
-    int B, int M, int H,
-    int D, int Tk, float temperature, float gate_threshold, int early_exit,
-    void* stream_handle) {
+// One flow's inverse scan (fused_flow_infer_launch below).
+int run_flow(bool bf, const float* z, const void* kp, const void* vals,
+             const float* key_mask, const int* n_valid_in,
+             const void* att_wi, const void* att_wh, const float* att_b,
+             const void* q_w, const float* q_b, const float* v_w,
+             const void* const* lstm_wi, const void* const* lstm_wh,
+             const float* const* lstm_b, int n_layers,
+             const void* const* dense_w, const float* const* dense_b,
+             int n_dense, const void* head_w, const float* head_b,
+             const float* gate_w, const float* gate_b, float* mel,
+             float* attn, float* gates, float* work, int* iwork,
+             const int* bounds, int n_blocks, int parts, int slices,
+             long long* clock, int N, int B, int M, int H, int D, int Tk,
+             float temperature, float gate_threshold, int early_exit,
+             void* stream_handle) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_dense < 0 ||
       n_dense > kMaxDense || parts < 1 || parts > kMaxParts || parts > Tk ||
       slices < 1 || slices > D || n_blocks < 1 || N < 1 || B < 1)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int Hp = pad4(H), Mp = pad4(M), Lp = pad4(H + D);
+  const int Hp = padk(H, bf), Mp = padk(M, bf), Lp = padk(H + D, bf);
   Params p = {};
-  auto job = [](const float* w, const float* bias, int Kp, int rows,
+  auto job = [](const void* w, const float* bias, int Kp, int rows,
                 int kind, int layer) {
     Job j = {w, bias, Kp, rows, kind, layer};
     return j;
@@ -954,27 +986,120 @@ int fused_flow_infer_f32(
   p.threshold = gate_threshold;
 
   const int smem = k1_smem_bytes();
-  const int fixed = k1_fixed_floats(B, M, H, D, Tk, n_layers, parts);
+  const int fixed = k1_fixed_floats(B, M, H, D, Tk, n_layers, parts, bf);
   if (smem < 0 || xs + 2 * p.Dp + p.kslot + kMaxB * (2 * kMaxParts + 2)
                       + pad4(H + D) != fixed)
     return cudaErrorInvalidValue;
   p.wbuf_off = fixed;
   p.wcap = (smem / 4 - fixed) & ~3;
   if (p.wcap < 0) return cudaErrorInvalidValue;
-  const int most = coresident_blocks(smem);
+  const void* kernel = k1_kernel_of(bf);
+  const int most = coresident_blocks(kernel, smem);
   if (most < 0) return cudaErrorInvalidValue;
   if (n_blocks > most) return cudaErrorCooperativeLaunchTooLarge;
   cudaError_t err;
   if ((err = cudaMemsetAsync(work, 0,
-                             sizeof(float) * decoder_workspace_floats(
+                             sizeof(float) * workspace_floats(
                                  B, H, D, Tk, n_layers, parts), stream)))
     return err;
   if ((err = cudaMemsetAsync(iwork, 0, sizeof(int) * (B + 1), stream)))
     return err;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)k1_kernel, n_blocks,
-                                    kThreads, args, smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, n_blocks, kThreads, args, smem,
+                                    stream);
   return err ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* decoder_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Blocks of K1 (the fp32 body, or with bf16 != 0 the bf16 one) that can
+// be resident at once on this card (the most its cooperative launch may
+// take), or -1.
+int decoder_coresident_blocks(int bf16) {
+  return coresident_blocks(k1_kernel_of(bf16 != 0), k1_smem_bytes());
+}
+
+// Bytes of weights a block prefetches into shared memory for a stage at
+// most (the buffer), or a negative number when the widths leave none.
+long long decoder_prefetch_bytes(int B, int M, int H, int D, int Tk,
+                                 int n_layers, int parts, int bf16) {
+  const int smem = k1_smem_bytes();
+  if (smem < 0) return -1;
+  return 4LL * ((smem / 4 - k1_fixed_floats(B, M, H, D, Tk, n_layers, parts,
+                                            bf16 != 0))
+                & ~3);
+}
+
+// Floats of workspace fused_flow_infer_launch needs (the caller
+// allocates it; the entry zeroes it), and ints of integer workspace.
+long long decoder_workspace_floats(int B, int H, int D, int Tk,
+                                   int n_layers, int parts) {
+  return workspace_floats(B, H, D, Tk, n_layers, parts);
+}
+
+int decoder_workspace_ints(int B) { return B + 1; }
+
+// `iters` grid barriers of `mode` (0 = K1's own, 1 = cooperative_groups')
+// over n_blocks blocks; counter: one zeroed unsigned.
+int decoder_barrier_bench(int mode, int iters, int n_blocks,
+                          unsigned* counter, void* stream_handle) {
+  void* args[] = {&counter, &iters, &mode};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)barrier_bench_kernel, n_blocks, kThreads, args, 0,
+      static_cast<cudaStream_t>(stream_handle));
+  return err ? err : cudaGetLastError();
+}
+
+// One flow's inverse scan over N frames, one cooperative launch. Shapes
+// (contiguous):
+//   z (N, B, M) fp32; kp, vals (B, Tk, D); key_mask (B, Tk) fp32;
+//   n_valid_in (B,) int32; outputs mel (N, B, M), attn (N, B, Tk),
+//   gates (N, B), fp32.
+// Packed weights (ops/decoder.py:pack_flow_weights), with P(n) = n
+// rounded up to a multiple of 4 (fp32) or 8 (bf16):
+//   att_wi (4H, P(M)), att_wh (4H, P(H)), att_b (4H)   interleaved LSTM rows
+//   q_w (D, P(H)), q_b (D), v_w (D)
+//   lstm_wi[l] (4H, P(K_l)), lstm_wh[l] (4H, P(H)), lstm_b[l] (4H),
+//     K_0 = H + D, K_l = H
+//   dense_w[i] (H, P(H)), dense_b[i] (H)
+//   head_w (2M, P(H)), head_b (2M)              interleaved (log_s, b)
+//   gate_w (H + D), gate_b (1), or both null when the flow has no gate.
+// bf16 = 0: every tensor fp32. bf16 != 0, the body the Pallas kernel runs
+// on bf16 params: kp, vals and the matrices (att_wi, att_wh, q_w, lstm_wi,
+// lstm_wh, dense_w, head_w) bf16 (pack_flow_weights(flow,
+// torch.bfloat16)); z, the vectors, the outputs and the workspace fp32.
+// lstm_wi, lstm_wh, lstm_b, dense_w, dense_b are host arrays of device
+// pointers.
+// bounds: (4 + n_layers + n_dense, 4, n_blocks + 1) int32 on the device,
+// each job's quad boundaries from ops/decoder.py:k1_plan (k1_bounds_array),
+// whose stage and job order this entry repeats; parts: the attention partials
+// (ops/decoder.py:k1_attn_parts). clock: null, or (N, n_stages) int64
+// that receives the ns time at which block 0 passes each stage's barrier.
+int fused_flow_infer_launch(
+    int bf16, const float* z, const void* kp, const void* vals,
+    const float* key_mask, const int* n_valid_in, const void* att_wi,
+    const void* att_wh, const float* att_b, const void* q_w,
+    const float* q_b, const float* v_w, const void* const* lstm_wi,
+    const void* const* lstm_wh, const float* const* lstm_b, int n_layers,
+    const void* const* dense_w, const float* const* dense_b, int n_dense,
+    const void* head_w, const float* head_b, const float* gate_w,
+    const float* gate_b, float* mel, float* attn, float* gates, float* work,
+    int* iwork, const int* bounds, int n_blocks, int parts, int slices,
+    long long* clock, int N, int B, int M, int H, int D, int Tk,
+    float temperature, float gate_threshold, int early_exit,
+    void* stream_handle) {
+  return run_flow(bf16 != 0, z, kp, vals, key_mask, n_valid_in, att_wi,
+                  att_wh, att_b, q_w, q_b, v_w, lstm_wi, lstm_wh, lstm_b,
+                  n_layers, dense_w, dense_b, n_dense, head_w, head_b,
+                  gate_w, gate_b, mel, attn, gates, work, iwork, bounds,
+                  n_blocks, parts, slices, clock, N, B, M, H, D, Tk,
+                  temperature, gate_threshold, early_exit, stream_handle);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Tensor-core and async-copy helpers shared by csrc/w4.cu,
-// csrc/resident.cu and csrc/qmm.cu (and smem_addr by csrc/grid_sync.cuh):
+// csrc/resident.cu, csrc/qmm.cu and csrc/wavenet.cu (and smem_addr by
+// csrc/grid_sync.cuh):
 // the bf16, int8 and tf32 mma.sync tiles, ldmatrix fragment loads and
 // cp.async 16-byte copies into shared memory.
 
@@ -77,6 +78,22 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// Two 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i (lanes 16 .. 31 are not read), r[i] as ldmatrix_x4's.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  if (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(smem_addr(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
         : "r"(smem_addr(p)));
 }
 

@@ -1,5 +1,5 @@
-// K4: the quantized matmul of the serving modes, fp32 activations, on the
-// tensor cores.
+// K4: the quantized matmul of the serving modes, fp32 or bf16 activations,
+// on the tensor cores.
 //
 // Replaces flowtron_tpu/ops/qmm_pallas.py:quantized_matmul (pallas_call at
 // :94) and both of its bodies:
@@ -11,8 +11,9 @@
 //                                     acc = xq @ q^T            (int32)
 //                                     out = (float(acc) * sx) * s
 //
-// x is (M, K) fp32, q is (N, K) int8 in torch's (out, in) layout (the
-// Pallas kernel takes (K, N)), s is (N,) fp32, out is (M, N) fp32. The
+// x is (M, K) fp32 or bf16, q is (N, K) int8 in torch's (out, in) layout
+// (the Pallas kernel takes (K, N)), s is (N,) fp32, out is (M, N) in x's
+// dtype (the Pallas kernel's out_dtype, which its callers set so). The
 // Pallas body divides by 127.0, which XLA compiles to a multiply by the
 // fp32 reciprocal; this kernel does the same, so its W8A8 output is the
 // JAX kernel's to the bit (ops/qmm.py says more).
@@ -59,6 +60,14 @@
 //   one or two row tiles a warp, words of k go to 4 or 2 accumulator sets
 //   (shorter chains of dependent mmas), added in order at the end; s is
 //   applied once at the end, as _qmm_kernel applies it;
+// - bf16 x (the body the Pallas kernel runs under the JAX server's --bf16,
+//   x_bf16): weight-only is one mma.sync m16n8k16 bf16 pass, q's bytes
+//   exact in bf16 (the tf32 trick, then the upper halves), x staged as it
+//   is, rows padded by 16 bytes against bank conflicts; the fp32 sums are
+//   scaled by s in fp32 and rounded once, as _qmm_kernel's
+//   (acc * s).astype(bf16). W8A8 quantizes each bf16 row through fp32 in
+//   the quantize launch (x.astype(f32) at :40) and runs the same s8
+//   product; its epilogue rounds the fp32 result once;
 // - the host (ops/qmm.py:qmm_plan) chooses the column tiles and the split
 //   of K over a block's warps; partial sums meet in shared memory, each
 //   output's added in split order by one thread: one product launch a
@@ -72,6 +81,7 @@
 // 40 and 64 column tiles, fewer blocks than SMs, which only a split of K
 // across blocks (a cluster) would fill.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,32 +110,51 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// x's element as fp32 (exact for bf16), and four of them from an aligned
+// address (16 bytes of fp32, 8 of bf16).
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Block (p, m) quantizes bytes p * kQuantSlice .. + kQuantSlice - 1 of
 // row m: every block of a row takes sx = max|x| * fp32(1/127) (1 where 0)
 // over the whole row, then writes xq = clip(rint(x / sx)) for its slice,
 // four bytes a thread, zero past K. Spreading a row over blocks keeps the
-// true divisions few a thread at small M.
+// true divisions few a thread at small M. A bf16 x is read as fp32, as
+// _qmm_w8a8_kernel's x.astype(f32).
+template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
-quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
+quantize_rows_kernel(const T* __restrict__ x, int K, int Kp,
                      int8_t* __restrict__ xq, float* __restrict__ sx) {
   __shared__ float part[kQuantThreads / 32];
   // the product launch may start now: it loads its weights, then waits
   // for this grid to finish before it reads xq and sx
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int m = blockIdx.y;
-  const float* row = x + (size_t)m * K;
+  const T* row = x + (size_t)m * K;
   const bool vec = (K & 3) == 0;
   float amax = 0.f;
   if (vec) {
 #pragma unroll 4
     for (int k = 4 * threadIdx.x; k < K; k += 4 * kQuantThreads) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(row + k));
+      const float4 v = load4(row + k);
       amax = fmaxf(fmaxf(amax, fabsf(v.x)), fmaxf(fabsf(v.y), fabsf(v.z)));
       amax = fmaxf(amax, fabsf(v.w));
     }
   } else {
     for (int k = threadIdx.x; k < K; k += kQuantThreads)
-      amax = fmaxf(amax, fabsf(row[k]));
+      amax = fmaxf(amax, fabsf(as_f32(row[k])));
   }
   amax = warp_max(amax);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
@@ -138,12 +167,12 @@ quantize_rows_kernel(const float* __restrict__ x, int K, int Kp,
   if (k < Kp) {                           // Kp % 4 == 0
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (vec && k < K) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(row + k));
+      const float4 f = load4(row + k);
       v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (k + i < K) v[i] = row[k + i];
+        if (k + i < K) v[i] = as_f32(row[k + i]);
     }
     uint32_t w = 0;
 #pragma unroll
@@ -201,15 +230,24 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
   lo = __uint_as_float(tf32_rna(__fsub_rn(v, hi)));
 }
 
-// Rows m0 .. m0 + rows - 1 of xq (int8, padded rows) or of x (its tf32 hi
-// and lo pieces, two swizzled planes of rows x Kp floats) into shared
-// memory, zero past K and M; the caller's block barrier ends it. x is
-// read with kStage 16-byte loads in flight a thread, then split.
-template <bool kA8>
-__device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
+// Bytes between staged bf16 rows of x: 2 Kp + 16, so that a quarter-warp's
+// 16-byte loads (rows g, g + 1; 32 bytes apart along k) hit 8 distinct
+// bank groups.
+__host__ __device__ __forceinline__ int xb_stride(int Kp) {
+  return 2 * Kp + 16;
+}
+
+// Rows m0 .. m0 + rows - 1 of xq (int8, padded rows), of fp32 x (its tf32
+// hi and lo pieces, two swizzled planes of rows x Kp floats) or of bf16 x
+// (as it is, rows xb_stride bytes apart) into shared memory, zero past K
+// and M; the caller's block barrier ends it. fp32 x is read with kStage
+// 16-byte loads in flight a thread, then split.
+template <bool kA8, bool kBF>
+__device__ void stage_x(unsigned char* smem, const void* __restrict__ xv,
                         const int8_t* __restrict__ xq, int M, int K, int Kp,
                         int m0, int rows) {
   constexpr int kStage = 8;
+  const float* x = static_cast<const float*>(xv);
   if (kA8) {
     const int per_row = Kp / 16, stride = xq_stride(Kp);
     for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
@@ -220,6 +258,26 @@ __device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
     }
     cp_async_commit();
     cp_async_wait<0>();
+  } else if (kBF) {
+    const uint16_t* xb = static_cast<const uint16_t*>(xv);
+    const int stride = xb_stride(Kp);
+    if ((K & 7) == 0) {                   // 16-byte pieces of x rows
+      const int per_row = Kp / 8;
+      for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+        const int r = i / per_row, c = i - r * per_row, m = m0 + r;
+        const bool ok = m < M && 8 * c < K;
+        cp_async16_zfill(smem + (size_t)r * stride + 16 * c,
+                         ok ? xb + (size_t)m * K + 8 * c : xb, ok ? 16 : 0);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int i = threadIdx.x; i < rows * Kp; i += blockDim.x) {
+        const int r = i / Kp, k = i - r * Kp, m = m0 + r;
+        *reinterpret_cast<uint16_t*>(smem + (size_t)r * stride + 2 * k) =
+            m < M && k < K ? xb[(size_t)m * K + k] : (uint16_t)0;
+      }
+    }
   } else if ((K & 3) == 0) {              // 16-byte pieces of x rows
     const int per_row = Kp / 4, total = rows * per_row;
     float4* hi = reinterpret_cast<float4*>(smem);
@@ -268,7 +326,17 @@ __device__ __forceinline__ uint32_t byte_to_tf32(uint32_t u, int i) {
                 8388736.f));                 // 2^23 + 128
 }
 
+// Bytes i and i + 1 of u (biased bytes) as a bf16 pair, exactly: their
+// fp32 values (byte_to_tf32) are small integers, whose low 16 bits are 0.
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t u, int i) {
+  return __byte_perm(byte_to_tf32(u, i), byte_to_tf32(u, i + 1), 0x7632);
+}
+
 __device__ __forceinline__ int word(int4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint32_t word(uint4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
@@ -282,7 +350,7 @@ __host__ __device__ constexpr int acc_sets() {
 
 // One 64-byte stretch s of k into the accumulators of every row tile: ra
 // and rb hold this lane's 16 bytes of q rows g and g + 8.
-template <bool kA8, int MT, int kSets, typename Acc>
+template <bool kA8, bool kBF, int MT, int kSets, typename Acc>
 __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
                                             int4 rb, const unsigned char* smem,
                                             int s, int Kp, int g, int t) {
@@ -300,6 +368,28 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
           smem + (size_t)(i * kTileM + g) * stride + s * kStretch + 16 * t);
       mma_s8_m16n8k32(acc[0][i], a0, (uint32_t)b.x, (uint32_t)b.y);
       mma_s8_m16n8k32(acc[0][i], a1, (uint32_t)b.z, (uint32_t)b.w);
+    }
+  } else if constexpr (kBF) {
+    // Word j of the lane's 16 bytes (k 16 t + 4 j .. + 3) feeds one k16
+    // mma: bytes 0, 1 at its k 2t, 2t + 1 and bytes 2, 3 at 2t + 8, 2t +
+    // 9; b: the same four bf16 of x row g (32 bytes a lane, two loads).
+    const int stride = xb_stride(Kp);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint4* px = reinterpret_cast<const uint4*>(
+          smem + (size_t)(i * kTileM + g) * stride + 2 * (s * kStretch) +
+          32 * t);
+      const uint4 x0 = px[0], x1 = px[1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t ua = (uint32_t)word(ra, j) ^ 0x80808080u;
+        const uint32_t ub = (uint32_t)word(rb, j) ^ 0x80808080u;
+        const uint32_t a[4] = {bytes_to_bf16x2(ua, 0), bytes_to_bf16x2(ub, 0),
+                               bytes_to_bf16x2(ua, 2), bytes_to_bf16x2(ub, 2)};
+        const uint4 xv = j < 2 ? x0 : x1;
+        mma_bf16(acc[j % kSets][i], a, word(xv, 2 * (j & 1)),
+                 word(xv, 2 * (j & 1) + 1));
+      }
     }
   } else {
     // Word j of the lane's 16 bytes feeds two k8 mmas: bytes 0, 1 (its k
@@ -333,13 +423,15 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
 // Grid (column blocks, row blocks); block ct * ks warps. Warp w owns
 // column tile w % ct of its block and part w / ct of the block's K
 // stretches (part p: stretches p S / ks .. (p + 1) S / ks - 1), and MT
-// row tiles. kVec: q rows are 16-byte aligned (K % 16 == 0).
-template <bool kA8, int MT, bool kVec>
+// row tiles. kVec: q rows are 16-byte aligned (K % 16 == 0). kBF: x is
+// bf16 (weight-only; W8A8 reads xq whatever x was). out is fp32, or bf16
+// when out_bf16.
+template <bool kA8, int MT, bool kVec, bool kBF>
 __global__ void __launch_bounds__(MT >= 4 ? 256 : 512)
-qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
+qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
            const float* __restrict__ sx, const int8_t* __restrict__ q,
-           const float* __restrict__ s, float* __restrict__ out, int M,
-           int K, int N, int ct, int ks) {
+           const float* __restrict__ s, void* __restrict__ out, int M,
+           int K, int N, int ct, int ks, int out_bf16) {
   using Acc = std::conditional_t<kA8, int, float>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -382,7 +474,7 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
       if (r < rows && m0 + r < M) sx_v[h] = sx[m0 + r];
     }
   }
-  stage_x<kA8>(smem, x, xq, M, K, Kp, m0, rows);
+  stage_x<kA8, kBF>(smem, x, xq, M, K, Kp, m0, rows);
   if (threadIdx.x < cols) s_sh[threadIdx.x] = s_v;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -411,7 +503,8 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
 #pragma unroll
     for (int u = 0; u < kGroup; ++u)
       if (s0 + u < s_end)
-        stretch_mma<kA8, MT>(sets, ra[u], rb[u], smem, s0 + u, Kp, g, t);
+        stretch_mma<kA8, kBF, MT>(sets, ra[u], rb[u], smem, s0 + u, Kp, g,
+                                       t);
   }
   Acc (&acc)[MT][4] = sets[0];
 #pragma unroll
@@ -433,7 +526,11 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
       y = __fmul_rn(__fmul_rn(__int2float_rn(v), sx_sh[rm]), s_sh[cn]);
     else
       y = __fmul_rn(v, s_sh[cn]);
-    out[(size_t)(m0 + rm) * N + c0 + cn] = y;
+    const size_t o = (size_t)(m0 + rm) * N + c0 + cn;
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
+    else
+      static_cast<float*>(out)[o] = y;
   };
   if (ks == 1) {
 #pragma unroll
@@ -461,31 +558,38 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
   }
 }
 
-using Kernel = void (*)(const float*, const int8_t*, const float*,
-                        const int8_t*, const float*, float*, int, int, int,
-                        int, int);
+using Kernel = void (*)(const void*, const int8_t*, const float*,
+                        const int8_t*, const float*, void*, int, int, int,
+                        int, int, int);
 
-template <bool kA8, bool kVec>
+template <bool kA8, bool kVec, bool kBF>
 Kernel pick_mt(int mt) {
   switch (mt) {
-    case 1: return qmm_kernel<kA8, 1, kVec>;
-    case 2: return qmm_kernel<kA8, 2, kVec>;
-    case 4: return qmm_kernel<kA8, 4, kVec>;
-    case 8: return qmm_kernel<kA8, 8, kVec>;
+    case 1: return qmm_kernel<kA8, 1, kVec, kBF>;
+    case 2: return qmm_kernel<kA8, 2, kVec, kBF>;
+    case 4: return qmm_kernel<kA8, 4, kVec, kBF>;
+    case 8: return qmm_kernel<kA8, 8, kVec, kBF>;
     default: return nullptr;
   }
 }
 
-Kernel pick(bool a8, bool vec, int mt) {
-  if (a8) return vec ? pick_mt<true, true>(mt) : pick_mt<true, false>(mt);
-  return vec ? pick_mt<false, true>(mt) : pick_mt<false, false>(mt);
+Kernel pick(bool a8, bool vec, bool bf, int mt) {
+  if (a8)
+    return vec ? pick_mt<true, true, false>(mt)
+               : pick_mt<true, false, false>(mt);
+  if (bf)
+    return vec ? pick_mt<false, true, true>(mt)
+               : pick_mt<false, false, true>(mt);
+  return vec ? pick_mt<false, true, false>(mt)
+             : pick_mt<false, false, false>(mt);
 }
 
 // Shared memory (bytes) a block of the plan (ct, ks, mt) takes: the
 // larger of the staged rows of x and the K parts' partial sums.
-int qmm_smem_bytes(int K, int a8, int ct, int ks, int mt) {
+int qmm_smem_bytes(int K, int a8, int bf, int ct, int ks, int mt) {
   const int Kp = padded_k(K), rows = mt * kTileM;
-  const int stage = a8 ? rows * xq_stride(Kp) : 2 * rows * Kp * 4;
+  const int stage = a8 ? rows * xq_stride(Kp)
+                       : bf ? rows * xb_stride(Kp) : 2 * rows * Kp * 4;
   const int part = ks > 1 ? ks * ct * mt * 4 * 32 * 4 : 0;
   return stage > part ? stage : part;
 }
@@ -498,19 +602,22 @@ const char* qmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (M, K) fp32, q (N, K) int8, s (N,) fp32, out (M, N) fp32, all
-// contiguous and 16-byte aligned. a8 != 0 runs the W8A8 body and needs
-// xq (M, K rounded up to 64) int8 and sx (M,) fp32 of scratch; otherwise
-// both may be null. (ct, ks, mt): the plan of ops/qmm.py:qmm_plan,
-// column tiles a block, warps along K a column tile, row tiles a warp.
-int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,
-            int8_t* xq, float* sx, int M, int K, int N, int a8, int ct,
-            int ks, int mt, void* stream_handle) {
+// The launches of one call: W8A8's quantize launch, then the product.
+// x (M, K) fp32, or bf16 when x_bf16; q (N, K) int8, s (N,) fp32, out
+// (M, N) in x's dtype, all contiguous and 16-byte aligned. a8 != 0 runs
+// the W8A8 body and needs xq (M, K rounded up to 64) int8 and sx (M,)
+// fp32 of scratch; otherwise both may be null. (ct, ks, mt): the plan of
+// ops/qmm.py:qmm_plan, column tiles a block, warps along K a column tile,
+// row tiles a warp.
+int qmm_launch(const void* x, int x_bf16, const int8_t* q, const float* s,
+               void* out, int8_t* xq, float* sx, int M, int K, int N,
+               int a8, int ct, int ks, int mt, void* stream_handle) {
   if (M <= 0 || K <= 0 || N <= 0 || (a8 && (!xq || !sx)) || ct < 1 ||
       ks < 1 || ct * ks > (mt >= 4 ? kMaxWarps / 2 : kMaxWarps))
     return cudaErrorInvalidValue;
-  const Kernel kernel = pick(a8 != 0, K % 16 == 0, mt);
-  const int smem = qmm_smem_bytes(K, a8, ct, ks, mt);
+  const bool bf = x_bf16 && !a8;
+  const Kernel kernel = pick(a8 != 0, K % 16 == 0, bf, mt);
+  const int smem = qmm_smem_bytes(K, a8, bf, ct, ks, mt);
   if (!kernel || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   cudaError_t err;
@@ -520,8 +627,13 @@ int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,
     return err;
   if (a8) {
     const dim3 qgrid((padded_k(K) + kQuantSlice - 1) / kQuantSlice, M);
-    quantize_rows_kernel<<<qgrid, kQuantThreads, 0, stream>>>(
-        x, K, padded_k(K), xq, sx);
+    if (x_bf16)
+      quantize_rows_kernel<__nv_bfloat16><<<qgrid, kQuantThreads, 0,
+                                            stream>>>(
+          static_cast<const __nv_bfloat16*>(x), K, padded_k(K), xq, sx);
+    else
+      quantize_rows_kernel<float><<<qgrid, kQuantThreads, 0, stream>>>(
+          static_cast<const float*>(x), K, padded_k(K), xq, sx);
     if ((err = cudaGetLastError())) return err;
   }
   const int tiles = (N + kTileN - 1) / kTileN;
@@ -538,7 +650,8 @@ int qmm_f32(const float* x, const int8_t* q, const float* s, float* out,
   cfg.attrs = attr;
   cfg.numAttrs = a8 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, x, (const int8_t*)xq,
-                            (const float*)sx, q, s, out, M, K, N, ct, ks);
+                            (const float*)sx, q, s, out, M, K, N, ct, ks,
+                            x_bf16);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// K2: one WaveGlow WN layer, fp32 in and out, products on the tensor cores.
+// K2: one WaveGlow WN layer, fp32 or bf16 in and out, products on the
+// tensor cores.
 //
 // Replaces flowtron_tpu/ops/wavenet_pallas.py:wn_layer_fused (the Pallas
 // kernel _wn_layer_kernel, called at :93):
@@ -68,9 +69,23 @@
 // 256 KB at 64). Each pass stages x again, and every block reads all of a
 // layer's weights from L2 for its BM rows, so these builds are right but
 // not fast (PERF.md §6, K2).
+//
+// The bf16 body (wn_layer_launch's bf16 flag; the body the Pallas kernel
+// runs under the JAX server's --bf16): x, cond, the weights, the biases, x' and skip are
+// bf16, and each product is one bf16 pass (the hi part only: the weights
+// are the plain bf16 pack of ops/wavenet.py:wn_pack_weights). The x
+// pieces land by cp.async straight in the A-tile layout of their ring
+// slot, so there is no split step; z is rounded to bf16 once, as
+// _wn_layer_kernel's .astype(x0_ref.dtype) (wavenet_pallas.py:38-39); the
+// gate, the residual (x + rs in fp32) and skip are computed in fp32 and
+// rounded once on the store (:52-54). The same (C, BM) builds, with the
+// smaller shared memory (one weight plane, no hi/lo tiles, one z plane).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -94,6 +109,22 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
               x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
+// two neighbouring values (4- or 8-byte aligned) as fp32, and back
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<uint32_t*>(p) = bf16x2(v.x, v.y);
+}
+
 // tanh and sigmoid without branches, from ex2.approx: within ~1e-6 of
 // the correctly rounded values for the inputs a layer meets, so the gate's
 // loads can be issued together ahead of its arithmetic
@@ -108,18 +139,19 @@ __device__ __forceinline__ float sigmoid_(float a) {
 
 
 // shared memory of a block: S weight stages, and the x stages and A
-// tiles beside z (NH = 1: z overlays them, idle by then)
-constexpr int smem_bytes(int nh, int s, int slot, int xslot, int abuf,
-                         int zbuf) {
-  return s * slot + (nh == 1 ? (2 * zbuf > s * xslot + 4 * abuf
-                                    ? 2 * zbuf : s * xslot + 4 * abuf)
-                             : 2 * zbuf + s * xslot + 4 * abuf);
+// tiles (ab bytes) beside z (zb bytes; NH = 1: z overlays them, idle by
+// then)
+constexpr int smem_bytes(int nh, int s, int slot, int xslot, int ab,
+                         int zb) {
+  return s * slot + (nh == 1 ? (zb > s * xslot + ab ? zb : s * xslot + ab)
+                             : zb + s * xslot + ab);
 }
 
 constexpr int kThreads = 256;   // 8 warps
 
-template <int MT, int NT, int NH, bool LAST>
+template <int MT, int NT, int NH, bool LAST, bool BF>
 struct Cfg {
+  using T = std::conditional_t<BF, __nv_bfloat16, float>;
   static constexpr int BM = 16 * MT;
   static constexpr int C = 32 * NT * NH;
   static constexpr int W1 = 2 * C / NH;   // packed acts columns a pass
@@ -129,54 +161,67 @@ struct Cfg {
   static constexpr int NC1 = 3 * C / kKC, NC2 = C / kKC;
   static constexpr int P1_CHUNKS = NH * NC1;
   static constexpr int CHUNKS = P1_CHUNKS + NP2 * NC2;
-  static constexpr int SLOT = kKC * W1 * 4;   // a weight stage, hi + lo
-  static constexpr int XSLOT = BM * kKC * 4;  // an x stage, fp32
+  static constexpr int WP = BF ? 1 : 2;       // weight planes (hi, lo)
+  static constexpr int XPR = BF ? 2 : 4;      // 16-byte x pieces a row
+  static constexpr int SLOT = kKC * W1 * 2 * WP;   // a weight stage
+  static constexpr int XSLOT = BM * kKC * sizeof(T);   // an x stage
   static constexpr int ABUF = BM * kKC * 2;   // an A tile, one of hi / lo
+  static constexpr int AB = BF ? 0 : 4 * ABUF;   // the A tiles (fp32 x)
   static constexpr int ZBUF = BM * C * 2;     // z, one of hi / lo
+  static constexpr int ZB = BF ? ZBUF : 2 * ZBUF;
   static constexpr int S =
-      smem_bytes(NH, 4, SLOT, XSLOT, ABUF, ZBUF) <= kMaxSmem ? 4 : 3;
-  static constexpr int SMEM = smem_bytes(NH, S, SLOT, XSLOT, ABUF, ZBUF);
-  static constexpr int XOFF = S * SLOT + (NH == 1 ? 0 : 2 * ZBUF);
+      smem_bytes(NH, 4, SLOT, XSLOT, AB, ZB) <= kMaxSmem ? 4 : 3;
+  static constexpr int SMEM = smem_bytes(NH, S, SLOT, XSLOT, AB, ZB);
+  static constexpr int XOFF = S * SLOT + (NH == 1 ? 0 : ZB);
   static_assert(W2 <= W1 && NT2 <= NT && NT2 >= 1, "rs tiling");
   static_assert((W1 & (W1 - 1)) == 0 && (W2 & (W2 - 1)) == 0, "pow2");
+  static_assert(W2 * WP >= 64, "a weight row spans the 8-piece swizzle");
   static_assert(SMEM <= kMaxSmem, "shared memory");
 };
 
-template <int MT, int NT, int NH, bool LAST>
+template <int MT, int NT, int NH, bool LAST, bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
-wn_layer_kernel(const float* __restrict__ x, int d,
-                const float* __restrict__ cond, int ldc,
-                const uint16_t* __restrict__ w1,
-                const float* __restrict__ b,
+wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
+                int d,
+                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ cond,
+                int ldc, const uint16_t* __restrict__ w1,
+                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ b,
                 const uint16_t* __restrict__ w2,
-                const float* __restrict__ b_rs, float* __restrict__ x_out,
-                float* __restrict__ skip, int M, int T, int Tp) {
-  using K = Cfg<MT, NT, NH, LAST>;
-  constexpr int C = K::C, BM = K::BM, S = K::S;
+                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ b_rs,
+                typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x_out,
+                typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ skip,
+                int M, int T, int Tp) {
+  using K = Cfg<MT, NT, NH, LAST, BF>;
+  using E = typename K::T;
+  constexpr int C = K::C, BM = K::BM, S = K::S, WP = K::WP, XPR = K::XPR;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* zhi = smem + S * K::SLOT;
-  unsigned char* zlo = zhi + K::ZBUF;
+  unsigned char* zlo = zhi + K::ZBUF;          // fp32 x only
   unsigned char* xring = smem + K::XOFF;
-  unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo]
+  unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo], fp32 x only
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * BM;
 
-  // the x pieces this thread copies and splits: 16 bytes (4 channels) of
-  // a row; the row's stream offset and time step are fixed for the call
-  constexpr int XP = (BM * 4 + kThreads - 1) / kThreads;
+  // the x pieces this thread copies (and, fp32, splits): 16 bytes (4
+  // fp32 or 8 bf16 channels) of a row; the row's stream offset and time
+  // step are fixed for the call
+  constexpr int XP = (BM * XPR + kThreads - 1) / kThreads;
+  constexpr int XCH = 16 / sizeof(E);            // channels a piece
   int x_base[XP], x_t[XP];
 #pragma unroll
   for (int i = 0; i < XP; ++i) {
     const int q = tid + i * kThreads;
-    const int g = row0 + (q >> 2);
+    const int g = row0 + q / XPR;
     const int s = g / Tp;
     x_base[i] = s * Tp;
-    x_t[i] = (q < BM * 4 && g < M) ? g - s * Tp : -(1 << 30);
+    x_t[i] = (q < BM * XPR && g < M) ? g - s * Tp : -(1 << 30);
   }
 
-  // chunk gc: weights into ring slot gc % S, and (first product) x
+  // chunk gc: weights into ring slot gc % S, and (first product) x; bf16
+  // x lands in the A-tile layout (rows of 32 bytes, piece p of row r at
+  // p ^ ((r >> 2) & 1)), fp32 x as it is, split later by convert
   auto issue = [&](int gc) {
     if (gc < K::CHUNKS) {
       unsigned char* slot = ring + (gc % S) * K::SLOT;
@@ -184,7 +229,7 @@ wn_layer_kernel(const float* __restrict__ x, int d,
       int w;
       if (gc < K::P1_CHUNKS) {
         const int h = gc / K::NC1, kc = gc - h * K::NC1;
-        src = w1 + ((size_t)h * 3 * C + kc * kKC) * 2 * K::W1;
+        src = w1 + ((size_t)h * 3 * C + kc * kKC) * WP * K::W1;
         w = K::W1;
         const int tap = kc * kKC / C, ch0 = kc * kKC - tap * C;
         const int shift = (tap - 1) * d;
@@ -192,51 +237,59 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 #pragma unroll
         for (int i = 0; i < XP; ++i) {
           const int q = tid + i * kThreads;
-          if (q < BM * 4) {
+          if (q < BM * XPR) {
             const int t = x_t[i] + shift;
             const bool ok = t >= 0 && t < T;
-            const float* p = ok ? x + ((size_t)(x_base[i] + t) * C + ch0
-                                       + 4 * (q & 3))
-                                : x;
-            cp_async16_zfill(xs + q * 16, p, ok ? 16 : 0);
+            const int part = q % XPR;
+            const E* p = ok ? x + ((size_t)(x_base[i] + t) * C + ch0
+                                   + XCH * part)
+                            : x;
+            int off = q * 16;
+            if (BF) {
+              const int r = q >> 1;
+              off = r * 32 + (((part ^ (r >> 2)) & 1) << 4);
+            }
+            cp_async16_zfill(xs + off, p, ok ? 16 : 0);
           }
         }
       } else {
         const int g2 = gc - K::P1_CHUNKS;
         const int h = g2 / K::NC2, kc = g2 - h * K::NC2;
-        src = w2 + ((size_t)h * C + kc * kKC) * 2 * K::W2;
+        src = w2 + ((size_t)h * C + kc * kKC) * WP * K::W2;
         w = K::W2;
       }
-      // 16 rows of [hi w | lo w] bf16, w / 4 pieces of 16 bytes a row (a
-      // power of two); piece p of row k lands at p ^ (k & 7)
-      const int lg = 31 - __clz(w / 4);
-      for (int q = tid; q < kKC * w / 4; q += kThreads) {
-        const int k = q >> lg, p = q & (w / 4 - 1);
-        cp_async16(slot + k * w * 4 + ((p ^ (k & 7)) << 4), src + q * 8);
+      // 16 rows of [hi w | lo w] (bf16 x: [w]) bf16, pieces of 16 bytes
+      // a row a power of two; piece p of row k lands at p ^ (k & 7)
+      const int pieces = w * WP / 8, lg = 31 - __clz(pieces);
+      for (int q = tid; q < kKC * pieces; q += kThreads) {
+        const int k = q >> lg, p = q & (pieces - 1);
+        cp_async16(slot + k * w * WP * 2 + ((p ^ (k & 7)) << 4), src + q * 8);
       }
     }
     cp_async_commit();
   };
 
-  // split the x pieces of chunk gc into A tile gc & 1 (rows of 32 bytes,
-  // piece p of row r at p ^ ((r >> 2) & 1))
+  // fp32 x: split the x pieces of chunk gc into A tile gc & 1 (rows of
+  // 32 bytes, piece p of row r at p ^ ((r >> 2) & 1))
   auto convert = [&](int gc) {
-    const unsigned char* xs = xring + (gc % S) * K::XSLOT;
-    unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
-    unsigned char* al = ah + K::ABUF;
+    if constexpr (!BF) {
+      const unsigned char* xs = xring + (gc % S) * K::XSLOT;
+      unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
+      unsigned char* al = ah + K::ABUF;
 #pragma unroll
-    for (int i = 0; i < XP; ++i) {
-      const int q = tid + i * kThreads;
-      if (q < BM * 4) {
-        const float4 v = *reinterpret_cast<const float4*>(xs + q * 16);
-        uint2 hi, lo;
-        split2(v.x, v.y, hi.x, lo.x);
-        split2(v.z, v.w, hi.y, lo.y);
-        const int r = q >> 2, part = q & 3;
-        const int off = r * 32 + ((((part >> 1) ^ (r >> 2)) & 1) << 4)
-                        + ((part & 1) << 3);
-        *reinterpret_cast<uint2*>(ah + off) = hi;
-        *reinterpret_cast<uint2*>(al + off) = lo;
+      for (int i = 0; i < XP; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < BM * 4) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + q * 16);
+          uint2 hi, lo;
+          split2(v.x, v.y, hi.x, lo.x);
+          split2(v.z, v.w, hi.y, lo.y);
+          const int r = q >> 2, part = q & 3;
+          const int off = r * 32 + ((((part >> 1) ^ (r >> 2)) & 1) << 4)
+                          + ((part & 1) << 3);
+          *reinterpret_cast<uint2*>(ah + off) = hi;
+          *reinterpret_cast<uint2*>(al + off) = lo;
+        }
       }
     }
   };
@@ -252,9 +305,10 @@ wn_layer_kernel(const float* __restrict__ x, int d,
   };
   zero();
 
-  // acc[i][j] += A(m-tile i) * B(n-tile j), three bf16 passes; B: n-tile j
-  // of this warp in a weight stage of rows [hi w | lo w]; A rows from
-  // a_at(i): this lane's ldmatrix addresses of the hi and lo tiles
+  // acc[i][j] += A(m-tile i) * B(n-tile j): three bf16 passes (fp32 x)
+  // or one (bf16 x); B: n-tile j of this warp in a weight stage of rows
+  // [hi w | lo w] or [w]; A rows from a_at(i): this lane's ldmatrix
+  // addresses of the hi and lo tiles (lo unused for bf16 x)
   auto mma_chunk = [&](const unsigned char* slot, int w, int nt,
                        auto a_at) {
     uint32_t bf[NT][4];
@@ -262,8 +316,16 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
-        const int p = warp * nt + j + (lane >> 4) * (w >> 3);
-        ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
+        if constexpr (BF) {
+          const int p = warp * nt + j;
+          uint32_t r2[2];
+          ldmatrix_x2<true>(r2, slot + k * w * 2 + ((p ^ (k & 7)) << 4));
+          bf[j][0] = r2[0];
+          bf[j][1] = r2[1];
+        } else {
+          const int p = warp * nt + j + (lane >> 4) * (w >> 3);
+          ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
+        }
       }
     }
 #pragma unroll
@@ -272,30 +334,33 @@ wn_layer_kernel(const float* __restrict__ x, int d,
       const unsigned char *ph, *pl;
       a_at(i, ph, pl);
       ldmatrix_x4<false>(ah, ph);
-      ldmatrix_x4<false>(al, pl);
+      if constexpr (!BF) ldmatrix_x4<false>(al, pl);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         if (j < nt) {
-          mma_bf16(acc[i][j], ah, bf[j][0], bf[j][1]);   // hi * hi
-          mma_bf16(acc[i][j], ah, bf[j][2], bf[j][3]);   // hi * lo
-          mma_bf16(acc[i][j], al, bf[j][0], bf[j][1]);   // lo * hi
+          mma_bf16(acc[i][j], ah, bf[j][0], bf[j][1]);     // hi * hi
+          if constexpr (!BF) {
+            mma_bf16(acc[i][j], ah, bf[j][2], bf[j][3]);   // hi * lo
+            mma_bf16(acc[i][j], al, bf[j][0], bf[j][1]);   // lo * hi
+          }
         }
       }
     }
   };
 
   // gate of pass h: z for channels 8 q .. 8 q + 7 of each n-tile pair,
-  // into z hi / lo (rows of C bf16, piece p of row r at p ^ (r & 7)). An
-  // m-tile's cond values are loaded together before its arithmetic (rows
-  // past M read row M - 1: their z is never stored).
+  // into z hi / lo (rows of C bf16, piece p of row r at p ^ (r & 7)); bf16
+  // x: z rounded to bf16, one plane. An m-tile's cond values are loaded
+  // together before its arithmetic (rows past M read row M - 1: their z
+  // is never stored).
   auto gate = [&](int h) {
     int ch[NT / 2];
     float2 bt[NT / 2], bs[NT / 2];
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
       ch[j] = 8 * (h * (C / NH / 8) + warp * (NT / 2) + j) + 2 * (lane & 3);
-      bt[j] = *reinterpret_cast<const float2*>(b + ch[j]);
-      bs[j] = *reinterpret_cast<const float2*>(b + C + ch[j]);
+      bt[j] = ld2(b + ch[j]);
+      bs[j] = ld2(b + C + ch[j]);
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -303,11 +368,11 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int g = min(row0 + 16 * i + (lane >> 2) + 8 * hr, M - 1);
-        const float* crow = cond + (size_t)g * ldc;
+        const E* crow = cond + (size_t)g * ldc;
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
-          ct[hr][j] = *reinterpret_cast<const float2*>(crow + ch[j]);
-          cs[hr][j] = *reinterpret_cast<const float2*>(crow + C + ch[j]);
+          ct[hr][j] = ld2(crow + ch[j]);
+          cs[hr][j] = ld2(crow + C + ch[j]);
         }
       }
 #pragma unroll
@@ -322,13 +387,17 @@ wn_layer_kernel(const float* __restrict__ x, int d,
               tanh_(acc[i][2 * j][2 * hr + 1] + bt[j].y + ct[hr][j].y)
               * sigmoid_(acc[i][2 * j + 1][2 * hr + 1] + bs[j].y
                          + cs[hr][j].y);
-          uint32_t hi, lo;
-          split2(z0, z1, hi, lo);
           const int p = ch[j] >> 3;
           const int off = r * C * 2 + ((((p ^ r) & 7) | (p & ~7)) << 4)
                           + ((ch[j] & 7) << 1);
-          *reinterpret_cast<uint32_t*>(zhi + off) = hi;
-          *reinterpret_cast<uint32_t*>(zlo + off) = lo;
+          if constexpr (BF) {
+            *reinterpret_cast<uint32_t*>(zhi + off) = bf16x2(z0, z1);
+          } else {
+            uint32_t hi, lo;
+            split2(z0, z1, hi, lo);
+            *reinterpret_cast<uint32_t*>(zhi + off) = hi;
+            *reinterpret_cast<uint32_t*>(zlo + off) = lo;
+          }
         }
       }
     }
@@ -342,7 +411,7 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 #pragma unroll
     for (int j = 0; j < K::NT2; ++j) {
       col[j] = h * K::W2 + (warp * K::NT2 + j) * 8 + 2 * (lane & 3);
-      br[j] = *reinterpret_cast<const float2*>(b_rs + col[j]);
+      br[j] = ld2(b_rs + col[j]);
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -351,11 +420,10 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         g[hr] = row0 + 16 * i + (lane >> 2) + 8 * hr;
-        const float* xrow = x + (size_t)min(g[hr], M - 1) * C;
+        const E* xrow = x + (size_t)min(g[hr], M - 1) * C;
 #pragma unroll
         for (int j = 0; j < K::NT2; ++j)
-          if (!LAST && col[j] < C)
-            xv[hr][j] = *reinterpret_cast<const float2*>(xrow + col[j]);
+          if (!LAST && col[j] < C) xv[hr][j] = ld2(xrow + col[j]);
       }
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -367,13 +435,13 @@ wn_layer_kernel(const float* __restrict__ x, int d,
                                        acc[i][j][2 * hr + 1] + br[j].y);
           const size_t o = (size_t)g[hr] * C + col[j];
           if (LAST) {
-            *reinterpret_cast<float2*>(skip + o) = v;
+            st2(skip + o, v);
           } else if (col[j] < C) {
-            *reinterpret_cast<float2*>(x_out + o) =
-                valid ? make_float2(xv[hr][j].x + v.x, xv[hr][j].y + v.y)
-                      : make_float2(0.f, 0.f);
+            st2(x_out + o, valid ? make_float2(xv[hr][j].x + v.x,
+                                               xv[hr][j].y + v.y)
+                                 : make_float2(0.f, 0.f));
           } else {
-            *reinterpret_cast<float2*>(skip + o - C) = v;
+            st2(skip + o - C, v);
           }
         }
       }
@@ -397,7 +465,8 @@ wn_layer_kernel(const float* __restrict__ x, int d,
     const unsigned char* slot = ring + (gc % S) * K::SLOT;
     if (gc < K::P1_CHUNKS) {
       if (gc + 1 < K::P1_CHUNKS) convert(gc + 1);
-      const unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
+      const unsigned char* ah = BF ? xring + (gc % S) * K::XSLOT
+                                   : abuf + (gc & 1) * 2 * K::ABUF;
       mma_chunk(slot, K::W1, NT, [&](int i, const unsigned char*& ph,
                                      const unsigned char*& pl) {
         const int r = 16 * i + ar;
@@ -406,7 +475,7 @@ wn_layer_kernel(const float* __restrict__ x, int d,
         pl = ah + K::ABUF + off;
       });
       if (gc % K::NC1 == K::NC1 - 1) {
-        if (NH == 1) __syncthreads();   // z overlays the A tiles
+        if (NH == 1) __syncthreads();   // z overlays the A tiles / x ring
         gate(gc / K::NC1);
         zero();
       }
@@ -431,40 +500,49 @@ wn_layer_kernel(const float* __restrict__ x, int d,
 }
 
 struct Args {
-  const float *x, *cond, *b, *b_rs;
+  const void *x, *cond, *b, *b_rs;
   const uint16_t *w1, *w2;
-  float *x_out, *skip;
+  void *x_out, *skip;
   int d, ldc, M, T, Tp;
 };
 
-template <int MT, int NT, int NH, bool LAST>
+template <int MT, int NT, int NH, bool LAST, bool BF>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using K = Cfg<MT, NT, NH, LAST>;
-  auto* k = wn_layer_kernel<MT, NT, NH, LAST>;
+  using K = Cfg<MT, NT, NH, LAST, BF>;
+  using E = typename K::T;
+  auto* k = wn_layer_kernel<MT, NT, NH, LAST, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err) return err;
   const int grid = (a.M + K::BM - 1) / K::BM;
-  k<<<grid, kThreads, K::SMEM, stream>>>(a.x, a.d, a.cond, a.ldc, a.w1, a.b,
-                                         a.w2, a.b_rs, a.x_out, a.skip, a.M,
-                                         a.T, a.Tp);
+  k<<<grid, kThreads, K::SMEM, stream>>>(
+      static_cast<const E*>(a.x), a.d, static_cast<const E*>(a.cond), a.ldc,
+      a.w1, static_cast<const E*>(a.b), a.w2,
+      static_cast<const E*>(a.b_rs), static_cast<E*>(a.x_out),
+      static_cast<E*>(a.skip), a.M, a.T, a.Tp);
   return cudaGetLastError();
 }
 
-// The (C, bm) pairs built, with their passes NH, ring stages and shared
-// memory; launches the layer when args is given.
-cudaError_t dispatch(int C, int bm, bool last, int* cfg, const Args* args,
-                     cudaStream_t stream) {
+template <int MT, int NT, int NH, bool BF>
+cudaError_t config(bool last, int* cfg, const Args* args,
+                   cudaStream_t stream) {
+  using K = Cfg<MT, NT, NH, false, BF>;
+  cfg[0] = NH;
+  cfg[1] = K::S;
+  cfg[2] = K::SMEM;
+  if (!args) return cudaSuccess;
+  return last ? launch<MT, NT, NH, true, BF>(*args, stream)
+              : launch<MT, NT, NH, false, BF>(*args, stream);
+}
+
+// The (C, bm) pairs built, for each dtype, with their passes NH, ring
+// stages and shared memory; launches the layer when args is given.
+cudaError_t dispatch(int C, int bm, bool last, bool bf, int* cfg,
+                     const Args* args, cudaStream_t stream) {
 #define WN_CASE(C_, BM_, NT_, NH_)                                         \
-  if (C == C_ && bm == BM_) {                                              \
-    using K = Cfg<BM_ / 16, NT_, NH_, false>;                              \
-    cfg[0] = NH_;                                                          \
-    cfg[1] = K::S;                                                         \
-    cfg[2] = K::SMEM;                                                      \
-    if (!args) return cudaSuccess;                                         \
-    return last ? launch<BM_ / 16, NT_, NH_, true>(*args, stream)          \
-                : launch<BM_ / 16, NT_, NH_, false>(*args, stream);        \
-  }
+  if (C == C_ && bm == BM_)                                                \
+    return bf ? config<BM_ / 16, NT_, NH_, true>(last, cfg, args, stream)  \
+              : config<BM_ / 16, NT_, NH_, false>(last, cfg, args, stream);
   WN_CASE(64, 64, 2, 1)
   WN_CASE(128, 64, 4, 1)
   WN_CASE(256, 64, 8, 1)
@@ -484,26 +562,30 @@ const char* wavenet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The build's (C, bm) pairs: 0 with cfg = {column passes, ring stages,
-// shared memory bytes} of the launch, or an error for a pair not built.
-int wn_layer_config(int C, int bm, int* cfg) {
-  return dispatch(C, bm, false, cfg, nullptr, nullptr);
+// The build's (C, bm) pairs for fp32 (bf16 = 0) or bf16: 0 with cfg =
+// {column passes, ring stages, shared memory bytes} of the launch, or an
+// error for a pair not built.
+int wn_layer_config(int C, int bm, int bf16, int* cfg) {
+  return dispatch(C, bm, false, bf16 != 0, cfg, nullptr, nullptr);
 }
 
-// x (B, Tp, C); cond rows of 2C floats with row stride ldc; w1 and w2 the
-// bf16 hi/lo packs of ops/wavenet.py:wn_split_weights for this bm's NH;
-// b (2C); b_rs (2C), or (C) when last. Outputs x_out (B, Tp, C) (unused
-// when last) and skip (B, Tp, C). fp32 tensors 16-byte aligned.
-int wn_layer_f32(const float* x, int d, const float* cond, int ldc,
-                 const void* w1, const float* b, const void* w2,
-                 const float* b_rs, float* x_out, float* skip, int B, int Tp,
-                 int T, int C, int bm, int last, void* stream_handle) {
+// x (B, Tp, C); cond rows of 2C elements with row stride ldc; b (2C);
+// b_rs (2C), or (C) when last. Outputs x_out (B, Tp, C) (unused when last)
+// and skip (B, Tp, C). bf16 = 0: every tensor fp32, w1 and w2 the bf16
+// hi/lo packs of ops/wavenet.py:wn_split_weights for this bm's NH. bf16 !=
+// 0, the body the Pallas kernel runs on bf16: every tensor bf16, w1 and w2
+// the plain bf16 packs of ops/wavenet.py:wn_pack_weights. Tensors 16-byte
+// aligned.
+int wn_layer_launch(int bf16, const void* x, int d, const void* cond,
+                    int ldc, const void* w1, const void* b, const void* w2,
+                    const void* b_rs, void* x_out, void* skip, int B, int Tp,
+                    int T, int C, int bm, int last, void* stream_handle) {
   if (ldc % 4 != 0 || T < 1 || T > Tp) return cudaErrorInvalidValue;
   const Args args{x, cond, b, b_rs, static_cast<const uint16_t*>(w1),
                   static_cast<const uint16_t*>(w2), x_out, skip, d, ldc,
                   B * Tp, T, Tp};
   int cfg[3];
-  return dispatch(C, bm, last != 0, cfg, &args,
+  return dispatch(C, bm, last != 0, bf16 != 0, cfg, &args,
                   static_cast<cudaStream_t>(stream_handle));
 }
 

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from flowtron_tpu_torch.infer.streaming import (
-    HOP, positional_z, run_prelude, stream_generators, window_spec,
+    HOP, positional_z, run_prelude, scaled_normal, stream_generators,
+    window_spec,
 )
 from flowtron_tpu_torch.models.ar_step import ar_step_infer
 from flowtron_tpu_torch.models.flowtron import _encode_text
@@ -131,6 +132,7 @@ class MultiStreamTTS:
         self.device = next(model.parameters()).device
         flow0 = model.flows[0]
         self._dtype = flow0.conv.weight.dtype
+        self._wg_dtype = next(wg_model.parameters()).dtype
         self._gate_in_stream = self.n_flows == 1 and \
             hasattr(flow0, "gate_layer")
         self._sq = HOP // wg_config["n_group"]
@@ -245,9 +247,9 @@ class MultiStreamTTS:
             res = slot.residual
             if res is None:
                 # the solo stream's (1, n_mel, max_frames) draw
-                res = (slot.sigma * torch.randn(
-                    1, self.n_mel, self.max_frames, generator=slot.g_mel,
-                    dtype=self._dtype)).permute(2, 0, 1)
+                res = scaled_normal(
+                    slot.sigma, (1, self.n_mel, self.max_frames),
+                    slot.g_mel, self._dtype).permute(2, 0, 1)
             z1, nv = run_prelude(self.model, res.to(dev).contiguous(), enc1,
                                  km1, temperature, self.gate_threshold,
                                  self.fused)
@@ -336,8 +338,8 @@ class MultiStreamTTS:
                 if s.residual is not None:
                     z[:n, b] = s.residual[s.c * C:s.c * C + n, 0]
                 else:
-                    z[:n, b] = (s.sigma * torch.randn(
-                        n, 1, M, generator=s.g_mel, dtype=self._dtype))[:, 0]
+                    z[:n, b] = scaled_normal(s.sigma, (n, 1, M), s.g_mel,
+                                             self._dtype)[:, 0]
             z = z.to(dev)
         else:
             cs_h = np.zeros((B,), np.int64)
@@ -358,7 +360,8 @@ class MultiStreamTTS:
             # drawn at the stream's first window, as StreamingVocoder does
             s.latents = positional_z(s.g_voc, self.wg_config, 1,
                                      self.max_frames * self._sq,
-                                     self.wg_sigma, self.device)
+                                     self.wg_sigma, self.device,
+                                     self._wg_dtype)
         return s.latents
 
     def _window_audio(self, members, W):
@@ -373,7 +376,7 @@ class MultiStreamTTS:
         z_early = [None if ze is None else torch.cat([e[f] for _, e in zs])
                    for f, ze in enumerate(zs[0][1])]
         audio = waveglow_infer_z(self.wg_model, self.wg_config,
-                                 mel.to(self.device, self._dtype), z_main,
+                                 mel.to(self.device, self._wg_dtype), z_main,
                                  z_early)
         return audio.float().cpu().numpy()
 

@@ -31,7 +31,10 @@
 Latents are drawn on the CPU from seeded ``torch.Generator``s (a stream's
 own pair, ``stream_generators``), so a seed gives the same stream on
 every device; ``jax.random`` cannot be matched, so callers that must
-match the JAX package pass ``residual`` and a latent source.
+match the JAX package pass ``residual`` and a latent source. The mel
+latents are drawn in the flows' dtype (bf16 for a bf16 engine) with sigma
+cast to it first (``scaled_normal``), the vocoder's in fp32 and then cast
+to the vocoder's dtype.
 """
 
 import numpy as np
@@ -51,6 +54,15 @@ HOP = 256  # audio samples per mel frame (data_config.hop_length)
 # trimmed or post-gate frame vocodes to
 SILENCE = float(np.log(1e-5))
 VOCODER_STREAM = 1986   # separates a seed's vocoder latents from its mel's
+
+
+def scaled_normal(sigma, shape, generator, dtype):
+    """``sigma`` * N(0, 1) of ``shape`` drawn from ``generator`` (CPU) in
+    ``dtype``, sigma cast to ``dtype`` first, as the JAX streamers' draws
+    (a weak Python-float sigma takes the draw's dtype; the mux casts its
+    fp32 sigmas, flowtron_tpu/infer/multistream.py:222-226)."""
+    z = torch.randn(*shape, generator=generator, dtype=dtype)
+    return z * torch.tensor(float(sigma), dtype=dtype)
 
 
 def stream_generators(seed):
@@ -121,8 +133,8 @@ class StreamingMelSynthesizer:
                        residual, temp, max_frames)
 
     def _latents(self, generator, sigma, *shape):
-        return (sigma * torch.randn(*shape, generator=generator,
-                                    dtype=self._dtype)).to(self.device)
+        return scaled_normal(sigma, shape, generator,
+                             self._dtype).to(self.device)
 
     def _chunk(self, z, enc, key_mask, carry, temp):
         return ar_step_infer(self.model.flows[0], z, enc, key_mask=key_mask,
@@ -235,15 +247,17 @@ def _mask_past_valid(mel_nbm, c0, n_valid, active):
     return torch.where(past, SILENCE, mel_nbm)
 
 
-def positional_z(generator, config, B, length, sigma, device=None):
+def positional_z(generator, config, B, length, sigma, device=None,
+                 dtype=None):
     """A latent source for absolute squeezed-frame positions [0, length):
-    z drawn once from ``generator`` (CPU) and moved to ``device``.
+    z drawn once from ``generator`` (CPU) in fp32 and moved to ``device``
+    (and cast to ``dtype``, the vocoder's, when given).
     Returns ``source(start, n) -> (z_main, z_early)`` in
     ``waveglow_infer_z``'s layout for positions [start, start + n): a pure
     function of position, so any two windows agree on their overlap."""
     def draw(n_ch):
         return (sigma * torch.randn(B, n_ch, length,
-                                    generator=generator)).to(device)
+                                    generator=generator)).to(device, dtype)
 
     z_main = draw(waveglow_n_remaining(config))
     z_early = [draw(config["n_early_size"])
@@ -273,11 +287,15 @@ class StreamingVocoder:
     squeezed-frame positions (``positional_z``'s layout, sigma applied);
     by default ``positional_z`` of ``generator`` (default seeded 0) over
     ``max_frames`` mel frames, drawn at the first window.
+    ``dtype``: the windows' (mel and latents) dtype, by default the
+    vocoder's (bf16 for a bf16 engine's, JAX's ``dtype=jnp.bfloat16``).
     """
 
     def __init__(self, wg_model, wg_config, latents=None, sigma=0.8,
-                 context=24, lookahead=16, max_frames=2000, generator=None):
+                 context=24, lookahead=16, max_frames=2000, generator=None,
+                 dtype=None):
         self.model = wg_model
+        self.dtype = dtype or next(wg_model.parameters()).dtype
         self.config = wg_config
         self.sigma = float(sigma)
         self.context = int(context)
@@ -325,12 +343,13 @@ class StreamingVocoder:
     def _emit(self, n, F, at_end=False):
         e0 = self._emitted
         w0, w1 = window_spec(e0, n, F, self.context, self.lookahead, at_end)
-        mel_win = self._mel[:, :, w0:w1]
+        mel_win = self._mel[:, :, w0:w1].to(self.dtype)
         if self._latents is None:
             self._latents = positional_z(
                 self._generator or torch.Generator().manual_seed(0),
                 self.config, mel_win.shape[0],
-                self.max_frames * self.sq_per_frame, self.sigma, self.device)
+                self.max_frames * self.sq_per_frame, self.sigma, self.device,
+                self.dtype)
         z_main, z_early = self._latents(w0 * self.sq_per_frame,
                                         (w1 - w0) * self.sq_per_frame)
         audio = waveglow_infer_z(self.model, self.config, mel_win, z_main,

@@ -103,9 +103,11 @@ class ARStep(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def packed_weights(self):
-        """K1's packed weights, cached on the module and rebuilt when any
-        parameter is replaced or modified in place."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        """K1's packed weights in the flow's dtype (fp32, or bf16 for the
+        bf16 body), cached on the module and rebuilt when any parameter is
+        replaced, cast or modified in place."""
+        key = tuple((p.data_ptr(), p._version, p.dtype)
+                    for p in self.parameters())
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, pack_flow_weights(self))
         return self._packed[1]
@@ -333,7 +335,10 @@ def ar_step_infer(flow, residual, text, key_mask=None, attn_prior=None,
             km.contiguous(), float(temperature),
             early_exit=(fused == "early"), gate_threshold=gate_threshold,
             n_valid_in=n_valid)
-        attn = attn.transpose(0, 1)
+        # K1 writes fp32; the flow's outputs keep the residual's dtype, as
+        # JAX's fused branch casts them
+        mel = mel.to(residual.dtype)
+        attn = attn.transpose(0, 1).to(residual.dtype)
     else:
         mel, attn, gates, carry = _scan_infer(
             flow, residual, text, key_mask, attn_prior, temperature, carry,

@@ -143,7 +143,9 @@ def attention_forward(attn, queries, keys, values, key_mask=None,
 def attention_precompute(attn, keys, values):
     """Project keys/values once before the AR loop.
 
-    keys/values: (Tk, B, D_in) -> k_proj, vals each (B, Tk, D_att).
+    keys/values: (Tk, B, D_in) -> k_proj, vals each (B, Tk, D_att), in the
+    compute dtype (the layers' and the text's: bf16 in a bf16 engine, as
+    K1's bf16 body takes them).
     """
     return (attn.key(keys).transpose(0, 1).contiguous(),
             attn.value(values).transpose(0, 1).contiguous())
@@ -157,6 +159,10 @@ def attention_step(attn, query, k_proj, vals, key_mask=None, prior_t=None,
     q = attn.query(query)                                      # (B, D)
     v_w = attn.v.linear_layer.weight[0]                        # (D,)
     scores = torch.tanh(q[:, None, :] + k_proj) @ v_w          # (B, Tk)
+    # a (B, 1) temperature is cast so that it never promotes a bf16 path
+    # (JAX models/attention.py:145-147)
+    if torch.is_tensor(temperature):
+        temperature = temperature.to(scores.dtype)
     scores = scores / temperature
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask, MASK_VALUE)

@@ -9,7 +9,14 @@ CPU tensors it runs ``fused_flow_infer_reference``, the plain PyTorch
 version of the same math on the same packed weights.
 
 Supported subset, as on the TPU: no attention prior, no cumulative or
-external attention, unquantized weights, scalar temperature; fp32 only.
+external attention, unquantized weights, scalar temperature. The weights
+are packed in fp32 or bf16 (``pack_flow_weights(flow, dtype)``; the
+Pallas kernel computes in the params' dtype, bf16 under the JAX server's
+``--bf16``). The bf16 body (``fused_flow_infer_launch``'s bf16 flag)
+takes the matrices, k_proj and vals bf16; state, softmax, gate and the
+affine inversion fp32, the activations rounded to bf16 where the Pallas
+body casts them (each dot's input, q + k and its tanh, the context); mel,
+attn and gates come out fp32, as the Pallas kernel's ``out_shape``.
 
 Early exit (``early_exit=True``): once every stream has finished — its
 gate fired above ``gate_threshold`` or its frame index reached
@@ -46,60 +53,79 @@ def _pad4(n):
     return (n + 3) // 4 * 4
 
 
+def _padk(n, bf16=False):
+    """A packed row's length: 16 bytes, a multiple of 4 fp32 or 8 bf16
+    elements (csrc/decoder.cu:padk)."""
+    return (n + 7) // 8 * 8 if bf16 else _pad4(n)
+
+
 def _pad_cols(w, n):
     return F.pad(w, (0, n - w.shape[-1]))
 
 
-def _pack_lstm(w_ih, w_hh, b_ih, b_hh):
+def _pack_lstm(w_ih, w_hh, b_ih, b_hh, dtype=torch.float32):
     """(4H, K) + (4H, H) torch-layout LSTM weights -> the input half (4H,
-    P(K)) and the recurrent half (4H, P(H)), each with row 4u + g = gate
-    g of unit u, and the pre-summed bias interleaved the same way. The
-    halves are apart so that a block's rows of either are one contiguous
-    range."""
+    P(K)) and the recurrent half (4H, P(H)) in ``dtype``, each with row
+    4u + g = gate g of unit u, and the pre-summed bias (summed in the
+    params' dtype, then cast to ``dtype``, as the Pallas packer's
+    ``(b_ih + b_hh).astype(dtype)``) interleaved the same way, in fp32.
+    The halves are apart so that a block's rows of either are one
+    contiguous range."""
     H = w_hh.shape[1]
-    return (interleave_gates(_pad_cols(w_ih, _pad4(w_ih.shape[1])))
+    bf = dtype == torch.bfloat16
+    return (interleave_gates(_pad_cols(w_ih.to(dtype),
+                                       _padk(w_ih.shape[1], bf)))
             .contiguous(),
-            interleave_gates(_pad_cols(w_hh, _pad4(H))).contiguous(),
-            interleave_gates(b_ih + b_hh).contiguous())
+            interleave_gates(_pad_cols(w_hh.to(dtype), _padk(H, bf)))
+            .contiguous(),
+            interleave_gates((b_ih + b_hh).to(dtype).float()).contiguous())
 
 
 @torch.no_grad()
-def pack_flow_weights(flow):
-    """Flatten one ``ARStep`` module into the kernel's packed fp32 layout
-    (documented at ``fused_flow_infer_f32`` in csrc/decoder.cu).
+def pack_flow_weights(flow, dtype=None):
+    """Flatten one ``ARStep`` module into the kernel's packed layout
+    (documented at ``fused_flow_infer_launch`` in csrc/decoder.cu), its
+    matrices in ``dtype`` (default: the flow's own, as the Pallas
+    packer's ``dtype=None``): fp32, or bf16 for the bf16 body. The vectors
+    (biases, v, the gate row) are fp32 tensors holding ``dtype`` values.
 
-    Rows are padded to a multiple of 4 floats so every row starts 16-byte
-    aligned; the result is new storage, never a view.
+    Rows are padded to 16 bytes (4 fp32 or 8 bf16 elements) so every row
+    starts 16-byte aligned; the result is new storage, never a view.
     """
     H = flow.lstm.hidden_size
     att = flow.attention_layer
     head_w = flow.conv.weight[:, :, 0]                    # (2M, H)
     M = head_w.shape[0] // 2
+    dtype = dtype or flow.attention_lstm.layer_weights(0)[0].dtype
+    bf = dtype == torch.bfloat16
     att_wi, att_wh, att_b = _pack_lstm(
-        *flow.attention_lstm.layer_weights(0))
+        *flow.attention_lstm.layer_weights(0), dtype=dtype)
 
     def rows(w):                                          # (out, P(in))
-        return _pad_cols(w, _pad4(w.shape[1])).contiguous()
+        return _pad_cols(w.to(dtype), _padk(w.shape[1], bf)).contiguous()
+
+    def vec(v):
+        return v.to(dtype).float().contiguous()
 
     out = {
         "att_wi": att_wi, "att_wh": att_wh, "att_b": att_b,
         "q_w": rows(att.query.linear_layer.weight),
         "q_b": torch.zeros(att.query.linear_layer.weight.shape[0],
                            device=head_w.device),
-        "v_w": att.v.linear_layer.weight[0].clone(),
-        "lstm": [_pack_lstm(*flow.lstm.layer_weights(k))
+        "v_w": vec(att.v.linear_layer.weight[0].clone()),
+        "lstm": [_pack_lstm(*flow.lstm.layer_weights(k), dtype=dtype)
                  for k in range(flow.lstm.num_layers)],
         "dense": [(rows(lin.linear_layer.weight),
-                   lin.linear_layer.bias.clone())
+                   vec(lin.linear_layer.bias.clone()))
                   for lin in flow.dense_layer.layers],
         # (2M, H) -> rows (2m, 2m+1) = (log_s_m, b_m)
         "head_w": rows(head_w.reshape(2, M, H).transpose(0, 1)
                        .reshape(2 * M, H)),
-        "head_b": flow.conv.bias.reshape(2, M).t().reshape(-1).contiguous(),
+        "head_b": vec(flow.conv.bias.reshape(2, M).t().reshape(-1)),
     }
     if hasattr(flow, "gate_layer"):
-        out["gate_w"] = flow.gate_layer.linear_layer.weight[0].clone()
-        out["gate_b"] = flow.gate_layer.linear_layer.bias.clone()
+        out["gate_w"] = vec(flow.gate_layer.linear_layer.weight[0].clone())
+        out["gate_b"] = vec(flow.gate_layer.linear_layer.bias.clone())
     return out
 
 
@@ -107,7 +133,7 @@ def pack_flow_weights(flow):
 def k1_plan(B, M, H, D, n_layers, n_dense, n_blocks):
     """Split every stage of K1's frame over ``n_blocks`` blocks by bytes.
 
-    The stages, in csrc/decoder.cu's order (``fused_flow_infer_f32``
+    The stages, in csrc/decoder.cu's order (``fused_flow_infer_launch``
     builds the same list): the attention LSTM's input half with decoder
     layers 1..'s recurrent halves W_hh . h(t - 1); the query with layer
     0's recurrent half; the attention LSTM's recurrent half (beside the
@@ -167,6 +193,10 @@ def k1_attn_slices(B, Tk, D, n_blocks):
     return max(1, min(D // 32, n_blocks // (B * parts)))
 
 
+def _is_bf16(w):
+    return w["att_wi"].dtype == torch.bfloat16
+
+
 def _dims(w):
     H = w["att_wh"].shape[0] // 4
     M = w["head_b"].shape[0] // 2
@@ -178,7 +208,9 @@ def fused_flow_infer_reference(weights, residual, k_proj, vals, key_mask,
                                temperature, early_exit=False,
                                gate_threshold=1e6, n_valid_in=None):
     """Plain PyTorch version of ``fused_flow_infer`` (same arguments, same
-    packed weights, same outputs)."""
+    packed weights, same outputs). With a bf16 pack it rounds to bf16 at
+    the kernel's points (the Pallas body's casts): each dot's input, q
+    (and q + k, and its tanh), the context, and the latents."""
     w = weights
     N, B, _ = residual.shape
     M, H, D = _dims(w)
@@ -186,16 +218,30 @@ def fused_flow_infer_reference(weights, residual, k_proj, vals, key_mask,
     dev = residual.device
     if n_valid_in is None:
         n_valid_in = torch.full((B,), N, dtype=torch.int32, device=dev)
+    bf = w["att_wi"].dtype == torch.bfloat16
+    if bf:
+        def rnd(t):
+            return t.to(torch.bfloat16).float()
+        residual = rnd(residual)
+        k_proj, vals = k_proj.float(), vals.float()
+        w = dict(w, lstm=[(wi.float(), wh.float(), lb)
+                          for wi, wh, lb in w["lstm"]],
+                 dense=[(dw.float(), db) for dw, db in w["dense"]],
+                 **{k: w[k].float() for k in ("att_wi", "att_wh", "q_w",
+                                               "head_w")})
+    else:
+        def rnd(t):
+            return t
 
     def cell(wi, wh, bias, x, h, c):
-        g = (_pad_cols(x, wi.shape[1]) @ wi.t()
-             + _pad_cols(h, wh.shape[1]) @ wh.t() + bias).view(B, H, 4)
+        g = (_pad_cols(rnd(x), wi.shape[1]) @ wi.t()
+             + _pad_cols(rnd(h), wh.shape[1]) @ wh.t() + bias).view(B, H, 4)
         c = torch.sigmoid(g[..., 1]) * c \
             + torch.sigmoid(g[..., 0]) * torch.tanh(g[..., 2])
         return torch.sigmoid(g[..., 3]) * torch.tanh(c), c
 
     def matvec(wt, bias, x):
-        return _pad_cols(x, wt.shape[1]) @ wt.t() + bias
+        return _pad_cols(rnd(x), wt.shape[1]) @ wt.t() + bias
 
     mel = residual.new_zeros(N, B, M)
     attn = residual.new_zeros(N, B, Tk)
@@ -210,14 +256,14 @@ def fused_flow_infer_reference(weights, residual, k_proj, vals, key_mask,
         h_att, c_att = cell(w["att_wi"], w["att_wh"], w["att_b"], prev,
                             h_att, c_att)
         q = matvec(w["q_w"], w["q_b"], h_att)
-        scores = torch.tanh(q[:, None, :] + k_proj) @ w["v_w"]
+        scores = rnd(torch.tanh(rnd(rnd(q)[:, None, :] + k_proj))) @ w["v_w"]
         scores = scores / temperature
         scores = torch.where(key_mask > 0.5, scores, MASK_VALUE)
         e = torch.exp(scores - scores.max(dim=-1, keepdim=True).values)
         a = e / e.sum(dim=-1, keepdim=True)
-        ctx = torch.einsum("bk,bkd->bd", a, vals)
+        ctx = rnd(torch.einsum("bk,bkd->bd", a, vals))
         x = torch.cat([h_att, ctx], dim=-1)
-        gate = torch.sigmoid(x @ w["gate_w"] + w["gate_b"]) \
+        gate = torch.sigmoid(rnd(x) @ w["gate_w"] + w["gate_b"]) \
             if "gate_w" in w else residual.new_zeros(B)
         for k, (wi, wh, lb) in enumerate(w["lstm"]):
             hs[k], cs[k] = cell(wi, wh, lb, x, hs[k], cs[k])
@@ -240,17 +286,17 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.fused_flow_infer_f32.argtypes = (
-            [p] * 11 + [pp, pp, pp, i, pp, pp, i] + [p] * 10 + [i, i, i, p]
-            + [i] * 6 + [f, f, i, p])
-        lib.fused_flow_infer_f32.restype = i
+        lib.fused_flow_infer_launch.argtypes = (
+            [i] + [p] * 11 + [pp, pp, pp, i, pp, pp, i] + [p] * 10
+            + [i, i, i, p] + [i] * 6 + [f, f, i, p])
+        lib.fused_flow_infer_launch.restype = i
         lib.decoder_workspace_floats.argtypes = [i] * 6
         lib.decoder_workspace_floats.restype = ctypes.c_longlong
         lib.decoder_workspace_ints.argtypes = [i]
         lib.decoder_workspace_ints.restype = i
-        lib.decoder_coresident_blocks.argtypes = []
+        lib.decoder_coresident_blocks.argtypes = [i]
         lib.decoder_coresident_blocks.restype = i
-        lib.decoder_prefetch_bytes.argtypes = [i] * 7
+        lib.decoder_prefetch_bytes.argtypes = [i] * 8
         lib.decoder_prefetch_bytes.restype = ctypes.c_longlong
         lib.decoder_barrier_bench.argtypes = [i, i, i, p, p]
         lib.decoder_barrier_bench.restype = i
@@ -307,7 +353,8 @@ def k1_launch_info(weights, B, Tk, dev):
     return dict(blocks=n_blocks, attn_parts=parts,
                 attn_slices=k1_attn_slices(B, Tk, D, n_blocks),
                 prefetch_bytes_per_block=_lib().decoder_prefetch_bytes(
-                    B, M, H, D, Tk, len(weights["lstm"]), parts),
+                    B, M, H, D, Tk, len(weights["lstm"]), parts,
+                    int(_is_bf16(weights))),
                 resident_bytes=0)
 
 
@@ -343,8 +390,10 @@ def fused_flow_infer(weights, residual, k_proj, vals, key_mask, temperature,
 
     Returns (mel (N, B, M), attn (N, B, Tk), gates (N, B)), float32.
     On CPU tensors this is ``fused_flow_infer_reference``; on CUDA tensors
-    it makes one cooperative launch of csrc/decoder.cu, one block a SM,
-    or raises (also when the card cannot hold that many blocks at once).
+    it makes one cooperative launch of csrc/decoder.cu, one block a SM
+    (``fused_flow_infer_launch``, its fp32 body for an fp32 pack, its
+    bf16 body for a bf16 one, whose k_proj and vals are bf16 too), or
+    raises (also when the card cannot hold that many blocks at once).
     """
     if residual.device.type == "cpu":
         return fused_flow_infer_reference(
@@ -355,6 +404,8 @@ def fused_flow_infer(weights, residual, k_proj, vals, key_mask, temperature,
     out = _launch(weights, residual, k_proj, vals, key_mask, temperature,
                   early_exit, gate_threshold, n_valid_in)
     fused_flow_infer.launches += 1
+    if _is_bf16(weights):
+        fused_flow_infer.launches_bf16 += 1
     return out
 
 
@@ -371,29 +422,36 @@ def _launch(weights, residual, k_proj, vals, key_mask, temperature,
         raise ValueError(f"the kernel takes 1 to {MAX_LAYERS} decoder "
                          f"LSTM layers and at most {MAX_DENSE} dense "
                          f"layers, not {n_layers} and {n_dense}")
-    Hp = _pad4(H)
+    bf = _is_bf16(weights)
+    wdt = torch.bfloat16 if bf else torch.float32   # matrices, kp, vals
+    if bf:
+        residual = residual.float()     # bf16 latents, exactly
+    Hp = _padk(H, bf)
     _build.check_tensor("residual", residual, (N, B, M), dev)
-    _build.check_tensor("k_proj", k_proj, (B, Tk, D), dev)
-    _build.check_tensor("vals", vals, (B, Tk, D), dev)
+    _build.check_tensor("k_proj", k_proj, (B, Tk, D), dev, dtype=wdt)
+    _build.check_tensor("vals", vals, (B, Tk, D), dev, dtype=wdt)
     _build.check_tensor("key_mask", key_mask, (B, Tk), dev)
     expect = {
-        "att_wi": (4 * H, _pad4(M)), "att_wh": (4 * H, Hp),
-        "att_b": (4 * H,),
-        "q_w": (D, Hp), "q_b": (D,), "v_w": (D,),
-        "head_w": (2 * M, Hp), "head_b": (2 * M,),
+        "att_wi": (4 * H, _padk(M, bf)), "att_wh": (4 * H, Hp),
+        "q_w": (D, Hp), "head_w": (2 * M, Hp),
     }
+    vectors = {"att_b": (4 * H,), "q_b": (D,), "v_w": (D,),
+               "head_b": (2 * M,)}
     has_gate = "gate_w" in weights
     if has_gate:
-        expect.update(gate_w=(H + D,), gate_b=(1,))
+        vectors.update(gate_w=(H + D,), gate_b=(1,))
     for k, shape in expect.items():
+        _build.check_tensor(k, weights[k], shape, dev, dtype=wdt)
+    for k, shape in vectors.items():
         _build.check_tensor(k, weights[k], shape, dev)
     for k, (wi, wh, lb) in enumerate(weights["lstm"]):
         kx = H + D if k == 0 else H
-        _build.check_tensor(f"lstm[{k}].wi", wi, (4 * H, _pad4(kx)), dev)
-        _build.check_tensor(f"lstm[{k}].wh", wh, (4 * H, Hp), dev)
+        _build.check_tensor(f"lstm[{k}].wi", wi, (4 * H, _padk(kx, bf)), dev,
+                            dtype=wdt)
+        _build.check_tensor(f"lstm[{k}].wh", wh, (4 * H, Hp), dev, dtype=wdt)
         _build.check_tensor(f"lstm[{k}].b", lb, (4 * H,), dev)
     for k, (dw, db) in enumerate(weights["dense"]):
-        _build.check_tensor(f"dense[{k}].w", dw, (H, Hp), dev)
+        _build.check_tensor(f"dense[{k}].w", dw, (H, Hp), dev, dtype=wdt)
         _build.check_tensor(f"dense[{k}].b", db, (H,), dev)
     if n_valid_in is None:
         nvin = torch.full((B,), N, dtype=torch.int32, device=dev)
@@ -405,13 +463,14 @@ def _launch(weights, residual, k_proj, vals, key_mask, temperature,
     lib = _lib()
     n_blocks = k1_blocks(dev)
     parts = k1_attn_parts(B, Tk, n_blocks)
-    most = lib.decoder_coresident_blocks()
+    most = lib.decoder_coresident_blocks(int(bf))
     if most < n_blocks:
         raise RuntimeError(
             f"K1 needs {n_blocks} co-resident blocks (one a SM) for its "
             f"cooperative launch; this card holds {most}: the shared "
             "memory or registers a block takes exceed an SM's")
-    if lib.decoder_prefetch_bytes(B, M, H, D, Tk, n_layers, parts) < 0:
+    if lib.decoder_prefetch_bytes(B, M, H, D, Tk, n_layers, parts,
+                                  int(bf)) < 0:
         raise ValueError(f"widths too large for K1 (H={H}, D={D}, "
                          f"Tk={Tk}): its staged inputs pass the shared "
                          "memory a block may have")
@@ -430,8 +489,8 @@ def _launch(weights, residual, k_proj, vals, key_mask, temperature,
 
     gate_w = weights["gate_w"].data_ptr() if has_gate else None
     gate_b = weights["gate_b"].data_ptr() if has_gate else None
-    _check(lib, lib.fused_flow_infer_f32(
-        residual.data_ptr(), k_proj.data_ptr(), vals.data_ptr(),
+    _check(lib, lib.fused_flow_infer_launch(
+        int(bf), residual.data_ptr(), k_proj.data_ptr(), vals.data_ptr(),
         key_mask.data_ptr(), nvin.data_ptr(),
         weights["att_wi"].data_ptr(), weights["att_wh"].data_ptr(),
         weights["att_b"].data_ptr(),
@@ -446,10 +505,13 @@ def _launch(weights, residual, k_proj, vals, key_mask, temperature,
         gate_w, gate_b, mel.data_ptr(), attn.data_ptr(), gates.data_ptr(),
         work.data_ptr(), iwork.data_ptr(), bounds.data_ptr(), n_blocks,
         parts, k1_attn_slices(B, Tk, D, n_blocks),
-        None if clock is None else clock.data_ptr(), N, B, M, H, D, Tk, float(temperature), float(gate_threshold),
-        int(bool(early_exit)), torch.cuda.current_stream(dev).cuda_stream),
-        "fused_flow_infer_f32")
+        None if clock is None else clock.data_ptr(), N, B, M, H, D, Tk,
+        float(temperature), float(gate_threshold), int(bool(early_exit)),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "fused_flow_infer_launch")
     return mel, attn, gates
 
 
+# launches of either body, and of the bf16 body alone
 fused_flow_infer.launches = 0
+fused_flow_infer.launches_bf16 = 0

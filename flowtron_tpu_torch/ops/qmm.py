@@ -19,8 +19,12 @@ runs, so its W8A8 output is the JAX kernel's to the bit. ``x / sx`` is
 a true division in both (sx is not a constant).
 
 On CUDA tensors ``quantized_matmul`` launches csrc/qmm.cu (its note says
-what bounds it and how the design answers), fp32 only, tiled as
-``qmm_plan`` says; on CPU tensors it runs ``quantized_matmul_reference``.
+what bounds it and how the design answers), tiled as ``qmm_plan`` says;
+the output takes x's dtype: fp32 from fp32 x, bf16 from bf16 x (the body
+the Pallas kernel runs under the JAX server's ``--bf16``, whose callers
+all pass ``out_dtype=x.dtype``). On CPU tensors it runs
+``quantized_matmul_reference``, which also takes the Pallas signature's
+``out_dtype``.
 N need not be a multiple of 128: that rule of the Pallas kernel is a TPU
 tiling constraint, and routing (``utils/weights.py:qdot``) follows the
 JAX package's, never the shape.
@@ -61,18 +65,21 @@ def qmm_padded_k(K):
     return -(-K // STRETCH) * STRETCH
 
 
-def qmm_smem_bytes(K, a8, ct, ks, mt):
+def qmm_smem_bytes(K, a8, ct, ks, mt, bf16=False):
     """Shared memory of a block (csrc/qmm.cu:qmm_smem_bytes): the larger
-    of its staged rows of x (the tf32 hi and lo pieces of fp32 x, or int8
-    rows padded to an odd multiple of 64 bytes) and its K parts' partial
-    sums."""
+    of its staged rows of x (the tf32 hi and lo pieces of fp32 x, bf16 x
+    rows padded by 16 bytes, or int8 rows padded to an odd multiple of 64
+    bytes) and its K parts' partial sums."""
     Kp, rows = qmm_padded_k(K), mt * TILE_M
-    stage = rows * (Kp + (0 if Kp % 128 == 64 else 64) if a8 else 8 * Kp)
+    if a8:
+        stage = rows * (Kp + (0 if Kp % 128 == 64 else 64))
+    else:
+        stage = rows * (2 * Kp + 16 if bf16 else 8 * Kp)
     return max(stage, ks * ct * mt * 4 * 32 * 4 if ks > 1 else 0)
 
 
 @functools.lru_cache(maxsize=256)
-def qmm_plan(M, K, N, sms=None, a8=False):
+def qmm_plan(M, K, N, sms=None, a8=False, bf16=False):
     """Tile (M, K) x (N, K)^T for csrc/qmm.cu on a card of ``sms`` SMs
     (None: an H100's 132). Row tiles a warp: as many as M needs, up to 8,
     a power of two, halved while the staged x passes STAGE_BYTES. K parts:
@@ -80,7 +87,8 @@ def qmm_plan(M, K, N, sms=None, a8=False):
     loads in flight. Column tiles a block: the most whose blocks still
     give 7 in 8 SMs one, and at least enough for 4 warps a block. Where
     even one column tile a block leaves SMs idle, K is split further,
-    down to two stretches a warp. Returns a QmmPlan; raises ValueError
+    down to two stretches a warp. ``bf16``: x is bf16 (its staged rows are
+    a quarter of fp32's tf32 pieces). Returns a QmmPlan; raises ValueError
     for shapes the kernel does not take."""
     if min(M, K, N) < 1:
         raise ValueError(f"M, K, N ({M}, {K}, {N}) must be positive")
@@ -89,9 +97,10 @@ def qmm_plan(M, K, N, sms=None, a8=False):
     mt = 1
     while mt < min(MAX_ROW_TILES, -(-M // TILE_M)):
         mt *= 2
-    while mt > 1 and qmm_smem_bytes(K, a8, 1, 1, mt) > STAGE_BYTES:
+    bf16 = bool(bf16) and not a8
+    while mt > 1 and qmm_smem_bytes(K, a8, 1, 1, mt, bf16) > STAGE_BYTES:
         mt //= 2
-    if qmm_smem_bytes(K, a8, 1, 1, mt) > STAGE_BYTES:
+    if qmm_smem_bytes(K, a8, 1, 1, mt, bf16) > STAGE_BYTES:
         raise ValueError(f"K ({K}) too large: 8 staged rows of x take more "
                          f"than {STAGE_BYTES} bytes of shared memory")
     warps = MAX_WARPS // 2 if mt >= 4 else MAX_WARPS
@@ -108,14 +117,15 @@ def qmm_plan(M, K, N, sms=None, a8=False):
         while 2 * ks <= min(warps, S // 2) and tiles * rows < sms:
             ks *= 2
     return QmmPlan(ct, ks, mt, (-(-tiles // ct), rows), 32 * ct * ks,
-                   qmm_smem_bytes(K, a8, ct, ks, mt))
+                   qmm_smem_bytes(K, a8, ct, ks, mt, bf16))
 
 
 def quantized_matmul_reference(x, q, s, out_dtype=None, a8=False):
     """Plain PyTorch version of ``quantized_matmul`` (same arguments and
     output). The W8A8 sum is formed exactly in float64 and rounded to fp32
     once, as ``acc.astype(float32)`` rounds the int32 sum (|acc| can pass
-    2**24)."""
+    2**24). A bf16 x is taken as fp32 (exactly), and the fp32 result is
+    rounded to ``out_dtype`` once, as both Pallas bodies cast."""
     out_dtype = out_dtype or x.dtype
     x = x.float()
     if not a8:
@@ -131,8 +141,9 @@ def _lib():
     lib = _build.load_library("qmm")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.qmm_f32.restype = i
+        lib.qmm_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i,
+                                   i, p]
+        lib.qmm_launch.restype = i
         lib.qmm_error_string.argtypes = [i]
         lib.qmm_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -149,45 +160,53 @@ def _sm_count(dev):
     return _sms[dev.index]
 
 
-def quantized_matmul(x, q, s, out_dtype=None, a8=False):
-    """(M, K) x, (N, K) int8 q, (N,) fp32 s -> (M, N) in ``out_dtype``
-    (default x's dtype). On CPU tensors this is
-    ``quantized_matmul_reference``; on CUDA tensors it launches
-    csrc/qmm.cu (fp32 in and out) or raises."""
+def quantized_matmul(x, q, s, a8=False):
+    """(M, K) x, (N, K) int8 q, (N,) fp32 s -> (M, N) in x's dtype. On CPU
+    tensors this is ``quantized_matmul_reference``; on CUDA tensors it
+    launches csrc/qmm.cu (fp32 or bf16 x) or raises."""
     if x.device.type == "cpu":
-        return quantized_matmul_reference(x, q, s, out_dtype, a8)
+        return quantized_matmul_reference(x, q, s, a8=a8)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"the kernel writes fp32, not {out_dtype}; see "
-                        "ROADMAP.md Queue 1, deferred item 3 (bf16 kernels)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x is {x.dtype}; the kernel takes torch.float32 "
+                        "or torch.bfloat16")
+    bf16 = x.dtype == torch.bfloat16
     dev = x.device
     M, K = x.shape
     N = q.shape[0]
-    _build.check_tensor("x", x, (M, K), dev)
+    _build.check_tensor("x", x, (M, K), dev, dtype=x.dtype)
     _build.check_tensor("q", q, (N, K), dev, dtype=torch.int8)
     _build.check_tensor("s", s, (N,), dev)
     lib = _lib()
-    plan = qmm_plan(M, K, N, _sm_count(dev), bool(a8))
-    out = torch.empty(M, N, device=dev)
+    plan = qmm_plan(M, K, N, _sm_count(dev), bool(a8), bf16)
+    out = torch.empty(M, N, device=dev, dtype=x.dtype)
     xq = sx = None
     if a8:
         xq = torch.empty(M, qmm_padded_k(K), dtype=torch.int8, device=dev)
         sx = torch.empty(M, device=dev)
-    err = lib.qmm_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                      out.data_ptr(), None if xq is None else xq.data_ptr(),
-                      None if sx is None else sx.data_ptr(), M, K, N,
-                      int(bool(a8)), plan.ct, plan.ks, plan.mt,
-                      torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    xq_p = None if xq is None else xq.data_ptr()
+    sx_p = None if sx is None else sx.data_ptr()
+    err = lib.qmm_launch(x.data_ptr(), int(bf16), q.data_ptr(),
+                         s.data_ptr(), out.data_ptr(), xq_p, sx_p, M, K, N,
+                         int(bool(a8)), plan.ct, plan.ks, plan.mt, stream)
     if err:
-        raise RuntimeError("qmm_f32 failed: "
+        raise RuntimeError("qmm_launch failed: "
                            + lib.qmm_error_string(err).decode())
     quantized_matmul.launches += 1
     if a8:
         quantized_matmul.launches_w8a8 += 1
+    if bf16:
+        quantized_matmul.launches_bf16 += 1
+        if a8:
+            quantized_matmul.launches_w8a8_bf16 += 1
     return out
 
 
-# launches of either body, and of the W8A8 body alone
+# launches of either body, of the W8A8 body alone, of the bf16 bodies (bf16
+# x, either mode) alone, and of the bf16 W8A8 body alone
 quantized_matmul.launches = 0
 quantized_matmul.launches_w8a8 = 0
+quantized_matmul.launches_bf16 = 0
+quantized_matmul.launches_w8a8_bf16 = 0

@@ -11,10 +11,18 @@ Unlike the Pallas kernel, which takes three pre-shifted copies of x, this
 takes x once and the dilation ``d``: the kernel does the shift itself.
 
 On CUDA tensors ``wn_layer`` launches csrc/wavenet.cu (its note says what
-bounds it and how the design answers), tiled as ``wn_plan`` says, with the
-weights split into bf16 hi/lo by ``wn_split_weights`` (once a layer:
-cached until a weight changes); on CPU tensors it runs
-``wn_layer_reference``.
+bounds it and how the design answers) through ``wn_layer_launch``,
+tiled as ``wn_plan`` says: for fp32 tensors its fp32 body, the weights
+split into bf16 hi/lo by ``wn_split_weights``; for bf16 tensors (the
+body the Pallas kernel runs under the JAX server's ``--bf16``) its bf16
+body, the weights in the plain bf16 pack of ``wn_pack_weights``. Either
+pack is made once a layer and cached until a weight changes. On CPU
+tensors it runs ``wn_layer_reference``.
+
+bf16 follows the Pallas body's dtypes (wavenet_pallas.py:33-54): products
+of bf16 operands summed in fp32, the gate in fp32 and z rounded to bf16
+before the res/skip product, x' = x + rs in fp32 rounded to bf16, skip
+rounded to bf16.
 """
 
 import ctypes
@@ -48,24 +56,28 @@ threads, the acts columns walked in ``nh`` passes, a ring of ``stages``
 chunks, ``smem`` bytes a block, ``grid`` blocks."""
 
 
-def wn_smem_bytes(C, bm, nh, stages):
+def wn_smem_bytes(C, bm, nh, stages, bf16=False):
     """csrc/wavenet.cu:smem_bytes: the weight ring, and the x ring and the
-    two A tiles beside z (one pass: z overlays them)."""
-    slot, xslot, abuf, zbuf = KC * (2 * C // nh) * 4, bm * KC * 4, \
-        bm * KC * 2, bm * C * 2
-    x_bytes = stages * xslot + 4 * abuf
-    return stages * slot + (max(2 * zbuf, x_bytes) if nh == 1
-                            else 2 * zbuf + x_bytes)
+    two A tiles beside z (one pass: z overlays them). bf16: one weight
+    plane, bf16 x rows, no A tiles, one z plane."""
+    planes = 1 if bf16 else 2
+    slot = KC * (2 * C // nh) * 2 * planes
+    x_bytes = stages * bm * KC * (2 if bf16 else 4) \
+        + (0 if bf16 else 4 * bm * KC * 2)
+    z_bytes = planes * bm * C * 2
+    return stages * slot + (max(z_bytes, x_bytes) if nh == 1
+                            else z_bytes + x_bytes)
 
 
-def wn_plan(B, Tp, C, sms=None, bm=None):
+def wn_plan(B, Tp, C, sms=None, bm=None, bf16=False):
     """Tile B * Tp rows of width C for csrc/wavenet.cu on a card of ``sms``
     SMs (None: an H100's 132), one block a SM. ``bm`` (rows a block) is
     one of the builds for C; by default the one whose busiest SM takes the
     least time, ceil(blocks / sms) * bm rows at the build's measured
     ``WN_ROW_COST``, the larger on a tie: at C = 256, 112 rows at B=1 (one
-    wave of 115 blocks) and 64 at B=8. Returns a WnPlan; raises
-    ValueError for a shape the kernel does not take."""
+    wave of 115 blocks) and 64 at B=8. ``bf16``: the bf16 body's build
+    (the same rows and passes, less shared memory). Returns a WnPlan;
+    raises ValueError for a shape the kernel does not take."""
     if C not in WN_BUILDS:
         raise ValueError(f"the kernel takes C in {sorted(WN_BUILDS)}, "
                          f"got {C}")
@@ -80,14 +92,38 @@ def wn_plan(B, Tp, C, sms=None, bm=None):
     elif bm not in builds:
         raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
     nh = builds[bm]
-    stages = 4 if wn_smem_bytes(C, bm, nh, 4) <= SMEM_LIMIT else 3
-    return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages),
+    stages = 4 if wn_smem_bytes(C, bm, nh, 4, bf16) <= SMEM_LIMIT else 3
+    return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages, bf16),
                   -(-M // bm))
 
 
 def _split_bf16(w):
     hi = w.to(torch.bfloat16)
     return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+def _pass_views(w_cat, w_rs, nh):
+    """w_cat's columns paired per 8 channels ([tanh 8 | sigmoid 8], so
+    packed column 16 q + 8 s + e is column s * C + 8 q + e) and cut into
+    ``nh`` passes, (nh, 3C, 2C / nh); w_rs cut into np2 passes, (np2, C,
+    n_rs / np2), np2 = nh, or max(1, nh // 2) on the last layer."""
+    C = w_cat.shape[1] // 2
+    n_rs = w_rs.shape[1]
+    np2 = max(1, nh // 2) if n_rs == C else nh
+    perm = torch.arange(2 * C, device=w_cat.device).view(2, C // 8, 8) \
+        .transpose(0, 1).reshape(-1)
+    w1 = w_cat[:, perm].view(3 * C, nh, 2 * C // nh).transpose(0, 1)
+    w2 = w_rs.view(C, np2, n_rs // np2).transpose(0, 1)
+    return w1, w2
+
+
+def wn_pack_weights(w_cat, w_rs, nh):
+    """The bf16 body's packs of bf16 weights for ``nh`` column passes:
+    ``_pass_views``' w1 (nh, 3C, 2C / nh) and w2 (np2, C, n_rs / np2),
+    contiguous bf16, one plane (no hi/lo split: the body is one bf16
+    pass)."""
+    return tuple(w.to(torch.bfloat16).contiguous()
+                 for w in _pass_views(w_cat, w_rs, nh))
 
 
 def wn_split_weights(w_cat, w_rs, nh):
@@ -98,20 +134,14 @@ def wn_split_weights(w_cat, w_rs, nh):
     h * 2C / nh on; w2 (np2, C, 2, n_rs / np2) from w_rs, np2 = nh, or
     max(1, nh // 2) on the last layer. [..., 0, :] is hi = bf16(w),
     [..., 1, :] lo = bf16(w - hi)."""
-    C = w_cat.shape[1] // 2
-    n_rs = w_rs.shape[1]
-    np2 = max(1, nh // 2) if n_rs == C else nh
-    perm = torch.arange(2 * C, device=w_cat.device).view(2, C // 8, 8) \
-        .transpose(0, 1).reshape(-1)
-    w1 = w_cat[:, perm].view(3 * C, nh, 2 * C // nh).transpose(0, 1)
-    w2 = w_rs.view(C, np2, n_rs // np2).transpose(0, 1)
     return tuple(torch.stack(_split_bf16(w), dim=2).contiguous()
-                 for w in (w1, w2))
+                 for w in _pass_views(w_cat, w_rs, nh))
 
 
-# w_cat -> {nh: (w_rs, versions, w1, w2)}: a layer's packs, made once and
-# made again when a weight changes (its _version moves); the lock, because
-# the server's dispatcher and stream threads vocode side by side
+# w_cat -> {nh: (w_rs, versions, w1, w2)}: a layer's packs (split for
+# fp32 weights, plain for bf16 ones), made once and made again when a
+# weight changes (its _version moves); the lock, because the server's
+# dispatcher and stream threads vocode side by side
 _SPLITS = WeakIdKeyDictionary()
 _SPLITS_LOCK = threading.Lock()
 
@@ -122,37 +152,45 @@ def _packed(w_cat, w_rs, nh):
         per_nh = _SPLITS.setdefault(w_cat, {})
         hit = per_nh.get(nh)
         if hit is None or hit[0] is not w_rs or hit[1] != versions:
+            pack = wn_pack_weights if w_cat.dtype == torch.bfloat16 \
+                else wn_split_weights
             with torch.no_grad():
-                hit = (w_rs, versions) + wn_split_weights(w_cat, w_rs, nh)
+                hit = (w_rs, versions) + pack(w_cat, w_rs, nh)
             per_nh[nh] = hit
     return hit[2], hit[3]
 
 
 def wn_layer_reference(x, d, cond, w_cat, b, w_rs, b_rs, T):
-    """Plain PyTorch version of ``wn_layer`` (same arguments and outputs)."""
+    """Plain PyTorch version of ``wn_layer`` (same arguments and outputs).
+    bf16 tensors: the bf16 operands' products summed in fp32, z rounded
+    to bf16 before the res/skip product, the outputs rounded once."""
     C = x.shape[-1]
     Tp = x.shape[1]
+    dt = x.dtype
+    f32 = (lambda t: t.float()) if dt == torch.bfloat16 else (lambda t: t)
     valid = (torch.arange(Tp, device=x.device) < T)[None, :, None]
     xv = torch.where(valid, x, 0.0)
     x_m = F.pad(xv, (0, 0, d, 0))[:, :Tp]            # x[t - d]
     x_p = F.pad(xv, (0, 0, 0, d))[:, d:]             # x[t + d]
-    acts = torch.cat([x_m, xv, x_p], dim=-1) @ w_cat + b + cond
+    acts = f32(torch.cat([x_m, xv, x_p], dim=-1)) @ f32(w_cat) + f32(b) \
+        + f32(cond)
     z = torch.tanh(acts[..., :C]) * torch.sigmoid(acts[..., C:])
-    rs = z @ w_rs + b_rs
+    rs = f32(z.to(dt)) @ f32(w_rs) + f32(b_rs)
     if w_rs.shape[1] == C:
-        return None, rs
-    return torch.where(valid, x + rs[..., :C], 0.0), rs[..., C:]
+        return None, rs.to(dt)
+    return (torch.where(valid, f32(x) + rs[..., :C], 0.0).to(dt),
+            rs[..., C:].to(dt))
 
 
 def _lib():
     lib = _build.load_library("wavenet")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wn_layer_f32.argtypes = [p, i, p, i, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, p]
-        lib.wn_layer_f32.restype = i
+        lib.wn_layer_launch.argtypes = [i, p, i, p, i, p, p, p, p, p, p,
+                                        i, i, i, i, i, i, p]
+        lib.wn_layer_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.wn_layer_config.argtypes = [i, i, ip]
+        lib.wn_layer_config.argtypes = [i, i, i, ip]
         lib.wn_layer_config.restype = i
         lib.wavenet_error_string.argtypes = [i]
         lib.wavenet_error_string.restype = ctypes.c_char_p
@@ -161,11 +199,12 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _built_config(C, bm):
-    """(nh, stages, smem) of the library's build for (C, bm)."""
+def _built_config(C, bm, bf16=False):
+    """(nh, stages, smem) of the library's build for (C, bm) and dtype."""
     cfg = (ctypes.c_int * 3)()
-    if _lib().wn_layer_config(C, bm, cfg):
-        raise RuntimeError(f"csrc/wavenet.cu has no build for C={C}, bm={bm}")
+    if _lib().wn_layer_config(C, bm, int(bf16), cfg):
+        raise RuntimeError(f"csrc/wavenet.cu has no build for C={C}, bm={bm}"
+                           f", bf16={bf16}")
     return tuple(cfg)
 
 
@@ -173,7 +212,8 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
     """One WN layer.
 
     Args:
-      x: (B, Tp, C) activations, Tp >= T (rows t >= T are padding).
+      x: (B, Tp, C) activations, Tp >= T (rows t >= T are padding); fp32,
+        or bf16 with every other tensor bf16 too.
       d: dilation. cond: (B, Tp, 2C), last dim contiguous; may be a slice
         of the all-layer conditioning tensor.
       w_cat: (3C, 2C) conv taps [w[:,:,0].T; w[:,:,1].T; w[:,:,2].T];
@@ -198,41 +238,50 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
     B, Tp, C = x.shape
     n_rs = w_rs.shape[1]
     last = n_rs == C
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x is {dt}; the kernel takes torch.float32 or "
+                        "torch.bfloat16")
+    bf16 = dt == torch.bfloat16
     plan = wn_plan(B, Tp, C, torch.cuda.get_device_properties(
-        dev).multi_processor_count, bm)
+        dev).multi_processor_count, bm, bf16)
     if not 0 < T <= Tp:
         raise ValueError(f"T={T} outside (0, {Tp}]")
-    _build.check_tensor("x", x, (B, Tp, C), dev)
+    _build.check_tensor("x", x, (B, Tp, C), dev, dtype=dt)
     _build.check_tensor("cond", cond, (B, Tp, 2 * C), dev,
-                        contiguous=False)
+                        contiguous=False, dtype=dt)
     ldc = cond.stride(1)
     if cond.stride(2) != 1 or cond.stride(0) != Tp * ldc or ldc % 4:
         raise ValueError("cond must be a row-major (B, Tp, 2C) slice with a "
                          "row stride that is a multiple of 4")
-    _build.check_tensor("w_cat", w_cat, (3 * C, 2 * C), dev)
-    _build.check_tensor("b", b, (2 * C,), dev)
+    _build.check_tensor("w_cat", w_cat, (3 * C, 2 * C), dev, dtype=dt)
+    _build.check_tensor("b", b, (2 * C,), dev, dtype=dt)
     if n_rs not in (C, 2 * C):
         raise ValueError(f"w_rs has {n_rs} columns, expected {C} or {2 * C}")
-    _build.check_tensor("w_rs", w_rs, (C, n_rs), dev)
-    _build.check_tensor("b_rs", b_rs, (n_rs,), dev)
+    _build.check_tensor("w_rs", w_rs, (C, n_rs), dev, dtype=dt)
+    _build.check_tensor("b_rs", b_rs, (n_rs,), dev, dtype=dt)
 
     lib = _lib()
-    if _built_config(C, plan.bm) != plan[1:4]:
+    if _built_config(C, plan.bm, bf16) != plan[1:4]:
         raise RuntimeError(f"wn_plan {plan} disagrees with csrc/wavenet.cu's "
-                           f"build {_built_config(C, plan.bm)}")
+                           f"build {_built_config(C, plan.bm, bf16)}")
     w1, w2 = _packed(w_cat, w_rs, plan.nh)
     x_new = None if last else torch.empty_like(x)
-    skip = torch.empty(B, Tp, C, device=dev)
-    err = lib.wn_layer_f32(
-        x.data_ptr(), int(d), cond.data_ptr(), ldc, w1.data_ptr(),
+    skip = torch.empty(B, Tp, C, device=dev, dtype=dt)
+    err = lib.wn_layer_launch(
+        int(bf16), x.data_ptr(), int(d), cond.data_ptr(), ldc, w1.data_ptr(),
         b.data_ptr(), w2.data_ptr(), b_rs.data_ptr(),
         None if last else x_new.data_ptr(), skip.data_ptr(), B, Tp, int(T),
         C, plan.bm, int(last), torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError("wn_layer_f32 failed: "
+        raise RuntimeError("wn_layer_launch failed: "
                            + lib.wavenet_error_string(err).decode())
     wn_layer.launches += 1
+    if bf16:
+        wn_layer.launches_bf16 += 1
     return x_new, skip
 
 
+# launches of either body, and of the bf16 body alone
 wn_layer.launches = 0
+wn_layer.launches_bf16 = 0

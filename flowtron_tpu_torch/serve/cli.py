@@ -7,8 +7,8 @@ server in-process.
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
         [-w waveglow.pt] [-d 0.1] [--stream-workers 2 | --stream-mux 8 \\
         [--mux-joins-per-tick 2]] [--vocode-buckets 120,240] \\
-        [--quantize w8a8] [--max-batch 8] [--replicas N|auto] [--warmup] \\
-        [--compile-cache DIR] [--profiler-port P] \\
+        [--quantize w8a8] [--bf16] [--max-batch 8] [--replicas N|auto] \\
+        [--warmup] [--compile-cache DIR] [--profiler-port P] \\
         [--model NAME=CONFIG:CKPT[:VOCODER] ...]
 
 Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
@@ -48,7 +48,6 @@ from flowtron_tpu_torch.utils.device import resolve_device
 UNPORTED_FLAGS = {
     "mesh": ("--mesh", "(l2) Item 16b / slice C item 23b: the `model` "
              "axis"),
-    "bf16": ("--bf16", "deferred item 3 (bf16 kernels)"),
 }
 
 
@@ -101,6 +100,11 @@ def _parser():
     parser.add_argument("--quantize", choices=("w8", "w8a8", "w4"),
                         default="", help="flow-weight quantization mode; "
                                          "w8a8 runs kernel K4")
+    parser.add_argument("--bf16", action="store_true",
+                        help="serve in bf16: the flows' and the vocoder's "
+                             "float weights cast to bf16 (quantized leaves "
+                             "keep their fp32 scales); kernels K1, K2 and "
+                             "K4 run their bf16 bodies")
     parser.add_argument("--fused", action="store_true",
                         help="early exit in the decoder kernel K1 once "
                              "every stream of a batch has finished")
@@ -123,8 +127,8 @@ def _parser():
                              "TensorBoard's remote-capture button does not "
                              "reach it")
     for dest, (flag, _) in UNPORTED_FLAGS.items():
-        kind = {"action": "store_true"} if dest == "bf16" else {"default": None}
-        parser.add_argument(flag, dest=dest, help="not ported yet", **kind)
+        parser.add_argument(flag, dest=dest, default=None,
+                            help="not ported yet")
     return parser
 
 
@@ -157,6 +161,7 @@ def build_server(argv=None, host="0.0.0.0"):
             max_batch=args.max_batch,
             batch_timeout_ms=args.batch_timeout_ms, n_frames=args.n_frames,
             int8=args.int8, quantize=args.quantize, fused=args.fused,
+            bf16=args.bf16,
             max_queue=args.max_queue,
             # as in the JAX server, -d applies to the voices with a vocoder
             denoise=args.denoise if vocoder else 0.0,

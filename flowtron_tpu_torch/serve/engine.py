@@ -2,8 +2,8 @@
 requests into one synthesis chain on the device, and the stream path
 (a pool of warm streamer pairs, or with ``stream_mux`` the batched
 multiplexer of infer/multistream.py) (port of
-flowtron_tpu/serve/engine.py without mesh and bf16; see the package
-docstring for the protocol).
+flowtron_tpu/serve/engine.py without the mesh; see the package docstring
+for the protocol).
 
 This file owns construction and lifecycle (``submit``, ``metrics``,
 ``warmup``, ``shutdown``) and the request chain itself in two stages:
@@ -30,6 +30,13 @@ its own double buffer. ``replica_batches`` in ``metrics()`` counts the
 batches each replica took. Warmup runs a replica at a time; the warm
 streamer pairs are spread over the replicas; the mux runs on replica 0.
 R above the number of cards clamps to it with the JAX engine's warning.
+
+``bf16`` (flowtron_tpu/serve/engine.py:82-117): the JAX engine's cast
+rule (``utils/weights.py:to_bf16``): every fp32 leaf of the flows and
+of the vocoder goes to bf16, a quantized leaf keeps its int payload and
+fp32 scales; the request latents are drawn in fp32 and then cast; the
+streamers, the mux and the denoiser's bias pass run the bf16 model. Then
+K1, K2 and K4 run their bf16 bodies on the card.
 
 Options of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP.md item.
@@ -64,6 +71,7 @@ from flowtron_tpu_torch.serve.common import (
 from flowtron_tpu_torch.serve.dispatch import DispatchMixin
 from flowtron_tpu_torch.serve.streaming import StreamPathMixin
 from flowtron_tpu_torch.utils.device import resolve_device
+from flowtron_tpu_torch.utils.weights import to_bf16
 from flowtron_tpu_torch.vocoder.denoiser import Denoiser
 from flowtron_tpu_torch.vocoder.waveglow import (
     load_waveglow, waveglow_infer_z, waveglow_n_remaining,
@@ -73,15 +81,11 @@ WG_SIGMA = 0.8
 GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
 
-def _refuse_unported(bf16, mesh_shape):
-    refusals = [
-        (bf16, "bf16", "ROADMAP.md Queue 1, deferred item 3 (bf16 kernels)"),
-        (mesh_shape, "mesh_shape (a serving mesh)", MODEL_AXIS_ITEM),
-    ]
-    for on, what, item in refusals:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet; see {item}")
+def _refuse_unported(mesh_shape):
+    if mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape (a serving mesh) is not ported yet; see "
+            f"{MODEL_AXIS_ITEM}")
 
 
 def local_devices(device):
@@ -152,7 +156,7 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
             print("WARNING: --replicas is incompatible with --mesh; "
                   "ignoring replicas")
             replicas = 1
-        _refuse_unported(bf16, mesh_shape)
+        _refuse_unported(mesh_shape)
         qmode = quantize or ("w8" if int8 else "")
         if qmode and qmode not in MODES:
             raise ValueError(f"quantize {qmode!r}; expected one of {MODES}")
@@ -167,6 +171,8 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self.text_buckets = sorted(text_buckets)
         self.fused = "early" if fused else False
         self.quantize = qmode
+        self.bf16 = bool(bf16)
+        self._dtype = torch.bfloat16 if self.bf16 else torch.float32
 
         self.model, self.static_cfg = load_model_for_inference(
             config, flowtron_path, self.device)
@@ -175,6 +181,11 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         self.wg = self.wg_cfg = None
         if waveglow_path:
             self.wg, self.wg_cfg = load_waveglow(waveglow_path, self.device)
+        if self.bf16:
+            # before the replicas and the denoiser are made from them
+            to_bf16(self.model)
+            if self.wg is not None:
+                to_bf16(self.wg)
         self.frontend = TextFrontend.from_config(self.data_config)
 
         # the WaveGlow bias denoiser (-d): its bias spectrum is estimated
@@ -295,7 +306,8 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         mel, n_valid = self._synth_mel(seeds, sigmas, sids, text, in_lens,
                                        temperature, frames_cap, rep)
         if self.wg is None:
-            return "mel", mel, n_valid
+            # the host's Griffin-Lim takes fp32 (numpy has no bf16)
+            return "mel", mel.float(), n_valid
         return "pcm", self._vocode_norm(mel, n_valid, seeds, strengths,
                                         rep), n_valid
 
@@ -309,8 +321,10 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         rep = rep or self._replicas[0]
         dev, N = rep.device, self.n_frames
         n_mel = self.static_cfg["n_mel_channels"]
+        # drawn in fp32, then cast (JAX's dispatch.py:207-208)
         residual = torch.cat([mel_latents(s, sg, n_mel, N)
-                              for s, sg in zip(seeds, sigmas)]).to(dev)
+                              for s, sg in zip(seeds, sigmas)]).to(
+                                  dev, self._dtype)
         if np.ndim(temperature):
             temperature = torch.as_tensor(temperature, device=dev)
         mel, _, n_valid = flowtron_infer(
@@ -337,11 +351,13 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         dev = rep.device
         Tg = mel.shape[2] * HOP // self.wg_cfg["n_group"]
         zs = [vocoder_latents(s, self.wg_cfg, self.n_frames) for s in seeds]
-        z_main = torch.stack([z[:, :Tg] for z, _ in zs]).to(dev)
+        dt = self._dtype
+        z_main = torch.stack([z[:, :Tg] for z, _ in zs]).to(dev, dt)
         z_early = [None if zs[0][1][f] is None else
-                   torch.stack([e[f][:, :Tg] for _, e in zs]).to(dev)
+                   torch.stack([e[f][:, :Tg] for _, e in zs]).to(dev, dt)
                    for f in range(self.wg_cfg["n_flows"])]
-        audio = waveglow_infer_z(rep.wg, self.wg_cfg, mel, z_main, z_early)
+        audio = waveglow_infer_z(rep.wg, self.wg_cfg, mel, z_main,
+                                 z_early).float()
         if rep.denoiser is not None:
             T = audio.shape[1]
             audio = rep.denoiser(audio, strength=torch.as_tensor(

@@ -97,10 +97,34 @@ def qdot(x, w, out_dtype=None):
     lead, k = x.shape[:-1], x.shape[-1]
     if w.a8 and x.numel() // max(k, 1) <= QMM_MAX_ROWS:
         out = quantized_matmul(x.reshape(-1, k).contiguous(), w.q, w.s,
-                               out_dtype=out_dtype, a8=True)
-        return out.reshape(*lead, out.shape[-1])
+                               a8=True)
+        return out.reshape(*lead, out.shape[-1]).to(out_dtype)
     wd = resolve_weight(w, x.dtype)
     return F.linear(x.float(), wd.float()).to(out_dtype)
+
+
+@torch.no_grad()
+def to_bf16(module):
+    """The JAX serving engine's ``--bf16`` cast rule
+    (flowtron_tpu/serve/engine.py:90-101, :112-117), in place: every fp32
+    parameter and buffer of ``module`` goes to bf16, except inside a
+    ``QuantizedWeight``, whose int payload and fp32 scales stay as they
+    are (``module.to(torch.bfloat16)`` would cast the scales too). The
+    modules' kernel packs are dropped, so they pack anew. Returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, QuantizedWeight):
+            continue
+        for name, p in m._parameters.items():
+            if p is not None and p.dtype == torch.float32:
+                m._parameters[name] = nn.Parameter(
+                    p.to(torch.bfloat16), requires_grad=p.requires_grad)
+        for name, b in m._buffers.items():
+            if b is not None and b.dtype == torch.float32:
+                m._buffers[name] = b.to(torch.bfloat16)
+        if getattr(m, "_packed", None) is not None:
+            m._packed = None
+    return module
 
 
 def is_quantized(module):

@@ -4,8 +4,10 @@ vocoder's bias spectrum by vocoding a zero mel at sigma 0, then subtract
 it spectrally from generated audio.
 
 ``Denoiser`` runs on the vocoder's device: its bias pass is a
-``waveglow_infer``, so kernel K2 on CUDA, and the subtraction is the
-tensor STFT and ``InverseSTFT``. ``StreamingDenoiser`` is the host numpy
+``waveglow_infer`` in the vocoder's dtype (bf16 for a bf16 engine's
+vocoder, as the JAX engine builds its denoiser from the cast params), so
+kernel K2 on CUDA, and the subtraction is the tensor STFT and
+``InverseSTFT``, in fp32. ``StreamingDenoiser`` is the host numpy
 version for chunked audio, in float64 as in the JAX package.
 """
 
@@ -29,9 +31,11 @@ class Denoiser:
         self._ms = MelSpectrogram(filter_length, hop_length, win_length,
                                   n_mel_channels)
         self._istft = InverseSTFT(filter_length, hop_length, win_length)
-        device = next(wg_model.parameters()).device
-        mel = torch.zeros(1, n_mel_channels, BIAS_FRAMES, device=device)
-        bias_audio = waveglow_infer(wg_model, wg_config, mel, sigma=0.0)
+        param = next(wg_model.parameters())
+        mel = torch.zeros(1, n_mel_channels, BIAS_FRAMES, device=param.device,
+                          dtype=param.dtype)
+        bias_audio = waveglow_infer(wg_model, wg_config, mel,
+                                    sigma=0.0).float()
         # (1, n_bins, 1): the first frame's magnitudes
         self.bias_spec = self._ms.magnitude(bias_audio)[:, :, :1]
 

@@ -11,7 +11,13 @@ fully parallel over time.
 
 Inference runs the coupling's WN stack time-major, activations as
 (B, T, C), and every WN layer goes through kernel K2 (``ops/wavenet.py``)
-on CUDA tensors and its plain version on CPU tensors. Training runs it in
+on CUDA tensors and its plain version on CPU tensors. A bf16 vocoder (the
+serving engine's ``bf16``: every parameter cast) runs the inverse in
+bf16, with the dtypes of the JAX package's Pallas WN path
+(``_wavenet_pallas``): K2's bf16 body, the 1x1 convs and the upsample as
+bf16 matmuls, the skip sum in fp32 (its :234-235), and the inverse 1x1
+weight inverted in fp32 from the bf16 weight, then cast back (JAX
+``waveglow_infer_z``, :412-414). Training runs it in
 the channel-major form of the JAX package's ``_wavenet_nch`` (the path
 JAX's ``waveglow_forward`` takes by default, an XLA convolution and not a
 Pallas kernel): ``F.conv1d`` with dilation, the one conditioning conv of
@@ -149,14 +155,16 @@ def _wavenet(wn, audio_half, spect_t):
     x = _mm1x1(audio_half.transpose(1, 2), wn.start).contiguous()  # (B, T, C)
     cond = _mm1x1(spect_t, wn.cond_layer).contiguous()        # (B, T, 2CL)
     T = x.shape[1]
+    dtype = x.dtype
     out = None
     for k, (w_cat, b, w_rs, b_rs) in enumerate(wn.packed_layers()):
         x_new, skip = wn_layer(x, 2 ** k, cond[..., 2 * C * k:2 * C * (k + 1)],
                                w_cat, b, w_rs, b_rs, T)
-        out = skip if out is None else out + skip
+        # the skips are summed in fp32 (a bf16 skip promotes)
+        out = skip.float() if out is None else out + skip
         if x_new is not None:
             x = x_new
-    return _mm1x1(out, wn.end).transpose(1, 2)
+    return _mm1x1(out.to(dtype), wn.end).transpose(1, 2)
 
 
 def _upsample_mel(model, spect, n_group, time_cutoff_samples):
@@ -299,7 +307,8 @@ def waveglow_infer_z(model, config, spect, z_main, z_early):
 
     spect (B, n_mel, T_mel); z_main (B, n_remaining, Tg) innermost latents
     (sigma applied); z_early: n_flows entries, (B, n_early_size, Tg) at
-    each early-output flow, None elsewhere. Returns audio (B, T_mel * 256).
+    each early-output flow, None elsewhere. Returns audio (B, T_mel * 256)
+    in the model's dtype (spect and the latents in it too).
     """
     n_group, n_flows = config["n_group"], config["n_flows"]
     Tg = spect.shape[2] * 256 // n_group
@@ -313,7 +322,8 @@ def waveglow_infer_z(model, config, spect, z_main, z_early):
         log_s, b = out[:, n_half:], out[:, :n_half]
         audio_1 = (audio_1 - b) * torch.exp(-log_s)
         audio_g = torch.cat([audio_0, audio_1], dim=1)
-        w_inv = torch.linalg.inv(model.convinv[f].conv.weight[:, :, 0])
+        w_inv = torch.linalg.inv(
+            model.convinv[f].conv.weight[:, :, 0].float()).to(audio_g.dtype)
         audio_g = torch.einsum("ij,bjt->bit", w_inv, audio_g)
         if f % config["n_early_every"] == 0 and f > 0:
             audio_g = torch.cat([z_early[f], audio_g], dim=1)
@@ -329,7 +339,8 @@ def waveglow_infer(model, config, spect, sigma=1.0, seed=0):
     g = torch.Generator().manual_seed(seed)
 
     def draw(c):
-        return (sigma * torch.randn(B, c, Tg, generator=g)).to(spect.device)
+        return (sigma * torch.randn(B, c, Tg, generator=g)).to(
+            spect.device, spect.dtype)
 
     z_main = draw(waveglow_n_remaining(config))
     z_early = [draw(config["n_early_size"])

@@ -373,8 +373,57 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _bf16_kernel_on_card(case, dev):
+    """K1's bf16 body: against its plain bf16 version the mel within 2e-3
+    of its scale and the attention weights within 1.5e-3, and its mel's
+    distance from the fp32 kernel's at most 1.5x the plain bf16 version's
+    plus 1e-3 of the scale (early exit off); the same n_valid as the plain
+    bf16 version and two calls bitwise equal (early exit off and on); B=3
+    with a key mask."""
+    import copy
+    from flowtron_tpu_torch.models.attention import attention_precompute
+    from flowtron_tpu_torch.utils.weights import to_bf16
+    _, flow, residual, text, key_mask = case
+    f32 = copy.deepcopy(flow).to(dev)
+    f16 = to_bf16(copy.deepcopy(flow)).to(dev)
+    km = _t(key_mask.astype(np.float32)).to(dev)
+    outs = {}
+    for tag, f, dt in (("fp32", f32, torch.float32),
+                       ("bf16", f16, torch.bfloat16)):
+        t_dev = _t(text).to(dev, dt)
+        with torch.no_grad():
+            kp, vals = attention_precompute(f.attention_layer, t_dev, t_dev)
+        outs[tag] = (f.packed_weights(), _t(residual).to(dev, dt), kp, vals,
+                     km, 1.0)
+    for early in (False, True):
+        kw = dict(early_exit=early, gate_threshold=0.45)
+        ref32 = fused_flow_infer(*outs["fp32"], **kw)
+        ours = fused_flow_infer(*outs["bf16"], **kw)
+        again = fused_flow_infer(*outs["bf16"], **kw)
+        plain = fused_flow_infer_reference(*outs["bf16"], **kw)
+        assert all(torch.equal(a, b) for a, b in zip(ours, again))
+        nv = (ours[2] > 0.45).int().argmax(0)
+        assert torch.equal(nv, (plain[2] > 0.45).int().argmax(0))
+        if early:       # past its stop each run writes zeros of its own
+            continue
+        scale = float(ref32[0].abs().max())
+        e_mel = float((ours[0] - plain[0]).abs().max())
+        e_attn = float((ours[1] - plain[1]).abs().max())
+        print(f"K1 bf16 vs plain bf16: mel {e_mel} (scale {scale}), "
+              f"attn {e_attn}")
+        assert e_mel <= 2e-3 * scale and e_attn <= 1.5e-3, (e_mel, e_attn)
+        e_k = float((ours[0] - ref32[0]).abs().max())
+        e_p = float((plain[0] - ref32[0]).abs().max())
+        assert e_k <= 1.5 * e_p + 1e-3 * scale, (e_k, e_p)
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(case, cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_matches_plain_on_card(case, cuda_device, dtype):
+    if dtype == torch.bfloat16:
+        _bf16_kernel_on_card(case, cuda_device)
+        return
     _, flow, residual, text, key_mask = case
     flow = flow.to(cuda_device)
     from flowtron_tpu_torch.models.attention import attention_precompute

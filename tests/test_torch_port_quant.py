@@ -503,16 +503,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
-def test_k4_kernel_matches_plain_on_card(cuda_device, a8):
+def test_k4_kernel_matches_plain_on_card(cuda_device, a8, dtype):
     """Every plan shape: W8A8 bitwise, weight-only within 1e-5 of the
-    output scale, two calls bitwise equal, one launch counted a call."""
+    output scale (bf16 x and out: within one bf16 ulp of each output, plus
+    2^-16 of the scale for near-zero sums), two calls bitwise equal, one
+    launch counted a call."""
+    bf16 = dtype == torch.bfloat16
     for K, N in PLAN_KN:
         x, qd = _case(max(PLAN_M), K, N)
         q = _t(np.asarray(qd["q"]).T.copy()).to(cuda_device)
         s = _t(qd["s"]).to(cuda_device)
         for M in PLAN_M:
-            xm = _t(x[:M]).to(cuda_device)
+            xm = _t(x[:M]).to(cuda_device, dtype)
             ref = quantized_matmul_reference(xm, q, s, a8=a8)
             outs = []
             for _ in range(2):
@@ -520,9 +525,16 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, a8):
                 outs.append(quantized_matmul(xm, q, s, a8=a8))
                 assert quantized_matmul.launches == counts + 1
             torch.cuda.synchronize()
+            assert outs[0].dtype == dtype
             assert torch.equal(outs[0], outs[1]), (M, K, N)
             if a8:
                 assert torch.equal(outs[0], ref), (M, K, N)
+            elif bf16:
+                o, r = outs[0].float(), ref.float()
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    r.abs().clamp(min=2.0 ** -126))) - 7)
+                assert bool(((o - r).abs() <= ulp + 2.0 ** -16 * float(
+                    r.abs().max())).all()), (M, K, N)
             else:
                 err = float((outs[0] - ref).abs().max())
                 scale = float(ref.abs().max())

@@ -592,7 +592,6 @@ class TestStaged:
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(bf16=True), "deferred item 3"),
     (dict(mesh_shape=[1, 1]), "item 23"),
     (dict(mesh_shape=[2, 1], replicas=2), r"\(l2\)"),
 ])
@@ -616,12 +615,16 @@ def test_unported_engine_options_raise(files, config, option, item):
      lambda e: e._vocode_buckets == (2, 4, N_FRAMES) and e._mux is None),
     (["--stream-mux", "4"],
      lambda e: e._mux.slots == 4 and e._mux.Tk == 128 and e.can_stream),
+    (dict(bf16=True), lambda e: _bf16_engine(e)),
+    (["--bf16", "--quantize", "w8a8"],
+     lambda e: _bf16_engine(e) and e.quantize == "w8a8"),
 ])
 def test_ported_options_build_their_engine(files, config, monkeypatch,
                                            option, built):
-    """The options that used to be refused (the engine's stream_mux and
-    vocode_buckets, the server's --stream-mux, --mux-joins-per-tick and
-    --vocode-buckets) now build their engine."""
+    """The options that used to be refused (the engine's stream_mux,
+    vocode_buckets and bf16, the server's --stream-mux,
+    --mux-joins-per-tick, --vocode-buckets and --bf16) now build their
+    engine."""
     monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
     if isinstance(option, dict):
         engines = {"default": SynthesisEngine(
@@ -637,6 +640,21 @@ def test_ported_options_build_their_engine(files, config, monkeypatch,
         assert built(engines["default"])
     finally:
         engines["default"].shutdown()
+
+
+def _bf16_engine(e):
+    """A bf16 engine: every float leaf of the flows and the vocoder bf16,
+    every quantized leaf's scales fp32, and it serves a request."""
+    floats = [t for m in (e.model, e.wg) for t in (*m.parameters(),
+                                                   *m.buffers())
+              if t.is_floating_point()]
+    scales = [m.s for m in e.model.modules()
+              if isinstance(m, port_weights.QuantizedWeight)]
+    wav, _ = e.submit("Hello there.", 0)
+    return (e.bf16 and len(wav) == N_FRAMES * 256
+            and all(t.dtype == torch.float32 for t in scales)
+            and all(t.dtype == torch.bfloat16 for t in floats
+                    if not any(t is s for s in scales)))
 
 
 def test_device_defaults_to_cuda_and_names_the_variable(monkeypatch):
@@ -864,7 +882,7 @@ class TestHTTP:
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"], ["--bf16"]])
+    ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"]])
 def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
     with pytest.raises(SystemExit):
         build_server(["-c", "config.json", "-f", "x.pt", "-w", "y.pt"]
@@ -940,8 +958,8 @@ def test_build_server_serves_a_quantized_voice(files, monkeypatch):
         server.server_close()
         for eng in engines.values():
             eng.shutdown()
-    # the refusals left: the model axis and bf16
-    assert set(serve_cli.UNPORTED_FLAGS) == {"mesh", "bf16"}
+    # the refusal left: the model axis
+    assert set(serve_cli.UNPORTED_FLAGS) == {"mesh"}
 
 
 def test_shutdown_refuses_new_work(files, config):

@@ -156,13 +156,12 @@ def test_port_never_imports_jax(tmp_path):
     by name too, and run a tiny synthesis, a tiny training step (forward,
     losses, backward through K3's plain versions, RAdam), one
     Gaussian-mixture step with remat, one request and one stream through a
-    w8a8 serving engine (K4's plain version) and one stream through an
-    engine's multistream mux, load a JAX package Flowtron checkpoint
-    (params and optimizer) as a pickle, a sharded directory and an orbax
-    directory (through ``tensorstore``, which may load) and a WaveGlow
-    pickle, run a tiny style transfer and (with ``g++``) one native mel,
-    in a fresh
-    interpreter: neither jax, optax nor the JAX package (``flowtron_tpu``
+    w8a8 serving engine (K4's plain version), one stream through an
+    engine's multistream mux and one request through a bf16 engine, load a
+    JAX package Flowtron checkpoint (params and optimizer) as a pickle, a
+    sharded directory and an orbax directory (through ``tensorstore``,
+    which may load) and a WaveGlow pickle, run a tiny style transfer and
+    (with ``g++``) one native mel, in a fresh interpreter: neither jax, optax nor the JAX package (``flowtron_tpu``
     or ``flowtron_tpu.*``) may be in sys.modules. A subprocess, because
     this test process already imported them."""
     _jax_pickles(tmp_path)
@@ -232,6 +231,12 @@ def test_port_never_imports_jax(tmp_path):
         "n_frames=3, stream_mux=1, device='cpu')\n"
         "muxed = [p for p in eng.stream('Hello there.')]\n"
         "eng.shutdown()\n"
+        "eng = SynthesisEngine(cfg, root + '/ft.pt', root + '/wg.pt', "
+        "n_frames=3, bf16=True, device='cpu')\n"
+        "wav16, _ = eng.submit('Hello there.')\n"
+        "assert eng.wg.upsample.weight.dtype == torch.bfloat16\n"
+        "eng.shutdown()\n"
+        "assert len(wav16) in (256, 512, 768), len(wav16)\n"
         "assert sum(len(p) for p in muxed) in (256, 512, 768), muxed\n"
         "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
         "assert sum(len(p) for p in pcm) in (256, 512, 768), pcm\n"

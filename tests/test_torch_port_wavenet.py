@@ -20,8 +20,8 @@ from flowtron_tpu.vocoder.waveglow import (  # noqa: E402
 )
 
 from flowtron_tpu_torch.ops.wavenet import (  # noqa: E402
-    SMEM_LIMIT, WN_BUILDS, wn_layer, wn_layer_reference, wn_plan,
-    wn_smem_bytes, wn_split_weights,
+    SMEM_LIMIT, WN_BUILDS, wn_layer, wn_layer_reference, wn_pack_weights,
+    wn_plan, wn_smem_bytes, wn_split_weights,
 )
 from flowtron_tpu_torch.utils.convert import waveglow_from_jax  # noqa: E402
 from flowtron_tpu_torch.vocoder.waveglow import (  # noqa: E402
@@ -132,14 +132,33 @@ def _three_pass(a, w_hi, w_lo):
     return a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi
 
 
-def _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh):
+def _bf16_round(a):
+    """fp32 -> bf16 (round to nearest even) -> fp32, as cvt.rn.bf16x2."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
+        .bfloat16().float().numpy()
+
+
+def _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh, bf16=False):
     """The kernel's arithmetic on the host, through the packs it reads
     (``wn_split_weights``): acts in nh passes of paired columns, the gate
-    in fp32, z split again before the res/skip product."""
+    in fp32, z split again before the res/skip product. ``bf16``: the bf16
+    body (its inputs bf16 values): the plain packs of ``wn_pack_weights``,
+    one pass of exact bf16 products summed in fp32, z rounded to bf16, the
+    outputs rounded to bf16."""
     B, Tp, C = x.shape
     M = B * Tp
-    w1, w2 = (w.float().numpy() for w in wn_split_weights(
-        torch.from_numpy(w_cat), torch.from_numpy(w_rs), nh))
+    if bf16:
+        w1, w2 = (w.float().numpy() for w in wn_pack_weights(
+            torch.from_numpy(w_cat), torch.from_numpy(w_rs), nh))
+
+        def product(a, w):
+            return a @ w
+    else:
+        w1, w2 = (w.float().numpy() for w in wn_split_weights(
+            torch.from_numpy(w_cat), torch.from_numpy(w_rs), nh))
+
+        def product(a, w):
+            return _three_pass(a, w[:, 0], w[:, 1])
     t = np.arange(Tp)
     taps = []
     for shift in (-d, 0, d):
@@ -149,19 +168,21 @@ def _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh):
         tap[:, ok] = x[:, src[ok]]
         taps.append(tap)
     a = np.concatenate(taps, axis=-1).reshape(M, 3 * C)
-    packed = np.concatenate([_three_pass(a, w1[h, :, 0], w1[h, :, 1])
-                             for h in range(nh)], axis=1)
+    packed = np.concatenate([product(a, w1[h]) for h in range(nh)], axis=1)
     # packed column 16 q + 8 s + e is acts column s * C + 8 q + e
     acts = packed.reshape(M, C // 8, 2, 8).transpose(0, 2, 1, 3) \
         .reshape(M, 2 * C) + b + cond.reshape(M, 2 * C)
     z = np.tanh(acts[:, :C]) / (1 + np.exp(-acts[:, C:]))
-    rs = np.concatenate([_three_pass(z, w2[h, :, 0], w2[h, :, 1])
-                         for h in range(w2.shape[0])], axis=1) + b_rs
+    out = _bf16_round if bf16 else (lambda v: v)
+    if bf16:
+        z = _bf16_round(z)
+    rs = np.concatenate([product(z, w2[h]) for h in range(w2.shape[0])],
+                        axis=1) + b_rs
     rs = rs.reshape(B, Tp, -1)
     if w_rs.shape[1] == C:
-        return None, rs
+        return None, out(rs)
     valid = (t < T)[None, :, None]
-    return np.where(valid, x + rs[..., :C], 0), rs[..., C:]
+    return out(np.where(valid, x + rs[..., :C], 0)), out(rs[..., C:])
 
 
 class TestKernelArithmetic:
@@ -195,6 +216,37 @@ class TestKernelArithmetic:
                 assert ours[0] is None
             else:
                 assert np.all(ours[0][:, T:] == 0)
+
+    @pytest.mark.parametrize("last", [False, True])
+    def test_bf16_emulation_matches_pallas_interpret(self, last):
+        """The bf16 body's arithmetic at flagship width (C = 256), for both
+        column-pass layouts built, against the Pallas kernel in interpret
+        mode on bf16 inputs: within 1e-2 of the output scale (each output
+        is one bf16 rounding on both sides, which the fp32 sums' order and
+        z's rounding move by a step)."""
+        rng = np.random.default_rng(11)
+        B, C, T, Tp, tile, d = 1, 256, 300, 384, 128, 8
+        args = [_bf16_round(a) for a in _layer_inputs(rng, B, C, T, Tp,
+                                                       last)]
+        x, cond, w_cat, b, w_rs, b_rs = args
+        xj, M = jnp.asarray(x, jnp.bfloat16), B * Tp
+        ref = wn_layer_fused(
+            _shift_t(xj, d).reshape(M, C), xj.reshape(M, C),
+            _shift_t(xj, -d).reshape(M, C),
+            jnp.asarray(cond, jnp.bfloat16).reshape(M, -1),
+            *(jnp.asarray(a, jnp.bfloat16) for a in (w_cat, b, w_rs, b_rs)),
+            T=T, Tp=Tp, last=last, tile=tile, interpret=True)
+        for nh in sorted(set(WN_BUILDS[C].values())):
+            ours = _emulate_wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, nh,
+                                     bf16=True)
+            for o, r in zip(ours, ref):
+                if o is None:
+                    continue
+                r = np.asarray(jnp.asarray(r, jnp.float32)).reshape(o.shape)
+                err, scale = np.abs(o - r).max(), np.abs(r).max()
+                print(f"K2 bf16 emulation nh={nh} last={last}: max |err| "
+                      f"{err:.3g}, scale {scale:.3g}")
+                assert err <= 1e-2 * scale
 
     @pytest.mark.parametrize("C", [512, 1024])
     def test_emulation_at_the_wide_builds(self, C):
@@ -354,6 +406,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("C,B,d,last", [(64, 2, 4, False), (64, 2, 4, True),
                                         (256, 8, 8, False),
                                         (256, 2, 128, True),
@@ -361,12 +415,13 @@ def cuda_device():
                                         (512, 1, 128, True),
                                         (1024, 2, 4, False),
                                         (1024, 1, 64, True)])
-def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last):
+def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last, dtype):
     """K2 against its plain version, with pad rows and a strided cond
     slice: C = 64 (the smallest width built), the flagship C = 256 at the
     server's largest batch, and its last layer (d = 128), and the wide
     builds C = 512 and 1024 (several column passes); pad rows zero, two
-    calls bitwise equal."""
+    calls bitwise equal. fp32 within 1e-4; the bf16 body (every tensor
+    bf16) within 1e-2 of the output scale."""
     g = torch.Generator().manual_seed(0)
     T, Tp = 300, 384
     x = torch.randn(B, Tp, C, generator=g)
@@ -377,6 +432,8 @@ def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last):
                torch.randn(2 * C, generator=g),
                0.1 * torch.randn(C, n_rs, generator=g),
                torch.randn(n_rs, generator=g)]
+    x, cond_all = x.to(dtype), cond_all.to(dtype)
+    weights = [w.to(dtype) for w in weights]
     ref = wn_layer_reference(x, d, cond_all[..., 2 * C:4 * C], *weights, T)
     cond_dev = cond_all.to(cuda_device)[..., 2 * C:4 * C]   # row stride 6C
     dev_args = [x.to(cuda_device), d, cond_dev,
@@ -387,7 +444,12 @@ def test_kernel_matches_plain_on_card(cuda_device, C, B, d, last):
         if r is None:
             assert a is None and a2 is None
         else:
-            torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=0)
+            assert a.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=0)
+            else:
+                assert float((a.cpu().float() - r.float()).abs().max()) \
+                    <= 1e-2 * float(r.float().abs().max())
             assert torch.equal(a, a2)
     if not last:
         assert bool((ours[0][:, T:] == 0).all())
