@@ -2899,12 +2899,49 @@ def rel(a, b):
     return abs(a - b) / abs(b)
 
 
+def param_err(model, ref_state):
+    """The worst tensor of ``model`` against ``ref_state`` (host tensors):
+    (max-abs of its largest, at least 1e-6: a conv bias before an
+    instance norm has no gradient, only noise; its name)."""
+    worst, worst_name = 0.0, None
+    for name, ref in ref_state.items():
+        got = model.state_dict()[name].detach().cpu()
+        scale = max(float(ref.abs().max()), 1e-6)
+        err = float((got - ref).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def at_rest_split(model, opt, M=2):
+    """One process's bytes at rest (parameters, buffers, optimizer state)
+    and the part of them in the leaves a ``model`` axis of M shards
+    (parallel/mesh.py:param_shardings, with their moments)."""
+    from flowtron_tpu_torch.parallel.mesh import param_shardings
+    dims = param_shardings(model, M)
+    state = [v for st in opt.state.values() for v in st.values()
+             if torch.is_tensor(v)]
+    total = nbytes([*model.parameters(), *model.buffers(), *state])
+    sharded = 0
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        if dims[name] is not None:
+            st = opt.state.get(t, {})
+            sharded += nbytes([t, *(v for v in st.values()
+                                    if torch.is_tensor(v) and v.dim())])
+    return {"bytes": total, "sharded_bytes": sharded}
+
+
 def phase_ddp(corpus, tmp, dev):
     """Data-parallel training: config.json's model at full width in fp32,
     dropout off, a global batch of 6 over DDP_STEPS steps of the synthetic
     corpus (its rows hold different frame counts), once in this process
-    and once over two ranks on cuda:0 (gloo; NCCL refuses two ranks on one
-    card), each rank 3 rows. Losses (1e-4), grad norms (1e-3) and the
+    (``batch_size`` 6) and once over two ranks on cuda:0 (gloo; NCCL
+    refuses two ranks on one card), each rank 3 rows (``batch_size`` 3:
+    the global batch is ``batch_size`` x world). Losses (1e-4), grad norms (1e-3) and the
     validations against the one process, the final parameters within
     PARAM_TOL, the ranks bitwise equal, K3 launched on each rank; then the
     ranks' last checkpoint, a torch.distributed.checkpoint directory both
@@ -2935,15 +2972,18 @@ def phase_ddp(corpus, tmp, dev):
     finally:
         loop.flowtron_forward = forward
     one_launches = attention_scores_fwd.launches
-    one_digest = state_digest(model, opt)
-    one_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    one_state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+    one = {"state": one_state, "log": read_log(one_dir), "train_fl": train_fl,
+           **at_rest_split(model, opt)}
     del model, opt
-    one_log = read_log(one_dir)
+    one_log = one["log"]
 
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         ranks = launch(f"{RANKS_MODULE}:ddp_rank", 2, dict(config=ddp_config(
             train_fl, corpus[1], two_dir,
+            f"train_config.batch_size={DDP_B // 2}",
             "train_config.checkpoint_format=sharded")), timeout_s=600)
     two_wall = time.perf_counter() - t0
     two_log = ranks[0]["log"]
@@ -2983,17 +3023,11 @@ def phase_ddp(corpus, tmp, dev):
     check(it == DDP_CKPT and state_digest(model, opt) == ranks[0]["digest"],
           f"ddp: the directory {ckpt} did not restore the ranks' state "
           "bitwise")
-    worst, worst_name = 0.0, None
-    for name, ref in one_state.items():
-        got = model.state_dict()[name]
-        scale = max(float(ref.abs().max()), 1e-6)
-        err = float((got - ref).abs().max()) / scale
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name = param_err(model, one_state)
     check(worst <= PARAM_TOL, f"ddp: {worst_name} {worst} of its largest "
           "from the one process's")
     files = sorted(os.listdir(ckpt))
-    del model, opt, one_state
+    del model, opt
     torch.cuda.empty_cache()
     emit("ddp", world=2, backend="gloo", device="cuda:0", B_global=DDP_B,
          B_rank=DDP_B // 2, steps=DDP_STEPS, policy="fp32",
@@ -3016,7 +3050,7 @@ def phase_ddp(corpus, tmp, dev):
          launches_ranks=[r["launches"] for r in ranks],
          note="two ranks share one card over gloo, which stages each "
               "all-reduce through the host: no NVLink or NCCL figure")
-    return [r["launches"] for r in ranks]
+    return [r["launches"] for r in ranks], one
 
 
 def waveglow_rank(argv):
@@ -3035,7 +3069,8 @@ def phase_waveglow_ddp(corpus, tmp):
     """The vocoder trainer on config_waveglow.json at full width (256
     channels, a width K2 is built for) in fp32, a global batch of WG_B over
     WG_DDP_STEPS steps: in this process and over two ranks on cuda:0
-    (gloo), each rank WG_B // 2 rows of the same draw. Each step's loss
+    (gloo), each rank WG_B // 2 rows of the same draw (``batch_size``
+    WG_B // 2: the global batch is ``batch_size`` x world). Each step's loss
     within 1e-4 relative, the ranks' losses equal."""
     from flowtron_tpu_torch.parallel.launch import launch
 
@@ -3045,8 +3080,8 @@ def phase_waveglow_ddp(corpus, tmp):
                    "train_config.fp16_run=False")
     one = waveglow_rank(argv)
     t0 = time.perf_counter()
-    ranks = launch(f"{RANKS_MODULE}:waveglow_rank", 2, dict(argv=argv),
-                   timeout_s=600)
+    ranks = launch(f"{RANKS_MODULE}:waveglow_rank", 2, dict(
+        argv=argv + [f"train_config.batch_size={WG_B // 2}"]), timeout_s=600)
     wall = time.perf_counter() - t0
     losses = [one["losses"]] + [r["losses"] for r in ranks]
     check(all(len(x) == WG_DDP_STEPS for x in losses),
@@ -3062,6 +3097,311 @@ def phase_waveglow_ddp(corpus, tmp):
          wall_s_ranks=wall,
          note="two ranks share one card over gloo: no NVLink or NCCL "
               "figure")
+
+
+TP_DIST = ("dist_config.mesh_axis_names=['data','model']",)
+TP4_STEPS, TP4_FLOWS = 2, 1  # the (2, 2) grid's run: steps, flows (depth)
+
+
+def tp_rank(config):
+    """One rank of phase_tp_train: ddp_rank's run on a grid with a
+    ``model`` axis, plus this rank's bytes at rest (parameters, buffers
+    and optimizer state of its slices) as the run's TensorParallel counts
+    them at its last gather."""
+    from flowtron_tpu_torch.train import loop
+    rest = []
+
+    class Counted(loop.TensorParallel):
+        def unshard(self):
+            if self.sharded:
+                rest.append(self.at_rest_bytes())
+            super().unshard()
+    loop.TensorParallel = Counted
+    out = ddp_rank(config)
+    out["at_rest_bytes"] = rest[-1]
+    return out
+
+
+def tp_run(config, world, tag):
+    """``world`` ranks of ``tp_rank`` on cuda:0 (gloo) and their wall
+    seconds."""
+    from flowtron_tpu_torch.parallel.launch import launch
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ranks = launch(f"{RANKS_MODULE}:tp_rank", world, dict(config=config),
+                       timeout_s=600)
+    check(all(r["device"] == "cuda:0" and r["world"] == world for r in ranks),
+          f"{tag}: ranks {[(r['device'], r['world']) for r in ranks]}")
+    check(all(r["launches"]["attention_scores_fwd"] > 0
+              and r["launches"]["attention_scores_bwd"] > 0 for r in ranks),
+          f"{tag}: K3 not launched on every rank "
+          f"{[r['launches'] for r in ranks]}")
+    check(len({r["digest"] for r in ranks}) == 1,
+          f"{tag}: the ranks' final states differ")
+    return ranks, time.perf_counter() - t0
+
+
+def tp_compare(tag, one_log, ranks):
+    """Losses, grad norms and validations of rank 0's log against one
+    process's; returns their relative errors."""
+    logs = (one_log, ranks[0]["log"])
+    steps = [[r for r in log if "loss" in r] for log in logs]
+    vals = [[r["validation"] for r in log if "validation" in r]
+            for log in logs]
+    check(len(steps[0]) == len(steps[1]) > 0,
+          f"{tag}: steps {[len(x) for x in steps]}")
+    err = {"loss": [rel(b["loss"], a["loss"]) for a, b in zip(*steps)],
+           "grad_norm": [rel(b["grad_norm"], a["grad_norm"])
+                         for a, b in zip(*steps)],
+           "validation": [rel(b["loss"], a["loss"]) for a, b in zip(*vals)]}
+    check(max(err["loss"]) <= LOSS_TOL and max(err["validation"]) <= LOSS_TOL
+          and max(err["grad_norm"]) <= GNORM_TOL, f"{tag} vs one process: "
+          f"{err}")
+    return err, steps
+
+
+def tp_resume(tag, cfg, out_dir, it, digest, dev):
+    """The ranks' last directory resumed in this process: model and
+    optimizer bitwise the ranks' (gathered) state; returns the model."""
+    from flowtron_tpu_torch.models.flowtron import flowtron_init
+    from flowtron_tpu_torch.train.checkpoints import load_checkpoint
+    from flowtron_tpu_torch.train.radam import (
+        build_optimizer, trainable_parameters)
+    tc = cfg["train_config"]
+    model, _ = flowtron_init(int(tc["seed"]) + 1, device=dev,
+                             **cfg["model_config"])
+    opt = build_optimizer([p for _, p in trainable_parameters(model)],
+                          tc["optim_algo"], float(tc["learning_rate"]),
+                          float(tc["weight_decay"]))
+    ckpt = os.path.join(out_dir, f"model_{it}")
+    check(load_checkpoint(ckpt, model, opt) == it
+          and state_digest(model, opt) == digest,
+          f"{tag}: the directory {ckpt} did not restore the ranks' state "
+          "bitwise")
+    return model
+
+
+def phase_tp_train(corpus, tmp, one, dev):
+    """Tensor parallelism: config.json's model at full width in fp32,
+    dropout off, ddp's global batch of 6 over DDP_STEPS steps, on a (1, 2)
+    data x model grid of two gloo ranks on cuda:0, each loading the 6 rows
+    (``batch_size`` 3: the global batch is ``batch_size`` x world), against
+    phase_ddp's one process: losses and validations 1e-4, grad norms 1e-3,
+    the parameters within PARAM_TOL, the ranks' states bitwise alike, K3
+    on each rank, each rank's bytes at rest beside one process's and the
+    split the code predicts (the sharded leaves' share halved); the ranks'
+    directory resumed here bitwise. Then a (2, 2) grid of four ranks at
+    TP4_FLOWS flow(s) (the depth cut), TP4_STEPS steps of a global batch of
+    4, against one process at that depth, and its directory resumed
+    bitwise. Gloo stages each collective through the host: the ms a step
+    stand for no NVLink setup."""
+    from flowtron_tpu_torch.train import loop
+    out_dir = os.path.join(tmp, "tp12")
+    cfg = ddp_config(one["train_fl"], corpus[1], out_dir,
+                     f"train_config.batch_size={DDP_B // 2}",
+                     "dist_config.mesh_shape=[1,2]", *TP_DIST,
+                     "train_config.checkpoint_format=sharded")
+    ranks, wall = tp_run(cfg, 2, "tp_train")
+    err, steps = tp_compare("tp_train", one["log"], ranks)
+    model = tp_resume("tp_train", cfg, out_dir, DDP_CKPT, ranks[0]["digest"],
+                      dev)
+    worst, worst_name = param_err(model, one["state"])
+    check(worst <= PARAM_TOL, f"tp_train: {worst_name} {worst} of its "
+          "largest from the one process's")
+    del model
+    torch.cuda.empty_cache()
+    predicted = one["bytes"] - one["sharded_bytes"] // 2
+    rest = [r["at_rest_bytes"] for r in ranks]
+    check(rest == [predicted] * 2, f"tp_train: at rest {rest} bytes a rank, "
+          f"predicted {predicted} (one process {one['bytes']})")
+
+    # the (2, 2) grid, four ranks, at reduced depth
+    fl4 = filelist_of(corpus[0], 4 * TP4_STEPS, os.path.join(tmp, "tp4.txt"))
+    small = (f"model_config.n_flows={TP4_FLOWS}",
+             f"train_config.iters_per_checkpoint={TP4_STEPS - 1}")
+    one4_dir, out4 = (os.path.join(tmp, d) for d in ("tp4_one", "tp4"))
+    forward = no_dropout(loop)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            loop.train(ddp_config(fl4, corpus[1], one4_dir, *small,
+                                  "train_config.batch_size=4"))
+    finally:
+        loop.flowtron_forward = forward
+    torch.cuda.empty_cache()
+    cfg4 = ddp_config(fl4, corpus[1], out4, *small,
+                      "train_config.batch_size=1",
+                      "dist_config.mesh_shape=[2,2]", *TP_DIST,
+                      "train_config.checkpoint_format=sharded")
+    ranks4, wall4 = tp_run(cfg4, 4, "tp_train 2x2")
+    err4, steps4 = tp_compare("tp_train 2x2", read_log(one4_dir), ranks4)
+    tp_resume("tp_train 2x2", cfg4, out4, TP4_STEPS - 1, ranks4[0]["digest"],
+              dev)
+    torch.cuda.empty_cache()
+    emit("tp_train", grid={"data": 1, "model": 2}, world=2, backend="gloo",
+         device="cuda:0", B_global=DDP_B, rows_a_rank=DDP_B,
+         steps=DDP_STEPS, policy="fp32",
+         loss_one=[r["loss"] for r in steps[0]],
+         loss_ranks=[r["loss"] for r in steps[1]],
+         loss_rel_err=err["loss"], grad_norm_rel_err=err["grad_norm"],
+         validation_rel_err=err["validation"], param_rel_err_max=worst,
+         param_rel_err_tensor=worst_name, ranks_bitwise_equal=True,
+         resume_bitwise=True, at_rest_bytes_one=one["bytes"],
+         at_rest_bytes_ranks=rest, at_rest_bytes_predicted=predicted,
+         sharded_share_predicted=one["sharded_bytes"] / one["bytes"],
+         ms_per_step_one=1e3 * statistics.median(
+             r["step_s"] for r in steps[0][1:]),
+         ms_per_step_ranks=1e3 * statistics.median(
+             r["step_s"] for r in steps[1][1:]),
+         step_ms_ranks=[1e3 * r["step_s"] for r in steps[1]],
+         wall_s_ranks=wall, launches_ranks=[r["launches"] for r in ranks],
+         grid_2x2=dict(world=4, n_flows=TP4_FLOWS, steps=TP4_STEPS,
+                       B_global=4, loss_rel_err=err4["loss"],
+                       grad_norm_rel_err=err4["grad_norm"],
+                       validation_rel_err=err4["validation"],
+                       step_ms_ranks=[1e3 * r["step_s"] for r in steps4[1]],
+                       at_rest_bytes_ranks=[r["at_rest_bytes"]
+                                            for r in ranks4],
+                       wall_s_ranks=wall4, resume_bitwise=True,
+                       launches_ranks=[r["launches"] for r in ranks4]),
+         note="the ranks share one card over gloo, which stages each "
+              "collective through the host: no NVLink or NCCL figure")
+    return [r["launches"] for r in ranks]
+
+
+MESH_B = 4          # serve_mesh: the batch of the (2, 2) engine's chain
+
+
+def phase_serve_mesh(ft_path, wg_path, kernels, dev):
+    """The serving mesh. The CLI with ``--mesh 1,1`` beside ``--replicas
+    2 --vocode-buckets 120,240 --fused --warmup``: JAX's three warnings
+    print, a wave is answered, K1 launched 0 times and K2 on every
+    request. Then an engine at mesh_shape (2, 2) on ``devices=[cuda:0] *
+    4`` (the flows' sharded leaves split over four views of the card)
+    against the same engine without a mesh, on the same seeds and a
+    per-row temperature (so both run the per-frame loop): the mel within
+    1e-4 (TF32 off), n_valid identical, the audio within 1e-4 of its
+    scale; then a wave through its dispatcher, requests/s, K1 0 and K2
+    launched."""
+    from flowtron_tpu_torch.config import load_config
+    from flowtron_tpu_torch.serve import SynthesisEngine
+    from flowtron_tpu_torch.serve.cli import build_server
+    from flowtron_tpu_torch.utils.weights import ShardedWeight
+
+    bodies = [{"text": t, "seed": REQ_SEED + 40 + i}
+              for i, t in enumerate(TEXTS)]
+    argv = ["-c", "config.json", "-f", ft_path, "-w", wg_path, "--port",
+            "0", "--n-frames", str(N_FRAMES), "--mesh", "1,1", "--replicas",
+            "2", "--vocode-buckets", "120,240", "--fused", "--warmup", "-p",
+            NO_ARPABET]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        server, engines = build_server(argv, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        results, cli_wall = wave_of(url, bodies)
+        torch.cuda.synchronize()
+        cli_launches = read_launches(kernels)
+        check_answers("serve_mesh --mesh 1,1", bodies, results, N_FRAMES)
+        eng = engines["default"]
+        decided = (eng._n_replicas, eng._vocode_buckets, eng.fused)
+    finally:
+        server.shutdown()
+        server.server_close()
+        for e in engines.values():
+            e.shutdown()
+        thread.join(timeout=60)
+        torch.cuda.empty_cache()
+    warnings_ = [w for w in (
+        "WARNING: --replicas is incompatible with --mesh; ignoring replicas",
+        "WARNING: --vocode-buckets is not supported with --mesh; using the "
+        "one-dispatch chain",
+        "WARNING: --fused is incompatible with --mesh (VMEM-resident kernel "
+        "vs TP-sharded weights); disabling fused") if w in said.getvalue()]
+    check(len(warnings_) == 3 and decided == (1, None, False),
+          f"serve_mesh: warnings {said.getvalue()!r}, decisions {decided}")
+    check(cli_launches["fused_flow_infer"] == 0
+          and cli_launches["wn_layer"] > 0,
+          f"serve_mesh --mesh 1,1: {cli_launches}")
+
+    config = load_config("config.json", [NO_ARPABET])
+    kw = dict(max_batch=MESH_B, n_frames=N_FRAMES, device=dev)
+    flat = SynthesisEngine(config, ft_path, wg_path, **kw)
+    mesh = SynthesisEngine(config, ft_path, wg_path, mesh_shape=(2, 2),
+                           devices=[dev] * 4, **kw)
+    try:
+        w = mesh._groups[1].model.flows[0].lstm.weight_ih_l0
+        check(isinstance(w, ShardedWeight) and len(w.parts) == 2,
+              f"serve_mesh: the flows' LSTM weight is {type(w).__name__}")
+        ids = np.asarray(mesh.frontend.get_text(TEXTS[0]))
+        B = MESH_B
+        text = np.zeros((B, 128), np.int64)
+        text[:, :len(ids)] = ids
+        args = (np.arange(B) + REQ_SEED, np.full(B, SIGMA, np.float32),
+                np.zeros(B, np.int64), text, np.full(B, len(ids)),
+                np.ones((B, 1), np.float32), np.full(B, N_FRAMES))
+        strengths = np.zeros(B, np.float32)
+        reset_launches(kernels)
+        mel0, nv0 = flat._synth_mel(*args)
+        pcm0 = flat._vocode_norm(mel0, nv0, args[0], strengths)
+        n = B // 2
+        mels, nvs = [], []
+        for g, rep in enumerate(mesh._groups):
+            r = slice(g * n, (g + 1) * n)
+            m, v = mesh._synth_mel(*(a[r] for a in args), rep)
+            mels.append(m.to(dev))
+            nvs.append(v.to(dev))
+        mel1, nv1 = torch.cat(mels), torch.cat(nvs)
+        _, pcm1, nv2 = mesh._mesh_chain(*args, strengths)
+        torch.cuda.synchronize()
+        chain_launches = read_launches(kernels)
+        mel_err = float((mel1 - mel0).abs().max())
+        audio_err = float((pcm1.float() - pcm0.float()).abs().max()) / 32767
+        check(torch.equal(nv0, nv1) and torch.equal(nv0, nv2)
+              and mel_err <= 1e-4 and audio_err <= 1e-4,
+              f"serve_mesh (2, 2) vs no mesh: mel {mel_err}, audio "
+              f"{audio_err} of its scale, n_valid {nv0.tolist()} / "
+              f"{nv1.tolist()} / {nv2.tolist()}")
+
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        outs = [None] * len(TEXTS)
+
+        def run(i):
+            outs[i] = mesh.submit(TEXTS[i], 0, seed=REQ_SEED + 50 + i)
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(TEXTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mesh_launches = read_launches(kernels)
+        check(all(o is not None and len(o[0]) > 0 for o in outs)
+              and mesh_launches["fused_flow_infer"] == 0
+              and mesh_launches["wn_layer"] > 0,
+              f"serve_mesh (2, 2) wave: {mesh_launches}")
+        metrics = mesh.metrics()
+    finally:
+        flat.shutdown()
+        mesh.shutdown()
+        torch.cuda.empty_cache()
+    emit("serve_mesh", cli_mesh=[1, 1], cli_warnings=warnings_,
+         cli_requests=len(bodies), cli_wall_s=cli_wall,
+         cli_requests_per_s=len(bodies) / cli_wall,
+         cli_launches=cli_launches, engine_mesh=[2, 2],
+         devices="cuda:0 x 4", chain_B=B, mel_max_abs_err=mel_err,
+         audio_err_of_scale=audio_err, n_valid=nv0.tolist(),
+         chain_launches=chain_launches, requests=len(TEXTS), wall_s=wall,
+         requests_per_s=len(TEXTS) / wall, batches=metrics["batches"],
+         launches=mesh_launches,
+         note="four views of one card: no second-card or NVLink figure")
+    return mesh_launches
 
 
 def post_pcm(url, body):
@@ -4523,6 +4863,7 @@ def main():
         serve_staged = phase_serve_staged(ft_path, wg_path, kernels)
         gl_serve = phase_griffin_lim_serve(ft_path, kernels)
         serve_replicas = phase_serve_replicas(ft_path, wg_path, kernels)
+        serve_mesh = phase_serve_mesh(ft_path, wg_path, kernels, dev)
         serve_models, serve_profile = phase_serve_admin(
             ft_path, wg_path, kernels, smi, tmp)
     paths = dict(inference=infer_launches, stream=stream_launches,
@@ -4530,6 +4871,7 @@ def main():
                  serve_stream=serve_stream, griffin_lim_serve=gl_serve,
                  serve_w8a8=q_serve, mux=mux_launches, serve_mux=serve_mux,
                  serve_staged=serve_staged, serve_replicas=serve_replicas,
+                 serve_mesh=serve_mesh,
                  serve_models=serve_models, serve_profile=serve_profile,
                  bf16_slice=slice16, serve_bf16=serve16,
                  serve_bf16_w8a8=q_serve16,
@@ -4567,13 +4909,16 @@ def main():
         phase_waveglow_train_vs_cpu(corpus, dev)
         wide_launches = phase_waveglow_wide(corpus, tmp, kernels, dev)
         phase_entry()
-        ddp_launches = phase_ddp(corpus, tmp, dev)
+        ddp_launches, one = phase_ddp(corpus, tmp, dev)
+        tp_launches = phase_tp_train(corpus, tmp, one, dev)
+        del one
         phase_waveglow_ddp(corpus, tmp)
     emit("launches_by_path", **paths, train_fp32=train_launches,
          train_gm=gm_run["launches"], train_remat=remat_launches,
          cumm_train=cumm_launches, cumm_request=cumm_infer,
          evaluate=eval_launches, waveglow_wide=wide_launches,
-         ddp_ranks=ddp_launches, style_transfer=style_launches)
+         ddp_ranks=ddp_launches, tp_train_ranks=tp_launches,
+         style_transfer=style_launches)
     probes, probe_launches = phase_probes(kernels, k1_frames, dev)
     loaded = [m for m in sys.modules if m in ("jax", "optax", "flowtron_tpu")
               or m.startswith(("jax.", "optax.", "flowtron_tpu."))]

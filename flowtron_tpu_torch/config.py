@@ -142,13 +142,19 @@ def update_params(config, params):
 
 
 def load_config(path=None, overrides=()):
-    """Load a config JSON (defaults filled in) and apply overrides."""
+    """Load a config JSON (defaults filled in) and apply overrides. A
+    top-level entry that is not a section (configs/config_multislice.json's
+    ``_comment`` list) is kept as it is; the JAX package's copy raises on
+    it."""
     config = copy.deepcopy(DEFAULT_CONFIG)
     if path is not None:
         with open(path) as f:
             user = json.load(f)
         for section, values in user.items():
-            config.setdefault(section, {}).update(values)
+            if isinstance(values, dict):
+                config.setdefault(section, {}).update(values)
+            else:
+                config[section] = values
     if overrides:
         update_params(config, list(overrides))
     return config

@@ -9,15 +9,17 @@ forward of the flagship model (LJS, 2 flows, n_hidden 1024) and its total
 loss (nll + gate + 0.01 ctc), ``example_args`` the model and a B=4,
 T=128, Tk=48 batch, on the card (``utils/device.py``).
 
-``dryrun_multichip(n)`` runs one data-parallel training step and one
-inference + vocoder pass over ``n`` gloo ranks on the CPU, at the JAX
-dry run's tiny dims, and prints its two lines in the JAX dry run's shape.
-The layout is data-only: the batch is split over the ranks and every
-parameter replicated. JAX's run also shards the large weights over a
-`model` axis; the port has no tensor parallelism until ROADMAP.md Queue 1
-(l2).
+``dryrun_multichip(n)`` runs one training step and one inference +
+vocoder pass over ``n`` gloo ranks on the CPU, at the JAX dry run's tiny
+dims, on the JAX dry run's grid (``dryrun_layout``: (2, n/4, 2) dcn x data
+x model when 8 divides n, (n/2, 2) data x model for another even n >= 4,
+else n data): the batch split over the batch axes, the large weights
+sharded over ``model`` (parallel/tensor_parallel.py). It prints its two
+lines in the JAX dry run's shape. The inference pass runs each batch
+shard's rows on whole weights gathered in its model group.
 """
 
+import contextlib
 import math
 import sys
 
@@ -79,13 +81,24 @@ def entry(device=None):
                 batch["attn_prior"])
 
 
+def dryrun_layout(n):
+    """The JAX dry run's grid for n devices (``__graft_entry__.py``):
+    (shape, axis names)."""
+    if n % 8 == 0:
+        return (2, n // 4, 2), ("dcn", "data", "model")
+    if n % 2 == 0 and n >= 4:
+        return (n // 2, 2), ("data", "model")
+    return (n,), ("data",)
+
+
 def dryrun_rank(B=8, T=12, Tk=5):
-    """One rank of ``dryrun_multichip``: a training step on this rank's
-    rows of the global batch, then inference and vocoding of its rows.
-    Returns the rank's numbers; rank 0 prints the two lines."""
+    """One rank of ``dryrun_multichip``: a training step on its batch
+    shard's rows of the global batch, then inference and vocoding of
+    them. Returns the rank's numbers; rank 0 prints the two lines."""
     from flowtron_tpu_torch.models.flowtron import (
         flowtron_infer, flowtron_init)
-    from flowtron_tpu_torch.parallel.mesh import rank, world_size
+    from flowtron_tpu_torch.parallel.mesh import Grid, rank, world_size
+    from flowtron_tpu_torch.parallel.tensor_parallel import TensorParallel
     from flowtron_tpu_torch.train.loop import make_train_step, to_device
     from flowtron_tpu_torch.train.radam import (
         build_optimizer, trainable_parameters)
@@ -93,20 +106,27 @@ def dryrun_rank(B=8, T=12, Tk=5):
         waveglow_infer, waveglow_init)
 
     world, me = world_size(), rank()
+    shape, names = dryrun_layout(world)
+    grid = Grid({"mesh_shape": list(shape), "mesh_axis_names": list(names)})
+    b, n_batch = grid.batch_index, grid.n_batch
     cpu = torch.device("cpu")
-    rows = slice(me * B // world, (me + 1) * B // world)
+    rows = slice(b * B // n_batch, (b + 1) * B // n_batch)
     model, cfg = flowtron_init(0, n_flows=2, use_gate_layer=True, **TINY)
     params = [p for _, p in trainable_parameters(model)]
     opt = build_optimizer(params, "RAdam", 1e-3, 1e-6)
-    step = make_train_step(model, cfg, opt, params, TRAIN_CFG)
+    tp = TensorParallel(model, opt, grid) if grid.model_size > 1 else None
+    if tp is not None:
+        params = tp.parameters()
+    step = make_train_step(model, cfg, opt, params, TRAIN_CFG, grid, tp)
     batch = {k: v[rows] for k, v in
              make_batch(B, T, Tk, TINY["n_mel_channels"]).items()}
-    g = torch.Generator().manual_seed(1 + me)
+    g = torch.Generator().manual_seed(1 + b)
     metrics = step(to_device(batch, cpu), g, torch.tensor(0.01),
                    torch.tensor(1.0))
     loss = float(metrics["loss"])
     if me == 0:
-        print(f"dryrun_multichip({world}): mesh=({world} data), "
+        desc = " x ".join(f"{s} {n}" for s, n in zip(shape, names))
+        print(f"dryrun_multichip({world}): mesh=({desc}), "
               f"loss={loss:.4f}", flush=True)
 
     wg, wg_cfg = waveglow_init(2, n_mel_channels=TINY["n_mel_channels"],
@@ -116,11 +136,12 @@ def dryrun_rank(B=8, T=12, Tk=5):
     residual = torch.from_numpy(
         (rng.standard_normal((B, M, T)) * 0.5).astype(np.float32))[rows]
     text = torch.from_numpy(rng.integers(1, 185, (B, Tk)))[rows]
-    with torch.no_grad():
+    whole = contextlib.nullcontext() if tp is None else tp.gathered()
+    with torch.no_grad(), whole:
         mel, _, n_valid = flowtron_infer(
             model, cfg, residual, torch.zeros(len(text), dtype=torch.long),
             text, gate_threshold=0.5)
-        audio = waveglow_infer(wg, wg_cfg, mel, sigma=0.8, seed=3 + me)
+        audio = waveglow_infer(wg, wg_cfg, mel, sigma=0.8, seed=3 + b)
     stats = dict(loss=loss, mel_mean=float(mel.mean()),
                  mel_std=float(mel.std()), audio_shape=tuple(audio.shape),
                  audio_std=float(audio.std()),

@@ -19,7 +19,12 @@ early exit on; on CPU tensors a truthy
 other flow runs the per-frame loop ``_scan_infer`` on either device: it is
 the counterpart of JAX's ``lax.scan`` (its body,
 flowtron_tpu/models/ar_step.py:262-314), with every dot through
-``utils/weights.py:qdot`` (so kernel K4 on an ``a8`` quantized flow).
+``utils/weights.py:qdot`` (so kernel K4 on an ``a8`` quantized flow). A
+flow whose weights a serving mesh sharded (``utils/weights.py:
+ShardedWeight``) runs the loop too: each dot multiplies the slices on
+their devices and concatenates on the first, so the loop needs no other
+change; the leaves it does not touch (the encoder, the embedding, the
+speaker table) stay whole on that device.
 
 An external attention map (style transfer, ``attn``: (B, N, Tk)) runs
 the loop, frame t taking ``attn[:, t]`` in place of the attention step, as
@@ -234,10 +239,14 @@ def in_k1_subset(flow, attn_prior, temperature, attn=None):
     """Whether kernel K1 can run this flow: a scalar temperature, no
     attention prior, no external attention map, no quantized weight and no
     cumulative attention, as the JAX package's fused condition
-    (flowtron_tpu/models/ar_step.py:219-223)."""
+    (flowtron_tpu/models/ar_step.py:219-223), and not placed on a serving
+    mesh (``utils/weights.py:shard_flows`` marks it ``on_mesh``): the JAX
+    engine turns ``fused`` off under a mesh, flowtron_tpu/serve/
+    engine.py:63-70, so K1 never sees a sharded weight."""
     scalar_temp = not torch.is_tensor(temperature) or temperature.numel() == 1
     return scalar_temp and attn_prior is None and attn is None \
-        and not is_quantized(flow) and not hasattr(flow, "attn_cond_layer")
+        and not is_quantized(flow) and not getattr(flow, "on_mesh", False) \
+        and not hasattr(flow, "attn_cond_layer")
 
 
 def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
@@ -287,8 +296,8 @@ def _scan_infer(flow, residual, text, key_mask, attn_prior, temperature,
             hs[k], cs[k] = lstm_cell(qdot(x, w_ih) + b_ih + b_hh, hs[k],
                                      cs[k], w_hh)
             x = hs[k]
-        out2 = torch.nn.functional.linear(
-            flow.dense_layer(x), flow.conv.weight[:, :, 0], flow.conv.bias)
+        out2 = linear(flow.dense_layer(x), flow.conv.weight[:, :, 0],
+                      flow.conv.bias)
         prev = (residual[t] - out2[:, n_mel:]) * torch.exp(-out2[:, :n_mel])
         mels.append(prev)
         attns.append(attn_w)

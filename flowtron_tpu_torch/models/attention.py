@@ -9,6 +9,11 @@ The teacher-forced scores go through kernel K3 (``ops/attention.py``).
 ``AttentionConditioning`` is the cumulative-attention layer (port of
 ``attention_conditioning_params`` / ``_apply``): two convs over the
 (cumulative, previous) attention that gate the text keys.
+
+The projections (``query``, ``key``, ``value``) go through
+``layers.linear``, so on a serving mesh, where they are
+``utils/weights.py:ShardedWeight`` slices, each multiplies its slice on
+its device; ``v`` (one output) is never sharded, as in JAX's rule.
 """
 
 import torch

@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flowtron_tpu_torch.utils.weights import QuantizedWeight, qdot
+from flowtron_tpu_torch.utils.weights import (
+    QuantizedWeight, ShardedWeight, qdot,
+)
 
 _GAINS = {
     "linear": 1.0,
@@ -40,9 +42,9 @@ def xavier_uniform(shape, gain=1.0, generator=None):
 def linear(x, weight, bias=None):
     """``F.linear`` with the JAX package's dtype promotion: an fp32 input
     meets bf16 weights in fp32, as ``jnp.dot`` does (the bf16 policy's
-    decoder after the fp32 attention posterior). A quantized weight goes
-    through ``qdot``, as JAX's ``linear_apply`` does."""
-    if isinstance(weight, QuantizedWeight):
+    decoder after the fp32 attention posterior). A quantized or sharded
+    weight goes through ``qdot``, as JAX's ``linear_apply`` does."""
+    if isinstance(weight, (QuantizedWeight, ShardedWeight)):
         y = qdot(x, weight)
         return y if bias is None else y + bias
     dt = torch.promote_types(x.dtype, weight.dtype)

@@ -29,13 +29,15 @@ Like the JAX script, it reads neither ``checkpoint_path`` nor
 ``with_tensorboard``. It runs on this rank's card (``cuda:0`` for one
 process), or the CPU with ``FLOWTRON_PLATFORM=cpu`` (``utils/device.py``).
 Under several processes (``dist_config`` or ``torchrun`` with
-``dist_config.multiprocess=true``, parallel/mesh.py) ``batch_size`` is
-the global batch, as the JAX script's batch over its mesh: every rank
+``dist_config.multiprocess=true``, parallel/mesh.py) the global batch is
+``batch_size`` x world, as the JAX script trains ``batch_size`` x n_dev
+over a mesh of every device whatever ``dist_config`` says: every rank
 draws the same global batch from the one seeded generator and takes its
-``batch_size // world`` rows; its loss is its rows' sums over the global
-batch's element count, and the gradients are summed over the ranks before
-Adam, so each step is the global batch's. Only rank 0 prints and writes
-the checkpoints.
+``batch_size`` rows; its loss is its rows' sums over the global batch's
+element count, and the gradients are summed over the ranks before Adam,
+so each step is the global batch's. A ``model`` axis in ``mesh_shape``
+changes nothing here: every rank is on the batch, as in the JAX script.
+Only rank 0 prints and writes the checkpoints.
 """
 
 import argparse
@@ -51,7 +53,7 @@ from flowtron_tpu_torch.config import update_params
 from flowtron_tpu_torch.data.dataset import load_wav
 from flowtron_tpu_torch.parallel.mesh import (
     all_reduce_sum, broadcast_module, maybe_initialize_distributed,
-    process_grid, rank, refuse_model_axis, sync_gradients, world_size,
+    process_grid, rank, sync_gradients, world_size,
 )
 from flowtron_tpu_torch.utils.device import resolve_device
 from flowtron_tpu_torch.vocoder.waveglow import (
@@ -134,17 +136,16 @@ def main(argv=None):
     tc, dc, wc = (config["train_config"], config["data_config"],
                   config["waveglow_config"])
     dist_config = config.get("dist_config", {})
-    refuse_model_axis(dist_config)
     maybe_initialize_distributed(dist_config)
-    process_grid(dist_config)
+    process_grid(dist_config)       # a grid that holds the world's ranks
     world, lead = world_size(), rank() == 0
     device = resolve_device()
 
     seed = int(tc.get("seed", 1234))
     model, wg_cfg = waveglow_init(seed, device=device, **wc)
     broadcast_module(model)
-    batch_size = int(tc["batch_size"])
-    local = max(1, batch_size // world)
+    local = int(tc["batch_size"])
+    batch_size = local * world
     rows = slice(rank() * local, (rank() + 1) * local)
     hop = dc["hop_length"]
     seg = (int(dc["segment_length"]) // hop) * hop

@@ -58,16 +58,16 @@ POST /profile     {"seconds": 1.0, "dir": optional} -> a torch.profiler
 GET /             -> the endpoint index
 
 ``--profiler-port P`` answers POST /profile on a second port;
-``--compile-cache DIR`` makes DIR the kernel libraries' build directory.
-Not ported yet, each refused with its ROADMAP.md item: ``--mesh`` and
-``--bf16``.
+``--compile-cache DIR`` makes DIR the kernel libraries' build directory;
+``--mesh D,M`` serves over a data x model mesh of the visible cards
+(engine.py), ``--bf16`` in bf16. Every flag of the JAX server is ported.
 
 Run: python -m flowtron_tpu_torch.serve -c config.json -f model.pt
      [-w waveglow.pt -d 0.1 --stream-workers 2 | --stream-mux 8
      --mux-joins-per-tick 2] [--vocode-buckets 120,240] [--port 8080
      --max-batch 8 --batch-timeout-ms 20 --max-queue 64
-     --quantize w8|w8a8|w4 --warmup --compile-cache DIR
-     --profiler-port P]
+     --quantize w8|w8a8|w4 --bf16 --mesh D,M --warmup
+     --compile-cache DIR --profiler-port P]
 """
 
 from flowtron_tpu_torch.serve.common import (EngineOverloaded, TextTooLong,

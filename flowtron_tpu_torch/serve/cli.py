@@ -7,8 +7,8 @@ server in-process.
     python -m flowtron_tpu_torch.serve -c config.json -f model.pt \\
         [-w waveglow.pt] [-d 0.1] [--stream-workers 2 | --stream-mux 8 \\
         [--mux-joins-per-tick 2]] [--vocode-buckets 120,240] \\
-        [--quantize w8a8] [--bf16] [--max-batch 8] [--replicas N|auto] \\
-        [--warmup] [--compile-cache DIR] [--profiler-port P] \\
+        [--quantize w8a8] [--bf16] [--max-batch 8] [--replicas N|auto | \\
+        --mesh D,M] [--warmup] [--compile-cache DIR] [--profiler-port P] \\
         [--model NAME=CONFIG:CKPT[:VOCODER] ...]
 
 Without ``-w`` the server vocodes with Griffin-Lim on the host and cannot
@@ -25,9 +25,13 @@ starts a second HTTP listener on P that answers ``POST /profile`` alone,
 with the main server's capture and lock. TensorBoard's remote-capture
 button does not reach it.
 
+``--mesh D,M``: the JAX server's data x model serving mesh over the
+visible cards (engine.py's ``mesh_shape``); it wins over ``--replicas``
+and turns ``--vocode-buckets`` and ``--fused`` off, each with the JAX
+server's warning.
+
 Runs on cuda:0 (``--replicas``: one copy a card); ``FLOWTRON_PLATFORM=cpu``
-runs it on the CPU. The JAX server's flags that are not ported exit with
-an error naming their ROADMAP.md item.
+runs it on the CPU. Every flag of the JAX server is ported.
 """
 
 import argparse
@@ -44,11 +48,9 @@ from flowtron_tpu_torch.serve.http import (
 )
 from flowtron_tpu_torch.utils.device import resolve_device
 
-# flag -> its ROADMAP.md item (Queue 1)
-UNPORTED_FLAGS = {
-    "mesh": ("--mesh", "(l2) Item 16b / slice C item 23b: the `model` "
-             "axis"),
-}
+# the JAX server's flags that the port refuses (flag -> its ROADMAP.md
+# item): none since the serving mesh
+UNPORTED_FLAGS = {}
 
 
 def _parser():
@@ -89,6 +91,10 @@ def _parser():
                              "model-and-vocoder copy a visible card, "
                              "micro-batches dispatched round-robin; 'auto' "
                              "= the card count, N above it clamps")
+    parser.add_argument("--mesh", default="",
+                        help="multi-chip serving mesh 'data,model', e.g. "
+                             "'2,4': weights tensor-parallel over model, "
+                             "requests sharded over data")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--batch-timeout-ms", type=float, default=20.0)
@@ -126,9 +132,6 @@ def _parser():
                              "main server's capture and lock); "
                              "TensorBoard's remote-capture button does not "
                              "reach it")
-    for dest, (flag, _) in UNPORTED_FLAGS.items():
-        parser.add_argument(flag, dest=dest, default=None,
-                            help="not ported yet")
     return parser
 
 
@@ -139,14 +142,6 @@ def build_server(argv=None, host="0.0.0.0"):
     parser = _parser()
     args = parser.parse_args(argv)
 
-    if args.mesh and args.replicas not in ("1", "auto"):
-        # the JAX server's precedence: the mesh wins over replicas
-        print("WARNING: --replicas is incompatible with --mesh; ignoring "
-              "replicas")
-    for dest, (flag, item) in UNPORTED_FLAGS.items():
-        if getattr(args, dest) not in (None, False):
-            parser.error(f"{flag} is not ported to the PyTorch package yet; "
-                         f"see ROADMAP.md Queue 1, {item}")
     if args.compile_cache:
         _build.set_build_dir(args.compile_cache)
     device = resolve_device()
@@ -168,6 +163,8 @@ def build_server(argv=None, host="0.0.0.0"):
             stream_workers=args.stream_workers, stream_mux=args.stream_mux,
             mux_joins_per_tick=args.mux_joins_per_tick,
             replicas=n_replicas,
+            mesh_shape=[int(x) for x in args.mesh.split(",")]
+            if args.mesh else None,
             vocode_buckets=[int(x) for x in args.vocode_buckets.split(",")]
             if args.vocode_buckets else None)
 

@@ -4,12 +4,18 @@ assembly, :95-157, its round-robin choice of a replica, :159-173, its
 per-batch choice of staged vocoding, :175-198, and its completion,
 :225-263: the one-pass chain, the staged vocode stage at the smallest
 bucket that covers the batch, and, for an engine without a vocoder,
-Griffin-Lim on the host). Mixed into SynthesisEngine (engine.py)."""
+Griffin-Lim on the host). Under a serving mesh (engine.py's
+``mesh_shape``) a batch is padded to a multiple of the D data groups, as
+the JAX dispatcher pads to its mesh's data axis (:112-117), and split D
+ways: each group runs its rows' chain on its devices, and the results
+are concatenated on group 0's device. Mixed into SynthesisEngine
+(engine.py)."""
 
 import queue
 import time
 
 import numpy as np
+import torch
 
 from flowtron_tpu_torch.serve.common import _SHUTDOWN
 
@@ -104,11 +110,13 @@ class DispatchMixin:
             return None
 
         Tk = self._bucket(max(len(ids) for ids, *_ in batch))
-        # bucket the batch dim to a power of two; padded rows duplicate
-        # row 0
+        # bucket the batch dim to a power of two, then to the mesh's data
+        # axis; padded rows duplicate row 0
         B = 1
         while B < len(batch):
             B *= 2
+        m = self._batch_mult
+        B = ((B + m - 1) // m) * m
         text_pad = np.zeros((B, Tk), np.int64)
         in_lens = np.zeros((B,), np.int64)
         sids = np.zeros((B,), np.int64)
@@ -143,6 +151,9 @@ class DispatchMixin:
         # K1's subset), (B, 1) otherwise (the per-frame loop)
         temp_arg = float(temps[0]) if np.all(temps == temps[0]) \
             else temps[:, None]
+        if self._groups is not None:
+            return self._mesh_chain(seeds, sigmas, sids, text_pad, in_lens,
+                                    temp_arg, frames_cap, strengths)
         # the replica, round-robin (this thread only): the batch's whole
         # chain runs on its card while the others' batches proceed
         r = self._rr % self._n_replicas
@@ -159,6 +170,24 @@ class DispatchMixin:
             return "staged", (mel, seeds, strengths, rep), n_valid
         return self._synth_vocode(seeds, sigmas, sids, text_pad, in_lens,
                                   temp_arg, frames_cap, strengths, rep)
+
+    def _mesh_chain(self, seeds, sigmas, sids, text, in_lens, temperature,
+                    frames_cap, strengths):
+        """The D-way split: rows [g n, (g + 1) n) of a batch of D n run on
+        data group g; the outputs come back concatenated on group 0's
+        device, as one chain's would."""
+        n = len(seeds) // len(self._groups)
+        outs = []
+        for g, rep in enumerate(self._groups):
+            r = slice(g * n, (g + 1) * n)
+            temp = temperature if np.ndim(temperature) == 0 \
+                else temperature[r]
+            outs.append(self._synth_vocode(
+                seeds[r], sigmas[r], sids[r], text[r], in_lens[r], temp,
+                frames_cap[r], strengths[r], rep))
+        dev = self._groups[0].device
+        return (outs[0][0], torch.cat([o.to(dev) for _, o, _ in outs]),
+                torch.cat([nv.to(dev) for _, _, nv in outs]))
 
     def _staged(self, frames_cap):
         """JAX's rule: stage a batch only when every request's n_frames

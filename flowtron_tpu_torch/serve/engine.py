@@ -2,8 +2,8 @@
 requests into one synthesis chain on the device, and the stream path
 (a pool of warm streamer pairs, or with ``stream_mux`` the batched
 multiplexer of infer/multistream.py) (port of
-flowtron_tpu/serve/engine.py without the mesh; see the package docstring
-for the protocol).
+flowtron_tpu/serve/engine.py; see the package docstring for the
+protocol).
 
 This file owns construction and lifecycle (``submit``, ``metrics``,
 ``warmup``, ``shutdown``) and the request chain itself in two stages:
@@ -38,8 +38,21 @@ fp32 scales; the request latents are drawn in fp32 and then cast; the
 streamers, the mux and the denoiser's bias pass run the bf16 model. Then
 K1, K2 and K4 run their bf16 bodies on the card.
 
-Options of the JAX engine that are not ported raise NotImplementedError
-naming their ROADMAP.md item.
+``mesh_shape`` (D, M) (flowtron_tpu/serve/engine.py:51-70, :267-290):
+the JAX engine's data x model mesh over ``devices`` (default: every
+visible card in order; fewer than D x M raises, naming the count; a list
+may repeat a device). Data group g takes devices[g M:(g + 1) M]: a copy
+of the model on its first device whose flows' weights that JAX shards
+are split over the group's M devices (``utils/weights.py:shard_flows``,
+after quantizing and the bf16 cast, as JAX places its params), the
+encoder, embedding and speaker table whole there, and a copy of the
+vocoder and denoiser there. A batch is padded to a multiple of D and
+split D ways (dispatch.py), each group running its rows' whole chain. As
+the JAX engine, a mesh prints three warnings and takes three decisions:
+replicas ignored, ``vocode_buckets`` off, ``fused`` off (so kernel K1
+never sees a sharded weight: the flows run the per-frame loop, whose dots
+multiply the slices on their devices). Streams and the mux run on data
+group 0.
 """
 
 import copy
@@ -64,14 +77,13 @@ from flowtron_tpu_torch.infer.streaming import (
     stream_generators,
 )
 from flowtron_tpu_torch.models.flowtron import flowtron_infer
-from flowtron_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
 from flowtron_tpu_torch.serve.common import (
     EngineOverloaded, TextTooLong, _SHUTDOWN, _log, split_measured,
 )
 from flowtron_tpu_torch.serve.dispatch import DispatchMixin
 from flowtron_tpu_torch.serve.streaming import StreamPathMixin
 from flowtron_tpu_torch.utils.device import resolve_device
-from flowtron_tpu_torch.utils.weights import to_bf16
+from flowtron_tpu_torch.utils.weights import shard_flows, to_bf16
 from flowtron_tpu_torch.vocoder.denoiser import Denoiser
 from flowtron_tpu_torch.vocoder.waveglow import (
     load_waveglow, waveglow_infer_z, waveglow_n_remaining,
@@ -81,11 +93,17 @@ WG_SIGMA = 0.8
 GL_ITERS = 20                   # Griffin-Lim iterations a served request
 
 
-def _refuse_unported(mesh_shape):
-    if mesh_shape:
-        raise NotImplementedError(
-            f"mesh_shape (a serving mesh) is not ported yet; see "
-            f"{MODEL_AXIS_ITEM}")
+def mesh_devices(mesh_shape, devices):
+    """The (D, M) mesh's data groups: [devices[g M:(g + 1) M] for g < D];
+    raises when there are fewer than D x M devices, as the JAX engine's
+    reshape of its devices does."""
+    D, M = (int(x) for x in mesh_shape)
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < D * M:
+        raise ValueError(
+            f"mesh_shape ({D}, {M}) needs {D * M} devices; {len(devices)} "
+            f"given ({', '.join(map(str, devices))})")
+    return [devices[g * M:(g + 1) * M] for g in range(D)]
 
 
 def local_devices(device):
@@ -149,14 +167,24 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                  n_frames=400, int8=False, quantize="", fused=False,
                  max_queue=64, device=None, bf16=False, mesh_shape=None,
                  replicas=1, vocode_buckets=None, denoise=0.0,
-                 stream_mux=0, mux_joins_per_tick=0, stream_workers=2):
+                 stream_mux=0, mux_joins_per_tick=0, stream_workers=2,
+                 devices=None):
         if mesh_shape and replicas and int(replicas) > 1:
             # replicas are independent single-device programs, a mesh one
             # program over the devices: the JAX engine lets the mesh win
             print("WARNING: --replicas is incompatible with --mesh; "
                   "ignoring replicas")
             replicas = 1
-        _refuse_unported(mesh_shape)
+        if mesh_shape and vocode_buckets:
+            print("WARNING: --vocode-buckets is not supported with "
+                  "--mesh; using the one-dispatch chain")
+            vocode_buckets = None
+        if mesh_shape and fused:
+            # kernel K1 takes whole weights; the mesh's flows are sharded
+            print("WARNING: --fused is incompatible with --mesh "
+                  "(VMEM-resident kernel vs TP-sharded weights); "
+                  "disabling fused")
+            fused = False
         qmode = quantize or ("w8" if int8 else "")
         if qmode and qmode not in MODES:
             raise ValueError(f"quantize {qmode!r}; expected one of {MODES}")
@@ -188,6 +216,27 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
                 to_bf16(self.wg)
         self.frontend = TextFrontend.from_config(self.data_config)
 
+        # the mesh's data groups, each a Replica on its first device with
+        # its flows sharded over the group (the denoisers come below)
+        self._groups = None
+        self._batch_mult = 1
+        if mesh_shape:
+            groups = mesh_devices(mesh_shape, devices if devices is not None
+                                  else local_devices(self.device))
+            self._groups = []
+            for g, devs in enumerate(groups):     # copies before sharding
+                own = g == 0 and devs[0] == self.device
+                model = self.model if own else \
+                    copy.deepcopy(self.model).to(devs[0])
+                wg = self.wg if own or self.wg is None else \
+                    copy.deepcopy(self.wg).to(devs[0])
+                self._groups.append(Replica(devs[0], model, wg, None))
+            for rep, devs in zip(self._groups, groups):
+                shard_flows(rep.model, devs)
+            self._batch_mult = len(groups)
+            self.device = groups[0][0]
+            self.model, self.wg = self._groups[0].model, self._groups[0].wg
+
         # the WaveGlow bias denoiser (-d): its bias spectrum is estimated
         # once here; the batch chain subtracts it on the device, streams
         # through a host StreamingDenoiser
@@ -196,6 +245,10 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
         if self._denoise > 0:
             self._denoiser = Denoiser.from_data_config(
                 self.wg, self.wg_cfg, self.data_config)
+            for g, rep in enumerate(self._groups or ()):
+                rep.denoiser = self._denoiser if g == 0 else \
+                    Denoiser.from_data_config(rep.wg, self.wg_cfg,
+                                              self.data_config)
 
         # data-parallel replicas: one copy of the chain a card
         R = max(1, int(replicas or 1))
@@ -486,12 +539,13 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
     # -- lifecycle --------------------------------------------------------
     def batch_buckets(self):
         """The batch sizes the dispatcher pads to: powers of two up to
-        ``max_batch``."""
-        out, B = [], 1
+        ``max_batch``, each rounded up to a multiple of the mesh's data
+        groups."""
+        out, B, m = [], 1, self._batch_mult
         while B <= self.max_batch:
-            out.append(B)
+            out.append(((B + m - 1) // m) * m)
             B *= 2
-        return out
+        return sorted(set(out))
 
     def warmup(self):
         """Run one dummy batch through the request chain for every (batch
@@ -510,12 +564,15 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
             text[:, 0] = 1
             seeds = np.zeros(B, np.int64)
             strengths = np.full(B, self._denoise, np.float32)
-            mel, n_valid = self._synth_mel(
-                seeds, np.full(B, 0.5, np.float32), np.zeros(B, np.int64),
-                text, np.ones(B, np.int64), 1.0,
-                np.full(B, self.n_frames, np.int64), rep)
-            out = mel if self.wg is None else self._vocode_norm(
-                mel, n_valid, seeds, strengths, rep)
+            args = (seeds, np.full(B, 0.5, np.float32), np.zeros(B, np.int64),
+                    text, np.ones(B, np.int64), 1.0,
+                    np.full(B, self.n_frames, np.int64))
+            if self._groups is not None:
+                _, out, n_valid = self._mesh_chain(*args, strengths)
+            else:
+                mel, n_valid = self._synth_mel(*args, rep)
+                out = mel if self.wg is None else self._vocode_norm(
+                    mel, n_valid, seeds, strengths, rep)
             out.cpu(), n_valid.cpu()
             n += 1
             if self._vocode_buckets is not None \
@@ -600,3 +657,4 @@ class SynthesisEngine(StreamPathMixin, DispatchMixin):
             self._mux = None
         self.model = self.wg = self._denoiser = None
         self._replicas = []
+        self._groups = None

@@ -26,16 +26,29 @@ ends inside that window writes it at its end.
 
 Data-parallel over ``torch.distributed`` (parallel/mesh.py): with
 ``dist_config``'s rendezvous (or ``multiprocess: true`` under
-``torchrun``) each rank loads its stride of every epoch's permutation,
-``batch_size // world`` rows of the global ``batch_size``, and steps in
-lockstep. Each rank's losses are its rows' sums over the global batch's
-counts (all-reduced before the forward), so the gradients, summed over
-the ranks in one flat bucket before the clip, are the global batch's, as
-JAX's one program computes them; the printed and logged losses are the
-global batch's. Validation all-reduces each batch's losses the same way.
-Rank r draws its dropout from (seed, iteration, r). Only rank 0 prints,
-logs, runs tone-CER and traces. ``mesh_shape`` lays the ranks out; every
-axis but ``model`` splits the batch.
+``torchrun``) the ranks step in lockstep on a global batch of
+``batch_size`` x world rows, as the JAX loop trains ``batch_size`` x
+n_dev over its mesh. ``mesh_shape`` lays the ranks out; every axis but
+``model`` splits the batch, so each batch coordinate loads its stride of
+every epoch's permutation, ``batch_size`` x (the ``model`` axis's size)
+rows, and the ranks of one model group load the same rows. Each rank's
+losses are its rows' sums over the global batch's counts (all-reduced
+over the batch group before the forward), so the gradients, summed over
+the batch group in one flat bucket before the clip, are the global
+batch's, as JAX's one program computes them; the printed and logged
+losses are the global batch's. Validation all-reduces each batch's losses
+the same way. Dropout is drawn from (seed, iteration, batch coordinate),
+so a model group draws one set of masks for its rows. Only rank 0 prints,
+logs, runs tone-CER and traces.
+
+A ``model`` axis above 1 shards the parameters that the JAX package's
+``param_shardings`` shards (parallel/tensor_parallel.py): each rank holds
+its slice and its moments at rest, gathers whole tensors within its model
+group for the step, and steps its slices; the global norm adds the
+slices' squares over the model group. Validation and checkpoints run on
+whole tensors gathered on the training thread, so a ``.pt`` or a
+directory of such a run is what one process writes, and resuming or
+warm-starting loads whole tensors before they are sliced.
 
 Checkpoints go through ``AsyncSaver`` (written off the training thread):
 ``model_{iteration}.pt`` by rank 0, or with ``checkpoint_format: sharded``
@@ -48,10 +61,10 @@ warm-starting read every format of either package
 
 Runs on this rank's card (``cuda:0`` for one process), or on the CPU when
 asked (``utils/device.py``: ``device="cpu"`` or ``FLOWTRON_PLATFORM=cpu``).
-A ``model`` mesh axis above 1 (tensor parallelism) and the grain loader
-are not ported and raise, naming their ROADMAP.md items.
+The grain loader is not ported and raises, naming its ROADMAP.md item.
 """
 
+import contextlib
 import json
 import os
 import time
@@ -64,9 +77,10 @@ from flowtron_tpu_torch.data.collate import (
 from flowtron_tpu_torch.data.dataset import Data, data_kwargs
 from flowtron_tpu_torch.models.flowtron import flowtron_forward, flowtron_init
 from flowtron_tpu_torch.parallel.mesh import (
-    all_reduce_sum, broadcast_module, maybe_initialize_distributed,
-    process_grid, rank, refuse_model_axis, sync_gradients, world_size,
+    Grid, all_reduce_sum, broadcast_module, maybe_initialize_distributed,
+    rank, sync_gradients, world_size,
 )
+from flowtron_tpu_torch.parallel.tensor_parallel import TensorParallel
 from flowtron_tpu_torch.train.checkpoints import (
     AsyncSaver, load_checkpoint, warmstart,
 )
@@ -101,25 +115,31 @@ def _loss_settings(static_cfg, train_config):
                 blank_logprob=float(train_config.get("blank_logprob", -1)))
 
 
-def global_norm(batch):
+def global_norm(batch, group=None):
     """The global batch's (valid frames, rows) as a (2,) float tensor,
-    summed over the ranks; None for one process (each loss then divides
-    by its own batch's counts)."""
-    if world_size() == 1:
+    summed over the batch group (a ``RankGroup``; None: every rank); None
+    when the group is one rank (each loss then divides by its own batch's
+    counts)."""
+    if (world_size() if group is None else group.size) == 1:
         return None
     out_lens = batch["out_lens"]
     return all_reduce_sum(torch.stack([
         out_lens.sum(), torch.tensor(len(out_lens), device=out_lens.device)
-    ]).float())
+    ]).float(), group)
 
 
-def make_train_step(model, static_cfg, optimizer, params, train_config):
+def make_train_step(model, static_cfg, optimizer, params, train_config,
+                    grid=None, tp=None):
     """The training step: ``step(batch, generator, ctc_weight,
     prior_strength)`` -> metrics (0-d tensors: loss, nll, gate, ctc,
     grad_norm before clipping, and the valid frames; the global batch's
     under several ranks).
     ``batch`` holds tensors on the model's device (this rank's rows);
-    ``params`` are the optimizer's (trainable) parameters."""
+    ``params`` are the optimizer's (trainable) parameters. ``grid``
+    (parallel/mesh.py:Grid; None: every rank a batch shard) names the
+    batch group; ``tp`` (a ``TensorParallel``) runs the step on its
+    slices."""
+    group = None if grid is None else grid.batch_group
     loss_kw = _loss_settings(static_cfg, train_config)
     compute_dtype = torch.bfloat16 if train_config.get("fp16_run") else None
     remat = bool(train_config.get("remat"))
@@ -132,22 +152,30 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
         attn_prior = batch.get("attn_prior")
         if attn_prior is not None and anneal_end > 0:
             attn_prior = (attn_prior + 1e-20) ** prior_strength
-        norm = global_norm(batch)
-        out = flowtron_forward(
-            model, static_cfg, batch["mel"], batch["speaker_ids"],
-            batch["text"], batch["in_lens"], batch["out_lens"],
-            attn_prior=attn_prior, train=True, generator=generator,
-            compute_dtype=compute_dtype, remat=remat)
+        norm = global_norm(batch, group)
+        args = (static_cfg, batch["mel"], batch["speaker_ids"],
+                batch["text"], batch["in_lens"], batch["out_lens"])
+        kw = dict(attn_prior=attn_prior, train=True, generator=generator,
+                  compute_dtype=compute_dtype, remat=remat)
+        out = flowtron_forward(model, *args, **kw) if tp is None \
+            else tp.call(flowtron_forward, *args, **kw)
         nll, gate, ctc = flowtron_loss(out, batch["gate_target"],
                                        batch["in_lens"], batch["out_lens"],
                                        norm=norm, **loss_kw)
         total = nll + gate + ctc * ctc_weight
         optimizer.zero_grad(set_to_none=True)
         total.backward()
-        sync_gradients(params)
-        grad_norm = clip_by_global_norm(params, clip)
+        if tp is None:
+            sync_gradients(params, group)
+            grad_norm = clip_by_global_norm(params, clip)
+        else:
+            tp.reduce_gradients()
+            grad_norm = clip_by_global_norm(
+                params, clip, sharded=tp.sharded_parameters(),
+                group=grid.model_group)
         optimizer.step()
-        losses = all_reduce_sum(torch.stack([total, nll, gate, ctc]).detach())
+        losses = all_reduce_sum(torch.stack([total, nll, gate, ctc]).detach(),
+                                group)
         return {"loss": losses[0], "nll": losses[1], "gate": losses[2],
                 "ctc": losses[3], "grad_norm": grad_norm,
                 "frames": batch["out_lens"].sum() if norm is None
@@ -156,22 +184,25 @@ def make_train_step(model, static_cfg, optimizer, params, train_config):
     return step
 
 
-def make_eval_step(model, static_cfg, train_config):
+def make_eval_step(model, static_cfg, train_config, grid=None):
     """``step(batch)`` -> nll, gate, ctc (the global batch's under several
-    ranks) and this rank's last-flow attention and gate predictions,
-    without dropout or gradients."""
+    ranks, summed over ``grid``'s batch group) and this rank's last-flow
+    attention and gate predictions, without dropout or gradients. Over a
+    ``model`` axis it runs on whole parameters (``TensorParallel.
+    gathered``)."""
+    group = None if grid is None else grid.batch_group
     loss_kw = _loss_settings(static_cfg, train_config)
 
     @torch.no_grad()
     def step(batch):
-        norm = global_norm(batch)
+        norm = global_norm(batch, group)
         out = flowtron_forward(
             model, static_cfg, batch["mel"], batch["speaker_ids"],
             batch["text"], batch["in_lens"], batch["out_lens"],
             attn_prior=batch.get("attn_prior"), train=False)
         losses = all_reduce_sum(torch.stack(flowtron_loss(
             out, batch["gate_target"], batch["in_lens"], batch["out_lens"],
-            norm=norm, **loss_kw)))
+            norm=norm, **loss_kw)), group)
         nll, gate, ctc = losses
         return {"nll": nll, "gate": gate, "ctc": ctc, "attn": out[3][-1],
                 "gate_pred": out[2]}
@@ -186,10 +217,12 @@ def to_device(batch, device):
 
 
 def prepare_dataloaders(data_config, batch_size, seed=1234,
-                        pad_to_multiple=32):
-    """``batch_size`` is the global batch; each rank loads its stride of
-    ``batch_size // world`` rows (the DistributedSampler's role,
-    reference:train.py:74-75)."""
+                        pad_to_multiple=32, grid=None):
+    """``batch_size`` is the global batch; each batch coordinate of
+    ``grid`` (parallel/mesh.py:Grid; None: one process) loads its stride
+    of ``batch_size // n_batch`` rows (the DistributedSampler's role,
+    reference:train.py:74-75), the same rows on every rank of a model
+    group."""
     if data_config.get("use_grain"):
         raise NotImplementedError(
             "the grain loader is not ported (ROADMAP.md Queue 1, 'Not "
@@ -200,13 +233,14 @@ def prepare_dataloaders(data_config, batch_size, seed=1234,
                   **dict(kwargs, speaker_ids=trainset.speaker_ids))
     collate = DataCollate(use_attn_prior=trainset.use_attn_prior,
                           pad_to_multiple=pad_to_multiple)
-    world, me = world_size(), rank()
-    local_bs = max(1, batch_size // world)
+    shards, me = (1, 0) if grid is None else (grid.n_batch,
+                                               grid.batch_index)
+    local_bs = max(1, batch_size // shards)
     train_loader = PrefetchIterator(
         BatchIterator(trainset, local_bs, collate, shuffle=True,
-                      seed=seed, num_shards=world, shard_index=me))
+                      seed=seed, num_shards=shards, shard_index=me))
     val_loader = BatchIterator(valset, local_bs, collate, shuffle=False,
-                               seed=seed, drop_last=False, num_shards=world,
+                               seed=seed, drop_last=False, num_shards=shards,
                                shard_index=me)
     return train_loader, val_loader
 
@@ -263,7 +297,7 @@ def _stop_profiler(prof, profile_dir):
     print(f"profiler trace written to {stop_profiler(prof, profile_dir)}")
 
 
-RANK_SEED_STRIDE = 1_000_000_007   # apart the ranks' dropout streams
+RANK_SEED_STRIDE = 1_000_000_007   # apart the batch shards' dropout
 
 
 def train(config, device=None):
@@ -273,11 +307,9 @@ def train(config, device=None):
     train_config = config["train_config"]
     data_config = dict(config["data_config"])
     dist_config = config.get("dist_config", {})
-    refuse_model_axis(dist_config)
     maybe_initialize_distributed(dist_config)
-    grid = process_grid(dist_config)
-    me = rank()
-    lead = me == 0
+    grid = Grid(dist_config)
+    lead = rank() == 0
     device = resolve_device(device)
     fmt = checkpoint_format(train_config, announce=lead)
 
@@ -301,16 +333,20 @@ def train(config, device=None):
             train_config["checkpoint_path"], model, optimizer,
             train_config.get("ignore_layers", ())) + 1
     broadcast_module(model)        # every rank starts from rank 0's weights
+    tp = None
+    if grid.model_size > 1:        # slices of the sharded leaves at rest
+        tp = TensorParallel(model, optimizer, grid)
+        params = tp.parameters()
 
     train_step = make_train_step(model, static_cfg, optimizer, params,
-                                 train_config)
-    eval_step = make_eval_step(model, static_cfg, train_config)
-    batch_size = int(train_config["batch_size"])
+                                 train_config, grid, tp)
+    eval_step = make_eval_step(model, static_cfg, train_config, grid)
+    batch_size = int(train_config["batch_size"]) * world_size()
     train_loader, val_loader = prepare_dataloaders(data_config, batch_size,
-                                                   seed=seed)
+                                                   seed=seed, grid=grid)
     if lead and world_size() > 1:
-        print(f"mesh: {grid}; global batch {batch_size}, "
-              f"{batch_size // world_size()} a rank", flush=True)
+        print(f"mesh: {grid.sizes}; global batch {batch_size}, "
+              f"{batch_size // grid.n_batch} a batch shard", flush=True)
 
     output_directory = train_config.get("output_directory", "outdir")
     os.makedirs(output_directory, exist_ok=True)
@@ -330,6 +366,9 @@ def train(config, device=None):
     profile_dir = train_config.get("profile_dir", "") if lead else ""
     prof = None
     saver = AsyncSaver()
+    # whole parameters and moments for validation and a checkpoint's host
+    # copy (the copy is taken inside, on this thread)
+    whole = contextlib.nullcontext if tp is None else tp.gathered
 
     log = open(os.path.join(output_directory, "train_log.jsonl"), "a") \
         if lead else None
@@ -351,7 +390,7 @@ def train(config, device=None):
                 # per-iteration dropout stream, so a resumed run draws
                 # what an uninterrupted one would; each rank its own
                 generator.manual_seed(seed * 1_000_003 + iteration
-                                      + me * RANK_SEED_STRIDE)
+                                      + grid.batch_index * RANK_SEED_STRIDE)
                 t0 = time.perf_counter()
                 metrics = train_step(
                     to_device(batch, device), generator,
@@ -377,23 +416,26 @@ def train(config, device=None):
                         else list(batch["mel"].shape)}) + "\n")
 
                 if iteration % iters_per_checkpoint == 0:
-                    val, last = compute_validation_loss(
-                        eval_step, val_loader, device, ctc_weight)
-                    if lead:
-                        _log_validation(config, model, static_cfg, val, last,
-                                        iteration, logger, log,
-                                        tone_cer_texts)
-                    name = f"model_{iteration}" + (
-                        ".pt" if fmt == "pickle" else "")
-                    saver.save(os.path.join(output_directory, name), model,
-                               optimizer, iteration, learning_rate, config,
-                               fmt=fmt)
+                    with whole():
+                        val, last = compute_validation_loss(
+                            eval_step, val_loader, device, ctc_weight)
+                        if lead:
+                            _log_validation(config, model, static_cfg, val,
+                                            last, iteration, logger, log,
+                                            tone_cer_texts)
+                        name = f"model_{iteration}" + (
+                            ".pt" if fmt == "pickle" else "")
+                        saver.save(os.path.join(output_directory, name),
+                                   model, optimizer, iteration,
+                                   learning_rate, config, fmt=fmt)
                 if lead:
                     log.flush()
                 iteration += 1
         if prof is not None:             # the run ended inside the window
             _stop_profiler(prof, profile_dir)
         saver.wait()
+        if tp is not None:               # hand back what one process would
+            tp.unshard()
     finally:
         if log is not None:
             log.close()

@@ -14,10 +14,15 @@ JAX package computes them (fp32 terms in t, Python-float constants), so
 both take the same branch at the threshold and the same step size.
 
 Gradient clipping is optax's ``clip_by_global_norm``: g unchanged when
-||g|| < c, else (g / ||g||) * c, over the trainable parameters only.
+||g|| < c, else (g / ||g||) * c, over the trainable parameters only. Over
+a ``model`` axis each rank steps its slices (parallel/tensor_parallel.py)
+and the norm is the whole one: the slices' squares summed over the model
+group, plus the replicated leaves' counted once.
 """
 
 import torch
+
+from flowtron_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class RAdam(torch.optim.Optimizer):
@@ -105,13 +110,31 @@ def build_optimizer(params, optim_algo, learning_rate, weight_decay=0.0):
     raise ValueError(f"Unrecognized optimizer {optim_algo!r}")
 
 
+def _squares(grads, device):
+    return sum((torch.linalg.vector_norm(g.float()) ** 2 for g in grads),
+               torch.zeros((), device=device))
+
+
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm):
+def clip_by_global_norm(params, max_norm, sharded=(), group=None):
     """optax's ``clip_by_global_norm`` on the gradients of ``params`` in
-    place; returns the norm before clipping."""
+    place; returns the norm before clipping. ``sharded``: the parameters
+    of ``params`` that are slices of a ``model`` axis whose ranks form
+    ``group`` (a ``RankGroup``)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    if sharded:
+        ids = {id(p) for p in sharded}
+        sliced = [p.grad for p in params
+                  if p.grad is not None and id(p) in ids]
+        whole = [p.grad for p in params
+                 if p.grad is not None and id(p) not in ids]
+        device = grads[0].device
+        norm = torch.sqrt(all_reduce_sum(_squares(sliced, device), group)
+                          + _squares(whole, device))
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float())
+                         for g in grads]))
     if max_norm and max_norm > 0:
         for g in grads:
             g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))

@@ -11,7 +11,9 @@ it; ``flowtron_jax_from_state_dict`` is its inverse (the semantics of
 the port's parameter names, so the two optimizers' moments can be
 compared and a JAX checkpoint's moments loaded. ``flatten_jax`` gives a
 pytree's flat keys as the JAX package's checkpoints name them, and
-``flowtron_jax_keys`` the key of each state_dict name.
+``flowtron_jax_keys`` the key of each state_dict name. ``jax_layout``
+names the layout kind of a state_dict name, as ``_flowtron_entries``
+assigns it, without a JAX pytree.
 ``waveglow_from_jax`` writes the published WaveGlow checkpoint names
 (``upsample.*``, ``convinv.{f}.conv.weight``, ``WN.{f}.*``).
 ``quantized_model_from_jax`` carries a pytree that the JAX package's
@@ -21,6 +23,7 @@ Nothing here imports jax.
 """
 
 import copy
+import re
 
 import numpy as np
 import torch
@@ -119,6 +122,21 @@ def _flowtron_entries(p):
                 name = f"{pre}.attn_cond_layer.{theirs}.conv"
                 yield f"{name}.weight", conv, "w", "same"
                 yield f"{name}.bias", conv, "b", "same"
+
+
+_TRANSPOSED = re.compile(r"(\.weight_(ih|hh)_l\d+(_reverse)?"
+                         r"|\.linear_layer\.weight)$")
+_CONV1X1 = re.compile(r"^flows\.\d+(\.ar_step)?\.conv\.weight$")
+
+
+def jax_layout(name):
+    """The layout kind ("same", "transpose" or "conv1x1") that
+    ``_flowtron_entries`` gives the Flowtron state_dict name ``name``:
+    LSTM and linear weights are transposed, the flows' 1x1 head convs are
+    2-D in JAX, every other leaf keeps its shape."""
+    if _CONV1X1.match(name):
+        return "conv1x1"
+    return "transpose" if _TRANSPOSED.search(name) else "same"
 
 
 def flowtron_state_dict_from_jax(np_params):

@@ -17,6 +17,16 @@ included: an ``a8`` leaf whose dot has at most 512 rows goes to K4
 (``ops/qmm.py``: the kernel on CUDA tensors, its plain version on CPU
 tensors); every other dot dequantizes with bf16 scales and multiplies
 with fp32 accumulation.
+
+A ``ShardedWeight`` is a serving mesh's column-sharded leaf (the
+engine's ``mesh_shape``): the (out, in) weight, float or quantized, split
+along out (JAX's last axis) into one slice a device of a model group.
+``qdot`` multiplies each slice on its own device, with K4 for an ``a8``
+slice there, and concatenates the outputs on the device of x, the group's
+first. JAX quantizes the flows before it places them
+(flowtron_tpu/serve/engine.py:76-81, :275), so its rule shards the int8
+and int4 payloads as it would the float leaf; ``shard_flows`` does the
+same.
 """
 
 import torch
@@ -82,14 +92,92 @@ def resolve_weight(w, dtype=None):
     return out.to(dtype or torch.bfloat16)
 
 
+class ShardedWeight(nn.Module):
+    """An (out, in) weight (or a conv's (out, in, k)) split along dim 0:
+    ``parts[j]``, a tensor or a ``QuantizedWeight``, on ``devices[j]``.
+    The parts are not registered, so ``.to()`` of a model leaves them where
+    they were placed. Indexing that keeps dim 0 whole applies to every
+    part (``w[:, :, 0]`` of a 1x1 conv)."""
+
+    def __init__(self, parts, devices):
+        super().__init__()
+        self.parts, self.devices = list(parts), list(devices)
+
+    @property
+    def shape(self):
+        rest = tuple(self.parts[0].shape[1:])
+        return (sum(p.shape[0] for p in self.parts),) + rest
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    def __getitem__(self, index):
+        if not (isinstance(index, tuple) and index[0] == slice(None)):
+            raise IndexError("a ShardedWeight is indexed with dim 0 whole")
+        return ShardedWeight([p[index] for p in self.parts], self.devices)
+
+
+def _split_leaf(w, devices):
+    """A tensor or ``QuantizedWeight`` -> its len(devices) slices along dim
+    0, slice j on devices[j]."""
+    n = len(devices)
+    if isinstance(w, QuantizedWeight):
+        qs = (w.q4 if w.int4 else w.q).chunk(n, 0)
+        return [QuantizedWeight(s.contiguous(), a8=w.a8,
+                                **{"q4" if w.int4 else "q": q.contiguous()})
+                .to(d) for s, q, d in zip(w.s.chunk(n, 0), qs, devices)]
+    return [t.detach().contiguous().to(d)
+            for t, d in zip(w.chunk(n, 0), devices)]
+
+
+@torch.no_grad()
+def shard_flows(model, devices):
+    """In place: every weight of ``model``'s flows that JAX's
+    ``param_shardings`` shards over a ``model`` axis of len(devices)
+    (parallel/mesh.py:jax_split_dim, on the float leaf's shape, which a
+    quantized leaf keeps) becomes a ``ShardedWeight`` over ``devices``;
+    every other leaf stays where it is. Each flow is marked ``on_mesh``,
+    which keeps it off kernel K1 (models/ar_step.py:in_k1_subset), one
+    device or many. Returns the sharded names."""
+    from flowtron_tpu_torch.parallel.mesh import jax_split_dim
+    for flow in model.flows:
+        getattr(flow, "ar_step", flow).on_mesh = True
+    leaves = [(n, m) for n, m in model.named_modules()
+              if isinstance(m, QuantizedWeight)]
+    leaves += list(model.named_parameters())
+    done = []
+    for name, w in leaves:
+        if not name.startswith("flows.") or \
+                jax_split_dim(name, w.shape, len(devices)) != 0:
+            continue
+        set_weight(model, name, ShardedWeight(_split_leaf(w, devices),
+                                              devices))
+        done.append(name)
+    return done
+
+
+def _part_dot(x, w, out_dtype):
+    if isinstance(w, QuantizedWeight):
+        return qdot(x, w, out_dtype)
+    dt = torch.promote_types(x.dtype, w.dtype)   # as ``layers.linear``
+    out = F.linear(x.to(dt), w.to(dt))
+    return out if out_dtype is None else out.to(out_dtype)
+
+
 def qdot(x, w, out_dtype=None):
-    """``x @ w.T`` for a float or quantized (out, in) weight ``w``.
+    """``x @ w.T`` for a float, quantized or sharded (out, in) weight ``w``.
 
     A float weight is a plain matmul, as before quantization existed. A
     quantized one goes to K4 when it carries ``a8`` and the dot has at
     most 512 rows (all leading dims of x multiplied); otherwise it is
-    ``resolve_weight`` and a matmul with fp32 accumulation. The result is
-    ``out_dtype`` (default x's dtype)."""
+    ``resolve_weight`` and a matmul with fp32 accumulation. A sharded one
+    is each slice's product on its device, concatenated on x's. The
+    result is ``out_dtype`` (default x's dtype)."""
+    if isinstance(w, ShardedWeight):
+        outs = [_part_dot(x.to(d), p, out_dtype)
+                for p, d in zip(w.parts, w.devices)]
+        return torch.cat([o.to(x.device) for o in outs], dim=-1)
     if not isinstance(w, QuantizedWeight):
         out = x @ w.t()
         return out if out_dtype is None else out.to(out_dtype)

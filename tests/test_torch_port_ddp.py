@@ -313,14 +313,16 @@ def _config(overrides):
 
 @pytest.fixture(scope="module")
 def train_runs(corpus, tmp_path_factory):
-    """One process and two ranks at the global batch of 4: 3 steps,
+    """One process and two ranks at the global batch of 4 (``batch_size``
+    4 and 2: the global batch is ``batch_size`` x world): 3 steps,
     validation at iterations 0 and 2, checkpoints at 0 and 2: .pt files
     from the one process, the port's directories (``checkpoint_format:
     sharded``, both ranks writing through AsyncSaver) from the ranks."""
     tmp = tmp_path_factory.mktemp("ddp_train")
     configs = {w: _config(_train_overrides(
         *corpus, str(tmp / f"w{w}"),
-        **({"train_config.checkpoint_format": "sharded"} if w == 2 else {})))
+        **({"train_config.checkpoint_format": "sharded",
+            "train_config.batch_size": 2} if w == 2 else {})))
         for w in (1, 2)}
     runs = _launches(*(("train_rank", w, dict(config=configs[w]))
                        for w in (1, 2)))
@@ -388,20 +390,23 @@ def test_train_validation_matches_jax(train_runs):
 # --------------------------------------------------------------------------
 
 def test_waveglow_two_ranks_match_one(corpus, tmp_path):
-    """The vocoder trainer at a global batch of 4, on one process and on
-    two ranks (2 rows each): each step's loss within 1e-5 (the parameters
-    are not compared: Adam's first steps are +-lr where a gradient is
-    rounding noise), the ranks bitwise equal, one checkpoint (rank 0's
-    and the one process's, at iteration 0)."""
-    argv = ["-c", os.path.join(ROOT, "configs", "config_waveglow.json"),
-            "-p", f"data_config.training_files={corpus[0]}",
-            "data_config.segment_length=2048",
-            f"train_config.output_directory={tmp_path}",
-            "train_config.batch_size=4", "train_config.epochs=1",
-            "train_config.iters_per_checkpoint=1000",
-            "waveglow_config.n_channels=16", "waveglow_config.n_layers=2",
-            "waveglow_config.n_flows=4"]
-    one, two = _launches(*(("waveglow_rank", w, dict(argv=argv))
+    """The vocoder trainer at a global batch of 4, on one process
+    (``batch_size`` 4) and on two ranks (``batch_size`` 2, 2 rows each:
+    the global batch is ``batch_size`` x world): each step's loss within
+    1e-5 (the parameters are not compared: Adam's first steps are +-lr
+    where a gradient is rounding noise), the ranks bitwise equal, one
+    checkpoint (rank 0's and the one process's, at iteration 0)."""
+    def argv(batch_size):
+        return ["-c", os.path.join(ROOT, "configs", "config_waveglow.json"),
+                "-p", f"data_config.training_files={corpus[0]}",
+                "data_config.segment_length=2048",
+                f"train_config.output_directory={tmp_path}",
+                f"train_config.batch_size={batch_size}",
+                "train_config.epochs=1",
+                "train_config.iters_per_checkpoint=1000",
+                "waveglow_config.n_channels=16", "waveglow_config.n_layers=2",
+                "waveglow_config.n_flows=4"]
+    one, two = _launches(*(("waveglow_rank", w, dict(argv=argv(4 // w)))
                            for w in (1, 2)))
     assert len(one[0]["losses"]) == 3          # 12 files, batch 4
     np.testing.assert_allclose(two[0]["losses"], one[0]["losses"],
@@ -439,9 +444,12 @@ def test_process_grid_batch_axes(dist, world, grid):
 
 
 def test_process_grid_refusals():
-    with pytest.raises(NotImplementedError, match=r"\(l2\)"):
-        process_grid({"mesh_shape": [2, 2],
-                      "mesh_axis_names": ["data", "model"]}, 4)
+    """A `model` axis is a grid like any other now (tensor parallelism,
+    tests/test_torch_port_tp.py); a grid that does not hold the world's
+    ranks still raises."""
+    grid = process_grid({"mesh_shape": [2, 2],
+                         "mesh_axis_names": ["data", "model"]}, 4)
+    assert grid == {"data": 2, "model": 2} and batch_shard_size(grid) == 2
     with pytest.raises(ValueError, match="holds 2 ranks, the run has 4"):
         process_grid({"mesh_shape": [2]}, 4)
 

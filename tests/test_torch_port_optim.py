@@ -303,19 +303,19 @@ def test_prior_strength_schedule_matches_jax(iteration):
 
 @pytest.mark.parametrize("dist,item", [
     ({"mesh_shape": [1, 2], "mesh_axis_names": ["data", "model"]},
-     r"\(l2\)"),
+     "holds 2 ranks, the run has 1"),
     ({"mesh_shape": [1, 4, 2], "mesh_axis_names": ["dcn", "data", "model"],
-      "dcn_mesh_shape": [2, 1, 1]}, r"\(l2\)"),
+      "dcn_mesh_shape": [2, 1, 1]}, "holds 16 ranks, the run has 1"),
 ])
 def test_train_refuses_unported_features(dist, item):
-    """Each refusal names its ROADMAP.md item and comes before any work:
-    a `model` mesh axis above 1 (tensor parallelism; the second case is
-    configs/config_multislice.json's mesh). Checkpoint directories and
-    the batch axes train (tests/test_torch_port_ddp.py,
-    tests/test_torch_port_dist_ckpt.py)."""
+    """A `model` mesh axis trains (tensor parallelism,
+    tests/test_torch_port_tp.py); the second case is
+    configs/config_multislice.json's mesh. Nothing refuses it any more:
+    one process stops only at the grid's check, before any work, because
+    the grid holds more ranks than the run."""
     train_config = {"seed": 1, "learning_rate": 1e-3, "batch_size": 2,
                     "sigma": 1.0, "sharded_checkpoints": True}
     config = {"train_config": train_config, "data_config": {},
               "dist_config": dist, "model_config": DIMS}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+    with pytest.raises(ValueError, match=item):
         train(config)

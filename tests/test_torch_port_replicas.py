@@ -103,9 +103,13 @@ def test_replicas_clamp_and_mesh_precedence(files, config, two_cpus, capsys):
         eng.shutdown()
     assert "WARNING: --replicas 3 > 2 local devices; clamping" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match=r"\(l2\)"):
-        SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
-                        replicas=2, mesh_shape=[2, 1], **ENGINE)
+    # the mesh wins over replicas: one data group a visible device
+    eng = SynthesisEngine(config, str(files / "ft.pt"), str(files / "wg.pt"),
+                          replicas=2, mesh_shape=[2, 1], **ENGINE)
+    try:
+        assert eng._n_replicas == 1 and len(eng._groups) == 2
+    finally:
+        eng.shutdown()
     assert "--replicas is incompatible with --mesh" in \
         capsys.readouterr().out
 

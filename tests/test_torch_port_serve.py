@@ -591,15 +591,25 @@ class TestStaged:
         assert out["batches"] == 6 and out["staged_vocodes"] == 3
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(mesh_shape=[1, 1]), "item 23"),
-    (dict(mesh_shape=[2, 1], replicas=2), r"\(l2\)"),
+@pytest.mark.parametrize("option,groups", [
+    (dict(mesh_shape=[1, 1]), 1),
+    (dict(mesh_shape=[2, 1], replicas=2, devices=["cpu", "cpu"]), 2),
 ])
-def test_unported_engine_options_raise(files, config, option, item):
-    kw = dict(waveglow_path=str(files / "wg.pt"), device="cpu")
+def test_unported_engine_options_raise(files, config, option, groups):
+    """The serving mesh is ported (tests/test_torch_port_tp.py): each
+    option builds its engine, one data group a row of the mesh, its flows
+    kept off kernel K1, and serves a request."""
+    kw = dict(ENGINE, waveglow_path=str(files / "wg.pt"), batch_timeout_ms=20)
     kw.update(option)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        SynthesisEngine(config, str(files / "ft.pt"), **kw)
+    eng = SynthesisEngine(config, str(files / "ft.pt"), **kw)
+    try:
+        assert len(eng._groups) == eng._batch_mult == groups
+        assert all(f.on_mesh for g in eng._groups
+                   for f in (g.model.flows[0],))
+        wav, _ = eng.submit("Hello.", 0)
+        assert len(wav) > 0
+    finally:
+        eng.shutdown()
 
 
 @pytest.mark.parametrize("option,built", [
@@ -883,12 +893,30 @@ class TestHTTP:
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "1,1"], ["--mesh", "2,1", "--replicas", "2"]])
-def test_unported_server_flags_exit_naming_roadmap(flag, capsys):
-    with pytest.raises(SystemExit):
-        build_server(["-c", "config.json", "-f", "x.pt", "-w", "y.pt"]
-                     + flag)
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md Queue 1" in err
+def test_unported_server_flags_exit_naming_roadmap(flag, files, capsys,
+                                                   monkeypatch):
+    """Every flag of the JAX server is ported: ``--mesh 1,1`` builds its
+    one data group; ``--mesh 2,1`` with ``--replicas 2`` prints JAX's
+    warning and, with one visible device, stops at the mesh's device
+    count, as JAX's reshape of its devices does."""
+    monkeypatch.setenv("FLOWTRON_PLATFORM", "cpu")
+    argv = ["-c", str(files / "config.json"), "-f", str(files / "ft.pt"),
+            "-w", str(files / "wg.pt"), "--port", "0", "--n-frames",
+            str(N_FRAMES)] + flag
+    if flag[1] == "1,1":
+        server, engines = build_server(argv, host="127.0.0.1")
+        try:
+            assert len(engines["default"]._groups) == 1
+        finally:
+            server.server_close()
+            for eng in engines.values():
+                eng.shutdown()
+    else:
+        with pytest.raises(ValueError, match="needs 2 devices; 1 given"):
+            build_server(argv, host="127.0.0.1")
+        assert "WARNING: --replicas is incompatible with --mesh" in \
+            capsys.readouterr().out
+    assert not serve_cli.UNPORTED_FLAGS
 
 
 def test_build_server_denoise_and_stream_workers(files, monkeypatch):
@@ -958,8 +986,8 @@ def test_build_server_serves_a_quantized_voice(files, monkeypatch):
         server.server_close()
         for eng in engines.values():
             eng.shutdown()
-    # the refusal left: the model axis
-    assert set(serve_cli.UNPORTED_FLAGS) == {"mesh"}
+    # no refusal left
+    assert set(serve_cli.UNPORTED_FLAGS) == set()
 
 
 def test_shutdown_refuses_new_work(files, config):

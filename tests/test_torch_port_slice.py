@@ -157,7 +157,8 @@ def test_port_never_imports_jax(tmp_path):
     losses, backward through K3's plain versions, RAdam), one
     Gaussian-mixture step with remat, one request and one stream through a
     w8a8 serving engine (K4's plain version), one stream through an
-    engine's multistream mux and one request through a bf16 engine, load a
+    engine's multistream mux, one request through a bf16 engine and one
+    through a (2, 2) serving mesh (tensor-parallel flows), load a
     JAX package Flowtron checkpoint (params and optimizer) as a pickle, a
     sharded directory and an orbax directory (through ``tensorstore``,
     which may load) and a WaveGlow pickle, run a tiny style transfer and
@@ -174,7 +175,8 @@ def test_port_never_imports_jax(tmp_path):
         "'cli', 'train.logger', 'audio.griffin_lim', 'vocoder.denoiser', "
         "'infer.streaming', 'serve.streaming', 'infer.multistream', "
         "'train.evaluate', 'data.tone_cer', 'models.gaussian_mixture', "
-        "'parallel.mesh', 'parallel.launch', 'entry', 'train.dist_ckpt', "
+        "'parallel.mesh', 'parallel.launch', 'parallel.tensor_parallel', "
+        "'entry', 'train.dist_ckpt', "
         "'train.sharded_ckpt', 'train.orbax_ckpt', "
         "'scripts.train_waveglow', 'infer.style_transfer', 'native', "
         "'scripts.style_transfer', 'utils.profiler'):\n"
@@ -236,6 +238,12 @@ def test_port_never_imports_jax(tmp_path):
         "wav16, _ = eng.submit('Hello there.')\n"
         "assert eng.wg.upsample.weight.dtype == torch.bfloat16\n"
         "eng.shutdown()\n"
+        "eng = SynthesisEngine(cfg, root + '/ft.pt', root + '/wg.pt', "
+        "n_frames=3, mesh_shape=(2, 2), devices=['cpu'] * 4, "
+        "device='cpu')\n"
+        "wav22, _ = eng.submit('Hello there.')\n"
+        "eng.shutdown()\n"
+        "assert len(wav22) in (256, 512, 768), len(wav22)\n"
         "assert len(wav16) in (256, 512, 768), len(wav16)\n"
         "assert sum(len(p) for p in muxed) in (256, 512, 768), muxed\n"
         "assert sr == 22050 and len(wav) in (256, 512, 768), len(wav)\n"
