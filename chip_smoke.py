@@ -108,8 +108,18 @@ exits non-zero at once.
 
 Imports nothing of JAX or of the JAX package ``flowtron_tpu`` (checked
 at the end): the port carries its own text frontend and config.
+
+    python3 chip_smoke.py --k4
+
+runs only ``phase_k4_bf16`` (K4's bf16 bodies checked at every shape,
+timed a call and the frame's nine calls in order, bf16 and fp32) and
+prints no result. Copied into another checkout's root and run there, it
+times that checkout's K4 with this script's harness: run it in two
+checkouts in turns, in one call to the card, to hold two versions of the
+kernel against each other.
 """
 
+import argparse
 import contextlib
 import io
 import json
@@ -4448,64 +4458,123 @@ def phase_k2_bf16(wg, wg16, dev):
     return max_err, times
 
 
+def k4_frame_chain(dtype, a8, g, side, dev, M=8):
+    """One flow-frame's nine K4 calls in their order (K4_FRAME_KN) at the
+    serving batch, each with its own weight, each call's x made from the
+    previous output by one elementwise op (x = base + out[:, :1], as the
+    loop's LSTM cell feeds each dot from the last), in one CUDA graph;
+    beside it the same chain through the library product (cuBLAS on each
+    dequantized weight in x's dtype) and the elementwise ops alone, in
+    turns. Neither back-to-back identical calls nor one shape's L2 reuse
+    flatter the number. Returns the kernel's and the library's frame ms,
+    each less the ops' chain, the ops' ms, an eager frame's ms (host
+    launches included) and every graph run."""
+    from flowtron_tpu_torch.infer.quantize import _quantize_matrix
+    from flowtron_tpu_torch.ops.qmm import quantized_matmul
+
+    leaves = [_quantize_matrix(0.05 * torch.randn(N, K, generator=g), a8=a8)
+              for K, N in K4_FRAME_KN]
+    qs = [(lf.q.to(dev), lf.s.to(dev)) for lf in leaves]
+    ws = [(q.float() * s[:, None]).to(dtype) for q, s in qs]
+    bases = [torch.randn(M, K, generator=g).to(dev, dtype)
+             for K, _ in K4_FRAME_KN]
+
+    def chain(dot):
+        out = bases[0]
+        for i in range(len(bases)):
+            out = dot(i, bases[i] + out[:, :1])
+        return out
+
+    def kernel():
+        return chain(lambda i, x: quantized_matmul(x, *qs[i], a8=a8))
+
+    def library():
+        return chain(lambda i, x: torch.nn.functional.linear(x, ws[i]))
+
+    (k_ms, l_ms, o_ms), _, runs = graph_times(
+        [kernel, library, lambda: chain(lambda i, x: x)], side, rounds=5)
+    eager_ms, _ = cuda_ms(kernel, reps=20)
+    return dict(kernel_ms=k_ms - o_ms, library_ms=l_ms - o_ms,
+                elementwise_ms=o_ms, eager_ms=eager_ms,
+                runs_kernel_library_ops_ms=runs)
+
+
 def phase_k4_bf16(dev):
     """K4's bf16 bodies (bf16 x, bf16 out) against their plain versions at
-    the flagship frame's (K, N) at M=8: W8A8 bitwise, weight-only within
-    one bf16 ulp of each output (plus 2^-16 of the scale where a sum
-    cancels), both bitwise repeatable; timed in CUDA graphs beside the
-    bf16 cuBLAS product on the dequantized bf16 weight. Returns per body
-    the max error and the frame's nine calls summed: (ms, plain ms, bound,
-    bound_by, library ms)."""
+    every (K, N) of the flagship path at M = 1, 8 and 64 and at (3, 100,
+    200): W8A8 bitwise, weight-only within one bf16 ulp of each output
+    (plus 2^-16 of the scale where a sum cancels), both bitwise
+    repeatable; the frame's (K, N) at M=8 timed in CUDA graphs beside the
+    bf16 cuBLAS product on the dequantized bf16 weight; then the frame's
+    nine calls in order (k4_frame_chain), bf16 and, in the same run, the
+    fp32 bodies' frame. Returns per body the max error and the frame's
+    nine calls summed: (ms, plain ms, bound, bound_by, library ms)."""
     from flowtron_tpu_torch.infer.quantize import _quantize_matrix
     from flowtron_tpu_torch.ops.qmm import (
         quantized_matmul, quantized_matmul_reference)
 
     g = torch.Generator().manual_seed(44)
     side = torch.cuda.Stream()
-    table, M = {}, 8
+    table = {}
     for a8 in (True, False):
         body = "w8a8" if a8 else "w8"
         cases, max_err = {}, 0.0
-        for K, N in sorted(set(K4_FRAME_KN)):
+        for K, N in K4_KN + [(100, 200)]:
             leaf = _quantize_matrix(0.05 * torch.randn(N, K, generator=g),
                                     a8=a8)
-            x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
             q, s = leaf.q.to(dev), leaf.s.to(dev)
-            w = (q.float() * s[:, None]).to(torch.bfloat16)
-            (k_ms, p_ms, lib_ms), (out_k, out_p, _), _ = graph_times([
-                lambda: quantized_matmul(x, q, s, a8=a8),
-                lambda: quantized_matmul_reference(x, q, s, a8=a8),
-                lambda: torch.nn.functional.linear(x, w)], side)
-            tag = f"K4 bf16 {body} K={K} N={N}"
-            check(out_k.dtype == torch.bfloat16, f"{tag} dtype")
-            check(torch.equal(out_k, quantized_matmul(x, q, s, a8=a8)),
-                  f"{tag} not bitwise repeatable")
-            d = (out_k.float() - out_p.float()).abs()
-            if a8:
-                check(torch.equal(out_k, out_p), f"{tag} not bitwise")
-            else:
-                check(bool((d <= bf16_ulp(out_p.float()) + 2.0 ** -16 * float(
-                    out_p.float().abs().max())).all()), f"{tag} ulp")
-            max_err = max(max_err, float(d.max()))
-            n_bytes = 2 * M * K + N * K + 4 * N + 2 * M * N
-            ops = {"int8" if a8 else "bf16": 2 * M * K * N}
-            cases[K, N] = dict(kernel_ms=k_ms, plain_ms=p_ms,
-                               library_ms=lib_ms,
-                               bound=bound(n_bytes, ops))
-            emit("k4_bf16", body=body, M=M, K=K, N=N,
-                 max_abs_err=float(d.max()), kernel_ms=k_ms, plain_ms=p_ms,
-                 library_ms=lib_ms, bound_ms=cases[K, N]["bound"][0],
-                 bound_by=cases[K, N]["bound"][1])
+            x64 = torch.randn(64, K, generator=g).to(dev, torch.bfloat16)
+            for M in ((3,) if K == 100 else (1, 8, 64)):
+                x = x64[:M].contiguous()
+                out_k = quantized_matmul(x, q, s, a8=a8)
+                out_p = quantized_matmul_reference(x, q, s, a8=a8)
+                tag = f"K4 bf16 {body} M={M} K={K} N={N}"
+                check(out_k.dtype == torch.bfloat16, f"{tag} dtype")
+                check(torch.equal(out_k, quantized_matmul(x, q, s, a8=a8)),
+                      f"{tag} not bitwise repeatable")
+                d = (out_k.float() - out_p.float()).abs()
+                if a8:
+                    check(torch.equal(out_k, out_p), f"{tag} not bitwise")
+                else:
+                    check(bool((d <= bf16_ulp(out_p.float()) + 2.0 ** -16
+                                * float(out_p.float().abs().max())).all()),
+                          f"{tag} ulp")
+                max_err = max(max_err, float(d.max()))
+                if M != 8 or (K, N) not in K4_FRAME_KN:
+                    continue
+                w = (q.float() * s[:, None]).to(torch.bfloat16)
+                (k_ms, p_ms, lib_ms), _, _ = graph_times([
+                    lambda: quantized_matmul(x, q, s, a8=a8),
+                    lambda: quantized_matmul_reference(x, q, s, a8=a8),
+                    lambda: torch.nn.functional.linear(x, w)], side)
+                n_bytes = 2 * M * K + N * K + 4 * N + 2 * M * N
+                ops = {"int8" if a8 else "bf16": 2 * M * K * N}
+                cases[K, N] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                   library_ms=lib_ms,
+                                   bound=bound(n_bytes, ops))
+                emit("k4_bf16", body=body, M=M, K=K, N=N,
+                     max_abs_err=float(d.max()), kernel_ms=k_ms,
+                     plain_ms=p_ms, library_ms=lib_ms,
+                     bound_ms=cases[K, N]["bound"][0],
+                     bound_by=cases[K, N]["bound"][1])
+        emit("k4_bf16_checked", body=body, shapes=len(K4_KN) * 3 + 1,
+             max_abs_err=max_err)
         frame = [cases[kn] for kn in K4_FRAME_KN]
         sums = {k: sum(f[k] for f in frame)
                 for k in ("kernel_ms", "plain_ms", "library_ms")}
         b_ms = sum(f["bound"][0] for f in frame)
         by = "bytes" if all(f["bound"][1] == "bytes" for f in frame) \
             else "operations"
-        emit("k4_bf16_flow_frame", body=body, M=M, calls=len(frame), **sums,
+        emit("k4_bf16_flow_frame", body=body, M=8, calls=len(frame), **sums,
              bound_ms=b_ms, bound_by=by)
         table[body] = (max_err, sums["kernel_ms"], sums["plain_ms"], b_ms,
                        by, sums["library_ms"])
+        for dtype in (torch.bfloat16, torch.float32):
+            res = k4_frame_chain(dtype, a8, g, side, dev)
+            check(res["kernel_ms"] > 0 and res["library_ms"] > 0,
+                  f"K4 {body} chain times")
+            emit("k4_frame_chain", body=body, x=str(dtype).split(".")[-1],
+                 M=8, calls=len(frame), **res)
     return table
 
 
@@ -4695,7 +4764,11 @@ def phase_serve_bf16_modes(ft_path, wg_path, kernels):
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k4", action="store_true",
+                    help="only K4's bf16 bodies (phase_k4_bf16)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU and has no CPU fallback",
@@ -4747,6 +4820,9 @@ def main():
     print(smi, flush=True)
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
+    if args.k4:
+        phase_k4_bf16(dev)
+        return 0
 
     names = ("decoder", "wavenet", "attention", "qmm", "w4", "resident",
              "fused_cost")

@@ -18,68 +18,67 @@
 // fp32 reciprocal; this kernel does the same, so its W8A8 output is the
 // JAX kernel's to the bit (ops/qmm.py says more).
 //
-// What bounds it on an H100: bytes, and below them each call's fixed
-// latency. On the decoder's per-frame path M is the batch (<= 8) and each
-// call streams one int8 weight matrix once: 6.8 MB at (K, N) = (1664,
-// 4096) against 2 * 8 * 1664 * 4096 = 0.11 G operations. One flow-frame's
-// nine calls read 26.7 MB: about 8 us at 3.35 TB/s (the published peak),
-// against a launch and a round trip to memory of a few microseconds a
-// call. The first version ran one warp per output column on SIMT units:
-// two 16-byte loads a lane at K = 1024, a shuffle reduction per row, and,
-// weight-only, fp32 FMAs whose cost at M = 8 (6.4 us at 67 TFLOP/s)
-// matched the bytes' own.
+// What bounds it on an H100: each call's fixed latency, then bytes. On the
+// decoder's per-frame path M is the batch (<= 8) and each call streams one
+// int8 weight matrix once: 6.8 MB at (K, N) = (1664, 4096) against 2 * 8 *
+// 1664 * 4096 = 0.11 G operations. One flow-frame's nine calls read 26.7
+// MB, about 8 us at 3.35 TB/s (the published peak), and a flow's 26.7 MB
+// fits the 50 MB L2; against that each call pays a launch, the wait on the
+// kernel before it, and the round trips that bring x and q.
 //
-// The design:
-// - the product is computed transposed, out^T (N x M) = q (N x K) x^T,
-//   so the small M is the mma's n = 8 and q, K-contiguous, is the
-//   row-major A operand; a warp owns 16 output columns (m = 16) and up to
-//   8 tiles of 8 rows of x, and its A fragments serve every row tile;
+// One design for every body. The product is computed transposed, out^T
+// (N x M) = q (N x K) x^T, so the small M is the mma's n = 8 and q,
+// K-contiguous, is the row-major A operand: a warp owns 16 output columns
+// (m = 16) and up to 8 tiles of 8 rows of x, and its A fragments serve
+// every row tile.
 // - q goes from device memory straight into the A fragments: for each
 //   64-byte stretch of k, lane t of a quad loads the 16 bytes at 16 t of
 //   its rows g = lane / 4 and g + 8, up to kGroup stretches in flight a
-//   lane; the mma's k order is a permutation of those bytes, and the B
-//   fragments (x) take the same permutation, so every product still
-//   pairs q[n, k] with x[m, k] and no staging of q is needed;
+//   lane, issued before anything else; the mma's k order is a permutation
+//   of those bytes, and the B fragments (x) take the same permutation, so
+//   every product still pairs q[n, k] with x[m, k] and no staging of q is
+//   needed;
 // - x is staged once a block in shared memory while the weight loads are
-//   in flight, zero past K and M (a zero adds exactly 0), with the
-//   epilogue's scales; fp32 rows are swizzled and int8 rows padded so
-//   that each quarter-warp's 16-byte fragment loads hit 8 distinct bank
-//   groups;
-// - W8A8: mma.sync m16n8k32 s8 -> s32, exact sums in any order, so the
-//   epilogue's two rounded multiplies give the plain version's bits. A
-//   first launch quantizes x into a zero-padded int8 scratch (a row over
-//   several blocks, each taking the whole row's max: then rintf(x / sx),
-//   a true division, jnp.round's round-half-to-even). The product is its
-//   programmatic dependent: it starts while the quantize launch runs,
-//   loads its weights, and waits (griddepcontrol.wait) only before it
-//   reads xq and sx;
-// - weight-only: mma.sync m16n8k8 tf32 -> fp32. q is exact in tf32 (its
-//   bytes become floats by the 2^23-exponent trick and one subtract); x
-//   is staged as its tf32 pieces hi = tf32(x) and lo = tf32(x - hi), two
-//   mmas into one accumulator, about 2^-22 relative error a product; with
-//   one or two row tiles a warp, words of k go to 4 or 2 accumulator sets
-//   (shorter chains of dependent mmas), added in order at the end; s is
-//   applied once at the end, as _qmm_kernel applies it;
-// - bf16 x (the body the Pallas kernel runs under the JAX server's --bf16,
-//   x_bf16): weight-only is one mma.sync m16n8k16 bf16 pass, q's bytes
-//   exact in bf16 (the tf32 trick, then the upper halves), x staged as it
-//   is, rows padded by 16 bytes against bank conflicts; the fp32 sums are
-//   scaled by s in fp32 and rounded once, as _qmm_kernel's
-//   (acc * s).astype(bf16). W8A8 quantizes each bf16 row through fp32 in
-//   the quantize launch (x.astype(f32) at :40) and runs the same s8
-//   product; its epilogue rounds the fp32 result once;
+//   in flight, zero past K and M, with the epilogue's scales;
 // - the host (ops/qmm.py:qmm_plan) chooses the column tiles and the split
 //   of K over a block's warps; partial sums meet in shared memory, each
-//   output's added in split order by one thread: one product launch a
-//   call, no atomics, bitwise repeatable;
+//   output's added in split order by one thread: no atomics, bitwise
+//   repeatable;
+// - W8A8: mma.sync m16n8k32 s8 -> s32, exact sums in any order, so the
+//   epilogue's two rounded multiplies give the plain version's bits;
 // - ragged shapes: loads past K, N and M read zeros; q rows that are not
 //   16-byte aligned (K % 16 != 0) are loaded byte by byte.
-// What is left (PERF.md): the quantize pass fused into the product
-// (W8A8 is two launches, ~2 us of quantize on the critical path), wgmma
-// fed by TMA, the int8 weights held in L2 across frames, and weight-only's
-// int8 -> tf32 converts (two instructions a byte); N = 640 and 1024 give
-// 40 and 64 column tiles, fewer blocks than SMs, which only a split of K
-// across blocks (a cluster) would fill.
+// By x's dtype:
+// - W8A8 (either dtype): a first launch quantizes x into a zero-padded
+//   int8 scratch (a row over several blocks, each taking the whole row's
+//   max: then rintf(x / sx), a true division, jnp.round's
+//   round-half-to-even; a bf16 x is read as fp32, as _qmm_w8a8_kernel's
+//   x.astype(f32)); the product is its programmatic dependent and waits
+//   only before it reads xq and sx. A one-launch form, each block
+//   quantizing its own rows, was built for bf16 x and timed slower on the
+//   frame's nine calls in order: every block redid the whole rows' max and
+//   divisions (PERF.md);
+// - fp32 weight-only: mma.sync m16n8k8 tf32 -> fp32. q is exact in tf32
+//   (the 2^23-exponent trick and one subtract); x is staged as its tf32
+//   pieces hi = tf32(x) and lo = tf32(x - hi), two mmas into one
+//   accumulator, about 2^-22 relative error a product; with one or two row
+//   tiles a warp, words of k go to 4 or 2 accumulator sets, added in order
+//   at the end; s is applied once at the end, as _qmm_kernel applies it;
+// - bf16 weight-only (the body the Pallas kernel runs under the JAX
+//   server's --bf16): one mma.sync m16n8k16 bf16 pass; q's bytes become
+//   bf16 in 1.75 instructions a byte, exactly: with b a byte and L = b &
+//   0x7f, the bf16 0x4300 | L is 128 + L and 0x4300 | (b & 0x80) is 128 or
+//   256, so their difference (one bf16x2 subtract) is the signed value;
+//   even bytes of a word sit in the low byte of each half already, odd
+//   bytes take one PRMT, so a word gives the pairs (k0, k2) and (k1, k3),
+//   and x is staged with each group of 4 in that order; fp32 sums, scaled
+//   by s in fp32 and rounded once, as _qmm_kernel's (acc * s).astype(bf16).
+//   A producer warp feeding a shared-memory ring by bulk tensor copies, a
+//   cluster splitting K, and a programmatic launch were each built for it
+//   and timed slower on the frame's nine calls in order (PERF.md).
+// What is left (PERF.md): the fixed cost of a call (the launch, the round
+// trip for x, W8A8's second launch and ~2 us of quantize on its critical
+// path), and the int8 weights re-read from L2 every frame.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,6 +199,13 @@ __host__ __device__ __forceinline__ int xq_stride(int Kp) {
   return Kp % 128 == 64 ? Kp : Kp + 64;
 }
 
+// Bytes between staged bf16 rows of x: 2 Kp + 16, so that a quarter-warp's
+// 16-byte loads (rows g, g + 1; 32 bytes apart along k) hit 8 distinct
+// bank groups.
+__host__ __device__ __forceinline__ int xb_stride(int Kp) {
+  return 2 * Kp + 16;
+}
+
 // Where chunk c (4 floats) of staged fp32 row r lies: within each 16-chunk
 // stretch, chunk 4 t + j moves to 4 t + (j ^ ((t ^ r) & 3)), so the four
 // lanes of a quad (t = 0..3, one 64-byte piece each) and the two rows of a
@@ -230,24 +236,15 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
   lo = __uint_as_float(tf32_rna(__fsub_rn(v, hi)));
 }
 
-// Bytes between staged bf16 rows of x: 2 Kp + 16, so that a quarter-warp's
-// 16-byte loads (rows g, g + 1; 32 bytes apart along k) hit 8 distinct
-// bank groups.
-__host__ __device__ __forceinline__ int xb_stride(int Kp) {
-  return 2 * Kp + 16;
-}
-
-// Rows m0 .. m0 + rows - 1 of xq (int8, padded rows), of fp32 x (its tf32
-// hi and lo pieces, two swizzled planes of rows x Kp floats) or of bf16 x
-// (as it is, rows xb_stride bytes apart) into shared memory, zero past K
-// and M; the caller's block barrier ends it. fp32 x is read with kStage
-// 16-byte loads in flight a thread, then split.
-template <bool kA8, bool kBF>
-__device__ void stage_x(unsigned char* smem, const void* __restrict__ xv,
+// Rows m0 .. m0 + rows - 1 of xq (int8, padded rows) or of fp32 x (its
+// tf32 hi and lo pieces, two swizzled planes of rows x Kp floats) into
+// shared memory, zero past K and M; the caller's block barrier ends it.
+// fp32 x is read with kStage 16-byte loads in flight a thread, then split.
+template <bool kA8>
+__device__ void stage_x(unsigned char* smem, const float* __restrict__ x,
                         const int8_t* __restrict__ xq, int M, int K, int Kp,
                         int m0, int rows) {
   constexpr int kStage = 8;
-  const float* x = static_cast<const float*>(xv);
   if (kA8) {
     const int per_row = Kp / 16, stride = xq_stride(Kp);
     for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
@@ -258,26 +255,6 @@ __device__ void stage_x(unsigned char* smem, const void* __restrict__ xv,
     }
     cp_async_commit();
     cp_async_wait<0>();
-  } else if (kBF) {
-    const uint16_t* xb = static_cast<const uint16_t*>(xv);
-    const int stride = xb_stride(Kp);
-    if ((K & 7) == 0) {                   // 16-byte pieces of x rows
-      const int per_row = Kp / 8;
-      for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
-        const int r = i / per_row, c = i - r * per_row, m = m0 + r;
-        const bool ok = m < M && 8 * c < K;
-        cp_async16_zfill(smem + (size_t)r * stride + 16 * c,
-                         ok ? xb + (size_t)m * K + 8 * c : xb, ok ? 16 : 0);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      for (int i = threadIdx.x; i < rows * Kp; i += blockDim.x) {
-        const int r = i / Kp, k = i - r * Kp, m = m0 + r;
-        *reinterpret_cast<uint16_t*>(smem + (size_t)r * stride + 2 * k) =
-            m < M && k < K ? xb[(size_t)m * K + k] : (uint16_t)0;
-      }
-    }
   } else if ((K & 3) == 0) {              // 16-byte pieces of x rows
     const int per_row = Kp / 4, total = rows * per_row;
     float4* hi = reinterpret_cast<float4*>(smem);
@@ -326,12 +303,6 @@ __device__ __forceinline__ uint32_t byte_to_tf32(uint32_t u, int i) {
                 8388736.f));                 // 2^23 + 128
 }
 
-// Bytes i and i + 1 of u (biased bytes) as a bf16 pair, exactly: their
-// fp32 values (byte_to_tf32) are small integers, whose low 16 bits are 0.
-__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t u, int i) {
-  return __byte_perm(byte_to_tf32(u, i), byte_to_tf32(u, i + 1), 0x7632);
-}
-
 __device__ __forceinline__ int word(int4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
@@ -340,12 +311,67 @@ __device__ __forceinline__ uint32_t word(uint4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// Accumulator sets a warp keeps: the weight-only body runs 16 dependent
-// mmas a stretch, so with few row tiles word j of a lane's 16 bytes goes
-// to set j % sets, and the sets are added in order at the end.
+// Accumulator sets a warp keeps: the weight-only bodies run dependent mmas
+// back to back, so with few row tiles word j of a lane's 16 bytes goes to
+// set j % sets, and the sets are added in order at the end.
 template <bool kA8, int MT>
 __host__ __device__ constexpr int acc_sets() {
   return kA8 ? 1 : MT == 1 ? 4 : MT == 2 ? 2 : 1;
+}
+
+// (a - b) on each bf16 half.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Bytes 0 and 2 of u (signed) as a bf16 pair, exactly: with L = b & 0x7f,
+// 0x4300 | L is 128 + L and 0x4300 | (b & 0x80) is 128 or 256.
+__device__ __forceinline__ uint32_t even_bytes_bf16x2(uint32_t u) {
+  return bf16x2_sub((u & 0x007f007fu) | 0x43004300u,
+                    (u & 0x00800080u) | 0x43004300u);
+}
+
+// Bytes 1 and 3 of u (signed) as a bf16 pair: one PRMT brings them to the
+// low byte of each half beside 0x43, then as even_bytes_bf16x2.
+__device__ __forceinline__ uint32_t odd_bytes_bf16x2(uint32_t u) {
+  const uint32_t r = __byte_perm(u, 0x43434343u, 0x4341);
+  return bf16x2_sub(r & 0xff7fff7fu, r & 0xff80ff80u);
+}
+
+// Eight bf16 of x row m from k on (k % 8 == 0), as bits, zeros past K and
+// M: one 16-byte load where the rows are 16-byte aligned (K % 8 == 0).
+__device__ __forceinline__ uint4 x_bf16_chunk(const __nv_bfloat16* x,
+                                              int M, int K, int m, int k) {
+  if (m >= M || k >= K) return make_uint4(0u, 0u, 0u, 0u);
+  const uint16_t* p = reinterpret_cast<const uint16_t*>(x) + (size_t)m * K + k;
+  if (K % 8 == 0) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = k + i < K ? __ldg(p + i) : 0u;
+  return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,
+                    e[6] | e[7] << 16);
+}
+
+// Weight-only's bf16 rows m0 .. m0 + rows - 1 of x into shared memory
+// (xb_stride(Kp) bytes apart, zeros past K and M), each group of 4 as k0,
+// k2, k1, k3 (the mma's pairing of q's bytes); the caller's block barrier
+// ends it.
+__device__ void stage_x_bf16(unsigned char* smem,
+                             const __nv_bfloat16* __restrict__ x, int M,
+                             int K, int Kp, int m0, int rows) {
+  const int stride = xb_stride(Kp), chunks = Kp / 8;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = i - r * chunks;
+    const uint4 u = x_bf16_chunk(x, M, K, m0 + r, 8 * c);
+    *reinterpret_cast<uint4*>(smem + r * stride + 16 * c) =
+        make_uint4(__byte_perm(u.x, u.y, 0x5410),
+                   __byte_perm(u.x, u.y, 0x7632),
+                   __byte_perm(u.z, u.w, 0x5410),
+                   __byte_perm(u.z, u.w, 0x7632));
+  }
 }
 
 // One 64-byte stretch s of k into the accumulators of every row tile: ra
@@ -370,9 +396,18 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
       mma_s8_m16n8k32(acc[0][i], a1, (uint32_t)b.z, (uint32_t)b.w);
     }
   } else if constexpr (kBF) {
-    // Word j of the lane's 16 bytes (k 16 t + 4 j .. + 3) feeds one k16
-    // mma: bytes 0, 1 at its k 2t, 2t + 1 and bytes 2, 3 at 2t + 8, 2t +
-    // 9; b: the same four bf16 of x row g (32 bytes a lane, two loads).
+    // word j (k 16 t + 4 j .. + 3) feeds one k16 mma: bytes 0, 2 at its
+    // k 2t, 2t + 1 and bytes 1, 3 at 2t + 8, 2t + 9; b: the same four of x
+    // row g, staged in that order (32 bytes a lane, two loads)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t ua = (uint32_t)word(ra, j), ub = (uint32_t)word(rb, j);
+      a[j][0] = even_bytes_bf16x2(ua);
+      a[j][1] = even_bytes_bf16x2(ub);
+      a[j][2] = odd_bytes_bf16x2(ua);
+      a[j][3] = odd_bytes_bf16x2(ub);
+    }
     const int stride = xb_stride(Kp);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -382,12 +417,8 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
       const uint4 x0 = px[0], x1 = px[1];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t ua = (uint32_t)word(ra, j) ^ 0x80808080u;
-        const uint32_t ub = (uint32_t)word(rb, j) ^ 0x80808080u;
-        const uint32_t a[4] = {bytes_to_bf16x2(ua, 0), bytes_to_bf16x2(ub, 0),
-                               bytes_to_bf16x2(ua, 2), bytes_to_bf16x2(ub, 2)};
         const uint4 xv = j < 2 ? x0 : x1;
-        mma_bf16(acc[j % kSets][i], a, word(xv, 2 * (j & 1)),
+        mma_bf16(acc[j % kSets][i], a[j], word(xv, 2 * (j & 1)),
                  word(xv, 2 * (j & 1) + 1));
       }
     }
@@ -423,15 +454,14 @@ __device__ __forceinline__ void stretch_mma(Acc (&acc)[kSets][MT][4], int4 ra,
 // Grid (column blocks, row blocks); block ct * ks warps. Warp w owns
 // column tile w % ct of its block and part w / ct of the block's K
 // stretches (part p: stretches p S / ks .. (p + 1) S / ks - 1), and MT
-// row tiles. kVec: q rows are 16-byte aligned (K % 16 == 0). kBF: x is
-// bf16 (weight-only; W8A8 reads xq whatever x was). out is fp32, or bf16
-// when out_bf16.
+// row tiles. kVec: q rows are 16-byte aligned (K % 16 == 0). kBF: out is
+// bf16, and so is x (W8A8 reads xq whatever x was); else both are fp32.
 template <bool kA8, int MT, bool kVec, bool kBF>
 __global__ void __launch_bounds__(MT >= 4 ? 256 : 512)
 qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
            const float* __restrict__ sx, const int8_t* __restrict__ q,
-           const float* __restrict__ s, void* __restrict__ out, int M,
-           int K, int N, int ct, int ks, int out_bf16) {
+           const float* __restrict__ s, void* __restrict__ out, int M, int K,
+           int N, int ct, int ks) {
   using Acc = std::conditional_t<kA8, int, float>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -447,7 +477,7 @@ qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
 
   // the epilogue's scales (s of the block's columns, W8A8's sx of its
   // rows) go to shared memory with the staged x, so no global load waits
-  // at the end; at most one s and two sx a thread
+  // at the end
   __shared__ float s_sh[kMaxCols], sx_sh[kMaxRows];
   const int cols = ct * kTileN, rows = MT * kTileM;
   const int c0 = blockIdx.x * cols;
@@ -463,23 +493,29 @@ qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
     ra[u] = load_q16<kVec>(qa, va && in, k, K);
     rb[u] = load_q16<kVec>(qb, vb && in, k, K);
   }
-  // W8A8 starts while the quantize launch runs (a programmatic
-  // dependent launch); xq and sx are read only after this wait
-  float sx_v[2] = {0.f, 0.f};
+  // W8A8 starts while its quantize launch runs (a programmatic dependent
+  // launch); xq and sx are read only after this wait
   if constexpr (kA8) {
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    float sx_v[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = threadIdx.x + h * blockDim.x;
       if (r < rows && m0 + r < M) sx_v[h] = sx[m0 + r];
     }
-  }
-  stage_x<kA8, kBF>(smem, x, xq, M, K, Kp, m0, rows);
-  if (threadIdx.x < cols) s_sh[threadIdx.x] = s_v;
+    stage_x<true>(smem, nullptr, xq, M, K, Kp, m0, rows);
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (threadIdx.x + h * blockDim.x < rows)
-      sx_sh[threadIdx.x + h * blockDim.x] = sx_v[h];
+    for (int h = 0; h < 2; ++h)
+      if (threadIdx.x + h * blockDim.x < rows)
+        sx_sh[threadIdx.x + h * blockDim.x] = sx_v[h];
+  } else if constexpr (kBF) {
+    stage_x_bf16(smem, static_cast<const __nv_bfloat16*>(x), M, K, Kp, m0,
+                 rows);
+  } else {
+    stage_x<false>(smem, static_cast<const float*>(x), xq, M, K, Kp, m0,
+                   rows);
+  }
+  if (threadIdx.x < cols) s_sh[threadIdx.x] = s_v;
   __syncthreads();
 
   constexpr int kSets = acc_sets<kA8, MT>();
@@ -504,7 +540,7 @@ qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
     for (int u = 0; u < kGroup; ++u)
       if (s0 + u < s_end)
         stretch_mma<kA8, kBF, MT>(sets, ra[u], rb[u], smem, s0 + u, Kp, g,
-                                       t);
+                                  t);
   }
   Acc (&acc)[MT][4] = sets[0];
 #pragma unroll
@@ -527,7 +563,7 @@ qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
     else
       y = __fmul_rn(v, s_sh[cn]);
     const size_t o = (size_t)(m0 + rm) * N + c0 + cn;
-    if (out_bf16)
+    if constexpr (kBF)
       static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
     else
       static_cast<float*>(out)[o] = y;
@@ -560,7 +596,7 @@ qmm_kernel(const void* __restrict__ x, const int8_t* __restrict__ xq,
 
 using Kernel = void (*)(const void*, const int8_t*, const float*,
                         const int8_t*, const float*, void*, int, int, int,
-                        int, int, int);
+                        int, int);
 
 template <bool kA8, bool kVec, bool kBF>
 Kernel pick_mt(int mt) {
@@ -573,15 +609,15 @@ Kernel pick_mt(int mt) {
   }
 }
 
-Kernel pick(bool a8, bool vec, bool bf, int mt) {
+template <bool kBF>
+Kernel pick_bf(bool a8, bool vec, int mt) {
   if (a8)
-    return vec ? pick_mt<true, true, false>(mt)
-               : pick_mt<true, false, false>(mt);
-  if (bf)
-    return vec ? pick_mt<false, true, true>(mt)
-               : pick_mt<false, false, true>(mt);
-  return vec ? pick_mt<false, true, false>(mt)
-             : pick_mt<false, false, false>(mt);
+    return vec ? pick_mt<true, true, kBF>(mt) : pick_mt<true, false, kBF>(mt);
+  return vec ? pick_mt<false, true, kBF>(mt) : pick_mt<false, false, kBF>(mt);
+}
+
+Kernel pick(bool a8, bool vec, bool bf, int mt) {
+  return bf ? pick_bf<true>(a8, vec, mt) : pick_bf<false>(a8, vec, mt);
 }
 
 // Shared memory (bytes) a block of the plan (ct, ks, mt) takes: the
@@ -608,39 +644,39 @@ const char* qmm_error_string(int err) {
 // the W8A8 body and needs xq (M, K rounded up to 64) int8 and sx (M,)
 // fp32 of scratch; otherwise both may be null. (ct, ks, mt): the plan of
 // ops/qmm.py:qmm_plan, column tiles a block, warps along K a column tile,
-// row tiles a warp.
+// row tiles a warp. W8A8's product is a programmatic dependent of its
+// quantize launch.
 int qmm_launch(const void* x, int x_bf16, const int8_t* q, const float* s,
                void* out, int8_t* xq, float* sx, int M, int K, int N,
                int a8, int ct, int ks, int mt, void* stream_handle) {
   if (M <= 0 || K <= 0 || N <= 0 || (a8 && (!xq || !sx)) || ct < 1 ||
       ks < 1 || ct * ks > (mt >= 4 ? kMaxWarps / 2 : kMaxWarps))
     return cudaErrorInvalidValue;
-  const bool bf = x_bf16 && !a8;
-  const Kernel kernel = pick(a8 != 0, K % 16 == 0, bf, mt);
-  const int smem = qmm_smem_bytes(K, a8, bf, ct, ks, mt);
+  const Kernel kernel = pick(a8 != 0, K % 16 == 0, x_bf16 != 0, mt);
+  const int smem = qmm_smem_bytes(K, a8, x_bf16, ct, ks, mt);
   if (!kernel || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   cudaError_t err;
-  if (smem > 48 * 1024 &&
+  // past what a launch may take without asking (48 KB with the kernel's
+  // static shared memory beside it)
+  if (smem > 44 * 1024 &&
       (err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return err;
   if (a8) {
     const dim3 qgrid((padded_k(K) + kQuantSlice - 1) / kQuantSlice, M);
     if (x_bf16)
-      quantize_rows_kernel<__nv_bfloat16><<<qgrid, kQuantThreads, 0,
-                                            stream>>>(
+      quantize_rows_kernel<<<qgrid, kQuantThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(x), K, padded_k(K), xq, sx);
     else
-      quantize_rows_kernel<float><<<qgrid, kQuantThreads, 0, stream>>>(
+      quantize_rows_kernel<<<qgrid, kQuantThreads, 0, stream>>>(
           static_cast<const float*>(x), K, padded_k(K), xq, sx);
     if ((err = cudaGetLastError())) return err;
   }
   const int tiles = (N + kTileN - 1) / kTileN;
-  const dim3 grid((tiles + ct - 1) / ct,
-                  (M + mt * kTileM - 1) / (mt * kTileM));
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3((tiles + ct - 1) / ct,
+                     (M + mt * kTileM - 1) / (mt * kTileM));
   cfg.blockDim = dim3(32 * ct * ks);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -650,8 +686,7 @@ int qmm_launch(const void* x, int x_bf16, const int8_t* q, const float* s,
   cfg.attrs = attr;
   cfg.numAttrs = a8 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, x, (const int8_t*)xq,
-                            (const float*)sx, q, s, out, M, K, N, ct, ks,
-                            x_bf16);
+                            (const float*)sx, q, s, out, M, K, N, ct, ks);
 }
 
 }  // extern "C"

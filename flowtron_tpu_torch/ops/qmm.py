@@ -22,7 +22,8 @@ On CUDA tensors ``quantized_matmul`` launches csrc/qmm.cu (its note says
 what bounds it and how the design answers), tiled as ``qmm_plan`` says;
 the output takes x's dtype: fp32 from fp32 x, bf16 from bf16 x (the body
 the Pallas kernel runs under the JAX server's ``--bf16``, whose callers
-all pass ``out_dtype=x.dtype``). On CPU tensors it runs
+all pass ``out_dtype=x.dtype``). W8A8 is two launches, a quantize launch
+into scratch, then the product. On CPU tensors it runs
 ``quantized_matmul_reference``, which also takes the Pallas signature's
 ``out_dtype``.
 N need not be a multiple of 128: that rule of the Pallas kernel is a TPU
@@ -68,8 +69,8 @@ def qmm_padded_k(K):
 def qmm_smem_bytes(K, a8, ct, ks, mt, bf16=False):
     """Shared memory of a block (csrc/qmm.cu:qmm_smem_bytes): the larger
     of its staged rows of x (the tf32 hi and lo pieces of fp32 x, bf16 x
-    rows padded by 16 bytes, or int8 rows padded to an odd multiple of 64
-    bytes) and its K parts' partial sums."""
+    rows padded by 16 bytes, or W8A8's int8 rows padded to an odd multiple
+    of 64 bytes) and its K parts' partial sums."""
     Kp, rows = qmm_padded_k(K), mt * TILE_M
     if a8:
         stage = rows * (Kp + (0 if Kp % 128 == 64 else 64))
@@ -87,9 +88,10 @@ def qmm_plan(M, K, N, sms=None, a8=False, bf16=False):
     loads in flight. Column tiles a block: the most whose blocks still
     give 7 in 8 SMs one, and at least enough for 4 warps a block. Where
     even one column tile a block leaves SMs idle, K is split further,
-    down to two stretches a warp. ``bf16``: x is bf16 (its staged rows are
-    a quarter of fp32's tf32 pieces). Returns a QmmPlan; raises ValueError
-    for shapes the kernel does not take."""
+    down to two stretches a warp. ``bf16``: x is bf16 (weight-only's
+    staged rows are a quarter of fp32's tf32 pieces; W8A8's are int8
+    either way). Returns a QmmPlan; raises ValueError for shapes the kernel
+    does not take."""
     if min(M, K, N) < 1:
         raise ValueError(f"M, K, N ({M}, {K}, {N}) must be positive")
     sms = sms or H100_SMS
@@ -192,8 +194,8 @@ def quantized_matmul(x, q, s, a8=False):
                          s.data_ptr(), out.data_ptr(), xq_p, sx_p, M, K, N,
                          int(bool(a8)), plan.ct, plan.ks, plan.mt, stream)
     if err:
-        raise RuntimeError("qmm_launch failed: "
-                           + lib.qmm_error_string(err).decode())
+        raise RuntimeError(f"qmm_launch failed at M={M} K={K} N={N}, "
+                           f"{plan}: " + lib.qmm_error_string(err).decode())
     quantized_matmul.launches += 1
     if a8:
         quantized_matmul.launches_w8a8 += 1

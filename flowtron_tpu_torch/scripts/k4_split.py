@@ -1,12 +1,13 @@
 """Split K4's device time by kernel with torch.profiler: the W8A8 body's
 quantize launch and its product (or the weight-only product alone), on
-seeded random inputs, at one (M, K, N).
+seeded random inputs, fp32 x or bf16 x (``--bf16``), at one (M, K, N).
 
-    python -m flowtron_tpu_torch.scripts.k4_split [M K N] [--w8] [--calls C]
+    python -m flowtron_tpu_torch.scripts.k4_split [M K N] [--w8] [--bf16]
+        [--calls C]
 
 Defaults: the flagship decoder's widest per-frame dot at the serving
-engine's batch, (8, 1664, 4096), W8A8, 200 eager calls after 20 of
-warm-up. Prints the card's name and power limit, then one JSON line per
+engine's batch, (8, 1664, 4096), W8A8, fp32 x, 200 eager calls after 20
+of warm-up. Prints the card's name and power limit, then one JSON line per
 kernel (calls, device microseconds per call, share of the kernels' device
 time) and one for the total. Needs CUDA.
 """
@@ -44,6 +45,8 @@ def main(argv=None):
                     help="M K N")
     ap.add_argument("--w8", action="store_true",
                     help="the weight-only body (default W8A8)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 x (the bodies of the --bf16 server)")
     ap.add_argument("--calls", type=int, default=200)
     args = ap.parse_args(argv)
     if len(args.shape) != 3:
@@ -60,7 +63,8 @@ def main(argv=None):
     g = torch.Generator().manual_seed(14)
     leaf = _quantize_matrix(0.05 * torch.randn(N, K, generator=g), a8=a8)
     q, s = leaf.q.to(dev), leaf.s.to(dev)
-    x = torch.randn(M, K, generator=g).to(dev)
+    x = torch.randn(M, K, generator=g).to(
+        dev, torch.bfloat16 if args.bf16 else torch.float32)
 
     def call():
         return quantized_matmul(x, q, s, a8=a8)
@@ -75,7 +79,7 @@ def main(argv=None):
                           "us_per_call": us / args.calls,
                           "share": us / total}), flush=True)
     print(json.dumps({"body": "w8a8" if a8 else "w8", "M": M, "K": K, "N": N,
-                      "calls": args.calls,
+                      "x": str(x.dtype).split(".")[-1], "calls": args.calls,
                       "device_us_per_call": total / args.calls}), flush=True)
 
 

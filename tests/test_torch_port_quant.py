@@ -40,8 +40,8 @@ from flowtron_tpu_torch.models.flowtron import (  # noqa: E402
     flowtron_init, flowtron_infer,
 )
 from flowtron_tpu_torch.ops.qmm import (  # noqa: E402
-    MAX_WARPS, SMEM_LIMIT, STRETCH, TILE_M, TILE_N, qmm_padded_k, qmm_plan,
-    quantized_matmul, quantized_matmul_reference,
+    INV_127, MAX_WARPS, SMEM_LIMIT, STRETCH, TILE_M, TILE_N, qmm_padded_k,
+    qmm_plan, quantized_matmul, quantized_matmul_reference,
 )
 from flowtron_tpu_torch.utils import weights as port_weights  # noqa: E402
 from flowtron_tpu_torch.utils.convert import (  # noqa: E402
@@ -234,6 +234,208 @@ def test_k4_w8_tensor_core_numerics_within_tolerance(M, K, N):
     hi = _tf32_rna(x)
     assert np.all(np.abs(x - hi - _tf32_rna(x - hi))
                   <= 2.0 ** -21 * np.abs(x))
+
+
+# the bf16 plan's cases: the frame's (K, N) at M = 1, 8 and 64, and one
+# unaligned shape
+BF16_PLAN_CASES = [(M, K, N) for K, N in sorted(set(PATH_KN) - {(640, 640)})
+                   for M in (1, 8, 64)] + [(3, 100, 200)]
+
+
+def _part_stretches(plan, K):
+    """The stretches of K part p of a column tile multiplies, in order
+    (csrc/qmm.cu:qmm_kernel: p S // ks up to (p + 1) S // ks)."""
+    S = qmm_padded_k(K) // STRETCH
+    return [range(p * S // plan.ks, (p + 1) * S // plan.ks)
+            for p in range(plan.ks)]
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["w8", "w8a8"])
+@pytest.mark.parametrize("M,K,N", BF16_PLAN_CASES)
+def test_k4_bf16_plan_covers_each_column_row_and_k_once(M, K, N, a8):
+    """The bf16 bodies' launch: every column tile and row block once, every
+    stretch of K once a column tile across the block's K parts, and the
+    block's staged rows (bf16, or W8A8's int8) and partial sums within
+    shared memory."""
+    plan = qmm_plan(M, K, N, 132, a8, True)
+    assert plan.threads == 32 * plan.ct * plan.ks
+    assert plan.ct * plan.ks <= (MAX_WARPS // 2 if plan.mt >= 4
+                                 else MAX_WARPS)
+    assert plan.mt in (1, 2, 4, 8) and plan.smem <= SMEM_LIMIT
+    Kp, rows = qmm_padded_k(K), plan.mt * TILE_M
+    staged = rows * ((Kp if Kp % 128 == 64 else Kp + 64) if a8
+                     else 2 * Kp + 16)
+    assert plan.smem >= staged
+    col_count, row_count = np.zeros(N, int), np.zeros(M, int)
+    k_count = {}
+    for tile, by, s0, s1 in _plan_warps(plan, K):
+        assert s0 < s1                      # no warp without work
+        cols = slice(tile * TILE_N, min((tile + 1) * TILE_N, N))
+        kc = k_count.setdefault((tile, by), np.zeros(K, int))
+        kc[s0 * STRETCH:min(s1 * STRETCH, K)] += 1
+        if s0 == 0:
+            if by == 0:
+                col_count[cols] += 1
+            if tile == 0:
+                row_count[by * rows:min((by + 1) * rows, M)] += 1
+    assert (col_count == 1).all() and (row_count == 1).all()
+    assert all((kc == 1).all() for (tile, _), kc in k_count.items()
+               if tile * TILE_N < N)
+
+
+def _bf16(a):
+    """fp32 numbers rounded to bf16 (to nearest even), back as fp32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _emulate_k4_bf16_w8a8(x, q, s, plan):
+    """The bf16 W8A8 body's arithmetic, step by step: the quantize launch
+    reads each bf16 row as fp32, sx = max|x| * fp32(1/127) (1 where 0),
+    clip(rint(x / sx)) with a true fp32 division; the product's K parts'
+    int32 sums over their stretches, added in part order; out =
+    (fp32(acc) * sx) * s, rounded to bf16 once."""
+    M, K = x.shape
+    S = qmm_padded_k(K) // STRETCH
+    xp = np.zeros((M, S * STRETCH), np.float32)
+    xp[:, :K] = x
+    qp = np.zeros((q.shape[0], S * STRETCH), np.float64)
+    qp[:, :K] = q
+    sx = np.abs(xp).max(axis=1) * np.float32(INV_127)
+    sx = np.where(sx == 0, np.float32(1), sx).astype(np.float32)
+    xq = np.clip(np.rint(xp / sx[:, None]), -127, 127)
+    acc = np.zeros((M, q.shape[0]), np.float64)
+    for sts in _part_stretches(plan, K):
+        for st in sts:
+            k = slice(st * STRETCH, (st + 1) * STRETCH)
+            acc += xq[:, k] @ qp[:, k].T        # exact: |acc| < 2**53
+    y = (acc.astype(np.float32) * sx[:, None]) * s[None, :]
+    return _bf16(y)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 1664, 4096), (3, 100, 200),
+                                   (64, 1024, 640)])
+def test_k4_bf16_w8a8_quantize_and_product_are_bitwise(M, K, N):
+    """The quantize launch and the K parts' int32 sums give
+    quantized_matmul_reference's bits on bf16 x, with a zero row, rows of
+    .5 ties (sx exactly 1 and 2) and a row whose int32 sum passes 2**24."""
+    rng = np.random.default_rng(20)
+    x = _bf16(rng.standard_normal((M, K)))
+    q = rng.integers(-127, 128, (N, K)).astype(np.int8)
+    s = (rng.random(N) * 0.01 + 1e-3).astype(np.float32)
+    x[0] = 0.0                                    # sx = 1
+    x[1] = 0.0
+    x[1, ::7] = 2.5                               # x / sx: halves
+    x[1, 3::7] = -3.5
+    x[1, 5::11] = 0.5
+    x[1, K // 2] = 127.0                          # sx = 127 fp32(1/127) = 1
+    x[2] = 126.5
+    x[2, 1] = 254.0                               # sx = 2: 126.5 / 2 a tie
+    q[N - 1] = 127
+    if M > 3:
+        x[3] = 3.0                                # xq = 127 everywhere
+    plan = qmm_plan(M, K, N, 132, True, True)
+    assert np.float32(127.0) * np.float32(INV_127) == 1.0
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ref = quantized_matmul_reference(xt, torch.from_numpy(q),
+                                     torch.from_numpy(s), a8=True)
+    ours = _emulate_k4_bf16_w8a8(x, q, s, plan)
+    np.testing.assert_array_equal(ours, ref.float().numpy())
+    if K == 1664:                                # row 3 against q[N - 1]
+        assert 127 * 127 * K > 2 ** 24 and ref[3, N - 1] > 0
+
+
+def _bf16_bits(v):
+    """bf16 bit patterns (uint16) of the values v, each exact in bf16."""
+    b = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    assert not (b & 0xFFFF).any()
+    return (b >> 16).astype(np.uint32)
+
+
+def _bits_bf16(b):
+    return (np.asarray(b, np.uint32) << 16).view(np.float32)
+
+
+def _int8_as_bf16_pairs(u):
+    """csrc/qmm.cu:even_bytes_bf16x2 and odd_bytes_bf16x2 on the words u:
+    the bf16 pairs (bytes 0, 2) and (bytes 1, 3) as fp32, from 0x4300 | L
+    minus 0x4300 | (b & 0x80), the subtraction exact in bf16."""
+    def sub(a, b):
+        d = np.stack([_bits_bf16(a & 0xFFFF) - _bits_bf16(b & 0xFFFF),
+                      _bits_bf16(a >> 16) - _bits_bf16(b >> 16)], -1)
+        _bf16_bits(d)                              # exact in bf16
+        return d
+    u = np.asarray(u, np.uint32)
+    even = sub((u & 0x007F007F) | 0x43004300, (u & 0x00800080) | 0x43004300)
+    r = ((u >> 8) & 0xFF) | 0x4300 | (((u >> 24) & 0xFF) << 16) | 0x43000000
+    odd = sub(r & 0xFF7FFF7F, r & 0xFF80FF80)
+    return even, odd
+
+
+def _emulate_k4_bf16_w8(x, q, s, plan):
+    """The bf16 weight-only kernel's arithmetic: q's bytes through the
+    kernel's bf16 conversion, each k16 mma's 16 exact products added to an
+    fp32 accumulator with one rounding, in the kernel's k order (a warp's
+    stretches; word j of a lane's 16 bytes: bytes 0, 2 then 1, 3 of each
+    of the 4 lanes t at byte 16 t + 4 j), word j into accumulator set
+    j % sets, the sets added in order, then the K parts' sums in part
+    order, then times s, rounded to bf16 once."""
+    M, K = x.shape
+    N = q.shape[0]
+    S = qmm_padded_k(K) // STRETCH
+    xp = np.zeros((M, S * STRETCH), np.float64)
+    xp[:, :K] = x
+    qb = np.zeros((N, S * STRETCH), np.int8)
+    qb[:, :K] = q
+    words = qb.view(np.uint32)                    # (N, S * 16)
+    even, odd = _int8_as_bf16_pairs(words)        # (N, S * 16, 2) each
+    qf = np.zeros((N, S * STRETCH), np.float64)
+    qf[:, 0::4], qf[:, 2::4] = even[..., 0], even[..., 1]
+    qf[:, 1::4], qf[:, 3::4] = odd[..., 0], odd[..., 1]
+    assert np.array_equal(qf[:, :K], q.astype(np.float64))
+    n_sets = {1: 4, 2: 2}.get(plan.mt, 1)
+    total = None
+    for sts in _part_stretches(plan, K):
+        sets = [np.zeros((M, N), np.float32) for _ in range(n_sets)]
+        for st in sts:
+            for j in range(4):
+                idx = [st * STRETCH + 16 * t + 4 * j + e
+                       for t in range(4) for e in (0, 2, 1, 3)]
+                h = j % n_sets
+                sets[h] = (sets[h] + xp[:, idx] @ qf[:, idx].T).astype(
+                    np.float32)
+        acc = sets[0]
+        for other in sets[1:]:
+            acc = acc + other
+        total = acc if total is None else total + acc
+    return _bf16(total * s)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 1664, 4096), (64, 1024, 640)])
+def test_k4_bf16_w8_sum_order_within_one_ulp(M, K, N):
+    """The bf16 weight-only design's int8 -> bf16 conversion is exact for
+    every byte, and its sum order lands within the card's bar of the plain
+    version: one bf16 ulp of each output, plus 2^-16 of the scale where a
+    sum cancels."""
+    every = np.arange(256, dtype=np.uint32)
+    even, odd = _int8_as_bf16_pairs(every | (every << 8) | (every << 16)
+                                    | (every << 24))
+    signed = every.astype(np.uint8).view(np.int8).astype(np.float32)
+    for pair in (even, odd):
+        assert np.array_equal(pair[:, 0], signed)
+        assert np.array_equal(pair[:, 1], signed)
+    x, qd = _case(M, K, N)
+    x = _bf16(x)
+    q = np.asarray(qd["q"]).T.copy()
+    s = np.asarray(qd["s"]).copy()
+    plan = qmm_plan(M, K, N, 132, False, True)
+    ref = quantized_matmul_reference(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(q),
+        torch.from_numpy(s)).float().numpy()
+    ours = _emulate_k4_bf16_w8(x, q, s, plan)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+                  - 7)
+    assert (np.abs(ours - ref) <= ulp + 2.0 ** -16 * np.abs(ref).max()).all()
 
 
 _jax_resolve = jax.jit(lambda w: jax_weights.resolve_weight(w, jnp.float32))
