@@ -117,6 +117,14 @@ prints no result. Copied into another checkout's root and run there, it
 times that checkout's K4 with this script's harness: run it in two
 checkouts in turns, in one call to the card, to hold two versions of the
 kernel against each other.
+
+    python3 chip_smoke.py --k1-bf16
+
+runs only ``phase_k1_bf16`` (K1's bf16 body against its plain version
+and the fp32 kernel at B=1, 4 and 8, both flows, its stage split and
+where its rows lie, timed beside the fp32 kernel in turns; the fp32
+kernel's outputs hashed) on the model the full run builds, and prints no
+result; copied into another checkout it does the same for that one.
 """
 
 import argparse
@@ -475,7 +483,9 @@ def k1_bound(weights, N, B, Tk, D, M=80):
     keys, values and key mask read once, mel, attention and gates written
     once, fp32; per frame and stream 2 operations per weight element and
     6 per (text position, attention channel) of the attention."""
-    tensors = [t for v in weights.values()
+    from flowtron_tpu_torch.ops.decoder import _with_matrices
+
+    tensors = [t for v in _with_matrices(weights).values()
                for t in ([v] if torch.is_tensor(v) else
                          [x for pair in v for x in pair])]
     n_w = sum(t.numel() for t in tensors)
@@ -4290,7 +4300,9 @@ def k1_bf16_bound(weights, N, B, Tk, D, M=80):
     and stream at the bf16 rate, and the attention's 6 a (text position,
     attention channel), whose sums and softmax are fp32, at the fp32
     rate."""
-    tensors = [t for v in weights.values()
+    from flowtron_tpu_torch.ops.decoder import _with_matrices
+
+    tensors = [t for v in _with_matrices(weights).values()
                for t in ([v] if torch.is_tensor(v) else
                          [x for pair in v for x in pair])]
     n_w = {dt: sum(t.numel() for t in tensors if t.dtype == dt)
@@ -4305,18 +4317,31 @@ def k1_bf16_bound(weights, N, B, Tk, D, M=80):
 
 def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
     """K1's bf16 body on the card at the main path's shapes: both flows of
-    the first request (B=1, its latents) and of the four texts (B=4, key
-    mask), each against its plain bf16 version (the same n_valid, the mel
-    within K1_BF16_MEL_TOL of its scale, attention within K1_BF16_ATTN_TOL)
-    and the fp32 kernel on the same inputs (the bf16 kernel's mel at most
+    the first request (B=1, its latents), of the four texts (B=4, key
+    mask) and of the four texts twice (B=8, key mask, other latents), each
+    against its plain bf16 version (the same n_valid, the mel within
+    K1_BF16_MEL_TOL of its scale, attention within K1_BF16_ATTN_TOL) and
+    the fp32 kernel on the same inputs (the bf16 kernel's mel at most
     K1_BF16_RATIO x the plain bf16 version's distance from it, plus
-    BF16_SCALE of its scale), two calls bitwise equal; the gated flow at
-    B=1 timed against its plain version and the fp32 kernel in turns.
+    BF16_SCALE of its scale), two calls bitwise equal with early exit off
+    and on; where its rows lie (k1_launch_info: resident bytes, streamed
+    bytes a frame, those through the ring, the K1 pack's bytes as it lies
+    on the card; no L2 window, which was timed and taken out), the K1
+    packs the flow holds after the case (one a layout, ``k1_pack_for``)
+    and the ms it took to build the case's layout at its first launch
+    (null when the flow held it already), and its stage split
+    (k1_stage_split) on every case; the gated flow at B=1 timed against its
+    plain version in turns, and at B=1 and B=8 against the fp32 kernel in
+    turns (bf16, fp32, fp32, bf16). ``fp32_sha256`` hashes the fp32
+    kernel's outputs, to hold them bitwise against another checkout's.
     Returns the max error and (ms, plain ms, bound, bound_by)."""
+    import hashlib
+
     from flowtron_tpu_torch.models.attention import attention_precompute
     from flowtron_tpu_torch.models.flowtron import _encode_text
     from flowtron_tpu_torch.ops.decoder import (
-        fused_flow_infer, fused_flow_infer_reference)
+        fused_flow_infer, fused_flow_infer_reference, k1_launch_info,
+        k1_pack_for, k1_stage_split)
 
     batch_text, batch_lens = pad_ids(ids)
     z_req = SIGMA * torch.randn(1, 80, N_FRAMES, generator=torch.Generator()
@@ -4325,7 +4350,9 @@ def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
     cases = [("request", batch_text[:1, :len(ids[0])], None,
               z_req.permute(2, 0, 1).flip(0)),
              ("batch", batch_text, batch_lens,
-              SIGMA * torch.randn(N_FRAMES, 4, 80, generator=g))]
+              SIGMA * torch.randn(N_FRAMES, 4, 80, generator=g)),
+             ("batch8", batch_text.repeat(2, 1), batch_lens.repeat(2),
+              SIGMA * torch.randn(N_FRAMES, 8, 80, generator=g))]
     max_err, times = 0.0, None
     for shape, text, lens, res in cases:
         B, Tk = text.shape
@@ -4348,17 +4375,42 @@ def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
                              res.to(dev, dt).contiguous(), kp, vals, km, 1.0)
             w16 = args["bf16"][0]
             tag = f"K1 bf16 {shape} flow {fi} B={B}"
-            check(w16["att_wi"].dtype == torch.bfloat16
+            check(w16.get("k1") is not None
                   and args["bf16"][2].dtype == torch.bfloat16,
-                  f"{tag}: not a bf16 pack")
-            timed = shape == "request" and fi != 0
+                  f"{tag}: not a bf16 pack for the card")
+            timed = fi != 0 and shape in ("request", "batch8")
+            fields = dict(shape=shape, flow=fi, B=B, N=N_FRAMES, Tk=Tk)
+            # this B's layout of the K1 pack, built where the flow lacks it
+            held = len(w16["k1"])
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            k1_pack_for(w16, B)
+            torch.cuda.synchronize(dev)
+            fields["k1_pack_build_ms"] = (
+                1e3 * (time.perf_counter() - t0)
+                if len(w16["k1"]) > held else None)
             if timed:
-                k_ms, p_ms, runs, out_k, out_p = paired_ms(
-                    lambda: fused_flow_infer(*args["bf16"]),
-                    lambda: fused_flow_infer_reference(*args["bf16"]),
-                    reps=3)
-                f32_ms, out_32 = cuda_ms(
-                    lambda: fused_flow_infer(*args["fp32"]), reps=3)
+                if shape == "request":
+                    k_ms, p_ms, runs, out_k, out_p = paired_ms(
+                        lambda: fused_flow_infer(*args["bf16"]),
+                        lambda: fused_flow_infer_reference(*args["bf16"]),
+                        reps=3)
+                    times = (k_ms, p_ms) + k1_bf16_bound(
+                        w16, N_FRAMES, B, Tk, kp.shape[2])
+                    fields.update(plain_ms=p_ms,
+                                  runs_plain_kernel_kernel_plain_ms=runs,
+                                  bound_ms=times[2], bound_by=times[3])
+                else:
+                    out_p = fused_flow_infer_reference(*args["bf16"])
+                # the fp32 kernel in turns with the bf16 one
+                f32_ms, k_ms, runs32, out_32, out_k = paired_ms(
+                    lambda: fused_flow_infer(*args["fp32"]),
+                    lambda: fused_flow_infer(*args["bf16"]), reps=3,
+                    plain_reps=3)
+                fields.update(kernel_ms=k_ms, fp32_kernel_ms=f32_ms,
+                              kernel_us_per_frame=1e3 * k_ms / N_FRAMES,
+                              bf16_over_fp32=k_ms / f32_ms,
+                              runs_bf16_fp32_fp32_bf16_ms=runs32)
             else:
                 out_k = fused_flow_infer(*args["bf16"])
                 out_p = fused_flow_infer_reference(*args["bf16"])
@@ -4379,21 +4431,30 @@ def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
                   f"{tag}: vs plain bf16 mel {errs[0]}, attn {errs[1]}")
             check(e_k <= K1_BF16_RATIO * e_p + BF16_SCALE * scale,
                   f"{tag}: vs fp32 kernel {e_k}, plain bf16 {e_p}")
+            # early exit on: where every stream's gate first passes 0.5
+            e_args = args["bf16"] + (True, 0.5)
+            out_e = fused_flow_infer(*e_args)
+            check(all(torch.equal(a, b) for a, b in zip(
+                out_e, fused_flow_infer(*e_args))),
+                f"{tag} early: two calls differ")
+            stop = int(nv_p.max())
+            check(all(torch.equal(a[:stop], b[:stop])
+                      for a, b in zip(out_e, out_k)),
+                  f"{tag} early: frames before the stop differ")
             max_err = max(max_err, errs[0])
-            fields = dict(shape=shape, flow=fi, B=B, N=N_FRAMES, Tk=Tk,
-                          max_abs_err_mel=errs[0], max_abs_err_attn=errs[1],
+            sha = hashlib.sha256()
+            for o in out_32:
+                sha.update(o.cpu().numpy().tobytes())
+            fields.update(max_abs_err_mel=errs[0], max_abs_err_attn=errs[1],
                           max_abs_err_gate=errs[2],
                           mel_err_vs_fp32_kernel=e_k,
                           plain_mel_err_vs_fp32_kernel=e_p, mel_scale=scale,
-                          n_valid=nv_k.tolist())
-            if timed:
-                times = (k_ms, p_ms) + k1_bf16_bound(
-                    w16, N_FRAMES, B, Tk, kp.shape[2])
-                fields.update(kernel_ms=k_ms, plain_ms=p_ms,
-                              fp32_kernel_ms=f32_ms,
-                              bf16_over_fp32=k_ms / f32_ms,
-                              runs_plain_kernel_kernel_plain_ms=runs,
-                              bound_ms=times[2], bound_by=times[3])
+                          n_valid=nv_k.tolist(), fp32_sha256=sha.hexdigest(),
+                          stage_us_per_frame=k1_stage_split(*args["bf16"]),
+                          k1_packs=len(w16["k1"]),
+                          k1_packs_bytes=sum(k.pack.numel() * 2
+                                             for k in w16["k1"].values()),
+                          **k1_launch_info(w16, B, Tk, dev))
             emit("k1_bf16", **fields)
     return max_err, times
 
@@ -4768,6 +4829,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k4", action="store_true",
                     help="only K4's bf16 bodies (phase_k4_bf16)")
+    ap.add_argument("--k1-bf16", action="store_true",
+                    help="only K1's bf16 body (phase_k1_bf16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4822,6 +4885,22 @@ def main(argv=None):
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
     if args.k4:
         phase_k4_bf16(dev)
+        return 0
+    if args.k1_bf16:
+        t0 = time.perf_counter()
+        _build.load_library("decoder")
+        emit("build", seconds=time.perf_counter() - t0,
+             nvcc_seconds={"decoder": _build.build_seconds["decoder"]})
+        with open("config.json") as f:
+            config = json.load(f)
+        frontend = TextFrontend.from_config(config["data_config"])
+        model, cfg = flowtron_init(1234, **config["model_config"])
+        # the flows' heads as the full run perturbs them (its seed's draws)
+        perturb_flow_heads(model, torch.Generator().manual_seed(2))
+        model.to(dev)
+        phase_k1_bf16(model, bf16_copy(model), cfg,
+                      [frontend.get_text(t) for t in TEXTS],
+                      int(frontend.get_speaker_id(0)), dev)
         return 0
 
     names = ("decoder", "wavenet", "attention", "qmm", "w4", "resident",

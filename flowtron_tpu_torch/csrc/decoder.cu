@@ -68,29 +68,64 @@
 //   instruction cache is cold for each; the helpers that run once a stage
 //   are not inlined and one loop serves every stage's quads.
 //
-// No weight stays resident in shared memory across frames (the buffer is
-// the prefetch's), and the math is plain SIMT fp32.
+// The fp32 body keeps no weight resident in shared memory across frames
+// (the buffer is the prefetch's), and its math is plain SIMT fp32.
 //
 // The bf16 body (fused_flow_infer_launch's bf16 flag; the body the Pallas
 // kernel runs when the JAX server casts the params with --bf16, "compute
-// dtype (bf16 in serving)" at decoder_pallas.py:267): the matrices, k_proj and vals
-// are bf16, rows padded to 8 elements (16 bytes, for the bulk copies);
-// the vectors (biases, v, the gate row) are fp32 holding bf16 values.
-// State, softmax, gate and the affine inversion stay fp32, as in the
-// Pallas body. Activations are rounded to bf16 where that body casts
-// them: every dot's input when it is staged (:121, :136, :141, :160,
-// :171, :177, :180), q + k_proj and its tanh (:145-146), and the context
-// attn . vals (:154-155), summed in fp32 over the partials and rounded
-// once. Products of two bf16 values are exact in fp32, so the dots are
-// the fp32 body's loop on half the bytes: each 16-byte load brings 8
-// weights. The same template, the same stages and split.
+// dtype (bf16 in serving)" at decoder_pallas.py:267) runs on the K1 pack
+// (ops/decoder.py:k1_pack), k_proj and vals bf16. State, softmax, gate and
+// the affine inversion stay fp32, as in the Pallas body. Activations are
+// rounded to bf16 where that body casts them: every dot's input when it is
+// staged (:121, :136, :141, :160, :171, :177, :180), q + k_proj and its
+// tanh (:145-146), and the context attn . vals (:154-155), summed in fp32
+// over the partials and rounded once. A flagship flow's bf16 matrices
+// (53.7 MB) are half of the fp32 ones, and 132 SMs hold 30 MB of shared
+// memory, so this body keeps what fits on chip, as the Pallas kernel keeps
+// every weight in VMEM for the whole scan (decoder_pallas.py:269-279):
+// - the K1 pack: every job's rows padded to 64 bytes (one stretch of k,
+//   below), then to an odd multiple of 64 bytes (wstride: a quarter-warp's
+//   16-byte loads of two neighbouring rows then fill the 32 banks once),
+//   laid out by ops/decoder.py:k1_resident_layout: each block's resident
+//   rows, then each block's streamed rows stage by stage, so that a flow's
+//   streamed rows are one contiguous range;
+// - residency (ops/decoder.py:k1_resident_plan): of each block's quads
+//   of every stage the first ones stay in its shared memory for the whole
+//   launch, copied in once by one bulk copy at its start, on the
+//   prefetch's mbarrier with the first stage's ring; the stages that would
+//   stream the most give up rows first, until every stage streams at most
+//   the same bytes, which the ring holds. The budget is what the staged
+//   inputs leave at min(B, 8) rows, so a flow holds one K1 pack for each
+//   layout that its launches' B need (ops/decoder.py:k1_pack_for; one plan
+//   at 8 rows for every B ran B=1 7% slower on the H100);
+// - the rest of a stage's rows are bulk-copied into that ring while the
+//   block waits at the barrier before the stage, as the fp32 body's
+//   prefetch; rows past the ring (widths that leave no room) are read from
+//   the pack in the dot. (An L2 access-policy window of persisting hits
+//   over the streamed range, released after each launch, was timed on the
+//   H100 in turns and taken out: within 1% either way, and the fp32 body
+//   ran 1.3% slower beside it; PERF.md section 6);
+// - the dots on the tensor cores, as P4's chains (csrc/resident.cu):
+//   mma.sync m16n8k16, bf16 in, fp32 out, the weight rows in A (an m-tile
+//   is four quads of one job), up to 8 staged batch rows in B. For each
+//   64-byte stretch of k a lane loads 16 bytes of its weight rows g = lane
+//   / 4 and g + 8 and of staged row g at 16 (lane % 4): the mma's k order
+//   is a permutation of those bytes, the same for A and B. Each mma sums
+//   its 16 exact products from zero, and rounded fp32 adds take them into
+//   one of four chains (stretch j into chain j % 4), summed in order; ks
+//   warps split an m-tile's stretches when a block has fewer m-tiles than
+//   warps, and their sums meet in shared memory in a fixed order. The
+//   epilogues stay with the quads' owners: one lane a (quad, batch row).
+//   The staged inputs are bf16 rows of the same stride.
+// The grid barrier, the stage list, k1_plan's split, the attention slots
+// and partials and early exit are the fp32 body's; a slot keeps kSlot16
+// scores in shared memory at every Tk, so that the plan does not depend on
+// the text, and a longer slot's scores live in global memory (slot_sc).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "grid_sync.cuh"
 #include "mma.cuh"
@@ -109,15 +144,34 @@ constexpr int kMaxStages = 4 + kMaxLayers + kMaxDense;
 constexpr int kMaxParts = 16;     // attention partials (ops/decoder.py)
 constexpr float kMaskValue = -1e9f;
 
+constexpr int kStretch = 64;      // bf16: bytes of k a lane quad loads
+constexpr int kUnroll = 4;        // bf16: stretches a warp loads ahead
+constexpr int kTab = 16;          // bf16: ints of the table a (stage, block)
+constexpr int kStatic16 = 8192;   // bf16: bytes kept for static shared memory
+constexpr int kSlot16 = 512;      // bf16: floats of a slot's scores kept in
+                                  // shared memory (a longer slot's in
+                                  // global memory, slot_sc)
+
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-// a weight row's padded length: 16 bytes, 4 fp32 or 8 bf16 elements
+// a weight row's length: fp32 4 elements (16 bytes); the bf16 body's K1
+// pack 32 (one 64-byte stretch)
 __host__ __device__ inline int padk(int n, bool bf) {
-  return bf ? (n + 7) & ~7 : pad4(n);
+  return bf ? (n + 31) & ~31 : pad4(n);
+}
+// bf16: bytes between two rows of kp weights (a multiple of 32) in shared
+// memory and in the K1 pack, an odd multiple of 64 (ops/decoder.py:
+// _k1_row_bytes)
+__host__ __device__ inline int wstride(int kp) {
+  return (2 * kp) & 127 ? 2 * kp : 2 * kp + 64;
 }
 
 // x rounded to bf16 (nearest even), as fp32
 __device__ __forceinline__ float rnd_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 // a read-only weight or projection, through the read-only cache, as fp32
 __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
@@ -130,7 +184,7 @@ __device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
 enum Kind { kAttIH, kRec, kQuery, kIH, kDense, kHead };
 
 struct Job {
-  const void* w;       // (rows, Kp), rows padded to 16 bytes (padk)
+  const void* w;       // fp32: (rows, Kp), rows padded to 16 bytes (padk)
   const float* bias;
   int Kp, rows, kind, layer;   // layer: LSTM (-1 = attention), dense
 };
@@ -149,6 +203,7 @@ struct Params {
   const int* nvin;
   float *mel, *attn, *gates;
   float *h_att, *c_att, *q, *scores, *pm, *ps, *pc;
+  float* slot_sc;   // bf16, a slot past kSlot16 keys: (grid, gslot) scores
   float* h[kMaxLayers];
   float* c[kMaxLayers];
   float* rec[kMaxLayers + 1];   // (B, 4H): [0] attention LSTM, [1 + l]
@@ -159,9 +214,13 @@ struct Params {
   int N, B, M, H, D, Tk, n_layers, n_dense, parts, grid, early_exit;
   int slices;           // channel slices of each attention partial
   int rows;             // batch rows a pass: min(B, kMaxB)
-  int Dp, kslot, xs_floats;
-  int wbuf_off, wcap;   // the prefetch buffer: offset, capacity (floats)
+  int Dp, kslot, xs_floats;   // kslot: the slot's floats in shared memory
+  int gslot;                  // bf16: a slot's keys, padded (slot_sc)
+  int wbuf_off, wcap;   // the prefetch buffer: offset, capacity (floats);
+                        // bf16: the resident rows' offset
   float temperature, threshold;
+  const unsigned char* pack;   // bf16: the K1 pack
+  const int* tab;              // bf16: (n_stages, grid, kTab) where rows lie
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -206,12 +265,34 @@ __device__ void stage_rows(float* dst, int Kp, int off, const float* src,
   }
 }
 
-// One warp: acc[r][b] = sum over 16-byte columns [i0, i1) (4 fp32 or 8
-// bf16 weights each) of W[r * Kp + .] . xs[b * Kp + .], for r < 4, b <
-// nb; every lane gets the sums. W is in shared memory (the prefetch
-// buffer) or in HBM. Rows r >= nrows (a ragged last quad) read row nrows -
-// 1, and the caller drops their sums. Two 16-byte pieces of each row in
-// flight a lane.
+// bf16 rows: dst[b * ldx + k] = src[b * ld + k] rounded to bf16 for k <
+// n, 0 for n <= k < npad; src == nullptr stages zeros. As stage_rows.
+__device__ void stage_rows_bf(__nv_bfloat16* dst, int ldx, const float* src,
+                              int ld, int n, int npad, int nb) {
+  const int total = nb * npad;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kLoads * blockDim.x) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int b = i / npad, k = i - b * npad;
+      v[u] = (i < total && src != nullptr && k < n)
+                 ? __ldcg(src + (size_t)b * ld + k) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int b = i / npad, k = i - b * npad;
+      if (i < total) dst[b * ldx + k] = __float2bfloat16_rn(v[u]);
+    }
+  }
+}
+
+// One warp: acc[r][b] = sum over 16-byte columns [i0, i1) (4 weights
+// each) of W[r * Kp + .] . xs[b * Kp + .], for r < 4, b < nb; every lane
+// gets the sums. W is in shared memory (the prefetch buffer) or in HBM.
+// Rows r >= nrows (a ragged last quad) read row nrows - 1, and the caller
+// drops their sums. Two 16-byte pieces of each row in flight a lane.
 __device__ __forceinline__ float dot4(float a, float4 w, float4 x) {
   a = fmaf(w.x, x.x, a);
   a = fmaf(w.y, x.y, a);
@@ -219,28 +300,13 @@ __device__ __forceinline__ float dot4(float a, float4 w, float4 x) {
   return fmaf(w.w, x.w, a);
 }
 
-// 8 bf16 weights against 8 fp32 inputs (exact products, fp32 sums)
-__device__ __forceinline__ float dot8(float a, uint4 w, float4 x0,
-                                      float4 x1) {
-  a = dot4(a, make_float4(__uint_as_float(w.x << 16),
-                          __uint_as_float(w.x & 0xffff0000u),
-                          __uint_as_float(w.y << 16),
-                          __uint_as_float(w.y & 0xffff0000u)), x0);
-  return dot4(a, make_float4(__uint_as_float(w.z << 16),
-                             __uint_as_float(w.z & 0xffff0000u),
-                             __uint_as_float(w.w << 16),
-                             __uint_as_float(w.w & 0xffff0000u)), x1);
-}
-
-template <typename TW, int NB>
-__device__ __forceinline__ void quad_dot(const TW* W, int nrows, int Kp,
+template <int NB>
+__device__ __forceinline__ void quad_dot(const float* W, int nrows, int Kp,
                                          int i0, int i1, const float* xs,
                                          int nb, float (&acc)[4][NB]) {
-  constexpr bool kBF = sizeof(TW) == 2;
-  using V = std::conditional_t<kBF, uint4, float4>;
   const int lane = threadIdx.x & 31;
-  const int KV = Kp * (int)sizeof(TW) / 16, K4 = Kp >> 2;
-  const V* WV = reinterpret_cast<const V*>(W);
+  const int K4 = Kp >> 2;
+  const float4* WV = reinterpret_cast<const float4*>(W);
   const float4* x4 = reinterpret_cast<const float4*>(xs);
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -249,34 +315,25 @@ __device__ __forceinline__ void quad_dot(const TW* W, int nrows, int Kp,
   for (int i = i0 + lane; i < i1; i += 64) {
     const bool two = i + 32 < i1;
     const int i2 = two ? i + 32 : i;
-    V w0[4], w1[4];
+    float4 w0[4], w1[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const V* row = WV + (size_t)min(r, nrows - 1) * KV;
+      const float4* row = WV + (size_t)min(r, nrows - 1) * K4;
       w0[r] = row[i];
       if (two) {
         w1[r] = row[i2];
       } else {
-        V z = {};
+        float4 z = {};
         w1[r] = z;
       }
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b < nb) {
-        if constexpr (kBF) {
-          const float4 x0 = x4[b * K4 + 2 * i], x1 = x4[b * K4 + 2 * i + 1];
-          const float4 x2 = x4[b * K4 + 2 * i2];
-          const float4 x3 = x4[b * K4 + 2 * i2 + 1];
+        const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[r][b] = dot8(dot8(acc[r][b], w0[r], x0, x1), w1[r], x2, x3);
-        } else {
-          const float4 x0 = x4[b * K4 + i], x1 = x4[b * K4 + i2];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[r][b] = dot4(dot4(acc[r][b], w0[r], x0), w1[r], x1);
-        }
+        for (int r = 0; r < 4; ++r)
+          acc[r][b] = dot4(dot4(acc[r][b], w0[r], x0), w1[r], x1);
       }
     }
   }
@@ -302,27 +359,79 @@ __device__ __forceinline__ float pick(const float (&acc)[4][NB], int r,
 // (B = 1, the single caller's case) and up to four have their own smaller
 // bodies: a frame runs every stage's code once, so the instruction cache
 // is cold each time and code size costs time.
-template <typename TW>
-__device__ __forceinline__ void quad_sums(const TW* W, int nrows, int Kp,
+__device__ __forceinline__ void quad_sums(const float* W, int nrows, int Kp,
                                           int i0, int i1, const float* xs,
                                           int nb, float (&y)[4]) {
   const int lane = threadIdx.x & 31;
   if (nb == 1) {
     float acc[4][1];
-    quad_dot<TW, 1>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<1>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = acc[r][0];
   } else if (nb <= 4) {
     float acc[4][4];
-    quad_dot<TW, 4>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<4>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
   } else {
     float acc[4][kMaxB];
-    quad_dot<TW, kMaxB>(W, nrows, Kp, i0, i1, xs, nb, acc);
+    quad_dot<kMaxB>(W, nrows, Kp, i0, i1, xs, nb, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) y[r] = pick(acc, r, lane);
   }
+}
+
+// bf16: c += the two mma tiles of one 64-byte stretch: a and b hold 16
+// bytes of weight rows g and g + 8, x 16 bytes of staged row g (lane g,
+// t), the same bytes of k in the same order. Each tile's 16 products are
+// summed from zero by the tensor cores and added to c by rounded fp32 adds
+// (as csrc/resident.cu:mma_stretch).
+__device__ __forceinline__ void mma_stretch(float (&c)[4], uint4 a, uint4 b,
+                                            uint4 x) {
+  const uint32_t f0[4] = {a.x, b.x, a.y, b.y}, f1[4] = {a.z, b.z, a.w, b.w};
+  float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(p0, f0, x.x, x.y);
+  mma_bf16(p1, f1, x.z, x.w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(__fadd_rn(c[e], p0[e]), p1[e]);
+}
+
+// bf16: one warp's part of an m-tile's dot: stretches s0, s0 + step, ...
+// < s1 of weight rows wa, wb and staged row xr (each already at the lane's
+// 16 bytes), stretch j of the part into chain j % kUnroll, the chains
+// summed in order into c: c[0], c[1] row g, batch rows 2t, 2t + 1; c[2],
+// c[3] row g + 8. The rows lie in shared memory or in the pack.
+__device__ __forceinline__ void mma_range(float (&c)[4],
+                                          const unsigned char* wa,
+                                          const unsigned char* wb,
+                                          const unsigned char* xr, int s0,
+                                          int s1, int step) {
+  float acc[kUnroll][4] = {};
+  int s = s0;
+  for (; s + (kUnroll - 1) * step < s1; s += kUnroll * step) {
+    uint4 a[kUnroll], b[kUnroll], x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int off = kStretch * (s + u * step);
+      a[u] = *reinterpret_cast<const uint4*>(wa + off);
+      b[u] = *reinterpret_cast<const uint4*>(wb + off);
+      x[u] = *reinterpret_cast<const uint4*>(xr + off);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) mma_stretch(acc[u], a[u], b[u], x[u]);
+  }
+#pragma unroll
+  for (int u = 0; u + 1 < kUnroll; ++u, s += step)
+    if (s < s1) {
+      const int off = kStretch * s;
+      mma_stretch(acc[u], *reinterpret_cast<const uint4*>(wa + off),
+                  *reinterpret_cast<const uint4*>(wb + off),
+                  *reinterpret_cast<const uint4*>(xr + off));
+    }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    c[e] = __fadd_rn(__fadd_rn(__fadd_rn(acc[0][e], acc[1][e]), acc[2][e]),
+                     acc[3][e]);
 }
 
 struct In {
@@ -458,6 +567,8 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
   const int D = p.D, Tk = p.Tk, B = p.B;
   const int per_row = p.parts * p.slices;
   float* sc = m.sc;
+  if constexpr (kBF)   // a text too long for the slot kept in shared memory
+    if (p.slot_sc != nullptr) sc = p.slot_sc + (size_t)blockIdx.x * p.gslot;
   for (int sl = blockIdx.x; sl < B * per_row; sl += p.grid) {
     const int b = sl / per_row, j = (sl / p.slices) % p.parts;
     const int c = sl % p.slices;
@@ -518,12 +629,13 @@ __device__ __noinline__ void attention(const Params& p, const Smem& m) {
 // Decoder layer 0's stage, before its quads: the partials' max and exp
 // sums combined (ms) into the weights cw = exp(m_j - max) / sum, this
 // block's share of the attention row, the context behind the staged
-// h_att (when this block needs the input; rounded to bf16 in the bf16
-// body) and (block 0) the gate and the done flags.
-template <bool kRound>
+// h_att (when this block needs the input: row b at xs[b * ldx], Kp
+// columns; bf16 rows in the bf16 body) and (block 0) the gate and the
+// done flags.
+template <typename TX>
 __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
-                                     float* xs, int Kp, bool need_input,
-                                     const Smem& m) {
+                                     TX* xs, int ldx, int Kp,
+                                     bool need_input, const Smem& m) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int H = p.H, D = p.D, Tk = p.Tk, B = p.B, P = p.parts;
   float* cw = m.cw;            // (nb, kMaxParts): max, then weights
@@ -580,7 +692,10 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
 #pragma unroll
       for (int j = 0; j < kMaxParts; ++j)
         if (j < P) v += cw[b * kMaxParts + j] * c[j];
-      xs[b * Kp + H + d] = kRound ? rnd_bf16(v) : v;
+      if constexpr (sizeof(TX) == 2)
+        xs[b * ldx + H + d] = __float2bfloat16_rn(v);
+      else
+        xs[b * ldx + H + d] = v;
     }
   }
   if (blockIdx.x != 0) return;
@@ -589,7 +704,8 @@ __device__ __noinline__ void combine(const Params& p, int t, int g0, int nb,
     float gate = 0.f;
     if (p.gate_w != nullptr) {
       float g = 0.f;
-      for (int k = lane; k < H + D; k += 32) g += m.gw[k] * xs[b * Kp + k];
+      for (int k = lane; k < H + D; k += 32)
+        g += m.gw[k] * to_f32(xs[b * ldx + k]);
       gate = sigmoid(warp_sum(g) + p.gate_b[0]);
     }
     if (lane == 0) {
@@ -609,7 +725,6 @@ struct Quads {
   int lo[kMaxJobs], cnt[kMaxJobs + 1], pre[kMaxJobs], base[kMaxJobs];
 };
 
-template <typename TW>
 __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
   const Stage& s = p.st[si];
   const int* bnd = p.bounds + si * kMaxJobs * (p.grid + 1);
@@ -619,7 +734,7 @@ __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
     const int* bj = bnd + j * (p.grid + 1);
     q.lo[j] = bj[blockIdx.x];
     const int n = bj[blockIdx.x + 1] - q.lo[j];
-    const int per = s.job[j].Kp * (int)sizeof(TW);   // floats a quad
+    const int per = 4 * s.job[j].Kp;   // floats a quad
     q.cnt[j + 1] = q.cnt[j] + n;
     q.pre[j] = max(0, min(n, (p.wcap - used) / per));
     q.base[j] = used;
@@ -629,42 +744,31 @@ __device__ __noinline__ void block_quads(const Params& p, int si, Quads& q) {
 
 // Start copying this block's prefetched rows of a stage into the buffer:
 // one bulk (TMA) copy a job (its rows are one contiguous range), issued by
-// thread 0, completing on *bar. The weights never depend on the frame, so this runs before the
-// barrier that the stage waits for, and no thread waits on the copies
-// until the stage reads them.
-template <typename TW>
-__device__ __noinline__ void prefetch(const Stage& s, const Quads& q, float* wb,
-                         uint64_t* bar) {
+// thread 0, completing on *bar. The weights never depend on the frame, so
+// this runs before the barrier that the stage waits for, and no thread
+// waits on the copies until the stage reads them.
+__device__ __noinline__ void prefetch(const Stage& s, const Quads& q,
+                                      float* wb, uint64_t* bar) {
   if (threadIdx.x != 0) return;
   unsigned bytes = 0;
   for (int j = 0; j < s.n_jobs; ++j)
-    bytes += (unsigned)sizeof(TW) *
-             max(0, min(4 * (q.lo[j] + q.pre[j]), s.job[j].rows)
-                        - 4 * q.lo[j]) * s.job[j].Kp;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+    bytes += 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), s.job[j].rows)
+                             - 4 * q.lo[j]) * s.job[j].Kp;
+  mbar_expect(bar, bytes);
   for (int j = 0; j < s.n_jobs; ++j) {
     const Job& jb = s.job[j];
-    const unsigned n = (unsigned)sizeof(TW) *
-                       max(0, min(4 * (q.lo[j] + q.pre[j]), jb.rows)
-                              - 4 * q.lo[j]) * jb.Kp;
+    const unsigned n = 4u * max(0, min(4 * (q.lo[j] + q.pre[j]), jb.rows)
+                                       - 4 * q.lo[j]) * jb.Kp;
     if (n)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];"
-          :: "r"(smem_addr(wb + q.base[j])),
-             "l"(static_cast<const TW*>(jb.w) + (size_t)4 * q.lo[j] * jb.Kp),
-             "r"(n),
-             "r"(smem_addr(bar))
-          : "memory");
+      bulk_copy(wb + q.base[j],
+                static_cast<const float*>(jb.w) + (size_t)4 * q.lo[j] * jb.Kp,
+                n, bar);
   }
 }
 
-template <typename TW>
 __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
                           const Smem& m, float (*red)[4][kMaxB],
                           uint64_t* bar, unsigned& phase) {
-  constexpr bool kBF = sizeof(TW) == 2;
   const Stage& s = p.st[si];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int xoff[kMaxJobs];
@@ -675,7 +779,7 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
   const int nq = q.cnt[s.n_jobs];
   const bool ih0 = s.job[0].kind == kIH && s.job[0].layer == 0;
   const int ks = (nq >= kWarps || nq == 0) ? 1 : kWarps / nq;
-  if (s.attention) attention<TW>(p, m);
+  if (s.attention) attention<float>(p, m);
 
   // ks warps take each quad, splitting its k (ks > 1 when the block has
   // fewer quads than warps), kWarps / ks quads a round; the first of the
@@ -698,11 +802,13 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
         continue;
       if (j == 0) staged0 = true;
       const In in = job_input(p, jb, t);
-      stage_rows<kBF>(m.xs + xoff[j], jb.Kp, 0,
-                 in.src ? in.src + (size_t)g0 * in.ld : nullptr, in.ld,
-                 in.n, ih0 && j == 0 ? p.H : jb.Kp, nb);
+      stage_rows<false>(m.xs + xoff[j], jb.Kp, 0,
+                        in.src ? in.src + (size_t)g0 * in.ld : nullptr,
+                        in.ld, in.n, ih0 && j == 0 ? p.H : jb.Kp, nb);
     }
-    if (ih0) combine<kBF>(p, t, g0, nb, m.xs, s.job[0].Kp, staged0, m);
+    if (ih0)
+      combine<float>(p, t, g0, nb, m.xs, s.job[0].Kp, s.job[0].Kp, staged0,
+                     m);
     if (g0 == 0) {        // this stage's prefetched rows
       mbar_wait(bar, phase & 1);
       ++phase;
@@ -718,16 +824,16 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
         while (qq >= q.cnt[j + 1]) ++j;
         const Job& jb = s.job[j];
         const int l = qq - q.cnt[j];
-        const int KV = jb.Kp * (int)sizeof(TW) / 16;   // 16-byte columns
+        const int KV = jb.Kp / 4;   // 16-byte columns
         u = q.lo[j] + l;
-        if (r0 > 0 && part == 0 && lane < nb) epi_load(p, jb, u, g0 + lane, t, o);
-        quad_sums<TW>(l < q.pre[j]
-                          ? reinterpret_cast<const TW*>(m.wb + q.base[j])
-                                + (size_t)l * 4 * jb.Kp
-                          : static_cast<const TW*>(jb.w)
-                                + (size_t)4 * u * jb.Kp,
-                      min(4, jb.rows - 4 * u), jb.Kp, part * KV / ks,
-                      (part + 1) * KV / ks, m.xs + xoff[j], nb, y);
+        if (r0 > 0 && part == 0 && lane < nb)
+          epi_load(p, jb, u, g0 + lane, t, o);
+        quad_sums(l < q.pre[j]
+                      ? m.wb + q.base[j] + (size_t)l * 4 * jb.Kp
+                      : static_cast<const float*>(jb.w)
+                            + (size_t)4 * u * jb.Kp,
+                  min(4, jb.rows - 4 * u), jb.Kp, part * KV / ks,
+                  (part + 1) * KV / ks, m.xs + xoff[j], nb, y);
         if (ks > 1 && lane < nb)
 #pragma unroll
           for (int r = 0; r < 4; ++r) red[warp][r][lane] = y[r];
@@ -748,6 +854,166 @@ __device__ void run_stage(const Params& p, int si, const Quads& q, int t,
   }
 }
 
+// bf16: this block's quads of a stage and where their rows lie (the
+// table of ops/decoder.py:k1_resident_layout): of job j's range from quad
+// lo[j], the first nres[j] in the resident rows at byte roff[j], the rest
+// from byte soff[j] of the stage's streamed range, which begins at byte
+// sbase of the pack and whose first `ring` bytes are copied into the
+// ring; mt[j] the m-tiles (four quads) before job j.
+struct QuadsBF {
+  int lo[kMaxJobs], cnt[kMaxJobs + 1], mt[kMaxJobs + 1];
+  int nres[kMaxJobs], roff[kMaxJobs], soff[kMaxJobs];
+  int sbase, ring;
+};
+
+__device__ __noinline__ void block_quads_bf(const Params& p, int si,
+                                            QuadsBF& q) {
+  const Stage& s = p.st[si];
+  const int* bnd = p.bounds + si * kMaxJobs * (p.grid + 1);
+  const int* tb = p.tab + ((size_t)si * p.grid + blockIdx.x) * kTab;
+  q.cnt[0] = q.mt[0] = 0;
+  for (int j = 0; j < s.n_jobs; ++j) {
+    const int* bj = bnd + j * (p.grid + 1);
+    q.lo[j] = bj[blockIdx.x];
+    const int n = bj[blockIdx.x + 1] - q.lo[j];
+    q.cnt[j + 1] = q.cnt[j] + n;
+    q.mt[j + 1] = q.mt[j] + (n + 3) / 4;
+    q.nres[j] = tb[j];
+    q.roff[j] = tb[4 + j];
+    q.soff[j] = tb[8 + j];
+  }
+  q.sbase = tb[12];
+  q.ring = tb[13];
+}
+
+// bf16: copy the first bytes of this block's streamed rows of a stage
+// into the ring (one bulk copy, thread 0), and with `res` bytes of
+// resident rows at launch, on one phase of *bar.
+__device__ __noinline__ void prefetch_bf(const Params& p, const QuadsBF& q,
+                                         unsigned char* ring, uint64_t* bar,
+                                         unsigned char* res, int res_off,
+                                         int res_bytes) {
+  if (threadIdx.x != 0) return;
+  mbar_expect(bar, (unsigned)(q.ring + res_bytes));
+  if (res_bytes) bulk_copy(res, p.pack + res_off, res_bytes, bar);
+  if (q.ring) bulk_copy(ring, p.pack + q.sbase, q.ring, bar);
+}
+
+// bf16: row r of quad l of job j (the block's numbering), where it lies.
+__device__ __forceinline__ const unsigned char* row_at(
+    const Params& p, const QuadsBF& q, int j, int l, int r, int ws,
+    const unsigned char* res, const unsigned char* ring) {
+  if (l < q.nres[j]) return res + q.roff[j] + (4 * l + r) * ws;
+  const int off = q.soff[j] + (4 * (l - q.nres[j]) + r) * ws;
+  return off < q.ring ? ring + off : p.pack + q.sbase + off;
+}
+
+// bf16: a stage on the tensor cores. The block's quads of each job form
+// m-tiles of four; ks warps split an m-tile's stretches when the block has
+// fewer m-tiles than warps. After the products one lane a (quad, batch
+// row) of the m-tile's first warp sums the parts in order and applies the
+// epilogue.
+__device__ void run_stage_bf(const Params& p, int si, const QuadsBF& q,
+                             int t, const Smem& m, float (*red)[16][kMaxB],
+                             uint64_t* bar, unsigned& phase,
+                             const unsigned char* res,
+                             const unsigned char* ring) {
+  const Stage& s = p.st[si];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;   // the mma's fragment lanes
+  const int eq = lane >> 3, eb = lane & 7;  // the epilogue's quad, row
+  unsigned char* xs = reinterpret_cast<unsigned char*>(m.xs);
+  int xoff[kMaxJobs];
+  for (int j = 0, xo = 0; j < s.n_jobs; ++j) {
+    xoff[j] = xo;
+    xo += p.rows * wstride(s.job[j].Kp);
+  }
+  const int nu = q.mt[s.n_jobs];
+  const bool ih0 = s.job[0].kind == kIH && s.job[0].layer == 0;
+  const int ks = (nu >= kWarps || nu == 0) ? 1 : kWarps / nu;
+  if (s.attention) attention<__nv_bfloat16>(p, m);
+
+  const int per_round = kWarps / ks, ui = warp / ks, part = warp - ui * ks;
+  for (int g0 = 0; g0 < p.B; g0 += kMaxB) {
+    const int nb = min(kMaxB, p.B - g0);
+    Ops o;
+    if (ui < nu && part == 0 && eb < nb) {
+      int j = 0;
+      while (ui >= q.mt[j + 1]) ++j;
+      const int l = 4 * (ui - q.mt[j]) + eq;
+      if (l < q.cnt[j + 1] - q.cnt[j])
+        epi_load(p, s.job[j], q.lo[j] + l, g0 + eb, t, o);
+    }
+    bool staged0 = false;
+    for (int j = 0; j < s.n_jobs; ++j) {
+      const Job& jb = s.job[j];
+      if (q.cnt[j + 1] == q.cnt[j] && !(ih0 && j == 0 && blockIdx.x == 0))
+        continue;
+      if (j == 0) staged0 = true;
+      const In in = job_input(p, jb, t);
+      stage_rows_bf(reinterpret_cast<__nv_bfloat16*>(xs + xoff[j]),
+                    wstride(jb.Kp) / 2,
+                    in.src ? in.src + (size_t)g0 * in.ld : nullptr, in.ld,
+                    in.n, ih0 && j == 0 ? p.H : jb.Kp, nb);
+    }
+    if (ih0)
+      combine<__nv_bfloat16>(
+          p, t, g0, nb, reinterpret_cast<__nv_bfloat16*>(xs + xoff[0]),
+          wstride(s.job[0].Kp) / 2, s.job[0].Kp, staged0, m);
+    if (g0 == 0) {        // the ring (and at launch the resident rows)
+      mbar_wait(bar, phase & 1);
+      ++phase;
+    }
+    __syncthreads();
+
+    for (int r0 = 0; r0 < nu; r0 += per_round) {
+      const int uu = r0 + ui;
+      const bool active = uu < nu;
+      int j = 0, l0 = 0, n = 0;
+      if (active) {
+        while (uu >= q.mt[j + 1]) ++j;
+        const Job& jb = s.job[j];
+        const int ws = wstride(jb.Kp);
+        n = q.cnt[j + 1] - q.cnt[j];
+        l0 = 4 * (uu - q.mt[j]);
+        if (r0 > 0 && part == 0 && eb < nb && l0 + eq < n)
+          epi_load(p, jb, q.lo[j] + l0 + eq, g0 + eb, t, o);
+        // rows g and g + 8 of the m-tile; a quad past the job's last reads
+        // that one again (its sums are dropped), as does a batch row past
+        // nb
+        const unsigned char* wa =
+            row_at(p, q, j, min(l0 + (g >> 2), n - 1), g & 3, ws, res, ring);
+        const unsigned char* wb =
+            row_at(p, q, j, min(l0 + 2 + (g >> 2), n - 1), g & 3, ws, res,
+                   ring);
+        const unsigned char* xr = xs + xoff[j] + min(g, nb - 1) * ws;
+        float c[4];
+        mma_range(c, wa + 16 * tq, wb + 16 * tq, xr + 16 * tq, part,
+                  2 * jb.Kp / kStretch, ks);
+        red[warp][g][2 * tq] = c[0];
+        red[warp][g][2 * tq + 1] = c[1];
+        red[warp][g + 8][2 * tq] = c[2];
+        red[warp][g + 8][2 * tq + 1] = c[3];
+      }
+      if (ks > 1)
+        __syncthreads();
+      else
+        __syncwarp();
+      if (active && part == 0 && eb < nb && l0 + eq < n) {
+        float y[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          y[r] = red[warp][4 * eq + r][eb];
+          for (int pp = 1; pp < ks; ++pp) y[r] += red[warp + pp][4 * eq + r][eb];
+        }
+        epi_apply(p, s.job[j], q.lo[j] + l0 + eq, g0 + eb, y, o, t);
+      }
+      __syncwarp();   // red[warp] is free again (ks > 1: one round)
+    }
+    __syncthreads();   // the staged rows and red are free again
+  }
+}
+
 // Every stream finished before frame t: mel = 0, attn = 0, gate = 1 for
 // frames t .. N - 1, split over the grid.
 __device__ __noinline__ void zero_tail(const Params& p, int t) {
@@ -762,7 +1028,27 @@ __device__ __noinline__ void zero_tail(const Params& p, int t) {
     p.gates[(size_t)t * p.B + i] = 1.f;
 }
 
-template <typename TW>
+// Both bodies' start: v_w, and on block 0 the gate row, into shared memory.
+__device__ void load_vectors(const Params& p, const Smem& m) {
+  for (int d = threadIdx.x; d < p.D; d += blockDim.x) m.vw[d] = p.v_w[d];
+  if (blockIdx.x == 0 && p.gate_w != nullptr)
+    for (int k = threadIdx.x; k < p.H + p.D; k += blockDim.x)
+      m.gw[k] = p.gate_w[k];
+}
+
+// Every stream done before frame t (early exit): true once the block has
+// written its share of the tail, the copies in flight landed first.
+__device__ __forceinline__ bool finished(const Params& p, int t,
+                                         uint64_t* bar, unsigned phase) {
+  if (!p.early_exit || t == 0) return false;
+  int all = 1;
+  for (int b = 0; b < p.B; ++b) all &= __ldcg(p.done + b);
+  if (!all) return false;
+  mbar_wait(bar, phase & 1);
+  zero_tail(p, t);
+  return true;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
     k1_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
@@ -770,33 +1056,58 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ uint64_t bar;
   __shared__ Quads sq[kMaxStages];
   const Smem m = smem_map(p, reinterpret_cast<float*>(smem4));
-  if (threadIdx.x < p.n_stages)
-    block_quads<TW>(p, threadIdx.x, sq[threadIdx.x]);
+  if (threadIdx.x < p.n_stages) block_quads(p, threadIdx.x, sq[threadIdx.x]);
   if (threadIdx.x == 0) mbar_init(&bar);
-  for (int d = threadIdx.x; d < p.D; d += blockDim.x) m.vw[d] = p.v_w[d];
-  if (blockIdx.x == 0 && p.gate_w != nullptr)
-    for (int k = threadIdx.x; k < p.H + p.D; k += blockDim.x)
-      m.gw[k] = p.gate_w[k];
+  load_vectors(p, m);
   __syncthreads();
   unsigned passed = 0, phase = 0;
-  prefetch<TW>(p.st[0], sq[0], m.wb, &bar);
+  prefetch(p.st[0], sq[0], m.wb, &bar);
   for (int t = 0; t < p.N; ++t) {
-    if (p.early_exit && t > 0) {
-      int all = 1;
-      for (int b = 0; b < p.B; ++b) all &= __ldcg(p.done + b);
-      if (all) {
-        mbar_wait(&bar, phase & 1);   // the copies in flight land first
-        zero_tail(p, t);
-        return;
-      }
-    }
+    if (finished(p, t, &bar, phase)) return;
     for (int s = 0; s < p.n_stages; ++s) {
-      run_stage<TW>(p, s, sq[s], t, m, red, &bar, phase);
+      run_stage(p, s, sq[s], t, m, red, &bar, phase);
       barrier_arrive(p.bar);
       // the next stage's first rows, while this block waits for the others
       const int next = s + 1 < p.n_stages ? s + 1 : 0;
       if (s + 1 < p.n_stages || t + 1 < p.N)
-        prefetch<TW>(p.st[next], sq[next], m.wb, &bar);
+        prefetch(p.st[next], sq[next], m.wb, &bar);
+      barrier_wait(p.bar, ++passed * (unsigned)p.grid);
+      if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+        p.clock[(size_t)t * p.n_stages + s] = gtime();
+    }
+  }
+}
+
+// The bf16 body: the fp32 body's frame loop on resident rows, the ring and
+// the tensor cores. The resident rows arrive once, with stage 0's ring,
+// before the first frame; early exit waits for the copies in flight as the
+// fp32 body does.
+__global__ void __launch_bounds__(kThreads, 1)
+    k1_bf16_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[kWarps][16][kMaxB];
+  __shared__ uint64_t bar;
+  __shared__ QuadsBF sq[kMaxStages];
+  const Smem m = smem_map(p, reinterpret_cast<float*>(smem4));
+  const int* tb = p.tab + (size_t)blockIdx.x * kTab;   // stage 0's entry
+  const int res_off = tb[14], res_bytes = tb[15];
+  unsigned char* res = reinterpret_cast<unsigned char*>(m.wb);
+  unsigned char* ring = res + res_bytes;
+  if (threadIdx.x < p.n_stages)
+    block_quads_bf(p, threadIdx.x, sq[threadIdx.x]);
+  if (threadIdx.x == 0) mbar_init(&bar);
+  load_vectors(p, m);
+  __syncthreads();
+  unsigned passed = 0, phase = 0;
+  prefetch_bf(p, sq[0], ring, &bar, res, res_off, res_bytes);
+  for (int t = 0; t < p.N; ++t) {
+    if (finished(p, t, &bar, phase)) return;
+    for (int s = 0; s < p.n_stages; ++s) {
+      run_stage_bf(p, s, sq[s], t, m, red, &bar, phase, res, ring);
+      barrier_arrive(p.bar);
+      const int next = s + 1 < p.n_stages ? s + 1 : 0;
+      if (s + 1 < p.n_stages || t + 1 < p.N)
+        prefetch_bf(p, sq[next], ring, &bar, nullptr, 0, 0);
       barrier_wait(p.bar, ++passed * (unsigned)p.grid);
       if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
         p.clock[(size_t)t * p.n_stages + s] = gtime();
@@ -823,25 +1134,49 @@ __global__ void __launch_bounds__(kThreads, 1)
 // layer 0's, decoder layer 0), the attention slot's query row and
 // scores, the combine's weights, scaled sums, max and sums, v_w and
 // gate_w (Smem, smem_map). bf: the bf16 body's rows (padk).
+// bf16: the staged rows are bf16 at wstride bytes a row, the slot keeps
+// kSlot16 floats of its scores at every Tk (a longer slot's go to global
+// memory, slot_sc), and the whole is rounded up to 128 bytes
+// (ops/decoder.py:k1_fixed_bytes).
 int k1_fixed_floats(int B, int M, int H, int D, int Tk, int n_layers,
                     int parts, bool bf) {
   const int Hp = padk(H, bf), Mp = padk(M, bf), Lp = padk(H + D, bf);
+  const int slot = pad4((Tk + parts - 1) / parts);
+  if (bf) {
+    const int Hs = wstride(Hp), Ms = wstride(Mp), Ls = wstride(Lp);
+    int w = Ms + (n_layers - 1) * Hs;
+    w = w > 2 * Hs ? w : 2 * Hs;
+    w = w > Ls ? w : Ls;
+    const int f = (B < kMaxB ? B : kMaxB) * w / 4 + 2 * pad4(D) + kSlot16
+                  + 2 * kMaxB * kMaxParts + 2 * kMaxB + pad4(H + D);
+    return (f + 31) & ~31;
+  }
   int w = Mp + (n_layers - 1) * Hp;
   w = w > 2 * Hp ? w : 2 * Hp;
   w = w > Lp ? w : Lp;
-  return (B < kMaxB ? B : kMaxB) * w + pad4(D) +
-         pad4((Tk + parts - 1) / parts) +
+  return (B < kMaxB ? B : kMaxB) * w + pad4(D) + slot +
          2 * kMaxB * kMaxParts + 2 * kMaxB + pad4(D) + pad4(H + D);
 }
 
-// A block's dynamic shared memory: all that the card lets one block have
-// beside the static red, bar and sq (the rest is the prefetch buffer).
-int k1_smem_bytes() {
+int smem_optin() {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev))
     return -1;
+  return optin;
+}
+
+// A block's dynamic shared memory: all that the card lets one block have
+// beside the static red, bar and sq (fp32: the rest is the prefetch
+// buffer; bf16: beside kStatic16 bytes, the resident rows and the ring).
+int k1_smem_bytes(bool bf) {
+  const int optin = smem_optin();
+  if (optin < 0) return -1;
+  static_assert(sizeof(float) * kWarps * 16 * kMaxB + 16
+                    + sizeof(QuadsBF) * kMaxStages <= kStatic16,
+                "the bf16 body's static shared memory");
+  if (bf) return optin - kStatic16;
   const int fixed = (int)(sizeof(float) * kWarps * 4 * kMaxB + 16
                          + sizeof(Quads) * kMaxStages);   // red, bar, sq
   return (optin - fixed) & ~15;
@@ -861,16 +1196,24 @@ int coresident_blocks(const void* kernel, int smem) {
 }
 
 const void* k1_kernel_of(bool bf) {
-  return bf ? (const void*)k1_kernel<__nv_bfloat16>
-            : (const void*)k1_kernel<float>;
+  return bf ? (const void*)k1_bf16_kernel : (const void*)k1_kernel;
 }
 
-// Floats of workspace (fp32 state, scores and partials).
+// bf16: a slot's keys when they pass the kSlot16 kept in shared memory
+// (slot_sc in global memory), else 0.
+int long_slot(bool bf, int Tk, int parts) {
+  const int slot = pad4((Tk + parts - 1) / parts);
+  return bf && slot > kSlot16 ? slot : 0;
+}
+
+// Floats of workspace (fp32 state, scores and partials; bf16 with a slot
+// past kSlot16, every block's scores).
 long long workspace_floats(int B, int H, int D, int Tk, int n_layers,
-                           int parts) {
+                           int parts, bool bf, int n_blocks) {
   return (long long)B * (2LL * H + D + Tk + 2LL * n_layers * H
                          + 4LL * (n_layers + 1) * H + 2LL * H
-                         + (long long)parts * (2 + D));
+                         + (long long)parts * (2 + D))
+         + (long long)n_blocks * long_slot(bf, Tk, parts);
 }
 
 // One flow's inverse scan (fused_flow_infer_launch below).
@@ -887,7 +1230,7 @@ int run_flow(bool bf, const float* z, const void* kp, const void* vals,
              const int* bounds, int n_blocks, int parts, int slices,
              long long* clock, int N, int B, int M, int H, int D, int Tk,
              float temperature, float gate_threshold, int early_exit,
-             void* stream_handle) {
+             const void* pack, const int* tab, void* stream_handle) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_dense < 0 ||
       n_dense > kMaxDense || parts < 1 || parts > kMaxParts || parts > Tk ||
       slices < 1 || slices > D || n_blocks < 1 || N < 1 || B < 1)
@@ -931,7 +1274,8 @@ int run_flow(bool bf, const float* z, const void* kp, const void* vals,
   for (int i = 0; i < p.n_stages; ++i) {
     int w = 0;
     for (int j = 0; j < p.st[i].n_jobs; ++j)
-      w += (B < kMaxB ? B : kMaxB) * p.st[i].job[j].Kp;
+      w += (B < kMaxB ? B : kMaxB) *
+           (bf ? wstride(p.st[i].job[j].Kp) / 4 : p.st[i].job[j].Kp);
     xs = w > xs ? w : xs;
   }
 
@@ -963,6 +1307,8 @@ int run_flow(bool bf, const float* z, const void* kp, const void* vals,
   p.pm = take((size_t)parts * B);
   p.ps = take((size_t)parts * B);
   p.pc = take((size_t)parts * B * D);
+  p.gslot = long_slot(bf, Tk, parts);
+  p.slot_sc = p.gslot ? take((size_t)n_blocks * p.gslot) : nullptr;
   p.done = iwork;
   p.bar = reinterpret_cast<unsigned*>(iwork + B);
   p.clock = clock;
@@ -984,11 +1330,16 @@ int run_flow(bool bf, const float* z, const void* kp, const void* vals,
   p.xs_floats = xs;
   p.temperature = temperature;
   p.threshold = gate_threshold;
+  p.pack = static_cast<const unsigned char*>(pack);
+  p.tab = tab;
+  if (bf) p.kslot = kSlot16;
 
-  const int smem = k1_smem_bytes();
+  const int smem = k1_smem_bytes(bf);
   const int fixed = k1_fixed_floats(B, M, H, D, Tk, n_layers, parts, bf);
-  if (smem < 0 || xs + 2 * p.Dp + p.kslot + kMaxB * (2 * kMaxParts + 2)
-                      + pad4(H + D) != fixed)
+  int used = xs + 2 * p.Dp + p.kslot + kMaxB * (2 * kMaxParts + 2)
+             + pad4(H + D);
+  if (bf) used = (used + 31) & ~31;
+  if (smem < 0 || used != fixed || (bf && (pack == nullptr || !tab)))
     return cudaErrorInvalidValue;
   p.wbuf_off = fixed;
   p.wcap = (smem / 4 - fixed) & ~3;
@@ -1000,7 +1351,8 @@ int run_flow(bool bf, const float* z, const void* kp, const void* vals,
   cudaError_t err;
   if ((err = cudaMemsetAsync(work, 0,
                              sizeof(float) * workspace_floats(
-                                 B, H, D, Tk, n_layers, parts), stream)))
+                                 B, H, D, Tk, n_layers, parts, bf,
+                                 n_blocks), stream)))
     return err;
   if ((err = cudaMemsetAsync(iwork, 0, sizeof(int) * (B + 1), stream)))
     return err;
@@ -1022,25 +1374,38 @@ const char* decoder_error_string(int err) {
 // be resident at once on this card (the most its cooperative launch may
 // take), or -1.
 int decoder_coresident_blocks(int bf16) {
-  return coresident_blocks(k1_kernel_of(bf16 != 0), k1_smem_bytes());
+  return coresident_blocks(k1_kernel_of(bf16 != 0), k1_smem_bytes(bf16 != 0));
 }
 
-// Bytes of weights a block prefetches into shared memory for a stage at
-// most (the buffer), or a negative number when the widths leave none.
+// Bytes of shared memory a block beside the staged inputs: fp32 the
+// prefetch buffer, bf16 the resident rows and the ring; a negative number
+// when the widths leave none.
 long long decoder_prefetch_bytes(int B, int M, int H, int D, int Tk,
                                  int n_layers, int parts, int bf16) {
-  const int smem = k1_smem_bytes();
+  const int smem = k1_smem_bytes(bf16 != 0);
   if (smem < 0) return -1;
   return 4LL * ((smem / 4 - k1_fixed_floats(B, M, H, D, Tk, n_layers, parts,
                                             bf16 != 0))
                 & ~3);
 }
 
+// The bf16 body's dynamic shared memory before its resident rows at B
+// batch rows, the same at every Tk (bytes; ops/decoder.py:k1_fixed_bytes
+// computes the same).
+long long decoder_fixed_bytes(int B, int M, int H, int D, int n_layers) {
+  return 4LL * k1_fixed_floats(B, M, H, D, 1, n_layers, 1, true);
+}
+
+// The card's opt-in shared memory a block, or -1.
+int decoder_smem_optin(void) { return smem_optin(); }
+
 // Floats of workspace fused_flow_infer_launch needs (the caller
 // allocates it; the entry zeroes it), and ints of integer workspace.
 long long decoder_workspace_floats(int B, int H, int D, int Tk,
-                                   int n_layers, int parts) {
-  return workspace_floats(B, H, D, Tk, n_layers, parts);
+                                   int n_layers, int parts, int bf16,
+                                   int n_blocks) {
+  return workspace_floats(B, H, D, Tk, n_layers, parts, bf16 != 0,
+                          n_blocks);
 }
 
 int decoder_workspace_ints(int B) { return B + 1; }
@@ -1070,12 +1435,13 @@ int decoder_barrier_bench(int mode, int iters, int n_blocks,
 //   dense_w[i] (H, P(H)), dense_b[i] (H)
 //   head_w (2M, P(H)), head_b (2M)              interleaved (log_s, b)
 //   gate_w (H + D), gate_b (1), or both null when the flow has no gate.
-// bf16 = 0: every tensor fp32. bf16 != 0, the body the Pallas kernel runs
-// on bf16 params: kp, vals and the matrices (att_wi, att_wh, q_w, lstm_wi,
-// lstm_wh, dense_w, head_w) bf16 (pack_flow_weights(flow,
-// torch.bfloat16)); z, the vectors, the outputs and the workspace fp32.
-// lstm_wi, lstm_wh, lstm_b, dense_w, dense_b are host arrays of device
-// pointers.
+// bf16 = 0: every tensor fp32; pack and tab null. bf16 != 0, the body the
+// Pallas kernel runs on bf16 params: kp and vals bf16, the vectors of a
+// bf16 pack_flow_weights (the matrices are not read); its matrices in
+// `pack` (ops/decoder.py:k1_pack: the K1 pack, bf16), laid out as `tab`
+// (int32 on the device, (n_stages, n_blocks, 16), k1_resident_layout)
+// says; z, the outputs and the workspace fp32. lstm_wi, lstm_wh, lstm_b, dense_w,
+// dense_b are host arrays of device pointers.
 // bounds: (4 + n_layers + n_dense, 4, n_blocks + 1) int32 on the device,
 // each job's quad boundaries from ops/decoder.py:k1_plan (k1_bounds_array),
 // whose stage and job order this entry repeats; parts: the attention partials
@@ -1093,13 +1459,14 @@ int fused_flow_infer_launch(
     int* iwork, const int* bounds, int n_blocks, int parts, int slices,
     long long* clock, int N, int B, int M, int H, int D, int Tk,
     float temperature, float gate_threshold, int early_exit,
-    void* stream_handle) {
+    const void* pack, const int* tab, void* stream_handle) {
   return run_flow(bf16 != 0, z, kp, vals, key_mask, n_valid_in, att_wi,
                   att_wh, att_b, q_w, q_b, v_w, lstm_wi, lstm_wh, lstm_b,
                   n_layers, dense_w, dense_b, n_dense, head_w, head_b,
                   gate_w, gate_b, mel, attn, gates, work, iwork, bounds,
                   n_blocks, parts, slices, clock, N, B, M, H, D, Tk,
-                  temperature, gate_threshold, early_exit, stream_handle);
+                  temperature, gate_threshold, early_exit, pack, tab,
+                  stream_handle);
 }
 
 }  // extern "C"
