@@ -25,7 +25,9 @@ drives the port's three paths at the full width of the repo's
   streams (K4);
 - bf16 serving (the JAX server's ``--bf16``): the bf16 bodies of K1, K2
   and K4 against their plain versions (and K1's and K2's against their
-  fp32 bodies) at the main path's shapes, then the bf16 chain at full
+  fp32 bodies; K2's at eight shapes and widths, in CUDA graphs, beside
+  bf16 cuBLAS's two products) at the main path's shapes, then the bf16
+  chain at full
   width (``bf16_slice``: a B=1 and a B=4 400-frame request beside the
   fp32 chain on the same latents, K1 bf16 twice and K2 bf16 96 times a
   request), and later the servers with ``--bf16`` and ``--bf16 --quantize
@@ -125,6 +127,15 @@ and the fp32 kernel at B=1, 4 and 8, both flows, its stage split and
 where its rows lie, timed beside the fp32 kernel in turns; the fp32
 kernel's outputs hashed) on the model the full run builds, and prints no
 result; copied into another checkout it does the same for that one.
+
+    python3 chip_smoke.py --k2-bf16
+
+runs only ``phase_k2_bf16`` (K2's bf16 body against its plain version at
+the vocoder's shapes and widths, timed in CUDA graphs, beside the fp32
+body and the two products in bf16 cuBLAS, the host's us a call, every
+build of its plan; the fp32 body's outputs hashed at the ``k2`` phase's
+cases) on the vocoder the full run builds, and prints no result; copied
+into another checkout it does the same for that one.
 """
 
 import argparse
@@ -641,6 +652,46 @@ def k2_builds(args, reps, sms):
          plans={bm: p._asdict() for bm, p in plans.items()})
 
 
+# phase_k2's cases: (layer, B, Tp) at T = 12800, in the order their
+# inputs are drawn
+K2_CASES = ((0, 1, 12800), (3, 1, 12800), (7, 1, 12800), (3, 1, 12896),
+            (3, 8, 12800))
+
+
+def k2_layer_args(wn, g, layer, B, Tp, T, dev):
+    """One WN layer's fp32 arguments at the vocoder's weights: x (B, Tp, C)
+    from ``g``, zero on pad rows, and a cond slice of the all-layer
+    conditioning (row stride 2CL), drawn after it."""
+    C, L = wn.n_channels, wn.n_layers
+    w_cat, b, w_rs, b_rs = wn.packed_layers()[layer]
+    x = torch.randn(B, Tp, C, generator=g)
+    x[:, T:] = 0
+    cond_all = torch.randn(B, Tp, 2 * C * L, generator=g).to(dev)
+    cond = cond_all[..., 2 * C * layer:2 * C * (layer + 1)]
+    return (x.to(dev), 2 ** layer, cond, w_cat, b, w_rs, b_rs, T)
+
+
+def k2_fp32_sha256(wg, dev):
+    """The fp32 body's outputs (x' then skip, their bytes) hashed at
+    phase_k2's cases, on the same inputs: one sha256 a case."""
+    import hashlib
+
+    from flowtron_tpu_torch.ops.wavenet import wn_layer
+
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    with torch.no_grad():
+        for layer, B, Tp in K2_CASES:
+            h = hashlib.sha256()
+            for t in wn_layer(*k2_layer_args(wg.WN[0], g, layer, B, Tp,
+                                             N_FRAMES * HOP // 8, dev)):
+                if t is not None:
+                    h.update(t.contiguous().cpu().view(torch.uint8)
+                             .numpy().tobytes())
+            out[f"layer{layer}_B{B}_Tp{Tp}"] = h.hexdigest()
+    return out
+
+
 def phase_k2(wg, dev):
     """K2 against its plain version at the vocoder's shapes: layers 0, 3
     and 7 (d = 1, 8, 128; 7 the last) at B=1, T=12800 (400 mel frames),
@@ -649,22 +700,15 @@ def phase_k2(wg, dev):
     the max error and (ms, plain ms, bound, bound_by, rows a block) of
     layer 3 at B=1."""
     wn = wg.WN[0]
-    C, L = wn.n_channels, wn.n_layers
     T = N_FRAMES * HOP // 8                   # 12800 grouped samples
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(12)
 
     def layer_args(layer, B, Tp):
-        w_cat, b, w_rs, b_rs = wn.packed_layers()[layer]
-        x = torch.randn(B, Tp, C, generator=g)
-        x[:, T:] = 0
-        cond_all = torch.randn(B, Tp, 2 * C * L, generator=g).to(dev)
-        cond = cond_all[..., 2 * C * layer:2 * C * (layer + 1)]
-        return (x.to(dev), 2 ** layer, cond, w_cat, b, w_rs, b_rs, T)
+        return k2_layer_args(wn, g, layer, B, Tp, T, dev)
 
     max_err, times = 0.0, None
-    for layer, B, Tp in ((0, 1, T), (3, 1, T), (7, 1, T), (3, 1, T + 96),
-                         (3, 8, T)):
+    for layer, B, Tp in K2_CASES:
         err, case = k2_case(layer_args(layer, B, Tp), layer, T,
                             20 if B == 1 else 5, sms)
         max_err = max(max_err, err)
@@ -4459,63 +4503,175 @@ def phase_k1_bf16(model, model16, cfg, ids, sid, dev):
     return max_err, times
 
 
+# a stream window: context 24 + chunk 40 + lookahead 16 frames
+K2_WINDOW = (24 + 40 + 16) * HOP // 8
+# phase_k2_bf16's cases: (tag, C, layer, B, T, Tp), C = 256 on the bf16
+# vocoder's weights, 512 and 1024 on init-scaled random ones
+K2_BF16_CASES = (("layer3_B1", 256, 3, 1, 12800, 12800),
+                 ("layer7_B1", 256, 7, 1, 12800, 12800),
+                 ("layer3_B8", 256, 3, 8, 12800, 12800),
+                 ("layer3_B1_pad96", 256, 3, 1, 12800, 12896),
+                 ("window_B1", 256, 3, 1, K2_WINDOW, K2_WINDOW),
+                 ("mux_B7", 256, 3, 7, K2_WINDOW, K2_WINDOW),
+                 ("C512_B1", 512, 3, 1, 12800, 12800),
+                 ("C1024_B1", 1024, 3, 1, 12800, 12800))
+
+
+def k2_bf16_args(g, C, layer, B, T, Tp, wn16, dev):
+    """One bf16 WN layer's arguments: x (B, Tp, C) from ``g``, zero on pad
+    rows, and a cond slice of row stride 2CL (L = 8), drawn after it; the
+    weights of layer ``layer`` of ``wn16`` (the bf16 vocoder's first WN)
+    when C is its width, else init-scaled random ones."""
+    L = 8
+    x = torch.randn(B, Tp, C, generator=g)
+    x[:, T:] = 0
+    cond_all = torch.randn(B, Tp, 2 * C * L, generator=g)
+    if wn16 is not None and wn16.n_channels == C:
+        w = tuple(wn16.packed_layers()[layer])
+    else:
+        n_rs = C if layer == L - 1 else 2 * C
+        w = tuple(t.to(dev, torch.bfloat16) for t in (
+            torch.randn(3 * C, 2 * C, generator=g) * (3 * C) ** -0.5,
+            0.1 * torch.randn(2 * C, generator=g),
+            torch.randn(C, n_rs, generator=g) * C ** -0.5,
+            0.1 * torch.randn(n_rs, generator=g)))
+    cond = cond_all.to(dev, torch.bfloat16)[
+        ..., 2 * C * layer:2 * C * (layer + 1)]
+    return (x.to(dev, torch.bfloat16), 2 ** layer, cond) + w + (T,)
+
+
 def phase_k2_bf16(wg, wg16, dev):
     """K2's bf16 body against its plain bf16 version at the vocoder's
-    shapes, the bf16 vocoder's weights: layers 3 (d = 8) and 7 (the last)
-    at B=1, T=12800 and layer 3 at B=8; within K2_BF16_TOL of the output
-    scale, pad rows zero, two calls bitwise equal. Layer 3 at B=1 timed
-    against its plain version and the fp32 body (the fp32 vocoder's
-    weights, the same inputs) in turns. Returns the max error and (ms,
-    plain ms, bound, bound_by)."""
-    from flowtron_tpu_torch.ops.wavenet import wn_layer, wn_layer_reference
+    shapes (K2_BF16_CASES: layers 3 (d = 8) and 7 (the last) at B=1,
+    T=12800, layer 3 at B=8, with 96 pad rows, at the stream window (B=1,
+    2560 rows) and a mux group (B=7), and C = 512 and 1024 at B=1): within
+    K2_BF16_TOL of the output scale, pad rows zero, two calls bitwise
+    equal. Each case timed in CUDA graphs (device time; a call is faster
+    than Python launches it) and eagerly; layer 3 at B=1 also beside its
+    plain version, the fp32 body (the fp32 vocoder's weights, the same
+    inputs), the two products alone in bf16 cuBLAS (a yardstick), the
+    host's us a call and a launch, and at B=1 and B=8 every build of the
+    plan in turns. Then the fp32 body's outputs hashed at
+    phase_k2's cases. Run in a checkout whose ops/wavenet.py has no
+    ``wn_bf16_plan`` (before this body), it times that checkout's body
+    and leaves out what it lacks. Returns the max error and (ms, plain
+    ms, bound, bound_by) of layer 3 at B=1."""
+    from flowtron_tpu_torch.ops import wavenet as W
 
-    C, L = wg.WN[0].n_channels, wg.WN[0].n_layers
-    T = N_FRAMES * HOP // 8
+    own = hasattr(W, "wn_bf16_plan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    side = torch.cuda.Stream()
     g = torch.Generator().manual_seed(43)
     max_err, times = 0.0, None
-    for layer, B in ((3, 1), (7, 1), (3, 8)):
-        x = torch.randn(B, T, C, generator=g).to(dev)
-        cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(dev)
-        cond = slice(2 * C * layer, 2 * C * (layer + 1))
-        args = {tag: (x.to(dt), 2 ** layer, cond_all.to(dt)[..., cond])
-                + tuple(w.packed_layers()[layer]) + (T,)
-                for tag, w, dt in (("fp32", wg.WN[0], torch.float32),
-                                   ("bf16", wg16.WN[0], torch.bfloat16))}
-        a16 = args["bf16"]
+    for tag, C, layer, B, T, Tp in K2_BF16_CASES:
+        a16 = k2_bf16_args(g, C, layer, B, T, Tp, wg16.WN[0], dev)
         check(a16[3].dtype == torch.bfloat16, "K2 bf16: not bf16 weights")
         with torch.no_grad():
-            if layer == 3 and B == 1:
-                k_ms, p_ms, runs, out_k, out_p = paired_ms(
-                    lambda: wn_layer(*a16), lambda: wn_layer_reference(*a16),
-                    reps=20, plain_reps=20)
-                f32_ms, _ = cuda_ms(lambda: wn_layer(*args["fp32"]), 20)
-            else:
-                out_k, out_p = wn_layer(*a16), wn_layer_reference(*a16)
-            again = wn_layer(*a16)
-        errs = []
-        for a, r in zip(out_k, out_p):
-            if r is not None:
-                check(a.dtype == torch.bfloat16, "K2 bf16 output dtype")
-                errs.append(float((a.float() - r.float()).abs().max())
-                            / max(1.0, float(r.float().abs().max())))
-        tag = f"K2 bf16 layer {layer} B={B}"
-        check(all(e <= K2_BF16_TOL for e in errs), f"{tag} err {errs}")
-        check(all(a is None or torch.equal(a, b)
-                  for a, b in zip(out_k, again)), f"{tag}: two calls differ")
-        max_err = max(max_err, max(errs))
-        fields = dict(layer=layer, B=B, T=T, C=C, max_rel_err=max(errs))
-        if layer == 3 and B == 1:
-            flops, _ = k2_work(B, T, C, 2 * C)
+            out_k, out_p = W.wn_layer(*a16), W.wn_layer_reference(*a16)
+            again = W.wn_layer(*a16)
+            errs = []
+            for a, r in zip(out_k, out_p):
+                if r is not None:
+                    check(a.dtype == torch.bfloat16, "K2 bf16 output dtype")
+                    errs.append(float((a.float() - r.float()).abs().max())
+                                / max(1.0, float(r.float().abs().max())))
+            del out_p
+            check(all(e <= K2_BF16_TOL for e in errs),
+                  f"K2 bf16 {tag} err {errs}")
+            check(all(a is None or torch.equal(a, b)
+                      for a, b in zip(out_k, again)),
+                  f"K2 bf16 {tag}: two calls differ")
+            if out_k[0] is not None and Tp > T:
+                check(bool((out_k[0][:, T:] == 0).all()),
+                      f"K2 bf16 {tag}: pad rows not zero")
+            max_err = max(max_err, max(errs))
+            flops, n_bytes32 = k2_work(B, Tp, C, a16[5].shape[1])
             # every tensor bf16: x, cond, weights and biases read once, x'
             # and skip written once; one bf16 pass of each product
-            _, n_bytes32 = k2_work(B, T, C, 2 * C)
-            times = (k_ms, p_ms) + bound(n_bytes32 // 2, {"bf16": flops})
-            fields.update(kernel_ms=k_ms, plain_ms=p_ms,
-                          fp32_kernel_ms=f32_ms, bf16_over_fp32=k_ms / f32_ms,
-                          runs_plain_kernel_kernel_plain_ms=runs,
-                          bound_ms=times[2], bound_by=times[3],
+            bnd = bound(n_bytes32 // 2, {"bf16": flops})
+            (k_ms,), _, k_runs = graph_times([lambda: W.wn_layer(*a16)],
+                                             side)
+            eager_ms, _ = cuda_ms(lambda: W.wn_layer(*a16), 20)
+            fields = dict(case=tag, layer=layer, C=C, B=B, T=T, Tp=Tp,
+                          max_rel_err=max(errs), kernel_ms=k_ms,
+                          kernel_runs_ms=k_runs, eager_ms=eager_ms,
+                          bound_ms=bnd[0], bound_by=bnd[1],
+                          of_bound=bnd[0] / k_ms,
                           kernel_tflops_bf16=flops / k_ms / 1e9)
+            if own:
+                fields["plan"] = W.wn_bf16_plan(B, Tp, C, sms)._asdict()
+            if tag == "layer3_B1":
+                # warm, then the median of three rounds: the plain
+                # version's temporaries are large and a cold round pays
+                # their allocation
+                W.wn_layer_reference(*a16)
+                p_ms = statistics.median(
+                    cuda_ms(lambda: W.wn_layer_reference(*a16), 3)[0]
+                    for _ in range(3))
+                a32 = (a16[0].float(), a16[1], a16[2].float()) + tuple(
+                    wg.WN[0].packed_layers()[layer]) + (T,)
+                (f32_ms,), _, _ = graph_times([lambda: W.wn_layer(*a32)],
+                                              side)
+                # the two products alone, bf16 cuBLAS: what a library
+                # reaches on the same shapes (a yardstick, not the layer)
+                M = B * Tp
+                p1 = (torch.randn(M, 3 * C, device=dev).bfloat16(),
+                      a16[3])
+                p2 = (torch.randn(M, C, device=dev).bfloat16(), a16[5])
+                (mm_ms,), _, mm_runs = graph_times(
+                    [lambda: (p1[0] @ p1[1], p2[0] @ p2[1])], side)
+                n = 200
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    W.wn_layer(*a16)
+                host_call = (time.perf_counter() - t0) / n * 1e6
+                torch.cuda.synchronize()
+                fields.update(plain_ms=p_ms, fp32_kernel_ms=f32_ms,
+                              bf16_over_fp32=k_ms / f32_ms,
+                              cublas_products_ms=mm_ms,
+                              cublas_products_runs_ms=mm_runs,
+                              over_cublas_products=k_ms / mm_ms,
+                              host_us_per_call=host_call)
+                if own:
+                    # the C entry alone: six tensor maps encoded, a launch
+                    lib, plan = W._lib(), W.wn_bf16_plan(B, Tp, C, sms)
+                    w1, w2 = W._packed(a16[3], a16[5], 0)
+                    xo, sk = torch.empty_like(a16[0]), \
+                        torch.empty_like(a16[0])
+                    ldc = a16[2].stride(1)
+                    st = torch.cuda.current_stream(dev).cuda_stream
+                    args = (1, a16[0].data_ptr(), a16[1],
+                            a16[2].data_ptr(), ldc, w1.data_ptr(),
+                            a16[4].data_ptr(), w2.data_ptr(),
+                            a16[6].data_ptr(), xo.data_ptr(), sk.data_ptr(),
+                            B, Tp, T, C, plan.bm, 0, st, plan.grid)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        check(lib.wn_layer_launch(*args) == 0,
+                              "K2 bf16 launch")
+                    host_launch = (time.perf_counter() - t0) / n * 1e6
+                    torch.cuda.synchronize()
+                    check(torch.equal(xo, out_k[0]) and torch.equal(
+                        sk, out_k[1]), "K2 bf16: the C entry differs")
+                    fields["host_us_per_launch"] = host_launch
+                times = (k_ms, p_ms) + bnd
+            if own and tag in ("layer3_B1", "layer3_B8"):
+                # every build of the plan, in turns, bitwise alike
+                builds = list(W.WN_BF16_BUILDS[C])
+                fns = [lambda bm=bm: W.wn_layer(*a16, bm=bm)
+                       for bm in builds]
+                for f in fns:
+                    check(all(a is None or torch.equal(a, o) for a, o in
+                              zip(out_k, f())), f"K2 bf16 {tag}: builds")
+                ms, _, _ = graph_times(fns, side, reps=10)
+                fields["builds_ms"] = {f"bm{bm}": m
+                                       for bm, m in zip(builds, ms)}
         emit("k2_bf16", **fields)
+        del a16, out_k, again
+        torch.cuda.empty_cache()
+    emit("k2_fp32_sha256", **k2_fp32_sha256(wg, dev))
     return max_err, times
 
 
@@ -4831,6 +4987,8 @@ def main(argv=None):
                     help="only K4's bf16 bodies (phase_k4_bf16)")
     ap.add_argument("--k1-bf16", action="store_true",
                     help="only K1's bf16 body (phase_k1_bf16)")
+    ap.add_argument("--k2-bf16", action="store_true",
+                    help="only K2's bf16 body (phase_k2_bf16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4901,6 +5059,17 @@ def main(argv=None):
         phase_k1_bf16(model, bf16_copy(model), cfg,
                       [frontend.get_text(t) for t in TEXTS],
                       int(frontend.get_speaker_id(0)), dev)
+        return 0
+    if args.k2_bf16:
+        t0 = time.perf_counter()
+        _build.load_library("wavenet")
+        emit("build", seconds=time.perf_counter() - t0,
+             nvcc_seconds={"wavenet": _build.build_seconds["wavenet"]})
+        with open("configs/config_waveglow.json") as f:
+            wg, _ = waveglow_init(1, **json.load(f)["waveglow_config"])
+        wg.to(dev)
+        phase_k2_bf16(wg, bf16_copy(wg), dev)
+        emit("run", seconds=time.perf_counter() - t_run)
         return 0
 
     names = ("decoder", "wavenet", "attention", "qmm", "w4", "resident",
@@ -5140,8 +5309,8 @@ def main(argv=None):
             k4["w8"][5]),
         # the bf16 bodies (the JAX server's --bf16): K1 one gated flow of
         # the first request (B=1, 400 frames); K2 layer 3 at B=1, T=12800,
-        # one bf16 pass; K4 one flow-frame's nine calls at B=8 beside the
-        # bf16 cuBLAS product. Launches: the --bf16 server's main wave (K4:
+        # one bf16 pass, device time in CUDA graphs; K4 one flow-frame's
+        # nine calls at B=8 beside the bf16 cuBLAS product. Launches: the --bf16 server's main wave (K4:
         # the --bf16 --quantize w8a8 server's)
         row("fused_flow_infer_bf16", "flowtron_tpu_torch/csrc/decoder.cu",
             "flowtron_tpu/ops/decoder_pallas.py:229",

@@ -1,5 +1,7 @@
 // K2: one WaveGlow WN layer, fp32 or bf16 in and out, products on the
-// tensor cores.
+// tensor cores. Two bodies behind one entry point, wn_layer_launch: this
+// file's kernel is the fp32 body; the bf16 body is its own kernel, in
+// wavenet_bf16.cuh (included below), whose note says its design.
 //
 // Replaces flowtron_tpu/ops/wavenet_pallas.py:wn_layer_fused (the Pallas
 // kernel _wn_layer_kernel, called at :93):
@@ -61,7 +63,8 @@
 // that: a chunk's copies, barrier, ldmatrix traffic and the epilogues add
 // up in series; 16 warps a block instead of 8, a deeper ring and wgmma
 // in place of mma.sync did not hide them. A producer warp feeding a
-// decoupled ring is the next step.
+// decoupled ring is the next step: the bf16 body took it
+// (wavenet_bf16.cuh); on this body's three passes it is untried.
 // BM and NH come from ops/wavenet.py:wn_plan and WN_BUILDS; each (C, BM)
 // is instantiated below. Past C = 256, z (2 * BM * C * 2 bytes) and the
 // weight ring no longer fit one pass of 64 rows: C = 512 walks the columns
@@ -69,25 +72,13 @@
 // 256 KB at 64). Each pass stages x again, and every block reads all of a
 // layer's weights from L2 for its BM rows, so these builds are right but
 // not fast (PERF.md §6, K2).
-//
-// The bf16 body (wn_layer_launch's bf16 flag; the body the Pallas kernel
-// runs under the JAX server's --bf16): x, cond, the weights, the biases, x' and skip are
-// bf16, and each product is one bf16 pass (the hi part only: the weights
-// are the plain bf16 pack of ops/wavenet.py:wn_pack_weights). The x
-// pieces land by cp.async straight in the A-tile layout of their ring
-// slot, so there is no split step; z is rounded to bf16 once, as
-// _wn_layer_kernel's .astype(x0_ref.dtype) (wavenet_pallas.py:38-39); the
-// gate, the residual (x + rs in fp32) and skip are computed in fp32 and
-// rounded once on the store (:52-54). The same (C, BM) builds, with the
-// smaller shared memory (one weight plane, no hi/lo tiles, one z plane).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "mma.cuh"
+#include "wavenet_bf16.cuh"
 
 namespace {
 
@@ -109,20 +100,12 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
               x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-// two neighbouring values (4- or 8-byte aligned) as fp32, and back
+// two neighbouring values (8-byte aligned), and back
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
 __device__ __forceinline__ void st2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<uint32_t*>(p) = bf16x2(v.x, v.y);
 }
 
 // tanh and sigmoid without branches, from ex2.approx: within ~1e-6 of
@@ -149,9 +132,8 @@ constexpr int smem_bytes(int nh, int s, int slot, int xslot, int ab,
 
 constexpr int kThreads = 256;   // 8 warps
 
-template <int MT, int NT, int NH, bool LAST, bool BF>
+template <int MT, int NT, int NH, bool LAST>
 struct Cfg {
-  using T = std::conditional_t<BF, __nv_bfloat16, float>;
   static constexpr int BM = 16 * MT;
   static constexpr int C = 32 * NT * NH;
   static constexpr int W1 = 2 * C / NH;   // packed acts columns a pass
@@ -161,14 +143,14 @@ struct Cfg {
   static constexpr int NC1 = 3 * C / kKC, NC2 = C / kKC;
   static constexpr int P1_CHUNKS = NH * NC1;
   static constexpr int CHUNKS = P1_CHUNKS + NP2 * NC2;
-  static constexpr int WP = BF ? 1 : 2;       // weight planes (hi, lo)
-  static constexpr int XPR = BF ? 2 : 4;      // 16-byte x pieces a row
+  static constexpr int WP = 2;                // weight planes (hi, lo)
+  static constexpr int XPR = 4;               // 16-byte x pieces a row
   static constexpr int SLOT = kKC * W1 * 2 * WP;   // a weight stage
-  static constexpr int XSLOT = BM * kKC * sizeof(T);   // an x stage
+  static constexpr int XSLOT = BM * kKC * 4;  // an x stage
   static constexpr int ABUF = BM * kKC * 2;   // an A tile, one of hi / lo
-  static constexpr int AB = BF ? 0 : 4 * ABUF;   // the A tiles (fp32 x)
+  static constexpr int AB = 4 * ABUF;         // the A tiles
   static constexpr int ZBUF = BM * C * 2;     // z, one of hi / lo
-  static constexpr int ZB = BF ? ZBUF : 2 * ZBUF;
+  static constexpr int ZB = 2 * ZBUF;
   static constexpr int S =
       smem_bytes(NH, 4, SLOT, XSLOT, AB, ZB) <= kMaxSmem ? 4 : 3;
   static constexpr int SMEM = smem_bytes(NH, S, SLOT, XSLOT, AB, ZB);
@@ -179,34 +161,29 @@ struct Cfg {
   static_assert(SMEM <= kMaxSmem, "shared memory");
 };
 
-template <int MT, int NT, int NH, bool LAST, bool BF>
+template <int MT, int NT, int NH, bool LAST>
 __global__ void __launch_bounds__(kThreads, 1)
-wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
-                int d,
-                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ cond,
-                int ldc, const uint16_t* __restrict__ w1,
-                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ b,
+wn_layer_kernel(const float* __restrict__ x, int d,
+                const float* __restrict__ cond, int ldc,
+                const uint16_t* __restrict__ w1, const float* __restrict__ b,
                 const uint16_t* __restrict__ w2,
-                const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ b_rs,
-                typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x_out,
-                typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ skip,
-                int M, int T, int Tp) {
-  using K = Cfg<MT, NT, NH, LAST, BF>;
-  using E = typename K::T;
+                const float* __restrict__ b_rs, float* __restrict__ x_out,
+                float* __restrict__ skip, int M, int T, int Tp) {
+  using K = Cfg<MT, NT, NH, LAST>;
+  using E = float;
   constexpr int C = K::C, BM = K::BM, S = K::S, WP = K::WP, XPR = K::XPR;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* zhi = smem + S * K::SLOT;
-  unsigned char* zlo = zhi + K::ZBUF;          // fp32 x only
+  unsigned char* zlo = zhi + K::ZBUF;
   unsigned char* xring = smem + K::XOFF;
-  unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo], fp32 x only
+  unsigned char* abuf = xring + S * K::XSLOT;   // [2][hi, lo]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * BM;
 
-  // the x pieces this thread copies (and, fp32, splits): 16 bytes (4
-  // fp32 or 8 bf16 channels) of a row; the row's stream offset and time
-  // step are fixed for the call
+  // the x pieces this thread copies and splits: 16 bytes (4 channels) of
+  // a row; the row's stream offset and time step are fixed for the call
   constexpr int XP = (BM * XPR + kThreads - 1) / kThreads;
   constexpr int XCH = 16 / sizeof(E);            // channels a piece
   int x_base[XP], x_t[XP];
@@ -219,9 +196,8 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
     x_t[i] = (q < BM * XPR && g < M) ? g - s * Tp : -(1 << 30);
   }
 
-  // chunk gc: weights into ring slot gc % S, and (first product) x; bf16
-  // x lands in the A-tile layout (rows of 32 bytes, piece p of row r at
-  // p ^ ((r >> 2) & 1)), fp32 x as it is, split later by convert
+  // chunk gc: weights into ring slot gc % S, and (first product) x as it
+  // is, split later by convert
   auto issue = [&](int gc) {
     if (gc < K::CHUNKS) {
       unsigned char* slot = ring + (gc % S) * K::SLOT;
@@ -244,12 +220,7 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
             const E* p = ok ? x + ((size_t)(x_base[i] + t) * C + ch0
                                    + XCH * part)
                             : x;
-            int off = q * 16;
-            if (BF) {
-              const int r = q >> 1;
-              off = r * 32 + (((part ^ (r >> 2)) & 1) << 4);
-            }
-            cp_async16_zfill(xs + off, p, ok ? 16 : 0);
+            cp_async16_zfill(xs + q * 16, p, ok ? 16 : 0);
           }
         }
       } else {
@@ -258,8 +229,8 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
         src = w2 + ((size_t)h * C + kc * kKC) * WP * K::W2;
         w = K::W2;
       }
-      // 16 rows of [hi w | lo w] (bf16 x: [w]) bf16, pieces of 16 bytes
-      // a row a power of two; piece p of row k lands at p ^ (k & 7)
+      // 16 rows of [hi w | lo w] bf16, pieces of 16 bytes a row a power
+      // of two; piece p of row k lands at p ^ (k & 7)
       const int pieces = w * WP / 8, lg = 31 - __clz(pieces);
       for (int q = tid; q < kKC * pieces; q += kThreads) {
         const int k = q >> lg, p = q & (pieces - 1);
@@ -269,27 +240,25 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
     cp_async_commit();
   };
 
-  // fp32 x: split the x pieces of chunk gc into A tile gc & 1 (rows of
-  // 32 bytes, piece p of row r at p ^ ((r >> 2) & 1))
+  // split the x pieces of chunk gc into A tile gc & 1 (rows of 32
+  // bytes, piece p of row r at p ^ ((r >> 2) & 1))
   auto convert = [&](int gc) {
-    if constexpr (!BF) {
-      const unsigned char* xs = xring + (gc % S) * K::XSLOT;
-      unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
-      unsigned char* al = ah + K::ABUF;
+    const unsigned char* xs = xring + (gc % S) * K::XSLOT;
+    unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
+    unsigned char* al = ah + K::ABUF;
 #pragma unroll
-      for (int i = 0; i < XP; ++i) {
-        const int q = tid + i * kThreads;
-        if (q < BM * 4) {
-          const float4 v = *reinterpret_cast<const float4*>(xs + q * 16);
-          uint2 hi, lo;
-          split2(v.x, v.y, hi.x, lo.x);
-          split2(v.z, v.w, hi.y, lo.y);
-          const int r = q >> 2, part = q & 3;
-          const int off = r * 32 + ((((part >> 1) ^ (r >> 2)) & 1) << 4)
-                          + ((part & 1) << 3);
-          *reinterpret_cast<uint2*>(ah + off) = hi;
-          *reinterpret_cast<uint2*>(al + off) = lo;
-        }
+    for (int i = 0; i < XP; ++i) {
+      const int q = tid + i * kThreads;
+      if (q < BM * 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + q * 16);
+        uint2 hi, lo;
+        split2(v.x, v.y, hi.x, lo.x);
+        split2(v.z, v.w, hi.y, lo.y);
+        const int r = q >> 2, part = q & 3;
+        const int off = r * 32 + ((((part >> 1) ^ (r >> 2)) & 1) << 4)
+                        + ((part & 1) << 3);
+        *reinterpret_cast<uint2*>(ah + off) = hi;
+        *reinterpret_cast<uint2*>(al + off) = lo;
       }
     }
   };
@@ -305,10 +274,9 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
   };
   zero();
 
-  // acc[i][j] += A(m-tile i) * B(n-tile j): three bf16 passes (fp32 x)
-  // or one (bf16 x); B: n-tile j of this warp in a weight stage of rows
-  // [hi w | lo w] or [w]; A rows from a_at(i): this lane's ldmatrix
-  // addresses of the hi and lo tiles (lo unused for bf16 x)
+  // acc[i][j] += A(m-tile i) * B(n-tile j) as three bf16 passes; B:
+  // n-tile j of this warp in a weight stage of rows [hi w | lo w]; A rows
+  // from a_at(i): this lane's ldmatrix addresses of the hi and lo tiles
   auto mma_chunk = [&](const unsigned char* slot, int w, int nt,
                        auto a_at) {
     uint32_t bf[NT][4];
@@ -316,16 +284,8 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
-        if constexpr (BF) {
-          const int p = warp * nt + j;
-          uint32_t r2[2];
-          ldmatrix_x2<true>(r2, slot + k * w * 2 + ((p ^ (k & 7)) << 4));
-          bf[j][0] = r2[0];
-          bf[j][1] = r2[1];
-        } else {
-          const int p = warp * nt + j + (lane >> 4) * (w >> 3);
-          ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
-        }
+        const int p = warp * nt + j + (lane >> 4) * (w >> 3);
+        ldmatrix_x4<true>(bf[j], slot + k * w * 4 + ((p ^ (k & 7)) << 4));
       }
     }
 #pragma unroll
@@ -334,25 +294,22 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
       const unsigned char *ph, *pl;
       a_at(i, ph, pl);
       ldmatrix_x4<false>(ah, ph);
-      if constexpr (!BF) ldmatrix_x4<false>(al, pl);
+      ldmatrix_x4<false>(al, pl);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         if (j < nt) {
           mma_bf16(acc[i][j], ah, bf[j][0], bf[j][1]);     // hi * hi
-          if constexpr (!BF) {
-            mma_bf16(acc[i][j], ah, bf[j][2], bf[j][3]);   // hi * lo
-            mma_bf16(acc[i][j], al, bf[j][0], bf[j][1]);   // lo * hi
-          }
+          mma_bf16(acc[i][j], ah, bf[j][2], bf[j][3]);     // hi * lo
+          mma_bf16(acc[i][j], al, bf[j][0], bf[j][1]);     // lo * hi
         }
       }
     }
   };
 
   // gate of pass h: z for channels 8 q .. 8 q + 7 of each n-tile pair,
-  // into z hi / lo (rows of C bf16, piece p of row r at p ^ (r & 7)); bf16
-  // x: z rounded to bf16, one plane. An m-tile's cond values are loaded
-  // together before its arithmetic (rows past M read row M - 1: their z
-  // is never stored).
+  // into z hi / lo (rows of C bf16, piece p of row r at p ^ (r & 7)). An
+  // m-tile's cond values are loaded together before its arithmetic (rows
+  // past M read row M - 1: their z is never stored).
   auto gate = [&](int h) {
     int ch[NT / 2];
     float2 bt[NT / 2], bs[NT / 2];
@@ -390,14 +347,10 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
           const int p = ch[j] >> 3;
           const int off = r * C * 2 + ((((p ^ r) & 7) | (p & ~7)) << 4)
                           + ((ch[j] & 7) << 1);
-          if constexpr (BF) {
-            *reinterpret_cast<uint32_t*>(zhi + off) = bf16x2(z0, z1);
-          } else {
-            uint32_t hi, lo;
-            split2(z0, z1, hi, lo);
-            *reinterpret_cast<uint32_t*>(zhi + off) = hi;
-            *reinterpret_cast<uint32_t*>(zlo + off) = lo;
-          }
+          uint32_t hi, lo;
+          split2(z0, z1, hi, lo);
+          *reinterpret_cast<uint32_t*>(zhi + off) = hi;
+          *reinterpret_cast<uint32_t*>(zlo + off) = lo;
         }
       }
     }
@@ -465,8 +418,7 @@ wn_layer_kernel(const typename Cfg<MT, NT, NH, LAST, BF>::T* __restrict__ x,
     const unsigned char* slot = ring + (gc % S) * K::SLOT;
     if (gc < K::P1_CHUNKS) {
       if (gc + 1 < K::P1_CHUNKS) convert(gc + 1);
-      const unsigned char* ah = BF ? xring + (gc % S) * K::XSLOT
-                                   : abuf + (gc & 1) * 2 * K::ABUF;
+      const unsigned char* ah = abuf + (gc & 1) * 2 * K::ABUF;
       mma_chunk(slot, K::W1, NT, [&](int i, const unsigned char*& ph,
                                      const unsigned char*& pl) {
         const int r = 16 * i + ar;
@@ -506,43 +458,42 @@ struct Args {
   int d, ldc, M, T, Tp;
 };
 
-template <int MT, int NT, int NH, bool LAST, bool BF>
+template <int MT, int NT, int NH, bool LAST>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using K = Cfg<MT, NT, NH, LAST, BF>;
-  using E = typename K::T;
-  auto* k = wn_layer_kernel<MT, NT, NH, LAST, BF>;
+  using K = Cfg<MT, NT, NH, LAST>;
+  auto* k = wn_layer_kernel<MT, NT, NH, LAST>;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err) return err;
   const int grid = (a.M + K::BM - 1) / K::BM;
   k<<<grid, kThreads, K::SMEM, stream>>>(
-      static_cast<const E*>(a.x), a.d, static_cast<const E*>(a.cond), a.ldc,
-      a.w1, static_cast<const E*>(a.b), a.w2,
-      static_cast<const E*>(a.b_rs), static_cast<E*>(a.x_out),
-      static_cast<E*>(a.skip), a.M, a.T, a.Tp);
+      static_cast<const float*>(a.x), a.d,
+      static_cast<const float*>(a.cond), a.ldc, a.w1,
+      static_cast<const float*>(a.b), a.w2,
+      static_cast<const float*>(a.b_rs), static_cast<float*>(a.x_out),
+      static_cast<float*>(a.skip), a.M, a.T, a.Tp);
   return cudaGetLastError();
 }
 
-template <int MT, int NT, int NH, bool BF>
+template <int MT, int NT, int NH>
 cudaError_t config(bool last, int* cfg, const Args* args,
                    cudaStream_t stream) {
-  using K = Cfg<MT, NT, NH, false, BF>;
+  using K = Cfg<MT, NT, NH, false>;
   cfg[0] = NH;
   cfg[1] = K::S;
   cfg[2] = K::SMEM;
   if (!args) return cudaSuccess;
-  return last ? launch<MT, NT, NH, true, BF>(*args, stream)
-              : launch<MT, NT, NH, false, BF>(*args, stream);
+  return last ? launch<MT, NT, NH, true>(*args, stream)
+              : launch<MT, NT, NH, false>(*args, stream);
 }
 
-// The (C, bm) pairs built, for each dtype, with their passes NH, ring
-// stages and shared memory; launches the layer when args is given.
-cudaError_t dispatch(int C, int bm, bool last, bool bf, int* cfg,
-                     const Args* args, cudaStream_t stream) {
+// The fp32 body's (C, bm) pairs with their passes NH, ring stages and
+// shared memory; launches the layer when args is given.
+cudaError_t dispatch(int C, int bm, bool last, int* cfg, const Args* args,
+                     cudaStream_t stream) {
 #define WN_CASE(C_, BM_, NT_, NH_)                                         \
   if (C == C_ && bm == BM_)                                                \
-    return bf ? config<BM_ / 16, NT_, NH_, true>(last, cfg, args, stream)  \
-              : config<BM_ / 16, NT_, NH_, false>(last, cfg, args, stream);
+    return config<BM_ / 16, NT_, NH_>(last, cfg, args, stream);
   WN_CASE(64, 64, 2, 1)
   WN_CASE(128, 64, 4, 1)
   WN_CASE(256, 64, 8, 1)
@@ -559,34 +510,52 @@ cudaError_t dispatch(int C, int bm, bool last, bool bf, int* cfg,
 extern "C" {
 
 const char* wavenet_error_string(int err) {
+  if (err == wn16::kErrNoEncoder)
+    return "cuTensorMapEncodeTiled not found through "
+           "cudaGetDriverEntryPoint (driver too old for TMA?)";
+  if (err == wn16::kErrEncode)
+    return "cuTensorMapEncodeTiled refused a tensor map (alignment, "
+           "strides or extents)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // The build's (C, bm) pairs for fp32 (bf16 = 0) or bf16: 0 with cfg =
 // {column passes, ring stages, shared memory bytes} of the launch, or an
-// error for a pair not built.
+// error for a pair not built. bm is rows a block (fp32) or a tile (bf16).
 int wn_layer_config(int C, int bm, int bf16, int* cfg) {
-  return dispatch(C, bm, false, bf16 != 0, cfg, nullptr, nullptr);
+  return bf16 ? wn16::dispatch(C, bm, false, cfg, nullptr, nullptr)
+              : dispatch(C, bm, false, cfg, nullptr, nullptr);
 }
 
 // x (B, Tp, C); cond rows of 2C elements with row stride ldc; b (2C);
 // b_rs (2C), or (C) when last. Outputs x_out (B, Tp, C) (unused when last)
 // and skip (B, Tp, C). bf16 = 0: every tensor fp32, w1 and w2 the bf16
-// hi/lo packs of ops/wavenet.py:wn_split_weights for this bm's NH. bf16 !=
-// 0, the body the Pallas kernel runs on bf16: every tensor bf16, w1 and w2
-// the plain bf16 packs of ops/wavenet.py:wn_pack_weights. Tensors 16-byte
-// aligned.
+// hi/lo packs of ops/wavenet.py:wn_split_weights for this bm's NH, ldc a
+// multiple of 4, grid unused (one block a bm rows). bf16 != 0, the body
+// the Pallas kernel runs on bf16 (wavenet_bf16.cuh): every tensor bf16,
+// w1 (2C, 3C) and w2 (n_rs, C) the transposed packs of
+// ops/wavenet.py:wn_pack_weights, ldc a multiple of 8 (TMA's 16-byte
+// strides), grid blocks walking the B ceil(Tp / bm) tiles. Tensors
+// 16-byte aligned.
 int wn_layer_launch(int bf16, const void* x, int d, const void* cond,
                     int ldc, const void* w1, const void* b, const void* w2,
                     const void* b_rs, void* x_out, void* skip, int B, int Tp,
-                    int T, int C, int bm, int last, void* stream_handle) {
-  if (ldc % 4 != 0 || T < 1 || T > Tp) return cudaErrorInvalidValue;
+                    int T, int C, int bm, int last, void* stream_handle,
+                    int grid) {
+  if (ldc % (bf16 ? 8 : 4) != 0 || T < 1 || T > Tp)
+    return cudaErrorInvalidValue;
+  const auto stream = static_cast<cudaStream_t>(stream_handle);
+  int cfg[3];
+  if (bf16) {
+    if (grid < 1) return cudaErrorInvalidValue;
+    const wn16::Args args{x, cond, b, b_rs, w1, w2, x_out, skip,
+                          d, ldc, B, T, Tp, grid};
+    return wn16::dispatch(C, bm, last != 0, cfg, &args, stream);
+  }
   const Args args{x, cond, b, b_rs, static_cast<const uint16_t*>(w1),
                   static_cast<const uint16_t*>(w2), x_out, skip, d, ldc,
                   B * Tp, T, Tp};
-  int cfg[3];
-  return dispatch(C, bm, last != 0, bf16 != 0, cfg, &args,
-                  static_cast<cudaStream_t>(stream_handle));
+  return dispatch(C, bm, last != 0, cfg, &args, stream);
 }
 
 }  // extern "C"

@@ -10,19 +10,23 @@ The last layer has ``w_rs`` of shape (C, C) and returns ``(None, rs)``.
 Unlike the Pallas kernel, which takes three pre-shifted copies of x, this
 takes x once and the dilation ``d``: the kernel does the shift itself.
 
-On CUDA tensors ``wn_layer`` launches csrc/wavenet.cu (its note says what
-bounds it and how the design answers) through ``wn_layer_launch``,
-tiled as ``wn_plan`` says: for fp32 tensors its fp32 body, the weights
-split into bf16 hi/lo by ``wn_split_weights``; for bf16 tensors (the
-body the Pallas kernel runs under the JAX server's ``--bf16``) its bf16
-body, the weights in the plain bf16 pack of ``wn_pack_weights``. Either
-pack is made once a layer and cached until a weight changes. On CPU
-tensors it runs ``wn_layer_reference``.
+On CUDA tensors ``wn_layer`` launches csrc/wavenet.cu through
+``wn_layer_launch``. For fp32 tensors it runs the fp32 body (the note of
+csrc/wavenet.cu says what bounds it and how the design answers), tiled
+as ``wn_plan`` says, the weights split into bf16 hi/lo by
+``wn_split_weights``. For bf16 tensors (the body the Pallas kernel runs
+under the JAX server's ``--bf16``) it runs the bf16 body of
+csrc/wavenet_bf16.cuh: a producer warp feeding TMA tiles through a ring
+to ``wgmma`` warpgroups, tiled as ``wn_bf16_plan`` says, the weights
+transposed by ``wn_pack_weights`` into the K-major layout its tensor maps
+read. Either pack is made once a layer and cached until a weight
+changes. On CPU tensors it runs ``wn_layer_reference``.
 
 bf16 follows the Pallas body's dtypes (wavenet_pallas.py:33-54): products
 of bf16 operands summed in fp32, the gate in fp32 and z rounded to bf16
 before the res/skip product, x' = x + rs in fp32 rounded to bf16, skip
-rounded to bf16.
+rounded to bf16. The kernel's gate uses tanh.approx (sigmoid(a) = 0.5
+tanh(a / 2) + 0.5), whose error lies under z's bf16 rounding.
 """
 
 import ctypes
@@ -51,32 +55,28 @@ WN_ROW_COST = {(64, 64): 1.0, (128, 64): 1.0, (256, 64): 1.0,
                (1024, 32): 1.0}
 
 WnPlan = namedtuple("WnPlan", "bm nh stages smem grid")
-WnPlan.__doc__ = """csrc/wavenet.cu's launch: ``bm`` rows a block of 256
-threads, the acts columns walked in ``nh`` passes, a ring of ``stages``
-chunks, ``smem`` bytes a block, ``grid`` blocks."""
+WnPlan.__doc__ = """csrc/wavenet.cu's fp32 launch: ``bm`` rows a block of
+256 threads, the acts columns walked in ``nh`` passes, a ring of
+``stages`` chunks, ``smem`` bytes a block, ``grid`` blocks."""
 
 
-def wn_smem_bytes(C, bm, nh, stages, bf16=False):
+def wn_smem_bytes(C, bm, nh, stages):
     """csrc/wavenet.cu:smem_bytes: the weight ring, and the x ring and the
-    two A tiles beside z (one pass: z overlays them). bf16: one weight
-    plane, bf16 x rows, no A tiles, one z plane."""
-    planes = 1 if bf16 else 2
-    slot = KC * (2 * C // nh) * 2 * planes
-    x_bytes = stages * bm * KC * (2 if bf16 else 4) \
-        + (0 if bf16 else 4 * bm * KC * 2)
-    z_bytes = planes * bm * C * 2
+    two A tiles beside z (one pass: z overlays them)."""
+    slot = KC * (2 * C // nh) * 2 * 2
+    x_bytes = stages * bm * KC * 4 + 4 * bm * KC * 2
+    z_bytes = 2 * bm * C * 2
     return stages * slot + (max(z_bytes, x_bytes) if nh == 1
                             else z_bytes + x_bytes)
 
 
-def wn_plan(B, Tp, C, sms=None, bm=None, bf16=False):
-    """Tile B * Tp rows of width C for csrc/wavenet.cu on a card of ``sms``
-    SMs (None: an H100's 132), one block a SM. ``bm`` (rows a block) is
-    one of the builds for C; by default the one whose busiest SM takes the
-    least time, ceil(blocks / sms) * bm rows at the build's measured
-    ``WN_ROW_COST``, the larger on a tie: at C = 256, 112 rows at B=1 (one
-    wave of 115 blocks) and 64 at B=8. ``bf16``: the bf16 body's build
-    (the same rows and passes, less shared memory). Returns a WnPlan;
+def wn_plan(B, Tp, C, sms=None, bm=None):
+    """Tile B * Tp rows of width C for csrc/wavenet.cu's fp32 body on a
+    card of ``sms`` SMs (None: an H100's 132), one block a SM. ``bm``
+    (rows a block) is one of the builds for C; by default the one whose
+    busiest SM takes the least time, ceil(blocks / sms) * bm rows at the
+    build's measured ``WN_ROW_COST``, the larger on a tie: at C = 256, 112
+    rows at B=1 (one wave of 115 blocks) and 64 at B=8. Returns a WnPlan;
     raises ValueError for a shape the kernel does not take."""
     if C not in WN_BUILDS:
         raise ValueError(f"the kernel takes C in {sorted(WN_BUILDS)}, "
@@ -92,9 +92,71 @@ def wn_plan(B, Tp, C, sms=None, bm=None, bf16=False):
     elif bm not in builds:
         raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
     nh = builds[bm]
-    stages = 4 if wn_smem_bytes(C, bm, nh, 4, bf16) <= SMEM_LIMIT else 3
-    return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages, bf16),
+    stages = 4 if wn_smem_bytes(C, bm, nh, 4) <= SMEM_LIMIT else 3
+    return WnPlan(bm, nh, stages, wn_smem_bytes(C, bm, nh, stages),
                   -(-M // bm))
+
+
+# csrc/wavenet_bf16.cuh's builds: {C: {rows a tile: (acts columns a
+# pass, ring slots)}}. A tile is 64 rows a consumer warpgroup; a pass is
+# N1 packed acts columns (N1 / 2 channels, tanh and sigmoid) and N1 rs
+# columns, wgmma's n; K is walked 64 rows a slot.
+WN_BF16_BUILDS = {64: {128: (128, 4)}, 128: {128: (256, 4)},
+                  256: {128: (256, 3), 64: (256, 4)},
+                  512: {64: (256, 4)}, 1024: {64: (128, 4)}}
+WN_BF16_KS = 64            # k rows a ring slot (a 128-byte swizzled row)
+# a tile's time relative to the width's first build, measured on an H100
+# (chip_smoke.py's k2_bf16 line of layer 3 at B=1, builds_ms: a build's
+# ms over its tiles a block; 0.58 at B=8); a width's one build costs 1
+WN_BF16_TILE_COST = {(256, 128): 1.0, (256, 64): 0.62}
+
+WnBf16Plan = namedtuple("WnBf16Plan", "bm n1 nh stages smem tiles grid")
+WnBf16Plan.__doc__ = """csrc/wavenet_bf16.cuh's launch: tiles of ``bm``
+rows of one stream (``bm / 64`` consumer warpgroups and a producer
+warpgroup a block), ``n1`` acts columns a pass in ``nh`` passes, a ring
+of ``stages`` slots, ``smem`` bytes a block, ``tiles`` = B ceil(Tp / bm)
+walked by ``grid`` = min(tiles, SMs) persistent blocks (measured on an
+H100 against one block a tile: level at B=1, 4% faster at B=8, PERF.md
+§6)."""
+
+
+def wn_bf16_smem_bytes(C, bm, n1, stages):
+    """csrc/wavenet_bf16.cuh:Cfg::SMEM: 1024 bytes to align the ring to
+    the swizzle's 1024, ``stages`` slots of an x box (bm rows of 128
+    bytes) and a weight box (n1 rows of 128 bytes), z (C / 64 boxes of bm
+    rows), and a full and an empty barrier a slot."""
+    return (1024 + stages * (bm + n1) * 128 + C // WN_BF16_KS * bm * 128
+            + 2 * 8 * stages)
+
+
+def wn_bf16_plan(B, Tp, C, sms=None, bm=None):
+    """Tile B streams of Tp rows, width C, for the bf16 body on a card of
+    ``sms`` SMs (None: an H100's 132): tiles of ``bm`` rows never cross a
+    stream. ``bm`` is a build of ``WN_BF16_BUILDS[C]``; by default the one
+    whose busiest SM finishes first, ceil(tiles / sms) tiles at the
+    build's measured ``WN_BF16_TILE_COST``, the larger on a tie: at C =
+    256, 128 rows at 400 frames (100 tiles at B=1, 800 at B=8) and 64 at
+    a stream window of 2560 rows (40 tiles, not 20 on 132 SMs). Returns a
+    WnBf16Plan; raises ValueError for a shape the kernel does not
+    take."""
+    if C not in WN_BF16_BUILDS:
+        raise ValueError(f"the kernel takes C in {sorted(WN_BF16_BUILDS)}, "
+                         f"got {C}")
+    if B < 1 or Tp < 1:
+        raise ValueError(f"B and Tp ({B}, {Tp}) must be positive")
+    builds = WN_BF16_BUILDS[C]
+    sms = sms or H100_SMS
+    if bm is None:
+        bm = min(builds, key=lambda r: (
+            -(-B * -(-Tp // r) // sms) * WN_BF16_TILE_COST.get((C, r), 1.0),
+            -r))
+    elif bm not in builds:
+        raise ValueError(f"bm={bm} not built for C={C}: {sorted(builds)}")
+    n1, stages = builds[bm]
+    tiles = B * -(-Tp // bm)
+    return WnBf16Plan(bm, n1, 2 * C // n1, stages,
+                      wn_bf16_smem_bytes(C, bm, n1, stages), tiles,
+                      min(tiles, sms))
 
 
 def _split_bf16(w):
@@ -102,28 +164,34 @@ def _split_bf16(w):
     return hi, (w - hi.float()).to(torch.bfloat16)
 
 
-def _pass_views(w_cat, w_rs, nh):
+def _paired(w_cat):
     """w_cat's columns paired per 8 channels ([tanh 8 | sigmoid 8], so
-    packed column 16 q + 8 s + e is column s * C + 8 q + e) and cut into
-    ``nh`` passes, (nh, 3C, 2C / nh); w_rs cut into np2 passes, (np2, C,
-    n_rs / np2), np2 = nh, or max(1, nh // 2) on the last layer."""
+    packed column 16 q + 8 s + e is column s * C + 8 q + e)."""
+    C = w_cat.shape[1] // 2
+    perm = torch.arange(2 * C, device=w_cat.device).view(2, C // 8, 8) \
+        .transpose(0, 1).reshape(-1)
+    return w_cat[:, perm]
+
+
+def _pass_views(w_cat, w_rs, nh):
+    """``_paired(w_cat)`` cut into ``nh`` passes, (nh, 3C, 2C / nh); w_rs
+    cut into np2 passes, (np2, C, n_rs / np2), np2 = nh, or max(1, nh //
+    2) on the last layer."""
     C = w_cat.shape[1] // 2
     n_rs = w_rs.shape[1]
     np2 = max(1, nh // 2) if n_rs == C else nh
-    perm = torch.arange(2 * C, device=w_cat.device).view(2, C // 8, 8) \
-        .transpose(0, 1).reshape(-1)
-    w1 = w_cat[:, perm].view(3 * C, nh, 2 * C // nh).transpose(0, 1)
+    w1 = _paired(w_cat).view(3 * C, nh, 2 * C // nh).transpose(0, 1)
     w2 = w_rs.view(C, np2, n_rs // np2).transpose(0, 1)
     return w1, w2
 
 
-def wn_pack_weights(w_cat, w_rs, nh):
-    """The bf16 body's packs of bf16 weights for ``nh`` column passes:
-    ``_pass_views``' w1 (nh, 3C, 2C / nh) and w2 (np2, C, n_rs / np2),
-    contiguous bf16, one plane (no hi/lo split: the body is one bf16
-    pass)."""
-    return tuple(w.to(torch.bfloat16).contiguous()
-                 for w in _pass_views(w_cat, w_rs, nh))
+def wn_pack_weights(w_cat, w_rs):
+    """The bf16 body's packs, K-major as its tensor maps read them: w1 =
+    ``_paired(w_cat)``.T (2C, 3C) (row n, packed column n, holds its 3C
+    taps' weights; pass h of N1 columns is rows h N1 .. h N1 + N1 - 1) and
+    w2 = w_rs.T (n_rs, C), contiguous bf16."""
+    return (_paired(w_cat).t().to(torch.bfloat16).contiguous(),
+            w_rs.t().to(torch.bfloat16).contiguous())
 
 
 def wn_split_weights(w_cat, w_rs, nh):
@@ -139,9 +207,10 @@ def wn_split_weights(w_cat, w_rs, nh):
 
 
 # w_cat -> {nh: (w_rs, versions, w1, w2)}: a layer's packs (split for
-# fp32 weights, plain for bf16 ones), made once and made again when a
-# weight changes (its _version moves); the lock, because the server's
-# dispatcher and stream threads vocode side by side
+# fp32 weights, nh passes; transposed for bf16 ones, one pack, nh = 0),
+# made once and made again when a weight changes (its _version moves);
+# the lock, because the server's dispatcher and stream threads vocode
+# side by side
 _SPLITS = WeakIdKeyDictionary()
 _SPLITS_LOCK = threading.Lock()
 
@@ -152,10 +221,10 @@ def _packed(w_cat, w_rs, nh):
         per_nh = _SPLITS.setdefault(w_cat, {})
         hit = per_nh.get(nh)
         if hit is None or hit[0] is not w_rs or hit[1] != versions:
-            pack = wn_pack_weights if w_cat.dtype == torch.bfloat16 \
-                else wn_split_weights
             with torch.no_grad():
-                hit = (w_rs, versions) + pack(w_cat, w_rs, nh)
+                hit = (w_rs, versions) + (
+                    wn_pack_weights(w_cat, w_rs) if nh == 0
+                    else wn_split_weights(w_cat, w_rs, nh))
             per_nh[nh] = hit
     return hit[2], hit[3]
 
@@ -182,12 +251,29 @@ def wn_layer_reference(x, d, cond, w_cat, b, w_rs, b_rs, T):
             rs[..., C:].to(dt))
 
 
+def wn_cond_stride(cond, bf16):
+    """cond's row stride ldc (elements), after checking that cond (B, Tp,
+    2C) is a row-major slice the kernel reads: a multiple of 4 for the
+    fp32 body, of 8 for the bf16 body (TMA's 16-byte strides). Raises
+    ValueError otherwise."""
+    ldc = cond.stride(1)
+    if cond.stride(2) != 1 or cond.stride(0) != cond.shape[1] * ldc \
+            or ldc % 4:
+        raise ValueError("cond must be a row-major (B, Tp, 2C) slice with a "
+                         "row stride that is a multiple of 4")
+    if bf16 and ldc % 8:
+        raise ValueError(
+            f"the bf16 body reads cond by TMA, whose row stride must be a "
+            f"multiple of 16 bytes: ldc={ldc} is not a multiple of 8")
+    return ldc
+
+
 def _lib():
     lib = _build.load_library("wavenet")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wn_layer_launch.argtypes = [i, p, i, p, i, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, p, i]
         lib.wn_layer_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
         lib.wn_layer_config.argtypes = [i, i, i, ip]
@@ -219,7 +305,8 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
       w_cat: (3C, 2C) conv taps [w[:,:,0].T; w[:,:,1].T; w[:,:,2].T];
         b: (2C,). w_rs: (C, 2C), or (C, C) on the last layer; b_rs to match.
       T: valid time steps.
-      bm: rows a kernel block (``wn_plan`` picks by default).
+      bm: rows a kernel block (fp32) or tile (bf16); ``wn_plan`` or
+        ``wn_bf16_plan`` picks by default.
 
     Returns (x_new (B, Tp, C) or None on the last layer, skip (B, Tp, C)).
     """
@@ -243,17 +330,15 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
         raise TypeError(f"x is {dt}; the kernel takes torch.float32 or "
                         "torch.bfloat16")
     bf16 = dt == torch.bfloat16
-    plan = wn_plan(B, Tp, C, torch.cuda.get_device_properties(
-        dev).multi_processor_count, bm, bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wn_bf16_plan(B, Tp, C, sms, bm) if bf16 \
+        else wn_plan(B, Tp, C, sms, bm)
     if not 0 < T <= Tp:
         raise ValueError(f"T={T} outside (0, {Tp}]")
     _build.check_tensor("x", x, (B, Tp, C), dev, dtype=dt)
     _build.check_tensor("cond", cond, (B, Tp, 2 * C), dev,
                         contiguous=False, dtype=dt)
-    ldc = cond.stride(1)
-    if cond.stride(2) != 1 or cond.stride(0) != Tp * ldc or ldc % 4:
-        raise ValueError("cond must be a row-major (B, Tp, 2C) slice with a "
-                         "row stride that is a multiple of 4")
+    ldc = wn_cond_stride(cond, bf16)
     _build.check_tensor("w_cat", w_cat, (3 * C, 2 * C), dev, dtype=dt)
     _build.check_tensor("b", b, (2 * C,), dev, dtype=dt)
     if n_rs not in (C, 2 * C):
@@ -262,17 +347,18 @@ def wn_layer(x, d, cond, w_cat, b, w_rs, b_rs, T, *, bm=None):
     _build.check_tensor("b_rs", b_rs, (n_rs,), dev, dtype=dt)
 
     lib = _lib()
-    if _built_config(C, plan.bm, bf16) != plan[1:4]:
-        raise RuntimeError(f"wn_plan {plan} disagrees with csrc/wavenet.cu's "
+    if _built_config(C, plan.bm, bf16) != (plan.nh, plan.stages, plan.smem):
+        raise RuntimeError(f"plan {plan} disagrees with csrc/wavenet.cu's "
                            f"build {_built_config(C, plan.bm, bf16)}")
-    w1, w2 = _packed(w_cat, w_rs, plan.nh)
+    w1, w2 = _packed(w_cat, w_rs, 0 if bf16 else plan.nh)
     x_new = None if last else torch.empty_like(x)
     skip = torch.empty(B, Tp, C, device=dev, dtype=dt)
     err = lib.wn_layer_launch(
         int(bf16), x.data_ptr(), int(d), cond.data_ptr(), ldc, w1.data_ptr(),
         b.data_ptr(), w2.data_ptr(), b_rs.data_ptr(),
         None if last else x_new.data_ptr(), skip.data_ptr(), B, Tp, int(T),
-        C, plan.bm, int(last), torch.cuda.current_stream(dev).cuda_stream)
+        C, plan.bm, int(last), torch.cuda.current_stream(dev).cuda_stream,
+        plan.grid if bf16 else 0)
     if err:
         raise RuntimeError("wn_layer_launch failed: "
                            + lib.wavenet_error_string(err).decode())
